@@ -1,0 +1,126 @@
+"""KV-cache autoregressive decoding for the llama family (port of
+``apex_tpu/models/generate.py``, llama path; GPT-2 and MoE wait).
+
+Prefill is one full-sequence pass through the flash-attention kernel that
+also returns every layer's rotated k / v; decode attends one query token
+against the cache with a plain fp32 softmax. The decode attention is a
+grouped einsum here as in the reference (``generate.py:52``): it is no
+Pallas kernel there.
+
+Greedy (``temperature=0``) or temperature sampling from an explicit
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from apex_tpu_torch import _device
+from apex_tpu_torch.models import llama as _llama
+
+__all__ = ["greedy_generate", "generate"]
+
+
+def _decode_attention(q, k_cache, v_cache, pos):
+    """q [b, 1, nq, d] vs cache [b, max_len, nkv, d], valid idx <= pos.
+
+    GQA contracts grouped (query head n = kv * rep + r) against the
+    nkv-head cache, with no repeated copy. ``pos`` is an int or a tensor
+    broadcastable against [b, nq, max_len] (e.g. [b, 1, 1] per-row
+    positions for the serving scheduler's packed batches). Returns
+    [b, 1, nq, d] in fp32.
+    """
+    b, _, nq, d = q.shape
+    nkv = k_cache.shape[2]
+    rep = nq // nkv
+    qg = q.float().reshape(b, nkv, rep, d)
+    scores = torch.einsum("bkrd,btkd->bkrt", qg,
+                          k_cache.float()) * (d ** -0.5)
+    scores = scores.reshape(b, nq, -1)            # [b, nq, T]
+    idx = torch.arange(k_cache.shape[1], device=q.device)
+    scores = torch.where(idx[None, None, :] <= pos, scores,
+                         torch.full_like(scores, float("-inf")))
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkrt,btkd->bkrd", probs.reshape(b, nkv, rep, -1),
+                     v_cache.float())
+    return o.reshape(b, 1, nq, d)
+
+
+def _decode_layer(x, lp, cfg, k_cache, v_cache, pos: int):
+    """One decode step through one layer. Writes this token's k / v into
+    the caches in place (the reference returns updated caches)."""
+    def attend(q, k, v):
+        k_cache[:, pos] = k[:, 0]
+        v_cache[:, pos] = v[:, 0]
+        return _decode_attention(q, k_cache, v_cache, pos).to(x.dtype)
+
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                           device=x.device)
+    return _llama.decoder_layer(x, lp, cfg, positions, attend)[0]
+
+
+def _prefill_layer(x, lp, cfg, positions):
+    """Full-sequence layer pass that also returns rotated k / v."""
+    return _llama.decoder_layer(x, lp, cfg, positions,
+                                _llama.causal_attention)
+
+
+def _sample(logits, temperature: float,
+            generator: Optional[torch.Generator]):
+    if temperature:
+        probs = torch.softmax(logits / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.argmax(logits, dim=-1)  # first index on a tie
+
+
+@torch.no_grad()
+def generate(params, prompt_tokens: torch.Tensor, cfg, max_new_tokens: int,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             device: _device.DeviceLike = None) -> torch.Tensor:
+    """Llama autoregressive decode: prompt [b, p] -> tokens [b, p + new].
+
+    Greedy at ``temperature=0`` (default); otherwise softmax sampling
+    from ``generator``. The prompt must be dense (no padding); the cache
+    holds ``p + max_new_tokens`` positions. Runs on ``device`` (default:
+    the GPU, raising when there is none), where the params must lie.
+    """
+    if temperature and generator is None:
+        raise ValueError("temperature sampling needs a torch.Generator")
+    dev = _device.resolve(device)
+    held = _device.of(params)
+    if held is not None and held.type != dev.type:
+        raise ValueError(f"params live on {held}, generate runs on {dev}")
+    prompt_tokens = prompt_tokens.to(dev)
+    b, p = prompt_tokens.shape
+    positions = torch.arange(p, device=dev).expand(b, p)
+    x = _llama.embed(params, prompt_tokens, cfg)
+    max_len = p + max_new_tokens
+    shape = (cfg.num_layers, b, max_len, cfg.num_kv_heads, cfg.head_dim)
+    k_cache = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    v_cache = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    for i in range(cfg.num_layers):
+        x, k, v = _prefill_layer(x, _llama.layer(params, i), cfg, positions)
+        k_cache[i, :, :p] = k
+        v_cache[i, :, :p] = v
+    token = _sample(_llama.lm_head(params, x[:, -1:], cfg)[:, 0],
+                    temperature, generator)[:, None]
+    new = [token]
+    for pos in range(p, max_len - 1):
+        x = _llama.embed(params, token, cfg)
+        for i in range(cfg.num_layers):
+            x = _decode_layer(x, _llama.layer(params, i), cfg, k_cache[i],
+                              v_cache[i], pos)
+        token = _sample(_llama.lm_head(params, x, cfg)[:, 0],
+                        temperature, generator)[:, None]
+        new.append(token)
+    return torch.cat([prompt_tokens] + [t.to(prompt_tokens.dtype)
+                                        for t in new], dim=1)
+
+
+def greedy_generate(params, prompt_tokens, cfg, max_new_tokens: int,
+                    device: _device.DeviceLike = None):
+    return generate(params, prompt_tokens, cfg, max_new_tokens,
+                    temperature=0.0, device=device)

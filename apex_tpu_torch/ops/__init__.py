@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions
+(counterpart of ``apex_tpu.ops``)."""

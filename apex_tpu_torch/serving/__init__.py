@@ -1,0 +1,45 @@
+"""apex_tpu_torch.serving — continuous-batching inference runtime on the
+GPU (port of ``apex_tpu.serving``).
+
+Paged KV cache with a trash page, a prefill/decode scheduler over packed
+slot tensors, and request telemetry on the metric registry.
+"""
+
+from apex_tpu_torch.serving.engine import ServerMetrics, ServingEngine
+from apex_tpu_torch.serving.kv_cache import (
+    PageAllocator,
+    PagedKVCache,
+    page_hbm_bytes,
+)
+from apex_tpu_torch.serving.loadgen import (
+    TraceRequest,
+    make_trace,
+    run_closed_loop,
+    run_sequential,
+    summarize,
+)
+from apex_tpu_torch.serving.scheduler import (
+    ContinuousBatchScheduler,
+    Request,
+    build_decode_step,
+    build_prefill,
+    pages_per_request,
+)
+
+__all__ = [
+    "ContinuousBatchScheduler",
+    "PageAllocator",
+    "PagedKVCache",
+    "Request",
+    "ServerMetrics",
+    "ServingEngine",
+    "TraceRequest",
+    "build_decode_step",
+    "build_prefill",
+    "make_trace",
+    "page_hbm_bytes",
+    "pages_per_request",
+    "run_closed_loop",
+    "run_sequential",
+    "summarize",
+]
