@@ -9,7 +9,10 @@ tensor takes the plain version.
 
 Ported so far: the serving path (``serving.ServingEngine`` over the
 llama family), with the flash-attention forward and RMSNorm forward
-kernels. See ROADMAP.md for what follows.
+kernels, and the single-device training step (``models.llama.train_step``
+with ``optimizers.fused_adam``), with the flash-attention backward,
+RMSNorm backward and flat Adam kernels. See ROADMAP.md for what
+follows.
 """
 
 __version__ = "0.1.0"

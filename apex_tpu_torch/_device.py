@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -37,3 +38,20 @@ def of(tree) -> Optional[torch.device]:
             if dev is not None:
                 return dev
     return None
+
+
+def _tensor_from_numpy(arr, device: torch.device) -> torch.Tensor:
+    arr = np.array(arr)  # a writable copy: the source may be read-only
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch twin
+        t = torch.from_numpy(arr.view(np.uint16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def from_numpy(tree, device: torch.device):
+    """A nested dict of numpy arrays (the JAX package's params or
+    optimizer state, pulled to the host) as tensors on ``device``, with
+    no reshape; bf16 arrays convert bit for bit."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device) for k, v in tree.items()}
+    return _tensor_from_numpy(tree, device)

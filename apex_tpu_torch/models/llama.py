@@ -1,30 +1,39 @@
-"""Llama model family, inference subset (port of
+"""Llama model family, single-device (port of
 ``apex_tpu/models/llama.py``).
 
 Params are a dict of tensors in the reference's layout: per-layer weights
 stacked on a leading ``[L, ...]`` dim, projections stored ``(in, out)``.
 So :func:`params_from_numpy` takes the JAX package's params as numpy
-arrays with no reshape. The forward here is single-device (no tp/cp/ep,
-no remat): projections, SwiGLU and the lm head are ``torch.matmul``, as
+arrays with no reshape. Everything here is single-device (no tp/cp/ep,
+no MoE): projections, SwiGLU and the lm head are ``torch.matmul``, as
 the JAX package leaves them to XLA; RMSNorm and attention go through the
-port's kernels.
+port's kernels, forward and backward.
+
+Two paths share the decoder layer: :func:`forward` (no grad) serves, and
+:func:`loss_fn` / :func:`train_step` train, the counterpart of the JAX
+package's ``value_and_grad(loss_fn)`` -> ``fused_adam(...).update`` ->
+``params + updates`` step (``bench.py:388-395``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
-import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from apex_tpu_torch import _device
+from apex_tpu_torch import _device, _tree
 from apex_tpu_torch.models._common import fan_in_normal
 from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_rms_norm_affine,
 )
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.transformer.functional.rope import apply_rotary_qk
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,22 +115,11 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     return params
 
 
-def _tensor_from_numpy(arr, device: torch.device) -> torch.Tensor:
-    arr = np.array(arr)  # a writable copy: the source may be read-only
-    if arr.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch twin
-        t = torch.from_numpy(arr.view(np.uint16))
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(arr).to(device)
-
-
 def params_from_numpy(tree, device: _device.DeviceLike = None) -> Dict:
     """The JAX package's params (a nested dict of numpy arrays, e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's, with
     no reshape."""
-    device = _device.resolve(device)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return _tensor_from_numpy(tree, device)
+    return _device.from_numpy(tree, _device.resolve(device))
 
 
 def layer(params: Dict, idx: int) -> Dict:
@@ -169,7 +167,7 @@ def decoder_layer(x, lp, cfg: LlamaConfig, positions, attend):
 
 
 def embed(params, tokens, cfg: LlamaConfig):
-    return params["embed"][tokens].to(cfg.dtype)
+    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
 
 
 def lm_head_weight(params, cfg: LlamaConfig):
@@ -185,14 +183,79 @@ def lm_head(params, x, cfg: LlamaConfig):
     return torch.matmul(x, w.to(x.dtype)).float()
 
 
-@torch.no_grad()
-def forward(params, tokens, cfg: LlamaConfig):
-    """tokens [b, s] -> logits [b, s, vocab] (fp32). Inference only: the
-    backward kernels come with the training slice."""
+def run_layers(x, layers: Dict, cfg: LlamaConfig, positions,
+               remat: Union[bool, str] = True):
+    """Run the stacked ``[L, ...]`` layer weights over the residual
+    stream ``x`` [b, s, h] (``run_layers``, ``llama.py:296``; no MoE, so
+    no aux loss). ``remat``: False keeps every activation for the
+    backward; True recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant). The ``"dots"`` policy is
+    not ported yet."""
+    if remat not in (False, True):
+        raise NotImplementedError(f"remat={remat!r}: only False and True "
+                                  f"are ported")
+    names = sorted(layers)
+
+    def body(h, *weights):
+        lp = dict(zip(names, weights))
+        return decoder_layer(h, lp, cfg, positions, causal_attention)[0]
+
+    for idx in range(cfg.num_layers):
+        weights = [layers[name][idx] for name in names]
+        if remat:
+            x = checkpoint(body, x, *weights, use_reentrant=False)
+        else:
+            x = body(x, *weights)
+    return x
+
+
+def hidden_states(params, tokens, cfg: LlamaConfig,
+                  remat: Union[bool, str] = True):
+    """The shared trunk: embed + all decoder layers (pre-final-norm).
+    tokens [b, s] -> hidden [b, s, h] (``llama.py:363``)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed(params, tokens, cfg)
-    for idx in range(cfg.num_layers):
-        x, _, _ = decoder_layer(x, layer(params, idx), cfg, positions,
-                                causal_attention)
-    return lm_head(params, x, cfg)
+    return run_layers(x, params["layers"], cfg, positions, remat)
+
+
+@torch.no_grad()
+def forward(params, tokens, cfg: LlamaConfig):
+    """tokens [b, s] -> logits [b, s, vocab] (fp32), with no autograd
+    graph: the serving path's forward. :func:`loss_fn` is the
+    differentiable one."""
+    return lm_head(params, hidden_states(params, tokens, cfg, remat=False),
+                   cfg)
+
+
+def loss_fn(params, batch, cfg: LlamaConfig,
+            remat: Union[bool, str] = True) -> torch.Tensor:
+    """Mean next-token CE; ``batch = (tokens, targets)``, both [b, s]
+    (``llama.py:399``, single-device and without ``vocab_chunks``)."""
+    tokens, targets = batch
+    logits = lm_head(params, hidden_states(params, tokens, cfg, remat), cfg)
+    return torch.mean(vocab_parallel_cross_entropy(logits, targets))
+
+
+def train_step(params, opt_state, batch, cfg: LlamaConfig, tx,
+               remat: Union[bool, str] = False):
+    """One training step: loss and grads of :func:`loss_fn`, then
+    ``tx.update`` (e.g. ``fused_adam``), then params + updates. Returns
+    ``(params, opt_state, loss)``.
+
+    Unlike the JAX step, the params are updated IN PLACE
+    (``p.add_(delta)`` in each param's dtype, as JAX's
+    ``tree_map(jnp.add, params, updates)`` adds in the param dtype), and
+    the same dict is returned; ``loss`` is a 0-dim tensor on the params'
+    device."""
+    live = _tree.map_leaves(lambda p: p.detach().requires_grad_(), params)
+    loss = loss_fn(live, batch, cfg, remat=remat)
+    grads = torch.autograd.grad(loss, _tree.leaves(live))
+    grads = _tree.unflatten(_tree.paths(params), list(grads))
+    del live
+    with torch.no_grad():
+        updates, opt_state = tx.update(grads, opt_state, params)
+        del grads
+        for p, u in zip(_tree.leaves(params), _tree.leaves(updates)):
+            p.add_(u)
+    return params, opt_state, loss.detach()

@@ -2,8 +2,9 @@
 ``apex_tpu/normalization/fused_layer_norm.py``).
 
 The compute path is ``apex_tpu_torch.ops.layer_norm.rms_norm``: the CUDA
-kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
-LayerNorm and the module classes come with the GPT-2/BERT slice.
+kernels for CUDA tensors, the plain PyTorch versions for CPU tensors,
+differentiable in the input and the weight. LayerNorm and the module
+classes come with the GPT-2/BERT slice.
 """
 
 from __future__ import annotations

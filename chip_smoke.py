@@ -8,11 +8,12 @@ result line) when it fails:
 
 1. device   -- the card's name and power limit (``nvidia-smi``), the
                peaks the bounds below are computed from.
-2. build    -- every CUDA kernel of the serving path, compiled from
-               ``apex_tpu_torch/ops/csrc`` by nvcc for sm_90a, in parallel.
+2. build    -- every CUDA kernel of the serving and training paths,
+               compiled from ``apex_tpu_torch/ops/csrc`` by nvcc for
+               sm_90a, one process per source, all started together.
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               at the serving path's shapes, with the tolerance stated,
-               and timed (kernel, plain version, library call, bound).
+               at its path's shapes, with the tolerance stated, and timed
+               (kernel, host call, plain version, library call, bound).
 4. serving  -- Llama-3-8B at full width and depth, random bf16 weights
                from a seeded generator, served by ``ServingEngine`` over a
                16-request closed-loop trace; every launch counter must
@@ -20,6 +21,17 @@ result line) when it fails:
                of the full ``forward`` must agree with the engine's tokens.
 5. profile  -- only with ``--profile``: host time per prefill and decode
                step, the device's busy share and its time by kernel.
+6. training -- Llama-3-8B width cut to 4 layers (random bf16 weights from
+               a seeded generator), batch 2 x 2048: the kernel path's
+               gradients at step 0 against an fp32 reference built from
+               the port's plain functions with ordinary autograd, then 3
+               ``train_step``s with ``fused_adam(flat=True)``: exact launch
+               counts per step, the first step's Adam launch against its
+               plain version on the packed slab, finite and falling loss,
+               step time, tokens/s, MFU and peak memory.
+7. profile  -- only with ``--profile``: one more training step under
+               ``torch.profiler``, the device's busy share and its time
+               by kernel.
 
 The last lines are the per-kernel summary, the card line and the result
 object ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -28,6 +40,7 @@ without the ``apex_tpu_torch`` package beside it, the script exits 1.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -46,6 +59,28 @@ MAX_PROMPT = 512
 MAX_NEW = 64
 TRACE = dict(seed=SEED, num_requests=16, prompt_lens=(128, 256, 512),
              output_lens=(32, 64), vocab_size=128256)
+
+# Llama-3-8B training geometry: 4 of the 32 layers (one card cannot hold
+# the full model's params, grads and fp32 Adam m/v: 96 GB), bench.py's
+# sequence length and lr
+TRAIN_LAYERS = 4
+TRAIN_BATCH = 2
+TRAIN_SEQ = 2048
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 3
+
+# gradient agreement at step 0 of the training phase, per param leaf,
+# between the kernel path (bf16 params, activations and grads) and an fp32
+# reference of the same model and batch through the plain functions. bf16
+# keeps 8 significant bits: each stored activation, matmul output and
+# gradient is rounded at 2^-9 relative, and a gradient passes some tens
+# of such roundings on its way back through 4 layers, whose errors add
+# roughly in quadrature: about 1% relative L2 in all. GRAD_REL_L2 leaves
+# room above that; a wrong mask, scale, GQA head or missing term moves a
+# leaf's gradient by O(1). The same bf16 model through the plain
+# functions is measured alongside as the floor of bf16 rounding.
+GRAD_REL_L2 = 0.05
+GRAD_COS = 0.998
 
 # teacher-forced agreement: the engine's token at each generated
 # position must have a logit within DELTA of that row's maximum under the
@@ -126,9 +161,25 @@ def host_ms(fn, args, iters: int = 20) -> float:
 
 
 def copies(make, nbytes: int):
-    """Enough copies of ``make()`` to exceed L2 twice over."""
-    n = min(64, max(2, math.ceil(100e6 / max(nbytes, 1))))
-    return [make() for _ in range(n)]
+    """Sets of inputs from ``make()`` that together exceed the 50 MB L2
+    twice over, so timed calls read from device memory: one set when one
+    already does, never more than 64 sets or about 1 GB in all."""
+    n = min(64, math.ceil(100e6 / max(nbytes, 1)),
+            max(1, int(1e9 // max(nbytes, 1))))
+    return [make() for _ in range(max(1, n))]
+
+
+def max_err(got, ref, rel: float, what: str) -> float:
+    """max |got - ref|, failing above ``rel`` times max |ref|: the error
+    against the output's own scale, for outputs that are sums whose
+    rounding grows with their terms."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= rel * scale:
+        raise AssertionError(f"{what}: max |kernel - plain| {err} > "
+                             f"{rel} x max |plain| {scale}")
+    return err
 
 
 def bound(nbytes: float, flops: float, peak_flops: float, dev) -> tuple:
@@ -223,17 +274,18 @@ def check_flash(dev):
     scale = d ** -0.5
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = []
-    for s in (128, 200, 512):
+    # serving prefills of 128, 200 and 512 tokens; the training batch
+    for b, s in ((1, 128), (1, 200), (1, 512), (TRAIN_BATCH, TRAIN_SEQ)):
         def make():
-            return tuple(torch.randn(1, s, n, d, generator=g,
+            return tuple(torch.randn(b, s, n, d, generator=g,
                                      device="cuda").to(torch.bfloat16)
                          for n in (H, H_kv, H_kv))
 
         q, k, v = make()
         o, lse = fa._flash_fwd_cuda(q, k, v, True, scale)
-        flat = [t.transpose(1, 2).reshape(-1, s, d) for t in (q, k, v)]
+        flat = [fa._heads_major(t) for t in (q, k, v)]
         o_ref, lse_ref = fa._flash_fwd_plain(*flat, True, scale)
-        o_ref = o_ref.reshape(1, H, s, d).transpose(1, 2)
+        o_ref = o_ref.reshape(b, H, s, d).transpose(1, 2)
         torch.cuda.synchronize()
         # o in bf16: both sides keep s, p and the sums in fp32 and round
         # o once; they differ in summation order (blocked online softmax
@@ -242,35 +294,233 @@ def check_flash(dev):
                                    atol=2e-2)
         torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
         err = float((o.float() - o_ref.float()).abs().max())
-        pairs = sum(min(i + 1, s) for i in range(s))  # causal (q, k) pairs
+        pairs = b * s * (s + 1) // 2  # causal (q, k) pairs per head
         flops = 4.0 * d * H * pairs
-        nbytes = (2 * s * H * d + 2 * s * H_kv * d) * 2 + H * s * 4
+        nbytes = b * (2 * s * H * d + 2 * s * H_kv * d) * 2 + b * H * s * 4
         sets = copies(make, nbytes)
-        ms = time_ms(lambda a, b, c: fa._flash_fwd_cuda(a, b, c, True,
-                                                        scale), sets)
+        ms = time_ms(lambda a, b_, c: fa._flash_fwd_cuda(a, b_, c, True,
+                                                         scale), sets)
 
-        def plain(a, b, c):
-            ft = [t.transpose(1, 2).reshape(-1, s, d) for t in (a, b, c)]
+        def plain(a, b_, c):
+            ft = [fa._heads_major(t) for t in (a, b_, c)]
             return fa._flash_fwd_plain(*ft, True, scale)
 
-        def library(a, b, c):
+        def library(a, b_, c):
             return F.scaled_dot_product_attention(
-                a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+                a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
                 is_causal=True, scale=scale, enable_gqa=True)
 
         plain_ms = time_ms(plain, sets)
         lib_ms = time_ms(library, sets)
         b_ms, b_by = bound(nbytes, flops, dev["bf16_flops"], dev)
-        out.append({"shape": [1, s, H, H_kv, d], "dtype": "bfloat16",
+        out.append({"shape": [b, s, H, H_kv, d], "dtype": "bfloat16",
                     "causal": True, "max_abs_err": err,
                     "lse_max_abs_err": float((lse - lse_ref).abs().max()),
                     "ms": ms, "host_ms": host_ms(
-                        lambda a, b, c: fa._flash_fwd_cuda(a, b, c, True,
-                                                           scale), sets[0]),
+                        lambda a, b_, c: fa._flash_fwd_cuda(a, b_, c, True,
+                                                            scale), sets[0]),
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
                     "tflops": flops / ms / 1e9})
+        del sets, q, k, v, o, lse, o_ref, lse_ref, flat
     return out
+
+
+def check_flash_bwd(dev):
+    """dq and dk/dv at the training shape, against _flash_bwd_plain on the
+    same (q, k, v, o, lse, do). The plain and library times cover all of
+    dq, dk and dv (they compute them together)."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    b, s, H, H_kv, d = TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128
+    scale = d ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def randn(n):
+        return torch.randn(b, s, n, d, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    def make():
+        q, k, v, do = randn(H), randn(H_kv), randn(H_kv), randn(H)
+        o, lse = fa._flash_fwd_cuda(q, k, v, True, scale)
+        return q, k, v, o, lse, do, fa._flash_delta(o, do)
+
+    q, k, v, o, lse, do, delta = make()
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, scale)
+    ref = fa._flash_bwd_plain(*(fa._heads_major(t) for t in (q, k, v, o)),
+                              lse, fa._heads_major(do), True, scale)
+    torch.cuda.synchronize()
+    # bf16 outputs: both sides sum in fp32 (in other orders) and round
+    # each value once to bf16 (2^-9 relative), so |kernel - plain| stays
+    # within 1% of the output's largest value
+    errs = {}
+    for name, got, r, n in (("dq", dq, ref[0], H), ("dk", dk, ref[1], H_kv),
+                            ("dv", dv, ref[2], H_kv)):
+        r = r.reshape(b, n, s, d).transpose(1, 2)
+        errs[name] = max_err(got, r, 1e-2, f"flash {name}")
+    del dq, dk, dv, ref
+    pairs = b * H * s * (s + 1) // 2  # causal (q, k) pairs
+    io = 2 * b * s * (2 * H + 2 * H_kv) * d + 2 * 4 * b * H * s
+    dq_bytes = io + 2 * b * s * H * d
+    dkv_bytes = io + 2 * 2 * b * s * H_kv * d
+    sets = copies(make, dkv_bytes)
+
+    def dq_call(q, k, v, o, lse, do, delta):
+        return fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, scale)
+
+    def dkv_call(q, k, v, o, lse, do, delta):
+        return fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale)
+
+    def plain(q, k, v, o, lse, do, delta):
+        return fa._flash_bwd_plain(
+            *(fa._heads_major(t) for t in (q, k, v, o)), lse,
+            fa._heads_major(do), True, scale)
+
+    graphs = []
+    for q, k, v, o, lse, do, delta in sets:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             scale=scale, enable_gqa=True)
+        graphs.append((out, (qt, kt, vt), do.transpose(1, 2)))
+
+    def library(out, inputs, grad):
+        return torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+    res = {"shape": [b, s, H, H_kv, d], "dtype": "bfloat16", "causal": True,
+           "max_abs_err": errs, "pairs": pairs,
+           "plain_ms": time_ms(plain, sets, iters=5),
+           "library_ms": time_ms(library, graphs),
+           "library": "backward of F.scaled_dot_product_attention "
+                      "(enable_gqa), dq+dk+dv"}
+    for name, call, flops, nbytes in (
+            ("dq", dq_call, 6.0 * d * pairs, dq_bytes),
+            ("dkv", dkv_call, 8.0 * d * pairs, dkv_bytes)):
+        ms = time_ms(call, sets)
+        b_ms, b_by = bound(nbytes, flops, dev["bf16_flops"], dev)
+        res[name] = {"ms": ms, "host_ms": host_ms(call, sets[0]),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "tflops": flops / ms / 1e9}
+    return res
+
+
+def check_rms_bwd(dev):
+    """The backward at the training path's rows (b*s = 4096) x h 4096."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    rows, h, eps = TRAIN_BATCH * TRAIN_SEQ, 4096, 1e-5
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
+        torch.bfloat16)
+
+    def make():
+        x, dy = (torch.randn(rows, h, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        return x, dy, ln._rms_fwd_cuda(x, w, eps)[1]
+
+    x, dy, rstd = make()
+    dx, dw = ln._rms_bwd_cuda(x, w, rstd, dy)
+    dx_ref, dw_ref = ln._rms_bwd_plain(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    # each value is an fp32 sum (over h for dx, over the rows for dw)
+    # taken in another order and rounded once to bf16: within one bf16
+    # ulp (2^-8 relative) of the output's scale
+    errs = {"dx": max_err(dx, dx_ref, 8e-3, "rms dx"),
+            "dw": max_err(dw, dw_ref, 8e-3, "rms dw")}
+    nbytes = 3 * rows * h * 2 + rows * 4 + 2 * h * 2
+    sets = copies(make, nbytes)
+
+    def call(x, dy, rstd):
+        return ln._rms_bwd_cuda(x, w, rstd, dy)
+
+    def plain(x, dy, rstd):
+        return ln._rms_bwd_plain(x, w, rstd, dy)
+
+    graphs = []
+    for x, dy, _ in sets:
+        xl = x.detach().requires_grad_()
+        wl = w.detach().requires_grad_()
+        graphs.append((F.rms_norm(xl, (h,), wl, eps), (xl, wl), dy))
+
+    def library(y, inputs, grad):
+        return torch.autograd.grad(y, inputs, grad, retain_graph=True)
+
+    ms = time_ms(call, sets)
+    b_ms, b_by = bound(nbytes, 10.0 * rows * h, dev["fp32_flops"], dev)
+    return {"shape": [rows, h], "dtype": "bfloat16", "max_abs_err": errs,
+            "ms": ms, "host_ms": host_ms(call, sets[0]),
+            "plain_ms": time_ms(plain, sets),
+            "library_ms": time_ms(library, graphs),
+            "library": "backward of F.rms_norm, dx+dw",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_adam(dev):
+    """One flat Adam pass over a 2^27-element slab: bf16 params, fp32
+    grads and m/v, fused_adam's defaults at bench.py's lr."""
+    import torch
+
+    from apex_tpu_torch.ops import fused_adam_kernel as fak
+
+    n = 1 << 27
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+              adam_w_mode=True, bias_correction=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def randn(scale):
+        return torch.randn(n, generator=g, device="cuda").mul_(scale)
+
+    grad, m, v = randn(1e-3), randn(1e-4), randn(1e-3).square_()
+    p = randn(2e-2).to(torch.bfloat16)
+    m_ref, v_ref = m.clone(), v.clone()
+    delta, _, _ = fak._adam_flat_cuda(grad, p, m, v, TRAIN_LR, 10, **kw)
+    d_ref, _, _ = fak._adam_flat_plain(grad, p, m_ref, v_ref, TRAIN_LR, 10,
+                                       **kw)
+    torch.cuda.synchronize()
+    # the kernel rounds every operation on its own, as the plain
+    # version's eager ops do: m and v within a few fp32 ulps, delta
+    # within one bf16 ulp
+    torch.testing.assert_close(m, m_ref, rtol=2e-6, atol=0)
+    torch.testing.assert_close(v, v_ref, rtol=2e-6, atol=0)
+    torch.testing.assert_close(delta.float(), d_ref.float(), rtol=8e-3,
+                               atol=0)
+    errs = {"delta": float((delta.float() - d_ref.float()).abs().max()),
+            "m": float((m - m_ref).abs().max()),
+            "v": float((v - v_ref).abs().max())}
+    del m_ref, v_ref, d_ref, delta
+    # g, p, m, v read once; delta, m, v written once
+    nbytes = n * (4 + 2 + 4 + 4 + 2 + 4 + 4)
+    sets = [(grad, p, m, v)]  # 3.2 GB: one set is far beyond L2
+
+    def call(grad, p, m, v):
+        return fak._adam_flat_cuda(grad, p, m, v, TRAIN_LR, 10, **kw)
+
+    def plain(grad, p, m, v):
+        return fak._adam_flat_plain(grad, p, m, v, TRAIN_LR, 10, **kw)
+
+    ms = time_ms(call, sets)
+    plain_ms = time_ms(plain, sets, iters=5)
+    call_ms = host_ms(call, sets[0])
+    del m, v, p
+    param = torch.zeros(n, device="cuda", requires_grad=True)
+    param.grad = grad
+    opt = torch.optim.AdamW([param], lr=TRAIN_LR, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.0, fused=True)
+    lib_ms = time_ms(opt.step, [()])
+    b_ms, b_by = bound(nbytes, 15.0 * n, dev["fp32_flops"], dev)
+    return {"n": n, "param_dtype": "bfloat16", "max_abs_err": errs,
+            "ms": ms, "host_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library": "torch.optim.AdamW(fused=True).step on fp32 "
+                       "buffers of the same size",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "gb_per_s": nbytes / ms / 1e6}
 
 
 def phase_kernels(dev):
@@ -278,8 +528,13 @@ def phase_kernels(dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"phase": "kernels", "rms_norm_fwd": check_rms(dev),
-            "flash_attention_fwd": check_flash(dev)}
+    out = {"phase": "kernels", "rms_norm_fwd": check_rms(dev),
+           "flash_attention_fwd": check_flash(dev),
+           "flash_attention_bwd": check_flash_bwd(dev),
+           "rms_norm_bwd": check_rms_bwd(dev),
+           "fused_adam": check_adam(dev)}
+    torch.cuda.empty_cache()
+    return out
 
 
 def teacher_forced(params, cfg, engine, rids):
@@ -329,8 +584,6 @@ def phase_serving():
     import torch
 
     from apex_tpu_torch.models import llama
-    from apex_tpu_torch.ops import flash_attention as fa
-    from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.serving import make_trace, run_closed_loop
 
     cfg = llama.llama3_8b()
@@ -342,17 +595,18 @@ def phase_serving():
     engine = make_engine(params, cfg)
     trace = make_trace(**TRACE)
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = ln.launches = 0
+    reset_counts()
     report = run_closed_loop(engine, trace, use_wall_clock=False)
     torch.cuda.synchronize()
-    counts = {"flash_attention_fwd": fa.launches,
-              "rms_norm_fwd": ln.launches}
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     prefills = engine.scheduler.prefill_count
     steps = engine.scheduler.decode_steps
-    want = {"flash_attention_fwd": cfg.num_layers * prefills,
-            "rms_norm_fwd": (2 * cfg.num_layers + 1) * (prefills + steps)}
+    # no gradients while serving: the backward and Adam kernels stay at 0
+    want = dict({k: 0 for k in counts},
+                flash_attention_fwd=cfg.num_layers * prefills,
+                rms_norm_fwd=(2 * cfg.num_layers + 1) * (prefills + steps))
     missing = [t.rid for t in trace
                if len(engine.results.get(t.rid, {}).get("tokens", ()))
                != t.max_new_tokens]
@@ -444,24 +698,347 @@ def phase_profile(params, cfg):
                             for e in top]}
 
 
-def summary(kernels, serving):
-    def row(name, source, replaces, results, pick):
-        r = results[pick]
+def reference_loss(params, tokens, targets, cfg):
+    """The training loss through the port's plain functions and ordinary
+    torch autograd: _rms_fwd_plain, _reference_attention (the full
+    softmax, no lse) and a log-softmax CE, in the params' dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.ops.flash_attention import _reference_attention
+    from apex_tpu_torch.ops.layer_norm import _rms_fwd_plain
+
+    def norm(x, w):
+        y, _ = _rms_fwd_plain(x.reshape(-1, x.shape[-1]), w, cfg.rms_eps)
+        return y.reshape(x.shape)
+
+    def heads_major(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+    b, s = tokens.shape
+    d = cfg.head_dim
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = params["embed"][tokens]
+    for idx in range(cfg.num_layers):
+        lp = llama.layer(params, idx)
+        q, k, v = llama._qkv(norm(x, lp["attn_norm"]), lp, cfg, positions)
+        o = _reference_attention(heads_major(q), heads_major(k),
+                                 heads_major(v), True, d ** -0.5)
+        o = o.reshape(b, cfg.num_heads, s, d).transpose(1, 2).reshape(
+            b, s, -1)
+        x = x + o @ lp["wo"]
+        h = norm(x, lp["mlp_norm"])
+        x = x + (F.silu(h @ lp["wg"]) * (h @ lp["wu"])) @ lp["wd"]
+    logits = (norm(x, params["final_norm"]) @ params["lm_head"]).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None]).mean()
+
+
+def grad_check(params, batch, cfg):
+    """Per-leaf relative L2 error and cosine of the kernel path's step-0
+    gradients against the fp32 plain-autograd reference, with the same
+    bf16 model through the plain functions as the rounding floor."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import llama
+
+    leaf_paths = _tree.paths(params)
+
+    def grads_of(loss_of, tree):
+        live = _tree.map_leaves(lambda t: t.detach().requires_grad_(), tree)
+        loss = loss_of(live)
+        grads = torch.autograd.grad(loss, _tree.leaves(live))
+        return float(loss.detach()), list(grads)
+
+    loss, kernel = grads_of(
+        lambda t: llama.loss_fn(t, batch, cfg, remat=False), params)
+    loss32, ref = grads_of(lambda t: reference_loss(t, *batch, cfg),
+                           _tree.map_leaves(lambda t: t.float(), params))
+    loss16, plain = grads_of(lambda t: reference_loss(t, *batch, cfg),
+                             params)
+    leaves = {}
+    for path, g, r, pl in zip(leaf_paths, kernel, ref, plain):
+        r_norm = torch.linalg.vector_norm(r)
+        g32, p32 = g.float(), pl.float()
+        leaves[".".join(path)] = {
+            "rel_l2": float(torch.linalg.vector_norm(g32 - r) / r_norm),
+            "cos": float(torch.sum(g32 * r) / (
+                torch.linalg.vector_norm(g32) * r_norm)),
+            "plain_bf16_rel_l2": float(
+                torch.linalg.vector_norm(p32 - r) / r_norm)}
+        del g32, p32
+    del kernel, ref, plain
+    bad = {k: v for k, v in leaves.items()
+           if not (v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS)}
+    out = {"loss": loss, "loss_fp32_reference": loss32,
+           "loss_plain_bf16": loss16, "rel_l2_tol": GRAD_REL_L2,
+           "cos_tol": GRAD_COS, "leaves": leaves,
+           "worst_rel_l2": max(v["rel_l2"] for v in leaves.values()),
+           "worst_cos": min(v["cos"] for v in leaves.values())}
+    if bad:
+        raise AssertionError(f"gradients off the fp32 reference: {bad}")
+    return out
+
+
+def reset_counts():
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_adam_kernel as fak
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    ln.launches = ln.bwd_launches = fak.launches = 0
+
+
+def read_counts():
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_adam_kernel as fak
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "rms_norm_fwd": ln.launches, "rms_norm_bwd": ln.bwd_launches,
+            "fused_adam": fak.launches}
+
+
+def step_flops(n_params: int, n_layers: int, hidden: int, seq: int,
+               batch: int) -> int:
+    """fwd+bwd FLOPs of one decoder train step, ``B*S*(6N + 12*L*h*S)``:
+    PaLM appendix accounting (6N for the parameter matmuls forward and
+    backward, the second term for the attention score and value
+    matmuls), as the JAX package's observability layer counts it."""
+    return batch * seq * (6 * n_params + 12 * n_layers * hidden * seq)
+
+
+def step_flops_causal(n_matmul: int, n_layers: int, hidden: int, seq: int,
+                      batch: int) -> int:
+    """The work this step's matmuls and kernels do: 6 flops a token for
+    each matmul parameter (``n_matmul`` leaves out the embedding table,
+    which is a gather), and the attention products over the causal
+    (q, k) pairs alone, which are all the flash kernels compute:
+    ``12*L*h`` a pair, ``S*(S+1)/2`` pairs a sequence, where the PaLM
+    count takes ``S*S``."""
+    return (6 * n_matmul * batch * seq
+            + 12 * n_layers * hidden * batch * seq * (seq + 1) // 2)
+
+
+# the Adam check on the training path's slab runs the plain version over
+# chunks of this many elements: the pass is elementwise, so chunks give
+# the values of one whole pass, and the fp32 temporaries stay ~4 GB
+ADAM_CHUNK = 1 << 27
+
+
+def checked_adam(real, plain, found):
+    """A stand-in for ``_adam_flat_cuda`` for one train step. It launches
+    the kernel through ``real`` (one count, as always), then holds that
+    launch's delta, m and v on the path's own packed slab against
+    ``plain`` on the same g, p and the old m and v, with the tolerances
+    of :func:`check_adam`. Appends each slab's worst errors to
+    ``found``."""
+    import torch
+
+    def launch(g, p, m, v, lr_t, step, **kw):
+        m_old, v_old = m.clone(), v.clone()
+        delta, m, v = real(g, p, m, v, lr_t, step, **kw)
+        worst = {"delta": 0.0, "m": 0.0, "v": 0.0}
+        for a in range(0, g.numel(), ADAM_CHUNK):
+            part = slice(a, a + ADAM_CHUNK)
+            ref = plain(g[part], p[part], m_old[part], v_old[part], lr_t,
+                        step, **kw)
+            for name, got, r, rtol in (("delta", delta, ref[0], 8e-3),
+                                       ("m", m, ref[1], 2e-6),
+                                       ("v", v, ref[2], 2e-6)):
+                got, r = got[part].float(), r.float()
+                torch.testing.assert_close(got, r, rtol=rtol, atol=0,
+                                           msg=lambda s: f"adam {name} on "
+                                           f"the training slab: {s}")
+                worst[name] = max(worst[name],
+                                  float((got - r).abs().max()))
+            del ref
+        del m_old, v_old
+        found.append(dict(worst, n=g.numel(), param_dtype=str(p.dtype),
+                          step=float(step)))
+        return delta, m, v
+
+    return launch
+
+
+def phase_training(dev):
+    """Llama-3-8B width at 4 layers, batch 2 x 2048: the step-0 gradient
+    check, then TRAIN_STEPS train_steps with fused_adam(flat=True)."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.ops import fused_adam_kernel as fak
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg = llama.llama3_8b(num_layers=TRAIN_LAYERS)
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    batch = (tokens, torch.roll(tokens, -1, dims=-1))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+
+    grads = grad_check(params, batch, cfg)
+    torch.cuda.empty_cache()
+
+    tx = fused_adam(lr=TRAIN_LR, flat=True)
+    opt_state = tx.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms, counts, adam_check = [], [], [], []
+    real_adam = fak._adam_flat_cuda
+    for i in range(TRAIN_STEPS):
+        # the first step (count 1) also holds its Adam launch against the
+        # plain version on the packed slab; it is left out of the steady
+        # time and of the steady steps' peak memory
+        if i == 0:
+            fak._adam_flat_cuda = checked_adam(real_adam,
+                                               fak._adam_flat_plain,
+                                               adam_check)
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = llama.train_step(params, opt_state, batch,
+                                                   cfg, tx, remat=False)
+        losses.append(float(loss))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        fak._adam_flat_cuda = real_adam
+        after = read_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+        if i == 0:
+            checked_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if len(adam_check) != 1:
+        raise AssertionError(f"the checked step ran {len(adam_check)} Adam "
+                             f"launches through its wrapper, not 1")
+
+    L = cfg.num_layers
+    want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "rms_norm_fwd": 2 * L + 1,
+            "rms_norm_bwd": 2 * L + 1, "fused_adam": 1}
+    if any(c != want for c in counts):
+        raise AssertionError(f"launches per step {counts} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    flops = step_flops(n_params, L, cfg.hidden_size, TRAIN_SEQ, TRAIN_BATCH)
+    flops_causal = step_flops_causal(n_params - params["embed"].numel(), L,
+                                     cfg.hidden_size, TRAIN_SEQ, TRAIN_BATCH)
+    # step 1 also allocates the flat Adam slabs and runs the Adam check
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    return params, opt_state, batch, cfg, tx, {
+        "phase": "training", "model": "llama3_8b", "num_layers": L,
+        "dtype": "bfloat16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "params": n_params, "optimizer": "fused_adam(lr=1e-4, flat=True)",
+        "remat": False, "init_s": init_s, "grad_check": grads,
+        "losses": losses, "step_ms": step_ms,
+        "steady_step_ms": mean_ms,
+        "tokens_per_s": tokens_per_step / mean_ms * 1e3,
+        "step_flops": flops,
+        "tflops_per_s": flops / mean_ms / 1e9,
+        "mfu": flops / (mean_ms * 1e-3) / dev["bf16_flops"],
+        "step_flops_causal_without_embedding": flops_causal,
+        "mfu_causal_without_embedding": flops_causal / (mean_ms * 1e-3)
+        / dev["bf16_flops"],
+        "peak_memory_bytes": peak,
+        "peak_memory_checked_step_bytes": checked_peak,
+        "adam_path_check": adam_check[0],
+        "launches_per_step": counts[0], "launches": total,
+        "expected_per_step": want}
+
+
+def phase_profile_training(state):
+    """One more training step under ``torch.profiler`` (``--profile``):
+    the device's busy time by kernel over the step's host wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.models import llama
+
+    params, opt_state, batch, cfg, tx = state
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = llama.train_step(params, opt_state, batch,
+                                                   cfg, tx, remat=False)
+        float(loss)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:15]
+    return {"phase": "profile_training", "profiled_step_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share_profiled": 1.0 - busy_ms / wall_ms,
+            "kernels_seen": len(device),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def summary(kernels, counts, path_adam):
+    """One row per kernel; ``launches`` sums the serving and training
+    paths' runs, ``launches_by_path`` splits them. ``path_adam`` is the
+    training phase's check of its Adam launch on the packed slab."""
+    def row(name, source, replaces, r, err, **extra):
+        by_path = {path: c[name] for path, c in counts.items()}
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": serving["launches"][name],
-                "max_abs_err": max(x["max_abs_err"] for x in results),
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err,
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], "shape": r["shape"]}
+                "library_ms": r["library_ms"], "shape": r.get("shape"),
+                **extra}
 
-    # timed at the longest prompt's prefill shape (rows = 512 tokens)
+    fwd = kernels["flash_attention_fwd"]
+    rms = kernels["rms_norm_fwd"]
+    bwd = kernels["flash_attention_bwd"]
+    rbwd = kernels["rms_norm_bwd"]
+    adam = kernels["fused_adam"]
+    csrc = "apex_tpu_torch/ops/csrc/"
+    # the plain and library times of the two flash backward rows are one
+    # call each that computes dq, dk and dv together: count them once
+    both = {k: bwd[k] for k in ("plain_ms", "library_ms")}
+    covers = {"plain_covers": "dq+dk+dv", "library_covers": "dq+dk+dv"}
+    # forwards at the serving path's longest prefill (512 tokens, 512 rows);
+    # backwards and Adam at the training path's shapes
     return {"kernels": [
-        row("flash_attention_fwd", "apex_tpu_torch/ops/csrc/flash_fwd.cu",
-            "apex_tpu/ops/flash_attention.py:65",
-            kernels["flash_attention_fwd"], -1),
-        row("rms_norm_fwd", "apex_tpu_torch/ops/csrc/rms_norm.cu",
-            "apex_tpu/ops/layer_norm.py:56", kernels["rms_norm_fwd"], 1),
+        row("flash_attention_fwd", csrc + "flash_fwd.cu",
+            "apex_tpu/ops/flash_attention.py:65", fwd[2],
+            max(x["max_abs_err"] for x in fwd)),
+        row("rms_norm_fwd", csrc + "rms_norm.cu",
+            "apex_tpu/ops/layer_norm.py:56", rms[1],
+            max(x["max_abs_err"] for x in rms)),
+        row("flash_attention_bwd_dq", csrc + "flash_bwd.cu",
+            "apex_tpu/ops/flash_attention.py:261",
+            dict(bwd["dq"], shape=bwd["shape"], **both),
+            bwd["max_abs_err"]["dq"], **covers),
+        row("flash_attention_bwd_dkv", csrc + "flash_bwd.cu",
+            "apex_tpu/ops/flash_attention.py:322",
+            dict(bwd["dkv"], shape=bwd["shape"], **both),
+            max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]),
+            **covers),
+        row("rms_norm_bwd", csrc + "rms_norm.cu",
+            "apex_tpu/ops/layer_norm.py:189", rbwd,
+            max(rbwd["max_abs_err"].values())),
+        row("fused_adam", csrc + "fused_adam.cu",
+            "apex_tpu/ops/fused_adam_kernel.py:35",
+            dict(adam, shape=[adam["n"]]), adam["max_abs_err"]["delta"],
+            path_max_abs_err=path_adam),
     ]}
 
 
@@ -477,6 +1054,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    profiling = "--profile" in sys.argv[1:]
     phase = "device"
     try:
         dev = phase_device()
@@ -487,19 +1065,35 @@ def main() -> int:
         kernels = phase_kernels(dev)
         emit(kernels)
         phase = "serving"
+        reset_counts()
         params, cfg, serving = phase_serving()
         emit(serving)
-        if "--profile" in sys.argv[1:]:
+        if profiling:
             phase = "profile"
             emit(phase_profile(params, cfg))
+        # the profile's timed scheduler methods close over the engine
+        # that holds the serving params: a reference cycle, which only
+        # the collector frees
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "training"
+        reset_counts()
+        *state, training = phase_training(dev)
+        emit(training)
+        if profiling:
+            phase = "profile_training"
+            emit(phase_profile_training(state))
+        del state
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"[:2000]})
         return 1
-    emit({"kernel_counts": serving["launches"]})
-    emit(summary(kernels, serving))
+    counts = {"serving": serving["launches"],
+              "training": training["launches"]}
+    emit({"kernel_counts": counts})
+    emit(summary(kernels, counts, training["adam_path_check"]))
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

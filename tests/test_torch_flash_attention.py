@@ -29,8 +29,10 @@ def _qkv(bh, bh_kv, sq, sk, d, seed=0):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h_kv", [4, 2, 1])
 def test_flash_fwd_matches_pallas_interpret(causal, h_kv):
-    """(o, lse) of the plain forward against _flash_fwd_pallas in
-    interpret mode; sk = 40 with block 32 leaves a ragged key range."""
+    """(o, lse) of the forward's dispatcher on [b, s, h, d] (the plain
+    version on the CPU) against _flash_fwd_pallas in interpret mode on the
+    heads-major [b*h, s, d] layout; sk = 40 with block 32 leaves a ragged
+    key range."""
     b, h, d = 2, 4, 16
     sq = 40 if causal else 24
     sk = 40
@@ -39,11 +41,16 @@ def test_flash_fwd_matches_pallas_interpret(causal, h_kv):
     o_ref, lse_ref = jax_fa._flash_fwd_pallas(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, scale,
         32, 32, interpret=True)
-    o, lse = port_fa._flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
-                                torch.from_numpy(v), causal, scale)
-    assert o.shape == (b * h, sq, d) and lse.shape == (b * h, sq)
+
+    def seq_major(a, heads):  # [b*heads, s, d] -> [b, s, heads, d]
+        return torch.from_numpy(a).reshape(b, heads, -1, d).transpose(1, 2)
+
+    o, lse = port_fa._flash_fwd(seq_major(q, h), seq_major(k, h_kv),
+                                seq_major(v, h_kv), causal, scale)
+    assert o.shape == (b, sq, h, d) and lse.shape == (b * h, sq)
     assert lse.dtype == torch.float32
-    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(port_fa._heads_major(o).numpy(),
+                               np.asarray(o_ref), atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
 
 

@@ -1,13 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Marked ``cuda``: without a GPU every test here skips. On the GPU
 machine run them with ``python -m pytest tests/test_torch_kernels_cuda.py``
-(``chip_smoke.py`` holds the same kernels at the serving path's shapes).
+(``chip_smoke.py`` holds the same kernels at the serving and training
+paths' shapes).
 """
 
 import pytest
 import torch
 
 from apex_tpu_torch.ops import flash_attention as fa
+from apex_tpu_torch.ops import fused_adam_kernel as fak
 from apex_tpu_torch.ops import layer_norm as ln
 
 pytestmark = pytest.mark.cuda
@@ -67,3 +69,130 @@ def test_flash_rejects_what_the_kernel_does_not_take(gen):
         fa.flash_attention(q, q, q, kv_lens=torch.tensor([8], device="cuda"))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), q.half(), q.half())
+
+
+def _assert_near(got, ref, rel, what=""):
+    """max |got - ref| <= rel * max |ref|: the error relative to the
+    output's scale, for sums whose rounding scales with their terms."""
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max()) or 1.0
+    err = float((got - ref).abs().max())
+    assert err <= rel * scale, f"{what}: max err {err} > {rel} * {scale}"
+
+
+def _flat(t):
+    return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h_kv", [4, 2, 1])
+@pytest.mark.parametrize("causal,sq,sk,d", [
+    (True, 40, 40, 64), (False, 40, 40, 64), (True, 200, 200, 128),
+    (False, 200, 200, 128), (False, 33, 70, 80), (True, 130, 130, 32)])
+def test_flash_bwd_kernels_match_plain(gen, dtype, causal, h_kv, sq, sk, d):
+    """dq and dk/dv against _flash_bwd_plain on the same (q, k, v, o,
+    lse, do); ragged lengths pad the 64- and 32-row tiles, rep = 4 //
+    h_kv. fp32: summation order only; bf16: one output rounding (2^-9
+    of the value) on top."""
+    b, h = 2, 4
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, sk, h_kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, sk, h_kv, d, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+    scale = d ** -0.5
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale)
+    before = (fa.dq_launches, fa.dkv_launches)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = fa._flash_bwd_plain(_flat(q), _flat(k), _flat(v), _flat(o), lse,
+                              _flat(do), causal, scale)
+    torch.cuda.synchronize()
+    rel = 2e-5 if dtype == torch.float32 else 1e-2
+    for name, got, r, n in (("dq", dq, ref[0], h), ("dk", dk, ref[1], h_kv),
+                            ("dv", dv, ref[2], h_kv)):
+        assert got.dtype == dtype
+        r = r.reshape(b, n, -1, d).transpose(1, 2)
+        _assert_near(got, r, rel, name)
+
+
+def test_flash_autograd_launches_both_backward_kernels(gen):
+    q = torch.randn(1, 64, 4, 64, generator=gen, device="cuda",
+                    requires_grad=True)
+    kv = torch.randn(1, 64, 2, 64, generator=gen, device="cuda",
+                     requires_grad=True)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    o = fa.flash_attention(q, kv, kv, causal=True)
+    o.sum().backward()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        x + 1 for x in before)
+    with torch.no_grad():
+        fa.flash_attention(q, kv, kv, causal=True)
+    assert fa.dq_launches == before[1] + 1
+    assert torch.isfinite(q.grad).all() and torch.isfinite(kv.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", [64, 100, 4096])
+@pytest.mark.parametrize("rows", [1, 37, 1000])
+@pytest.mark.parametrize("affine", [True, False])
+def test_rms_norm_bwd_kernel_matches_plain(gen, dtype, h, rows, affine):
+    """h = 100 is no multiple of 8 and takes the scalar path; 1000 rows
+    is more than the DW_PARTS blocks of the dw partials."""
+    x = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+    w = ((1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+         if affine else None)
+    _, rstd = ln._rms_fwd_cuda(x, w, 1e-5)
+    before = ln.bwd_launches
+    got = ln._rms_bwd_cuda(x, w, rstd, dy)
+    assert ln.bwd_launches == before + 1
+    ref = ln._rms_bwd_plain(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    if not affine:
+        got, ref = (got,), (ref,)
+    rel = {torch.float32: 2e-5, torch.bfloat16: 8e-3,
+           torch.float16: 1e-3}[dtype]
+    for name, a, r in zip(("dx", "dw"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        _assert_near(a, r, rel, name)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+@pytest.mark.parametrize("n,offset", [(1, 0), (7, 0), (1001, 0),
+                                      ((1 << 20) + 3, 0), (4099, 1)])
+@pytest.mark.parametrize("adam_w_mode,weight_decay", [(True, 0.0),
+                                                      (True, 0.01),
+                                                      (False, 0.01)])
+@pytest.mark.parametrize("bias_correction", [True, False])
+def test_adam_kernel_matches_plain(gen, p_dtype, n, offset, adam_w_mode,
+                                   weight_decay, bias_correction):
+    """Odd slab sizes take the scalar tail, offset 1 misaligns every slab
+    (the scalar path). The kernel rounds each operation on its own, as
+    the plain version's eager ops do, so m and v agree to a few fp32
+    ulps and delta to one ulp of p's dtype."""
+    def slab(dtype=torch.float32, scale=1.0):
+        t = torch.randn(n + offset, generator=gen, device="cuda") * scale
+        return t.to(dtype)[offset:]
+
+    g, p = slab(), slab(p_dtype)
+    m, v = slab(scale=0.1), slab(scale=0.1).abs()
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay,
+              adam_w_mode=adam_w_mode, bias_correction=bias_correction)
+    m_ref, v_ref = m.clone(), v.clone()
+    before = fak.launches
+    delta, m2, v2 = fak._adam_flat_cuda(g, p, m, v, 1e-3, 7, **kw)
+    assert fak.launches == before + 1 and m2 is m and v2 is v
+    d_ref, _, _ = fak._adam_flat_plain(g, p, m_ref, v_ref, 1e-3, 7, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(m, m_ref, rtol=2e-6, atol=1e-7)
+    torch.testing.assert_close(v, v_ref, rtol=2e-6, atol=1e-9)
+    assert delta.dtype == p_dtype
+    # one ulp of p's dtype; fp16 deltas below 2^-14 are subnormal, where
+    # an ulp is 2^-24 absolute
+    rtol, atol = {torch.float32: (2e-6, 1e-9), torch.bfloat16: (8e-3, 1e-9),
+                  torch.float16: (1e-3, 2.0 ** -24)}[p_dtype]
+    torch.testing.assert_close(delta.float(), d_ref.float(), rtol=rtol,
+                               atol=atol)

@@ -14,8 +14,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "apex_tpu_torch"
 WRAPPERS = {
     "ops/flash_attention.py": ("_flash_fwd_cuda", "_flash_fwd",
-                               "flash_attention", "_lib"),
-    "ops/layer_norm.py": ("_rms_fwd_cuda", "_rms_fwd", "rms_norm", "_lib"),
+                               "flash_attention", "_lib",
+                               "_flash_bwd_cuda", "_flash_bwd",
+                               "_flash_bwd_dq_cuda",
+                               "_flash_bwd_dkv_cuda", "_bwd_lib",
+                               "forward", "backward"),
+    "ops/layer_norm.py": ("_rms_fwd_cuda", "_rms_fwd", "rms_norm", "_lib",
+                          "_rms_bwd_cuda", "_rms_bwd", "forward",
+                          "backward"),
+    "ops/fused_adam_kernel.py": ("_adam_flat_cuda", "adam_flat", "_lib"),
+    "optimizers/fused_adam.py": ("fused_adam",),
+    "models/llama.py": ("train_step", "loss_fn", "run_layers"),
     "ops/_build.py": ("build", "library", "check"),
 }
 
@@ -65,6 +74,7 @@ def test_kernel_wrappers_have_no_fallback(rel):
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     from apex_tpu_torch.models import generate, llama
+    from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.serving import ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -82,6 +92,13 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         generate.generate(params, prompt, cfg, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate.greedy_generate(params, prompt, cfg, 2)
+    from apex_tpu_torch.optimizers import opt_state_from_numpy
+
+    state = fused_adam(flat=True).init(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt_state_from_numpy(state._replace(
+            mu={k: v.numpy() for k, v in state.mu.items()},
+            nu={k: v.numpy() for k, v in state.nu.items()}))
     # asked for explicitly, the CPU runs the plain versions
     ServingEngine(params, cfg, num_pages=32, device="cpu")
     assert generate.generate(params, prompt, cfg, 2,
