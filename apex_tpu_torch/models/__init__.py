@@ -1,1 +1,2 @@
-"""Model zoo (counterpart of ``apex_tpu.models``): the llama family."""
+"""Model zoo (counterpart of ``apex_tpu.models``): the llama, gpt2 and
+bert families."""

@@ -22,9 +22,9 @@ from typing import Dict, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from apex_tpu_torch import _device, _tree
+from apex_tpu_torch import _device
+from apex_tpu_torch.models import _common
 from apex_tpu_torch.models._common import fan_in_normal
 from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_rms_norm_affine,
@@ -187,26 +187,11 @@ def run_layers(x, layers: Dict, cfg: LlamaConfig, positions,
                remat: Union[bool, str] = True):
     """Run the stacked ``[L, ...]`` layer weights over the residual
     stream ``x`` [b, s, h] (``run_layers``, ``llama.py:296``; no MoE, so
-    no aux loss). ``remat``: False keeps every activation for the
-    backward; True recomputes each layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant). The ``"dots"`` policy is
-    not ported yet."""
-    if remat not in (False, True):
-        raise NotImplementedError(f"remat={remat!r}: only False and True "
-                                  f"are ported")
-    names = sorted(layers)
-
-    def body(h, *weights):
-        lp = dict(zip(names, weights))
+    no aux loss). ``remat`` as in :func:`_common.run_stacked`."""
+    def body(h, lp):
         return decoder_layer(h, lp, cfg, positions, causal_attention)[0]
 
-    for idx in range(cfg.num_layers):
-        weights = [layers[name][idx] for name in names]
-        if remat:
-            x = checkpoint(body, x, *weights, use_reentrant=False)
-        else:
-            x = body(x, *weights)
-    return x
+    return _common.run_stacked(x, layers, cfg.num_layers, body, remat)
 
 
 def hidden_states(params, tokens, cfg: LlamaConfig,
@@ -239,23 +224,8 @@ def loss_fn(params, batch, cfg: LlamaConfig,
 
 def train_step(params, opt_state, batch, cfg: LlamaConfig, tx,
                remat: Union[bool, str] = False):
-    """One training step: loss and grads of :func:`loss_fn`, then
-    ``tx.update`` (e.g. ``fused_adam``), then params + updates. Returns
-    ``(params, opt_state, loss)``.
-
-    Unlike the JAX step, the params are updated IN PLACE
-    (``p.add_(delta)`` in each param's dtype, as JAX's
-    ``tree_map(jnp.add, params, updates)`` adds in the param dtype), and
-    the same dict is returned; ``loss`` is a 0-dim tensor on the params'
-    device."""
-    live = _tree.map_leaves(lambda p: p.detach().requires_grad_(), params)
-    loss = loss_fn(live, batch, cfg, remat=remat)
-    grads = torch.autograd.grad(loss, _tree.leaves(live))
-    grads = _tree.unflatten(_tree.paths(params), list(grads))
-    del live
-    with torch.no_grad():
-        updates, opt_state = tx.update(grads, opt_state, params)
-        del grads
-        for p, u in zip(_tree.leaves(params), _tree.leaves(updates)):
-            p.add_(u)
-    return params, opt_state, loss.detach()
+    """One training step of :func:`loss_fn` (``_common.train_step``):
+    ``(params, opt_state, loss)``, the params updated in place."""
+    return _common.train_step(
+        params, opt_state, tx,
+        lambda live: loss_fn(live, batch, cfg, remat=remat))

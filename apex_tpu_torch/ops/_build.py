@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("rms_norm", "flash_fwd", "flash_bwd", "fused_adam")
+KERNELS = ("rms_norm", "flash_fwd", "flash_bwd", "fused_adam",
+           "layer_norm", "fused_softmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

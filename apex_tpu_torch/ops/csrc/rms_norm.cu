@@ -43,23 +43,6 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float partial[32];
-  __shared__ float total;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = (blockDim.x + 31) >> 5;
-    float s = lane < nwarps ? partial[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) total = s;
-  }
-  __syncthreads();
-  return total;
-}
-
 template <typename TW>
 __device__ __forceinline__ float weight_at(const TW* w, int i) {
   return w == nullptr ? 1.f : to_float(w[i]);

@@ -1,24 +1,28 @@
-"""Fused RMSNorm, forward and backward (port of
+"""Fused LayerNorm and RMSNorm, forward and backward (port of
 ``apex_tpu/ops/layer_norm.py``).
 
-Both kernels are in ``csrc/rms_norm.cu``: ``rms_norm_fwd`` replaces the
-TPU kernel ``_rms_fwd_kernel`` (``apex_tpu/ops/layer_norm.py:56``) and
-``rms_norm_bwd`` replaces ``_rms_bwd_kernel`` (``:189``). Both are bound
-by bytes: the forward reads x and w once and writes y and the fp32
-``rstd``; the backward reads x, dy, rstd and w and writes dx and dw. The
-source file says how their designs follow from that.
+Four kernels in two sources. ``csrc/layer_norm.cu``: ``layer_norm_fwd``
+replaces the TPU kernel ``_ln_fwd_kernel`` (``apex_tpu/ops/layer_norm.py:40``)
+and ``layer_norm_bwd`` replaces ``_ln_bwd_kernel`` (``:163``).
+``csrc/rms_norm.cu``: ``rms_norm_fwd`` replaces ``_rms_fwd_kernel``
+(``:56``) and ``rms_norm_bwd`` replaces ``_rms_bwd_kernel`` (``:189``).
+All four are bound by bytes: a forward reads x and the affine params once
+and writes y and the fp32 statistics; a backward reads x, dy, the
+statistics and w and writes dx and the param grads. The source files say
+how their designs follow from that.
 
+:class:`_LayerNormAffine`, :class:`_LayerNormPlain`,
 :class:`_RMSNormAffine` and :class:`_RMSNormPlain` are the
-``torch.autograd.Function`` counterparts of the ``custom_vjp``
-functions ``_rms_norm_affine`` and ``_rms_norm_plain``
-(``layer_norm.py:394-435``): forward saves (x2, w, rstd), backward
-returns dx in x's dtype and dw in w's dtype, dw summed in fp32.
-Dispatch follows the input tensor: a CUDA tensor launches the kernels,
-a CPU tensor takes :func:`_rms_fwd_plain` and :func:`_rms_bwd_plain`,
-the plain PyTorch versions of the same math (``_rms_fwd_jnp`` and
-``_rms_bwd_jnp``, ``layer_norm.py:337`` and ``:226``). There is no
-fallback from a kernel to a plain version. LayerNorm belongs to a later
-slice of the port.
+``torch.autograd.Function`` counterparts of the ``custom_vjp`` functions
+of ``layer_norm.py:350-435``: a LayerNorm forward saves (x2, w, mu,
+rstd), an RMSNorm forward (x2, w, rstd); a backward returns dx in x's
+dtype and the param grads in w's dtype, summed in fp32. Dispatch follows
+the input tensor: a CUDA tensor launches the kernels, a CPU tensor takes
+the plain PyTorch versions of the same math (:func:`_ln_fwd_plain`,
+:func:`_ln_bwd_plain`, :func:`_rms_fwd_plain`, :func:`_rms_bwd_plain`:
+``_ln_fwd_jnp``, ``_ln_bwd_jnp``, ``_rms_fwd_jnp`` and ``_rms_bwd_jnp``,
+``layer_norm.py:325``, ``:210``, ``:337`` and ``:226``). There is no
+fallback from a kernel to a plain version.
 """
 
 from __future__ import annotations
@@ -30,23 +34,65 @@ import torch
 
 from apex_tpu_torch.ops import _build
 
-# launches of the CUDA RMSNorm forward and backward kernels; only the
-# CUDA wrappers below add to them, once per launch
+# launches of the CUDA RMSNorm and LayerNorm forward and backward
+# kernels; only the CUDA wrappers below add to them, once per launch
 launches = 0
 bwd_launches = 0
+ln_launches = 0
+ln_bwd_launches = 0
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
+_LN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p])
+_LN_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p])
 
 # blocks of the backward's first pass, and so rows of its fp32 dw
 # partials: enough to fill the card's 132 SMs twice, and fixed, so the
 # order of the dw sum does not depend on the device
 DW_PARTS = 264
-# h floats of dw sums per block must fit in shared memory (227 KB)
+# h floats of dw sums per block must fit in shared memory (227 KB), and
+# 2h for LayerNorm's dw and db
 MAX_AFFINE_BWD_H = 232448 // 4
+MAX_AFFINE_LN_BWD_H = 232448 // 8
+
+
+def _ln_fwd_plain(x2: torch.Tensor, w: Optional[torch.Tensor],
+                  b: Optional[torch.Tensor], eps: float):
+    """x2 [rows, h] -> (y in x2's dtype, mu [rows, 1] fp32, rstd [rows, 1]
+    fp32): the mean, then the mean of squared centred values."""
+    x = x2.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    xc = x - mu
+    var = torch.mean(torch.square(xc), dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = xc * rstd
+    if w is not None:
+        y = y * w.float().reshape(1, -1) + b.float().reshape(1, -1)
+    return y.to(x2.dtype), mu, rstd
+
+
+def _ln_bwd_plain(x2: torch.Tensor, w: Optional[torch.Tensor],
+                  mu: torch.Tensor, rstd: torch.Tensor, dy: torch.Tensor):
+    """x2, dy [rows, h], mu and rstd [rows, 1] fp32 -> dx in x2's dtype,
+    and (dx, dw, db) with dw and db in w's dtype, summed in fp32, when
+    ``w`` is given (the kernel's math, ``_ln_bwd_jnp``)."""
+    x = x2.float()
+    g = dy.float()
+    xhat = (x - mu) * rstd
+    gw = g * w.float().reshape(1, -1) if w is not None else g
+    m1 = torch.mean(gw, dim=-1, keepdim=True)
+    m2 = torch.mean(gw * xhat, dim=-1, keepdim=True)
+    dx = (rstd * (gw - m1 - xhat * m2)).to(x2.dtype)
+    if w is None:
+        return dx
+    return (dx, torch.sum(g * xhat, dim=0).to(w.dtype),
+            torch.sum(g, dim=0).to(w.dtype))
 
 
 def _rms_fwd_plain(x2: torch.Tensor, w: Optional[torch.Tensor],
@@ -86,23 +132,57 @@ def _lib():
     return lib
 
 
+def _ln_lib():
+    lib = _build.library("layer_norm")
+    lib.layer_norm_fwd.argtypes = _LN_ARGTYPES
+    lib.layer_norm_fwd.restype = ctypes.c_int
+    lib.layer_norm_bwd.argtypes = _LN_BWD_ARGTYPES
+    lib.layer_norm_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check_rows(x2: torch.Tensor, what: str) -> Tuple[int, int]:
+    if x2.dim() != 2 or not x2.is_contiguous():
+        raise ValueError(f"{what} kernel needs a contiguous [rows, h] "
+                         f"input, got shape {tuple(x2.shape)}")
+    return x2.shape
+
+
+def _check_dy(dy: torch.Tensor, x2: torch.Tensor, what: str) -> None:
+    if (dy.shape != x2.shape or dy.dtype != x2.dtype
+            or not dy.is_contiguous() or dy.device != x2.device):
+        raise ValueError(f"{what} backward needs a contiguous dy like x "
+                         f"{tuple(x2.shape)} {x2.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+
+
+def _check_stat(t: torch.Tensor, x2: torch.Tensor, name: str) -> None:
+    rows = x2.shape[0]
+    if (t.shape != (rows, 1) or t.dtype != torch.float32
+            or not t.is_contiguous() or t.device != x2.device):
+        raise ValueError(f"{name} must be a contiguous fp32 [{rows}, 1] "
+                         f"tensor on {x2.device}")
+
+
+def _param_code(w: torch.Tensor, x2: torch.Tensor, what: str) -> int:
+    """The dtype code of an affine param, which must be a contiguous [h]
+    tensor on x2's device."""
+    h = x2.shape[1]
+    if w.device != x2.device or w.shape != (h,) or not w.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous [{h}] tensor on "
+                         f"{x2.device}")
+    return _build.dtype_code(w.dtype, what)
+
+
 def _rms_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
                   eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on x2 [rows, h] contiguous; same outputs as
     :func:`_rms_fwd_plain`."""
     global launches
-    if x2.dim() != 2 or not x2.is_contiguous():
-        raise ValueError(f"rms_norm kernel needs a contiguous [rows, h] "
-                         f"input, got shape {tuple(x2.shape)}")
-    rows, h = x2.shape
+    rows, h = _check_rows(x2, "rms_norm")
     x_code = _build.dtype_code(x2.dtype, "rms_norm")
-    w_code = x_code
-    if w is not None:
-        if (w.device != x2.device or w.shape != (h,)
-                or not w.is_contiguous()):
-            raise ValueError(f"rms_norm weight must be a contiguous [{h}] "
-                             f"tensor on {x2.device}")
-        w_code = _build.dtype_code(w.dtype, "rms_norm weight")
+    w_code = (x_code if w is None
+              else _param_code(w, x2, "rms_norm weight"))
     y = torch.empty_like(x2)
     rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
     if rows == 0:
@@ -123,31 +203,17 @@ def _rms_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
     """The backward kernel on contiguous x2, dy [rows, h] and rstd
     [rows, 1] fp32; same outputs as :func:`_rms_bwd_plain`."""
     global bwd_launches
-    if x2.dim() != 2 or not x2.is_contiguous():
-        raise ValueError(f"rms_norm kernel needs a contiguous [rows, h] "
-                         f"input, got shape {tuple(x2.shape)}")
-    rows, h = x2.shape
-    if (dy.shape != x2.shape or dy.dtype != x2.dtype
-            or not dy.is_contiguous() or dy.device != x2.device):
-        raise ValueError(f"rms_norm backward needs a contiguous dy like x "
-                         f"{tuple(x2.shape)} {x2.dtype}, got "
-                         f"{tuple(dy.shape)} {dy.dtype}")
-    if (rstd.shape != (rows, 1) or rstd.dtype != torch.float32
-            or not rstd.is_contiguous() or rstd.device != x2.device):
-        raise ValueError(f"rstd must be a contiguous fp32 [{rows}, 1] "
-                         f"tensor on {x2.device}")
+    rows, h = _check_rows(x2, "rms_norm")
+    _check_dy(dy, x2, "rms_norm")
+    _check_stat(rstd, x2, "rstd")
     x_code = _build.dtype_code(x2.dtype, "rms_norm")
     w_code = x_code
     if w is not None:
-        if (w.device != x2.device or w.shape != (h,)
-                or not w.is_contiguous()):
-            raise ValueError(f"rms_norm weight must be a contiguous [{h}] "
-                             f"tensor on {x2.device}")
+        w_code = _param_code(w, x2, "rms_norm weight")
         if h > MAX_AFFINE_BWD_H:
             raise ValueError(f"rms_norm backward keeps h={h} fp32 dw sums "
                              f"in shared memory: at most "
                              f"{MAX_AFFINE_BWD_H}")
-        w_code = _build.dtype_code(w.dtype, "rms_norm weight")
     dx = torch.empty_like(x2)
     dw = (torch.empty((h,), dtype=w.dtype, device=w.device)
           if w is not None else None)
@@ -167,6 +233,124 @@ def _rms_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
         _build.check(lib, rc, "rms_norm_bwd")
         bwd_launches += 1
     return dx if w is None else (dx, dw)
+
+
+def _ln_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
+                 b: Optional[torch.Tensor], eps: float):
+    """The LayerNorm kernel on x2 [rows, h] contiguous, with w and b both
+    or neither; same outputs as :func:`_ln_fwd_plain`."""
+    global ln_launches
+    rows, h = _check_rows(x2, "layer_norm")
+    x_code = _build.dtype_code(x2.dtype, "layer_norm")
+    w_code = x_code
+    if (w is None) != (b is None):
+        raise ValueError("layer_norm takes weight and bias both or neither")
+    if w is not None:
+        w_code = _param_code(w, x2, "layer_norm weight")
+        if b.dtype != w.dtype:
+            raise TypeError(f"layer_norm bias dtype {b.dtype} differs from "
+                            f"the weight's {w.dtype}")
+        _param_code(b, x2, "layer_norm bias")
+    y = torch.empty_like(x2)
+    mu = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    rstd = torch.empty_like(mu)
+    if rows == 0:
+        return y, mu, rstd
+    lib = _ln_lib()
+    with torch.cuda.device(x2.device):
+        rc = lib.layer_norm_fwd(
+            x2.data_ptr(), w.data_ptr() if w is not None else None,
+            b.data_ptr() if b is not None else None, y.data_ptr(),
+            mu.data_ptr(), rstd.data_ptr(), rows, h, float(eps), x_code,
+            w_code, _build.stream_handle(x2.device))
+        _build.check(lib, rc, "layer_norm_fwd")
+        ln_launches += 1
+    return y, mu, rstd
+
+
+def _ln_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
+                 mu: torch.Tensor, rstd: torch.Tensor, dy: torch.Tensor):
+    """The LayerNorm backward kernel on contiguous x2, dy [rows, h] and
+    mu, rstd [rows, 1] fp32; same outputs as :func:`_ln_bwd_plain`."""
+    global ln_bwd_launches
+    rows, h = _check_rows(x2, "layer_norm")
+    _check_dy(dy, x2, "layer_norm")
+    _check_stat(mu, x2, "mu")
+    _check_stat(rstd, x2, "rstd")
+    x_code = _build.dtype_code(x2.dtype, "layer_norm")
+    w_code = x_code
+    if w is not None:
+        w_code = _param_code(w, x2, "layer_norm weight")
+        if h > MAX_AFFINE_LN_BWD_H:
+            raise ValueError(f"layer_norm backward keeps h={h} fp32 dw and "
+                             f"db sums in shared memory: at most "
+                             f"{MAX_AFFINE_LN_BWD_H}")
+    dx = torch.empty_like(x2)
+    if w is not None:
+        dw = torch.empty((h,), dtype=w.dtype, device=w.device)
+        db = torch.empty_like(dw)
+    if rows == 0:
+        return dx if w is None else (dx, dw.zero_(), db.zero_())
+    parts = min(rows, DW_PARTS)
+    part = (torch.empty((parts, 2 * h), dtype=torch.float32,
+                        device=x2.device) if w is not None else None)
+    lib = _ln_lib()
+    with torch.cuda.device(x2.device):
+        rc = lib.layer_norm_bwd(
+            x2.data_ptr(), dy.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+            w.data_ptr() if w is not None else None, dx.data_ptr(),
+            dw.data_ptr() if w is not None else None,
+            db.data_ptr() if w is not None else None,
+            part.data_ptr() if w is not None else None, rows, h, parts,
+            x_code, w_code, _build.stream_handle(x2.device))
+        _build.check(lib, rc, "layer_norm_bwd")
+        ln_bwd_launches += 1
+    return dx if w is None else (dx, dw, db)
+
+
+def _ln_fwd(x2, w, b, eps):
+    if x2.is_cuda:
+        return _ln_fwd_cuda(x2, w, b, eps)
+    return _ln_fwd_plain(x2, w, b, eps)
+
+
+def _ln_bwd(x2, w, mu, rstd, dy):
+    if x2.is_cuda:
+        return _ln_bwd_cuda(x2, w, mu, rstd, dy.contiguous())
+    return _ln_bwd_plain(x2, w, mu, rstd, dy)
+
+
+class _LayerNormAffine(torch.autograd.Function):
+    """y = layer_norm(x2) * w + b on [rows, h] (counterpart of the
+    ``custom_vjp`` ``_layer_norm_affine``)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b, eps: float):
+        y, mu, rstd = _ln_fwd(x2, w, b, eps)
+        ctx.save_for_backward(x2, w, mu, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w, mu, rstd = ctx.saved_tensors
+        dx, dw, db = _ln_bwd(x2, w, mu, rstd, dy)
+        return dx, dw, db, None
+
+
+class _LayerNormPlain(torch.autograd.Function):
+    """y = layer_norm(x2) on [rows, h], no affine (counterpart of the
+    ``custom_vjp`` ``_layer_norm_plain``)."""
+
+    @staticmethod
+    def forward(ctx, x2, eps: float):
+        y, mu, rstd = _ln_fwd(x2, None, None, eps)
+        ctx.save_for_backward(x2, mu, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, mu, rstd = ctx.saved_tensors
+        return _ln_bwd(x2, None, mu, rstd, dy), None
 
 
 def _rms_fwd(x2, w, eps):
@@ -239,4 +423,22 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
         y = _RMSNormAffine.apply(x2, weight.reshape(-1), float(eps))
     else:
         y = _RMSNormPlain.apply(x2, float(eps))
+    return y.reshape(*lead, *normalized_shape)
+
+
+def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor],
+               normalized_shape: Union[int, Sequence[int]],
+               eps: float = 1e-5) -> torch.Tensor:
+    """Fused LayerNorm over trailing ``normalized_shape`` dims,
+    differentiable in x, ``weight`` and ``bias`` (``layer_norm.py:452``)."""
+    normalized_shape = ((normalized_shape,)
+                        if isinstance(normalized_shape, int)
+                        else tuple(normalized_shape))
+    x2, lead = _to_2d(x, normalized_shape)
+    if weight is not None:
+        y = _LayerNormAffine.apply(x2, weight.reshape(-1), bias.reshape(-1),
+                                   float(eps))
+    else:
+        y = _LayerNormPlain.apply(x2, float(eps))
     return y.reshape(*lead, *normalized_shape)

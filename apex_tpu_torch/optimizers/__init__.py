@@ -6,3 +6,7 @@ from apex_tpu_torch.optimizers.fused_adam import (  # noqa: F401
     fused_adam,
     opt_state_from_numpy,
 )
+from apex_tpu_torch.optimizers.fused_lamb import (  # noqa: F401
+    FusedLAMBState,
+    fused_lamb,
+)

@@ -31,7 +31,21 @@ result line) when it fails:
                step time, tokens/s, MFU and peak memory.
 7. profile  -- only with ``--profile``: one more training step under
                ``torch.profiler``, the device's busy share and its time
-               by kernel.
+               by kernel (after phases 8 and 9 too).
+8. gpt2_training -- bench.py's GPT-2 345M step at full width and depth
+               (random bf16 weights from a seeded generator), batch 8 x
+               1024, ``loss_fn(remat=True, vocab_chunks=8)`` and tree-mode
+               ``fused_adam(lr=1e-4)``: step-0 gradients against an fp32
+               reference, then 3 ``train_step``s with exact launch counts
+               (LayerNorm forward 97, backward 49, causal softmax 48 a
+               step), finite and falling loss, step time, tokens/s, MFU
+               and peak memory.
+9. bert_training -- bench.py's BERT-base step (12 layers, h 768), batch
+               8 x 512 with the 15% masking, plus a padding mask (each
+               row's length drawn from the seed in [128, 512], row 0
+               full) so that the masked softmax runs, ``fused_lamb(lr=
+               1e-3)`` and remat: the same checks (LayerNorm forward 50,
+               backward 26, masked softmax 24 a step), sequences/s.
 
 The last lines are the per-kernel summary, the card line and the result
 object ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -47,6 +61,7 @@ import subprocess
 import sys
 import time
 import traceback
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -68,6 +83,19 @@ TRAIN_BATCH = 2
 TRAIN_SEQ = 2048
 TRAIN_LR = 1e-4
 TRAIN_STEPS = 3
+
+# bench.py's GPT-2 345M step (bench.py:670-686): full width and depth
+GPT2_BATCH = 8
+GPT2_SEQ = 1024
+GPT2_LR = 1e-4
+GPT2_CHUNKS = 8
+
+# bench.py's BERT-base step (bench.py:631-640), plus padding: each row's
+# valid length is drawn in [BERT_MIN_LEN, BERT_SEQ], row 0 full
+BERT_BATCH = 8
+BERT_SEQ = 512
+BERT_LR = 1e-3
+BERT_MIN_LEN = 128
 
 # gradient agreement at step 0 of the training phase, per param leaf,
 # between the kernel path (bf16 params, activations and grads) and an fp32
@@ -523,16 +551,183 @@ def check_adam(dev):
             "gb_per_s": nbytes / ms / 1e6}
 
 
+def check_layer_norm(dev):
+    """LayerNorm forward and backward at GPT-2's rows (8 x 1024 tokens) x
+    h 1024, eps 1e-5, and BERT's (8 x 512) x 768, eps 1e-12, bf16, with
+    bf16 affine params."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    fwd, bwd = [], []
+    for rows, h, eps in ((GPT2_BATCH * GPT2_SEQ, 1024, 1e-5),
+                         (BERT_BATCH * BERT_SEQ, 768, 1e-12)):
+        w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        b = (0.1 * torch.randn(h, generator=g, device="cuda")).to(
+            torch.bfloat16)
+
+        def make():
+            x, dy = (torch.randn(rows, h, generator=g, device="cuda").to(
+                torch.bfloat16) for _ in range(2))
+            _, mu, rstd = ln._ln_fwd_cuda(x, w, b, eps)
+            return x, dy, mu, rstd
+
+        x, dy, mu, rstd = make()
+        y, mu_k, rstd_k = ln._ln_fwd_cuda(x, w, b, eps)
+        y_ref, mu_ref, rstd_ref = ln._ln_fwd_plain(x, w, b, eps)
+        got = ln._ln_bwd_cuda(x, w, mu, rstd, dy)
+        ref = ln._ln_bwd_plain(x, w, mu, rstd, dy)
+        torch.cuda.synchronize()
+        # each output is an fp32 sum (over h, or over the rows for dw and
+        # db) taken in another order and rounded once to bf16: within one
+        # bf16 ulp (2^-8 relative) of the output's scale; mu and rstd are
+        # that fp32 rounding
+        err = max_err(y, y_ref, 8e-3, "layer_norm y")
+        torch.testing.assert_close(mu_k, mu_ref, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(rstd_k, rstd_ref, rtol=1e-5, atol=0)
+        errs = {name: max_err(a, r, 8e-3, f"layer_norm {name}")
+                for name, a, r in zip(("dx", "dw", "db"), got, ref)}
+        del y, y_ref, got, ref
+        fwd_bytes = 2 * rows * h * 2 + 2 * h * 2 + 2 * rows * 4
+        bwd_bytes = 3 * rows * h * 2 + 2 * rows * 4 + 3 * h * 2
+        sets = copies(make, bwd_bytes)
+
+        def fwd_call(x, dy, mu, rstd):
+            return ln._ln_fwd_cuda(x, w, b, eps)
+
+        def fwd_plain(x, dy, mu, rstd):
+            return ln._ln_fwd_plain(x, w, b, eps)
+
+        def fwd_lib(x, dy, mu, rstd):
+            return F.layer_norm(x, (h,), w, b, eps)
+
+        def bwd_call(x, dy, mu, rstd):
+            return ln._ln_bwd_cuda(x, w, mu, rstd, dy)
+
+        def bwd_plain(x, dy, mu, rstd):
+            return ln._ln_bwd_plain(x, w, mu, rstd, dy)
+
+        graphs = []
+        for x, dy, _, _ in sets:
+            leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+            graphs.append((F.layer_norm(leaves[0], (h,), leaves[1],
+                                        leaves[2], eps), leaves, dy))
+
+        def bwd_lib(y, inputs, grad):
+            return torch.autograd.grad(y, inputs, grad, retain_graph=True)
+
+        ms = time_ms(fwd_call, sets)
+        b_ms, b_by = bound(fwd_bytes, 8.0 * rows * h, dev["fp32_flops"], dev)
+        fwd.append({"shape": [rows, h], "eps": eps, "dtype": "bfloat16",
+                    "max_abs_err": err, "ms": ms,
+                    "host_ms": host_ms(fwd_call, sets[0]),
+                    "plain_ms": time_ms(fwd_plain, sets),
+                    "library_ms": time_ms(fwd_lib, sets),
+                    "library": "F.layer_norm", "bound_ms": b_ms,
+                    "bound_by": b_by})
+        ms = time_ms(bwd_call, sets)
+        b_ms, b_by = bound(bwd_bytes, 14.0 * rows * h, dev["fp32_flops"],
+                           dev)
+        bwd.append({"shape": [rows, h], "eps": eps, "dtype": "bfloat16",
+                    "max_abs_err": errs, "ms": ms,
+                    "host_ms": host_ms(bwd_call, sets[0]),
+                    "plain_ms": time_ms(bwd_plain, sets),
+                    "library_ms": time_ms(bwd_lib, graphs),
+                    "library": "backward of F.layer_norm, dx+dw+db",
+                    "bound_ms": b_ms, "bound_by": b_by})
+        del sets, graphs
+    return fwd, bwd
+
+
+def bert_pad_mask(gen, batch, seq):
+    """[batch, seq] bool on the card, True = padding: row i valid for a
+    length drawn uniformly in [BERT_MIN_LEN, seq], row 0 for all of it."""
+    import torch
+
+    lengths = torch.randint(min(BERT_MIN_LEN, seq), seq + 1, (batch,),
+                            generator=gen, device="cuda")
+    lengths[0] = seq
+    return torch.arange(seq, device="cuda")[None, :] >= lengths[:, None]
+
+
+def check_softmax(dev):
+    """The causal kernel at GPT-2's scores [8 x 16 heads, 1024, 1024] and
+    the masked kernel at BERT's [8, 12 heads, 512, 512] with a [8, 1, 1,
+    512] padding mask, bf16, scale 1/8. The library yardstick is
+    torch.softmax(x.float() * scale) on an input already masked: it
+    leaves out the mask fill and writes fp32, not bf16."""
+    import torch
+
+    from apex_tpu_torch.transformer.functional import fused_softmax as sm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    scale = 0.125
+    out = {}
+    for name, shape in (("causal", (GPT2_BATCH * 16, GPT2_SEQ, GPT2_SEQ)),
+                        ("masked", (BERT_BATCH, 12, BERT_SEQ, BERT_SEQ))):
+        if name == "causal":
+            mask = sm._causal_mask(shape[-2], shape[-1], "cuda")
+            call = partial(sm._causal_cuda, scale=scale)
+            plain = partial(sm._causal_plain, scale=scale)
+        else:
+            mask = bert_pad_mask(g, BERT_BATCH, BERT_SEQ)[:, None, None, :]
+            call = partial(sm._masked_cuda, mask=mask, scale=scale)
+            plain = partial(sm._masked_plain, mask=mask, scale=scale)
+
+        def make():
+            return (4 * torch.randn(shape, generator=g, device="cuda")).to(
+                torch.bfloat16)
+
+        x = make()
+        y, ref = call(x), plain(x)
+        torch.cuda.synchronize()
+        # each output is exp(s - max) / sum, rounded once to bf16: within
+        # one bf16 ulp (2^-8 relative) of itself
+        torch.testing.assert_close(y.float(), ref.float(), rtol=8e-3,
+                                   atol=1e-6)
+        err = float((y.float() - ref.float()).abs().max())
+        del x, y, ref
+        numel = math.prod(shape)
+        nbytes = 2 * numel * 2 + (mask.numel() if name == "masked" else 0)
+        sets = [(x,) for x in copies(make, nbytes)]
+        premasked = [(x.masked_fill(mask, -10000.0 / scale),)
+                     for (x,) in sets]
+
+        def library(x):
+            return torch.softmax(x.float() * scale, dim=-1)
+
+        ms = time_ms(call, sets)
+        b_ms, b_by = bound(nbytes, 6.0 * numel, dev["fp32_flops"], dev)
+        out[name] = {"shape": list(shape), "dtype": "bfloat16",
+                     "scale": scale, "max_abs_err": err, "ms": ms,
+                     "host_ms": host_ms(call, sets[0]),
+                     "plain_ms": time_ms(plain, sets, iters=5),
+                     "library_ms": time_ms(library, premasked, iters=5),
+                     "library": "torch.softmax(x.float() * scale) on a "
+                                "pre-masked x: no mask fill, fp32 output",
+                     "bound_ms": b_ms, "bound_by": b_by}
+        del sets, premasked
+    return out
+
+
 def phase_kernels(dev):
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ln_fwd, ln_bwd = check_layer_norm(dev)
+    softmax = check_softmax(dev)
     out = {"phase": "kernels", "rms_norm_fwd": check_rms(dev),
            "flash_attention_fwd": check_flash(dev),
            "flash_attention_bwd": check_flash_bwd(dev),
            "rms_norm_bwd": check_rms_bwd(dev),
-           "fused_adam": check_adam(dev)}
+           "fused_adam": check_adam(dev),
+           "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd,
+           "fused_softmax_causal": softmax["causal"],
+           "fused_softmax_masked": softmax["masked"]}
     torch.cuda.empty_cache()
     return out
 
@@ -735,14 +930,14 @@ def reference_loss(params, tokens, targets, cfg):
     return -torch.gather(logp, -1, targets[..., None]).mean()
 
 
-def grad_check(params, batch, cfg):
-    """Per-leaf relative L2 error and cosine of the kernel path's step-0
-    gradients against the fp32 plain-autograd reference, with the same
-    bf16 model through the plain functions as the rounding floor."""
+def grad_check(params, kernel_loss, plain_loss):
+    """Per-leaf relative L2 error and cosine of the step-0 gradients of
+    ``kernel_loss`` (the kernel path) against ``plain_loss`` (the plain
+    functions with ordinary autograd) on fp32 copies of the params, with
+    ``plain_loss`` on the same bf16 params as the rounding floor."""
     import torch
 
     from apex_tpu_torch import _tree
-    from apex_tpu_torch.models import llama
 
     leaf_paths = _tree.paths(params)
 
@@ -752,12 +947,10 @@ def grad_check(params, batch, cfg):
         grads = torch.autograd.grad(loss, _tree.leaves(live))
         return float(loss.detach()), list(grads)
 
-    loss, kernel = grads_of(
-        lambda t: llama.loss_fn(t, batch, cfg, remat=False), params)
-    loss32, ref = grads_of(lambda t: reference_loss(t, *batch, cfg),
+    loss, kernel = grads_of(kernel_loss, params)
+    loss32, ref = grads_of(plain_loss,
                            _tree.map_leaves(lambda t: t.float(), params))
-    loss16, plain = grads_of(lambda t: reference_loss(t, *batch, cfg),
-                             params)
+    loss16, plain = grads_of(plain_loss, params)
     leaves = {}
     for path, g, r, pl in zip(leaf_paths, kernel, ref, plain):
         r_norm = torch.linalg.vector_norm(r)
@@ -786,21 +979,29 @@ def reset_counts():
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_adam_kernel as fak
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.transformer.functional import fused_softmax as sm
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     ln.launches = ln.bwd_launches = fak.launches = 0
+    ln.ln_launches = ln.ln_bwd_launches = 0
+    sm.causal_launches = sm.masked_launches = 0
 
 
 def read_counts():
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_adam_kernel as fak
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.transformer.functional import fused_softmax as sm
 
     return {"flash_attention_fwd": fa.launches,
             "flash_attention_bwd_dq": fa.dq_launches,
             "flash_attention_bwd_dkv": fa.dkv_launches,
             "rms_norm_fwd": ln.launches, "rms_norm_bwd": ln.bwd_launches,
-            "fused_adam": fak.launches}
+            "fused_adam": fak.launches,
+            "layer_norm_fwd": ln.ln_launches,
+            "layer_norm_bwd": ln.ln_bwd_launches,
+            "fused_softmax_causal": sm.causal_launches,
+            "fused_softmax_masked": sm.masked_launches}
 
 
 def step_flops(n_params: int, n_layers: int, hidden: int, seq: int,
@@ -886,7 +1087,9 @@ def phase_training(dev):
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for t in _tree.leaves(params))
 
-    grads = grad_check(params, batch, cfg)
+    grads = grad_check(params,
+                       lambda t: llama.loss_fn(t, batch, cfg, remat=False),
+                       lambda t: reference_loss(t, *batch, cfg))
     torch.cuda.empty_cache()
 
     tx = fused_adam(lr=TRAIN_LR, flat=True)
@@ -923,9 +1126,10 @@ def phase_training(dev):
                              f"launches through its wrapper, not 1")
 
     L = cfg.num_layers
-    want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L, "rms_norm_fwd": 2 * L + 1,
-            "rms_norm_bwd": 2 * L + 1, "fused_adam": 1}
+    want = dict({k: 0 for k in total}, flash_attention_fwd=L,
+                flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
+                rms_norm_fwd=2 * L + 1, rms_norm_bwd=2 * L + 1,
+                fused_adam=1)
     if any(c != want for c in counts):
         raise AssertionError(f"launches per step {counts} != {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -939,7 +1143,13 @@ def phase_training(dev):
     # step 1 also allocates the flat Adam slabs and runs the Adam check
     steady = step_ms[1:]
     mean_ms = sum(steady) / len(steady)
-    return params, opt_state, batch, cfg, tx, {
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, loss = llama.train_step(params, opt_state, batch,
+                                                   cfg, tx, remat=False)
+        return loss
+
+    return step, {
         "phase": "training", "model": "llama3_8b", "num_layers": L,
         "dtype": "bfloat16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "params": n_params, "optimizer": "fused_adam(lr=1e-4, flat=True)",
@@ -960,28 +1170,24 @@ def phase_training(dev):
         "expected_per_step": want}
 
 
-def phase_profile_training(state):
-    """One more training step under ``torch.profiler`` (``--profile``):
-    the device's busy time by kernel over the step's host wall time."""
+def profile_step(phase: str, step):
+    """One more training step, ``step() -> loss``, under ``torch.profiler``
+    (``--profile``): the device's busy time by kernel over the step's host
+    wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from apex_tpu_torch.models import llama
-
-    params, opt_state, batch, cfg, tx = state
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt_state, loss = llama.train_step(params, opt_state, batch,
-                                                   cfg, tx, remat=False)
-        float(loss)
+        float(step())
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:15]
-    return {"phase": "profile_training", "profiled_step_ms": wall_ms,
+    return {"phase": phase, "profiled_step_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share_profiled": 1.0 - busy_ms / wall_ms,
             "kernels_seen": len(device),
@@ -990,10 +1196,257 @@ def phase_profile_training(state):
                             for e in top]}
 
 
+def plain_ln(eps):
+    """LayerNorm through its plain version, for the plain-autograd
+    references."""
+    from apex_tpu_torch.ops.layer_norm import _ln_fwd_plain
+
+    def ln(x, w, b):
+        y, _, _ = _ln_fwd_plain(x.reshape(-1, x.shape[-1]), w, b, eps)
+        return y.reshape(x.shape)
+
+    return ln
+
+
+def mean_nll(logits, targets, weights=None):
+    """Log-softmax CE of fp32 logits, averaged over the tokens or, with
+    ``weights``, over their weighted sum (bert's loss mask)."""
+    import torch
+
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    if weights is None:
+        return nll.mean()
+    return torch.sum(nll * weights) / torch.clamp(torch.sum(weights),
+                                                  min=1.0)
+
+
+def gpt2_plain_loss(params, batch, cfg):
+    """The GPT-2 loss through the port's plain functions (_ln_fwd_plain,
+    _causal_plain) and ordinary autograd, with the full logits and a
+    log-softmax CE; each layer is recomputed in the backward so that an
+    fp32 copy of the model fits beside the bf16 one."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.models import _common
+    from apex_tpu_torch.transformer.functional.fused_softmax import (
+        _causal_plain,
+    )
+
+    tokens, targets = batch
+    ln = plain_ln(cfg.ln_eps)
+
+    def layer(x, lp):
+        x = x + _common.packed_qkv_attention(
+            ln(x, lp["ln1_w"], lp["ln1_b"]), lp, cfg.num_heads,
+            cfg.head_dim, _causal_plain)
+        return x + _common.packed_mlp(
+            ln(x, lp["ln2_w"], lp["ln2_b"]), lp,
+            lambda y: F.gelu(y, approximate="tanh"))
+
+    x = params["embed"][tokens] + params["pos_embed"][None, :tokens.shape[1]]
+    x = _common.run_stacked(x, params["layers"], cfg.num_layers, layer,
+                            remat=True)
+    x = ln(x, params["lnf_w"], params["lnf_b"])
+    return mean_nll(x @ params["embed"].T, targets)
+
+
+def bert_plain_loss(params, batch, cfg, pad_mask):
+    """The BERT MLM loss through the port's plain functions
+    (_ln_fwd_plain, _masked_plain) and ordinary autograd, recomputing
+    each layer in the backward."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.models import _common
+    from apex_tpu_torch.transformer.functional.fused_softmax import (
+        _masked_plain,
+    )
+
+    tokens, targets, loss_mask = batch
+    ln = plain_ln(cfg.ln_eps)
+    mask = pad_mask[:, None, None, :]
+
+    def softmax(scores, scale):
+        return _masked_plain(scores, mask, scale)
+
+    def layer(x, lp):
+        x = ln(x + _common.packed_qkv_attention(x, lp, cfg.num_heads,
+                                                cfg.head_dim, softmax),
+               lp["ln1_w"], lp["ln1_b"])
+        return ln(x + _common.packed_mlp(x, lp, F.gelu), lp["ln2_w"],
+                  lp["ln2_b"])
+
+    x = (params["embed"][tokens] + params["pos_embed"][None, :tokens.shape[1]]
+         + params["type_embed"][0])
+    x = ln(x, params["emb_ln_w"], params["emb_ln_b"])
+    x = _common.run_stacked(x, params["layers"], cfg.num_layers, layer,
+                            remat=True)
+    x = ln(F.gelu(x @ params["mlm_dense"] + params["mlm_bias"]),
+           params["mlm_ln_w"], params["mlm_ln_b"])
+    return mean_nll(x @ params["embed"].T, targets, loss_mask)
+
+
+def run_steps(step, steps: int):
+    """``steps`` calls of ``step() -> loss``: the losses, each call's host
+    ms (synchronised before, and ending in the loss's read) and each
+    call's launches."""
+    import torch
+
+    losses, step_ms, counts = [], [], []
+    for _ in range(steps):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = read_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+    return losses, step_ms, counts
+
+
+def check_steps(losses, counts, want) -> None:
+    if any(c != want for c in counts):
+        raise AssertionError(f"launches per step {counts} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+
+def phase_gpt2_training(dev):
+    """GPT-2 345M, 24 layers, batch 8 x 1024: the step-0 gradient check,
+    then TRAIN_STEPS train_steps with tree-mode fused_adam."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import gpt2
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg = gpt2.gpt2_345m()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = gpt2.init_params(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ),
+                           generator=gen, device="cuda")
+    batch = (tokens, torch.roll(tokens, -1, dims=-1))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+
+    def kernel_loss(t):
+        return gpt2.loss_fn(t, batch, cfg, remat=True,
+                            vocab_chunks=GPT2_CHUNKS)
+
+    grads = grad_check(params, kernel_loss,
+                       lambda t: gpt2_plain_loss(t, batch, cfg))
+    torch.cuda.empty_cache()
+
+    tx = fused_adam(lr=GPT2_LR)
+    state = {"opt": tx.init(params)}
+
+    def step():
+        _, state["opt"], loss = gpt2.train_step(
+            params, state["opt"], batch, cfg, tx, remat=True,
+            vocab_chunks=GPT2_CHUNKS)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms, counts = run_steps(step, TRAIN_STEPS)
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    # forward: 2 LayerNorms a layer and the final one; the backward's
+    # recompute of each layer runs both LayerNorms and the softmax again
+    want = dict({k: 0 for k in total}, layer_norm_fwd=4 * L + 1,
+                layer_norm_bwd=2 * L + 1, fused_softmax_causal=2 * L)
+    check_steps(losses, counts, want)
+    tokens_per_step = GPT2_BATCH * GPT2_SEQ
+    flops = step_flops(n_params, L, cfg.hidden_size, GPT2_SEQ, GPT2_BATCH)
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])  # step 1 allocates m, v
+    return step, {
+            "phase": "gpt2_training", "model": "gpt2_345m", "num_layers": L,
+            "dtype": "bfloat16", "batch": GPT2_BATCH, "seq": GPT2_SEQ,
+            "params": n_params, "optimizer": "fused_adam(lr=1e-4)",
+            "remat": True, "vocab_chunks": GPT2_CHUNKS, "init_s": init_s,
+            "grad_check": grads, "losses": losses, "step_ms": step_ms,
+            "steady_step_ms": mean_ms,
+            "tokens_per_s": tokens_per_step / mean_ms * 1e3,
+            "step_flops": flops, "tflops_per_s": flops / mean_ms / 1e9,
+            "mfu": flops / (mean_ms * 1e-3) / dev["bf16_flops"],
+            "peak_memory_bytes": peak, "launches_per_step": counts[0],
+            "launches": total, "expected_per_step": want}
+
+
+def phase_bert_training(dev):
+    """BERT-base, 12 layers, batch 8 x 512 with the 15% masking and a
+    padding mask: the step-0 gradient check, then TRAIN_STEPS
+    train_steps with fused_lamb."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import bert
+    from apex_tpu_torch.optimizers import fused_lamb
+
+    cfg = bert.bert_base()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = bert.init_params(gen, cfg, device="cuda")
+    shape = (BERT_BATCH, BERT_SEQ)
+    tokens = torch.randint(4, cfg.vocab_size, shape, generator=gen,
+                           device="cuda")
+    mlm = torch.rand(shape, generator=gen, device="cuda") < 0.15
+    pad = bert_pad_mask(gen, BERT_BATCH, BERT_SEQ)
+    inputs = torch.where(mlm, 3, torch.where(pad, 0, tokens))
+    batch = (inputs, tokens, (mlm & ~pad).float())
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+
+    grads = grad_check(
+        params, lambda t: bert.loss_fn(t, batch, cfg, pad_mask=pad,
+                                       remat=True),
+        lambda t: bert_plain_loss(t, batch, cfg, pad))
+    torch.cuda.empty_cache()
+
+    tx = fused_lamb(lr=BERT_LR)
+    state = {"opt": tx.init(params)}
+
+    def step():
+        _, state["opt"], loss = bert.train_step(
+            params, state["opt"], batch, cfg, tx, pad_mask=pad, remat=True)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms, counts = run_steps(step, TRAIN_STEPS)
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    # the embedding's and the MLM head's LayerNorms, 2 a layer, and the
+    # recompute of each layer's 2 and its softmax in the backward
+    want = dict({k: 0 for k in total}, layer_norm_fwd=4 * L + 2,
+                layer_norm_bwd=2 * L + 2, fused_softmax_masked=2 * L)
+    check_steps(losses, counts, want)
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])  # step 1 allocates m, v
+    return step, {
+            "phase": "bert_training", "model": "bert_base", "num_layers": L,
+            "dtype": "bfloat16", "batch": BERT_BATCH, "seq": BERT_SEQ,
+            "valid_tokens": int((~pad).sum()),
+            "masked_tokens": int(batch[2].sum()), "params": n_params,
+            "optimizer": "fused_lamb(lr=1e-3)", "remat": True,
+            "init_s": init_s, "grad_check": grads, "losses": losses,
+            "step_ms": step_ms, "steady_step_ms": mean_ms,
+            "sequences_per_s": BERT_BATCH / mean_ms * 1e3,
+            "tokens_per_s": BERT_BATCH * BERT_SEQ / mean_ms * 1e3,
+            "peak_memory_bytes": peak, "launches_per_step": counts[0],
+            "launches": total, "expected_per_step": want}
+
+
 def summary(kernels, counts, path_adam):
-    """One row per kernel; ``launches`` sums the serving and training
-    paths' runs, ``launches_by_path`` splits them. ``path_adam`` is the
-    training phase's check of its Adam launch on the packed slab."""
+    """One row per kernel; ``launches`` sums the four paths' runs,
+    ``launches_by_path`` splits them. ``path_adam`` is the training
+    phase's check of its Adam launch on the packed slab."""
     def row(name, source, replaces, r, err, **extra):
         by_path = {path: c[name] for path, c in counts.items()}
         return {"name": name, "route": "cuda", "source": source,
@@ -1009,6 +1462,9 @@ def summary(kernels, counts, path_adam):
     bwd = kernels["flash_attention_bwd"]
     rbwd = kernels["rms_norm_bwd"]
     adam = kernels["fused_adam"]
+    lnf, lnb = kernels["layer_norm_fwd"], kernels["layer_norm_bwd"]
+    smc = kernels["fused_softmax_causal"]
+    smm = kernels["fused_softmax_masked"]
     csrc = "apex_tpu_torch/ops/csrc/"
     # the plain and library times of the two flash backward rows are one
     # call each that computes dq, dk and dv together: count them once
@@ -1039,6 +1495,20 @@ def summary(kernels, counts, path_adam):
             "apex_tpu/ops/fused_adam_kernel.py:35",
             dict(adam, shape=[adam["n"]]), adam["max_abs_err"]["delta"],
             path_max_abs_err=path_adam),
+        # LayerNorm at GPT-2's shape (the BERT shape's numbers are in the
+        # kernels phase), errors over both
+        row("layer_norm_fwd", csrc + "layer_norm.cu",
+            "apex_tpu/ops/layer_norm.py:40", lnf[0],
+            max(x["max_abs_err"] for x in lnf)),
+        row("layer_norm_bwd", csrc + "layer_norm.cu",
+            "apex_tpu/ops/layer_norm.py:163", lnb[0],
+            max(max(x["max_abs_err"].values()) for x in lnb)),
+        row("fused_softmax_causal", csrc + "fused_softmax.cu",
+            "apex_tpu/transformer/functional/fused_softmax.py:104", smc,
+            smc["max_abs_err"]),
+        row("fused_softmax_masked", csrc + "fused_softmax.cu",
+            "apex_tpu/transformer/functional/fused_softmax.py:119", smm,
+            smm["max_abs_err"]),
     ]}
 
 
@@ -1079,19 +1549,33 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "training"
         reset_counts()
-        *state, training = phase_training(dev)
+        step, training = phase_training(dev)
         emit(training)
         if profiling:
             phase = "profile_training"
-            emit(phase_profile_training(state))
-        del state
+            emit(profile_step(phase, step))
+        del step
+        results = {}
+        for path, run in (("gpt2_training", phase_gpt2_training),
+                          ("bert_training", phase_bert_training)):
+            phase = path
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_counts()
+            step, results[path] = run(dev)
+            emit(results[path])
+            if profiling:
+                phase = "profile_" + path
+                emit(profile_step(phase, step))
+            del step
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"[:2000]})
         return 1
     counts = {"serving": serving["launches"],
-              "training": training["launches"]}
+              "training": training["launches"],
+              **{path: r["launches"] for path, r in results.items()}}
     emit({"kernel_counts": counts})
     emit(summary(kernels, counts, training["adam_path_check"]))
     print(dev["nvidia_smi"], flush=True)

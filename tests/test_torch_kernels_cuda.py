@@ -11,6 +11,7 @@ import torch
 from apex_tpu_torch.ops import flash_attention as fa
 from apex_tpu_torch.ops import fused_adam_kernel as fak
 from apex_tpu_torch.ops import layer_norm as ln
+from apex_tpu_torch.transformer.functional import fused_softmax as sm
 
 pytestmark = pytest.mark.cuda
 
@@ -196,3 +197,153 @@ def test_adam_kernel_matches_plain(gen, p_dtype, n, offset, adam_w_mode,
                   torch.float16: (1e-3, 2.0 ** -24)}[p_dtype]
     torch.testing.assert_close(delta.float(), d_ref.float(), rtol=rtol,
                                atol=atol)
+
+
+LN_REL = {torch.float32: 2e-5, torch.bfloat16: 8e-3, torch.float16: 1e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", [64, 100, 768, 1024, 4096])
+@pytest.mark.parametrize("rows", [1, 37, 1000])
+@pytest.mark.parametrize("affine", [True, False])
+def test_layer_norm_kernels_match_plain(gen, dtype, h, rows, affine):
+    """Forward (y, mu, rstd) and backward (dx, dw, db) against the plain
+    versions. h = 100 is no multiple of 8 and takes the scalar path; 1000
+    rows is more than the DW_PARTS blocks of the dw/db partials; x has a
+    mean of 0.5 so the centring matters. Outputs within one ulp of their
+    dtype of the output's scale (fp32: summation order)."""
+    x = (2 * torch.randn(rows, h, generator=gen, device="cuda") + 0.5).to(
+        dtype)
+    dy = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+    w = b = None
+    if affine:
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+        b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+    before = (ln.ln_launches, ln.ln_bwd_launches)
+    y, mu, rstd = ln._ln_fwd_cuda(x, w, b, 1e-5)
+    got = ln._ln_bwd_cuda(x, w, mu, rstd, dy)
+    assert (ln.ln_launches, ln.ln_bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    y_ref, mu_ref, rstd_ref = ln._ln_fwd_plain(x, w, b, 1e-5)
+    ref = ln._ln_bwd_plain(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    rel = LN_REL[dtype]
+    assert y.dtype == dtype
+    _assert_near(y, y_ref, rel, "y")
+    torch.testing.assert_close(mu, mu_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
+    if not affine:
+        got, ref = (got,), (ref,)
+    for name, a, r in zip(("dx", "dw", "db"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        _assert_near(a, r, rel, name)
+
+
+def test_layer_norm_mixed_dtype_and_autograd_launch_both_kernels(gen):
+    """bf16 activations with fp32 affine params (the mixed-dtype API),
+    through the autograd Function: one forward and one backward launch,
+    grads in their inputs' dtypes."""
+    from apex_tpu_torch.normalization import fused_layer_norm as fln
+
+    x = torch.randn(3, 5, 768, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    w = torch.ones(768, device="cuda", requires_grad=True)
+    b = torch.zeros(768, device="cuda", requires_grad=True)
+    before = (ln.ln_launches, ln.ln_bwd_launches)
+    y = fln.mixed_dtype_fused_layer_norm_affine(x, w, b, 768, eps=1e-12)
+    y.float().square().sum().backward()
+    assert (ln.ln_launches, ln.ln_bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert y.dtype == x.grad.dtype == torch.bfloat16
+    assert w.grad.dtype == b.grad.dtype == torch.float32
+    y_ref, _, _ = ln._ln_fwd_plain(x.detach().reshape(-1, 768), w.detach(),
+                                   b.detach(), 1e-12)
+    _assert_near(y.detach().reshape(-1, 768), y_ref, 8e-3, "y")
+
+
+SM_TOL = {torch.float32: (2e-5, 1e-7), torch.bfloat16: (8e-3, 1e-6),
+          torch.float16: (1e-3, 1e-7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (37, 37), (33, 70), (128, 1024),
+                                   (7, 4099), (3, 16384)])
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+def test_causal_softmax_kernel_matches_plain(gen, dtype, sq, sk, scale):
+    """sq < sk checks the sk - sq offset; sk = 4099 takes the scalar
+    path; 16384 is the whole-row limit (16 values a thread). Each output
+    is exp(s - max) / sum rounded once: within one ulp of its dtype."""
+    x = (4 * torch.randn(5, sq, sk, generator=gen, device="cuda")).to(dtype)
+    before = sm.causal_launches
+    y = sm._causal_cuda(x, scale)
+    assert sm.causal_launches == before + 1
+    ref = sm._causal_plain(x, scale)
+    torch.cuda.synchronize()
+    rtol, atol = SM_TOL[dtype]
+    assert y.dtype == dtype
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sq,sk", [(16, 16), (5, 37), (64, 512),
+                                   (9, 1000)])
+@pytest.mark.parametrize("mask_kind", ["padding", "full", "rows"])
+def test_masked_softmax_kernel_matches_plain(gen, dtype, sq, sk, mask_kind):
+    """x [2, 3, sq, sk] with a [2, 1, 1, sk] padding mask (read through
+    zero strides), a full [2, 3, sq, sk] mask with one fully masked row
+    (uniform 1/sk), or a [sq, sk] mask broadcast over both lead dims."""
+    x = (4 * torch.randn(2, 3, sq, sk, generator=gen, device="cuda")).to(
+        dtype)
+    if mask_kind == "padding":
+        mask = torch.zeros(2, 1, 1, sk, dtype=torch.bool, device="cuda")
+        mask[1, ..., 3:] = True
+    elif mask_kind == "full":
+        mask = torch.rand(2, 3, sq, sk, generator=gen, device="cuda") < 0.3
+        mask[0, 1, sq - 1] = True
+    else:
+        mask = torch.rand(sq, sk, generator=gen, device="cuda") < 0.5
+    before = sm.masked_launches
+    y = sm._masked_cuda(x, mask, 0.125)
+    assert sm.masked_launches == before + 1
+    ref = sm._masked_plain(x, mask, 0.125)
+    torch.cuda.synchronize()
+    rtol, atol = SM_TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
+    if mask_kind == "full":
+        torch.testing.assert_close(y[0, 1, sq - 1].float(),
+                                   torch.full((sk,), 1.0 / sk,
+                                              device="cuda"),
+                                   rtol=rtol, atol=atol)
+
+
+def test_softmax_autograd_launches_one_forward_kernel(gen):
+    """The backward is plain PyTorch from the saved output: one kernel
+    launch per forward, none in the backward."""
+    x = torch.randn(2, 4, 16, 16, generator=gen, device="cuda",
+                    requires_grad=True)
+    mask = torch.zeros(2, 1, 1, 16, dtype=torch.bool, device="cuda")
+    before = (sm.causal_launches, sm.masked_launches)
+    y1 = sm.scaled_upper_triang_masked_softmax(x.reshape(8, 16, 16), None,
+                                               0.5)
+    y2 = sm.scaled_masked_softmax(x, mask, 0.5)
+    (y1.sum() + y2.square().sum()).backward()
+    assert (sm.causal_launches, sm.masked_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert torch.isfinite(x.grad).all()
+
+
+def test_softmax_long_rows_raise_on_the_card(gen):
+    """sk above the whole-row limit needs the blocked kernels, which are
+    not ported: the card raises, never substitutes the plain version."""
+    sk = sm._WHOLE_ROW_MAX_SK + 1
+    x = torch.zeros(1, 2, sk, device="cuda")
+    before = (sm.causal_launches, sm.masked_launches)
+    with pytest.raises(NotImplementedError, match="blocked"):
+        sm.scaled_upper_triang_masked_softmax(x, None, 1.0)
+    with pytest.raises(NotImplementedError, match="blocked"):
+        sm.scaled_masked_softmax(x, torch.zeros(1, 1, sk, dtype=torch.bool,
+                                                device="cuda"), 1.0)
+    assert (sm.causal_launches, sm.masked_launches) == before

@@ -21,10 +21,20 @@ WRAPPERS = {
                                "forward", "backward"),
     "ops/layer_norm.py": ("_rms_fwd_cuda", "_rms_fwd", "rms_norm", "_lib",
                           "_rms_bwd_cuda", "_rms_bwd", "forward",
-                          "backward"),
+                          "backward", "_ln_fwd_cuda", "_ln_fwd",
+                          "_ln_bwd_cuda", "_ln_bwd", "layer_norm",
+                          "_ln_lib"),
+    "transformer/functional/fused_softmax.py": (
+        "_causal_cuda", "_masked_cuda", "_causal", "_masked", "_lib",
+        "forward", "backward", "scaled_upper_triang_masked_softmax",
+        "scaled_masked_softmax"),
     "ops/fused_adam_kernel.py": ("_adam_flat_cuda", "adam_flat", "_lib"),
     "optimizers/fused_adam.py": ("fused_adam",),
+    "optimizers/fused_lamb.py": ("fused_lamb",),
+    "models/_common.py": ("run_stacked", "train_step"),
     "models/llama.py": ("train_step", "loss_fn", "run_layers"),
+    "models/gpt2.py": ("train_step", "loss_fn", "hidden_states"),
+    "models/bert.py": ("train_step", "loss_fn", "forward"),
     "ops/_build.py": ("build", "library", "check"),
 }
 
@@ -103,6 +113,30 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     ServingEngine(params, cfg, num_pages=32, device="cpu")
     assert generate.generate(params, prompt, cfg, 2,
                              device="cpu").shape == (1, 5)
+
+
+@pytest.mark.parametrize("family", ["gpt2", "bert"])
+def test_gpt2_bert_entry_points_raise_without_a_gpu(monkeypatch, family):
+    import importlib
+
+    from apex_tpu_torch.optimizers import fused_lamb
+    from apex_tpu_torch.optimizers.fused_lamb import opt_state_from_numpy
+
+    model = importlib.import_module(f"apex_tpu_torch.models.{family}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = model.tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_params(torch.Generator().manual_seed(0), cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.params_from_numpy({"w": params["embed"].numpy()})
+    state = fused_lamb().init(params)
+    tree = {"w": state.mu["embed"].numpy()}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt_state_from_numpy(state._replace(mu=tree, nu=tree))
+    assert opt_state_from_numpy(state._replace(mu=tree, nu=tree),
+                                device="cpu").mu["w"].device.type == "cpu"
 
 
 def test_params_on_another_device_are_refused():
