@@ -1,334 +1,18 @@
-// LayerNorm forward and backward for Hopper (sm_90a).
+// LayerNorm forward and backward for Hopper (sm_90a): norm.cuh's kernels
+// with centring, the bias and db.
 //
 // layer_norm_fwd replaces apex_tpu/ops/layer_norm.py:40 _ln_fwd_kernel
-// (launched by _ln_fwd_pallas, :94). Per row of x [rows, h], in fp32:
-//   mu   = mean(x)
-//   rstd = rsqrt(mean((x - mu)^2) + eps)
-//   y    = ((x - mu) * rstd) * w + b     (w, b optional), stored in x's dtype
-// and mu, rstd [rows] are written in fp32, as the TPU kernel saves them.
-// The variance is the mean of squared centred values, taken after the
-// mean, in the TPU kernel's order: never E[x^2] - mu^2.
-//
-// layer_norm_bwd replaces apex_tpu/ops/layer_norm.py:163 _ln_bwd_kernel
-// (launched by _ln_bwd_pallas, :239). With xhat = (x - mu) * rstd and
-// gw = dy * w (dy without an affine weight):
-//   dx = rstd * (gw - mean(gw) - xhat * mean(gw * xhat))   per row, x's dtype
-//   dw = sum over rows of dy * xhat                       fp32, stored in w's dtype
-//   db = sum over rows of dy                              fp32, stored in w's dtype
+// (launched by _ln_fwd_pallas, :94); layer_norm_bwd replaces :163
+// _ln_bwd_kernel (launched by _ln_bwd_pallas, :239). norm.cuh gives the
+// math and the design.
 //
 // Bound: bytes, both ways. The forward reads x, w and b and writes y (and
 // 8 bytes of mu and rstd per row): 33.6 MB, 0.010 ms at 3.35 TB/s, for
 // GPT-2's 8192 x 1024 bf16. The backward reads x, dy, mu, rstd and w and
 // writes dx, dw and db: 50.4 MB, 0.015 ms. A few flops per element, far
 // below Hopper's ~295 flop/byte ridge.
-//
-// Design: rms_norm.cu's, with one more statistic. One block per row for the
-// forward, so the row's sums never leave the SM; 16-byte vector loads and
-// stores when h and the pointers allow them (a scalar path otherwise, so
-// any h and any row count work: there is no padding to a row block, as the
-// TPU's _pad_rows needs). The three passes over a row (mean, centred
-// squares, output) read it from device memory once: the second and third
-// find it in L1/L2. The backward's dw and db are sums over all rows, which
-// the TPU kernel carries in (1, h) blocks from grid step to grid step;
-// Hopper's blocks run in no order, so a fixed number of blocks (`parts`,
-// chosen by the wrapper) each walk every parts-th row, keep fp32 column
-// sums of dy * xhat and of dy in shared memory (2h floats; each thread owns
-// the same columns on every row), and write them as one row of a
-// [parts, 2h] fp32 buffer; a second kernel sums its columns in a fixed
-// order. No atomics, so the result is the same on every run and card.
 
-#include <cstdint>
-#include <initializer_list>
-
-#include "common.cuh"
-
-namespace {
-
-constexpr int kMaxThreads = 1024;
-
-template <typename TW>
-__device__ __forceinline__ float weight_at(const TW* w, int i) {
-  return w == nullptr ? 1.f : to_float(w[i]);
-}
-
-template <typename TW>
-__device__ __forceinline__ float bias_at(const TW* b, int i) {
-  return b == nullptr ? 0.f : to_float(b[i]);
-}
-
-int threads_for(int work) {
-  int threads = ((work + 31) / 32) * 32;
-  return threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-}
-
-template <typename TX, typename TW, bool kVec>
-__global__ void ln_fwd_kernel(const TX* __restrict__ x,
-                              const TW* __restrict__ w,
-                              const TW* __restrict__ b, TX* __restrict__ y,
-                              float* __restrict__ mu,
-                              float* __restrict__ rstd, int h, float eps) {
-  constexpr int V = 16 / sizeof(TX);  // elements per 16-byte vector
-  const int64_t row = blockIdx.x;
-  const TX* xr = x + row * h;
-  TX* yr = y + row * h;
-  const uint4* xv = reinterpret_cast<const uint4*>(xr);
-
-  float s = 0.f;
-  if (kVec) {
-    for (int i = threadIdx.x; i < h / V; i += blockDim.x) {
-      uint4 raw = xv[i];
-      const TX* e = reinterpret_cast<const TX*>(&raw);
-#pragma unroll
-      for (int j = 0; j < V; ++j) s += to_float(e[j]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < h; i += blockDim.x) s += to_float(xr[i]);
-  }
-  const float mean = block_sum(s) / static_cast<float>(h);
-
-  float ss = 0.f;
-  if (kVec) {
-    for (int i = threadIdx.x; i < h / V; i += blockDim.x) {
-      uint4 raw = xv[i];
-      const TX* e = reinterpret_cast<const TX*>(&raw);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float c = to_float(e[j]) - mean;
-        ss += c * c;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < h; i += blockDim.x) {
-      const float c = to_float(xr[i]) - mean;
-      ss += c * c;
-    }
-  }
-  const float r = rsqrtf(block_sum(ss) / static_cast<float>(h) + eps);
-  if (threadIdx.x == 0) {
-    mu[row] = mean;
-    rstd[row] = r;
-  }
-
-  if (kVec) {
-    uint4* yv = reinterpret_cast<uint4*>(yr);
-    for (int i = threadIdx.x; i < h / V; i += blockDim.x) {
-      uint4 raw = xv[i];
-      const TX* e = reinterpret_cast<const TX*>(&raw);
-      uint4 out;
-      TX* o = reinterpret_cast<TX*>(&out);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int c = i * V + j;
-        o[j] = from_float<TX>((to_float(e[j]) - mean) * r * weight_at(w, c) +
-                              bias_at(b, c));
-      }
-      yv[i] = out;
-    }
-  } else {
-    for (int i = threadIdx.x; i < h; i += blockDim.x)
-      yr[i] = from_float<TX>((to_float(xr[i]) - mean) * r * weight_at(w, i) +
-                             bias_at(b, i));
-  }
-}
-
-template <typename TX>
-bool vec_ok(int h, std::initializer_list<const void*> ptrs) {
-  constexpr int V = 16 / sizeof(TX);
-  if (h % V != 0) return false;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
-}
-
-template <typename TX, typename TW>
-cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y,
-                       float* mu, float* rstd, int rows, int h, float eps,
-                       cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(TX);
-  const bool vec = vec_ok<TX>(h, {x, y});
-  const int threads = threads_for(vec ? h / V : h);
-  const TX* xp = static_cast<const TX*>(x);
-  const TW* wp = static_cast<const TW*>(w);
-  const TW* bp = static_cast<const TW*>(b);
-  TX* yp = static_cast<TX*>(y);
-  if (vec)
-    ln_fwd_kernel<TX, TW, true><<<rows, threads, 0, stream>>>(xp, wp, bp, yp, mu, rstd, h, eps);
-  else
-    ln_fwd_kernel<TX, TW, false><<<rows, threads, 0, stream>>>(xp, wp, bp, yp, mu, rstd, h, eps);
-  return cudaGetLastError();
-}
-
-template <typename TX>
-cudaError_t dispatch_fwd_w(const void* x, const void* w, const void* b,
-                           int w_dtype, void* y, float* mu, float* rstd,
-                           int rows, int h, float eps, cudaStream_t stream) {
-  switch (w_dtype) {
-    case kFloat32: return launch_fwd<TX, float>(x, w, b, y, mu, rstd, rows, h, eps, stream);
-    case kBFloat16: return launch_fwd<TX, __nv_bfloat16>(x, w, b, y, mu, rstd, rows, h, eps, stream);
-    case kFloat16: return launch_fwd<TX, __half>(x, w, b, y, mu, rstd, rows, h, eps, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// One block per `parts`-th row (gridDim.x = parts). part is [parts, 2h]
-// fp32 (dw sums, then db sums), or null when there is no affine weight.
-template <typename TX, typename TW, bool kVec>
-__global__ void ln_bwd_kernel(const TX* __restrict__ x,
-                              const TX* __restrict__ dy,
-                              const float* __restrict__ mu,
-                              const float* __restrict__ rstd,
-                              const TW* __restrict__ w, TX* __restrict__ dx,
-                              float* __restrict__ part, int rows, int h) {
-  constexpr int V = 16 / sizeof(TX);  // elements per 16-byte vector
-  extern __shared__ float acc[];      // [2h] when part is not null
-  const bool affine = part != nullptr;
-  // zeroed before the first row's block_sum, whose barriers order these
-  // stores before every thread's first accumulation
-  if (affine)
-    for (int i = threadIdx.x; i < 2 * h; i += blockDim.x) acc[i] = 0.f;
-
-  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
-    const TX* xr = x + row * h;
-    const TX* gr = dy + row * h;
-    TX* dxr = dx + row * h;
-    const float m = mu[row];
-    const float r = rstd[row];
-
-    float s1 = 0.f, s2 = 0.f;
-    if (kVec) {
-      const uint4* xv = reinterpret_cast<const uint4*>(xr);
-      const uint4* gv = reinterpret_cast<const uint4*>(gr);
-      for (int i = threadIdx.x; i < h / V; i += blockDim.x) {
-        uint4 xraw = xv[i], graw = gv[i];
-        const TX* xe = reinterpret_cast<const TX*>(&xraw);
-        const TX* ge = reinterpret_cast<const TX*>(&graw);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float gw = to_float(ge[j]) * weight_at(w, i * V + j);
-          s1 += gw;
-          s2 += gw * ((to_float(xe[j]) - m) * r);
-        }
-      }
-    } else {
-      for (int i = threadIdx.x; i < h; i += blockDim.x) {
-        const float gw = to_float(gr[i]) * weight_at(w, i);
-        s1 += gw;
-        s2 += gw * ((to_float(xr[i]) - m) * r);
-      }
-    }
-    const float m1 = block_sum(s1) / static_cast<float>(h);
-    const float m2 = block_sum(s2) / static_cast<float>(h);
-
-    if (kVec) {
-      const uint4* xv = reinterpret_cast<const uint4*>(xr);
-      const uint4* gv = reinterpret_cast<const uint4*>(gr);
-      uint4* dv = reinterpret_cast<uint4*>(dxr);
-      for (int i = threadIdx.x; i < h / V; i += blockDim.x) {
-        uint4 xraw = xv[i], graw = gv[i];
-        const TX* xe = reinterpret_cast<const TX*>(&xraw);
-        const TX* ge = reinterpret_cast<const TX*>(&graw);
-        uint4 out;
-        TX* o = reinterpret_cast<TX*>(&out);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const int c = i * V + j;
-          const float xh = (to_float(xe[j]) - m) * r;
-          const float g = to_float(ge[j]);
-          o[j] = from_float<TX>(r * (g * weight_at(w, c) - m1 - xh * m2));
-          if (affine) {
-            acc[c] += g * xh;
-            acc[h + c] += g;
-          }
-        }
-        dv[i] = out;
-      }
-    } else {
-      for (int i = threadIdx.x; i < h; i += blockDim.x) {
-        const float xh = (to_float(xr[i]) - m) * r;
-        const float g = to_float(gr[i]);
-        dxr[i] = from_float<TX>(r * (g * weight_at(w, i) - m1 - xh * m2));
-        if (affine) {
-          acc[i] += g * xh;
-          acc[h + i] += g;
-        }
-      }
-    }
-  }
-  if (affine) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * h; i += blockDim.x)
-      part[static_cast<int64_t>(blockIdx.x) * 2 * h + i] = acc[i];
-  }
-}
-
-// dw[c], db[c] = sums over the parts rows of part[:, c] and part[:, h + c],
-// in row order.
-template <typename TW>
-__global__ void ln_part_reduce_kernel(const float* __restrict__ part,
-                                      TW* __restrict__ dw,
-                                      TW* __restrict__ db, int parts, int h) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= 2 * h) return;
-  float s = 0.f;
-  for (int p = 0; p < parts; ++p) s += part[static_cast<int64_t>(p) * 2 * h + c];
-  if (c < h)
-    dw[c] = from_float<TW>(s);
-  else
-    db[c - h] = from_float<TW>(s);
-}
-
-template <typename TX, typename TW>
-cudaError_t launch_bwd(const void* x, const void* dy, const float* mu,
-                       const float* rstd, const void* w, void* dx, void* dw,
-                       void* db, float* part, int rows, int h, int parts,
-                       cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(TX);
-  const bool vec = vec_ok<TX>(h, {x, dy, dx});
-  const int threads = threads_for(vec ? h / V : h);
-  const bool affine = w != nullptr;
-  const size_t smem = affine ? 2 * static_cast<size_t>(h) * sizeof(float) : 0;
-  const TX* xp = static_cast<const TX*>(x);
-  const TX* gp = static_cast<const TX*>(dy);
-  const TW* wp = static_cast<const TW*>(w);
-  TX* dxp = static_cast<TX*>(dx);
-  float* pp = affine ? part : nullptr;
-  cudaError_t err;
-  if (vec) {
-    err = cudaFuncSetAttribute(ln_bwd_kernel<TX, TW, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    ln_bwd_kernel<TX, TW, true><<<parts, threads, smem, stream>>>(
-        xp, gp, mu, rstd, wp, dxp, pp, rows, h);
-  } else {
-    err = cudaFuncSetAttribute(ln_bwd_kernel<TX, TW, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    ln_bwd_kernel<TX, TW, false><<<parts, threads, smem, stream>>>(
-        xp, gp, mu, rstd, wp, dxp, pp, rows, h);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !affine) return err;
-  ln_part_reduce_kernel<TW><<<(2 * h + 255) / 256, 256, 0, stream>>>(
-      part, static_cast<TW*>(dw), static_cast<TW*>(db), parts, h);
-  return cudaGetLastError();
-}
-
-template <typename TX>
-cudaError_t dispatch_bwd_w(const void* x, const void* dy, const float* mu,
-                           const float* rstd, const void* w, int w_dtype,
-                           void* dx, void* dw, void* db, float* part, int rows,
-                           int h, int parts, cudaStream_t stream) {
-  switch (w_dtype) {
-    case kFloat32: return launch_bwd<TX, float>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, parts, stream);
-    case kBFloat16: return launch_bwd<TX, __nv_bfloat16>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, parts, stream);
-    case kFloat16: return launch_bwd<TX, __half>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, parts, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+#include "norm.cuh"
 
 // x, y [rows, h] contiguous in dtype x_dtype; w, b [h] in w_dtype, both or
 // neither (no affine; w_dtype is then ignored); mu, rstd [rows] fp32.
@@ -336,18 +20,9 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                               void* y, void* mu, void* rstd, int rows, int h,
                               float eps, int x_dtype, int w_dtype,
                               void* stream) {
-  if (rows == 0) return cudaSuccess;
   if ((w == nullptr) != (b == nullptr)) return cudaErrorInvalidValue;
-  if (w == nullptr) w_dtype = x_dtype;
-  float* m = static_cast<float*>(mu);
-  float* r = static_cast<float*>(rstd);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (x_dtype) {
-    case kFloat32: return dispatch_fwd_w<float>(x, w, b, w_dtype, y, m, r, rows, h, eps, s);
-    case kBFloat16: return dispatch_fwd_w<__nv_bfloat16>(x, w, b, w_dtype, y, m, r, rows, h, eps, s);
-    case kFloat16: return dispatch_fwd_w<__half>(x, w, b, w_dtype, y, m, r, rows, h, eps, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return row_norm::fwd<true>(x, w, b, y, mu, rstd, rows, h, eps, x_dtype,
+                             w_dtype, stream);
 }
 
 // x, dy, dx [rows, h] contiguous in dtype x_dtype; mu, rstd [rows] fp32;
@@ -358,17 +33,6 @@ extern "C" int layer_norm_bwd(const void* x, const void* dy, const void* mu,
                               void* dw, void* db, void* part, int rows, int h,
                               int parts, int x_dtype, int w_dtype,
                               void* stream) {
-  if (rows == 0) return cudaSuccess;
-  if (parts < 1 || parts > rows) return cudaErrorInvalidValue;
-  if (w == nullptr) w_dtype = x_dtype;
-  const float* m = static_cast<const float*>(mu);
-  const float* r = static_cast<const float*>(rstd);
-  float* p = static_cast<float*>(part);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (x_dtype) {
-    case kFloat32: return dispatch_bwd_w<float>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, parts, s);
-    case kBFloat16: return dispatch_bwd_w<__nv_bfloat16>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, parts, s);
-    case kFloat16: return dispatch_bwd_w<__half>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, parts, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return row_norm::bwd<true>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h,
+                             parts, x_dtype, w_dtype, stream);
 }

@@ -1,15 +1,19 @@
 """Fused LayerNorm and RMSNorm, forward and backward (port of
 ``apex_tpu/ops/layer_norm.py``).
 
-Four kernels in two sources. ``csrc/layer_norm.cu``: ``layer_norm_fwd``
-replaces the TPU kernel ``_ln_fwd_kernel`` (``apex_tpu/ops/layer_norm.py:40``)
-and ``layer_norm_bwd`` replaces ``_ln_bwd_kernel`` (``:163``).
+Four kernels from one templated source, ``csrc/norm.cuh``, built as two
+libraries. ``csrc/layer_norm.cu``: ``layer_norm_fwd`` replaces the TPU
+kernel ``_ln_fwd_kernel`` (``apex_tpu/ops/layer_norm.py:40``) and
+``layer_norm_bwd`` replaces ``_ln_bwd_kernel`` (``:163``).
 ``csrc/rms_norm.cu``: ``rms_norm_fwd`` replaces ``_rms_fwd_kernel``
 (``:56``) and ``rms_norm_bwd`` replaces ``_rms_bwd_kernel`` (``:189``).
+RMSNorm is LayerNorm without the centring, the bias and db: one wrapper
+each for the forward and the backward (:func:`_norm_fwd_cuda`,
+:func:`_norm_bwd_cuda`) takes the choice as ``centred``.
 All four are bound by bytes: a forward reads x and the affine params once
 and writes y and the fp32 statistics; a backward reads x, dy, the
-statistics and w and writes dx and the param grads. The source files say
-how their designs follow from that.
+statistics and w and writes dx and the param grads. ``norm.cuh`` says
+how its design follows from that.
 
 :class:`_LayerNormAffine`, :class:`_LayerNormPlain`,
 :class:`_RMSNormAffine` and :class:`_RMSNormPlain` are the
@@ -56,10 +60,9 @@ _LN_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
 # partials: enough to fill the card's 132 SMs twice, and fixed, so the
 # order of the dw sum does not depend on the device
 DW_PARTS = 264
-# h floats of dw sums per block must fit in shared memory (227 KB), and
-# 2h for LayerNorm's dw and db
-MAX_AFFINE_BWD_H = 232448 // 4
-MAX_AFFINE_LN_BWD_H = 232448 // 8
+# fp32 column sums a backward block may keep in shared memory (227 KB):
+# h of dw for RMSNorm, 2h of dw and db for LayerNorm
+SMEM_FLOATS = 232448 // 4
 
 
 def _ln_fwd_plain(x2: torch.Tensor, w: Optional[torch.Tensor],
@@ -123,22 +126,16 @@ def _rms_bwd_plain(x2: torch.Tensor, w: Optional[torch.Tensor],
     return dx, torch.sum(g * xhat, dim=0).to(w.dtype)
 
 
-def _lib():
-    lib = _build.library("rms_norm")
-    lib.rms_norm_fwd.argtypes = _ARGTYPES
-    lib.rms_norm_fwd.restype = ctypes.c_int
-    lib.rms_norm_bwd.argtypes = _BWD_ARGTYPES
-    lib.rms_norm_bwd.restype = ctypes.c_int
-    return lib
-
-
-def _ln_lib():
-    lib = _build.library("layer_norm")
-    lib.layer_norm_fwd.argtypes = _LN_ARGTYPES
-    lib.layer_norm_fwd.restype = ctypes.c_int
-    lib.layer_norm_bwd.argtypes = _LN_BWD_ARGTYPES
-    lib.layer_norm_bwd.restype = ctypes.c_int
-    return lib
+def _lib(centred: bool):
+    """The LayerNorm (``centred``) or RMSNorm library, with its name and
+    its typed forward and backward entry points."""
+    name = "layer_norm" if centred else "rms_norm"
+    lib = _build.library(name)
+    fwd, bwd = getattr(lib, f"{name}_fwd"), getattr(lib, f"{name}_bwd")
+    fwd.argtypes, bwd.argtypes = ((_LN_ARGTYPES, _LN_BWD_ARGTYPES) if centred
+                                  else (_ARGTYPES, _BWD_ARGTYPES))
+    fwd.restype = bwd.restype = ctypes.c_int
+    return lib, name, fwd, bwd
 
 
 def _check_rows(x2: torch.Tensor, what: str) -> Tuple[int, int]:
@@ -174,138 +171,116 @@ def _param_code(w: torch.Tensor, x2: torch.Tensor, what: str) -> int:
     return _build.dtype_code(w.dtype, what)
 
 
-def _rms_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
-                  eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on x2 [rows, h] contiguous; same outputs as
-    :func:`_rms_fwd_plain`."""
-    global launches
-    rows, h = _check_rows(x2, "rms_norm")
-    x_code = _build.dtype_code(x2.dtype, "rms_norm")
-    w_code = (x_code if w is None
-              else _param_code(w, x2, "rms_norm weight"))
-    y = torch.empty_like(x2)
-    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
-    if rows == 0:
-        return y, rstd
-    lib = _lib()
-    with torch.cuda.device(x2.device):
-        rc = lib.rms_norm_fwd(
-            x2.data_ptr(), w.data_ptr() if w is not None else None,
-            y.data_ptr(), rstd.data_ptr(), rows, h, float(eps), x_code,
-            w_code, _build.stream_handle(x2.device))
-        _build.check(lib, rc, "rms_norm_fwd")
-        launches += 1
-    return y, rstd
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
-def _rms_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
-                  rstd: torch.Tensor, dy: torch.Tensor):
-    """The backward kernel on contiguous x2, dy [rows, h] and rstd
-    [rows, 1] fp32; same outputs as :func:`_rms_bwd_plain`."""
-    global bwd_launches
-    rows, h = _check_rows(x2, "rms_norm")
-    _check_dy(dy, x2, "rms_norm")
-    _check_stat(rstd, x2, "rstd")
-    x_code = _build.dtype_code(x2.dtype, "rms_norm")
-    w_code = x_code
-    if w is not None:
-        w_code = _param_code(w, x2, "rms_norm weight")
-        if h > MAX_AFFINE_BWD_H:
-            raise ValueError(f"rms_norm backward keeps h={h} fp32 dw sums "
-                             f"in shared memory: at most "
-                             f"{MAX_AFFINE_BWD_H}")
-    dx = torch.empty_like(x2)
-    dw = (torch.empty((h,), dtype=w.dtype, device=w.device)
-          if w is not None else None)
-    if rows == 0:
-        return dx if w is None else (dx, dw.zero_())
-    parts = min(rows, DW_PARTS)
-    dw_part = (torch.empty((parts, h), dtype=torch.float32,
-                           device=x2.device) if w is not None else None)
-    lib = _lib()
-    with torch.cuda.device(x2.device):
-        rc = lib.rms_norm_bwd(
-            x2.data_ptr(), dy.data_ptr(), rstd.data_ptr(),
-            w.data_ptr() if w is not None else None, dx.data_ptr(),
-            dw.data_ptr() if w is not None else None,
-            dw_part.data_ptr() if w is not None else None, rows, h, parts,
-            x_code, w_code, _build.stream_handle(x2.device))
-        _build.check(lib, rc, "rms_norm_bwd")
+def _count(centred: bool, bwd: bool) -> None:
+    global launches, bwd_launches, ln_launches, ln_bwd_launches
+    if centred and bwd:
+        ln_bwd_launches += 1
+    elif centred:
+        ln_launches += 1
+    elif bwd:
         bwd_launches += 1
-    return dx if w is None else (dx, dw)
+    else:
+        launches += 1
 
 
-def _ln_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
-                 b: Optional[torch.Tensor], eps: float):
-    """The LayerNorm kernel on x2 [rows, h] contiguous, with w and b both
-    or neither; same outputs as :func:`_ln_fwd_plain`."""
-    global ln_launches
-    rows, h = _check_rows(x2, "layer_norm")
-    x_code = _build.dtype_code(x2.dtype, "layer_norm")
+def _norm_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
+                   b: Optional[torch.Tensor], eps: float, centred: bool):
+    """The LayerNorm (``centred``: w and b both or neither) or RMSNorm (no
+    b) forward kernel on x2 [rows, h] contiguous: (y, mu, rstd), mu None
+    for RMSNorm; the outputs of :func:`_ln_fwd_plain` or
+    :func:`_rms_fwd_plain`."""
+    what = "layer_norm" if centred else "rms_norm"
+    rows, h = _check_rows(x2, what)
+    x_code = _build.dtype_code(x2.dtype, what)
     w_code = x_code
-    if (w is None) != (b is None):
+    if centred and (w is None) != (b is None):
         raise ValueError("layer_norm takes weight and bias both or neither")
     if w is not None:
-        w_code = _param_code(w, x2, "layer_norm weight")
+        w_code = _param_code(w, x2, f"{what} weight")
+    if b is not None:
         if b.dtype != w.dtype:
-            raise TypeError(f"layer_norm bias dtype {b.dtype} differs from "
+            raise TypeError(f"{what} bias dtype {b.dtype} differs from "
                             f"the weight's {w.dtype}")
-        _param_code(b, x2, "layer_norm bias")
+        _param_code(b, x2, f"{what} bias")
     y = torch.empty_like(x2)
-    mu = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
-    rstd = torch.empty_like(mu)
+    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    mu = torch.empty_like(rstd) if centred else None
     if rows == 0:
         return y, mu, rstd
-    lib = _ln_lib()
+    params = (w, b) if centred else (w,)
+    stats = (mu, rstd) if centred else (rstd,)
+    lib, name, fwd, _ = _lib(centred)
     with torch.cuda.device(x2.device):
-        rc = lib.layer_norm_fwd(
-            x2.data_ptr(), w.data_ptr() if w is not None else None,
-            b.data_ptr() if b is not None else None, y.data_ptr(),
-            mu.data_ptr(), rstd.data_ptr(), rows, h, float(eps), x_code,
-            w_code, _build.stream_handle(x2.device))
-        _build.check(lib, rc, "layer_norm_fwd")
-        ln_launches += 1
+        rc = fwd(_ptr(x2), *map(_ptr, params), _ptr(y), *map(_ptr, stats),
+                 rows, h, float(eps), x_code, w_code,
+                 _build.stream_handle(x2.device))
+        _build.check(lib, rc, f"{name}_fwd")
+        _count(centred, bwd=False)
     return y, mu, rstd
 
 
-def _ln_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
-                 mu: torch.Tensor, rstd: torch.Tensor, dy: torch.Tensor):
-    """The LayerNorm backward kernel on contiguous x2, dy [rows, h] and
-    mu, rstd [rows, 1] fp32; same outputs as :func:`_ln_bwd_plain`."""
-    global ln_bwd_launches
-    rows, h = _check_rows(x2, "layer_norm")
-    _check_dy(dy, x2, "layer_norm")
-    _check_stat(mu, x2, "mu")
-    _check_stat(rstd, x2, "rstd")
-    x_code = _build.dtype_code(x2.dtype, "layer_norm")
+def _norm_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
+                   mu: Optional[torch.Tensor], rstd: torch.Tensor,
+                   dy: torch.Tensor, centred: bool):
+    """The LayerNorm (``centred``) or RMSNorm (mu None) backward kernel on
+    contiguous x2, dy [rows, h] and the forward's fp32 [rows, 1]
+    statistics: dx, or (dx, dw, db) for LayerNorm and (dx, dw) for RMSNorm
+    when ``w`` is given; the outputs of :func:`_ln_bwd_plain` or
+    :func:`_rms_bwd_plain`."""
+    what = "layer_norm" if centred else "rms_norm"
+    rows, h = _check_rows(x2, what)
+    _check_dy(dy, x2, what)
+    stats = (mu, rstd) if centred else (rstd,)
+    for name, t in zip(("mu", "rstd") if centred else ("rstd",), stats):
+        _check_stat(t, x2, name)
+    x_code = _build.dtype_code(x2.dtype, what)
     w_code = x_code
+    n_acc = 2 if centred else 1  # fp32 column sums a block keeps: dw (db)
     if w is not None:
-        w_code = _param_code(w, x2, "layer_norm weight")
-        if h > MAX_AFFINE_LN_BWD_H:
-            raise ValueError(f"layer_norm backward keeps h={h} fp32 dw and "
-                             f"db sums in shared memory: at most "
-                             f"{MAX_AFFINE_LN_BWD_H}")
+        w_code = _param_code(w, x2, f"{what} weight")
+        if n_acc * h > SMEM_FLOATS:
+            raise ValueError(f"{what} backward keeps {n_acc} x h={h} fp32 "
+                             f"column sums in shared memory: at most "
+                             f"{SMEM_FLOATS}")
     dx = torch.empty_like(x2)
-    if w is not None:
-        dw = torch.empty((h,), dtype=w.dtype, device=w.device)
-        db = torch.empty_like(dw)
+    grads = (tuple(torch.empty((h,), dtype=w.dtype, device=w.device)
+                   for _ in range(n_acc)) if w is not None else ())
     if rows == 0:
-        return dx if w is None else (dx, dw.zero_(), db.zero_())
+        return dx if w is None else (dx, *(g.zero_() for g in grads))
     parts = min(rows, DW_PARTS)
-    part = (torch.empty((parts, 2 * h), dtype=torch.float32,
+    part = (torch.empty((parts, n_acc * h), dtype=torch.float32,
                         device=x2.device) if w is not None else None)
-    lib = _ln_lib()
+    out_grads = grads if w is not None else (None,) * n_acc
+    lib, name, _, bwd = _lib(centred)
     with torch.cuda.device(x2.device):
-        rc = lib.layer_norm_bwd(
-            x2.data_ptr(), dy.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
-            w.data_ptr() if w is not None else None, dx.data_ptr(),
-            dw.data_ptr() if w is not None else None,
-            db.data_ptr() if w is not None else None,
-            part.data_ptr() if w is not None else None, rows, h, parts,
-            x_code, w_code, _build.stream_handle(x2.device))
-        _build.check(lib, rc, "layer_norm_bwd")
-        ln_bwd_launches += 1
-    return dx if w is None else (dx, dw, db)
+        rc = bwd(_ptr(x2), _ptr(dy), *map(_ptr, stats), _ptr(w), _ptr(dx),
+                 *map(_ptr, out_grads), _ptr(part), rows, h, parts, x_code,
+                 w_code, _build.stream_handle(x2.device))
+        _build.check(lib, rc, f"{name}_bwd")
+        _count(centred, bwd=True)
+    return dx if w is None else (dx, *grads)
+
+
+def _rms_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
+                  eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    y, _, rstd = _norm_fwd_cuda(x2, w, None, eps, centred=False)
+    return y, rstd
+
+
+def _rms_bwd_cuda(x2, w, rstd, dy):
+    return _norm_bwd_cuda(x2, w, None, rstd, dy, centred=False)
+
+
+def _ln_fwd_cuda(x2, w, b, eps):
+    return _norm_fwd_cuda(x2, w, b, eps, centred=True)
+
+
+def _ln_bwd_cuda(x2, w, mu, rstd, dy):
+    return _norm_bwd_cuda(x2, w, mu, rstd, dy, centred=True)
 
 
 def _ln_fwd(x2, w, b, eps):

@@ -176,29 +176,14 @@ def _masked(x, mask, scale):
     return _masked_plain(x, mask, scale)
 
 
-class _CausalSoftmax(torch.autograd.Function):
-    """Counterpart of the ``custom_vjp`` ``_causal_softmax``: saves only
-    the output."""
-
-    @staticmethod
-    def forward(ctx, x, scale: float):
-        y = _causal(x, scale)
-        ctx.save_for_backward(y)
-        ctx.scale = scale
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        return _softmax_bwd_math(ctx.scale, y, g), None
-
-
-class _MaskedSoftmax(torch.autograd.Function):
-    """Counterpart of the ``custom_vjp`` ``_masked_softmax``."""
+class _FusedSoftmax(torch.autograd.Function):
+    """Counterpart of the ``custom_vjp``s ``_causal_softmax`` and
+    ``_masked_softmax``: ``mask`` None is the causal kernel, a boolean
+    mask the masked one. Saves only the output."""
 
     @staticmethod
     def forward(ctx, x, mask, scale: float):
-        y = _masked(x, mask, scale)
+        y = _causal(x, scale) if mask is None else _masked(x, mask, scale)
         ctx.save_for_backward(y)
         ctx.scale = scale
         return y
@@ -212,7 +197,7 @@ class _MaskedSoftmax(torch.autograd.Function):
 def scaled_upper_triang_masked_softmax(inputs, _, scale: float = 1.0):
     """Causal scale + softmax on [attn_batches, sq, sk]
     (``fused_softmax.py:335``)."""
-    return _CausalSoftmax.apply(inputs, float(scale))
+    return _FusedSoftmax.apply(inputs, None, float(scale))
 
 
 def scaled_masked_softmax(inputs, mask, scale: float = 1.0):
@@ -222,4 +207,4 @@ def scaled_masked_softmax(inputs, mask, scale: float = 1.0):
     with no kernel, as in the reference."""
     if mask is None:
         return _softmax_fp32(inputs.float() * scale, inputs.dtype)
-    return _MaskedSoftmax.apply(inputs, mask, float(scale))
+    return _FusedSoftmax.apply(inputs, mask, float(scale))

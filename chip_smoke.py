@@ -691,8 +691,14 @@ def check_softmax(dev):
         err = float((y.float() - ref.float()).abs().max())
         del x, y, ref
         numel = math.prod(shape)
-        nbytes = 2 * numel * 2 + (mask.numel() if name == "masked" else 0)
-        sets = [(x,) for x in copies(make, nbytes)]
+        # the function needs x only where it is unmasked (a masked
+        # element's output is exp(-10000 - max) / sum whatever x holds),
+        # and writes all of y; the padding mask is read once, the causal
+        # one computed
+        kept = int((~mask).expand(shape).sum())
+        nbytes = kept * 2 + numel * 2 + (mask.numel() if name == "masked"
+                                         else 0)
+        sets = [(x,) for x in copies(make, 2 * numel * 2)]
         premasked = [(x.masked_fill(mask, -10000.0 / scale),)
                      for (x,) in sets]
 
@@ -700,9 +706,10 @@ def check_softmax(dev):
             return torch.softmax(x.float() * scale, dim=-1)
 
         ms = time_ms(call, sets)
-        b_ms, b_by = bound(nbytes, 6.0 * numel, dev["fp32_flops"], dev)
+        b_ms, b_by = bound(nbytes, 6.0 * kept, dev["fp32_flops"], dev)
         out[name] = {"shape": list(shape), "dtype": "bfloat16",
-                     "scale": scale, "max_abs_err": err, "ms": ms,
+                     "scale": scale, "unmasked": kept, "bytes": nbytes,
+                     "max_abs_err": err, "ms": ms,
                      "host_ms": host_ms(call, sets[0]),
                      "plain_ms": time_ms(plain, sets, iters=5),
                      "library_ms": time_ms(library, premasked, iters=5),
@@ -1221,14 +1228,45 @@ def mean_nll(logits, targets, weights=None):
                                                   min=1.0)
 
 
+def plain_attention(x, lp, num_heads, softmax):
+    """Packed-qkv attention written out with plain torch ops, apart from
+    the model code: wqkv [h, 3, h] split by its middle axis, heads of
+    h / num_heads, ``softmax(scores, scale)`` over [b, n, s, s]."""
+    import torch
+
+    b, s, h = x.shape
+    d = h // num_heads
+    qkv = torch.einsum("bsh,hcj->bscj", x, lp["wqkv"]) + lp["bqkv"]
+    q, k, v = (qkv[:, :, i].reshape(b, s, num_heads, d).permute(0, 2, 1, 3)
+               for i in range(3))
+    probs = softmax(q @ k.transpose(-1, -2), d ** -0.5).to(v.dtype)
+    o = (probs @ v).permute(0, 2, 1, 3).reshape(b, s, h)
+    return o @ lp["wo"] + lp["bo"]
+
+
+def plain_mlp(x, lp, act):
+    return act(x @ lp["wfc"] + lp["bfc"]) @ lp["wproj"] + lp["bproj"]
+
+
+def plain_stack(x, layers, num_layers, layer):
+    """Each layer of the stacked [L, ...] weights in turn, recomputed in
+    the backward (torch.utils.checkpoint, non-reentrant) so that an fp32
+    copy of the model fits beside the bf16 one."""
+    from torch.utils.checkpoint import checkpoint
+
+    for idx in range(num_layers):
+        lp = {name: w[idx] for name, w in layers.items()}
+        x = checkpoint(layer, x, lp, use_reentrant=False)
+    return x
+
+
 def gpt2_plain_loss(params, batch, cfg):
     """The GPT-2 loss through the port's plain functions (_ln_fwd_plain,
-    _causal_plain) and ordinary autograd, with the full logits and a
-    log-softmax CE; each layer is recomputed in the backward so that an
-    fp32 copy of the model fits beside the bf16 one."""
+    _causal_plain), attention and MLP written out here rather than taken
+    from the model code, ordinary autograd, and the full logits with a
+    log-softmax CE."""
     import torch.nn.functional as F
 
-    from apex_tpu_torch.models import _common
     from apex_tpu_torch.transformer.functional.fused_softmax import (
         _causal_plain,
     )
@@ -1237,27 +1275,23 @@ def gpt2_plain_loss(params, batch, cfg):
     ln = plain_ln(cfg.ln_eps)
 
     def layer(x, lp):
-        x = x + _common.packed_qkv_attention(
-            ln(x, lp["ln1_w"], lp["ln1_b"]), lp, cfg.num_heads,
-            cfg.head_dim, _causal_plain)
-        return x + _common.packed_mlp(
-            ln(x, lp["ln2_w"], lp["ln2_b"]), lp,
-            lambda y: F.gelu(y, approximate="tanh"))
+        x = x + plain_attention(ln(x, lp["ln1_w"], lp["ln1_b"]), lp,
+                                cfg.num_heads, _causal_plain)
+        return x + plain_mlp(ln(x, lp["ln2_w"], lp["ln2_b"]), lp,
+                             lambda y: F.gelu(y, approximate="tanh"))
 
     x = params["embed"][tokens] + params["pos_embed"][None, :tokens.shape[1]]
-    x = _common.run_stacked(x, params["layers"], cfg.num_layers, layer,
-                            remat=True)
+    x = plain_stack(x, params["layers"], cfg.num_layers, layer)
     x = ln(x, params["lnf_w"], params["lnf_b"])
     return mean_nll(x @ params["embed"].T, targets)
 
 
 def bert_plain_loss(params, batch, cfg, pad_mask):
     """The BERT MLM loss through the port's plain functions
-    (_ln_fwd_plain, _masked_plain) and ordinary autograd, recomputing
-    each layer in the backward."""
+    (_ln_fwd_plain, _masked_plain), attention and MLP written out here,
+    and ordinary autograd."""
     import torch.nn.functional as F
 
-    from apex_tpu_torch.models import _common
     from apex_tpu_torch.transformer.functional.fused_softmax import (
         _masked_plain,
     )
@@ -1270,17 +1304,14 @@ def bert_plain_loss(params, batch, cfg, pad_mask):
         return _masked_plain(scores, mask, scale)
 
     def layer(x, lp):
-        x = ln(x + _common.packed_qkv_attention(x, lp, cfg.num_heads,
-                                                cfg.head_dim, softmax),
+        x = ln(x + plain_attention(x, lp, cfg.num_heads, softmax),
                lp["ln1_w"], lp["ln1_b"])
-        return ln(x + _common.packed_mlp(x, lp, F.gelu), lp["ln2_w"],
-                  lp["ln2_b"])
+        return ln(x + plain_mlp(x, lp, F.gelu), lp["ln2_w"], lp["ln2_b"])
 
     x = (params["embed"][tokens] + params["pos_embed"][None, :tokens.shape[1]]
          + params["type_embed"][0])
     x = ln(x, params["emb_ln_w"], params["emb_ln_b"])
-    x = _common.run_stacked(x, params["layers"], cfg.num_layers, layer,
-                            remat=True)
+    x = plain_stack(x, params["layers"], cfg.num_layers, layer)
     x = ln(F.gelu(x @ params["mlm_dense"] + params["mlm_bias"]),
            params["mlm_ln_w"], params["mlm_ln_b"])
     return mean_nll(x @ params["embed"].T, targets, loss_mask)

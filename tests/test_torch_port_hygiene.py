@@ -23,7 +23,7 @@ WRAPPERS = {
                           "_rms_bwd_cuda", "_rms_bwd", "forward",
                           "backward", "_ln_fwd_cuda", "_ln_fwd",
                           "_ln_bwd_cuda", "_ln_bwd", "layer_norm",
-                          "_ln_lib"),
+                          "_norm_fwd_cuda", "_norm_bwd_cuda"),
     "transformer/functional/fused_softmax.py": (
         "_causal_cuda", "_masked_cuda", "_causal", "_masked", "_lib",
         "forward", "backward", "scaled_upper_triang_masked_softmax",
