@@ -8,11 +8,11 @@ plain PyTorch version beside it: a CUDA tensor launches the kernel, a CPU
 tensor takes the plain version.
 
 Ported so far: the serving path (``serving.ServingEngine`` over the
-llama family), with the flash-attention forward and RMSNorm forward
-kernels, and the single-device training step (``models.llama.train_step``
-with ``optimizers.fused_adam``), with the flash-attention backward,
-RMSNorm backward and flat Adam kernels. See ROADMAP.md for what
-follows.
+llama family, bf16 or fp8 weights), the single-device training steps of
+Llama, GPT-2 and BERT, and the fused softmax at any row length
+(``transformer.functional.FusedScaleMaskSoftmax``), through a Hopper
+kernel for each of the JAX package's 13 Pallas kernels. See ROADMAP.md
+for what follows.
 """
 
 __version__ = "0.1.0"

@@ -61,10 +61,11 @@ def _decode_layer(x, lp, cfg, k_cache, v_cache, pos: int):
     return _llama.decoder_layer(x, lp, cfg, positions, attend)[0]
 
 
-def _prefill_layer(x, lp, cfg, positions):
-    """Full-sequence layer pass that also returns rotated k / v."""
+def _prefill_layer(x, lp, cfg, positions, mm=_llama.matmul, sc=None):
+    """Full-sequence layer pass that also returns rotated k / v; ``mm``
+    and ``sc`` as in :func:`~apex_tpu_torch.models.llama.decoder_layer`."""
     return _llama.decoder_layer(x, lp, cfg, positions,
-                                _llama.causal_attention)
+                                _llama.causal_attention, mm, sc)
 
 
 def _sample(logits, temperature: float,

@@ -132,14 +132,25 @@ def _rmsnorm(x, w, eps):
     return fused_rms_norm_affine(x, w, (x.shape[-1],), eps=eps)
 
 
-def _qkv(x, lp, cfg: LlamaConfig, positions):
+def matmul(x, w, scale=None):
+    """The layers' default product, ``mm(x, w, scale)``: a plain matmul
+    in the activation dtype (the serving scheduler's fp8 ``mm`` uses the
+    per-layer weight ``scale``; this one has none)."""
+    del scale
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def _qkv(x, lp, cfg: LlamaConfig, positions, mm=matmul, sc=None):
     """Projections + rope on [b, s, h] -> q [b, s, nq, d], k / v
-    [b, s, nkv, d]; ``positions`` [b, s] gives each row's own angles."""
+    [b, s, nkv, d]; ``positions`` [b, s] gives each row's own angles.
+    ``mm(x, w, scale)`` is the product, ``sc`` the layer's weight scales
+    by name."""
     b, s, _ = x.shape
     d = cfg.head_dim
-    q = torch.matmul(x, lp["wq"]).reshape(b, s, cfg.num_heads, d)
-    k = torch.matmul(x, lp["wk"]).reshape(b, s, cfg.num_kv_heads, d)
-    v = torch.matmul(x, lp["wv"]).reshape(b, s, cfg.num_kv_heads, d)
+    sc = sc or {}
+    q = mm(x, lp["wq"], sc.get("wq")).reshape(b, s, cfg.num_heads, d)
+    k = mm(x, lp["wk"], sc.get("wk")).reshape(b, s, cfg.num_kv_heads, d)
+    v = mm(x, lp["wv"], sc.get("wv")).reshape(b, s, cfg.num_kv_heads, d)
     q, k = apply_rotary_qk(q, k, positions=positions, base=cfg.rope_theta)
     return q, k, v
 
@@ -149,21 +160,27 @@ def causal_attention(q, k, v):
     return flash_attention(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
 
 
-def decoder_layer(x, lp, cfg: LlamaConfig, positions, attend):
+def decoder_layer(x, lp, cfg: LlamaConfig, positions, attend, mm=matmul,
+                  sc=None):
     """One pre-norm block on a single layer's params ``lp``.
 
     ``attend(q, k, v) -> o [b, s, nq, d]`` is the attention:
     :func:`causal_attention` for a whole sequence, a cache read for
-    decode. Returns ``(x, k, v)`` with this layer's rotated k / v."""
+    decode. Its 7 products go through ``mm(x, w, scale)`` with the
+    layer's weight scales ``sc`` (the serving scheduler's ``_make_mm``;
+    default :func:`matmul`). Returns ``(x, k, v)`` with this layer's
+    rotated k / v."""
     b, s, _ = x.shape
+    sc = sc or {}
     h = _rmsnorm(x, lp["attn_norm"], cfg.rms_eps)
-    q, k, v = _qkv(h, lp, cfg, positions)
+    q, k, v = _qkv(h, lp, cfg, positions, mm, sc)
     o = attend(q, k, v).reshape(b, s, -1)
-    x = x + torch.matmul(o, lp["wo"])
+    x = x + mm(o, lp["wo"], sc.get("wo"))
     h = _rmsnorm(x, lp["mlp_norm"], cfg.rms_eps)
-    g = torch.matmul(h, lp["wg"])
-    u = torch.matmul(h, lp["wu"])
-    return x + torch.matmul(torch.nn.functional.silu(g) * u, lp["wd"]), k, v
+    g = mm(h, lp["wg"], sc.get("wg"))
+    u = mm(h, lp["wu"], sc.get("wu"))
+    return (x + mm(torch.nn.functional.silu(g) * u, lp["wd"], sc.get("wd")),
+            k, v)
 
 
 def embed(params, tokens, cfg: LlamaConfig):

@@ -1,10 +1,12 @@
-// Whole-row scaled, masked softmax for Hopper (sm_90a): the causal and the
-// padding-masked variant of one kernel.
+// Scaled, masked softmax for Hopper (sm_90a): the whole-row kernel and the
+// two-pass long-row kernels, each in a causal and a padding-masked variant.
 //
 // fused_softmax_causal replaces
 // apex_tpu/transformer/functional/fused_softmax.py:104 _causal_kernel
 // (launched by _pallas_causal, :128); fused_softmax_masked replaces :119
-// _masked_kernel (launched by _pallas_masked, :254). Per row of x, whose
+// _masked_kernel (launched by _pallas_masked, :254); fused_softmax_stats
+// and fused_softmax_apply replace :160 _stats_kernel and :195
+// _apply_kernel (launched by _pallas_blocked, :208). Per row of x, whose
 // last two dims are [sq, sk], in fp32:
 //   s = x * scale
 //   s = -10000 where masked        causal: col > row + (sk - sq);
@@ -12,11 +14,12 @@
 //   y = exp(s - max(s)) / sum(exp(s - max(s)))      stored in x's dtype
 // The fill is -10000, not -inf, exactly as the reference: a masked element
 // keeps its exp(-10000 - max), and a fully masked row comes out uniform.
-// Rows up to sk = 16384 (the reference's _WHOLE_ROW_MAX_SK); longer rows
-// belong to the blocked two-pass kernels, which are not ported.
+// The whole-row kernel takes rows up to sk = 16384 (the reference's
+// _WHOLE_ROW_MAX_SK); longer rows take the two passes, which hold no row.
 //
-// Bound: bytes. y is written whole, but x is needed only where unmasked:
-// a masked element's output is exp(-10000 - max) / sum whatever x holds.
+// Whole row. Bound: bytes. y is written whole, but x is needed only where
+// unmasked: a masked element's output is exp(-10000 - max) / sum whatever
+// x holds.
 // For GPT-2's causal [128, 1024, 1024] bf16 that is 134 MB of reads and
 // 268 MB of writes, 0.120 ms at 3.35 TB/s; about six flops an element.
 // This kernel reads every element of x, masked or not.
@@ -29,6 +32,21 @@
 // is read through four element strides (zero on broadcast dims), so a
 // [b, 1, 1, sk] padding mask is never expanded to x's shape; the causal
 // mask is computed from the row and column indices.
+//
+// Long rows. The stats pass writes per row m = max(s) and l = sum(exp(s -
+// m)) in fp32; the apply pass writes y = exp(s - m) / l (a division, as
+// the reference). Bound: bytes, and x is needed twice: the function's
+// least traffic is the unmasked reads of x and all of y (causal [16, 2048,
+// 32768] bf16: 4.2 GB, 1.26 ms at 3.35 TB/s), the pair's is that plus a
+// second read of the unmasked x, so it can reach about 67% of the
+// function's bound. Design: one block per row for each pass, 16-byte
+// vectors strided over the threads. In the stats pass each thread keeps
+// its own online (m, l), taking the max of a whole vector before it
+// rescales, then the block merges the threads' pairs by shuffles and one
+// shared-memory step. Every merge keeps the reference's -inf rule: when
+// the new max is -inf (every value so far -inf), shift by 0, so exp(-inf
+// - -inf) never makes a NaN and l stays 0. The fill positions and the
+// mask's broadcast strides are the whole-row kernel's.
 
 #include <cmath>
 #include <cstdint>
@@ -38,6 +56,7 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kBlockedThreads = 256;  // a block of the two long-row passes
 constexpr int kMaxValues = 16;  // fp32 values a thread holds
 constexpr int kMaxSk = kMaxThreads * kMaxValues;
 constexpr float kMaskFill = -10000.f;
@@ -74,6 +93,26 @@ __device__ __forceinline__ void store(T* p, const float (&in)[V]) {
   }
 }
 
+// The mask's bytes of row `row` (query q) of x, null when causal.
+template <bool kCausal>
+__device__ __forceinline__ const uint8_t* mask_row(const MaskView& mask,
+                                                   int64_t row, int sq, int q) {
+  if (kCausal) return nullptr;
+  const int64_t lead = row / sq;
+  return mask.ptr + (lead / mask.d1) * mask.s0 + (lead % mask.d1) * mask.s1 +
+         static_cast<int64_t>(q) * mask.s2;
+}
+
+// v = x * scale, or the fill where column c of row q is masked
+template <bool kCausal>
+__device__ __forceinline__ float filled(float v, float scale,
+                                        const uint8_t* mr, const MaskView& mask,
+                                        int q, int sq, int sk, int c) {
+  const bool masked =
+      kCausal ? c > q + (sk - sq) : mr[c * mask.s3] != 0;
+  return masked ? kMaskFill : v * scale;
+}
+
 // V elements per load (16 bytes, or 1 on the scalar path); a thread holds
 // the vectors threadIdx.x + k * blockDim.x for k < kMaxValues / V.
 template <typename T, int V, bool kCausal>
@@ -85,12 +124,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int q = static_cast<int>(row % sq);
   const T* xr = x + row * sk;
   T* yr = y + row * sk;
-  const uint8_t* mr = nullptr;
-  if (!kCausal) {
-    const int64_t lead = row / sq;
-    mr = mask.ptr + (lead / mask.d1) * mask.s0 + (lead % mask.d1) * mask.s1 +
-         static_cast<int64_t>(q) * mask.s2;
-  }
+  const uint8_t* mr = mask_row<kCausal>(mask, row, sq, q);
   const int nvec = sk / V;
 
   float v[NV][V];
@@ -102,10 +136,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       load<T, V>(xr + static_cast<int64_t>(i) * V, v[k]);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const int c = i * V + j;
-        const bool masked =
-            kCausal ? c > q + (sk - sq) : mr[c * mask.s3] != 0;
-        v[k][j] = masked ? kMaskFill : v[k][j] * scale;
+        v[k][j] = filled<kCausal>(v[k][j], scale, mr, mask, q, sq, sk,
+                                  i * V + j);
         mx = fmaxf(mx, v[k][j]);
       }
     }
@@ -135,6 +167,150 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
 }
+
+// ------------------------------------------------- long rows: two passes
+
+// (m, l) <- the stats of the union of (m, l) and (m2, l2), shifting by 0
+// when the new max is -inf (the reference's m_safe, fused_softmax.py:184)
+__device__ __forceinline__ void merge_stats(float& m, float& l, float m2,
+                                            float l2) {
+  const float mn = fmaxf(m, m2);
+  const float shift = isfinite(mn) ? mn : 0.f;
+  l = l * expf(m - shift) + l2 * expf(m2 - shift);
+  m = mn;
+}
+
+template <typename T, int V, bool kCausal>
+__global__ void __launch_bounds__(kBlockedThreads)
+    softmax_stats_kernel(const T* __restrict__ x, MaskView mask, int sq,
+                         int sk, float scale, float* __restrict__ m_out,
+                         float* __restrict__ l_out) {
+  const int64_t row = blockIdx.x;
+  const int q = static_cast<int>(row % sq);
+  const T* xr = x + row * sk;
+  const uint8_t* mr = mask_row<kCausal>(mask, row, sq, q);
+  const int nvec = sk / V;
+  float m = -INFINITY, l = 0.f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    float v[V];
+    load<T, V>(xr + static_cast<int64_t>(i) * V, v);
+    float vmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      v[j] = filled<kCausal>(v[j], scale, mr, mask, q, sq, sk, i * V + j);
+      vmax = fmaxf(vmax, v[j]);
+    }
+    const float mn = fmaxf(m, vmax);
+    const float shift = isfinite(mn) ? mn : 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) sum += expf(v[j] - shift);
+    l = l * expf(m - shift) + sum;
+    m = mn;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    merge_stats(m, l, __shfl_xor_sync(0xffffffffu, m, off),
+                __shfl_xor_sync(0xffffffffu, l, off));
+  __shared__ float part_m[32], part_l[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    part_m[warp] = m;
+    part_l[warp] = l;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool live = lane < static_cast<int>(blockDim.x >> 5);
+    m = live ? part_m[lane] : -INFINITY;
+    l = live ? part_l[lane] : 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+      merge_stats(m, l, __shfl_xor_sync(0xffffffffu, m, off),
+                  __shfl_xor_sync(0xffffffffu, l, off));
+    if (lane == 0) {
+      m_out[row] = m;
+      l_out[row] = l;
+    }
+  }
+}
+
+template <typename T, int V, bool kCausal>
+__global__ void __launch_bounds__(kBlockedThreads)
+    softmax_apply_kernel(const T* __restrict__ x, MaskView mask, int sq,
+                         int sk, float scale, const float* __restrict__ m_in,
+                         const float* __restrict__ l_in, T* __restrict__ y) {
+  const int64_t row = blockIdx.x;
+  const int q = static_cast<int>(row % sq);
+  const T* xr = x + row * sk;
+  T* yr = y + row * sk;
+  const uint8_t* mr = mask_row<kCausal>(mask, row, sq, q);
+  const float m = m_in[row], l = l_in[row];
+  const int nvec = sk / V;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    float v[V];
+    load<T, V>(xr + static_cast<int64_t>(i) * V, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      v[j] = expf(filled<kCausal>(v[j], scale, mr, mask, q, sq, sk,
+                                  i * V + j) - m) / l;
+    store<T, V>(yr + static_cast<int64_t>(i) * V, v);
+  }
+}
+
+// the stats pass (y null) or the apply pass over rows of x
+template <typename T, bool kCausal>
+cudaError_t launch_blocked(const void* x, MaskView mask, float* m, float* l,
+                           void* y, int64_t rows, int sq, int sk, float scale,
+                           cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = sk % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  if (y == nullptr) {
+    if (vec)
+      softmax_stats_kernel<T, V, kCausal><<<rows, kBlockedThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l);
+    else
+      softmax_stats_kernel<T, 1, kCausal><<<rows, kBlockedThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l);
+  } else if (vec) {
+    softmax_apply_kernel<T, V, kCausal><<<rows, kBlockedThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l, yp);
+  } else {
+    softmax_apply_kernel<T, 1, kCausal><<<rows, kBlockedThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l, yp);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kCausal>
+int dispatch_blocked(const void* x, MaskView mask, float* m, float* l,
+                     void* y, long long rows, int sq, int sk, float scale,
+                     int dtype, void* stream) {
+  if (rows == 0) return cudaSuccess;
+  if (sq < 1 || sk < 1 || rows % sq != 0 || rows > 0x7fffffffLL ||
+      m == nullptr || l == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32: return launch_blocked<float, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, s);
+    case kBFloat16: return launch_blocked<__nv_bfloat16, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, s);
+    case kFloat16: return launch_blocked<__half, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int blocked(const void* x, const void* mask, float* m, float* l, void* y,
+            long long rows, int sq, int sk, long long d1, long long s0,
+            long long s1, long long s2, long long s3, float scale, int dtype,
+            void* stream) {
+  if (mask == nullptr)
+    return dispatch_blocked<true>(x, MaskView{nullptr, 1, 0, 0, 0, 0}, m, l,
+                                  y, rows, sq, sk, scale, dtype, stream);
+  if (d1 < 1) return cudaErrorInvalidValue;
+  return dispatch_blocked<false>(
+      x, MaskView{static_cast<const uint8_t*>(mask), d1, s0, s1, s2, s3}, m,
+      l, y, rows, sq, sk, scale, dtype, stream);
+}
+
+// ------------------------------------------------------------ whole rows
 
 template <typename T, bool kCausal>
 cudaError_t launch(const void* x, void* y, MaskView mask, int64_t rows,
@@ -174,7 +350,7 @@ int dispatch(const void* x, void* y, MaskView mask, long long rows, int sq,
 }  // namespace
 
 // x, y contiguous, rows = (product of the leading dims) * sq rows of sk
-// elements in dtype; 1 <= sk <= 16384.
+// elements in dtype; 1 <= sk <= 16384 (longer rows: the two passes below).
 extern "C" int fused_softmax_causal(const void* x, void* y, long long rows,
                                     int sq, int sk, float scale, int dtype,
                                     void* stream) {
@@ -194,4 +370,29 @@ extern "C" int fused_softmax_masked(const void* x, const void* mask, void* y,
   return dispatch<false>(
       x, y, MaskView{static_cast<const uint8_t*>(mask), d1, s0, s1, s2, s3},
       rows, sq, sk, scale, dtype, stream);
+}
+
+// The long-row passes, for any sk >= 1: a null mask is the causal variant,
+// else the mask is read as for fused_softmax_masked. The stats pass writes
+// one fp32 m and l per row; the apply pass reads them and writes y.
+extern "C" int fused_softmax_stats(const void* x, const void* mask, void* m,
+                                   void* l, long long rows, int sq, int sk,
+                                   long long d1, long long s0, long long s1,
+                                   long long s2, long long s3, float scale,
+                                   int dtype, void* stream) {
+  return blocked(x, mask, static_cast<float*>(m), static_cast<float*>(l),
+                 nullptr, rows, sq, sk, d1, s0, s1, s2, s3, scale, dtype,
+                 stream);
+}
+
+extern "C" int fused_softmax_apply(const void* x, const void* mask,
+                                   const void* m, const void* l, void* y,
+                                   long long rows, int sq, int sk,
+                                   long long d1, long long s0, long long s1,
+                                   long long s2, long long s3, float scale,
+                                   int dtype, void* stream) {
+  if (y == nullptr) return cudaErrorInvalidValue;
+  return blocked(x, mask, const_cast<float*>(static_cast<const float*>(m)),
+                 const_cast<float*>(static_cast<const float*>(l)), y, rows,
+                 sq, sk, d1, s0, s1, s2, s3, scale, dtype, stream);
 }

@@ -2,7 +2,8 @@
 GPU (port of ``apex_tpu.serving``).
 
 Paged KV cache with a trash page, a prefill/decode scheduler over packed
-slot tensors, and request telemetry on the metric registry.
+slot tensors (bf16 or fp8 weights: ``weight_mode``), and request
+telemetry on the metric registry.
 """
 
 from apex_tpu_torch.serving.engine import ServerMetrics, ServingEngine
@@ -23,6 +24,7 @@ from apex_tpu_torch.serving.scheduler import (
     Request,
     build_decode_step,
     build_prefill,
+    fp8_weight_scales,
     pages_per_request,
 )
 
@@ -36,6 +38,7 @@ __all__ = [
     "TraceRequest",
     "build_decode_step",
     "build_prefill",
+    "fp8_weight_scales",
     "make_trace",
     "page_hbm_bytes",
     "pages_per_request",

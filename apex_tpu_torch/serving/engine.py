@@ -70,7 +70,9 @@ class ServingEngine:
     ``num_pages`` is required: the reference derives it from memory
     priors calibrated on a TPU, which do not carry over. ``device``
     defaults to the GPU and raises when there is none; the params must
-    already live there.
+    already live there. ``weight_mode`` is ``"native"`` (or ``"bf16"``)
+    or ``"fp8"``: every layer product through the fp8 cast kernel and an
+    fp8 GEMM, with static per-layer weight scales computed once here.
     """
 
     def __init__(self, params, cfg, *, num_pages: int, page_size: int = 8,

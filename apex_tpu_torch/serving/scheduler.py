@@ -18,6 +18,13 @@ page worst case (padded prompt + max_new_tokens) can be allocated, so an
 admitted request never stalls on pages mid-decode. Eviction (EOS or
 length cap) frees pages and refills from the queue.
 
+Every layer product goes through ``mm(x, w, scale)`` (:func:`_make_mm`):
+a plain matmul in ``weight_mode="native"`` (or ``"bf16"``), and in
+``"fp8"`` :func:`~apex_tpu_torch.ops.precision.matmul_fp8` with the
+activation at scale 1 and the weight at its static per-layer E4M3 scale
+(:func:`fp8_weight_scales`), two launches of the fp8 cast kernel a
+product. The lm head stays a plain matmul in both modes.
+
 PyTorch runs eagerly, so the reference's "one jit, zero retraces"
 contract has no counterpart yet; a CUDA graph of the decode step will
 take its place.
@@ -37,6 +44,7 @@ import torch
 from apex_tpu_torch import _device
 from apex_tpu_torch.models import generate as _gen
 from apex_tpu_torch.models import llama as _llama
+from apex_tpu_torch.ops.precision import matmul_fp8
 from apex_tpu_torch.serving.kv_cache import PagedKVCache
 
 __all__ = [
@@ -44,9 +52,11 @@ __all__ = [
     "Request",
     "build_decode_step",
     "build_prefill",
+    "fp8_weight_scales",
     "pages_per_request",
 ]
 
+_E4M3_MAX = 448.0
 WEIGHT_MODES = ("native", "bf16", "fp8")
 
 
@@ -74,25 +84,59 @@ def pages_per_request(prompt_len: int, max_new_tokens: int,
     return math.ceil((bucket + max_new_tokens) / page_size)
 
 
+@torch.no_grad()
+def fp8_weight_scales(params) -> Dict[str, torch.Tensor]:
+    """Static per-layer E4M3 weight scales, ``448 / max(amax, 1e-12)``
+    stacked ``[L]`` (fp32), for every dense layer kernel
+    (``scheduler.py:82``). Serving weights are frozen, so one amax pass
+    when the scheduler is built replaces the training path's
+    delayed-scaling history. |w| and its max are exact in the weights'
+    dtype, so no fp32 copy of a weight is made."""
+    out = {}
+    for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
+        w = params["layers"][name]
+        amax = torch.clamp(torch.amax(torch.abs(w), dim=tuple(
+            range(1, w.dim()))).float(), min=1e-12)
+        # a division of tensors: ``number / tensor`` would round twice
+        # (a reciprocal, then a product)
+        out[name] = torch.full_like(amax, _E4M3_MAX) / amax
+    return out
+
+
+def _make_mm(weight_mode: str):
+    """The native-or-fp8 product every layer gemm goes through
+    (``scheduler.py:95``): ``native`` is a plain matmul in the
+    activation dtype, ``fp8`` :func:`matmul_fp8` with the static weight
+    scale."""
+    if weight_mode == "fp8":
+        def mm(x, w, scale):
+            return matmul_fp8(x, w, 1.0, scale).to(x.dtype)
+        return mm
+    return _llama.matmul
+
+
 def _normalize_weight_mode(weight_mode: str) -> str:
     if weight_mode not in WEIGHT_MODES:
         raise ValueError(f"weight_mode must be one of {WEIGHT_MODES}, "
                          f"got {weight_mode!r}")
-    if weight_mode == "fp8":
-        raise NotImplementedError(
-            "weight_mode='fp8' waits for the port of the fp8 cast kernel")
-    return "native"
+    return "fp8" if weight_mode == "fp8" else "native"
+
+
+def _layer_scales(scales: Dict[str, torch.Tensor], idx: int) -> Dict:
+    return {name: s[idx] for name, s in scales.items()}
 
 
 def build_decode_step(cfg, page_size: int, weight_mode: str = "native"):
-    """The decode step: ``(params, k_pages, v_pages, tokens, tables, pos,
-    active) -> next_tokens``. Batch inputs are packed ``[max_batch]``
-    slot tensors; ``tables`` is ``[max_batch, max_pages]`` of page
-    indices (trash-padded). Writes each slot's new k/v into the pages in
-    place. Greedy (argmax) by design."""
-    _normalize_weight_mode(weight_mode)
+    """The decode step: ``(params, scales, k_pages, v_pages, tokens,
+    tables, pos, active) -> next_tokens``. ``scales`` is
+    :func:`fp8_weight_scales`' dict in ``fp8`` mode, else empty. Batch
+    inputs are packed ``[max_batch]`` slot tensors; ``tables`` is
+    ``[max_batch, max_pages]`` of page indices (trash-padded). Writes
+    each slot's new k/v into the pages in place. Greedy (argmax) by
+    design."""
+    mm = _make_mm(_normalize_weight_mode(weight_mode))
 
-    def _layer(x, lp, kp, vp, tables, pos, page_idx, off):
+    def _layer(x, lp, sc, kp, vp, tables, pos, page_idx, off):
         def attend(q, k, v):
             # several inactive slots may write the trash page at once: it
             # is never read, so which write lands does not matter
@@ -104,10 +148,12 @@ def build_decode_step(cfg, page_size: int, weight_mode: str = "native"):
             return _gen._decode_attention(q, kg, vg,
                                           pos[:, None, None]).to(x.dtype)
 
-        return _llama.decoder_layer(x, lp, cfg, pos[:, None], attend)[0]
+        return _llama.decoder_layer(x, lp, cfg, pos[:, None], attend, mm,
+                                    sc)[0]
 
     @torch.no_grad()
-    def _decode_step(params, k_pages, v_pages, tokens, tables, pos, active):
+    def _decode_step(params, scales, k_pages, v_pages, tokens, tables, pos,
+                     active):
         x = _llama.embed(params, tokens[:, None], cfg)
         trash = k_pages.shape[1] - 1
         page_idx = torch.gather(tables, 1, (pos // page_size)[:, None])[:, 0]
@@ -115,8 +161,8 @@ def build_decode_step(cfg, page_size: int, weight_mode: str = "native"):
                                torch.full_like(page_idx, trash))
         off = pos % page_size
         for i in range(cfg.num_layers):
-            x = _layer(x, _llama.layer(params, i), k_pages[i], v_pages[i],
-                       tables, pos, page_idx, off)
+            x = _layer(x, _llama.layer(params, i), _layer_scales(scales, i),
+                       k_pages[i], v_pages[i], tables, pos, page_idx, off)
         logits = _llama.lm_head(params, x, cfg)[:, 0]
         nxt = torch.argmax(logits, dim=-1).to(tokens.dtype)
         return torch.where(active, nxt, tokens)
@@ -126,14 +172,14 @@ def build_decode_step(cfg, page_size: int, weight_mode: str = "native"):
 
 def build_prefill(cfg, bucket_len: int, weight_mode: str = "native"):
     """Full-sequence prefill for ONE prompt padded to ``bucket_len``:
-    ``(params, prompt [1, S], true_len) -> (first_token [1],
+    ``(params, scales, prompt [1, S], true_len) -> (first_token [1],
     ks [L, S, nkv, d], vs [L, S, nkv, d])``. The pad k/v land in the
     request's pages, but decode overwrites index ``p + t`` before it
     ever unmasks it."""
-    _normalize_weight_mode(weight_mode)
+    mm = _make_mm(_normalize_weight_mode(weight_mode))
 
     @torch.no_grad()
-    def prefill(params, prompt, true_len: int):
+    def prefill(params, scales, prompt, true_len: int):
         b, s = prompt.shape
         if s != bucket_len:
             raise ValueError(f"prefill built for {bucket_len} tokens, "
@@ -143,7 +189,8 @@ def build_prefill(cfg, bucket_len: int, weight_mode: str = "native"):
         ks, vs = [], []
         for i in range(cfg.num_layers):
             x, k, v = _gen._prefill_layer(x, _llama.layer(params, i), cfg,
-                                          positions)
+                                          positions, mm,
+                                          _layer_scales(scales, i))
             ks.append(k[0])
             vs.append(v[0])
         x_last = x[:, true_len - 1:true_len]
@@ -201,6 +248,8 @@ class ContinuousBatchScheduler:
         self._tables = np.full(
             (self.max_batch, self.max_pages_per_req), trash, np.int64)
         self._active = np.zeros(self.max_batch, bool)
+        self._scales = (fp8_weight_scales(params)
+                        if self.weight_mode == "fp8" else {})
         self._decode = build_decode_step(cfg, self.page_size,
                                          self.weight_mode)
         self._prefills: Dict[int, object] = {}
@@ -271,7 +320,8 @@ class ContinuousBatchScheduler:
         prompt = np.zeros((1, s_pad), np.int64)
         prompt[0, :p] = req.prompt
         first, ks, vs = self._prefill_for(s_pad)(
-            self.params, torch.from_numpy(prompt).to(self.device), p)
+            self.params, self._scales,
+            torch.from_numpy(prompt).to(self.device), p)
         self.prefill_count += 1
         self.cache.write_prompt(pages[:s_pad // self.page_size], ks, vs)
         t0 = int(first[0])
@@ -300,7 +350,7 @@ class ContinuousBatchScheduler:
             return []
         dev = self.device
         nxt = self._decode(
-            self.params, self.cache.k_pages, self.cache.v_pages,
+            self.params, self._scales, self.cache.k_pages, self.cache.v_pages,
             torch.from_numpy(self._tokens).to(dev),
             torch.from_numpy(self._tables).to(dev),
             torch.from_numpy(self._pos).to(dev),

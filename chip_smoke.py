@@ -13,7 +13,11 @@ result line) when it fails:
                sm_90a, one process per source, all started together.
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at its path's shapes, with the tolerance stated, and timed
-               (kernel, host call, plain version, library call, bound).
+               (kernel, host call, plain version, library call, bound):
+               the fp8 cast at the serving weight (column-major, as the
+               fp8 GEMM takes it, and row-major), a prefill activation
+               and an E5M2 cotangent (bit for bit), the long-row softmax
+               passes at 32,768 keys (causal and padding-masked).
 4. serving  -- Llama-3-8B at full width and depth, random bf16 weights
                from a seeded generator, served by ``ServingEngine`` over a
                16-request closed-loop trace; every launch counter must
@@ -21,6 +25,19 @@ result line) when it fails:
                of the full ``forward`` must agree with the engine's tokens.
 5. profile  -- only with ``--profile``: host time per prefill and decode
                step, the device's busy share and its time by kernel.
+5a. serving_fp8 -- the same model and trace through ``ServingEngine(
+               weight_mode="fp8")``: exact launches (448 fp8 casts a
+               prefill or decode step: 224 row-major activations, 224
+               column-major weights), the engine's weight scales equal
+               to ones computed here, a teacher-forced check against a
+               full-sequence fp8 forward built here from the plain
+               functions, and the share of tokens equal to phase 4's.
+5b. long_context -- ``FusedScaleMaskSoftmax`` forward and backward at
+               32,768 keys (causal over GPT-2 345M's 16 heads and the
+               last 2048 queries; a padding mask; causal with the padding
+               mask): one stats and one apply launch a forward, none of
+               the whole-row kernels, dx against fp32 autograd of the
+               plain function.
 6. training -- Llama-3-8B width cut to 4 layers (random bf16 weights from
                a seeded generator), batch 2 x 2048: the kernel path's
                gradients at step 0 against an fp32 reference built from
@@ -55,6 +72,7 @@ without the ``apex_tpu_torch`` package beside it, the script exits 1.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import math
 import subprocess
@@ -110,6 +128,15 @@ BERT_MIN_LEN = 128
 GRAD_REL_L2 = 0.05
 GRAD_COS = 0.998
 
+# the long-context softmax shapes: GPT-2 345M's 16 heads of 64, the last
+# LONG_SQ queries of a LONG_SK-key context (causal), and a padded batch
+# (each row's valid length drawn from the seed above _WHOLE_ROW_MAX_SK,
+# row 0 full); bf16, 2 GiB each
+LONG_SK = 32768
+LONG_CAUSAL = (1, 16, 2048, LONG_SK)
+LONG_MASKED = (2, 16, 1024, LONG_SK)
+LONG_SCALE = 64 ** -0.5
+
 # teacher-forced agreement: the engine's token at each generated
 # position must have a logit within DELTA of that row's maximum under the
 # full-sequence forward. Both sides run the same bf16 model through
@@ -119,6 +146,19 @@ GRAD_COS = 0.998
 # ``spread``: the same positions through forward passes of two lengths),
 # with room to spare. A wrong kernel or cache moves logits by O(1).
 DELTA = 0.25
+# the same check for the fp8 engine against a full-sequence fp8 forward
+# written here from the plain functions (cast, upcast product, RMSNorm,
+# attention). Both quantize every activation (scale 1) and weight (its
+# static scale) to E4M3, whose grid step is 2^-3 of a value: an fp32 sum
+# taken in another order, or a bf16 rounding landing elsewhere, moves an
+# activation across an fp8 rounding boundary now and then, and that moves
+# the logits by far more than a bf16 rounding does. DELTA_FP8 covers the
+# logit spread between two equal fp8 runs (``spread``, measured as for
+# DELTA: the prompt's positions through fp8 forward passes of two
+# lengths; 0.453125 on the H100 in each of five runs, with a worst gap
+# of 0.296875: same seed, same kernels, the same numbers), with room to
+# spare; a wrong cast, scale or product moves the logits by O(1).
+DELTA_FP8 = 1.0
 
 # the spin that holds the stream while calls are queued: 1e8 cycles, at
 # least SPIN_MS at the H100's clocks (at most 1.98 GHz)
@@ -720,6 +760,265 @@ def check_softmax(dev):
     return out
 
 
+def assert_fp8_equal(y, ref, what: str) -> None:
+    """fp8 outputs equal bit for bit where finite, NaN at the same
+    places (the encoding of NaN is not compared)."""
+    import torch
+
+    nan, nan_ref = torch.isnan(y.float()), torch.isnan(ref.float())
+    if not (torch.equal(nan, nan_ref) and torch.equal(
+            y.view(torch.uint8)[~nan], ref.view(torch.uint8)[~nan_ref])):
+        differ = int((y.view(torch.uint8) != ref.view(torch.uint8)).sum())
+        raise AssertionError(f"{what}: {differ} fp8 values differ from the "
+                             f"plain version")
+
+
+def check_fp8_cast(dev):
+    """The cast kernels at the fp8 serving path's shapes: a Llama-3-8B
+    gate weight [4096, 14336] at its static E4M3 scale through the
+    column-major kernel (the path's) and, for comparison, the row-major
+    one; a 512-token prefill activation [512, 4096] at scale 1 with some
+    |x| > 448 (saturation), and an E5M2 cotangent-shaped [512, 14336].
+    y must equal the plain version bit for bit and amax exactly. No one
+    PyTorch call computes the fused cast and amax: library_ms is null."""
+    import torch
+
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    e4m3, e5m2 = torch.float8_e4m3fn, torch.float8_e5m2
+
+    def weight():
+        return (torch.randn(4096, 14336, generator=g, device="cuda")
+                * 4096 ** -0.5).to(torch.bfloat16)
+
+    def activation():
+        x = 30 * torch.randn(512, 4096, generator=g, device="cuda")
+        x[:, ::97] *= 40  # ~1% of the values past E4M3's 448
+        return x.to(torch.bfloat16)
+
+    def cotangent():
+        return (1e-3 * torch.randn(512, 14336, generator=g, device="cuda")
+                ).to(torch.bfloat16)
+
+    out = {}
+    for name, make, fp8, fmax, col in (
+            ("weight", weight, e4m3, 448.0, True),
+            ("weight_row_major", weight, e4m3, 448.0, False),
+            ("activation", activation, e4m3, 448.0, False),
+            ("cotangent", cotangent, e5m2, 57344.0, False)):
+        x = make()
+        amax_x = torch.amax(torch.abs(x)).float()
+        # the static (weight) or delayed (cotangent) scale of the path
+        scale = (torch.full_like(amax_x, fmax) / amax_x if name != "activation"
+                 else torch.ones((), device="cuda"))
+        y, amax = fc._cast_and_scale_cuda(x, scale, fp8, fmax, col)
+        y_ref, amax_ref = fc._cast_and_scale_plain(x, scale, fp8, fmax, col)
+        torch.cuda.synchronize()
+        if y.stride() != y_ref.stride():
+            raise AssertionError(f"fp8 cast {name}: strides {y.stride()} "
+                                 f"!= {y_ref.stride()}")
+        assert_fp8_equal(y, y_ref, f"fp8 cast {name}")
+        if float(amax) != float(amax_ref):
+            raise AssertionError(f"fp8 cast {name}: amax {float(amax)} != "
+                                 f"{float(amax_ref)}")
+        saturated = int((x.float() * scale).abs().gt(fmax).sum())
+        del y, y_ref
+        n = x.numel()
+        nbytes = n * (x.element_size() + 1)
+        sets = [(a,) for a in copies(make, nbytes)]
+
+        def call(a):
+            return fc._cast_and_scale_cuda(a, scale, fp8, fmax, col)
+
+        def plain(a):
+            return fc._cast_and_scale_plain(a, scale, fp8, fmax, col)
+
+        ms = time_ms(call, sets)
+        b_ms, b_by = bound(nbytes, 3.0 * n, dev["fp32_flops"], dev)
+        out[name] = {"shape": list(x.shape), "dtype": "bfloat16",
+                     "fp8": str(fp8).split(".")[-1], "col_major": col,
+                     "scale": float(scale), "amax": float(amax),
+                     "saturated": saturated, "bytes": nbytes,
+                     "max_abs_err": 0.0, "bit_identical": True, "ms": ms,
+                     "host_ms": host_ms(call, sets[0]),
+                     "plain_ms": time_ms(plain, sets, iters=5),
+                     "library_ms": None,
+                     "library": "none: no one PyTorch call casts and takes "
+                                "the amax",
+                     "bound_ms": b_ms, "bound_by": b_by}
+        del sets, x
+    return out
+
+
+def check_fp8_matmul(dev):
+    """The fp8 serving product, ``precision.matmul_fp8`` (the activation's
+    row-major cast, the weight's column-major cast, ``torch._scaled_mm``
+    with an fp32 result, the scale-out), beside the bf16 product it
+    replaces, at the gate projection [4096, 14336] of a decode step (8
+    rows) and of a 512-token prefill: the whole call's device and host
+    ms, and each piece's device ms. ``weight_row_cast_and_copy_ms`` is
+    the earlier way to the same operand (a row-major cast, then a copy
+    into the column-major layout), timed in the same run. The fp8 GEMM
+    is held against the plain upcast product of the same fp8 operands
+    (fp32 sums in another order)."""
+    import torch
+
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+    from apex_tpu_torch.ops import precision
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    e4m3 = torch.float8_e4m3fn
+    w = (torch.randn(4096, 14336, generator=g, device="cuda")
+         * 4096 ** -0.5).to(torch.bfloat16)
+    amax = torch.amax(torch.abs(w)).float()
+    scale = torch.full_like(amax, 448.0) / amax
+    b8, _ = fc._cast_and_scale_cuda(w, scale, e4m3, 448.0, True)
+    one = torch.ones((), device="cuda")
+
+    def row_cast_and_copy(b):
+        b8_row, _ = fc._cast_and_scale_cuda(b, scale, e4m3, 448.0)
+        return b8_row.t().contiguous()
+
+    out = {}
+    for rows in (MAX_BATCH, MAX_PROMPT):
+        x = torch.randn(rows, 4096, generator=g, device="cuda").to(
+            torch.bfloat16)
+        a8, _ = fc._cast_and_scale_cuda(x, 1.0, e4m3, 448.0)
+        acc = precision._fp8_product(a8, b8)
+        ref = precision._product_upcast(a8, b8)
+        err = max_err(acc, ref, 1e-3, f"fp8 GEMM at {rows} rows")
+
+        def fp8_call(a):
+            return precision.matmul_fp8(a, w, 1.0, scale)
+
+        out[f"rows_{rows}"] = {
+            "shape": [rows, 4096, 14336], "max_abs_err": err,
+            "bf16_ms": time_ms(lambda a: torch.matmul(a, w), [(x,)]),
+            "fp8_call_ms": time_ms(fp8_call, [(x,)]),
+            "fp8_call_host_ms": host_ms(fp8_call, (x,)),
+            "bf16_host_ms": host_ms(lambda a: torch.matmul(a, w), (x,)),
+            "activation_cast_ms": time_ms(
+                lambda a: fc._cast_and_scale_cuda(a, 1.0, e4m3, 448.0),
+                [(x,)]),
+            "weight_cast_ms": time_ms(
+                lambda b: fc._cast_and_scale_cuda(b, scale, e4m3, 448.0,
+                                                  True),
+                [(w,)]),
+            "weight_row_cast_and_copy_ms": time_ms(row_cast_and_copy,
+                                                   [(w,)]),
+            "scaled_mm_ms": time_ms(
+                lambda a, b: torch._scaled_mm(a, b, scale_a=one,
+                                              scale_b=one,
+                                              out_dtype=torch.float32),
+                [(a8, b8)])}
+    return out
+
+
+def long_pad_mask(gen, batch):
+    """[batch, 1, 1, LONG_SK] bool on the card, True = padding: row 0
+    full, the others valid for a length drawn in (16384, LONG_SK]."""
+    import torch
+
+    from apex_tpu_torch.transformer.functional import fused_softmax as sm
+
+    lengths = torch.randint(sm._WHOLE_ROW_MAX_SK + 1, LONG_SK + 1, (batch,),
+                            generator=gen, device="cuda")
+    lengths[0] = LONG_SK
+    mask = torch.arange(LONG_SK, device="cuda")[None, :] >= lengths[:, None]
+    return mask[:, None, None, :], lengths.tolist()
+
+
+def check_long_softmax(dev):
+    """The stats and apply kernels at 32,768 keys against their plain
+    versions (the two passes over blocks of 2048 keys): causal
+    LONG_CAUSAL and padding-masked LONG_MASKED, bf16. m must be equal, l
+    within fp32 rounding of a sum taken in another order, y within one
+    bf16 ulp. The library yardstick is torch.softmax of a pre-scaled,
+    pre-masked fp32 copy (no mask fill, fp32 output)."""
+    import torch
+
+    from apex_tpu_torch.transformer.functional import fused_softmax as sm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    out = {}
+    for name, shape in (("causal", LONG_CAUSAL), ("masked", LONG_MASKED)):
+        if name == "causal":
+            mask, lengths = None, None
+            full = sm._causal_mask(shape[-2], shape[-1], "cuda")
+        else:
+            mask, lengths = long_pad_mask(g, shape[0])
+            full = mask
+        causal = mask is None
+        x = (4 * torch.randn(shape, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        m, l = sm._stats_cuda(x, mask, LONG_SCALE)
+        y = sm._apply_cuda(x, mask, LONG_SCALE, m, l)
+        m_ref, l_ref = sm._stats_plain(x, mask, LONG_SCALE, causal)
+        y_ref = sm._apply_plain(x, mask, LONG_SCALE, causal, m_ref, l_ref)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(m, m_ref, rtol=0, atol=0)
+        # l: a sum of 32,768 fp32 terms in another order
+        torch.testing.assert_close(l, l_ref, rtol=2e-5, atol=0)
+        # each y is exp(s - m) / l rounded once to bf16: one bf16 ulp
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=8e-3,
+                                   atol=1e-6)
+        errs = {"m": 0.0, "l": float((l - l_ref).abs().max()),
+                "y": float((y.float() - y_ref.float()).abs().max())}
+        del y, y_ref, m_ref, l_ref
+        numel = math.prod(shape)
+        rows = numel // shape[-1]
+        kept = int((~full).expand(shape).sum())
+        mask_bytes = 0 if mask is None else mask.numel()
+        # each pass needs x only where unmasked; stats writes m and l,
+        # apply reads them and writes all of y; the function as a whole
+        # (one pass's reads and apply's writes) bounds the pair
+        stats_bytes = kept * 2 + mask_bytes + rows * 8
+        apply_bytes = kept * 2 + mask_bytes + rows * 8 + numel * 2
+        pair_bytes = kept * 2 + mask_bytes + numel * 2
+        sets = [(x,)]  # 2 GiB: far beyond L2
+
+        def stats(a):
+            return sm._stats_cuda(a, mask, LONG_SCALE)
+
+        def apply(a):
+            return sm._apply_cuda(a, mask, LONG_SCALE, m, l)
+
+        def stats_plain(a):
+            return sm._stats_plain(a, mask, LONG_SCALE, causal)
+
+        def apply_plain(a):
+            return sm._apply_plain(a, mask, LONG_SCALE, causal, m, l)
+
+        res = {"shape": list(shape), "dtype": "bfloat16",
+               "scale": LONG_SCALE, "lengths": lengths, "unmasked": kept,
+               "max_abs_err": errs,
+               "pair_bytes": pair_bytes,
+               "pair_bound_ms": bound(pair_bytes, 0, 1, dev)[0]}
+        for part, call, plain, nbytes, flops in (
+                ("stats", stats, stats_plain, stats_bytes, 5.0 * kept),
+                ("apply", apply, apply_plain, apply_bytes, 5.0 * numel)):
+            b_ms, b_by = bound(nbytes, flops, dev["fp32_flops"], dev)
+            # the plain passes launch hundreds of small ops a call, more
+            # than the spin can hold queued: their time is the
+            # synchronised wall time of a call
+            res[part] = {"ms": time_ms(call, sets),
+                         "host_ms": host_ms(call, sets[0]),
+                         "plain_ms": host_ms(plain, sets[0], iters=3),
+                         "plain_timed": "host",
+                         "bytes": nbytes, "bound_ms": b_ms,
+                         "bound_by": b_by}
+        premasked = (x.float() * LONG_SCALE).masked_fill(full, -10000.0)
+        res["library_ms"] = time_ms(
+            lambda a: torch.softmax(a, dim=-1), [(premasked,)], iters=5)
+        res["library"] = ("torch.softmax of a pre-scaled, pre-masked fp32 "
+                          "copy: no mask fill, fp32 output")
+        out[name] = res
+        del premasked, x, m, l, sets
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(dev):
     import torch
 
@@ -727,7 +1026,11 @@ def phase_kernels(dev):
     torch.backends.cudnn.allow_tf32 = False
     ln_fwd, ln_bwd = check_layer_norm(dev)
     softmax = check_softmax(dev)
-    out = {"phase": "kernels", "rms_norm_fwd": check_rms(dev),
+    long_softmax = check_long_softmax(dev)
+    out = {"phase": "kernels", "fp8_cast": check_fp8_cast(dev),
+           "fp8_matmul": check_fp8_matmul(dev),
+           "fused_softmax_long": long_softmax,
+           "rms_norm_fwd": check_rms(dev),
            "flash_attention_fwd": check_flash(dev),
            "flash_attention_bwd": check_flash_bwd(dev),
            "rms_norm_bwd": check_rms_bwd(dev),
@@ -739,21 +1042,20 @@ def phase_kernels(dev):
     return out
 
 
-def teacher_forced(params, cfg, engine, rids):
-    """Re-run the engine's requests through the full ``forward`` and
-    measure each generated token's logit gap to its row's maximum."""
+def teacher_forced(forward, engine, rids, delta):
+    """Re-run the engine's requests through ``forward(tokens [1, s]) ->
+    logits [1, s, vocab]`` over the whole sequence and measure each
+    generated token's logit gap to its row's maximum."""
     import torch
 
-    from apex_tpu_torch.models import llama
-
-    device = params["embed"].device
+    device = engine.device
     worst, exact, total, spread = 0.0, 0, 0, 0.0
     for rid in rids:
         res = engine.results[rid]
         prompt, toks = res["prompt"], res["tokens"]
         p = len(prompt)
         seq = torch.tensor([prompt + toks[:-1]], device=device)
-        logits = llama.forward(params, seq, cfg)[0]
+        logits = forward(seq)[0]
         rows = logits[p - 1:p - 1 + len(toks)]
         picked = rows.gather(1, torch.tensor(toks, device=device)[:, None])
         gap = (rows.max(dim=1).values - picked[:, 0]).cpu()
@@ -762,15 +1064,18 @@ def teacher_forced(params, cfg, engine, rids):
         total += len(toks)
         # two equal runs: the prompt's positions through a forward of the
         # prompt alone
-        short = llama.forward(params, seq[:, :p], cfg)[0]
+        short = forward(seq[:, :p])[0]
         spread = max(spread, float((short - logits[:p]).abs().max()))
         del logits, short
-    return {"requests": list(rids), "positions": total,
-            "worst_gap": worst, "exact_argmax": exact, "spread": spread,
-            "delta": DELTA}
+    out = {"requests": list(rids), "positions": total,
+           "worst_gap": worst, "exact_argmax": exact, "spread": spread,
+           "delta": delta}
+    if worst > delta or spread > delta:
+        raise AssertionError(f"teacher-forced check failed: {out}")
+    return out
 
 
-def make_engine(params, cfg):
+def make_engine(params, cfg, weight_mode="native"):
     """The serving geometry: 8 slots and the pages of 8 worst-case
     requests."""
     from apex_tpu_torch.serving import ServingEngine, pages_per_request
@@ -779,36 +1084,124 @@ def make_engine(params, cfg):
                                               PAGE_SIZE)
     return ServingEngine(params, cfg, num_pages=num_pages,
                          page_size=PAGE_SIZE, max_batch=MAX_BATCH,
-                         max_prompt_len=MAX_PROMPT, max_new_cap=MAX_NEW)
+                         max_prompt_len=MAX_PROMPT, max_new_cap=MAX_NEW,
+                         weight_mode=weight_mode)
 
 
-def phase_serving():
+def fp8_weight_scale(w):
+    """A weight's static E4M3 scale, computed here apart from the
+    program's ``fp8_weight_scales``: 448 / max(max|w|, 1e-12) in fp32,
+    a division of tensors (one rounding)."""
     import torch
 
+    amax = torch.clamp(torch.amax(torch.abs(w.float())), min=1e-12)
+    return torch.full_like(amax, 448.0) / amax
+
+
+def fp8_forward(params, tokens, cfg):
+    """Full-sequence logits of the fp8 serving model through the plain
+    functions, written out apart from the model code: each of a layer's
+    7 products casts its activation (scale 1) and its weight (its static
+    scale, :func:`fp8_weight_scale`) with the cast's plain version,
+    multiplies the fp8 values upcast to fp32 (exact) and scales out to
+    bf16; RMSNorm and attention are the plain versions, the lm head a
+    bf16 matmul, as in the engine."""
+    import torch
+    import torch.nn.functional as F
+
     from apex_tpu_torch.models import llama
+    from apex_tpu_torch.ops.flash_attention import _reference_attention
+    from apex_tpu_torch.ops.fp8_cast_kernel import _cast_and_scale_plain
+    from apex_tpu_torch.ops.layer_norm import _rms_fwd_plain
+    from apex_tpu_torch.transformer.functional.rope import apply_rotary_qk
+
+    e4m3 = torch.float8_e4m3fn
+
+    def mm(x, w):
+        s = fp8_weight_scale(w)
+        a8, _ = _cast_and_scale_plain(x, 1.0, e4m3, 448.0)
+        b8, _ = _cast_and_scale_plain(w, s, e4m3, 448.0)
+        return ((a8.float() @ b8.float()) * torch.reciprocal(s)).to(x.dtype)
+
+    def norm(x, w):
+        y, _ = _rms_fwd_plain(x.reshape(-1, x.shape[-1]), w, cfg.rms_eps)
+        return y.reshape(x.shape)
+
+    def heads_major(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+    b, s = tokens.shape
+    d = cfg.head_dim
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = params["embed"][tokens]
+    with torch.no_grad():
+        for idx in range(cfg.num_layers):
+            lp = llama.layer(params, idx)
+            h = norm(x, lp["attn_norm"])
+            q, k, v = (mm(h, lp[n]).reshape(b, s, -1, d)
+                       for n in ("wq", "wk", "wv"))
+            q, k = apply_rotary_qk(q, k, positions=positions,
+                                   base=cfg.rope_theta)
+            o = _reference_attention(heads_major(q), heads_major(k),
+                                     heads_major(v), True, d ** -0.5)
+            o = o.reshape(b, -1, s, d).transpose(1, 2).reshape(b, s, -1)
+            x = x + mm(o, lp["wo"])
+            h = norm(x, lp["mlp_norm"])
+            x = x + mm(F.silu(mm(h, lp["wg"])) * mm(h, lp["wu"]), lp["wd"])
+        return (norm(x, params["final_norm"]) @ params["lm_head"]).float()
+
+
+def serving_report(engine, report, counts, want, peak):
+    """The end-to-end numbers of a served trace, and a SHA-1 of its tokens
+    by request id: equal digests mean equal tokens, so a later run can
+    show that a path's tokens did not move."""
+    tokens = {rid: res["tokens"]
+              for rid, res in sorted(engine.results.items())}
+    return {"tokens_sha1": hashlib.sha1(
+                json.dumps(tokens).encode()).hexdigest(),
+            "num_pages": engine.scheduler.cache.num_pages,
+            "page_size": PAGE_SIZE, "max_batch": MAX_BATCH,
+            "requests": report["requests"], "tokens": report["tokens"],
+            "wall_s": report["wall_s"],
+            "tokens_per_s": report["tokens_per_s"],
+            "ttft_p50_ms": report["ttft_p50_ms"],
+            "ttft_p99_ms": report["ttft_p99_ms"],
+            "latency_p50_ms": report["latency_p50_ms"],
+            "latency_p99_ms": report["latency_p99_ms"],
+            "mean_occupancy": report["mean_occupancy"],
+            "prefills": engine.scheduler.prefill_count,
+            "decode_steps": engine.scheduler.decode_steps,
+            "peak_memory_bytes": peak, "launches": counts,
+            "expected_launches": want}
+
+
+def serve(params, cfg, weight_mode):
+    """The 16-request trace through a fresh engine: (engine, report,
+    launch counts, expected counts, peak memory). Every request must get
+    its full token count and the counts must be exact."""
+    import torch
+
     from apex_tpu_torch.serving import make_trace, run_closed_loop
 
-    cfg = llama.llama3_8b()
-    t0 = time.monotonic()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = llama.init_params(gen, cfg, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
-    engine = make_engine(params, cfg)
+    engine = make_engine(params, cfg, weight_mode)
     trace = make_trace(**TRACE)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     report = run_closed_loop(engine, trace, use_wall_clock=False)
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-
     prefills = engine.scheduler.prefill_count
-    steps = engine.scheduler.decode_steps
-    # no gradients while serving: the backward and Adam kernels stay at 0
+    calls = prefills + engine.scheduler.decode_steps
+    # no gradients while serving: the backward and Adam kernels stay at 0;
+    # fp8 casts each product's activation (row-major) and weight
+    # (column-major): 7 x L of each a call
     want = dict({k: 0 for k in counts},
                 flash_attention_fwd=cfg.num_layers * prefills,
-                rms_norm_fwd=(2 * cfg.num_layers + 1) * (prefills + steps))
+                rms_norm_fwd=(2 * cfg.num_layers + 1) * calls)
+    if weight_mode == "fp8":
+        want["fp8_cast"] = want["fp8_cast_col"] = 7 * cfg.num_layers * calls
     missing = [t.rid for t in trace
                if len(engine.results.get(t.rid, {}).get("tokens", ()))
                != t.max_new_tokens]
@@ -817,29 +1210,135 @@ def phase_serving():
                              f"{missing}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
+    return engine, trace, serving_report(engine, report, counts, want, peak)
 
+
+def phase_serving():
+    import torch
+
+    from apex_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    engine, trace, report = serve(params, cfg, "native")
     longest = sorted(trace, key=lambda t: (-len(t.prompt), t.rid))
-    tf = teacher_forced(params, cfg, engine,
-                        [longest[0].rid, longest[-1].rid])
-    if tf["worst_gap"] > DELTA or tf["spread"] > DELTA:
-        raise AssertionError(f"teacher-forced check failed: {tf}")
-    tokens = report["tokens"]
-    return params, cfg, {
+    tf = teacher_forced(lambda seq: llama.forward(params, seq, cfg), engine,
+                        [longest[0].rid, longest[-1].rid], DELTA)
+    return params, cfg, engine.results, {
             "phase": "serving", "model": "llama3_8b", "dtype": "bfloat16",
-            "num_layers": cfg.num_layers,
-            "num_pages": engine.scheduler.cache.num_pages,
-            "page_size": PAGE_SIZE, "max_batch": MAX_BATCH,
-            "init_s": init_s, "requests": report["requests"],
-            "tokens": tokens, "wall_s": report["wall_s"],
-            "tokens_per_s": report["tokens_per_s"],
-            "ttft_p50_ms": report["ttft_p50_ms"],
-            "ttft_p99_ms": report["ttft_p99_ms"],
-            "latency_p50_ms": report["latency_p50_ms"],
-            "latency_p99_ms": report["latency_p99_ms"],
-            "mean_occupancy": report["mean_occupancy"],
-            "prefills": prefills, "decode_steps": steps,
-            "peak_memory_bytes": peak, "launches": counts,
-            "expected_launches": want, "teacher_forced": tf}
+            "num_layers": cfg.num_layers, "init_s": init_s, **report,
+            "teacher_forced": tf}
+
+
+def phase_serving_fp8(params, cfg, native_results):
+    """The serving phase's model and trace with weight_mode="fp8"."""
+    import torch
+
+    from apex_tpu_torch.serving import fp8_weight_scales
+
+    t0 = time.monotonic()
+    scales = fp8_weight_scales(params)
+    torch.cuda.synchronize()
+    scales_s = time.monotonic() - t0
+    # the program's scales against ones computed here, layer by layer
+    for name, got in scales.items():
+        ref = torch.stack([fp8_weight_scale(w) for w in params["layers"][name]])
+        if not torch.equal(got, ref):
+            raise AssertionError(f"fp8 weight scales of {name}: worst "
+                                 f"{float((got - ref).abs().max())} off")
+    engine, trace, report = serve(params, cfg, "fp8")
+    longest = sorted(trace, key=lambda t: (-len(t.prompt), t.rid))
+    tf = teacher_forced(lambda seq: fp8_forward(params, seq, cfg),
+                        engine, [longest[0].rid, longest[-1].rid],
+                        DELTA_FP8)
+    # for information only: fp8 rounds every operand, so greedy tokens
+    # part from the native run's after the first difference
+    same = total = 0
+    for rid, res in engine.results.items():
+        ref = native_results[rid]["tokens"]
+        same += sum(a == b for a, b in zip(res["tokens"], ref))
+        total += len(ref)
+    return {"phase": "serving_fp8", "model": "llama3_8b",
+            "weight_mode": "fp8", "dtype": "bfloat16",
+            "num_layers": cfg.num_layers, "weight_scales_s": scales_s,
+            "weight_scales_equal": True,
+            **report, "teacher_forced": tf,
+            "tokens_equal_to_native": same, "tokens_compared": total,
+            "share_equal_to_native": same / total}
+
+
+def phase_long_context(dev):
+    """FusedScaleMaskSoftmax forward and backward at 32,768 keys: causal
+    at LONG_CAUSAL, a padding mask at LONG_MASKED, and causal with that
+    padding mask. Each forward launches exactly one stats and one apply
+    kernel and no whole-row kernel, the backward none; dx is held against
+    fp32 autograd of the plain function on the same x and g."""
+    import torch
+
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+    from apex_tpu_torch.transformer.functional import fused_softmax as sm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    pad, lengths = long_pad_mask(g, LONG_MASKED[0])
+    out = {"phase": "long_context", "scale": LONG_SCALE, "lengths": lengths}
+    for name, shape, mask_type, mask in (
+            ("causal", LONG_CAUSAL, AttnMaskType.causal, None),
+            ("padding", LONG_MASKED, AttnMaskType.padding, pad),
+            ("causal_padding", LONG_MASKED, AttnMaskType.causal, pad)):
+        module = FusedScaleMaskSoftmax(attn_mask_type=mask_type,
+                                       scale=LONG_SCALE)
+        x = (4 * torch.randn(shape, generator=g, device="cuda")).to(
+            torch.bfloat16).requires_grad_()
+        dy = torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+        reset_counts()
+        y = module(x, mask)
+        counts = read_counts()
+        (dx,) = torch.autograd.grad(y, x, dy)
+        torch.cuda.synchronize()
+        want = dict({k: 0 for k in counts}, fused_softmax_stats=1,
+                    fused_softmax_apply=1)
+        if counts != want or read_counts() != want:
+            raise AssertionError(f"{name}: launches {counts}, after the "
+                                 f"backward {read_counts()} != {want}")
+        # the plain function in fp32 with ordinary autograd
+        full = (sm._causal_mask(shape[-2], shape[-1], "cuda")
+                if mask is None else mask)
+        if mask_type == AttnMaskType.causal and mask is not None:
+            full = mask | sm._causal_mask(shape[-2], shape[-1], "cuda")
+        x32 = x.detach().float().requires_grad_()
+        y32 = sm._masked_plain(x32, full, LONG_SCALE)
+        (dx32,) = torch.autograd.grad(y32, x32, dy.float())
+        # y and dx in bf16 from bf16 y: within 1% of each output's
+        # largest value (a bf16 rounding of y feeds dx)
+        errs = {"y": max_err(y.detach(), y32.detach(), 1e-2, f"{name} y"),
+                "dx": max_err(dx, dx32, 1e-2, f"{name} dx")}
+        del y32, dx32, x32, y, dx
+        torch.cuda.empty_cache()
+
+        def fwd(a):
+            return module(a, mask)
+
+        y = module(x, mask)
+
+        def bwd(a):
+            return torch.autograd.grad(y, a, dy, retain_graph=True)
+
+        # host ms: synchronised wall time of a call, as a caller pays it
+        out[name] = {"shape": list(shape), "mask_type": mask_type.name,
+                     "mask": None if mask is None else list(mask.shape),
+                     "launches": counts, "max_abs_err": errs,
+                     "dx_rel_tol": 1e-2,
+                     "forward_ms": host_ms(fwd, (x,), iters=5),
+                     "backward_ms": host_ms(bwd, (x,), iters=5)}
+        del y, x, dy
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_profile(params, cfg):
@@ -984,6 +1483,7 @@ def grad_check(params, kernel_loss, plain_loss):
 
 def reset_counts():
     from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
     from apex_tpu_torch.ops import fused_adam_kernel as fak
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.transformer.functional import fused_softmax as sm
@@ -992,10 +1492,13 @@ def reset_counts():
     ln.launches = ln.bwd_launches = fak.launches = 0
     ln.ln_launches = ln.ln_bwd_launches = 0
     sm.causal_launches = sm.masked_launches = 0
+    sm.stats_launches = sm.apply_launches = 0
+    fc.launches = fc.col_launches = 0
 
 
 def read_counts():
     from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
     from apex_tpu_torch.ops import fused_adam_kernel as fak
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.transformer.functional import fused_softmax as sm
@@ -1008,7 +1511,10 @@ def read_counts():
             "layer_norm_fwd": ln.ln_launches,
             "layer_norm_bwd": ln.ln_bwd_launches,
             "fused_softmax_causal": sm.causal_launches,
-            "fused_softmax_masked": sm.masked_launches}
+            "fused_softmax_masked": sm.masked_launches,
+            "fused_softmax_stats": sm.stats_launches,
+            "fused_softmax_apply": sm.apply_launches,
+            "fp8_cast": fc.launches, "fp8_cast_col": fc.col_launches}
 
 
 def step_flops(n_params: int, n_layers: int, hidden: int, seq: int,
@@ -1475,7 +1981,7 @@ def phase_bert_training(dev):
 
 
 def summary(kernels, counts, path_adam):
-    """One row per kernel; ``launches`` sums the four paths' runs,
+    """One row per kernel; ``launches`` sums the paths' runs,
     ``launches_by_path`` splits them. ``path_adam`` is the training
     phase's check of its Adam launch on the packed slab."""
     def row(name, source, replaces, r, err, **extra):
@@ -1496,6 +2002,8 @@ def summary(kernels, counts, path_adam):
     lnf, lnb = kernels["layer_norm_fwd"], kernels["layer_norm_bwd"]
     smc = kernels["fused_softmax_causal"]
     smm = kernels["fused_softmax_masked"]
+    cast = kernels["fp8_cast"]
+    long = kernels["fused_softmax_long"]["causal"]
     csrc = "apex_tpu_torch/ops/csrc/"
     # the plain and library times of the two flash backward rows are one
     # call each that computes dq, dk and dv together: count them once
@@ -1540,6 +2048,25 @@ def summary(kernels, counts, path_adam):
         row("fused_softmax_masked", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:119", smm,
             smm["max_abs_err"]),
+        # the casts at their serving shapes: the prefill activation
+        # row-major, the weight column-major (the other shapes are in the
+        # kernels phase); the long-row passes at the causal shape
+        row("fp8_cast", csrc + "fp8_cast.cu",
+            "apex_tpu/ops/fp8_cast_kernel.py:31", cast["activation"],
+            max(x["max_abs_err"] for x in cast.values())),
+        row("fp8_cast_col", csrc + "fp8_cast.cu",
+            "apex_tpu/ops/fp8_cast_kernel.py:31", cast["weight"],
+            cast["weight"]["max_abs_err"]),
+        row("fused_softmax_stats", csrc + "fused_softmax.cu",
+            "apex_tpu/transformer/functional/fused_softmax.py:160",
+            dict(long["stats"], shape=long["shape"],
+                 library_ms=long["library_ms"]),
+            long["max_abs_err"]["l"], library_covers="stats+apply"),
+        row("fused_softmax_apply", csrc + "fused_softmax.cu",
+            "apex_tpu/transformer/functional/fused_softmax.py:195",
+            dict(long["apply"], shape=long["shape"],
+                 library_ms=long["library_ms"]),
+            long["max_abs_err"]["y"], library_covers="stats+apply"),
     ]}
 
 
@@ -1567,15 +2094,25 @@ def main() -> int:
         emit(kernels)
         phase = "serving"
         reset_counts()
-        params, cfg, serving = phase_serving()
+        params, cfg, native_results, serving = phase_serving()
         emit(serving)
         if profiling:
             phase = "profile"
             emit(phase_profile(params, cfg))
+        phase = "serving_fp8"
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving_fp8 = phase_serving_fp8(params, cfg, native_results)
+        emit(serving_fp8)
         # the profile's timed scheduler methods close over the engine
         # that holds the serving params: a reference cycle, which only
         # the collector frees
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "long_context"
+        long_context = phase_long_context(dev)
+        emit(long_context)
         gc.collect()
         torch.cuda.empty_cache()
         phase = "training"
@@ -1605,6 +2142,11 @@ def main() -> int:
               "error": f"{type(exc).__name__}: {exc}"[:2000]})
         return 1
     counts = {"serving": serving["launches"],
+              "serving_fp8": serving_fp8["launches"],
+              "long_context": {
+                  k: sum(long_context[c]["launches"][k] for c in (
+                      "causal", "padding", "causal_padding"))
+                  for k in serving["launches"]},
               "training": training["launches"],
               **{path: r["launches"] for path, r in results.items()}}
     emit({"kernel_counts": counts})

@@ -335,15 +335,287 @@ def test_softmax_autograd_launches_one_forward_kernel(gen):
     assert torch.isfinite(x.grad).all()
 
 
-def test_softmax_long_rows_raise_on_the_card(gen):
-    """sk above the whole-row limit needs the blocked kernels, which are
-    not ported: the card raises, never substitutes the plain version."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (5, 100), (8, 16400),
+                                   (16, 32768), (3, 20001)])
+@pytest.mark.parametrize("mask_kind", ["causal", "padding", "full"])
+def test_blocked_softmax_kernels_match_plain(gen, dtype, sq, sk, mask_kind):
+    """The stats and apply kernels against the plain two passes, at any
+    sk (20001 is odd: the scalar path), causal with sq < sk, a [2, 1, 1,
+    sk] padding mask read through zero strides, or a full mask with one
+    fully masked row (uniform 1/sk)."""
+    x = (4 * torch.randn(2, 3, sq, sk, generator=gen, device="cuda")).to(
+        dtype)
+    mask = None
+    if mask_kind == "padding":
+        mask = torch.zeros(2, 1, 1, sk, dtype=torch.bool, device="cuda")
+        mask[1, ..., 3:] = True
+    elif mask_kind == "full":
+        mask = torch.rand(2, 3, sq, sk, generator=gen, device="cuda") < 0.3
+        mask[0, 1, sq - 1] = True
+    before = (sm.stats_launches, sm.apply_launches)
+    m, l = sm._stats_cuda(x, mask, 0.125)
+    y = sm._apply_cuda(x, mask, 0.125, m, l)
+    assert (sm.stats_launches, sm.apply_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    causal = mask is None
+    m_ref, l_ref = sm._stats_plain(x, mask, 0.125, causal)
+    ref = sm._apply_plain(x, mask, 0.125, causal, m_ref, l_ref)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(m, m_ref, rtol=0, atol=0)
+    torch.testing.assert_close(l, l_ref, rtol=2e-5, atol=0)
+    rtol, atol = SM_TOL[dtype]
+    assert y.dtype == dtype
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
+    if mask_kind == "full":
+        torch.testing.assert_close(y[0, 1, sq - 1].float(),
+                                   torch.full((sk,), 1.0 / sk,
+                                              device="cuda"),
+                                   rtol=rtol, atol=atol)
+
+
+def test_blocked_softmax_minus_inf_rows(gen):
+    """Rows whose first blocks are -inf normalize; a row all below the
+    fill value too (the running max starts at -inf)."""
+    x = torch.randn(1, 4, 20000, generator=gen, device="cuda")
+    x[:, :, :12000] = -torch.inf
+    x[:, 2] = -30000.0
+    y = sm._blocked_cuda(x, None, 1.0)
+    ref = sm._blocked_plain(x, None, 1.0, causal=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, ref, rtol=2e-5, atol=1e-7)
+
+
+def test_long_rows_reach_the_blocked_kernels(gen):
+    """sk above the whole-row limit launches the two passes, once each per
+    forward and never the whole-row kernels, through every entry point,
+    FusedScaleMaskSoftmax included; the backward launches nothing."""
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
     sk = sm._WHOLE_ROW_MAX_SK + 1
-    x = torch.zeros(1, 2, sk, device="cuda")
-    before = (sm.causal_launches, sm.masked_launches)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        sm.scaled_upper_triang_masked_softmax(x, None, 1.0)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        sm.scaled_masked_softmax(x, torch.zeros(1, 1, sk, dtype=torch.bool,
-                                                device="cuda"), 1.0)
-    assert (sm.causal_launches, sm.masked_launches) == before
+    x = torch.randn(1, 2, 4, sk, generator=gen, device="cuda",
+                    requires_grad=True)
+    pad = torch.zeros(1, 1, 1, sk, dtype=torch.bool, device="cuda")
+    pad[..., -5:] = True
+
+    def counts():
+        return (sm.causal_launches, sm.masked_launches, sm.stats_launches,
+                sm.apply_launches)
+
+    before = counts()
+    ys = [sm.scaled_upper_triang_masked_softmax(x[0], None, 1.0),
+          sm.scaled_masked_softmax(x, pad, 1.0),
+          FusedScaleMaskSoftmax(attn_mask_type=AttnMaskType.causal)(x),
+          FusedScaleMaskSoftmax(attn_mask_type=AttnMaskType.causal)(x, pad),
+          FusedScaleMaskSoftmax(attn_mask_type=AttnMaskType.padding,
+                                scale=0.5).forward_fused_softmax(x, pad)]
+    sum(y.float().square().sum() for y in ys).backward()
+    assert counts() == (before[0], before[1], before[2] + 5, before[3] + 5)
+    assert torch.isfinite(x.grad).all()
+    ref = FusedScaleMaskSoftmax(attn_mask_type=AttnMaskType.causal
+                                ).forward_torch_softmax(x, pad)
+    assert counts()[2:] == (before[2] + 5, before[3] + 5)
+    torch.testing.assert_close(ys[3], ref, rtol=2e-5, atol=1e-7)
+
+
+# ----------------------------------------------------------------- fp8
+
+
+FP8 = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
+
+
+def _cast_counts():
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    return fc.launches, fc.col_launches
+
+
+def _cast_pair(x, scale, fp8, col_major=False):
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    row, col = _cast_counts()
+    y, amax = fc._cast_and_scale_cuda(x, scale, fp8, FP8[fp8], col_major)
+    assert _cast_counts() == ((row, col + 1) if col_major else (row + 1, col))
+    y_ref, amax_ref = fc._cast_and_scale_plain(x, scale, fp8, FP8[fp8],
+                                               col_major)
+    torch.cuda.synchronize()
+    return y, amax, y_ref, amax_ref
+
+
+def _assert_bits(y, y_ref):
+    nan, nan_ref = torch.isnan(y.float()), torch.isnan(y_ref.float())
+    assert torch.equal(nan, nan_ref)
+    assert torch.equal(y.view(torch.uint8)[~nan],
+                       y_ref.view(torch.uint8)[~nan_ref])
+
+
+@pytest.mark.parametrize("fp8", sorted(FP8, key=str))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", list(range(1, 33)) + [4099, 1 << 20])
+def test_fp8_cast_kernel_bits_equal_plain(gen, fp8, dtype, n):
+    """Every tail length mod 16 (n = 1..32), an odd size and a large one;
+    scale 1.7 saturates the largest E4M3 values."""
+    x = (300 * torch.randn(n, generator=gen, device="cuda")
+         * torch.exp(-12 * torch.rand(n, generator=gen, device="cuda"))
+         ).to(dtype)
+    for scale in (1.7, torch.tensor(0.37, device="cuda")):
+        y, amax, y_ref, amax_ref = _cast_pair(x, scale, fp8)
+        assert y.dtype == fp8 and y.shape == x.shape
+        _assert_bits(y, y_ref)
+        assert float(amax) == float(amax_ref)
+
+
+@pytest.mark.parametrize("fp8", sorted(FP8, key=str))
+def test_fp8_cast_kernel_saturates_and_propagates_nan(gen, fp8):
+    fmax = FP8[fp8]
+    x = torch.randn(4096, generator=gen, device="cuda")
+    x[:4] = torch.tensor([1e9, -1e9, torch.inf, -torch.inf])
+    y, amax, y_ref, amax_ref = _cast_pair(x, 2.0, fp8)
+    _assert_bits(y, y_ref)
+    assert y[:4].float().tolist() == [fmax, -fmax, fmax, -fmax]
+    assert float(amax) == float(amax_ref) == float("inf")
+    for at in (0, 17, 4095):  # a NaN anywhere wins the amax
+        xn = x.clone()
+        xn[at] = torch.nan
+        y, amax, y_ref, amax_ref = _cast_pair(xn, 2.0, fp8)
+        _assert_bits(y, y_ref)
+        assert torch.isnan(y[at].float()) and torch.isnan(amax)
+
+
+def test_fp8_cast_kernel_views_and_2d(gen):
+    """A misaligned view (the scalar path) and a 2-D weight."""
+    x = torch.randn(1001, generator=gen, device="cuda").to(torch.bfloat16)
+    y, amax, y_ref, amax_ref = _cast_pair(x[3:], 1.0, torch.float8_e4m3fn)
+    _assert_bits(y, y_ref)
+    assert float(amax) == float(amax_ref)
+    w = torch.randn(256, 384, generator=gen, device="cuda").to(torch.bfloat16)
+    y, amax, y_ref, amax_ref = _cast_pair(w, 30.0, torch.float8_e4m3fn)
+    assert y.shape == w.shape
+    _assert_bits(y, y_ref)
+
+
+def test_fp8_cast_kernel_scalar_launches_and_empty_raises(gen):
+    """A 0-dim CUDA x launches the kernel (y of shape ()), bits equal to
+    the plain version; an empty one raises, as max of nothing does."""
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    for fp8 in FP8:
+        x = torch.tensor(-500.0, device="cuda")
+        row, col = _cast_counts()
+        y, amax = fc.cast_and_scale_stats(x, 1.0, fp8, FP8[fp8])
+        assert _cast_counts() == (row + 1, col)
+        y_ref, amax_ref = fc._cast_and_scale_plain(x, 1.0, fp8, FP8[fp8])
+        assert y.shape == () and amax.shape == ()
+        _assert_bits(y, y_ref)
+        assert float(amax) == float(amax_ref) == 500.0
+        with pytest.raises(RuntimeError, match="empty"):
+            fc.cast_and_scale_stats(torch.zeros(0, device="cuda"), 1.0, fp8,
+                                    FP8[fp8])
+        assert _cast_counts() == (row + 1, col)
+
+
+@pytest.mark.parametrize("fp8", sorted(FP8, key=str))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (4, 1000), (64, 64),
+                                   (65, 130), (127, 193), (256, 384),
+                                   (130, 17), (1000, 3)])
+def test_fp8_cast_col_major_kernel_bits_equal_plain(gen, fp8, dtype, shape):
+    """The column-major kernel at whole and partial 64 x 64 tiles, rows
+    a multiple of 4 (word stores) or not (byte stores): y laid out
+    (1, rows), bits and amax equal to the plain version."""
+    rows, cols = shape
+    x = (300 * torch.randn(shape, generator=gen, device="cuda")
+         * torch.exp(-12 * torch.rand(shape, generator=gen, device="cuda"))
+         ).to(dtype)
+    for scale in (1.7, torch.tensor(0.37, device="cuda")):
+        y, amax, y_ref, amax_ref = _cast_pair(x, scale, fp8, col_major=True)
+        assert y.dtype == fp8 and y.shape == x.shape
+        assert y.stride() == (1, rows)
+        _assert_bits(y, y_ref)
+        assert float(amax) == float(amax_ref)
+
+
+def test_fp8_cast_col_major_kernel_nan_and_view(gen):
+    """A NaN anywhere in the tile grid wins the amax; a column slice (a
+    non-contiguous x) is cast from its values, and so is a misaligned
+    one."""
+    x = torch.randn(200, 96, generator=gen, device="cuda")
+    x[0, 0] = 1e9
+    for at in ((0, 1), (63, 64), (199, 95)):
+        xn = x.clone()
+        xn[at] = torch.nan
+        y, amax, y_ref, amax_ref = _cast_pair(xn, 2.0, torch.float8_e4m3fn,
+                                              col_major=True)
+        _assert_bits(y, y_ref)
+        assert torch.isnan(y[at].float()) and torch.isnan(amax)
+        assert float(y[0, 0].float()) == 448.0
+    y, amax, y_ref, amax_ref = _cast_pair(x[:, 5:70], 1.0,
+                                          torch.float8_e5m2, col_major=True)
+    _assert_bits(y, y_ref)
+    assert float(amax) == float(amax_ref)
+    # a contiguous x 2 bytes off a 16-byte boundary: one element a thread
+    flat = torch.randn(1 + 192 * 256, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    y, amax, y_ref, amax_ref = _cast_pair(flat[1:].view(192, 256), 1.0,
+                                          torch.float8_e4m3fn, col_major=True)
+    _assert_bits(y, y_ref)
+    assert float(amax) == float(amax_ref)
+
+
+def test_matmul_fp8_on_the_card_matches_the_cpu(gen):
+    """The fp8 GEMM against the CPU's upcast product on the same
+    operands: the fp8 values are equal bit for bit, the sums differ in
+    order (1e-2 of the output's scale), and two casts launch a product
+    (the activation row-major, the weight column-major); the backward
+    launches one more (the cotangent, row-major)."""
+    from apex_tpu_torch.ops import precision
+
+    for m in (1, 8, 16, 512):
+        a = torch.randn(m, 256, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        b = (0.05 * torch.randn(256, 384, generator=gen, device="cuda")).to(
+            torch.bfloat16).requires_grad_()
+        row, col = _cast_counts()
+        y = precision.matmul_fp8(a, b, 1.0, 30.0)
+        assert _cast_counts() == (row + 1, col + 1)
+        y.float().sum().backward()
+        assert _cast_counts() == (row + 2, col + 1)
+        ac, bc = (t.detach().cpu().requires_grad_() for t in (a, b))
+        y_ref = precision.matmul_fp8(ac, bc, 1.0, 30.0)
+        y_ref.float().sum().backward()
+        torch.cuda.synchronize()
+        assert y.dtype == torch.bfloat16
+        for got, ref in ((y, y_ref), (a.grad, ac.grad), (b.grad, bc.grad)):
+            got, ref = got.detach().float().cpu(), ref.detach().float()
+            assert float((got - ref).abs().max()) <= \
+                1e-2 * float(ref.abs().max())
+
+
+def test_fp8_serving_reaches_the_cast_kernel(gen):
+    """weight_mode="fp8" on CUDA tensors: every layer product launches the
+    row-major cast for its activation and the column-major cast for its
+    weight, in each prefill and in each decode step, and tokens come out
+    for every request."""
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.serving import ServingEngine
+
+    cfg = llama.tiny(dtype=torch.bfloat16)
+    params = llama.init_params(gen, cfg, device="cuda")
+    engine = ServingEngine(params, cfg, num_pages=32, page_size=8,
+                           max_batch=2, max_prompt_len=16, max_new_cap=4,
+                           weight_mode="fp8", registry=MetricRegistry())
+    row, col = _cast_counts()
+    engine.submit(torch.arange(5).numpy(), 4)
+    engine.submit(torch.arange(9).numpy(), 3)
+    results = engine.run()
+    sched = engine.scheduler
+    want = 7 * cfg.num_layers * (sched.prefill_count + sched.decode_steps)
+    assert _cast_counts() == (row + want, col + want) and want > 0
+    assert {rid: len(r["tokens"]) for rid, r in results.items()} == {
+        0: 4, 1: 3}

@@ -1,7 +1,7 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX
-package, its entry points refuse to run on the CPU unless asked to, and
-the CUDA branch of each kernel wrapper has no ``except`` that could fall
-back to the plain version.
+package, its entry points refuse to run on the CPU unless asked to, the
+CUDA branch of each kernel wrapper has no ``except`` that could fall
+back to the plain version, and no CUDA path calls a plain version.
 """
 
 import ast
@@ -27,7 +27,15 @@ WRAPPERS = {
     "transformer/functional/fused_softmax.py": (
         "_causal_cuda", "_masked_cuda", "_causal", "_masked", "_lib",
         "forward", "backward", "scaled_upper_triang_masked_softmax",
-        "scaled_masked_softmax"),
+        "scaled_masked_softmax", "_stats_cuda", "_apply_cuda",
+        "_blocked_cuda", "_route", "forward_fused_softmax"),
+    "ops/fp8_cast_kernel.py": ("_cast_and_scale_cuda",
+                               "cast_and_scale_stats", "_lib"),
+    "ops/precision.py": ("matmul_fp8", "matmul_fp8_stats", "einsum_fp8",
+                         "quantize_fp8", "quantize_fp8_stats", "forward",
+                         "backward", "_fp8_product"),
+    "serving/scheduler.py": ("_make_mm", "fp8_weight_scales",
+                             "build_decode_step", "build_prefill"),
     "ops/fused_adam_kernel.py": ("_adam_flat_cuda", "adam_flat", "_lib"),
     "optimizers/fused_adam.py": ("fused_adam",),
     "optimizers/fused_lamb.py": ("fused_lamb",),
@@ -80,6 +88,39 @@ def test_kernel_wrappers_have_no_fallback(rel):
         assert name in funcs, f"{rel} lost {name}"
         tries = [n for n in ast.walk(funcs[name]) if isinstance(n, ast.Try)]
         assert not tries, f"{rel}:{name} has a try at line {tries[0].lineno}"
+
+
+def _called_names(node):
+    for call in ast.walk(node):
+        if isinstance(call, ast.Call):
+            fn = call.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            yield call.lineno, name
+
+
+def _is_cuda_test(test) -> bool:
+    return isinstance(test, ast.Attribute) and test.attr == "is_cuda"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_cuda_path_calls_a_plain_version(path):
+    """A ``*_cuda`` function, and the branch under ``if x.is_cuda:``,
+    never call a ``*_plain`` function: on the card the kernel runs or the
+    call raises."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name.endswith("_cuda"):
+            scopes = [node]
+        elif isinstance(node, ast.If) and _is_cuda_test(node.test):
+            scopes = node.body
+        else:
+            continue
+        for scope in scopes:
+            bad = [(line, name) for line, name in _called_names(scope)
+                   if name.endswith("_plain")]
+            assert not bad, f"{path.name}: a CUDA path calls {bad}"
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
