@@ -17,7 +17,8 @@ result line) when it fails:
                the fp8 cast at the serving weight (column-major, as the
                fp8 GEMM takes it, and row-major), a prefill activation
                and an E5M2 cotangent (bit for bit), the long-row softmax
-               passes at 32,768 keys (causal and padding-masked).
+               passes at 32,768 keys (causal and padding-masked); the
+               flash backward twice, the two calls bit for bit.
 4. serving  -- Llama-3-8B at full width and depth, random bf16 weights
                from a seeded generator, served by ``ServingEngine`` over a
                16-request closed-loop trace; every launch counter must
@@ -420,16 +421,22 @@ def check_flash_bwd(dev):
     dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, scale)
     ref = fa._flash_bwd_plain(*(fa._heads_major(t) for t in (q, k, v, o)),
                               lse, fa._heads_major(do), True, scale)
+    # no atomics: a second call gives the same bits
+    again = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, scale)
     torch.cuda.synchronize()
+    for name, first, second in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        if not torch.equal(first, second):
+            raise AssertionError(f"flash {name}: two calls differ")
     # bf16 outputs: both sides sum in fp32 (in other orders) and round
-    # each value once to bf16 (2^-9 relative), so |kernel - plain| stays
-    # within 1% of the output's largest value
+    # each value once to bf16 (2^-9 relative); the kernels also round P
+    # and dS once to bf16 before their products (tensor-core operands).
+    # |kernel - plain| stays within 1% of the output's largest value
     errs = {}
     for name, got, r, n in (("dq", dq, ref[0], H), ("dk", dk, ref[1], H_kv),
                             ("dv", dv, ref[2], H_kv)):
         r = r.reshape(b, n, s, d).transpose(1, 2)
         errs[name] = max_err(got, r, 1e-2, f"flash {name}")
-    del dq, dk, dv, ref
+    del dq, dk, dv, ref, again
     pairs = b * H * s * (s + 1) // 2  # causal (q, k) pairs
     io = 2 * b * s * (2 * H + 2 * H_kv) * d + 2 * 4 * b * H * s
     dq_bytes = io + 2 * b * s * H * d
@@ -459,7 +466,7 @@ def check_flash_bwd(dev):
         return torch.autograd.grad(out, inputs, grad, retain_graph=True)
 
     res = {"shape": [b, s, H, H_kv, d], "dtype": "bfloat16", "causal": True,
-           "max_abs_err": errs, "pairs": pairs,
+           "max_abs_err": errs, "bit_identical_rerun": True, "pairs": pairs,
            "plain_ms": time_ms(plain, sets, iters=5),
            "library_ms": time_ms(library, graphs),
            "library": "backward of F.scaled_dot_product_attention "
@@ -1980,6 +1987,15 @@ def phase_bert_training(dev):
             "launches": total, "expected_per_step": want}
 
 
+# the bf16 flash backward's design, named in its two summary rows
+FLASH_BWD_DESIGN = {
+    "design": "tensor cores",
+    "instruction": "wgmma m64nNk16 bf16 -> fp32 for every product: S and "
+                   "dP from 128-byte-swizzled shared memory, dQ, dK and "
+                   "dV with A (dS, P) from registers and B transposed; "
+                   "cp.async tiles"}
+
+
 def summary(kernels, counts, path_adam):
     """One row per kernel; ``launches`` sums the paths' runs,
     ``launches_by_path`` splits them. ``path_adam`` is the training
@@ -2021,12 +2037,12 @@ def summary(kernels, counts, path_adam):
         row("flash_attention_bwd_dq", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:261",
             dict(bwd["dq"], shape=bwd["shape"], **both),
-            bwd["max_abs_err"]["dq"], **covers),
+            bwd["max_abs_err"]["dq"], **covers, **FLASH_BWD_DESIGN),
         row("flash_attention_bwd_dkv", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:322",
             dict(bwd["dkv"], shape=bwd["shape"], **both),
             max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]),
-            **covers),
+            **covers, **FLASH_BWD_DESIGN),
         row("rms_norm_bwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:189", rbwd,
             max(rbwd["max_abs_err"].values())),

@@ -85,21 +85,21 @@ def _flat(t):
     return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h_kv", [4, 2, 1])
-@pytest.mark.parametrize("causal,sq,sk,d", [
-    (True, 40, 40, 64), (False, 40, 40, 64), (True, 200, 200, 128),
-    (False, 200, 200, 128), (False, 33, 70, 80), (True, 130, 130, 32)])
-def test_flash_bwd_kernels_match_plain(gen, dtype, causal, h_kv, sq, sk, d):
-    """dq and dk/dv against _flash_bwd_plain on the same (q, k, v, o,
-    lse, do); ragged lengths pad the 64- and 32-row tiles, rep = 4 //
-    h_kv. fp32: summation order only; bf16: one output rounding (2^-9
-    of the value) on top."""
-    b, h = 2, 4
+def _flash_bwd_inputs(gen, dtype, h, h_kv, sq, sk, d, b=2):
     q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
     k = torch.randn(b, sk, h_kv, d, generator=gen, device="cuda").to(dtype)
     v = torch.randn(b, sk, h_kv, d, generator=gen, device="cuda").to(dtype)
     do = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _check_flash_bwd(q, k, v, do, causal):
+    """dq and dk/dv against _flash_bwd_plain on the same (q, k, v, o,
+    lse, do), one launch of each kernel. fp32 (FMA kernels): summation
+    order only; bf16 (tensor cores): P and dS rounded once to bf16 before
+    their products and one output rounding (2^-9 of the value) on top."""
+    b, _, h, d = q.shape
+    h_kv = k.shape[2]
     scale = d ** -0.5
     o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale)
     before = (fa.dq_launches, fa.dkv_launches)
@@ -109,12 +109,65 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, causal, h_kv, sq, sk, d):
     ref = fa._flash_bwd_plain(_flat(q), _flat(k), _flat(v), _flat(o), lse,
                               _flat(do), causal, scale)
     torch.cuda.synchronize()
-    rel = 2e-5 if dtype == torch.float32 else 1e-2
+    rel = 2e-5 if q.dtype == torch.float32 else 1e-2
     for name, got, r, n in (("dq", dq, ref[0], h), ("dk", dk, ref[1], h_kv),
                             ("dv", dv, ref[2], h_kv)):
-        assert got.dtype == dtype
+        assert got.dtype == q.dtype
         r = r.reshape(b, n, -1, d).transpose(1, 2)
         _assert_near(got, r, rel, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,h_kv", [
+    pytest.param(4, 4, id="4"), pytest.param(4, 2, id="2"),
+    pytest.param(4, 1, id="1"), pytest.param(8, 1, id="1-rep8")])
+@pytest.mark.parametrize("causal,sq,sk,d", [
+    (True, 40, 40, 64), (False, 40, 40, 64), (True, 200, 200, 128),
+    (False, 200, 200, 128), (False, 33, 70, 80), (True, 130, 130, 32),
+    (True, 300, 300, 128), (False, 129, 257, 64), (True, 129, 257, 64),
+    (True, 257, 129, 80)])
+def test_flash_bwd_kernels_match_plain(gen, dtype, causal, h, h_kv, sq, sk,
+                                       d):
+    """rep = h // h_kv (8 sums eight query heads into one kv head);
+    ragged lengths pad the 64-row tiles (and span several of them at 300
+    and 257). Causal with sk > sq leaves key tiles past sq that no query
+    sees (zero dk, dv); with sq > sk the diagonal of the last q tiles
+    runs past sk."""
+    _check_flash_bwd(*_flash_bwd_inputs(gen, dtype, h, h_kv, sq, sk, d),
+                     causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [20, 32, 80])
+def test_flash_bwd_bf16_head_dims_take_the_tensor_cores(gen, causal, d):
+    """d = 20 and 32 pad the 64-column tiles with zero columns, d = 80
+    the 128-column ones; d = 20 is no multiple of 8 and takes the element
+    copies. Each launches the tensor-core kernels once."""
+    _check_flash_bwd(*_flash_bwd_inputs(gen, torch.bfloat16, 4, 2, 257,
+                                        257, d), causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_bf16_unaligned_views(gen, causal):
+    """Views whose row stride (81 elements) is no multiple of 8 take the
+    tensor-core kernels' element copies instead of 16-byte cp.async."""
+    def view(n, s):
+        wide = torch.randn(2, s, n, 81, generator=gen, device="cuda")
+        return wide.to(torch.bfloat16)[..., :80]
+
+    q, k, v, do = view(4, 150), view(2, 150), view(2, 150), view(4, 150)
+    assert q.stride(2) == 81
+    _check_flash_bwd(q, k, v, do, causal)
+
+
+def test_flash_bwd_bf16_is_deterministic(gen):
+    """No atomics: two calls give bit-identical dq, dk and dv."""
+    q, k, v, do = _flash_bwd_inputs(gen, torch.bfloat16, 8, 2, 300, 300, 128)
+    o, lse = fa._flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    first = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, 128 ** -0.5)
+    second = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, 128 ** -0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_launches_both_backward_kernels(gen):
