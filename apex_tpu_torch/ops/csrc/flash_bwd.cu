@@ -9,11 +9,15 @@
 //   s  = scale * (q . k)            the Pallas backward scales after the
 //                                   product (the forward scales q first)
 //   p  = exp(s - lse),  0 where k_pos > q_pos (causal, top-left aligned),
-//        k_pos >= sk or q_pos >= sq (tile padding)
-//   dp = dO . v
+//        k_pos >= kv_len (varlen, :300/:362), k_pos >= sk or q_pos >= sq
+//        (tile padding); always selected, never multiplied: a row with
+//        kv_len = 0 has lse = -1e30 and exp(s - lse) = inf
+//   dp = dO . v,  and with dropout (:305-311, :362-378)
+//        dp = keep ? dp / (1 - p_drop) : 0,  pm = keep ? p / (1 - p_drop) : 0
+//        (keep_mask of flash_tc.cuh at the same coordinates as the forward)
 //   ds = p * (dp - delta) * scale
 //   dq = sum_k ds * k               (dq kernel, stored in q's dtype)
-//   dk = sum_q ds * q,  dv = sum_q p * dO
+//   dk = sum_q ds * q,  dv = sum_q pm * dO
 //                                   (dkv kernel, summed over the rep query
 //                                   heads of each kv head; k/v's dtype)
 // GQA: query head f reads kv head f / rep, as in the forward; nothing is
@@ -63,17 +67,18 @@
 //    CTAs an SM (__launch_bounds__(128, 2): at most 255 registers; ptxas
 //    gives 200 and 223, no spills). d <= 64 takes the 64-column tiles.
 //  - Masks are evaluated per element only on the diagonal and ragged-edge
-//    tiles; tiles wholly above the diagonal are never loaded.
+//    tiles; tiles wholly above the diagonal or past kv_len are never
+//    loaded (dq: key tiles; dk/dv: the query heads whose row sees no key of
+//    the CTA's tile, and a CTA left with nothing writes zeros). The keep
+//    mask is hashed while the second product of the pair is in flight and
+//    kept as one bit an element for dS.
 //
 // fp32 inputs: the flash_bwd_*_fp32_kernel FMA kernels (fp32 FMAs on fp32
 // tiles staged in shared memory, one CTA an SM), for fp32 only. Tensor
 // cores would round fp32 operands to TF32 or bf16, and the fp32 path is
 // held to 2e-5 of the plain version.
 
-#include <cstdint>
-#include <initializer_list>
-
-#include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -96,8 +101,15 @@ struct Params {
   int64_t dk_sb, dk_ss, dk_sh;
   int64_t dv_sb, dv_ss, dv_sh;
   float scale;
-  int vec;  // tensor-core kernels: 16-byte copies (vec_ok below)
+  int vec;  // tensor-core kernels: 16-byte copies (vec_ok, flash_tc.cuh)
+  const int* kv_lens;  // [B*H] keys of each flat query row, or null: all sk
+  Dropout drop;        // flash_tc.cuh
 };
+
+// the keys flat query row f attends to: kv_lens[f] clamped to [0, sk]
+__device__ __forceinline__ int row_keys(const Params& p, int f) {
+  return p.kv_lens ? max(0, min(p.kv_lens[f], p.sk)) : p.sk;
+}
 
 // ---------------------------------------------------------------------------
 // fp32 on FMAs
@@ -182,8 +194,10 @@ flash_bwd_dq_fp32_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < NJ * 4; ++j) acc[i][j] = 0.f;
 
-  // causal: k tiles wholly above this q tile's diagonal are skipped
-  const int k_end = p.causal ? min(p.sk, q0 + kBQ) : p.sk;
+  // causal: k tiles wholly above this q tile's diagonal are skipped;
+  // varlen: so are the tiles past the row's keys
+  const int kv_len = row_keys(p, f);
+  const int k_end = p.causal ? min(kv_len, q0 + kBQ) : kv_len;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // Qs/dOs written; last tile's Kt/Vt/Ks/dSs reads done
     for (int i = tid; i < kBK * D; i += kThreads) {
@@ -220,8 +234,11 @@ flash_bwd_dq_fp32_kernel(const Params p) {
       for (int j = 0; j < 4; ++j) {
         const int k_pos = k0 + cg + j;
         float pij = expf(p.scale * s[i][j] - lse_r[i]);
-        if ((p.causal && k_pos > q_pos) || k_pos >= p.sk || q_pos >= p.sq) pij = 0.f;
-        dSs[(r0 + i) * LDS + cg + j] = pij * (dp[i][j] - dl_r[i]) * p.scale;
+        if ((p.causal && k_pos > q_pos) || k_pos >= kv_len || q_pos >= p.sq) pij = 0.f;
+        float dpij = dp[i][j];
+        if (p.drop.on)  // dL/dp of the dropped probabilities
+          dpij = keep_mask(p.drop.seed, f, q_pos, k_pos, p.drop.thr) ? dpij * p.drop.rscale : 0.f;
+        dSs[(r0 + i) * LDS + cg + j] = pij * (dpij - dl_r[i]) * p.scale;
       }
     }
     __syncthreads();  // dSs complete
@@ -302,6 +319,8 @@ flash_bwd_dkv_fp32_kernel(const Params p) {
   const int q_begin = p.causal ? (k0 / kBQ2) * kBQ2 : 0;
   for (int r = 0; r < p.rep; ++r) {
     const int f = g * p.rep + r;  // flat query row of this kv head
+    const int kv_len = row_keys(p, f);
+    if (k0 >= kv_len) continue;   // varlen: no key of this tile is seen
     const int b = f / p.H, hh = f % p.H;
     const float* q = static_cast<const float*>(p.q) + b * p.q_sb + hh * p.q_sh;
     const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + hh * p.do_sh;
@@ -348,9 +367,15 @@ flash_bwd_dkv_fp32_kernel(const Params p) {
         for (int j = 0; j < 4; ++j) {
           const int q_pos = q0 + cg + j;
           float pij = expf(p.scale * s[i][j] - lse_s[cg + j]);
-          if ((p.causal && k_pos > q_pos) || q_pos >= p.sq || k_pos >= p.sk) pij = 0.f;
-          Ps[(r0 + i) * LDP + cg + j] = pij;
-          dSs[(r0 + i) * LDP + cg + j] = pij * (dp[i][j] - dl_s[cg + j]) * p.scale;
+          if ((p.causal && k_pos > q_pos) || q_pos >= p.sq || k_pos >= kv_len) pij = 0.f;
+          float pm = pij, dpij = dp[i][j];
+          if (p.drop.on) {  // dV takes the dropped p, dS the dropped dp
+            const bool kp = keep_mask(p.drop.seed, f, q_pos, k_pos, p.drop.thr);
+            pm = kp ? pij * p.drop.rscale : 0.f;
+            dpij = kp ? dpij * p.drop.rscale : 0.f;
+          }
+          Ps[(r0 + i) * LDP + cg + j] = pm;
+          dSs[(r0 + i) * LDP + cg + j] = pij * (dpij - dl_s[cg + j]) * p.scale;
         }
       }
       __syncthreads();  // Ps, dSs complete
@@ -423,32 +448,17 @@ cudaError_t dispatch_fp32(const Params& p, int rows, bool dkv, cudaStream_t stre
   return cudaErrorInvalidValue;
 }
 
+}  // namespace
+
 // ---------------------------------------------------------------------------
 // bf16 on tensor cores
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 128;  // one warpgroup: warp w owns rows 16w..16w+15
 constexpr int kBQ = 64;   // query rows: the dq CTA's tile, dk/dv's streamed tile
 constexpr int kBK = 64;   // keys: the dk/dv CTA's tile, dq's streamed tile
 constexpr int kSub = 32;  // dk/dv: queries of one softmax step
-constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kThreads == 2 * kBQ, "one thread per lse and delta entry");
-
-// A [64][D] bf16 tile in shared memory is D / 64 blocks of 64 rows x 128 B
-// in wgmma's 128-byte swizzle: the 16-byte chunk c of row r sits at chunk
-// c ^ (r % 8) of that row. Each block is 8 KB and 1024-byte aligned.
-template <int D>
-__host__ __device__ constexpr int tile_bytes() {
-  return 64 * D * 2;
-}
-
-// element offset of (r, c) in a swizzled [64][D] tile
-__device__ __forceinline__ int swz(int r, int c) {
-  return (c >> 6) * 4096 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
-}
 
 template <int D>
 constexpr size_t dq_smem_bytes() {  // Q, dO; K, V x 2 stages; alignment
@@ -460,266 +470,9 @@ constexpr size_t dkv_smem_bytes() {  // K, V; Q, dO x 2 stages; lse, delta x 2
   return 6 * tile_bytes<D>() + 4 * kBQ * sizeof(float) + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// the dynamic shared memory, rounded up to the swizzle's 1024 bytes
-__device__ __forceinline__ char* smem_base(void* raw) {
-  const uint32_t a = smem_addr(raw);
-  return static_cast<char*>(raw) + (((a + 1023) & ~1023u) - a);
-}
-
-// 16 B (or 4 B) from device to shared memory; zero-filled when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait for all but the newest N groups, then make this thread's shared
-// memory writes visible to wgmma (the async proxy)
-template <int N>
-__device__ __forceinline__ void cp_async_wait_for_wgmma() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma descriptors (128-byte swizzle, layout type 1 in bits 62-63):
-// start address, leading and stride byte offsets, each in 16-byte units
-__device__ __forceinline__ uint64_t desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(ptr) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-// K-major operand: rows [row0, row0 + N) of a tile, columns 16kk..16kk+15
-// (the reduction runs along the row). Rows step 128 B inside an 8-row
-// group and 1024 B (SBO) between groups; the 32-byte column step stays
-// inside the swizzle atom, whose XOR the hardware applies to the address.
-__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int row0, int kk) {
-  return desc(reinterpret_cast<const char*>(tile) + (kk >> 2) * 8192 + row0 * 128 +
-                  (kk & 3) * 32,
-              16, 1024);
-}
-
-// MN-major operand: rows [row0, row0 + 16) of a tile are the reduction,
-// all D columns the N dimension (the tile read transposed): 8-row groups
-// 1024 B apart (SBO), 64-column blocks 8192 B apart (LBO)
-__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int row0) {
-  return desc(reinterpret_cast<const char*>(tile) + row0 * 128, 8192, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator registers across the async
-// asynchronous wgmma and its wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 32] += A[64 x 16] B[16 x 32]: A and B from shared memory, K-major
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64]: A and B from shared memory, K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (each warp's
-// m16n8k16 A fragment of its 16 rows), B from shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (each warp's
-// m16n8k16 A fragment of its 16 rows), B from shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// two fp32 values rounded once to bf16; lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of a [n_rows, d] matrix (row stride ld_g
-// elements, contiguous columns) into a swizzled [64][D] tile; rows >=
-// n_rows and columns >= d read as 0. vec: 16-byte cp.async (d, the
-// strides and the pointers 16-byte aligned); otherwise element copies.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int64_t ld_g, int row0,
-                                          int n_rows, int d, bool vec) {
-  if (vec) {
-    constexpr int kChunks = D / 8;
-    for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const bool ok = row0 + r < n_rows && c < d;
-      cp_async16(s + swz(r, c), ok ? g + (row0 + r) * ld_g + c : g, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      s[swz(r, c)] = (row0 + r < n_rows && c < d) ? g[(row0 + r) * ld_g + c]
-                                                  : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// The epilogue's [64][D + 8] row-major staging tile (16 B of padding a
-// row) into rows [row0, min(row0 + 64, n_rows)) and columns [0, d) of g.
-template <int D>
-__device__ __forceinline__ void store_tile(bf16* g, int64_t ld_g, int row0, int n_rows,
-                                           int d, const bf16* s, bool vec) {
-  constexpr int LD = D + 8;
-  if (vec) {
-    constexpr int kChunks = D / 8;
-    for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      if (row0 + r < n_rows && c < d)
-        *reinterpret_cast<uint4*>(g + (row0 + r) * ld_g + c) =
-            *reinterpret_cast<const uint4*>(s + r * LD + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      if (row0 + r < n_rows && c < d) g[(row0 + r) * ld_g + c] = s[r * LD + c];
-    }
-  }
-}
-
-// The warpgroup's fp32 accumulators of a 64 x D block (warp w: rows 16w
-// + lane/4 and + 8; n-tile j of 8 columns: registers 4j..4j+3, columns
-// 8j + 2(lane%4) + {0, 1}) rounded once to bf16 into the staging tile.
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* s, const float (&acc)[D / 2]) {
-  constexpr int LD = D + 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * (threadIdx.x >> 5);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint32_t*>(s + (row0 + g + 8 * i) * LD + 8 * j + 2 * t) =
-          pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-}
-
-// dQ or dV/dK += A B for one k-step, N = D
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  if constexpr (D == 64) wgmma_rs_n64(d, a, b);
-  else wgmma_rs_n128(d, a, b);
-}
-
-template <int D>
+// kDrop: the dropout branch, compiled only into its own instances so that
+// the dense kernels carry none of its registers or instructions
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_tc_kernel(const Params p) {
   constexpr int KS = D / 16, T = tile_bytes<D>() / 2;  // T: elements a tile
@@ -743,13 +496,18 @@ flash_bwd_dq_tc_kernel(const Params p) {
   bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + hh * p.dq_sh;
   const bool vec = p.vec;
 
-  // causal: k tiles wholly above this q tile's diagonal are skipped
-  const int k_end = p.causal ? min(p.sk, q0 + kBQ) : p.sk;
+  // causal: k tiles wholly above this q tile's diagonal are skipped;
+  // varlen: so are the tiles past the row's keys, and keys past kv_len
+  // read as zeros
+  const int kv_len = row_keys(p, f);
+  const int k_end = p.causal ? min(kv_len, q0 + kBQ) : kv_len;
   const int n_kt = (k_end + kBK - 1) / kBK;
   load_tile<D>(Qs, q, p.q_ss, q0, p.sq, p.d, vec);
   load_tile<D>(dOs, dout, p.do_ss, q0, p.sq, p.d, vec);
-  load_tile<D>(Ks, k, p.k_ss, 0, p.sk, p.d, vec);
-  load_tile<D>(Vs, v, p.v_ss, 0, p.sk, p.d, vec);
+  if (n_kt > 0) {
+    load_tile<D>(Ks, k, p.k_ss, 0, kv_len, p.d, vec);
+    load_tile<D>(Vs, v, p.v_ss, 0, kv_len, p.d, vec);
+  }
   cp_async_commit();
 
   // lse (in log2 units) and delta of this thread's two rows
@@ -770,8 +528,8 @@ flash_bwd_dq_tc_kernel(const Params p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     if (kt + 1 < n_kt) {  // the next K, V tile, one ahead
       const int st = (kt + 1) & 1;
-      load_tile<D>(Ks + st * T, k, p.k_ss, (kt + 1) * kBK, p.sk, p.d, vec);
-      load_tile<D>(Vs + st * T, v, p.v_ss, (kt + 1) * kBK, p.sk, p.d, vec);
+      load_tile<D>(Ks + st * T, k, p.k_ss, (kt + 1) * kBK, kv_len, p.d, vec);
+      load_tile<D>(Vs + st * T, v, p.v_ss, (kt + 1) * kBK, kv_len, p.d, vec);
     }
     cp_async_commit();
     cp_async_wait_for_wgmma<1>();
@@ -799,7 +557,8 @@ flash_bwd_dq_tc_kernel(const Params p) {
     wgmma_wait<1>();
     fence_regs(s);
     const int k0 = kt * kBK;
-    const bool edge = (p.causal && k0 + kBK > q0) || k0 + kBK > p.sk || q0 + kBQ > p.sq;
+    const bool edge = (p.causal && k0 + kBK > q0) || k0 + kBK > kv_len || q0 + kBQ > p.sq;
+    uint32_t kept = 0;  // dropout: bit 4j + e of the keep mask
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -809,9 +568,15 @@ flash_bwd_dq_tc_kernel(const Params p) {
         if (edge) {
           const int q_pos = q0 + row_w + g + 8 * i;
           const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
-          if ((p.causal && k_pos > q_pos) || k_pos >= p.sk || q_pos >= p.sq) pij = 0.f;
+          if ((p.causal && k_pos > q_pos) || k_pos >= kv_len || q_pos >= p.sq) pij = 0.f;
         }
         s[4 * j + e] = pij;
+        if constexpr (kDrop) {
+          const int q_pos = q0 + row_w + g + 8 * i;
+          const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+          kept |= static_cast<uint32_t>(keep_mask(p.drop.seed, f, q_pos, k_pos, p.drop.thr))
+                  << (4 * j + e);
+        }
       }
     }
     wgmma_wait<0>();
@@ -821,8 +586,11 @@ flash_bwd_dq_tc_kernel(const Params p) {
     for (int j = 0; j < 8; ++j) {
       float ds[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[e] = s[4 * j + e] * (dp[4 * j + e] - dl_r[e >> 1]) * p.scale;
+      for (int e = 0; e < 4; ++e) {
+        float dpij = dp[4 * j + e];
+        if constexpr (kDrop) dpij = (kept >> (4 * j + e)) & 1u ? dpij * p.drop.rscale : 0.f;
+        ds[e] = s[4 * j + e] * (dpij - dl_r[e >> 1]) * p.scale;
+      }
       da[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
       da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
@@ -846,7 +614,7 @@ flash_bwd_dq_tc_kernel(const Params p) {
   store_tile<D>(dq, p.dq_ss, q0, p.sq, p.d, stage, vec);
 }
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dkv_tc_kernel(const Params p) {
   constexpr int KS = D / 16, T = tile_bytes<D>() / 2;
@@ -870,15 +638,29 @@ flash_bwd_dkv_tc_kernel(const Params p) {
   bf16* dv = static_cast<bf16*>(p.dv) + bk * p.dv_sb + hk * p.dv_sh;
   const bool vec = p.vec;
 
-  // causal: q tiles wholly above this k tile's diagonal are skipped. The
-  // CTA walks (query head r, q tile) in one sequence of n_it tiles.
+  // causal: q tiles wholly above this k tile's diagonal are skipped;
+  // varlen: so are the query heads r whose row sees no key of this tile.
+  // The CTA walks (query head r, q tile) in one sequence of n_it tiles.
   const int q_begin = p.causal ? (k0 / kBQ) * kBQ : 0;
   const int n_per = q_begin < p.sq ? (p.sq - q_begin + kBQ - 1) / kBQ : 0;
-  const int n_it = p.rep * n_per;
+  int n_heads = p.rep;
+  if (p.kv_lens) {
+    n_heads = 0;
+    for (int r = 0; r < p.rep; ++r) n_heads += k0 < row_keys(p, gk * p.rep + r);
+  }
+  const int n_it = n_heads * n_per;
+  // the flat query row of the a-th query head walked
+  auto row_of = [&](int a) {
+    if (!p.kv_lens) return gk * p.rep + a;
+    int r = 0;
+    for (;; ++r)
+      if (k0 < row_keys(p, gk * p.rep + r) && a-- == 0) break;
+    return gk * p.rep + r;
+  };
 
   // Q, dO, lse and delta of tile it into ring stage it & 1
   auto load_q_tile = [&](int it) {
-    const int f = gk * p.rep + it / n_per;  // flat query row of this kv head
+    const int f = row_of(it / n_per);  // flat query row of this kv head
     const int q0 = q_begin + (it % n_per) * kBQ;
     const int b = f / p.H, hh = f % p.H;
     const int st = it & 1;
@@ -893,9 +675,11 @@ flash_bwd_dkv_tc_kernel(const Params p) {
     cp_async4((tid < kBQ ? lse_s : dl_s) + st * kBQ + i, in ? src + q0 + i : src, in);
   };
 
-  load_tile<D>(Ks, k, p.k_ss, k0, p.sk, p.d, vec);
-  load_tile<D>(Vs, v, p.v_ss, k0, p.sk, p.d, vec);
-  if (n_it > 0) load_q_tile(0);
+  if (n_it > 0) {  // else dK and dV are zeros
+    load_tile<D>(Ks, k, p.k_ss, k0, p.sk, p.d, vec);
+    load_tile<D>(Vs, v, p.v_ss, k0, p.sk, p.d, vec);
+    load_q_tile(0);
+  }
   cp_async_commit();
   const float scale_log2 = p.scale * kLog2e;
 
@@ -903,18 +687,21 @@ flash_bwd_dkv_tc_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
+  // tile it is q tile qi of the a-th query head walked, flat row f
+  int a = 0, qi = 0, f = n_it > 0 ? row_of(0) : 0;
+  int kv_len = row_keys(p, f);
   for (int it = 0; it < n_it; ++it) {
     if (it + 1 < n_it) load_q_tile(it + 1);
     cp_async_commit();
     cp_async_wait_for_wgmma<1>();
     __syncthreads();  // tile it landed for every thread
     const int st = it & 1;
-    const int q0 = q_begin + (it % n_per) * kBQ;
+    const int q0 = q_begin + qi * kBQ;
     const bf16* Qt = Qs + st * T;
     const bf16* dOt = dOs + st * T;
     const float* lse_t = lse_s + st * kBQ;
     const float* dl_t = dl_s + st * kBQ;
-    const bool edge = (p.causal && q0 < k0 + kBK) || q0 + kBQ > p.sq || k0 + kBK > p.sk;
+    const bool edge = (p.causal && q0 < k0 + kBK) || q0 + kBQ > p.sq || k0 + kBK > kv_len;
 
 #pragma unroll
     for (int sub = 0; sub < kBQ / kSub; ++sub) {
@@ -936,24 +723,33 @@ flash_bwd_dkv_tc_kernel(const Params p) {
 
       // the softmax step: P while dP^T is still in flight, then dS; both
       // rounded once to bf16 into the A fragments of dV += P^T dO and
-      // dK += dS^T Q
+      // dK += dS^T Q. In the transposed tile the row is the key and the
+      // column the query. Dropout: dV takes the dropped P, dS the dropped dP.
       wgmma_wait<1>();
       fence_regs(s);
       uint32_t pa[2][4], da[2][4];
+      uint32_t kept = 0;  // dropout: bit 4j + e of the keep mask
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        float pm[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qc = qs + 8 * j + 2 * t + (e & 1);  // query within the tile
           float pij = exp2f(fmaf(s[4 * j + e], scale_log2, -lse_t[qc] * kLog2e));
           if (edge) {
             const int k_pos = k0 + row_w + g + 8 * (e >> 1), q_pos = q0 + qc;
-            if ((p.causal && k_pos > q_pos) || q_pos >= p.sq || k_pos >= p.sk) pij = 0.f;
+            if ((p.causal && k_pos > q_pos) || q_pos >= p.sq || k_pos >= kv_len) pij = 0.f;
           }
-          s[4 * j + e] = pij;
+          s[4 * j + e] = pm[e] = pij;
+          if constexpr (kDrop) {
+            const int k_pos = k0 + row_w + g + 8 * (e >> 1), q_pos = q0 + qc;
+            const bool kp = keep_mask(p.drop.seed, f, q_pos, k_pos, p.drop.thr);
+            kept |= static_cast<uint32_t>(kp) << (4 * j + e);
+            pm[e] = kp ? pij * p.drop.rscale : 0.f;
+          }
         }
-        pa[j >> 1][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
-        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+        pa[j >> 1][(j & 1) * 2] = pack_bf16(pm[0], pm[1]);
+        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(pm[2], pm[3]);
       }
       wgmma_wait<0>();
       fence_regs(dp);
@@ -961,9 +757,11 @@ flash_bwd_dkv_tc_kernel(const Params p) {
       for (int j = 0; j < 4; ++j) {
         float dsv[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dsv[e] = s[4 * j + e] * (dp[4 * j + e] - dl_t[qs + 8 * j + 2 * t + (e & 1)]) *
-                   p.scale;
+        for (int e = 0; e < 4; ++e) {
+          float dpij = dp[4 * j + e];
+          if constexpr (kDrop) dpij = (kept >> (4 * j + e)) & 1u ? dpij * p.drop.rscale : 0.f;
+          dsv[e] = s[4 * j + e] * (dpij - dl_t[qs + 8 * j + 2 * t + (e & 1)]) * p.scale;
+        }
         da[j >> 1][(j & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
         da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
       }
@@ -983,6 +781,11 @@ flash_bwd_dkv_tc_kernel(const Params p) {
       fence_regs(dk_acc);
     }
     __syncthreads();  // every warp is done with this stage before it refills
+    if (++qi == n_per && it + 1 < n_it) {
+      qi = 0;
+      f = row_of(++a);
+      kv_len = row_keys(p, f);
+    }
   }
   cp_async_wait_for_wgmma<0>();
   __syncthreads();
@@ -995,38 +798,47 @@ flash_bwd_dkv_tc_kernel(const Params p) {
   store_tile<D>(dv, p.dv_ss, k0, p.sk, p.d, stage + 64 * (D + 8), vec);
 }
 
-template <int D>
+template <int D, bool kDrop>
 cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D, kDrop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.sq + kBQ - 1) / kBQ);
-  flash_bwd_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_bwd_dq_tc_kernel<D, kDrop><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kDrop>
 cudaError_t launch_dkv(const Params& p, int bh_kv, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D, kDrop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(bh_kv, (p.sk + kBK - 1) / kBK);
-  flash_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_bwd_dkv_tc_kernel<D, kDrop><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const Params& p, int rows, bool dkv, cudaStream_t stream) {
+  if (p.drop.on)
+    return dkv ? launch_dkv<D, true>(p, rows, stream) : launch_dq<D, true>(p, rows, stream);
+  return dkv ? launch_dkv<D, false>(p, rows, stream) : launch_dq<D, false>(p, rows, stream);
 }
 
 // d <= 64 pads to the 64-column tile (one swizzle block), d <= 128 to two
 cudaError_t dispatch(const Params& p, int rows, bool dkv, cudaStream_t stream) {
-  if (p.d <= 64) return dkv ? launch_dkv<64>(p, rows, stream) : launch_dq<64>(p, rows, stream);
-  if (p.d <= 128) return dkv ? launch_dkv<128>(p, rows, stream) : launch_dq<128>(p, rows, stream);
+  if (p.d <= 64) return launch_d<64>(p, rows, dkv, stream);
+  if (p.d <= 128) return launch_d<128>(p, rows, dkv, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace tc
+
+namespace {
 
 int run(const Params& p, int rows, bool dkv, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1037,30 +849,18 @@ int run(const Params& p, int rows, bool dkv, int dtype, void* stream) {
   }
 }
 
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
-
-// The tensor-core kernels copy 16-byte chunks when d, every row, batch and
-// head stride (in elements) is a multiple of 8 and every pointer is
-// 16-byte aligned; other views take element copies in the same kernels.
-bool vec_ok(int d, std::initializer_list<const void*> ptrs,
-            std::initializer_list<long long> strides) {
-  if (d % 8) return false;
-  for (const void* ptr : ptrs)
-    if (!aligned16(ptr)) return false;
-  for (long long s : strides)
-    if (s % 8) return false;
-  return true;
-}
-
 }  // namespace
 
 // q/dout/dq are [B, sq, H, d] and k/v/dk/dv [B_kv, sk, H_kv, d] views given
 // by element strides (sb, ss, sh; the last dim is contiguous). The flat
 // query row f = b*H + h reads kv row f / rep, split as (b_kv, h_kv) =
 // divmod(f / rep, H_kv); kv row g gathers the query rows g*rep + r. lse and
-// delta are [B*H, sq] fp32. dtype: 0 float32 (FMA kernels), 1 bfloat16
-// (tensor-core kernels) (common.cuh). flash_bwd_dq launches over bh = B*H
-// query rows, flash_bwd_dkv over bh_kv = B_kv*H_kv kv rows.
+// delta are [B*H, sq] fp32. kv_lens (int32 [B*H], or null) bounds the keys
+// of each flat query row; p_drop > 0 drops probabilities with the keep mask
+// of seed (flash_tc.cuh), as the forward did. dtype: 0 float32 (FMA
+// kernels), 1 bfloat16 (tensor-core kernels) (common.cuh). flash_bwd_dq
+// launches over bh = B*H query rows, flash_bwd_dkv over bh_kv = B_kv*H_kv
+// kv rows.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int bh, int H,
@@ -1070,14 +870,16 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             long long v_sb, long long v_ss, long long v_sh,
                             long long do_sb, long long do_ss, long long do_sh,
                             long long dq_sb, long long dq_ss, long long dq_sh,
-                            float scale, int causal, int dtype, void* stream) {
+                            float scale, int causal, const void* kv_lens,
+                            unsigned int seed, double p_drop, int dtype,
+                            void* stream) {
   if (bh == 0 || sq == 0) return cudaSuccess;
   Params p{q, k, v, dout, static_cast<const float*>(lse),
            static_cast<const float*>(delta), dq, nullptr, nullptr,
            H, H_kv, rep, sq, sk, d, causal,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, 0, 0, 0, 0, 0, 0, scale,
-           0};
+           0, static_cast<const int*>(kv_lens), make_dropout(seed, p_drop)};
   p.vec = vec_ok(d, {q, k, v, dout, dq},
                  {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                   do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh});
@@ -1095,14 +897,17 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              long long do_sb, long long do_ss, long long do_sh,
                              long long dk_sb, long long dk_ss, long long dk_sh,
                              long long dv_sb, long long dv_ss, long long dv_sh,
-                             float scale, int causal, int dtype, void* stream) {
+                             float scale, int causal, const void* kv_lens,
+                            unsigned int seed, double p_drop, int dtype,
+                            void* stream) {
   if (bh_kv == 0 || sk == 0) return cudaSuccess;
   Params p{q, k, v, dout, static_cast<const float*>(lse),
            static_cast<const float*>(delta), nullptr, dk, dv,
            H, H_kv, rep, sq, sk, d, causal,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            do_sb, do_ss, do_sh, 0, 0, 0, dk_sb, dk_ss, dk_sh,
-           dv_sb, dv_ss, dv_sh, scale, 0};
+           dv_sb, dv_ss, dv_sh, scale, 0, static_cast<const int*>(kv_lens),
+           make_dropout(seed, p_drop)};
   p.vec = vec_ok(d, {q, k, v, dout, dk, dv},
                  {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                   do_sb, do_ss, do_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss,

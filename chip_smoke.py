@@ -18,7 +18,9 @@ result line) when it fails:
                fp8 GEMM takes it, and row-major), a prefill activation
                and an E5M2 cotangent (bit for bit), the long-row softmax
                passes at 32,768 keys (causal and padding-masked); the
-               flash backward twice, the two calls bit for bit.
+               flash backward twice, the two calls bit for bit; the flash
+               forward and backward also with kv_lens [2048, 1500],
+               dropout 0.1 and both, at the training batch.
 4. serving  -- Llama-3-8B at full width and depth, random bf16 weights
                from a seeded generator, served by ``ServingEngine`` over a
                16-request closed-loop trace; every launch counter must
@@ -64,6 +66,13 @@ result line) when it fails:
                full) so that the masked softmax runs, ``fused_lamb(lr=
                1e-3)`` and remat: the same checks (LayerNorm forward 50,
                backward 26, masked softmax 24 a step), sequences/s.
+10. fmha    -- ``contrib.fmha.FMHAFun.apply`` at BERT-base width (qkv
+               [8, 512, 3, 12, 64] bf16, lengths drawn as phase 9 draws
+               its padding, dropout 0.1 in training): forward and
+               backward once, launches exactly 1/1/1, against fp32
+               autograd of the plain reference with the same seed,
+               padded rows of o and dqkv exactly 0; forward and
+               forward+backward device ms beside SDPA's.
 
 The last lines are the per-kernel summary, the card line and the result
 object ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -273,17 +282,38 @@ def phase_device():
             "bf16_flops": peaks[2], "fp32_flops": peaks[3]}
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers and spills of each kernel instance as ptxas gives them,
+    keyed by the kernel's name and template arguments as mangled (e.g.
+    ``flash_fwd_tc_kernel<Li128ELb0E>``: d 128, no dropout), and ptxas's
+    warnings (C7514: serialised wgmma) under ``warnings``."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", ln)
+        if entry:
+            mangled = name = entry.group(1)
+            for m in re.finditer(r"\d+", mangled):  # length-prefixed names
+                ident = mangled[m.end():m.end() + int(m.group())]
+                rest = mangled[m.end() + len(ident):]
+                if ident.endswith("kernel") and rest.startswith("I"):
+                    name = f"{ident}<{rest[1:rest.find('EE') + 1]}>"
+                    break
+        elif "warning" in ln.lower() or "C75" in ln:
+            out.setdefault("warnings", []).append(ln.strip()[:200])
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def phase_build():
     from apex_tpu_torch.ops import _build
 
     t0 = time.monotonic()
     logs = _build.build()
     seconds = time.monotonic() - t0
-    # registers and spills of each template instance, as ptxas gives them
-    ptxas = {name: sorted({ln.split(":", 1)[-1].strip()
-                           for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln})
-             for name, log in logs.items()}
+    ptxas = {name: ptxas_report(log) for name, log in logs.items()}
     libs = {name: str(_build.library_path(name).relative_to(ROOT))
             for name in _build.KERNELS}
     return {"phase": "build", "seconds": seconds, "built": sorted(logs),
@@ -333,7 +363,58 @@ def check_rms(dev):
     return out
 
 
+# the flash kernels' varlen and dropout cases at the training shape: one
+# sequence full, one cut to VARLEN_LENS[1] keys; dropout at FLASH_P_DROP
+# with a fixed uint32 seed
+VARLEN_LENS = (TRAIN_SEQ, 1500)
+FLASH_P_DROP = 0.1
+FLASH_SEED = 2_718_281_828
+FLASH_CASES = {"varlen": (True, 0.0), "dropout": (False, FLASH_P_DROP),
+               "varlen_dropout": (True, FLASH_P_DROP)}
+
+
+def flash_extras(case, H):
+    """(kv_lens [B*H] int32 or None, p_drop, seed) of a FLASH_CASES case,
+    and the per-sequence lengths."""
+    import torch
+
+    varlen, p_drop = FLASH_CASES[case]
+    lens = torch.tensor(VARLEN_LENS, dtype=torch.int32, device="cuda")
+    rows = torch.repeat_interleave(lens, H) if varlen else None
+    return (rows, p_drop, FLASH_SEED), (lens if varlen else None)
+
+
+def causal_pairs(b: int, s: int, lens=None) -> int:
+    """(query, key) pairs a causal head computes: sum over rows of
+    min(q + 1, kv_len)."""
+    total = 0
+    for i in range(b):
+        n = s if lens is None else int(lens[i])
+        total += n * (n + 1) // 2 + (s - n) * n
+    return total
+
+
+def sdpa_mask(b, s, lens, causal: bool):
+    """The boolean [b, 1, s, s] mask (True = attend) of SDPA's yardstick:
+    causal and, with lens, the key padding."""
+    import torch
+
+    idx = torch.arange(s, device="cuda")
+    ok = torch.ones(b, 1, s, s, dtype=torch.bool, device="cuda")
+    if causal:
+        ok &= idx[None, None, None, :] <= idx[None, None, :, None]
+    if lens is not None:
+        ok &= idx[None, None, None, :] < lens[:, None, None, None]
+    return ok
+
+
 def check_flash(dev):
+    """The forward at the serving prefills and the training batch (dense,
+    causal), then the varlen and dropout cases at the training batch.
+    SDPA is the yardstick: GQA through enable_gqa when dense; with a
+    mask or dropout, on k and v expanded to the query heads beforehand
+    (not timed), with the boolean mask and dropout_p (its mask bits
+    differ)."""
     import torch
     import torch.nn.functional as F
 
@@ -343,62 +424,93 @@ def check_flash(dev):
     scale = d ** -0.5
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = []
-    # serving prefills of 128, 200 and 512 tokens; the training batch
-    for b, s in ((1, 128), (1, 200), (1, 512), (TRAIN_BATCH, TRAIN_SEQ)):
+    # serving prefills of 128, 200 and 512 tokens; the training batch;
+    # then its varlen and dropout cases
+    for b, s, case in ((1, 128, None), (1, 200, None), (1, 512, None),
+                       (TRAIN_BATCH, TRAIN_SEQ, None),
+                       *((TRAIN_BATCH, TRAIN_SEQ, c) for c in FLASH_CASES)):
         def make():
             return tuple(torch.randn(b, s, n, d, generator=g,
                                      device="cuda").to(torch.bfloat16)
                          for n in (H, H_kv, H_kv))
 
+        extras, lens = (flash_extras(case, H) if case
+                        else ((None, 0.0, 0), None))
+        p_drop = extras[1]
+
+        def kernel(a, b_, c):
+            return fa._flash_fwd_cuda(a, b_, c, True, scale, *extras)
+
+        def plain(a, b_, c):
+            ft = [fa._heads_major(t) for t in (a, b_, c)]
+            return fa._flash_fwd_plain(*ft, True, scale, *extras)
+
         q, k, v = make()
-        o, lse = fa._flash_fwd_cuda(q, k, v, True, scale)
-        flat = [fa._heads_major(t) for t in (q, k, v)]
-        o_ref, lse_ref = fa._flash_fwd_plain(*flat, True, scale)
+        o, lse = kernel(q, k, v)
+        o_ref, lse_ref = plain(q, k, v)
         o_ref = o_ref.reshape(b, H, s, d).transpose(1, 2)
         torch.cuda.synchronize()
         # o in bf16: both sides keep s, p and the sums in fp32 and round
-        # o once; they differ in summation order (blocked online softmax
-        # against one pass) and so by up to an ulp of o
+        # o once; the kernel also rounds P once to bf16 (relative to the
+        # running max) for the P V product, and the two differ in
+        # summation order
         torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2,
                                    atol=2e-2)
         torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
         err = float((o.float() - o_ref.float()).abs().max())
-        pairs = b * s * (s + 1) // 2  # causal (q, k) pairs per head
-        flops = 4.0 * d * H * pairs
-        nbytes = b * (2 * s * H * d + 2 * s * H_kv * d) * 2 + b * H * s * 4
+        pairs = H * causal_pairs(b, s, lens)
+        flops = 4.0 * d * pairs
+        kv_rows = b * s if lens is None else int(lens.sum())
+        nbytes = (2 * b * s * H * d + 2 * kv_rows * H_kv * d) * 2 \
+            + b * H * s * 4
         sets = copies(make, nbytes)
-        ms = time_ms(lambda a, b_, c: fa._flash_fwd_cuda(a, b_, c, True,
-                                                         scale), sets)
+        if case is None:
+            def library(a, b_, c):
+                return F.scaled_dot_product_attention(
+                    a.transpose(1, 2), b_.transpose(1, 2),
+                    c.transpose(1, 2), is_causal=True, scale=scale,
+                    enable_gqa=True)
+            lib_sets = sets
+        else:
+            mask = sdpa_mask(b, s, lens, True) if lens is not None else None
 
-        def plain(a, b_, c):
-            ft = [fa._heads_major(t) for t in (a, b_, c)]
-            return fa._flash_fwd_plain(*ft, True, scale)
-
-        def library(a, b_, c):
-            return F.scaled_dot_product_attention(
-                a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
-                is_causal=True, scale=scale, enable_gqa=True)
-
-        plain_ms = time_ms(plain, sets)
-        lib_ms = time_ms(library, sets)
+            def library(a, b_, c):
+                return F.scaled_dot_product_attention(
+                    a, b_, c, attn_mask=mask, is_causal=mask is None,
+                    dropout_p=p_drop, scale=scale)
+            lib_sets = [tuple(t.transpose(1, 2).repeat_interleave(
+                H // t.shape[2], dim=1) if t.shape[2] != H
+                else t.transpose(1, 2) for t in st) for st in sets]
+        ms = time_ms(kernel, sets)
+        # the plain version of a varlen or dropout case (the keep mask's
+        # hash alone is some 20 ops on [b, H, s, s] int64 tensors) queues
+        # its calls slower than the spin holds the stream: wall clock,
+        # synchronised
+        plain_ms = (host_ms(plain, sets[0], iters=3) if case
+                    else time_ms(plain, sets))
+        lib_ms = time_ms(library, lib_sets)
         b_ms, b_by = bound(nbytes, flops, dev["bf16_flops"], dev)
-        out.append({"shape": [b, s, H, H_kv, d], "dtype": "bfloat16",
-                    "causal": True, "max_abs_err": err,
-                    "lse_max_abs_err": float((lse - lse_ref).abs().max()),
-                    "ms": ms, "host_ms": host_ms(
-                        lambda a, b_, c: fa._flash_fwd_cuda(a, b_, c, True,
-                                                            scale), sets[0]),
-                    "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "tflops": flops / ms / 1e9})
-        del sets, q, k, v, o, lse, o_ref, lse_ref, flat
+        row = {"shape": [b, s, H, H_kv, d], "dtype": "bfloat16",
+               "causal": True, "max_abs_err": err,
+               "lse_max_abs_err": float((lse - lse_ref).abs().max()),
+               "ms": ms, "host_ms": host_ms(kernel, sets[0]),
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "pairs": pairs,
+               "tflops": flops / ms / 1e9}
+        if case:
+            row.update(case=case, p_drop=p_drop, plain_timed="host wall",
+                       kv_lens=None if lens is None else lens.tolist())
+        out.append(row)
+        del sets, lib_sets, q, k, v, o, lse, o_ref, lse_ref
+        torch.cuda.empty_cache()
     return out
 
 
 def check_flash_bwd(dev):
     """dq and dk/dv at the training shape, against _flash_bwd_plain on the
-    same (q, k, v, o, lse, do). The plain and library times cover all of
-    dq, dk and dv (they compute them together)."""
+    same (q, k, v, o, lse, do), dense and then in the varlen and dropout
+    cases (``cases``). The plain and library times cover all of dq, dk
+    and dv (they compute them together)."""
     import torch
     import torch.nn.functional as F
 
@@ -412,73 +524,106 @@ def check_flash_bwd(dev):
         return torch.randn(b, s, n, d, generator=g, device="cuda").to(
             torch.bfloat16)
 
-    def make():
-        q, k, v, do = randn(H), randn(H_kv), randn(H_kv), randn(H)
-        o, lse = fa._flash_fwd_cuda(q, k, v, True, scale)
-        return q, k, v, o, lse, do, fa._flash_delta(o, do)
+    res, cases = None, {}
+    for case in (None, *FLASH_CASES):
+        extras, lens = (flash_extras(case, H) if case
+                        else ((None, 0.0, 0), None))
+        p_drop = extras[1]
 
-    q, k, v, o, lse, do, delta = make()
-    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, scale)
-    ref = fa._flash_bwd_plain(*(fa._heads_major(t) for t in (q, k, v, o)),
-                              lse, fa._heads_major(do), True, scale)
-    # no atomics: a second call gives the same bits
-    again = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, scale)
-    torch.cuda.synchronize()
-    for name, first, second in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
-        if not torch.equal(first, second):
-            raise AssertionError(f"flash {name}: two calls differ")
-    # bf16 outputs: both sides sum in fp32 (in other orders) and round
-    # each value once to bf16 (2^-9 relative); the kernels also round P
-    # and dS once to bf16 before their products (tensor-core operands).
-    # |kernel - plain| stays within 1% of the output's largest value
-    errs = {}
-    for name, got, r, n in (("dq", dq, ref[0], H), ("dk", dk, ref[1], H_kv),
-                            ("dv", dv, ref[2], H_kv)):
-        r = r.reshape(b, n, s, d).transpose(1, 2)
-        errs[name] = max_err(got, r, 1e-2, f"flash {name}")
-    del dq, dk, dv, ref, again
-    pairs = b * H * s * (s + 1) // 2  # causal (q, k) pairs
-    io = 2 * b * s * (2 * H + 2 * H_kv) * d + 2 * 4 * b * H * s
-    dq_bytes = io + 2 * b * s * H * d
-    dkv_bytes = io + 2 * 2 * b * s * H_kv * d
-    sets = copies(make, dkv_bytes)
+        def make():
+            q, k, v, do = randn(H), randn(H_kv), randn(H_kv), randn(H)
+            o, lse = fa._flash_fwd_cuda(q, k, v, True, scale, *extras)
+            return q, k, v, o, lse, do, fa._flash_delta(o, do)
 
-    def dq_call(q, k, v, o, lse, do, delta):
-        return fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, scale)
+        def plain(q, k, v, o, lse, do, delta):
+            return fa._flash_bwd_plain(
+                *(fa._heads_major(t) for t in (q, k, v, o)), lse,
+                fa._heads_major(do), True, scale, *extras)
 
-    def dkv_call(q, k, v, o, lse, do, delta):
-        return fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale)
+        q, k, v, o, lse, do, delta = make()
+        dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, scale,
+                                        *extras)
+        ref = plain(q, k, v, o, lse, do, delta)
+        # no atomics: a second call gives the same bits
+        again = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, scale,
+                                   *extras)
+        torch.cuda.synchronize()
+        for name, first, second in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                       again):
+            if not torch.equal(first, second):
+                raise AssertionError(f"flash {name} ({case}): two calls "
+                                     f"differ")
+        # bf16 outputs: both sides sum in fp32 (in other orders) and round
+        # each value once to bf16 (2^-9 relative); the kernels also round
+        # P and dS once to bf16 before their products (tensor-core
+        # operands). |kernel - plain| stays within 1% of the output's
+        # largest value
+        errs = {}
+        for name, got, r, n in (("dq", dq, ref[0], H),
+                                ("dk", dk, ref[1], H_kv),
+                                ("dv", dv, ref[2], H_kv)):
+            r = r.reshape(b, n, s, d).transpose(1, 2)
+            errs[name] = max_err(got, r, 1e-2, f"flash {name} ({case})")
+        del dq, dk, dv, ref, again
+        pairs = H * causal_pairs(b, s, lens)
+        kv_rows = b * s if lens is None else int(lens.sum())
+        io = 2 * (2 * b * s * H + 2 * kv_rows * H_kv) * d + 2 * 4 * b * H * s
+        dq_bytes = io + 2 * b * s * H * d
+        dkv_bytes = io + 2 * 2 * b * s * H_kv * d
+        sets = copies(make, dkv_bytes)
 
-    def plain(q, k, v, o, lse, do, delta):
-        return fa._flash_bwd_plain(
-            *(fa._heads_major(t) for t in (q, k, v, o)), lse,
-            fa._heads_major(do), True, scale)
+        def dq_call(q, k, v, o, lse, do, delta):
+            return fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, True,
+                                         scale, *extras)
 
-    graphs = []
-    for q, k, v, o, lse, do, delta in sets:
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             scale=scale, enable_gqa=True)
-        graphs.append((out, (qt, kt, vt), do.transpose(1, 2)))
+        def dkv_call(q, k, v, o, lse, do, delta):
+            return fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True,
+                                          scale, *extras)
 
-    def library(out, inputs, grad):
-        return torch.autograd.grad(out, inputs, grad, retain_graph=True)
+        mask = sdpa_mask(b, s, lens, True) if lens is not None else None
+        graphs = []
+        for q, k, v, o, lse, do, delta in sets:
+            qt, kt, vt = (t.transpose(1, 2).detach() for t in (q, k, v))
+            if case:  # k, v expanded to the query heads (not timed)
+                kt, vt = (t.repeat_interleave(H // H_kv, dim=1)
+                          for t in (kt, vt))
+            qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                dropout_p=p_drop, scale=scale, enable_gqa=case is None)
+            graphs.append((out, (qt, kt, vt), do.transpose(1, 2)))
 
-    res = {"shape": [b, s, H, H_kv, d], "dtype": "bfloat16", "causal": True,
-           "max_abs_err": errs, "bit_identical_rerun": True, "pairs": pairs,
-           "plain_ms": time_ms(plain, sets, iters=5),
-           "library_ms": time_ms(library, graphs),
-           "library": "backward of F.scaled_dot_product_attention "
-                      "(enable_gqa), dq+dk+dv"}
-    for name, call, flops, nbytes in (
-            ("dq", dq_call, 6.0 * d * pairs, dq_bytes),
-            ("dkv", dkv_call, 8.0 * d * pairs, dkv_bytes)):
-        ms = time_ms(call, sets)
-        b_ms, b_by = bound(nbytes, flops, dev["bf16_flops"], dev)
-        res[name] = {"ms": ms, "host_ms": host_ms(call, sets[0]),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "tflops": flops / ms / 1e9}
+        def library(out, inputs, grad):
+            return torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+        r = {"shape": [b, s, H, H_kv, d], "dtype": "bfloat16",
+             "causal": True, "max_abs_err": errs,
+             "bit_identical_rerun": True, "pairs": pairs,
+             # wall clock for the cases' plain version, as in check_flash
+             "plain_ms": (host_ms(plain, sets[0], iters=3) if case
+                          else time_ms(plain, sets, iters=5)),
+             "library_ms": time_ms(library, graphs),
+             "library": "backward of F.scaled_dot_product_attention "
+                        + ("(enable_gqa), dq+dk+dv" if case is None else
+                           "(k, v expanded; boolean mask, dropout_p), "
+                           "dq+dk+dv")}
+        for name, call, flops, nbytes in (
+                ("dq", dq_call, 6.0 * d * pairs, dq_bytes),
+                ("dkv", dkv_call, 8.0 * d * pairs, dkv_bytes)):
+            ms = time_ms(call, sets)
+            b_ms, b_by = bound(nbytes, flops, dev["bf16_flops"], dev)
+            r[name] = {"ms": ms, "host_ms": host_ms(call, sets[0]),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "tflops": flops / ms / 1e9}
+        if case:
+            r.update(p_drop=p_drop, plain_timed="host wall",
+                     kv_lens=None if lens is None else lens.tolist())
+            cases[case] = r
+        else:
+            res = r
+        del sets, graphs
+        torch.cuda.empty_cache()
+    res["cases"] = cases
     return res
 
 
@@ -689,14 +834,23 @@ def check_layer_norm(dev):
     return fwd, bwd
 
 
-def bert_pad_mask(gen, batch, seq):
-    """[batch, seq] bool on the card, True = padding: row i valid for a
-    length drawn uniformly in [BERT_MIN_LEN, seq], row 0 for all of it."""
+def bert_lengths(gen, batch, seq):
+    """[batch] valid lengths on the card: drawn uniformly in
+    [BERT_MIN_LEN, seq], row 0 the whole sequence."""
     import torch
 
     lengths = torch.randint(min(BERT_MIN_LEN, seq), seq + 1, (batch,),
                             generator=gen, device="cuda")
     lengths[0] = seq
+    return lengths
+
+
+def bert_pad_mask(gen, batch, seq):
+    """[batch, seq] bool on the card, True = padding, from
+    :func:`bert_lengths`."""
+    import torch
+
+    lengths = bert_lengths(gen, batch, seq)
     return torch.arange(seq, device="cuda")[None, :] >= lengths[:, None]
 
 
@@ -1987,6 +2141,125 @@ def phase_bert_training(dev):
             "launches": total, "expected_per_step": want}
 
 
+FMHA_HEADS, FMHA_HEAD_DIM = 12, 64  # BERT-base's attention
+FMHA_P_DROP = 0.1
+FMHA_SEED = 1_234_567_891
+# the fp32 reference of the fmha phase takes the same bf16 inputs; the
+# kernels round o once to bf16 (which the backward's delta reads), P once
+# in the forward and P and dS once in the backward. A plain bf16 pass of
+# the same path sits at 0.2-0.3% of max |ref| on the CPU (a 4 x 512 x 4
+# heads case); the kernels' own roundings add up to 0.75% (the flash
+# backward's rounding test). FMHA_GRAD_REL leaves room above their sum
+FMHA_GRAD_REL = 2e-2
+
+
+def phase_fmha(dev):
+    """``FMHAFun.apply`` at BERT-base width (bench_bert's 8 x 512, 12
+    heads of 64): packed qkv, per-sequence lengths drawn as the BERT
+    phase draws its padding, dropout 0.1 in training; forward and
+    backward once with exact launches, against fp32 autograd of the plain
+    ``_reference_attention`` with the same seed; then forward and
+    forward+backward device ms beside SDPA with the boolean key-padding
+    mask and the same dropout_p (timed only: its mask bits differ)."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib.fmha import FMHAFun
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = BERT_BATCH, BERT_SEQ, FMHA_HEADS, FMHA_HEAD_DIM
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    lengths = bert_lengths(gen, b, s)
+
+    def make():
+        qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        g = torch.randn(b, s, h, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        return qkv, g
+
+    def forward(qkv, g):
+        return FMHAFun.apply(qkv, seqlens=lengths, p_dropout=FMHA_P_DROP,
+                             is_training=True, dropout_key=FMHA_SEED)
+
+    def forward_backward(qkv, g):
+        return torch.autograd.grad(forward(qkv, g), qkv, g)[0]
+
+    qkv, g = make()
+    reset_counts()
+    out = forward(qkv, g)
+    (grad,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = dict({k: 0 for k in counts}, flash_attention_fwd=1,
+                flash_attention_bwd_dq=1, flash_attention_bwd_dkv=1)
+    if counts != want:
+        raise AssertionError(f"fmha launches {counts} != {want}")
+
+    x = qkv.detach().float().requires_grad_()
+    rows = torch.repeat_interleave(lengths.to(torch.int32), h)
+    ref = fa._seq_major(fa._reference_attention(
+        *(fa._heads_major(x[:, :, i]) for i in range(3)), False, scale,
+        rows, FMHA_P_DROP, FMHA_SEED), b)
+    q_ok = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    ref = torch.where(q_ok[:, :, None, None], ref, torch.zeros_like(ref))
+    (grad_ref,) = torch.autograd.grad(ref, x, g.float())
+    pad = ~q_ok
+    if out[pad].any() or grad[pad].any():
+        raise AssertionError("fmha: padded rows of o or dqkv are not 0")
+    # o: as the flash forward's check against its plain version
+    torch.testing.assert_close(out.float(), ref.detach(), rtol=2e-2,
+                               atol=2e-2)
+    errs = {"o": float((out.float() - ref).abs().max())}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        errs[name] = max_err(grad[:, :, i], grad_ref[:, :, i],
+                             FMHA_GRAD_REL, f"fmha {name}")
+    del x, ref, grad_ref, out, grad
+
+    sets = copies(make, 2 * 4 * b * s * h * d * 2)
+    key_ok = q_ok[:, None, None, :]
+
+    def sdpa(qkv, g):
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=key_ok, dropout_p=FMHA_P_DROP, scale=scale)
+
+    def sdpa_fwd_bwd(qkv, g):
+        return torch.autograd.grad(sdpa(qkv, g), qkv, g.transpose(1, 2))[0]
+
+    # the work this run's lengths need: (valid query, valid key) pairs,
+    # 4*d flop each forward (S, P V) and 8*d backward (dP, dV, dK, dQ);
+    # bytes: forward qkv in, o out; forward+backward qkv and g in, dqkv out
+    n_pairs = h * int((lengths * lengths).sum())
+    tensor = b * s * h * d * 2
+    # autograd queues forward+backward slower than the forward alone:
+    # fewer calls behind the spin
+    fwd_ms = time_ms(forward, sets)
+    step_ms = time_ms(forward_backward, sets, iters=5)
+    fwd_b, fwd_by = bound(4 * tensor, 4.0 * d * n_pairs, dev["bf16_flops"],
+                          dev)
+    step_b, step_by = bound(7 * tensor, 12.0 * d * n_pairs,
+                            dev["bf16_flops"], dev)
+    return {"phase": "fmha", "qkv": [b, s, 3, h, d], "dtype": "bfloat16",
+            "seqlens": lengths.tolist(), "p_dropout": FMHA_P_DROP,
+            "seed": FMHA_SEED, "launches": counts, "expected": want,
+            "max_abs_err": errs, "grad_rel_tol": FMHA_GRAD_REL,
+            "padded_rows_zero": True,
+            "forward_ms": fwd_ms,
+            "forward_host_ms": host_ms(forward, sets[0]),
+            "forward_bound_ms": fwd_b, "forward_bound_by": fwd_by,
+            "forward_backward_ms": step_ms,
+            "forward_backward_host_ms": host_ms(forward_backward, sets[0]),
+            "forward_backward_bound_ms": step_b,
+            "forward_backward_bound_by": step_by,
+            "library_forward_ms": time_ms(sdpa, sets),
+            "library_forward_backward_ms": time_ms(sdpa_fwd_bwd, sets,
+                                                   iters=5),
+            "library": "F.scaled_dot_product_attention, boolean key-padding "
+                       "mask, dropout_p 0.1"}
+
+
 # the bf16 flash backward's design, named in its two summary rows
 FLASH_BWD_DESIGN = {
     "design": "tensor cores",
@@ -1994,6 +2267,22 @@ FLASH_BWD_DESIGN = {
                    "dP from 128-byte-swizzled shared memory, dQ, dK and "
                    "dV with A (dS, P) from registers and B transposed; "
                    "cp.async tiles"}
+
+
+# the bf16 flash forward's design, named in its summary row
+FLASH_FWD_DESIGN = {
+    "design": "tensor cores",
+    "instruction": "wgmma m64n64k16 bf16 -> fp32 for S from 128-byte-"
+                   "swizzled shared memory (Q resident, K/V cp.async ring "
+                   "one tile ahead), wgmma m64nDk16 for O += P V with A = P "
+                   "from registers and B = V transposed"}
+
+
+def case_rows(rows, keys=("ms", "bound_ms", "bound_by", "library_ms",
+                          "plain_ms", "max_abs_err")):
+    """The varlen and dropout cases of a flash check, by case name."""
+    return {name: {k: r[k] for k in keys if k in r}
+            for name, r in rows.items()}
 
 
 def summary(kernels, counts, path_adam):
@@ -2030,19 +2319,29 @@ def summary(kernels, counts, path_adam):
     return {"kernels": [
         row("flash_attention_fwd", csrc + "flash_fwd.cu",
             "apex_tpu/ops/flash_attention.py:65", fwd[2],
-            max(x["max_abs_err"] for x in fwd)),
+            max(x["max_abs_err"] for x in fwd),
+            training=case_rows({"dense": fwd[3]}),
+            cases=case_rows({x["case"]: x for x in fwd if "case" in x}),
+            **FLASH_FWD_DESIGN),
         row("rms_norm_fwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:56", rms[1],
             max(x["max_abs_err"] for x in rms)),
         row("flash_attention_bwd_dq", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:261",
             dict(bwd["dq"], shape=bwd["shape"], **both),
-            bwd["max_abs_err"]["dq"], **covers, **FLASH_BWD_DESIGN),
+            bwd["max_abs_err"]["dq"], **covers, **FLASH_BWD_DESIGN,
+            cases={c: dict(r["dq"], max_abs_err=r["max_abs_err"]["dq"],
+                           library_ms=r["library_ms"])
+                   for c, r in bwd["cases"].items()}),
         row("flash_attention_bwd_dkv", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:322",
             dict(bwd["dkv"], shape=bwd["shape"], **both),
             max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]),
-            **covers, **FLASH_BWD_DESIGN),
+            **covers, **FLASH_BWD_DESIGN,
+            cases={c: dict(r["dkv"], max_abs_err=max(r["max_abs_err"]["dk"],
+                                                     r["max_abs_err"]["dv"]),
+                           library_ms=r["library_ms"])
+                   for c, r in bwd["cases"].items()}),
         row("rms_norm_bwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:189", rbwd,
             max(rbwd["max_abs_err"].values())),
@@ -2152,6 +2451,11 @@ def main() -> int:
                 phase = "profile_" + path
                 emit(profile_step(phase, step))
             del step
+        phase = "fmha"
+        gc.collect()
+        torch.cuda.empty_cache()
+        fmha = phase_fmha(dev)
+        emit(fmha)
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -2164,7 +2468,8 @@ def main() -> int:
                       "causal", "padding", "causal_padding"))
                   for k in serving["launches"]},
               "training": training["launches"],
-              **{path: r["launches"] for path, r in results.items()}}
+              **{path: r["launches"] for path, r in results.items()},
+              "fmha": fmha["launches"]}
     emit({"kernel_counts": counts})
     emit(summary(kernels, counts, training["adam_path_check"]))
     print(dev["nvidia_smi"], flush=True)

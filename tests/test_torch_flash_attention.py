@@ -104,7 +104,8 @@ def test_argument_errors_are_loud():
     with pytest.raises(ValueError, match="multiple of kv heads"):
         port_fa.flash_attention(q, torch.zeros(1, 4, 2, 8),
                                 torch.zeros(1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="dropout"):
+    # dropout in training needs its key, as in the reference
+    with pytest.raises(ValueError, match="dropout_key"):
         port_fa.flash_attention(q, q, q, dropout_p=0.1)
     # eval mode: dropout is a no-op, as in the reference
     port_fa.flash_attention(q, q, q, dropout_p=0.1, deterministic=True)

@@ -66,8 +66,13 @@ def test_flash_rejects_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device="cuda")
-    with pytest.raises(NotImplementedError, match="kv_lens"):
-        fa.flash_attention(q, q, q, kv_lens=torch.tensor([8], device="cuda"))
+    # kv_lens launches the kernel on the card, as it runs the plain
+    # version on the CPU
+    before = fa.launches
+    o = fa.flash_attention(q, q, q, kv_lens=torch.tensor([5], device="cuda"))
+    assert fa.launches == before + 1 and not o[:, 5:].any()
+    with pytest.raises(ValueError, match="dropout_key"):
+        fa.flash_attention(q, q, q, dropout_p=0.1)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), q.half(), q.half())
 
@@ -184,6 +189,155 @@ def test_flash_autograd_launches_both_backward_kernels(gen):
         fa.flash_attention(q, kv, kv, causal=True)
     assert fa.dq_launches == before[1] + 1
     assert torch.isfinite(q.grad).all() and torch.isfinite(kv.grad).all()
+
+
+# varlen and dropout: one length a sequence (b = 2; the kernels take one a
+# flat query row), an empty sequence among them; the seed above 2**31
+VARLEN_DROP = {"varlen": ([57, 0], 0.0), "dropout": (None, 0.2),
+               "varlen+dropout": ([130, 57], 0.2)}
+SEED = 3_000_000_001
+
+
+def _extras(mode, h, sq):
+    lens, p_drop = VARLEN_DROP[mode]
+    if lens is None:
+        return None, p_drop, SEED
+    lens = torch.tensor([min(n, sq) for n in lens], dtype=torch.int32,
+                        device="cuda")
+    return torch.repeat_interleave(lens, h), p_drop, SEED
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", sorted(VARLEN_DROP))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h_kv,sq,d", [(4, 200, 128), (1, 130, 64),
+                                       (2, 300, 80)])
+def test_flash_fwd_kernel_varlen_dropout_matches_plain(gen, dtype, mode,
+                                                       causal, h_kv, sq, d):
+    """The forward's varlen and dropout branches (fp32 FMA and bf16
+    tensor-core kernels) against the plain version with the same kv_lens
+    and seed; the empty sequence gives o = 0, lse = -1e30."""
+    b, h = 2, 4
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, sq, h_kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, sq, h_kv, d, generator=gen, device="cuda").to(dtype)
+    extras = _extras(mode, h, sq)
+    before = fa.launches
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, d ** -0.5, *extras)
+    assert fa.launches == before + 1
+    o_ref, lse_ref = fa._flash_fwd_plain(*(_flat(t) for t in (q, k, v)),
+                                         causal, d ** -0.5, *extras)
+    o_ref = o_ref.reshape(b, h, sq, d).transpose(1, 2)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+    if extras[0] is not None and int(extras[0][-1]) == 0:
+        assert not o[1].any() and bool((lse[h:] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", sorted(VARLEN_DROP))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,h_kv,sq,d", [(4, 4, 200, 128), (4, 1, 130, 64),
+                                         (8, 1, 300, 80)])
+def test_flash_bwd_kernels_varlen_dropout_match_plain(gen, dtype, mode,
+                                                      causal, h, h_kv, sq,
+                                                      d):
+    """dq and dk/dv with kv_lens and dropout against _flash_bwd_plain on
+    the same (q, k, v, o, lse, do, kv_lens, seed): the masks are selected
+    (lse = -1e30 on the empty sequence), key tiles past every row's
+    kv_len write zeros, and dropout recomputes the forward's mask."""
+    q, k, v, do = _flash_bwd_inputs(gen, dtype, h, h_kv, sq, sq, d)
+    extras = _extras(mode, h, sq)
+    scale = d ** -0.5
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, *extras)
+    before = (fa.dq_launches, fa.dkv_launches)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
+                                    *extras)
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = fa._flash_bwd_plain(_flat(q), _flat(k), _flat(v), _flat(o), lse,
+                              _flat(do), causal, scale, *extras)
+    torch.cuda.synchronize()
+    rel = 2e-5 if dtype == torch.float32 else 1e-2
+    for name, got, r, n in (("dq", dq, ref[0], h), ("dk", dk, ref[1], h_kv),
+                            ("dv", dv, ref[2], h_kv)):
+        assert torch.isfinite(got).all(), name
+        _assert_near(got, r.reshape(2, n, -1, d).transpose(1, 2), rel, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("varlen", [False, True])
+def test_flash_kernel_keep_masks_equal_plain(gen, dtype, varlen):
+    """With q = k = 0 every allowed key has p = 1 / l, so with V one-hot in
+    the key index (sk <= d) o[q, j] > 0 exactly where key j is kept for
+    query q: the forward kernel's keep mask, read off o, equals
+    _keep_mask. With dO one-hot in the query index, dV[k, q] > 0 exactly
+    where (q, k) is kept: the dk/dv kernel's mask. b = 2, h = 3 (rep 1)
+    spreads the flat row index."""
+    b, h, s, d, p_drop = 2, 3, 64, 64, 0.3
+    z = torch.zeros(b, s, h, d, device="cuda", dtype=dtype)
+    eye = torch.eye(s, d, device="cuda", dtype=dtype)[None, :, None, :]
+    onehot = eye.expand(b, s, h, d).contiguous()
+    lens = torch.tensor([64, 37], dtype=torch.int32, device="cuda")
+    rows = torch.repeat_interleave(lens, h) if varlen else None
+    o, lse = fa._flash_fwd_cuda(z, z, onehot, False, 1.0, rows, p_drop, SEED)
+    dq, dk, dv = fa._flash_bwd_cuda(z, z, onehot, o, lse, onehot, False,
+                                    1.0, rows, p_drop, SEED)
+    torch.cuda.synchronize()
+    keep = fa._keep_mask(SEED, torch.arange(b * h, device="cuda")[:, None,
+                                                                  None],
+                         torch.arange(s, device="cuda")[:, None],
+                         torch.arange(s, device="cuda")[None, :], p_drop)
+    if varlen:  # keys past a row's length are never kept
+        keep &= (torch.arange(s, device="cuda")[None, None, :]
+                 < rows[:, None, None])
+    assert 0.5 < float(keep.float().mean()) < 0.8
+    seen_fwd = _flat(o)[..., :s] > 0                  # [bh, q, key]
+    seen_bwd = (_flat(dv)[..., :s] > 0).transpose(1, 2)   # [bh, q, key]
+    assert torch.equal(seen_fwd, keep)
+    assert torch.equal(seen_bwd, keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_varlen_dropout_reruns_are_bit_identical(gen, dtype):
+    q, k, v, do = _flash_bwd_inputs(gen, dtype, 8, 2, 300, 300, 128)
+    extras = _extras("varlen+dropout", 8, 300)
+    runs = []
+    for _ in range(2):
+        o, lse = fa._flash_fwd_cuda(q, k, v, True, 128 ** -0.5, *extras)
+        runs.append((o, lse, *fa._flash_bwd_cuda(q, k, v, o, lse, do, True,
+                                                 128 ** -0.5, *extras)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_fmha_takes_the_packed_qkv_views_without_a_copy(gen, monkeypatch):
+    """FMHAFun.apply at BERT's head width: q, k and v reach the kernels
+    as the strided views qkv[:, :, i] (same storage); forward and
+    backward launch once each, and padded rows of the output and of the
+    gradient are exactly zero."""
+    from apex_tpu_torch.contrib.fmha import FMHAFun
+
+    seen = []
+    real = fa._flash_fwd_cuda
+
+    def spy(q, k, v, *args):
+        seen.append((q.data_ptr(), k.data_ptr(), v.data_ptr()))
+        return real(q, k, v, *args)
+
+    monkeypatch.setattr(fa, "_flash_fwd_cuda", spy)
+    qkv = torch.randn(4, 128, 3, 12, 64, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    lens = torch.tensor([128, 100, 64, 1], device="cuda")
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out = FMHAFun.apply(qkv, seqlens=lens, p_dropout=0.1, dropout_key=7)
+    out.float().sum().backward()
+    assert seen == [tuple(qkv[:, :, i].data_ptr() for i in range(3))]
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        x + 1 for x in before)
+    for i, n in enumerate(lens.tolist()):
+        assert not out[i, n:].any() and not qkv.grad[i, n:].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -18,7 +18,9 @@ WRAPPERS = {
                                "_flash_bwd_cuda", "_flash_bwd",
                                "_flash_bwd_dq_cuda",
                                "_flash_bwd_dkv_cuda", "_bwd_lib",
-                               "forward", "backward"),
+                               "forward", "backward", "_extras",
+                               "_dropout_seed"),
+    "contrib/fmha.py": ("fmha", "fmha_packed_qkv", "apply"),
     "ops/layer_norm.py": ("_rms_fwd_cuda", "_rms_fwd", "rms_norm", "_lib",
                           "_rms_bwd_cuda", "_rms_bwd", "forward",
                           "backward", "_ln_fwd_cuda", "_ln_fwd",
