@@ -22,13 +22,30 @@
 // x holds.
 // For GPT-2's causal [128, 1024, 1024] bf16 that is 134 MB of reads and
 // 268 MB of writes, 0.120 ms at 3.35 TB/s; about six flops an element.
-// This kernel reads every element of x, masked or not.
 //
-// Design: one block per row, the whole row held in registers: a thread
-// keeps at most 16 fp32 values (sk <= 16384 over at most 1024 threads), so
-// x leaves device memory once and y is written once. 16-byte vector loads
-// and stores when sk and the pointers allow them, a scalar path otherwise.
-// The row max and the sum of exponentials are block reductions. The mask
+// Design: a row belongs to row_threads threads (a power of two from one
+// warp to kMaxRowThreads), each holding at most kMaxValues fp32 values of
+// it in registers (thread t takes the 16-byte vectors t + k * row_threads),
+// so x leaves device memory at most once and y is written once. At GPT-2's
+// sk = 1024 in bf16 one warp owns a row, 4 vectors a lane, and a block of
+// kRowBlock threads holds 8 rows. The row max and the sum of exponentials
+// are warp shuffles; a row of several warps joins them in one
+// shared-memory step. The wrapper's _softmax_plan chooses the vector
+// width, row_threads and the rows a block. 16-byte vector loads and
+// stores when sk and the pointers allow them, a scalar path otherwise.
+// Each exponential is multiplied by 1 / sum, within an fp32 ulp of the
+// reference's division: an IEEE division an element took a sixth of the
+// causal kernel's time (0.190 against 0.157 ms at GPT-2's shape on an
+// H100, chip_smoke.py's check_softmax).
+//
+// Causal rows skip the masked keys: a vector whose columns all lie past
+// q + (sk - sq) is not loaded. Its elements count as the fill: the max
+// takes -10000 when a row has one, the sum adds count * exp(-10000 - max)
+// (computed, never assumed 0), and each stores exp(-10000 - max) / sum,
+// the value a loaded masked element gets. The vector that straddles
+// the diagonal is loaded and filled per element. So a row with no
+// unmasked key (sq > sk) comes out uniform 1/sk, and masked keys keep
+// their weight when the unmasked scores sit near -10000. The padding mask
 // is read through four element strides (zero on broadcast dims), so a
 // [b, 1, 1, sk] padding mask is never expanded to x's shape; the causal
 // mask is computed from the row and column indices.
@@ -55,10 +72,11 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
 constexpr int kBlockedThreads = 256;  // a block of the two long-row passes
-constexpr int kMaxValues = 16;  // fp32 values a thread holds
-constexpr int kMaxSk = kMaxThreads * kMaxValues;
+constexpr int kRowBlock = 256;        // a whole-row block of several rows
+constexpr int kMaxRowThreads = 512;   // most threads of one whole row
+constexpr int kMaxValues = 32;        // fp32 values a thread holds
+constexpr int kMaxSk = kMaxRowThreads * kMaxValues;  // _WHOLE_ROW_MAX_SK
 constexpr float kMaskFill = -10000.f;
 
 // strides, in elements, of a mask viewed as [d0, d1, sq, sk] beside x
@@ -113,26 +131,43 @@ __device__ __forceinline__ float filled(float v, float scale,
   return masked ? kMaskFill : v * scale;
 }
 
-// V elements per load (16 bytes, or 1 on the scalar path); a thread holds
-// the vectors threadIdx.x + k * blockDim.x for k < kMaxValues / V.
-template <typename T, int V, bool kCausal>
-__global__ void __launch_bounds__(kMaxThreads)
+// V elements per load (16 bytes, or 1 on the scalar path). blockDim.x =
+// rows_per_block * row_threads <= kBound; row slot g = threadIdx.x /
+// row_threads takes row blockIdx.x * rows_per_block + g, and its thread t
+// the vectors t + k * row_threads, k < kMaxValues / V, below sk / V.
+template <typename T, int V, bool kCausal, int kBound>
+__global__ void __launch_bounds__(kBound)
     softmax_rows_kernel(const T* __restrict__ x, T* __restrict__ y,
-                        MaskView mask, int sq, int sk, float scale) {
+                        MaskView mask, int64_t rows, int sq, int sk,
+                        float scale, int row_threads) {
   constexpr int NV = kMaxValues / V;
-  const int64_t row = blockIdx.x;
-  const int q = static_cast<int>(row % sq);
-  const T* xr = x + row * sk;
+  __shared__ float red_max[kBound / 32], red_sum[kBound / 32];
+  const int slots = blockDim.x / row_threads;
+  const int g = threadIdx.x / row_threads;
+  const int t = threadIdx.x - g * row_threads;
+  const int warps = row_threads >> 5;  // warps of one row
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * slots + g;
+  const bool live = row < rows;
+  const int q = live ? static_cast<int>(row % sq) : 0;
+  const T* xr = x + (live ? row : 0) * sk;
   T* yr = y + row * sk;
-  const uint8_t* mr = mask_row<kCausal>(mask, row, sq, q);
-  const int nvec = sk / V;
+  const uint8_t* mr = live ? mask_row<kCausal>(mask, row, sq, q) : nullptr;
+  const int nvec = live ? sk / V : 0;
+  // causal: vectors from `loaded` on lie wholly past the diagonal
+  // (columns > q + sk - sq) and are not read
+  int loaded = nvec;
+  if (kCausal) {
+    const int last = q + (sk - sq);  // the last unmasked column
+    loaded = last < 0 ? 0 : min(nvec, last / V + 1);
+  }
 
   float v[NV][V];
   float mx = -INFINITY;
+  int skipped = 0;  // masked elements of this thread left unread
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    if (i < nvec) {
+    const int i = t + k * row_threads;
+    if (i < loaded) {
       load<T, V>(xr + static_cast<int64_t>(i) * V, v[k]);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
@@ -140,14 +175,25 @@ __global__ void __launch_bounds__(kMaxThreads)
                                   i * V + j);
         mx = fmaxf(mx, v[k][j]);
       }
+    } else if (i < nvec) {
+      skipped += V;
     }
   }
-  mx = block_max(mx);
+  if (skipped > 0) mx = fmaxf(mx, kMaskFill);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (warps > 1) {  // uniform: one shared-memory step joins the warps
+    if ((threadIdx.x & 31) == 0) red_max[threadIdx.x >> 5] = mx;
+    __syncthreads();
+    for (int k = 0; k < warps; ++k) mx = fmaxf(mx, red_max[g * warps + k]);
+  }
 
-  float sum = 0.f;
+  const float e_fill = expf(kMaskFill - mx);
+  float sum = static_cast<float>(skipped) * e_fill;
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    if (threadIdx.x + k * blockDim.x < nvec) {
+    if (t + k * row_threads < loaded) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         v[k][j] = expf(v[k][j] - mx);
@@ -155,16 +201,29 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
   }
-  sum = block_sum(sum);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (warps > 1) {
+    if ((threadIdx.x & 31) == 0) red_sum[threadIdx.x >> 5] = sum;
+    __syncthreads();
+    sum = 0.f;
+    for (int k = 0; k < warps; ++k) sum += red_sum[g * warps + k];
+  }
 
+  const float inv = 1.f / sum;
+  const float y_fill = e_fill * inv;
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    if (i < nvec) {
+    const int i = t + k * row_threads;
+    if (i < loaded) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) v[k][j] = v[k][j] / sum;
-      store<T, V>(yr + static_cast<int64_t>(i) * V, v[k]);
+      for (int j = 0; j < V; ++j) v[k][j] = v[k][j] * inv;
+    } else if (i < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[k][j] = y_fill;
     }
+    if (i < nvec) store<T, V>(yr + static_cast<int64_t>(i) * V, v[k]);
   }
 }
 
@@ -312,37 +371,61 @@ int blocked(const void* x, const void* mask, float* m, float* l, void* y,
 
 // ------------------------------------------------------------ whole rows
 
+// The launch plan (the wrapper's _softmax_plan): `vec` elements a load
+// (16 bytes' worth, or 1), row_threads threads a row, rows_per_block
+// rows a block.
+struct RowPlan {
+  int vec, row_threads, rows_per_block;
+};
+
+template <typename T, int V, bool kCausal>
+cudaError_t launch_rows(const T* x, T* y, MaskView mask, int64_t rows,
+                        int sq, int sk, float scale, const RowPlan& pl,
+                        cudaStream_t stream) {
+  const int threads = pl.rows_per_block * pl.row_threads;
+  const int64_t blocks = (rows + pl.rows_per_block - 1) / pl.rows_per_block;
+  if (threads <= kRowBlock)
+    softmax_rows_kernel<T, V, kCausal, kRowBlock><<<blocks, threads, 0, stream>>>(
+        x, y, mask, rows, sq, sk, scale, pl.row_threads);
+  else
+    softmax_rows_kernel<T, V, kCausal, kMaxRowThreads><<<blocks, threads, 0, stream>>>(
+        x, y, mask, rows, sq, sk, scale, pl.row_threads);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kCausal>
 cudaError_t launch(const void* x, void* y, MaskView mask, int64_t rows,
-                   int sq, int sk, float scale, cudaStream_t stream) {
+                   int sq, int sk, float scale, const RowPlan& pl,
+                   cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  const bool vec = sk % V == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int work = vec ? sk / V : sk;
-  int threads = ((work + 31) / 32) * 32;
-  threads = threads > kMaxThreads ? kMaxThreads : threads;
+  const int t = pl.row_threads;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if ((pl.vec != 1 && !(pl.vec == V && sk % V == 0 && aligned)) || t < 32 ||
+      t > kMaxRowThreads || (t & (t - 1)) != 0 || pl.rows_per_block < 1 ||
+      pl.rows_per_block * t > kMaxRowThreads ||
+      sk / pl.vec > t * (kMaxValues / pl.vec))
+    return cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
-  if (vec)
-    softmax_rows_kernel<T, V, kCausal><<<rows, threads, 0, stream>>>(xp, yp, mask, sq, sk, scale);
-  else
-    softmax_rows_kernel<T, 1, kCausal><<<rows, threads, 0, stream>>>(xp, yp, mask, sq, sk, scale);
-  return cudaGetLastError();
+  if (pl.vec == V)
+    return launch_rows<T, V, kCausal>(xp, yp, mask, rows, sq, sk, scale, pl, stream);
+  return launch_rows<T, 1, kCausal>(xp, yp, mask, rows, sq, sk, scale, pl, stream);
 }
 
 template <bool kCausal>
 int dispatch(const void* x, void* y, MaskView mask, long long rows, int sq,
-             int sk, float scale, int dtype, void* stream) {
+             int sk, float scale, int dtype, const RowPlan& pl,
+             void* stream) {
   if (rows == 0) return cudaSuccess;
   if (sq < 1 || sk < 1 || sk > kMaxSk || rows % sq != 0 ||
       rows > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return launch<float, kCausal>(x, y, mask, rows, sq, sk, scale, s);
-    case kBFloat16: return launch<__nv_bfloat16, kCausal>(x, y, mask, rows, sq, sk, scale, s);
-    case kFloat16: return launch<__half, kCausal>(x, y, mask, rows, sq, sk, scale, s);
+    case kFloat32: return launch<float, kCausal>(x, y, mask, rows, sq, sk, scale, pl, s);
+    case kBFloat16: return launch<__nv_bfloat16, kCausal>(x, y, mask, rows, sq, sk, scale, pl, s);
+    case kFloat16: return launch<__half, kCausal>(x, y, mask, rows, sq, sk, scale, pl, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -350,12 +433,16 @@ int dispatch(const void* x, void* y, MaskView mask, long long rows, int sq,
 }  // namespace
 
 // x, y contiguous, rows = (product of the leading dims) * sq rows of sk
-// elements in dtype; 1 <= sk <= 16384 (longer rows: the two passes below).
+// elements in dtype; 1 <= sk <= 16384 (longer rows: the two passes below);
+// vec, row_threads and rows_per_block: the launch plan (RowPlan), checked
+// against sk and the pointers.
 extern "C" int fused_softmax_causal(const void* x, void* y, long long rows,
                                     int sq, int sk, float scale, int dtype,
-                                    void* stream) {
+                                    int vec, int row_threads,
+                                    int rows_per_block, void* stream) {
   return dispatch<true>(x, y, MaskView{nullptr, 1, 0, 0, 0, 0}, rows, sq, sk,
-                        scale, dtype, stream);
+                        scale, dtype, RowPlan{vec, row_threads, rows_per_block},
+                        stream);
 }
 
 // As fused_softmax_causal, with a one-byte boolean mask (nonzero = masked)
@@ -365,11 +452,13 @@ extern "C" int fused_softmax_masked(const void* x, const void* mask, void* y,
                                     long long rows, int sq, int sk,
                                     long long d1, long long s0, long long s1,
                                     long long s2, long long s3, float scale,
-                                    int dtype, void* stream) {
+                                    int dtype, int vec, int row_threads,
+                                    int rows_per_block, void* stream) {
   if (mask == nullptr || d1 < 1) return cudaErrorInvalidValue;
   return dispatch<false>(
       x, y, MaskView{static_cast<const uint8_t*>(mask), d1, s0, s1, s2, s3},
-      rows, sq, sk, scale, dtype, stream);
+      rows, sq, sk, scale, dtype, RowPlan{vec, row_threads, rows_per_block},
+      stream);
 }
 
 // The long-row passes, for any sk >= 1: a null mask is the causal variant,

@@ -10,7 +10,8 @@
 // 8 bytes of mu and rstd per row): 33.6 MB, 0.010 ms at 3.35 TB/s, for
 // GPT-2's 8192 x 1024 bf16. The backward reads x, dy, mu, rstd and w and
 // writes dx, dw and db: 50.4 MB, 0.015 ms. A few flops per element, far
-// below Hopper's ~295 flop/byte ridge.
+// below Hopper's ~295 flop/byte ridge. GPT-2's and BERT's backward take
+// norm.cuh's row-register path, one warp a row.
 
 #include "norm.cuh"
 
@@ -27,12 +28,15 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
 
 // x, dy, dx [rows, h] contiguous in dtype x_dtype; mu, rstd [rows] fp32;
 // w [h] in w_dtype or null (no affine: dw, db and part are then ignored);
-// dw, db [h] in w_dtype; part [parts, 2h] fp32 scratch; 1 <= parts <= rows.
+// dw, db [h] in w_dtype; part [blocks, 2h] fp32 scratch; row_threads,
+// rows_per_block, blocks and registers: the launch plan (norm.cuh BwdPlan).
 extern "C" int layer_norm_bwd(const void* x, const void* dy, const void* mu,
                               const void* rstd, const void* w, void* dx,
                               void* dw, void* db, void* part, int rows, int h,
-                              int parts, int x_dtype, int w_dtype,
+                              int row_threads, int rows_per_block, int blocks,
+                              int registers, int x_dtype, int w_dtype,
                               void* stream) {
   return row_norm::bwd<true>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h,
-                             parts, x_dtype, w_dtype, stream);
+                             row_threads, rows_per_block, blocks, registers,
+                             x_dtype, w_dtype, stream);
 }

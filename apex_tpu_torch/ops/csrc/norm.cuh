@@ -28,17 +28,40 @@
 // it in L1/L2, so device memory sees x once. The TPU's (8, 128) row tiles
 // are not carried over: a row of h = 4096 fills one block of 512 threads.
 //
-// The backward keeps that shape for dx. Its dw (and db) are sums across
-// all rows, which the TPU kernels carry in (1, h) blocks from grid step to
-// grid step; Hopper's blocks run in no order and share nothing, so they
-// take two passes instead of atomics (whose order, and so whose rounding,
-// would change from run to run): a fixed number of blocks (`parts`, chosen
-// by the wrapper) each walk every parts-th row and keep fp32 column sums
-// in shared memory (h floats, 2h with db; each thread owns the same
-// columns on every row, so no synchronisation is needed), write them as
-// one row of a [parts, h] or [parts, 2h] fp32 buffer, and a second kernel
-// sums that buffer down its columns in a fixed order. The result is the
-// same on every run and on every card.
+// The backward is bound by bytes too (x and dy read, dx written), and its
+// dw (and db) are sums across all rows, which the TPU kernels carry in
+// (1, h) blocks from grid step to grid step. Hopper's blocks run in no
+// order and share nothing, so those sums take two passes instead of
+// atomics (whose order, and so whose rounding, would change from run to
+// run), and every count and order below is a constant of the code and the
+// shape, never of the card: dw and db are the same on every run and card.
+//
+// Row-register path (bwd_rows_kernel), for h a multiple of the 16-byte
+// vector V and 16-byte aligned pointers, up to kMaxRowThreads * kRowVecs
+// vectors a row: a row belongs to row_threads threads (one warp up to
+// 32 * kRowVecs vectors: h = 1024 in bf16 is 4 vectors a lane), each
+// holding at most kRowVecs vectors of x and of dy in registers from the
+// load to the store of dx, so device memory sees x and dy once. Both row
+// sums are warp shuffles; a row of several warps joins them in one
+// shared-memory step. A block of kRowBlock threads
+// holds rows_per_block such rows; `blocks` blocks walk the rows, slot g
+// of block b taking rows (b * rows_per_block + g) + k * blocks *
+// rows_per_block. Each thread keeps the fp32 dw (db) sums of the columns
+// it owns, the same on every row, in registers; the block's row slots
+// join them in slot order into one partial row of the [blocks, kAcc * h]
+// fp32 buffer. The wrapper's _bwd_plan chooses row_threads, rows_per_block
+// and blocks. In bf16 a thread's 64 dw and db sums and 8 vectors take the
+// 128 registers that let two blocks share an SM; loading the next row
+// before this row's arithmetic took ~45 more, one block an SM, and ran
+// slower (0.042 against 0.032 ms at 8192 x 1024 on an H100).
+//
+// Loop path (bwd_kernel), for every other h: `blocks` blocks of up to 1024
+// threads walk every blocks-th row and keep the column sums in shared
+// memory (h floats, 2h with db).
+//
+// Either way column_sum_kernel then sums the partial rows down their
+// columns: slice s of kSumSlices adds rows s, s + kSumSlices, ... in
+// order, then the slices are added in order.
 #pragma once
 
 #include <cstdint>
@@ -203,9 +226,212 @@ int fwd(const void* x, const void* w, const void* b, void* y, void* mu,
   }
 }
 
-// One block per `parts`-th row (gridDim.x = parts). part is [parts, kAcc*h]
-// fp32 (the dw sums, then with kCentred the db sums), or null when there is
-// no affine weight; mu is read only when kCentred.
+// ------------------------------------------------------------ backward
+
+constexpr int kRowBlock = 256;       // threads of a block holding several rows
+constexpr int kMaxRowThreads = 512;  // threads of one row on the register path
+constexpr int kRowVecs = 4;          // 16-byte vectors of x (and of dy) a thread
+constexpr int kSumSlices = 32;       // row slices of the column-sum pass
+
+// p[0, V) of an affine param as fp32, in loads of up to 16 bytes; p is
+// aligned to V * sizeof(TW) bytes (a multiple of 8)
+template <typename TW, int V>
+__device__ __forceinline__ void load_params(const TW* __restrict__ p,
+                                            float (&out)[V]) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(TW));
+  if constexpr (kBytes % 16 == 0) {
+    constexpr int E = 16 / sizeof(TW);
+#pragma unroll
+    for (int c = 0; c < kBytes / 16; ++c) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + c);
+      const TW* e = reinterpret_cast<const TW*>(&raw);
+#pragma unroll
+      for (int j = 0; j < E; ++j) out[c * E + j] = to_float(e[j]);
+    }
+  } else {
+    static_assert(kBytes == 8, "a vector of params is 8 or 16n bytes");
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const TW* e = reinterpret_cast<const TW*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = to_float(e[j]);
+  }
+}
+
+// dst[0, V) = prior[0, V) + v, or v when prior is null, in float4s; dst
+// and prior 16-byte aligned
+template <int V>
+__device__ __forceinline__ void join_sums(float* dst, const float* prior,
+                                          const float (&v)[V]) {
+  static_assert(V % 4 == 0, "a 16-byte vector holds 4 or 8 elements");
+#pragma unroll
+  for (int j = 0; j < V; j += 4) {
+    float4 a = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    if (prior != nullptr) {
+      const float4 p = *reinterpret_cast<const float4*>(prior + j);
+      a = make_float4(p.x + a.x, p.y + a.y, p.z + a.z, p.w + a.w);
+    }
+    *reinterpret_cast<float4*>(dst + j) = a;
+  }
+}
+
+// The row-register path. blockDim.x = rows_per_block * row_threads, row
+// slot g = threadIdx.x / row_threads; thread t of a row owns the vectors
+// t + k * row_threads, k < kRowVecs, that lie below h / V. part is
+// [gridDim.x, kAcc * h] fp32 (dw, then db when kCentred) or null (no
+// affine weight); mu is read only when kCentred.
+template <bool kCentred, typename TX, typename TW>
+__global__ void __launch_bounds__(kMaxRowThreads)
+    bwd_rows_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
+                    const float* __restrict__ mu,
+                    const float* __restrict__ rstd, const TW* __restrict__ w,
+                    TX* __restrict__ dx, float* __restrict__ part, int rows,
+                    int h, int row_threads) {
+  constexpr int V = 16 / sizeof(TX);  // elements per 16-byte vector
+  constexpr int kAcc = kCentred ? 2 : 1;
+  // per warp and row-loop parity: the warp's (s1, s2)
+  __shared__ float red[2][kMaxRowThreads / 32][2];
+  extern __shared__ float acc[];  // [kAcc * h]: the slots' joined sums
+  const bool affine = part != nullptr;
+  const int slots = blockDim.x / row_threads;
+  const int g = threadIdx.x / row_threads;
+  const int t = threadIdx.x - g * row_threads;
+  const int warps = row_threads >> 5;  // warps of one row
+  const int nvec = h / V;
+  const float inv_h = 1.f / static_cast<float>(h);
+
+  float dw_acc[kRowVecs][V], db_acc[kRowVecs][V];
+#pragma unroll
+  for (int k = 0; k < kRowVecs; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) dw_acc[k][j] = db_acc[k][j] = 0.f;
+
+  int parity = 0;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * slots;
+  // the bound is on the block's first row, so every thread of the block
+  // runs the same iterations and reaches the same barriers
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * slots; base < rows;
+       base += step) {
+    const int64_t row = base + g;
+    const bool live = row < rows;
+    uint4 xr[kRowVecs], gr[kRowVecs];
+    float m = 0.f, r = 0.f;
+    if (live) {
+      const uint4* xv = reinterpret_cast<const uint4*>(x + row * h);
+      const uint4* gv = reinterpret_cast<const uint4*>(dy + row * h);
+#pragma unroll
+      for (int k = 0; k < kRowVecs; ++k) {
+        const int i = t + k * row_threads;
+        if (i < nvec) {
+          xr[k] = xv[i];
+          gr[k] = gv[i];
+        }
+      }
+      if constexpr (kCentred) m = mu[row];
+      r = rstd[row];
+    }
+
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRowVecs; ++k) {
+      const int i = t + k * row_threads;
+      if (live && i < nvec) {
+        const TX* xe = reinterpret_cast<const TX*>(&xr[k]);
+        const TX* ge = reinterpret_cast<const TX*>(&gr[k]);
+        float wv[V];
+        if (w != nullptr) {
+          load_params<TW, V>(w + i * V, wv);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) wv[j] = 1.f;
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float gw = to_float(ge[j]) * wv[j];
+          if constexpr (kCentred) s1 += gw;
+          s2 += gw * (centre<kCentred>(to_float(xe[j]), m) * r);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      if constexpr (kCentred) s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    if (warps > 1) {  // uniform: one shared-memory step joins the warps
+      const int warp = threadIdx.x >> 5;
+      if ((threadIdx.x & 31) == 0) {
+        red[parity][warp][0] = s1;
+        red[parity][warp][1] = s2;
+      }
+      __syncthreads();
+      s1 = s2 = 0.f;
+      for (int k = 0; k < warps; ++k) {
+        s1 += red[parity][g * warps + k][0];
+        s2 += red[parity][g * warps + k][1];
+      }
+      // the next iteration writes the other half; the one after it finds
+      // this half read, since every thread passed the next barrier
+      parity ^= 1;
+    }
+    const float m1 = s1 * inv_h, m2 = s2 * inv_h;
+    if (!live) continue;
+
+    uint4* dv = reinterpret_cast<uint4*>(dx + row * h);
+#pragma unroll
+    for (int k = 0; k < kRowVecs; ++k) {
+      const int i = t + k * row_threads;
+      if (i < nvec) {
+        const TX* xe = reinterpret_cast<const TX*>(&xr[k]);
+        const TX* ge = reinterpret_cast<const TX*>(&gr[k]);
+        float wv[V];
+        if (w != nullptr) {
+          load_params<TW, V>(w + i * V, wv);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) wv[j] = 1.f;
+        }
+        uint4 out;
+        TX* o = reinterpret_cast<TX*>(&out);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xh = centre<kCentred>(to_float(xe[j]), m) * r;
+          const float gv = to_float(ge[j]);
+          o[j] = from_float<TX>(r * (centre<kCentred>(gv * wv[j], m1) - xh * m2));
+          dw_acc[k][j] += gv * xh;
+          if constexpr (kCentred) db_acc[k][j] += gv;
+        }
+        dv[i] = out;
+      }
+    }
+  }
+  if (!affine) return;
+
+  // join the row slots' sums in slot order: slots 0 .. slots-2 through
+  // shared memory, the last one straight into this block's partial row
+  float* out = part + static_cast<int64_t>(blockIdx.x) * kAcc * h;
+  for (int s = 0; s < slots; ++s) {
+    if (g == s) {
+      float* dst = s + 1 < slots ? acc : out;
+      const float* prior = s > 0 ? acc : nullptr;
+#pragma unroll
+      for (int k = 0; k < kRowVecs; ++k) {
+        const int i = t + k * row_threads;
+        if (i < nvec) {
+          const int c = i * V;
+          join_sums<V>(dst + c, prior ? prior + c : nullptr, dw_acc[k]);
+          if constexpr (kCentred)
+            join_sums<V>(dst + h + c, prior ? prior + h + c : nullptr,
+                         db_acc[k]);
+        }
+      }
+    }
+    if (s + 1 < slots) __syncthreads();
+  }
+}
+
+// The loop path: one block per `blocks`-th row (gridDim.x = blocks). part
+// is [blocks, kAcc*h] fp32 (the dw sums, then with kCentred the db sums),
+// or null when there is no affine weight; mu is read only when kCentred.
 template <bool kCentred, typename TX, typename TW, bool kVec>
 __global__ void bwd_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
                            const float* __restrict__ mu,
@@ -297,70 +523,115 @@ __global__ void bwd_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
   }
 }
 
-// out[c] = sum over the parts rows of part[:, c] for c < cols = kAcc * h,
-// in row order: column c < h goes to dw[c], the rest to db[c - h].
+// out[c] = sum over the parts rows of part[:, c] for c < cols = kAcc * h:
+// column c < h goes to dw[c], the rest to db[c - h]. A block of (32,
+// kSumSlices) threads takes 32 columns; slice y adds rows y, y +
+// kSumSlices, ... in order, then thread y = 0 adds the slices in order.
 template <typename TW>
-__global__ void column_sum_kernel(const float* __restrict__ part,
-                                  TW* __restrict__ dw, TW* __restrict__ db,
-                                  int parts, int h, int cols) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
+__global__ void __launch_bounds__(32 * kSumSlices)
+    column_sum_kernel(const float* __restrict__ part, TW* __restrict__ dw,
+                      TW* __restrict__ db, int parts, int h, int cols) {
+  __shared__ float slice[kSumSlices][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
   float s = 0.f;
-  for (int p = 0; p < parts; ++p) s += part[static_cast<int64_t>(p) * cols + c];
+  if (c < cols) {
+#pragma unroll 4
+    for (int p = threadIdx.y; p < parts; p += kSumSlices)
+      s += part[static_cast<int64_t>(p) * cols + c];
+  }
+  slice[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y != 0 || c >= cols) return;
+  s = 0.f;
+#pragma unroll
+  for (int y = 0; y < kSumSlices; ++y) s += slice[y][threadIdx.x];
   if (c < h)
     dw[c] = from_float<TW>(s);
   else
     db[c - h] = from_float<TW>(s);
 }
 
+// The launch plan (the wrapper's _bwd_plan): on the register path
+// (registers != 0) row_threads threads a row, rows_per_block rows a block;
+// on the loop path row_threads threads a block and rows_per_block 1. In
+// both, `blocks` blocks and as many partial rows.
+struct BwdPlan {
+  int row_threads, rows_per_block, blocks, registers;
+};
+
+template <typename TX>
+bool plan_ok(const BwdPlan& pl, int rows, int h, const void* x,
+             const void* dy, const void* dx, const void* w) {
+  constexpr int V = 16 / sizeof(TX);
+  if (pl.blocks < 1 || pl.blocks > rows || pl.rows_per_block < 1) return false;
+  if (!pl.registers)
+    return pl.rows_per_block == 1 && pl.row_threads % 32 == 0 &&
+           pl.row_threads >= 32 && pl.row_threads <= kMaxThreads;
+  const int t = pl.row_threads;
+  const bool pow2 = t >= 32 && t <= kMaxRowThreads && (t & (t - 1)) == 0;
+  return pow2 && pl.rows_per_block * t <= kMaxRowThreads &&
+         vec_ok<TX>(h, {x, dy, dx, w == nullptr ? x : w}) &&
+         h / V <= t * kRowVecs &&
+         pl.blocks <= (rows + pl.rows_per_block - 1) / pl.rows_per_block;
+}
+
 template <bool kCentred, typename TX, typename TW>
 cudaError_t launch_bwd(const void* x, const void* dy, const float* mu,
                        const float* rstd, const void* w, void* dx, void* dw,
-                       void* db, float* part, int rows, int h, int parts,
-                       cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(TX);
+                       void* db, float* part, int rows, int h,
+                       const BwdPlan& pl, cudaStream_t stream) {
   constexpr int kAcc = kCentred ? 2 : 1;
-  const bool vec = vec_ok<TX>(h, {x, dy, dx});
-  const int threads = threads_for(vec ? h / V : h);
   const bool affine = w != nullptr;
-  const size_t smem = affine ? kAcc * static_cast<size_t>(h) * sizeof(float) : 0;
+  const size_t acc_bytes = kAcc * static_cast<size_t>(h) * sizeof(float);
   const TX* xp = static_cast<const TX*>(x);
   const TX* gp = static_cast<const TX*>(dy);
   const TW* wp = static_cast<const TW*>(w);
   TX* dxp = static_cast<TX*>(dx);
   float* pp = affine ? part : nullptr;
   cudaError_t err;
-  if (vec) {
-    err = cudaFuncSetAttribute(bwd_kernel<kCentred, TX, TW, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    bwd_kernel<kCentred, TX, TW, true><<<parts, threads, smem, stream>>>(
-        xp, gp, mu, rstd, wp, dxp, pp, rows, h);
+  if (pl.registers) {
+    // shared memory only to join several row slots' column sums (at most
+    // 2 x 4096 floats: several slots means row_threads <= 128)
+    const size_t smem = affine && pl.rows_per_block > 1 ? acc_bytes : 0;
+    bwd_rows_kernel<kCentred, TX, TW>
+        <<<pl.blocks, pl.rows_per_block * pl.row_threads, smem, stream>>>(
+            xp, gp, mu, rstd, wp, dxp, pp, rows, h, pl.row_threads);
   } else {
-    err = cudaFuncSetAttribute(bwd_kernel<kCentred, TX, TW, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    bwd_kernel<kCentred, TX, TW, false><<<parts, threads, smem, stream>>>(
-        xp, gp, mu, rstd, wp, dxp, pp, rows, h);
+    const size_t smem = affine ? acc_bytes : 0;
+    if (vec_ok<TX>(h, {x, dy, dx})) {
+      err = cudaFuncSetAttribute(bwd_kernel<kCentred, TX, TW, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      bwd_kernel<kCentred, TX, TW, true><<<pl.blocks, pl.row_threads, smem, stream>>>(
+          xp, gp, mu, rstd, wp, dxp, pp, rows, h);
+    } else {
+      err = cudaFuncSetAttribute(bwd_kernel<kCentred, TX, TW, false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      bwd_kernel<kCentred, TX, TW, false><<<pl.blocks, pl.row_threads, smem, stream>>>(
+          xp, gp, mu, rstd, wp, dxp, pp, rows, h);
+    }
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || !affine) return err;
-  column_sum_kernel<TW><<<(kAcc * h + 255) / 256, 256, 0, stream>>>(
-      part, static_cast<TW*>(dw), static_cast<TW*>(db), parts, h, kAcc * h);
+  column_sum_kernel<TW><<<(kAcc * h + 31) / 32, dim3(32, kSumSlices), 0, stream>>>(
+      part, static_cast<TW*>(dw), static_cast<TW*>(db), pl.blocks, h, kAcc * h);
   return cudaGetLastError();
 }
 
 template <bool kCentred, typename TX>
 cudaError_t bwd_w(const void* x, const void* dy, const float* mu,
                   const float* rstd, const void* w, int w_dtype, void* dx,
-                  void* dw, void* db, float* part, int rows, int h, int parts,
-                  cudaStream_t stream) {
+                  void* dw, void* db, float* part, int rows, int h,
+                  const BwdPlan& pl, cudaStream_t stream) {
+  if (!plan_ok<TX>(pl, rows, h, x, dy, dx, w))
+    return cudaErrorInvalidValue;
   switch (w_dtype) {
-    case kFloat32: return launch_bwd<kCentred, TX, float>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, parts, stream);
-    case kBFloat16: return launch_bwd<kCentred, TX, __nv_bfloat16>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, parts, stream);
-    case kFloat16: return launch_bwd<kCentred, TX, __half>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, parts, stream);
+    case kFloat32: return launch_bwd<kCentred, TX, float>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, pl, stream);
+    case kBFloat16: return launch_bwd<kCentred, TX, __nv_bfloat16>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, pl, stream);
+    case kFloat16: return launch_bwd<kCentred, TX, __half>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, pl, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -368,22 +639,25 @@ cudaError_t bwd_w(const void* x, const void* dy, const float* mu,
 // x, dy, dx [rows, h] contiguous in x_dtype; mu (when kCentred), rstd
 // [rows] fp32; w [h] in w_dtype or null (no affine: dw, db and part are
 // then ignored); dw (and db when kCentred) [h] in w_dtype; part
-// [parts, kAcc * h] fp32 scratch; 1 <= parts <= rows.
+// [blocks, kAcc * h] fp32 scratch; the plan as BwdPlan says, checked
+// against the shape and the pointers (cudaErrorInvalidValue if it does
+// not fit).
 template <bool kCentred>
 int bwd(const void* x, const void* dy, const void* mu, const void* rstd,
         const void* w, void* dx, void* dw, void* db, void* part, int rows,
-        int h, int parts, int x_dtype, int w_dtype, void* stream) {
+        int h, int row_threads, int rows_per_block, int blocks, int registers,
+        int x_dtype, int w_dtype, void* stream) {
   if (rows == 0) return cudaSuccess;
-  if (parts < 1 || parts > rows) return cudaErrorInvalidValue;
   if (w == nullptr) w_dtype = x_dtype;
+  const BwdPlan pl{row_threads, rows_per_block, blocks, registers};
   const float* m = static_cast<const float*>(mu);
   const float* r = static_cast<const float*>(rstd);
   float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
-    case kFloat32: return bwd_w<kCentred, float>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, parts, s);
-    case kBFloat16: return bwd_w<kCentred, __nv_bfloat16>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, parts, s);
-    case kFloat16: return bwd_w<kCentred, __half>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, parts, s);
+    case kFloat32: return bwd_w<kCentred, float>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, pl, s);
+    case kBFloat16: return bwd_w<kCentred, __nv_bfloat16>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, pl, s);
+    case kFloat16: return bwd_w<kCentred, __half>(x, dy, m, r, w, w_dtype, dx, dw, db, p, rows, h, pl, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -32,7 +32,7 @@ fallback from a kernel to a plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -48,21 +48,70 @@ ln_bwd_launches = 0
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                  + [ctypes.c_void_p])
 _LN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_float, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_void_p])
-_LN_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+_LN_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                     + [ctypes.c_void_p])
 
-# blocks of the backward's first pass, and so rows of its fp32 dw
+# The backward's launch plan (csrc/norm.cuh): the copies of its constants.
+# threads of a block that holds several rows (kRowBlock)
+BWD_ROW_BLOCK = 256
+# most threads of one row on the register path (kMaxRowThreads)
+BWD_MAX_ROW_THREADS = 512
+# 16-byte vectors of x, and of dy, a thread holds in registers (kRowVecs):
+# at most 32 values of a 16-bit dtype, 16 of fp32
+BWD_ROW_VECS = 4
+# most blocks of the backward's first pass, and so rows of its fp32 dw
 # partials: enough to fill the card's 132 SMs twice, and fixed, so the
 # order of the dw sum does not depend on the device
 DW_PARTS = 264
 # fp32 column sums a backward block may keep in shared memory (227 KB):
 # h of dw for RMSNorm, 2h of dw and db for LayerNorm
 SMEM_FLOATS = 232448 // 4
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel covers [rows, h]. On the register path
+    (``registers``) ``row_threads`` threads own a row, ``rows_per_block``
+    rows share a block, and slot g of block b takes rows b *
+    rows_per_block + g + k * blocks * rows_per_block; on the loop path a
+    block of ``row_threads`` threads takes every blocks-th row. Either
+    way ``blocks`` blocks write as many fp32 partial rows of dw (and db)."""
+
+    row_threads: int
+    rows_per_block: int
+    blocks: int
+    registers: bool
+
+    @property
+    def partial_rows(self) -> int:
+        return self.blocks
+
+
+def _bwd_plan(rows: int, h: int, dtype: torch.dtype,
+              aligned: bool = True) -> BwdPlan:
+    """The backward's launch plan for rows of h elements of ``dtype``, a
+    function of the shape alone (never of the card). ``aligned``: x, dy,
+    dx and w start on 16 bytes. Rows of whole 16-byte vectors, at most
+    ``BWD_MAX_ROW_THREADS * BWD_ROW_VECS`` of them, take the register
+    path on the fewest threads (a power of two, at least a warp) that
+    hold a row ``BWD_ROW_VECS`` vectors a thread; any other row the loop
+    path."""
+    v = 16 // dtype.itemsize
+    nvec = h // v
+    if aligned and h % v == 0 and nvec <= BWD_MAX_ROW_THREADS * BWD_ROW_VECS:
+        row_threads = 32
+        while row_threads * BWD_ROW_VECS < nvec:
+            row_threads *= 2
+        per_block = max(1, BWD_ROW_BLOCK // row_threads)
+        return BwdPlan(row_threads, per_block,
+                       min(-(-rows // per_block), DW_PARTS), True)
+    work = nvec if h % v == 0 else h
+    threads = min(1024, max(32, -(-work // 32) * 32))
+    return BwdPlan(threads, 1, min(rows, DW_PARTS), False)
 
 
 def _ln_fwd_plain(x2: torch.Tensor, w: Optional[torch.Tensor],
@@ -251,15 +300,19 @@ def _norm_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
                    for _ in range(n_acc)) if w is not None else ())
     if rows == 0:
         return dx if w is None else (dx, *(g.zero_() for g in grads))
-    parts = min(rows, DW_PARTS)
-    part = (torch.empty((parts, n_acc * h), dtype=torch.float32,
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x2, dy, dx, w) if t is not None)
+    plan = _bwd_plan(rows, h, x2.dtype, aligned)
+    part = (torch.empty((plan.partial_rows, n_acc * h), dtype=torch.float32,
                         device=x2.device) if w is not None else None)
     out_grads = grads if w is not None else (None,) * n_acc
     lib, name, _, bwd = _lib(centred)
     with torch.cuda.device(x2.device):
         rc = bwd(_ptr(x2), _ptr(dy), *map(_ptr, stats), _ptr(w), _ptr(dx),
-                 *map(_ptr, out_grads), _ptr(part), rows, h, parts, x_code,
-                 w_code, _build.stream_handle(x2.device))
+                 *map(_ptr, out_grads), _ptr(part), rows, h,
+                 plan.row_threads, plan.rows_per_block, plan.blocks,
+                 int(plan.registers), x_code, w_code,
+                 _build.stream_handle(x2.device))
         _build.check(lib, rc, f"{name}_bwd")
         _count(centred, bwd=True)
     return dx if w is None else (dx, *grads)

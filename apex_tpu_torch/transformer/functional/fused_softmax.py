@@ -32,7 +32,7 @@ Megatron entry point over both.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,13 +54,61 @@ masked_launches = 0
 stats_launches = 0
 apply_launches = 0
 
-_CAUSAL_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                    ctypes.c_void_p]
+# the whole-row kernels end with (dtype, then the plan: vec, row_threads,
+# rows_per_block, then the stream)
+_PLAN_TAIL = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_CAUSAL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                    + _PLAN_TAIL)
 _MASKED_ARGTYPES = ([ctypes.c_void_p] * 3
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                     + [ctypes.c_longlong] * 5
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_float] + _PLAN_TAIL)
+
+# The whole-row kernels' launch plan (csrc/fused_softmax.cu): the copies
+# of its constants. threads of a block that holds several rows (kRowBlock)
+_ROW_BLOCK = 256
+# most threads of one row (kMaxRowThreads)
+_MAX_ROW_THREADS = 512
+# fp32 values of a row a thread holds in registers (kMaxValues)
+_MAX_VALUES = 32
+
+
+class RowPlan(NamedTuple):
+    """How a whole-row kernel covers rows of sk keys: ``vec`` elements a
+    load (16 bytes' worth, or 1 on the scalar path), ``row_threads``
+    threads a row (thread t takes the loads t + k * row_threads), and
+    ``rows_per_block`` rows a block (slot g of block b takes row b *
+    rows_per_block + g)."""
+
+    vec: int
+    row_threads: int
+    rows_per_block: int
+
+
+def _softmax_plan(sk: int, dtype: torch.dtype,
+                  aligned: bool = True) -> RowPlan:
+    """The whole-row kernels' plan for rows of ``sk`` keys of ``dtype``
+    (``aligned``: x and y start on 16 bytes): the fewest threads, a power
+    of two from one warp, that hold a row ``_MAX_VALUES`` values a
+    thread, and as many rows a block as fill ``_ROW_BLOCK`` threads."""
+    if not 1 <= sk <= _WHOLE_ROW_MAX_SK:
+        raise ValueError(f"a whole-row softmax takes 1 to "
+                         f"{_WHOLE_ROW_MAX_SK} keys, got {sk}")
+    vec = 16 // dtype.itemsize
+    if not aligned or sk % vec:
+        vec = 1
+    row_threads = 32
+    while row_threads * _MAX_VALUES < sk:
+        row_threads *= 2
+    return RowPlan(vec, row_threads, max(1, _ROW_BLOCK // row_threads))
+
+
+def _row_plan(x: torch.Tensor, y: torch.Tensor) -> RowPlan:
+    return _softmax_plan(x.shape[-1], x.dtype,
+                         x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+
+
 # x, mask, m, l (and y for apply), then as the masked kernel
 _BLOCKED_TAIL = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                  + [ctypes.c_longlong] * 5
@@ -215,6 +263,7 @@ def _causal_cuda(x: torch.Tensor, scale: float) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.fused_softmax_causal(x.data_ptr(), y.data_ptr(), rows, sq,
                                       sk, float(scale), code,
+                                      *_row_plan(x, y),
                                       _build.stream_handle(x.device))
         _build.check(lib, rc, "fused_softmax_causal")
         causal_launches += 1
@@ -240,7 +289,8 @@ def _masked_cuda(x: torch.Tensor, mask: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = lib.fused_softmax_masked(
             x.data_ptr(), m4.data_ptr(), y.data_ptr(), rows, sq, sk, d1,
-            *m4.stride(), float(scale), code, _build.stream_handle(x.device))
+            *m4.stride(), float(scale), code, *_row_plan(x, y),
+            _build.stream_handle(x.device))
         _build.check(lib, rc, "fused_softmax_masked")
         masked_launches += 1
     return y

@@ -260,6 +260,12 @@ def max_err(got, ref, rel: float, what: str) -> float:
     return err
 
 
+def achieved(nbytes: float, ms: float, bound_ms: float) -> dict:
+    """The rate a kernel reached on the bytes its function must move, and
+    its share of its bound, printed beside its ``ms``."""
+    return {"tb_per_s": nbytes / ms / 1e9, "bound_share": bound_ms / ms}
+
+
 def bound(nbytes: float, flops: float, peak_flops: float, dev) -> tuple:
     t_bytes = nbytes / dev["hbm_bytes_per_s"] * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -674,7 +680,8 @@ def check_rms_bwd(dev):
     ms = time_ms(call, sets)
     b_ms, b_by = bound(nbytes, 10.0 * rows * h, dev["fp32_flops"], dev)
     return {"shape": [rows, h], "dtype": "bfloat16", "max_abs_err": errs,
-            "ms": ms, "host_ms": host_ms(call, sets[0]),
+            "ms": ms, **achieved(nbytes, ms, b_ms),
+            "host_ms": host_ms(call, sets[0]),
             "plain_ms": time_ms(plain, sets),
             "library_ms": time_ms(library, graphs),
             "library": "backward of F.rms_norm, dx+dw",
@@ -815,6 +822,7 @@ def check_layer_norm(dev):
         b_ms, b_by = bound(fwd_bytes, 8.0 * rows * h, dev["fp32_flops"], dev)
         fwd.append({"shape": [rows, h], "eps": eps, "dtype": "bfloat16",
                     "max_abs_err": err, "ms": ms,
+                    **achieved(fwd_bytes, ms, b_ms),
                     "host_ms": host_ms(fwd_call, sets[0]),
                     "plain_ms": time_ms(fwd_plain, sets),
                     "library_ms": time_ms(fwd_lib, sets),
@@ -825,6 +833,8 @@ def check_layer_norm(dev):
                            dev)
         bwd.append({"shape": [rows, h], "eps": eps, "dtype": "bfloat16",
                     "max_abs_err": errs, "ms": ms,
+                    **achieved(bwd_bytes, ms, b_ms),
+                    "plan": ln._bwd_plan(rows, h, torch.bfloat16)._asdict(),
                     "host_ms": host_ms(bwd_call, sets[0]),
                     "plain_ms": time_ms(bwd_plain, sets),
                     "library_ms": time_ms(bwd_lib, graphs),
@@ -857,9 +867,12 @@ def bert_pad_mask(gen, batch, seq):
 def check_softmax(dev):
     """The causal kernel at GPT-2's scores [8 x 16 heads, 1024, 1024] and
     the masked kernel at BERT's [8, 12 heads, 512, 512] with a [8, 1, 1,
-    512] padding mask, bf16, scale 1/8. The library yardstick is
-    torch.softmax(x.float() * scale) on an input already masked: it
-    leaves out the mask fill and writes fp32, not bf16."""
+    512] padding mask, bf16, scale 1/8. The library yardstick
+    (``library_ms``) is torch.softmax in bf16 over ``(x * scale)
+    .masked_fill(mask, -10000)`` made in advance: it reads and writes
+    bf16 as the kernel does, and leaves out the scale and the fill.
+    ``library_fp32_ms`` is the earlier yardstick, torch.softmax(x.float()
+    * scale) on a pre-masked x, which writes fp32."""
     import torch
 
     from apex_tpu_torch.transformer.functional import fused_softmax as sm
@@ -903,21 +916,36 @@ def check_softmax(dev):
         premasked = [(x.masked_fill(mask, -10000.0 / scale),)
                      for (x,) in sets]
 
-        def library(x):
+        def library_fp32(x):
             return torch.softmax(x.float() * scale, dim=-1)
+
+        lib_ms = time_ms(library_fp32, premasked, iters=5)
+        del premasked
+        filled = [((x * scale).masked_fill(mask, -10000.0),)
+                  for (x,) in sets]
+
+        def library(s):
+            return torch.softmax(s, dim=-1)
 
         ms = time_ms(call, sets)
         b_ms, b_by = bound(nbytes, 6.0 * kept, dev["fp32_flops"], dev)
         out[name] = {"shape": list(shape), "dtype": "bfloat16",
                      "scale": scale, "unmasked": kept, "bytes": nbytes,
                      "max_abs_err": err, "ms": ms,
+                     **achieved(nbytes, ms, b_ms),
+                     "plan": sm._softmax_plan(shape[-1],
+                                              torch.bfloat16)._asdict(),
                      "host_ms": host_ms(call, sets[0]),
                      "plain_ms": time_ms(plain, sets, iters=5),
-                     "library_ms": time_ms(library, premasked, iters=5),
-                     "library": "torch.softmax(x.float() * scale) on a "
-                                "pre-masked x: no mask fill, fp32 output",
+                     "library_ms": time_ms(library, filled, iters=5),
+                     "library": "torch.softmax in bf16 of (x * scale)"
+                                ".masked_fill(mask, -10000) made in "
+                                "advance",
+                     "library_fp32_ms": lib_ms,
+                     "library_fp32": "torch.softmax(x.float() * scale) on "
+                                     "a pre-masked x: fp32 output",
                      "bound_ms": b_ms, "bound_by": b_by}
-        del sets, premasked
+        del sets, filled
     return out
 
 
@@ -2297,7 +2325,7 @@ def summary(kernels, counts, path_adam):
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r.get("shape"),
-                **extra}
+                "bound_share": r["bound_ms"] / r["ms"], **extra}
 
     fwd = kernels["flash_attention_fwd"]
     rms = kernels["rms_norm_fwd"]

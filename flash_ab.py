@@ -1,15 +1,19 @@
-"""Time the flash-attention kernels of two trees on one GPU, in turns.
+"""Time ``chip_smoke.py`` checks of two trees on one GPU, in turns.
 
     python flash_ab.py PARENT_ROOT CHANGE_ROOT [--turns 4]
+        [--checks check_flash,check_flash_bwd,phase_fmha] [--ptxas flash]
 
 Each root is a checkout of this repository (for example a ``git archive``
 of the parent commit unpacked into a git-ignored directory). For every
 turn (parent, change, change, parent, ...) a fresh Python process imports
-``chip_smoke.py`` from that root, builds its kernels there and runs its
-``check_flash`` and ``check_flash_bwd`` (and ``phase_fmha`` where the
-tree has it); each process prints one JSON line, and a summary of the
-device ms follows. Compare two versions only inside one such run: two
-runs may land on different cards.
+``chip_smoke.py`` from that root, builds its kernels there and runs the
+named check functions (``--checks``, comma-separated; by default the
+flash checks and ``phase_fmha``; a name the tree lacks is left out), each
+called with the device phase's result. Each process prints one JSON line
+with the check results and the ptxas report of the libraries whose name
+starts with ``--ptxas``; a summary of every ``ms`` in the results
+follows, one line a turn. Compare two versions only inside one such run:
+two runs may land on different cards.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ import json
 import subprocess
 import sys
 
+DEFAULT_CHECKS = "check_flash,check_flash_bwd,phase_fmha"
+
 CHILD = r"""
 import importlib.util, json, sys, time
-root = sys.argv[1]
+root, checks, ptxas = sys.argv[1], sys.argv[2].split(","), sys.argv[3]
 sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("chip_smoke", root + "/chip_smoke.py")
 cs = importlib.util.module_from_spec(spec)
@@ -29,15 +35,31 @@ spec.loader.exec_module(cs)
 dev = cs.phase_device()
 build = cs.phase_build()
 out = {"root": root, "device": dev["nvidia_smi"],
-       "ptxas": {k: v for k, v in build["ptxas"].items() if k.startswith("flash")}}
+       "ptxas": {k: v for k, v in build["ptxas"].items() if k.startswith(ptxas)}}
 t0 = time.time()
-out["fwd"] = cs.check_flash(dev)
-out["bwd"] = cs.check_flash_bwd(dev)
-if hasattr(cs, "phase_fmha"):
-    out["fmha"] = cs.phase_fmha(dev)
+for name in checks:
+    if hasattr(cs, name):
+        out[name] = getattr(cs, name)(dev)
 out["seconds"] = time.time() - t0
 print(json.dumps(out), flush=True)
 """
+
+
+def times(result, path=""):
+    """Every ``ms`` in a check's result, keyed by its path."""
+    if isinstance(result, dict):
+        found = {}
+        if isinstance(result.get("ms"), float):
+            found[path or "ms"] = round(result["ms"], 5)
+        for key, value in result.items():
+            found.update(times(value, f"{path}.{key}" if path else key))
+        return found
+    if isinstance(result, (list, tuple)):
+        found = {}
+        for i, value in enumerate(result):
+            found.update(times(value, f"{path}[{i}]"))
+        return found
+    return {}
 
 
 def main() -> int:
@@ -45,12 +67,18 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--turns", type=int, default=4)
+    ap.add_argument("--checks", default=DEFAULT_CHECKS,
+                    help="comma-separated chip_smoke check functions")
+    ap.add_argument("--ptxas", default="flash",
+                    help="report ptxas for libraries starting with this")
     args = ap.parse_args()
+    checks = [c for c in args.checks.split(",") if c]
     order = [args.parent, args.change, args.change, args.parent]
     results = []
     for i in range(args.turns):
         root = order[i % 4]
-        proc = subprocess.run([sys.executable, "-c", CHILD, root],
+        proc = subprocess.run([sys.executable, "-c", CHILD, root,
+                               ",".join(checks), args.ptxas],
                               capture_output=True, text=True)
         if proc.returncode:
             print(proc.stderr[-4000:], file=sys.stderr)
@@ -59,11 +87,8 @@ def main() -> int:
         print(line, flush=True)
         results.append(json.loads(line))
     for r in results:
-        fwd = {r_.get("case") or "x".join(map(str, r_["shape"][:2])):
-               round(r_["ms"], 4) for r_ in r["fwd"]}
-        bwd = r["bwd"]
-        print(r["root"], "fwd", fwd, "dq", round(bwd["dq"]["ms"], 4),
-              "dkv", round(bwd["dkv"]["ms"], 4), flush=True)
+        print(r["root"], json.dumps({c: times(r[c]) for c in checks
+                                     if c in r}), flush=True)
     return 0
 
 

@@ -826,3 +826,148 @@ def test_fp8_serving_reaches_the_cast_kernel(gen):
     assert _cast_counts() == (row + want, col + want) and want > 0
     assert {rid: len(r["tokens"]) for rid, r in results.items()} == {
         0: 4, 1: 3}
+
+
+# ------------------------------------- row-norm backward: both launch paths
+
+NORM_BWD_CASES = [(rows, h) for h in (64, 100, 768, 1024, 2048, 4096)
+                  for rows in (1, 3, 1000, 8192)] + [
+    (37, 16384), (37, 20480)]
+
+
+def _norm_bwd_pair(gen, centred, rows, h, dtype, x=None):
+    """(kernel, plain) backward outputs, affine, one launch counted."""
+    if x is None:
+        x = (2 * torch.randn(rows, h, generator=gen, device="cuda")
+             + 0.5).to(dtype)
+    dy = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+    if centred:
+        _, mu, rstd = ln._ln_fwd_cuda(x, w, torch.zeros_like(w), 1e-5)
+        before = ln.ln_bwd_launches
+        got = ln._ln_bwd_cuda(x, w, mu, rstd, dy)
+        assert ln.ln_bwd_launches == before + 1
+        return got, ln._ln_bwd_plain(x, w, mu, rstd, dy)
+    _, rstd = ln._rms_fwd_cuda(x, w, 1e-5)
+    before = ln.bwd_launches
+    got = ln._rms_bwd_cuda(x, w, rstd, dy)
+    assert ln.bwd_launches == before + 1
+    return got, ln._rms_bwd_plain(x, w, rstd, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,h", NORM_BWD_CASES)
+@pytest.mark.parametrize("centred", [True, False], ids=["ln", "rms"])
+def test_norm_bwd_kernel_paths_match_plain(gen, dtype, rows, h, centred):
+    """LayerNorm and RMSNorm backward on the register path (one warp a
+    row up to 32 x 4 vectors: h <= 1024 in 16-bit dtypes, <= 512 in
+    fp32; several warps above) and the loop path (h = 100 is no multiple
+    of 8; 20480 is past the register path's 16384 in bf16), rows fewer
+    than a block's row slots (1, 3) and more than its partial rows."""
+    plan = ln._bwd_plan(rows, h, dtype)
+    v = 16 // dtype.itemsize
+    assert plan.registers == (h % v == 0 and h // v <= 512 * 4)
+    got, ref = _norm_bwd_pair(gen, centred, rows, h, dtype)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dx", "dw", "db"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        _assert_near(a, r, LN_REL[dtype], name)
+
+
+@pytest.mark.parametrize("rows,h", [(8192, 1024), (4096, 768), (4096, 4096),
+                                    (1000, 100)])
+@pytest.mark.parametrize("centred", [True, False], ids=["ln", "rms"])
+def test_norm_bwd_reruns_are_bit_identical(gen, rows, h, centred):
+    """dw and db are sums over rows in an order fixed by the shape: two
+    calls on the same inputs give the same bits, and so does dx."""
+    x = torch.randn(rows, h, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.Generator(device="cuda")
+    outs = []
+    for _ in range(2):
+        g.manual_seed(7)
+        outs.append(_norm_bwd_pair(g, centred, rows, h, torch.bfloat16,
+                                   x=x)[0])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("centred", [True, False], ids=["ln", "rms"])
+def test_norm_bwd_unaligned_rows_take_the_loop_path(gen, centred):
+    """x starting 8 bytes past a 16-byte boundary cannot take 16-byte
+    loads: the plan sends it to the loop path, which matches the plain
+    version all the same."""
+    rows, h = 300, 1024
+    buf = torch.randn(rows * h + 4, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = buf[4:].view(rows, h)
+    assert x.data_ptr() % 16 == 8
+    got, ref = _norm_bwd_pair(gen, centred, rows, h, torch.bfloat16, x=x)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dx", "dw", "db"), got, ref):
+        _assert_near(a, r, LN_REL[torch.bfloat16], name)
+
+
+# ------------------------------- whole-row causal softmax: masked keys unread
+
+# scores exact in fp32, fp16 and bf16 (multiples of 64) just below the
+# -10000 fill: a row with a masked key has its max at the fill, so its
+# masked keys carry nearly all its weight
+NEAR_FILL = (-10048.0, -10112.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sq,sk", [(40, 24), (64, 1000), (24, 40),
+                                   (5, 16384), (3, 4099)])
+@pytest.mark.parametrize("scores", ["randn", "near_fill"])
+def test_causal_softmax_skips_masked_keys_exactly(gen, dtype, sq, sk,
+                                                  scores):
+    """sq > sk: the first sq - sk rows have no unmasked key and come out
+    uniform 1/sk; sk = 1000 puts the diagonal inside a vector (loaded,
+    filled per element); 16384 takes 512 threads a row; 4099 the scalar
+    path. With scores near -10000 the masked keys keep their weight, so
+    each masked output is held to the plain version's relative to itself."""
+    if scores == "randn":
+        x = (4 * torch.randn(2, sq, sk, generator=gen, device="cuda")).to(
+            dtype)
+    else:
+        pick = torch.randint(0, 2, (2, sq, sk), generator=gen, device="cuda")
+        x = torch.tensor(NEAR_FILL, device="cuda")[pick].to(dtype)
+    before = sm.causal_launches
+    y = sm._causal_cuda(x, 1.0)
+    assert sm.causal_launches == before + 1
+    ref = sm._causal_plain(x, 1.0)
+    torch.cuda.synchronize()
+    rtol, atol = SM_TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
+    masked = sm._causal_mask(sq, sk, "cuda").expand(x.shape)
+    torch.testing.assert_close(y.float()[masked], ref.float()[masked],
+                               rtol=rtol, atol=0)
+    if scores == "near_fill":  # 1 / (masked keys + ~0) each
+        assert bool((y.float()[masked] >= 0.99 / sk).all())
+    if sq > sk:
+        torch.testing.assert_close(
+            y[:, :sq - sk].float(),
+            torch.full((2, sq - sk, sk), 1.0 / sk, device="cuda"),
+            rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sk", [2048, 16384])
+def test_masked_softmax_kernel_multiwarp_rows(gen, dtype, sk):
+    """Rows of several warps (128 and 512 threads in bf16) under a
+    padding mask read through zero strides."""
+    x = (4 * torch.randn(2, 2, 3, sk, generator=gen, device="cuda")).to(
+        dtype)
+    mask = torch.zeros(2, 1, 1, sk, dtype=torch.bool, device="cuda")
+    mask[1, ..., sk // 3:] = True
+    before = sm.masked_launches
+    y = sm._masked_cuda(x, mask, 0.125)
+    assert sm.masked_launches == before + 1
+    ref = sm._masked_plain(x, mask, 0.125)
+    torch.cuda.synchronize()
+    rtol, atol = SM_TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
