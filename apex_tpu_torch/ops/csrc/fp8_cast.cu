@@ -15,17 +15,33 @@
 // maximum of the bit patterns of |x| as unsigned ints: a non-negative
 // float orders like its bits, and a NaN with its sign cleared sorts above
 // +inf, so the max of the bits is the max of the floats with NaN winning.
-// Each block folds its threads' maxima with __reduce_max_sync and adds one
-// atomicMax on those bits to a word the caller zeroed.
+//
+// amax finishes inside the kernel, so a cast is one launch and its caller
+// zeroes nothing. Each block folds its threads' maxima (__reduce_max_sync,
+// then one shared-memory step) and writes them to its own slot of a
+// scratch buffer; the block that finishes last, found by an atomicInc on
+// the buffer's counter word that wraps back to 0 by itself, takes the max
+// of the slots and writes amax. The counter is 0 before and after every
+// launch, with nothing kept on the host, so a launch can be captured in a
+// CUDA graph; the wrapper keeps one buffer per device and stream (two
+// streams casting at once must not share a counter), zeroed once when it
+// is made. One atomic a block: atomics on one word serialise (one a warp
+// took the [512, 4096] activation's cast from 0.0071 to 0.0117 ms on an
+// H100 before the blocks folded their own maxima).
 //
 // Bound: bytes. n * (sizeof(x) + 1) bytes move (x read once, y written
 // once); a few operations an element. For the Llama-3-8B gate weight
-// [4096, 14336] in bf16 that is 176 MB, 0.053 ms at 3.35 TB/s.
+// [4096, 14336] in bf16 that is 176 MB, 0.053 ms at 3.35 TB/s; for a
+// 512-token activation [512, 4096], 6.3 MB, 0.0019 ms.
 //
-// Design: a grid-stride loop over 16-byte vectors of x (8 bf16 or fp16, 4
-// fp32), each converted into 8 or 4 fp8 bytes stored at once; the tail of
-// n mod V elements, or all of x when a pointer is misaligned, one element
-// a thread. Any n: the TPU's padding of x to a (rows, cols) slab has no
+// Row-major output (fp8_cast_scale): each thread issues kVecs 16-byte
+// loads of x (8 bf16 or fp16, 4 fp32) before its first convert, then
+// stores each vector's 8 or 4 fp8 bytes at once; the grid gives a thread
+// kVecs vectors a pass (a [512, 4096] bf16 activation: 256 blocks, one
+// pass; a decode step's [8, 4096]: 4 blocks, whose launch is the cost) up
+// to kBlocksPerSm blocks an SM, which then loop. The tail of n mod V
+// elements, or all of x when a pointer is misaligned, goes one element a
+// thread. Any n: the TPU's padding of x to a (rows, cols) slab has no
 // counterpart. The scale is read from device memory when the caller passes
 // a pointer (a per-layer scale tensor stays on the card), else taken from
 // the value argument.
@@ -41,16 +57,13 @@
 // through shared memory (each tile row padded by 4 bytes against bank
 // conflicts), coalesced stores along y^T's rows, 128 bytes a warp in
 // 4-byte words when rows is a multiple of 4. Bounds are checked per
-// vector or element, so any shape.
-//
-// Both kernels fold amax across the block before one atomicMax a block,
-// on a grid of at most 8 blocks an SM: atomics on one word serialise. One
-// a warp instead took the [512, 4096] activation's cast from 0.0071 to
-// 0.0117 ms on an H100.
+// vector or element, so any shape. Its amax finishes as the row-major
+// kernel's does.
 
 #include <cuda_fp8.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -58,21 +71,65 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
+constexpr int kVecs = 4;  // 16-byte loads of x a thread has in flight
 
 enum Fp8Code { kE4M3 = 0, kE5M2 = 1 };
 
-// max of the block's threads' bits, added to *amax by one atomicMax;
-// every thread of the block must call it
-__device__ __forceinline__ void block_atomic_max_bits(unsigned bits,
-                                                      unsigned* amax) {
+// The in-kernel amax, in two calls every thread of the block makes:
+// count_in folds the block's bits (__reduce_max_sync, then one
+// shared-memory step) and, on a grid of several blocks, has thread 0
+// write them to scratch[1 + blockIdx.x] and count the block in on
+// scratch[0] with an atomicInc that wraps back to 0 at gridDim.x - 1
+// increments, returning that thread's ticket; finish then lets the last
+// block to count in fold every slot and write *amax. Work between the two
+// calls overlaps the count. A grid of one block writes *amax in count_in,
+// with no slot and no atomic. scratch holds 1 + gridDim.x words, its
+// counter 0 at the launch.
+__device__ __forceinline__ unsigned count_in(unsigned bits,
+                                             unsigned* __restrict__ amax,
+                                             unsigned* __restrict__ scratch) {
   __shared__ unsigned warp_bits[kThreads / 32];
+  bits = __reduce_max_sync(0xffffffffu, bits);
+  if ((threadIdx.x & 31) == 0) warp_bits[threadIdx.x >> 5] = bits;
+  __syncthreads();
+  unsigned ticket = 0;
+  if (threadIdx.x < 32) {
+    bits = threadIdx.x < kThreads / 32 ? warp_bits[threadIdx.x] : 0u;
+    bits = __reduce_max_sync(0xffffffffu, bits);
+    if (threadIdx.x == 0) {
+      if (gridDim.x == 1) {
+        *amax = bits;
+      } else {
+        scratch[1 + blockIdx.x] = bits;
+        __threadfence();  // the slot is seen before the count
+        ticket = atomicInc(scratch, gridDim.x - 1);
+      }
+    }
+  }
+  return ticket;
+}
+
+__device__ __forceinline__ void finish(unsigned ticket,
+                                       unsigned* __restrict__ amax,
+                                       unsigned* __restrict__ scratch) {
+  __shared__ unsigned warp_bits[kThreads / 32];
+  __shared__ bool last;
+  if (gridDim.x == 1) return;
+  if (threadIdx.x == 0) last = ticket == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // every other block's slot was written before its count: read them
+  // from L2 (__ldcg), past this SM's L1
+  unsigned bits = 0;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads)
+    bits = max(bits, __ldcg(scratch + 1 + b));
   bits = __reduce_max_sync(0xffffffffu, bits);
   if ((threadIdx.x & 31) == 0) warp_bits[threadIdx.x >> 5] = bits;
   __syncthreads();
   if (threadIdx.x < 32) {
     bits = threadIdx.x < kThreads / 32 ? warp_bits[threadIdx.x] : 0u;
     bits = __reduce_max_sync(0xffffffffu, bits);
-    if (threadIdx.x == 0) atomicMax(amax, bits);
+    if (threadIdx.x == 0) *amax = bits;
   }
 }
 
@@ -85,65 +142,159 @@ __device__ __forceinline__ uint32_t cast_one(float v, float s, float fmax,
   return __nv_cvt_float_to_fp8(t, __NV_SATFINITE, kFmt);
 }
 
+// clip(t, -fmax, fmax) with NaN kept: min.NaN and max.NaN return NaN when
+// either input is NaN (fminf and fmaxf would drop it)
+__device__ __forceinline__ float clip(float t, float fmax) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(t), "f"(fmax));
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(r), "f"(-fmax));
+  return r;
+}
+
+// two fp32 values into two fp8 bytes, lo in the low byte, in one convert
+// (the same rounding and saturation as __nv_cvt_float_to_fp8 with
+// __NV_SATFINITE)
+template <__nv_fp8_interpretation_t kFmt>
+__device__ __forceinline__ uint32_t cvt_pair(float lo, float hi) {
+  unsigned short r;
+  if constexpr (kFmt == __NV_E4M3)
+    asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;" : "=h"(r) : "f"(hi), "f"(lo));
+  else
+    asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;" : "=h"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// the magnitudes of a 16-byte vector folded into m, from its raw bits:
+// fp32 bits for fp32 x, two 16-bit magnitudes a word for 16-bit x (bf16
+// and fp16 magnitudes, NaN above inf, order like their bits too)
+template <typename T>
+__device__ __forceinline__ void fold_magnitudes(const uint4& raw,
+                                                unsigned& m) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if constexpr (sizeof(T) == 4)
+      m = max(m, w[c] & 0x7fffffffu);
+    else
+      m = __vmaxu2(m, w[c] & 0x7fff7fffu);
+  }
+}
+
+// fold_magnitudes' m as the fp32 bits of the magnitude
+template <typename T>
+__device__ __forceinline__ unsigned magnitude_bits(unsigned m) {
+  if constexpr (sizeof(T) == 4) {
+    return m;
+  } else {
+    const unsigned short h =
+        static_cast<unsigned short>(max(m & 0xffffu, m >> 16));
+    if constexpr (std::is_same<T, __half>::value)
+      return __float_as_uint(__half2float(__ushort_as_half(h)));
+    else
+      return static_cast<unsigned>(h) << 16;  // bf16 is fp32's top half
+  }
+}
+
+// vector i of x (V elements) cast into V fp8 bytes at y + i * V, a pair
+// of elements a convert
+template <typename T, __nv_fp8_interpretation_t kFmt>
+__device__ __forceinline__ void cast_vec(const uint4& raw, uint8_t* y,
+                                         int64_t i, float s, float fmax) {
+  constexpr int V = 16 / sizeof(T);
+  const T* e = reinterpret_cast<const T*>(&raw);
+  uint32_t word[V / 4] = {};
+#pragma unroll
+  for (int j = 0; j < V; j += 2)
+    word[j / 4] |= cvt_pair<kFmt>(clip(to_float(e[j]) * s, fmax),
+                                  clip(to_float(e[j + 1]) * s, fmax))
+                   << (16 * ((j / 2) % 2));
+  if constexpr (V == 8)
+    reinterpret_cast<uint2*>(y)[i] = make_uint2(word[0], word[1]);
+  else
+    reinterpret_cast<uint32_t*>(y)[i] = word[0];
+}
+
+// A block takes kVecs vectors a thread a pass, each a block's width after
+// the last, so a warp's loads are coalesced and all of a thread's are in
+// flight before its first convert. On its last pass the block folds amax
+// from the raw vectors and counts in before it converts, so the count
+// (and the last block's wait for it) overlaps the converts and stores.
 template <typename T, __nv_fp8_interpretation_t kFmt>
 __global__ void __launch_bounds__(kThreads)
     cast_scale_kernel(const T* __restrict__ x, uint8_t* __restrict__ y,
                       int64_t n, bool vec, const float* __restrict__ scale_ptr,
                       float scale_value, float fmax,
-                      unsigned* __restrict__ amax) {
+                      unsigned* __restrict__ amax,
+                      unsigned* __restrict__ scratch) {
   constexpr int V = 16 / sizeof(T);  // 8 or 4 elements a vector
   const float s = scale_ptr != nullptr ? *scale_ptr : scale_value;
-  unsigned bits = 0;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
   const int64_t nvec = vec ? n / V : 0;
-  for (int64_t i = tid; i < nvec; i += stride) {
-    const uint4 raw = reinterpret_cast<const uint4*>(x)[i];
-    const T* e = reinterpret_cast<const T*>(&raw);
-    uint32_t word[V / 4] = {};
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      word[j / 4] |= cast_one<kFmt>(to_float(e[j]), s, fmax, bits)
-                     << (8 * (j % 4));
-    if constexpr (V == 8)
-      reinterpret_cast<uint2*>(y)[i] = make_uint2(word[0], word[1]);
-    else
-      reinterpret_cast<uint32_t*>(y)[i] = word[0];
-  }
-  for (int64_t i = nvec * V + tid; i < n; i += stride)
+  // the scalar part first: the n mod V tail, or all of x when misaligned
+  unsigned bits = 0;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = nvec * V + blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride)
     y[i] = static_cast<uint8_t>(cast_one<kFmt>(to_float(x[i]), s, fmax, bits));
-  block_atomic_max_bits(bits, amax);
+
+  const int64_t chunk = static_cast<int64_t>(kThreads) * kVecs;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * chunk;
+  unsigned m = 0, ticket = 0;
+  // a block with no vector counts in after the loop; the bound is on the
+  // block's first vector, so the whole block runs the same passes
+  const bool counts_late = blockIdx.x * chunk >= nvec;
+  for (int64_t start = blockIdx.x * chunk; start < nvec; start += step) {
+    uint4 raw[kVecs];
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int64_t i = start + k * kThreads + threadIdx.x;
+      if (i < nvec) {
+        raw[k] = reinterpret_cast<const uint4*>(x)[i];
+        fold_magnitudes<T>(raw[k], m);
+      }
+    }
+    if (start + step >= nvec)
+      ticket = count_in(max(bits, magnitude_bits<T>(m)), amax, scratch);
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int64_t i = start + k * kThreads + threadIdx.x;
+      if (i < nvec) cast_vec<T, kFmt>(raw[k], y, i, s, fmax);
+    }
+  }
+  if (counts_late) ticket = count_in(bits, amax, scratch);
+  finish(ticket, amax, scratch);
 }
 
-cudaError_t grid_cap(int* cap) {
+// at most kBlocksPerSm blocks an SM, and no more than the scratch's slots
+cudaError_t grid_cap(int slots, int* cap) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  *cap = sms * kBlocksPerSm;
+  *cap = sms * kBlocksPerSm < slots ? sms * kBlocksPerSm : slots;
   return err;
 }
 
 template <typename T>
 cudaError_t launch(const void* x, void* y, int64_t n, int fp8,
                    const float* scale_ptr, float scale_value, float fmax,
-                   unsigned* amax, cudaStream_t stream) {
+                   unsigned* amax, unsigned* scratch, int slots,
+                   cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(y) % V == 0;
   int cap = 0;
-  const cudaError_t err = grid_cap(&cap);
+  const cudaError_t err = grid_cap(slots, &cap);
   if (err != cudaSuccess) return err;
+  // kVecs vectors a thread, or as many elements when x goes one at a time
   const int64_t work = vec ? n / V + n % V : n;
-  const int64_t want = (work + kThreads - 1) / kThreads;
+  const int64_t want = (work + kThreads * kVecs - 1) / (kThreads * kVecs);
   const int blocks = static_cast<int>(want < cap ? want : cap);
   const T* xp = static_cast<const T*>(x);
   uint8_t* yp = static_cast<uint8_t*>(y);
   if (fp8 == kE4M3)
-    cast_scale_kernel<T, __NV_E4M3><<<blocks, kThreads, 0, stream>>>(xp, yp, n, vec, scale_ptr, scale_value, fmax, amax);
+    cast_scale_kernel<T, __NV_E4M3><<<blocks, kThreads, 0, stream>>>(xp, yp, n, vec, scale_ptr, scale_value, fmax, amax, scratch);
   else
-    cast_scale_kernel<T, __NV_E5M2><<<blocks, kThreads, 0, stream>>>(xp, yp, n, vec, scale_ptr, scale_value, fmax, amax);
+    cast_scale_kernel<T, __NV_E5M2><<<blocks, kThreads, 0, stream>>>(xp, yp, n, vec, scale_ptr, scale_value, fmax, amax, scratch);
   return cudaGetLastError();
 }
 
@@ -156,7 +307,8 @@ __global__ void __launch_bounds__(kThreads)
     cast_scale_t_kernel(const T* __restrict__ x, uint8_t* __restrict__ yt,
                         int64_t rows, int64_t cols, bool vec,
                         const float* __restrict__ scale_ptr, float scale_value,
-                        float fmax, unsigned* __restrict__ amax) {
+                        float fmax, unsigned* __restrict__ amax,
+                        unsigned* __restrict__ scratch) {
   __shared__ __align__(4) uint8_t tile[kTileC][kTilePad];  // [col][row]
   const float s = scale_ptr != nullptr ? *scale_ptr : scale_value;
   const int64_t tiles_r = (rows + kTileR - 1) / kTileR;
@@ -223,15 +375,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // the next tile's loads overwrite the tile
   }
-  block_atomic_max_bits(bits, amax);
+  finish(count_in(bits, amax, scratch), amax, scratch);
 }
 
 template <typename T>
 cudaError_t launch_t(const void* x, void* yt, int64_t rows, int64_t cols,
                      int fp8, const float* scale_ptr, float scale_value,
-                     float fmax, unsigned* amax, cudaStream_t stream) {
+                     float fmax, unsigned* amax, unsigned* scratch, int slots,
+                     cudaStream_t stream) {
   int cap = 0;
-  const cudaError_t err = grid_cap(&cap);
+  const cudaError_t err = grid_cap(slots, &cap);
   if (err != cudaSuccess) return err;
   const int64_t tiles =
       ((rows + kTileR - 1) / kTileR) * ((cols + kTileC - 1) / kTileC);
@@ -242,9 +395,9 @@ cudaError_t launch_t(const void* x, void* yt, int64_t rows, int64_t cols,
   const T* xp = static_cast<const T*>(x);
   uint8_t* yp = static_cast<uint8_t*>(yt);
   if (fp8 == kE4M3)
-    cast_scale_t_kernel<T, __NV_E4M3><<<blocks, kThreads, 0, stream>>>(xp, yp, rows, cols, vec, scale_ptr, scale_value, fmax, amax);
+    cast_scale_t_kernel<T, __NV_E4M3><<<blocks, kThreads, 0, stream>>>(xp, yp, rows, cols, vec, scale_ptr, scale_value, fmax, amax, scratch);
   else
-    cast_scale_t_kernel<T, __NV_E5M2><<<blocks, kThreads, 0, stream>>>(xp, yp, rows, cols, vec, scale_ptr, scale_value, fmax, amax);
+    cast_scale_t_kernel<T, __NV_E5M2><<<blocks, kThreads, 0, stream>>>(xp, yp, rows, cols, vec, scale_ptr, scale_value, fmax, amax, scratch);
   return cudaGetLastError();
 }
 
@@ -253,21 +406,24 @@ cudaError_t launch_t(const void* x, void* yt, int64_t rows, int64_t cols,
 // x: n contiguous elements of dtype (common.cuh codes); y: n bytes of
 // E4M3 (fp8 = 0) or E5M2 (fp8 = 1); the scale at scale_ptr (one fp32 on
 // the device) or, when scale_ptr is null, scale_value; amax: one fp32 word
-// on the device, zeroed by the caller, that receives max |x|.
+// on the device that receives max |x| (nothing need be in it); scratch:
+// 1 + slots words on the device, the first (the blocks' counter) 0, as
+// every launch leaves it; one launch on the stream at a time may use it.
 extern "C" int fp8_cast_scale(const void* x, void* y, long long n, int dtype,
                               int fp8, const void* scale_ptr,
                               float scale_value, float fmax, void* amax,
-                              void* stream) {
+                              void* scratch, int slots, void* stream) {
   if (n < 1 || x == nullptr || y == nullptr || amax == nullptr ||
-      (fp8 != kE4M3 && fp8 != kE5M2))
+      scratch == nullptr || slots < 1 || (fp8 != kE4M3 && fp8 != kE5M2))
     return cudaErrorInvalidValue;
   const float* sp = static_cast<const float*>(scale_ptr);
   unsigned* ap = static_cast<unsigned*>(amax);
+  unsigned* sc = static_cast<unsigned*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return launch<float>(x, y, n, fp8, sp, scale_value, fmax, ap, s);
-    case kBFloat16: return launch<__nv_bfloat16>(x, y, n, fp8, sp, scale_value, fmax, ap, s);
-    case kFloat16: return launch<__half>(x, y, n, fp8, sp, scale_value, fmax, ap, s);
+    case kFloat32: return launch<float>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, s);
+    case kBFloat16: return launch<__nv_bfloat16>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, s);
+    case kFloat16: return launch<__half>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -278,17 +434,21 @@ extern "C" int fp8_cast_scale(const void* x, void* y, long long n, int dtype,
 extern "C" int fp8_cast_scale_t(const void* x, void* yt, long long rows,
                                 long long cols, int dtype, int fp8,
                                 const void* scale_ptr, float scale_value,
-                                float fmax, void* amax, void* stream) {
-  if (rows < 1 || cols < 1 || x == nullptr || yt == nullptr || amax == nullptr || (fp8 != kE4M3 && fp8 != kE5M2) ||
+                                float fmax, void* amax, void* scratch,
+                                int slots, void* stream) {
+  if (rows < 1 || cols < 1 || x == nullptr || yt == nullptr ||
+      amax == nullptr || scratch == nullptr || slots < 1 ||
+      (fp8 != kE4M3 && fp8 != kE5M2) ||
       (rows % 4 == 0 && reinterpret_cast<uintptr_t>(yt) % 4 != 0))
     return cudaErrorInvalidValue;
   const float* sp = static_cast<const float*>(scale_ptr);
   unsigned* ap = static_cast<unsigned*>(amax);
+  unsigned* sc = static_cast<unsigned*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return launch_t<float>(x, yt, rows, cols, fp8, sp, scale_value, fmax, ap, s);
-    case kBFloat16: return launch_t<__nv_bfloat16>(x, yt, rows, cols, fp8, sp, scale_value, fmax, ap, s);
-    case kFloat16: return launch_t<__half>(x, yt, rows, cols, fp8, sp, scale_value, fmax, ap, s);
+    case kFloat32: return launch_t<float>(x, yt, rows, cols, fp8, sp, scale_value, fmax, ap, sc, slots, s);
+    case kBFloat16: return launch_t<__nv_bfloat16>(x, yt, rows, cols, fp8, sp, scale_value, fmax, ap, sc, slots, s);
+    case kFloat16: return launch_t<__half>(x, yt, rows, cols, fp8, sp, scale_value, fmax, ap, sc, slots, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,26 +10,30 @@
 // 8 bytes of mu and rstd per row): 33.6 MB, 0.010 ms at 3.35 TB/s, for
 // GPT-2's 8192 x 1024 bf16. The backward reads x, dy, mu, rstd and w and
 // writes dx, dw and db: 50.4 MB, 0.015 ms. A few flops per element, far
-// below Hopper's ~295 flop/byte ridge. GPT-2's and BERT's backward take
-// norm.cuh's row-register path, one warp a row.
+// below Hopper's ~295 flop/byte ridge. GPT-2's and BERT's forward and
+// backward take norm.cuh's row-register paths, one warp a row.
 
 #include "norm.cuh"
 
 // x, y [rows, h] contiguous in dtype x_dtype; w, b [h] in w_dtype, both or
-// neither (no affine; w_dtype is then ignored); mu, rstd [rows] fp32.
+// neither (no affine; w_dtype is then ignored); mu, rstd [rows] fp32;
+// row_threads, rows_per_block, blocks and registers: the launch plan
+// (norm.cuh Plan).
 extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                               void* y, void* mu, void* rstd, int rows, int h,
-                              float eps, int x_dtype, int w_dtype,
-                              void* stream) {
+                              float eps, int row_threads, int rows_per_block,
+                              int blocks, int registers, int x_dtype,
+                              int w_dtype, void* stream) {
   if ((w == nullptr) != (b == nullptr)) return cudaErrorInvalidValue;
-  return row_norm::fwd<true>(x, w, b, y, mu, rstd, rows, h, eps, x_dtype,
+  return row_norm::fwd<true>(x, w, b, y, mu, rstd, rows, h, eps, row_threads,
+                             rows_per_block, blocks, registers, x_dtype,
                              w_dtype, stream);
 }
 
 // x, dy, dx [rows, h] contiguous in dtype x_dtype; mu, rstd [rows] fp32;
 // w [h] in w_dtype or null (no affine: dw, db and part are then ignored);
 // dw, db [h] in w_dtype; part [blocks, 2h] fp32 scratch; row_threads,
-// rows_per_block, blocks and registers: the launch plan (norm.cuh BwdPlan).
+// rows_per_block, blocks and registers: the launch plan (norm.cuh Plan).
 extern "C" int layer_norm_bwd(const void* x, const void* dy, const void* mu,
                               const void* rstd, const void* w, void* dx,
                               void* dw, void* db, void* part, int rows, int h,

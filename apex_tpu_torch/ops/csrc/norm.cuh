@@ -19,14 +19,31 @@
 // them. LayerNorm's variance is the mean of squared centred values, taken
 // after the mean, in the TPU kernel's order: never E[x^2] - mu^2.
 //
-// Design: one block per row for the forward, so a row's sums never leave
-// the SM; 16-byte vector loads and stores when h and the row pointers
-// allow them (a scalar path otherwise, so any h and any row count work:
-// there is no padding to a row block, as the TPU's _pad_rows needs); fp32
-// warp-shuffle reductions, then one shared-memory step across warps. The
-// later passes over a row (LayerNorm's centred squares, the output) find
-// it in L1/L2, so device memory sees x once. The TPU's (8, 128) row tiles
-// are not carried over: a row of h = 4096 fills one block of 512 threads.
+// Forward, row-register path (fwd_rows_kernel), for h a multiple of the
+// 16-byte vector V and 16-byte aligned pointers, up to kMaxRowThreads *
+// kRowVecs vectors a row: a row belongs to row_threads threads (one warp
+// up to 32 * kRowVecs vectors; more threads when there are few rows, down
+// to a vector a thread), each holding its vectors of x in registers from
+// the load to the store of y, so device memory sees x once and no second
+// pass asks L1 for it. The row's sums are warp shuffles, plus one
+// shared-memory step when a row spans several warps: LayerNorm's mean
+// first, then the mean of the centred squares from the same registers.
+// The affine params are read as 16-byte vectors (two for bf16 x with fp32
+// params) where y is made; rows after the first find them in L1 or L2.
+// Holding a thread's w and b in registers across the rows it takes cost
+// LayerNorm 90 registers a thread (64 this way), a third of the warps an
+// SM, and BERT's 4096 x 768 ran slower on an H100. Slot g of block b
+// takes rows (b * rows_per_block + g) + k * blocks * rows_per_block. The
+// wrapper's _fwd_plan chooses row_threads, rows_per_block and blocks.
+//
+// Forward, loop path (fwd_kernel), for every other h, unaligned pointers
+// and rows wider than the register path holds: one block per row, 16-byte
+// vector loads and stores when h and the row pointers allow them (a scalar
+// path otherwise, so any h and any row count work: there is no padding to
+// a row block, as the TPU's _pad_rows needs); fp32 warp-shuffle reductions,
+// then one shared-memory step across warps. The later passes over a row
+// (LayerNorm's centred squares, the output) find it in L1/L2. The TPU's
+// (8, 128) row tiles are not carried over on either path.
 //
 // The backward is bound by bytes too (x and dy read, dx written), and its
 // dw (and db) are sums across all rows, which the TPU kernels carry in
@@ -36,28 +53,26 @@
 // run), and every count and order below is a constant of the code and the
 // shape, never of the card: dw and db are the same on every run and card.
 //
-// Row-register path (bwd_rows_kernel), for h a multiple of the 16-byte
-// vector V and 16-byte aligned pointers, up to kMaxRowThreads * kRowVecs
-// vectors a row: a row belongs to row_threads threads (one warp up to
-// 32 * kRowVecs vectors: h = 1024 in bf16 is 4 vectors a lane), each
-// holding at most kRowVecs vectors of x and of dy in registers from the
-// load to the store of dx, so device memory sees x and dy once. Both row
-// sums are warp shuffles; a row of several warps joins them in one
-// shared-memory step. A block of kRowBlock threads
-// holds rows_per_block such rows; `blocks` blocks walk the rows, slot g
-// of block b taking rows (b * rows_per_block + g) + k * blocks *
-// rows_per_block. Each thread keeps the fp32 dw (db) sums of the columns
-// it owns, the same on every row, in registers; the block's row slots
-// join them in slot order into one partial row of the [blocks, kAcc * h]
-// fp32 buffer. The wrapper's _bwd_plan chooses row_threads, rows_per_block
+// Backward, row-register path (bwd_rows_kernel), for the same rows as the
+// forward's: a row belongs to row_threads threads (one warp up to 32 *
+// kRowVecs vectors: h = 1024 in bf16 is 4 vectors a lane), each holding
+// at most kRowVecs vectors of x and of dy in registers from the load to
+// the store of dx, so device memory sees x and dy once. Both row sums are
+// warp shuffles; a row of several warps joins them in one shared-memory
+// step. A block of kRowBlock threads holds rows_per_block such rows;
+// `blocks` blocks walk the rows, slot g of block b taking rows (b *
+// rows_per_block + g) + k * blocks * rows_per_block. Each thread keeps
+// the fp32 dw (db) sums of the columns it owns, the same on every row, in
+// registers; the block's row slots join them in slot order into one
+// partial row of the [blocks, kAcc * h] fp32 buffer. The wrapper's _bwd_plan chooses row_threads, rows_per_block
 // and blocks. In bf16 a thread's 64 dw and db sums and 8 vectors take the
 // 128 registers that let two blocks share an SM; loading the next row
 // before this row's arithmetic took ~45 more, one block an SM, and ran
 // slower (0.042 against 0.032 ms at 8192 x 1024 on an H100).
 //
-// Loop path (bwd_kernel), for every other h: `blocks` blocks of up to 1024
-// threads walk every blocks-th row and keep the column sums in shared
-// memory (h floats, 2h with db).
+// Backward, loop path (bwd_kernel), for every other h: `blocks` blocks of
+// up to 1024 threads walk every blocks-th row and keep the column sums in
+// shared memory (h floats, 2h with db).
 //
 // Either way column_sum_kernel then sums the partial rows down their
 // columns: slice s of kSumSlices adds rows s, s + kSumSlices, ... in
@@ -72,6 +87,10 @@
 namespace row_norm {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kRowBlock = 256;       // threads of a block holding several rows
+constexpr int kMaxRowThreads = 512;  // threads of one row on the register path
+constexpr int kRowVecs = 4;          // 16-byte vectors of x (and of dy) a thread
+constexpr int kSumSlices = 32;       // row slices of the column-sum pass
 
 template <typename TW>
 __device__ __forceinline__ float param_at(const TW* p, int i, float none) {
@@ -92,11 +111,6 @@ __device__ __forceinline__ float scale_shift(float xh, const TW* w,
   return xh * param_at(w, c, 1.f);
 }
 
-inline int threads_for(int work) {
-  int threads = ((work + 31) / 32) * 32;
-  return threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-}
-
 template <typename TX>
 bool vec_ok(int h, std::initializer_list<const void*> ptrs) {
   constexpr int V = 16 / sizeof(TX);
@@ -104,6 +118,182 @@ bool vec_ok(int h, std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;
+}
+
+// A launch plan (the wrapper's _fwd_plan and _bwd_plan). On the register
+// path (registers != 0) row_threads threads a row, rows_per_block rows a
+// block and `blocks` blocks that walk the rows; on the loop path
+// row_threads threads a block and rows_per_block 1, with a block a row in
+// the forward and `blocks` blocks (and as many partial rows) in the
+// backward.
+struct Plan {
+  int row_threads, rows_per_block, blocks, registers;
+};
+
+// whether a register-path plan fits rows of h elements of TX at the
+// pointers ptrs, each of which must be 16-byte aligned
+template <typename TX>
+bool rows_plan_ok(const Plan& pl, int rows, int h,
+                  std::initializer_list<const void*> ptrs) {
+  constexpr int V = 16 / sizeof(TX);
+  const int t = pl.row_threads;
+  const bool pow2 = t >= 32 && t <= kMaxRowThreads && (t & (t - 1)) == 0;
+  return pow2 && pl.rows_per_block >= 1 &&
+         pl.rows_per_block * t <= kMaxRowThreads && vec_ok<TX>(h, ptrs) &&
+         h / V <= t * kRowVecs && pl.blocks >= 1 &&
+         pl.blocks <= (rows + pl.rows_per_block - 1) / pl.rows_per_block;
+}
+
+// v summed over the row_threads threads of each row slot, returned to
+// all of them: a warp-shuffle butterfly (every lane ends with the same
+// bits), then, when a row spans several warps (a power of two, at most
+// 16), one step through red: lane k of every warp of the row takes warp
+// k's sum and the same butterfly joins them. warps is uniform over the
+// block, and every thread must call then; the caller alternates red
+// between two buffers from one call to the next, so a call's writes
+// never meet the previous call's reads. (Summing the 16 warp sums of a
+// 512-thread row one after another in each thread made a decode step's
+// 8 x 4096 RMSNorm slower than one block a row with a block-wide sum.)
+__device__ __forceinline__ float row_sum(float v, float* red, int warps,
+                                         int g) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (warps == 1) return v;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = lane < warps ? red[g * warps + lane] : 0.f;
+  for (int off = warps >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// p[0, V) of an affine param as fp32, in loads of up to 16 bytes (one
+// 8-byte load for fp32 x with 16-bit params; a vector of bf16 x with fp32
+// params spans two 16-byte vectors of them); p is aligned to V *
+// sizeof(TW) bytes (a multiple of 8)
+template <typename TW, int V>
+__device__ __forceinline__ void load_params(const TW* __restrict__ p,
+                                            float (&out)[V]) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(TW));
+  if constexpr (kBytes % 16 == 0) {
+    constexpr int E = 16 / sizeof(TW);
+#pragma unroll
+    for (int c = 0; c < kBytes / 16; ++c) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + c);
+      const TW* e = reinterpret_cast<const TW*>(&raw);
+#pragma unroll
+      for (int j = 0; j < E; ++j) out[c * E + j] = to_float(e[j]);
+    }
+  } else {
+    static_assert(kBytes == 8, "a vector of params is 8 or 16n bytes");
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const TW* e = reinterpret_cast<const TW*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = to_float(e[j]);
+  }
+}
+
+// The forward's register path. blockDim.x = rows_per_block * row_threads,
+// row slot g = threadIdx.x / row_threads; thread t of a row owns the
+// vectors t + k * row_threads, k < kRowVecs, that lie below h / V. w (and
+// b) may be null (no affine); mu is written only when kCentred.
+template <bool kCentred, typename TX, typename TW>
+__global__ void __launch_bounds__(kMaxRowThreads)
+    fwd_rows_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                    const TW* __restrict__ b, TX* __restrict__ y,
+                    float* __restrict__ mu, float* __restrict__ rstd,
+                    int rows, int h, int row_threads, float eps) {
+  constexpr int V = 16 / sizeof(TX);  // elements per 16-byte vector
+  // per join parity and warp: the warp's partial sum
+  __shared__ float red[2][kMaxRowThreads / 32];
+  const int slots = blockDim.x / row_threads;
+  const int g = threadIdx.x / row_threads;
+  const int t = threadIdx.x - g * row_threads;
+  const int warps = row_threads >> 5;  // warps of one row
+  const int nvec = h / V;
+  const float hf = static_cast<float>(h);
+  const bool affine = w != nullptr;
+
+  int parity = 0;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * slots;
+  // the bound is on the block's first row, so every thread of the block
+  // runs the same iterations and reaches the same barriers
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * slots; base < rows;
+       base += step) {
+    const int64_t row = base + g;
+    const bool live = row < rows;
+    uint4 xr[kRowVecs];
+    if (live) {
+      const uint4* xv = reinterpret_cast<const uint4*>(x + row * h);
+#pragma unroll
+      for (int k = 0; k < kRowVecs; ++k) {
+        const int i = t + k * row_threads;
+        if (i < nvec) xr[k] = xv[i];
+      }
+    }
+
+    float mean = 0.f;
+    if constexpr (kCentred) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < kRowVecs; ++k) {
+        if (live && t + k * row_threads < nvec) {
+          const TX* e = reinterpret_cast<const TX*>(&xr[k]);
+#pragma unroll
+          for (int j = 0; j < V; ++j) s += to_float(e[j]);
+        }
+      }
+      mean = row_sum(s, red[parity], warps, g) / hf;
+      parity ^= 1;
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRowVecs; ++k) {
+      if (live && t + k * row_threads < nvec) {
+        const TX* e = reinterpret_cast<const TX*>(&xr[k]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float c = centre<kCentred>(to_float(e[j]), mean);
+          ss += c * c;
+        }
+      }
+    }
+    const float r = rsqrtf(row_sum(ss, red[parity], warps, g) / hf + eps);
+    parity ^= 1;
+    if (!live) continue;
+    if (t == 0) {
+      if constexpr (kCentred) mu[row] = mean;
+      rstd[row] = r;
+    }
+
+    uint4* yv = reinterpret_cast<uint4*>(y + row * h);
+#pragma unroll
+    for (int k = 0; k < kRowVecs; ++k) {
+      const int i = t + k * row_threads;
+      if (i < nvec) {
+        const TX* e = reinterpret_cast<const TX*>(&xr[k]);
+        uint4 out;
+        TX* o = reinterpret_cast<TX*>(&out);
+        float wv[V], bv[V];
+        if (affine) {
+          load_params<TW, V>(w + i * V, wv);
+          if constexpr (kCentred) load_params<TW, V>(b + i * V, bv);
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float v = centre<kCentred>(to_float(e[j]), mean) * r;
+          if (affine) {
+            v *= wv[j];
+            if constexpr (kCentred) v += bv[j];
+          }
+          o[j] = from_float<TX>(v);
+        }
+        yv[i] = out;
+      }
+    }
+  }
 }
 
 // mu is written only when kCentred; b may be null (no affine) either way.
@@ -180,82 +370,72 @@ __global__ void fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
 template <bool kCentred, typename TX, typename TW>
 cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y,
                        float* mu, float* rstd, int rows, int h, float eps,
-                       cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(TX);
-  const bool vec = vec_ok<TX>(h, {x, y});
-  const int threads = threads_for(vec ? h / V : h);
+                       const Plan& pl, cudaStream_t stream) {
   const TX* xp = static_cast<const TX*>(x);
   const TW* wp = static_cast<const TW*>(w);
   const TW* bp = static_cast<const TW*>(b);
   TX* yp = static_cast<TX*>(y);
-  if (vec)
-    fwd_kernel<kCentred, TX, TW, true><<<rows, threads, 0, stream>>>(xp, wp, bp, yp, mu, rstd, h, eps);
+  if (pl.registers)
+    fwd_rows_kernel<kCentred, TX, TW>
+        <<<pl.blocks, pl.rows_per_block * pl.row_threads, 0, stream>>>(
+            xp, wp, bp, yp, mu, rstd, rows, h, pl.row_threads, eps);
+  else if (vec_ok<TX>(h, {x, y}))
+    fwd_kernel<kCentred, TX, TW, true><<<rows, pl.row_threads, 0, stream>>>(xp, wp, bp, yp, mu, rstd, h, eps);
   else
-    fwd_kernel<kCentred, TX, TW, false><<<rows, threads, 0, stream>>>(xp, wp, bp, yp, mu, rstd, h, eps);
+    fwd_kernel<kCentred, TX, TW, false><<<rows, pl.row_threads, 0, stream>>>(xp, wp, bp, yp, mu, rstd, h, eps);
   return cudaGetLastError();
+}
+
+// the loop path takes a block a row, of 32 to 1024 threads
+template <typename TX>
+bool fwd_plan_ok(const Plan& pl, int rows, int h, const void* x,
+                 const void* y, const void* w, const void* b) {
+  if (!pl.registers)
+    return pl.rows_per_block == 1 && pl.blocks == rows &&
+           pl.row_threads % 32 == 0 && pl.row_threads >= 32 &&
+           pl.row_threads <= kMaxThreads;
+  return rows_plan_ok<TX>(pl, rows, h,
+                          {x, y, w == nullptr ? x : w, b == nullptr ? x : b});
 }
 
 template <bool kCentred, typename TX>
 cudaError_t fwd_w(const void* x, const void* w, const void* b, int w_dtype,
                   void* y, float* mu, float* rstd, int rows, int h, float eps,
-                  cudaStream_t stream) {
+                  const Plan& pl, cudaStream_t stream) {
+  if (!fwd_plan_ok<TX>(pl, rows, h, x, y, w, b)) return cudaErrorInvalidValue;
   switch (w_dtype) {
-    case kFloat32: return launch_fwd<kCentred, TX, float>(x, w, b, y, mu, rstd, rows, h, eps, stream);
-    case kBFloat16: return launch_fwd<kCentred, TX, __nv_bfloat16>(x, w, b, y, mu, rstd, rows, h, eps, stream);
-    case kFloat16: return launch_fwd<kCentred, TX, __half>(x, w, b, y, mu, rstd, rows, h, eps, stream);
+    case kFloat32: return launch_fwd<kCentred, TX, float>(x, w, b, y, mu, rstd, rows, h, eps, pl, stream);
+    case kBFloat16: return launch_fwd<kCentred, TX, __nv_bfloat16>(x, w, b, y, mu, rstd, rows, h, eps, pl, stream);
+    case kFloat16: return launch_fwd<kCentred, TX, __half>(x, w, b, y, mu, rstd, rows, h, eps, pl, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // x, y [rows, h] contiguous in x_dtype; w (and b) [h] in w_dtype or null
-// (no affine; w_dtype is then ignored); mu (when kCentred), rstd [rows] fp32.
+// (no affine; w_dtype is then ignored); mu (when kCentred), rstd [rows]
+// fp32; the plan as Plan says, checked against the shape and the pointers
+// (cudaErrorInvalidValue if it does not fit).
 template <bool kCentred>
 int fwd(const void* x, const void* w, const void* b, void* y, void* mu,
-        void* rstd, int rows, int h, float eps, int x_dtype, int w_dtype,
-        void* stream) {
+        void* rstd, int rows, int h, float eps, int row_threads,
+        int rows_per_block, int blocks, int registers, int x_dtype,
+        int w_dtype, void* stream) {
   if (rows == 0) return cudaSuccess;
   if (w == nullptr) w_dtype = x_dtype;
+  const Plan pl{row_threads, rows_per_block, blocks, registers};
   float* m = static_cast<float*>(mu);
   float* r = static_cast<float*>(rstd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
-    case kFloat32: return fwd_w<kCentred, float>(x, w, b, w_dtype, y, m, r, rows, h, eps, s);
-    case kBFloat16: return fwd_w<kCentred, __nv_bfloat16>(x, w, b, w_dtype, y, m, r, rows, h, eps, s);
-    case kFloat16: return fwd_w<kCentred, __half>(x, w, b, w_dtype, y, m, r, rows, h, eps, s);
+    case kFloat32: return fwd_w<kCentred, float>(x, w, b, w_dtype, y, m, r, rows, h, eps, pl, s);
+    case kBFloat16: return fwd_w<kCentred, __nv_bfloat16>(x, w, b, w_dtype, y, m, r, rows, h, eps, pl, s);
+    case kFloat16: return fwd_w<kCentred, __half>(x, w, b, w_dtype, y, m, r, rows, h, eps, pl, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // ------------------------------------------------------------ backward
 
-constexpr int kRowBlock = 256;       // threads of a block holding several rows
-constexpr int kMaxRowThreads = 512;  // threads of one row on the register path
-constexpr int kRowVecs = 4;          // 16-byte vectors of x (and of dy) a thread
-constexpr int kSumSlices = 32;       // row slices of the column-sum pass
-
-// p[0, V) of an affine param as fp32, in loads of up to 16 bytes; p is
-// aligned to V * sizeof(TW) bytes (a multiple of 8)
-template <typename TW, int V>
-__device__ __forceinline__ void load_params(const TW* __restrict__ p,
-                                            float (&out)[V]) {
-  constexpr int kBytes = V * static_cast<int>(sizeof(TW));
-  if constexpr (kBytes % 16 == 0) {
-    constexpr int E = 16 / sizeof(TW);
-#pragma unroll
-    for (int c = 0; c < kBytes / 16; ++c) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + c);
-      const TW* e = reinterpret_cast<const TW*>(&raw);
-#pragma unroll
-      for (int j = 0; j < E; ++j) out[c * E + j] = to_float(e[j]);
-    }
-  } else {
-    static_assert(kBytes == 8, "a vector of params is 8 or 16n bytes");
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    const TW* e = reinterpret_cast<const TW*>(&raw);
-#pragma unroll
-    for (int j = 0; j < V; ++j) out[j] = to_float(e[j]);
-  }
-}
 
 // dst[0, V) = prior[0, V) + v, or v when prior is null, in float4s; dst
 // and prior 16-byte aligned
@@ -551,35 +731,21 @@ __global__ void __launch_bounds__(32 * kSumSlices)
     db[c - h] = from_float<TW>(s);
 }
 
-// The launch plan (the wrapper's _bwd_plan): on the register path
-// (registers != 0) row_threads threads a row, rows_per_block rows a block;
-// on the loop path row_threads threads a block and rows_per_block 1. In
-// both, `blocks` blocks and as many partial rows.
-struct BwdPlan {
-  int row_threads, rows_per_block, blocks, registers;
-};
-
 template <typename TX>
-bool plan_ok(const BwdPlan& pl, int rows, int h, const void* x,
-             const void* dy, const void* dx, const void* w) {
-  constexpr int V = 16 / sizeof(TX);
+bool bwd_plan_ok(const Plan& pl, int rows, int h, const void* x,
+                 const void* dy, const void* dx, const void* w) {
   if (pl.blocks < 1 || pl.blocks > rows || pl.rows_per_block < 1) return false;
   if (!pl.registers)
     return pl.rows_per_block == 1 && pl.row_threads % 32 == 0 &&
            pl.row_threads >= 32 && pl.row_threads <= kMaxThreads;
-  const int t = pl.row_threads;
-  const bool pow2 = t >= 32 && t <= kMaxRowThreads && (t & (t - 1)) == 0;
-  return pow2 && pl.rows_per_block * t <= kMaxRowThreads &&
-         vec_ok<TX>(h, {x, dy, dx, w == nullptr ? x : w}) &&
-         h / V <= t * kRowVecs &&
-         pl.blocks <= (rows + pl.rows_per_block - 1) / pl.rows_per_block;
+  return rows_plan_ok<TX>(pl, rows, h, {x, dy, dx, w == nullptr ? x : w});
 }
 
 template <bool kCentred, typename TX, typename TW>
 cudaError_t launch_bwd(const void* x, const void* dy, const float* mu,
                        const float* rstd, const void* w, void* dx, void* dw,
                        void* db, float* part, int rows, int h,
-                       const BwdPlan& pl, cudaStream_t stream) {
+                       const Plan& pl, cudaStream_t stream) {
   constexpr int kAcc = kCentred ? 2 : 1;
   const bool affine = w != nullptr;
   const size_t acc_bytes = kAcc * static_cast<size_t>(h) * sizeof(float);
@@ -625,8 +791,8 @@ template <bool kCentred, typename TX>
 cudaError_t bwd_w(const void* x, const void* dy, const float* mu,
                   const float* rstd, const void* w, int w_dtype, void* dx,
                   void* dw, void* db, float* part, int rows, int h,
-                  const BwdPlan& pl, cudaStream_t stream) {
-  if (!plan_ok<TX>(pl, rows, h, x, dy, dx, w))
+                  const Plan& pl, cudaStream_t stream) {
+  if (!bwd_plan_ok<TX>(pl, rows, h, x, dy, dx, w))
     return cudaErrorInvalidValue;
   switch (w_dtype) {
     case kFloat32: return launch_bwd<kCentred, TX, float>(x, dy, mu, rstd, w, dx, dw, db, part, rows, h, pl, stream);
@@ -639,7 +805,7 @@ cudaError_t bwd_w(const void* x, const void* dy, const float* mu,
 // x, dy, dx [rows, h] contiguous in x_dtype; mu (when kCentred), rstd
 // [rows] fp32; w [h] in w_dtype or null (no affine: dw, db and part are
 // then ignored); dw (and db when kCentred) [h] in w_dtype; part
-// [blocks, kAcc * h] fp32 scratch; the plan as BwdPlan says, checked
+// [blocks, kAcc * h] fp32 scratch; the plan as Plan says, checked
 // against the shape and the pointers (cudaErrorInvalidValue if it does
 // not fit).
 template <bool kCentred>
@@ -649,7 +815,7 @@ int bwd(const void* x, const void* dy, const void* mu, const void* rstd,
         int x_dtype, int w_dtype, void* stream) {
   if (rows == 0) return cudaSuccess;
   if (w == nullptr) w_dtype = x_dtype;
-  const BwdPlan pl{row_threads, rows_per_block, blocks, registers};
+  const Plan pl{row_threads, rows_per_block, blocks, registers};
   const float* m = static_cast<const float*>(mu);
   const float* r = static_cast<const float*>(rstd);
   float* p = static_cast<float*>(part);

@@ -15,6 +15,12 @@ second operand, with a second kernel of the same source that writes
 ``y^T`` through shared-memory tiles: the fp8 weight needs no copy into
 that layout afterwards.
 
+A cast is one launch: the kernels finish amax themselves (the last block
+folds the blocks' maxima), through a scratch buffer of a counter and a
+slot a block that the wrapper keeps per device and stream
+(:func:`_scratch`): made and zeroed once, and left with its counter at 0
+by every launch, so no cast needs a fill kernel first.
+
 Dispatch follows the input tensor: a CUDA tensor launches a kernel (a
 0-dim one too; an empty one raises, as ``max`` of nothing does on every
 device), a CPU tensor takes :func:`_cast_and_scale_plain`, the
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 from numbers import Real
-from typing import Tuple, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -36,6 +42,16 @@ from apex_tpu_torch.ops import _build
 # the CUDA wrapper below adds to them, once per launch
 launches = 0
 col_launches = 0
+# fill kernels the wrapper launched on a scratch buffer: one when a
+# stream's buffer is made, one when a failed launch re-zeroes its counter
+fills = 0
+
+# amax slots of a scratch buffer, and so most blocks of a cast (the
+# kernels take at most 8 an SM: 1056 on an H100)
+AMAX_SLOTS = 2048
+# (device index, stream handle) -> int32 [1 + AMAX_SLOTS]: the blocks'
+# counter, then a slot a block
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 ScaleLike = Union[Real, torch.Tensor]
 
@@ -44,7 +60,8 @@ FP8_CODES = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1}
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
-             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]
 _ARGTYPES_T = _ARGTYPES[:3] + [ctypes.c_longlong] + _ARGTYPES[3:]
 
 
@@ -89,6 +106,21 @@ def _lib():
     return lib
 
 
+def _scratch(device: torch.device) -> torch.Tensor:
+    """The scratch buffer of ``device``'s current stream, made and zeroed
+    on the stream's first cast. Each stream has its own, so casts on two
+    streams at once never share a counter; on one stream the launches run
+    in turn, each leaving the counter at 0."""
+    global fills
+    key = (device.index, _build.stream_handle(device))
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = torch.zeros(1 + AMAX_SLOTS, dtype=torch.int32, device=device)
+        fills += 1
+        _SCRATCH[key] = buf
+    return buf
+
+
 def _cast_and_scale_cuda(x: torch.Tensor, scale: ScaleLike,
                          dtype: torch.dtype, fmax: float,
                          col_major: bool = False
@@ -97,7 +129,7 @@ def _cast_and_scale_cuda(x: torch.Tensor, scale: ScaleLike,
     same outputs as :func:`_cast_and_scale_plain`, y bit for bit. A
     tensor scale is read on the card (no host sync); a number is passed
     by value."""
-    global launches, col_launches
+    global launches, col_launches, fills
     _check_col_major(x, col_major)
     code = _build.dtype_code(x.dtype, "fp8 cast")
     fp8 = FP8_CODES.get(dtype)
@@ -108,26 +140,35 @@ def _cast_and_scale_cuda(x: torch.Tensor, scale: ScaleLike,
         raise RuntimeError("fp8 cast: max(|x|) of an empty tensor has no "
                            "value")
     x = x.contiguous()
-    amax = torch.zeros((), dtype=torch.float32, device=x.device)
+    amax = torch.empty((), dtype=torch.float32, device=x.device)
     s = (as_scale(scale, x.device) if isinstance(scale, torch.Tensor)
          else None)
-    scale_args = (None if s is None else s.data_ptr(),
-                  0.0 if s is not None else float(scale), float(fmax),
-                  amax.data_ptr(), _build.stream_handle(x.device))
     lib = _lib()
     with torch.cuda.device(x.device):
+        scratch = _scratch(x.device)
+        tail = (None if s is None else s.data_ptr(),
+                0.0 if s is not None else float(scale), float(fmax),
+                amax.data_ptr(), scratch.data_ptr(), AMAX_SLOTS,
+                _build.stream_handle(x.device))
         if col_major:
             rows, cols = x.shape
             y = torch.empty((cols, rows), dtype=dtype, device=x.device).t()
+            what = "fp8_cast_scale_t"
             rc = lib.fp8_cast_scale_t(x.data_ptr(), y.data_ptr(), rows, cols,
-                                      code, fp8, *scale_args)
-            _build.check(lib, rc, "fp8_cast_scale_t")
-            col_launches += 1
+                                      code, fp8, *tail)
         else:
             y = torch.empty(x.shape, dtype=dtype, device=x.device)
+            what = "fp8_cast_scale"
             rc = lib.fp8_cast_scale(x.data_ptr(), y.data_ptr(), x.numel(),
-                                    code, fp8, *scale_args)
-            _build.check(lib, rc, "fp8_cast_scale")
+                                    code, fp8, *tail)
+        if rc != 0:
+            # a launch that failed part-way may have counted blocks in
+            scratch[0].zero_()
+            fills += 1
+        _build.check(lib, rc, what)
+        if col_major:
+            col_launches += 1
+        else:
             launches += 1
     return y, amax
 

@@ -45,25 +45,26 @@ bwd_launches = 0
 ln_launches = 0
 ln_bwd_launches = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_float] + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                  + [ctypes.c_void_p])
 _LN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_float, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_void_p])
+                                         ctypes.c_float] + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
 _LN_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                     + [ctypes.c_void_p])
 
-# The backward's launch plan (csrc/norm.cuh): the copies of its constants.
+# The launch plans' constants, copies of csrc/norm.cuh's, shared by the
+# forward and the backward.
 # threads of a block that holds several rows (kRowBlock)
-BWD_ROW_BLOCK = 256
-# most threads of one row on the register path (kMaxRowThreads)
-BWD_MAX_ROW_THREADS = 512
-# 16-byte vectors of x, and of dy, a thread holds in registers (kRowVecs):
-# at most 32 values of a 16-bit dtype, 16 of fp32
-BWD_ROW_VECS = 4
+ROW_BLOCK = 256
+# most threads of one row on the register paths (kMaxRowThreads)
+MAX_ROW_THREADS = 512
+# 16-byte vectors of x (and of dy in the backward) a thread holds in
+# registers (kRowVecs): at most 32 values of a 16-bit dtype, 16 of fp32
+ROW_VECS = 4
 # most blocks of the backward's first pass, and so rows of its fp32 dw
 # partials: enough to fill the card's 132 SMs twice, and fixed, so the
 # order of the dw sum does not depend on the device
@@ -71,6 +72,50 @@ DW_PARTS = 264
 # fp32 column sums a backward block may keep in shared memory (227 KB):
 # h of dw for RMSNorm, 2h of dw and db for LayerNorm
 SMEM_FLOATS = 232448 // 4
+# rows whose threads together fall short of this (a decode step's 8 rows,
+# a 512-token prefill) take more threads a row, down to a vector a
+# thread: 8 x 4096 in bf16 takes 512 threads a row and 512 x 4096 takes
+# 256, each faster on an H100 than the fewest threads (128)
+FWD_FILL_THREADS = 1 << 17
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel covers [rows, h]. On the register path
+    (``registers``) ``row_threads`` threads own a row, ``rows_per_block``
+    rows share a block, and slot g of block b takes rows b *
+    rows_per_block + g + k * blocks * rows_per_block (the plan gives every
+    slot one row; the kernel takes fewer blocks too); on the loop path a
+    block of ``row_threads`` threads takes one row (``blocks`` = rows)."""
+
+    row_threads: int
+    rows_per_block: int
+    blocks: int
+    registers: bool
+
+
+def _fwd_plan(rows: int, h: int, dtype: torch.dtype,
+              aligned: bool = True) -> FwdPlan:
+    """The forward's launch plan for rows of h elements of ``dtype``, a
+    function of the shape alone (never of the card). ``aligned``: x, y,
+    w and b start on 16 bytes. Rows of whole 16-byte vectors, at most
+    ``MAX_ROW_THREADS * ROW_VECS`` of them, take the register
+    path on the fewest threads (a power of two, at least a warp) that
+    hold a row ``ROW_VECS`` vectors a thread, doubled while the rows
+    together have fewer than ``FWD_FILL_THREADS`` threads and a thread
+    keeps a vector; any other row the loop path."""
+    v = 16 // dtype.itemsize
+    nvec = h // v
+    if aligned and h % v == 0 and nvec <= MAX_ROW_THREADS * ROW_VECS:
+        row_threads = 32
+        while row_threads * ROW_VECS < nvec:
+            row_threads *= 2
+        while (rows * row_threads < FWD_FILL_THREADS
+               and 2 * row_threads <= min(nvec, MAX_ROW_THREADS)):
+            row_threads *= 2
+        per_block = max(1, min(ROW_BLOCK // row_threads, rows))
+        return FwdPlan(row_threads, per_block, -(-rows // per_block), True)
+    work = nvec if aligned and h % v == 0 else h
+    return FwdPlan(min(1024, max(32, -(-work // 32) * 32)), 1, rows, False)
 
 
 class BwdPlan(NamedTuple):
@@ -96,17 +141,17 @@ def _bwd_plan(rows: int, h: int, dtype: torch.dtype,
     """The backward's launch plan for rows of h elements of ``dtype``, a
     function of the shape alone (never of the card). ``aligned``: x, dy,
     dx and w start on 16 bytes. Rows of whole 16-byte vectors, at most
-    ``BWD_MAX_ROW_THREADS * BWD_ROW_VECS`` of them, take the register
+    ``MAX_ROW_THREADS * ROW_VECS`` of them, take the register
     path on the fewest threads (a power of two, at least a warp) that
-    hold a row ``BWD_ROW_VECS`` vectors a thread; any other row the loop
+    hold a row ``ROW_VECS`` vectors a thread; any other row the loop
     path."""
     v = 16 // dtype.itemsize
     nvec = h // v
-    if aligned and h % v == 0 and nvec <= BWD_MAX_ROW_THREADS * BWD_ROW_VECS:
+    if aligned and h % v == 0 and nvec <= MAX_ROW_THREADS * ROW_VECS:
         row_threads = 32
-        while row_threads * BWD_ROW_VECS < nvec:
+        while row_threads * ROW_VECS < nvec:
             row_threads *= 2
-        per_block = max(1, BWD_ROW_BLOCK // row_threads)
+        per_block = max(1, ROW_BLOCK // row_threads)
         return BwdPlan(row_threads, per_block,
                        min(-(-rows // per_block), DW_PARTS), True)
     work = nvec if h % v == 0 else h
@@ -262,10 +307,14 @@ def _norm_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
         return y, mu, rstd
     params = (w, b) if centred else (w,)
     stats = (mu, rstd) if centred else (rstd,)
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x2, y, *params) if t is not None)
+    plan = _fwd_plan(rows, h, x2.dtype, aligned)
     lib, name, fwd, _ = _lib(centred)
     with torch.cuda.device(x2.device):
         rc = fwd(_ptr(x2), *map(_ptr, params), _ptr(y), *map(_ptr, stats),
-                 rows, h, float(eps), x_code, w_code,
+                 rows, h, float(eps), plan.row_threads, plan.rows_per_block,
+                 plan.blocks, int(plan.registers), x_code, w_code,
                  _build.stream_handle(x2.device))
         _build.check(lib, rc, f"{name}_fwd")
         _count(centred, bwd=False)

@@ -15,8 +15,9 @@ result line) when it fails:
                at its path's shapes, with the tolerance stated, and timed
                (kernel, host call, plain version, library call, bound):
                the fp8 cast at the serving weight (column-major, as the
-               fp8 GEMM takes it, and row-major), a prefill activation
-               and an E5M2 cotangent (bit for bit), the long-row softmax
+               fp8 GEMM takes it, and row-major), a prefill and two
+               decode activations and an E5M2 cotangent (bit for bit,
+               one device launch a call), the long-row softmax
                passes at 32,768 keys (causal and padding-masked); the
                flash backward twice, the two calls bit for bit; the flash
                forward and backward also with kv_lens [2048, 1500],
@@ -31,10 +32,11 @@ result line) when it fails:
 5a. serving_fp8 -- the same model and trace through ``ServingEngine(
                weight_mode="fp8")``: exact launches (448 fp8 casts a
                prefill or decode step: 224 row-major activations, 224
-               column-major weights), the engine's weight scales equal
-               to ones computed here, a teacher-forced check against a
-               full-sequence fp8 forward built here from the plain
-               functions, and the share of tokens equal to phase 4's.
+               column-major weights; no fill kernel), the engine's
+               weight scales equal to ones computed here, a
+               teacher-forced check against a full-sequence fp8 forward
+               built here from the plain functions, and the share of
+               tokens equal to phase 4's.
 5b. long_context -- ``FusedScaleMaskSoftmax`` forward and backward at
                32,768 keys (causal over GPT-2 345M's 16 heads and the
                last 2048 queries; a padding mask; causal with the padding
@@ -326,6 +328,16 @@ def phase_build():
             "libraries": libs, "ptxas": ptxas}
 
 
+def fwd_plan(ln, rows: int, h: int):
+    """The norm forward's launch plan for bf16 rows, or None where the
+    package has no planned forward (a tree from before it, timed by
+    ``flash_ab.py`` against this one)."""
+    import torch
+
+    plan = getattr(ln, "_fwd_plan", None)
+    return None if plan is None else plan(rows, h, torch.bfloat16)._asdict()
+
+
 def check_rms(dev):
     import torch
     import torch.nn.functional as F
@@ -362,10 +374,11 @@ def check_rms(dev):
         call_ms = host_ms(lambda a: ln._rms_fwd_cuda(a, w, eps),
                           (sets[0],))
         out.append({"shape": [rows, h], "dtype": "bfloat16",
-                    "max_abs_err": err, "ms": ms, "host_ms": call_ms,
-                    "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "bound_ms": b_ms,
-                    "bound_by": b_by})
+                    "max_abs_err": err, "ms": ms,
+                    **achieved(nbytes, ms, b_ms), "host_ms": call_ms,
+                    "plain_ms": plain_ms, "plan": fwd_plan(ln, rows, h),
+                    "library_ms": lib_ms, "library": "F.rms_norm",
+                    "bound_ms": b_ms, "bound_by": b_by})
     return out
 
 
@@ -823,6 +836,7 @@ def check_layer_norm(dev):
         fwd.append({"shape": [rows, h], "eps": eps, "dtype": "bfloat16",
                     "max_abs_err": err, "ms": ms,
                     **achieved(fwd_bytes, ms, b_ms),
+                    "plan": fwd_plan(ln, rows, h),
                     "host_ms": host_ms(fwd_call, sets[0]),
                     "plain_ms": time_ms(fwd_plain, sets),
                     "library_ms": time_ms(fwd_lib, sets),
@@ -962,14 +976,41 @@ def assert_fp8_equal(y, ref, what: str) -> None:
                              f"plain version")
 
 
+def device_activities(fn, *args, tries: int = 3):
+    """Names of the device activities (kernels, fills, copies) one call
+    of ``fn(*args)`` runs, by ``torch.profiler``, after a first call. A
+    call that launches a kernel shows at least one; the profiler has
+    returned none on an H100 now and then (its records lost), so an empty
+    list is taken again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    names = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 def check_fp8_cast(dev):
     """The cast kernels at the fp8 serving path's shapes: a Llama-3-8B
     gate weight [4096, 14336] at its static E4M3 scale through the
     column-major kernel (the path's) and, for comparison, the row-major
-    one; a 512-token prefill activation [512, 4096] at scale 1 with some
-    |x| > 448 (saturation), and an E5M2 cotangent-shaped [512, 14336].
-    y must equal the plain version bit for bit and amax exactly. No one
-    PyTorch call computes the fused cast and amax: library_ms is null."""
+    one; activations at scale 1 with some |x| > 448 (saturation): a
+    512-token prefill's [512, 4096] and a decode step's [8, 4096] and
+    [8, 14336] (the down projection's input); an E5M2 cotangent-shaped
+    [512, 14336]. y must equal the plain version bit for bit and amax
+    exactly; ``device_launches`` counts the device activities of one call
+    (``torch.profiler``; one, the kernel, where amax finishes in it). No
+    one PyTorch call computes the fused cast and amax: library_ms is
+    null."""
     import torch
 
     from apex_tpu_torch.ops import fp8_cast_kernel as fc
@@ -981,8 +1022,8 @@ def check_fp8_cast(dev):
         return (torch.randn(4096, 14336, generator=g, device="cuda")
                 * 4096 ** -0.5).to(torch.bfloat16)
 
-    def activation():
-        x = 30 * torch.randn(512, 4096, generator=g, device="cuda")
+    def activation(rows, cols):
+        x = 30 * torch.randn(rows, cols, generator=g, device="cuda")
         x[:, ::97] *= 40  # ~1% of the values past E4M3's 448
         return x.to(torch.bfloat16)
 
@@ -994,12 +1035,18 @@ def check_fp8_cast(dev):
     for name, make, fp8, fmax, col in (
             ("weight", weight, e4m3, 448.0, True),
             ("weight_row_major", weight, e4m3, 448.0, False),
-            ("activation", activation, e4m3, 448.0, False),
+            ("activation", partial(activation, 512, 4096), e4m3, 448.0,
+             False),
+            ("activation_decode", partial(activation, 8, 4096), e4m3,
+             448.0, False),
+            ("activation_decode_ffn", partial(activation, 8, 14336), e4m3,
+             448.0, False),
             ("cotangent", cotangent, e5m2, 57344.0, False)):
         x = make()
         amax_x = torch.amax(torch.abs(x)).float()
         # the static (weight) or delayed (cotangent) scale of the path
-        scale = (torch.full_like(amax_x, fmax) / amax_x if name != "activation"
+        scale = (torch.full_like(amax_x, fmax) / amax_x
+                 if not name.startswith("activation")
                  else torch.ones((), device="cuda"))
         y, amax = fc._cast_and_scale_cuda(x, scale, fp8, fmax, col)
         y_ref, amax_ref = fc._cast_and_scale_plain(x, scale, fp8, fmax, col)
@@ -1025,11 +1072,15 @@ def check_fp8_cast(dev):
 
         ms = time_ms(call, sets)
         b_ms, b_by = bound(nbytes, 3.0 * n, dev["fp32_flops"], dev)
+        activities = device_activities(call, *sets[0])
         out[name] = {"shape": list(x.shape), "dtype": "bfloat16",
                      "fp8": str(fp8).split(".")[-1], "col_major": col,
                      "scale": float(scale), "amax": float(amax),
                      "saturated": saturated, "bytes": nbytes,
                      "max_abs_err": 0.0, "bit_identical": True, "ms": ms,
+                     **achieved(nbytes, ms, b_ms),
+                     "device_launches": len(activities),
+                     "device_activities": activities,
                      "host_ms": host_ms(call, sets[0]),
                      "plain_ms": time_ms(plain, sets, iters=5),
                      "library_ms": None,
@@ -1216,7 +1267,14 @@ def phase_kernels(dev):
     ln_fwd, ln_bwd = check_layer_norm(dev)
     softmax = check_softmax(dev)
     long_softmax = check_long_softmax(dev)
-    out = {"phase": "kernels", "fp8_cast": check_fp8_cast(dev),
+    fp8_cast = check_fp8_cast(dev)
+    # a cast is one launch: its kernel finishes amax, nothing is filled
+    for name, r in fp8_cast.items():
+        if r["device_launches"] != 1:
+            raise AssertionError(f"fp8 cast {name}: {r['device_launches']} "
+                                 f"device activities a call, not 1: "
+                                 f"{r['device_activities']}")
+    out = {"phase": "kernels", "fp8_cast": fp8_cast,
            "fp8_matmul": check_fp8_matmul(dev),
            "fused_softmax_long": long_softmax,
            "rms_norm_fwd": check_rms(dev),
@@ -1385,7 +1443,9 @@ def serve(params, cfg, weight_mode):
     calls = prefills + engine.scheduler.decode_steps
     # no gradients while serving: the backward and Adam kernels stay at 0;
     # fp8 casts each product's activation (row-major) and weight
-    # (column-major): 7 x L of each a call
+    # (column-major): 7 x L of each a call, and fills nothing (fp8_cast_fill
+    # 0: the kernels finish amax themselves, and the kernels phase made
+    # the stream's scratch buffer)
     want = dict({k: 0 for k in counts},
                 flash_attention_fwd=cfg.num_layers * prefills,
                 rms_norm_fwd=(2 * cfg.num_layers + 1) * calls)
@@ -1682,7 +1742,7 @@ def reset_counts():
     ln.ln_launches = ln.ln_bwd_launches = 0
     sm.causal_launches = sm.masked_launches = 0
     sm.stats_launches = sm.apply_launches = 0
-    fc.launches = fc.col_launches = 0
+    fc.launches = fc.col_launches = fc.fills = 0
 
 
 def read_counts():
@@ -1703,7 +1763,8 @@ def read_counts():
             "fused_softmax_masked": sm.masked_launches,
             "fused_softmax_stats": sm.stats_launches,
             "fused_softmax_apply": sm.apply_launches,
-            "fp8_cast": fc.launches, "fp8_cast_col": fc.col_launches}
+            "fp8_cast": fc.launches, "fp8_cast_col": fc.col_launches,
+            "fp8_cast_fill": fc.fills}
 
 
 def step_flops(n_params: int, n_layers: int, hidden: int, seq: int,
@@ -2353,7 +2414,8 @@ def summary(kernels, counts, path_adam):
             **FLASH_FWD_DESIGN),
         row("rms_norm_fwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:56", rms[1],
-            max(x["max_abs_err"] for x in rms)),
+            max(x["max_abs_err"] for x in rms), plan=rms[1]["plan"],
+            cases=case_rows({"decode": rms[0], "training": rms[2]})),
         row("flash_attention_bwd_dq", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:261",
             dict(bwd["dq"], shape=bwd["shape"], **both),
@@ -2381,7 +2443,8 @@ def summary(kernels, counts, path_adam):
         # kernels phase), errors over both
         row("layer_norm_fwd", csrc + "layer_norm.cu",
             "apex_tpu/ops/layer_norm.py:40", lnf[0],
-            max(x["max_abs_err"] for x in lnf)),
+            max(x["max_abs_err"] for x in lnf), plan=lnf[0]["plan"],
+            cases=case_rows({"bert": lnf[1]})),
         row("layer_norm_bwd", csrc + "layer_norm.cu",
             "apex_tpu/ops/layer_norm.py:163", lnb[0],
             max(max(x["max_abs_err"].values()) for x in lnb)),
@@ -2396,10 +2459,15 @@ def summary(kernels, counts, path_adam):
         # kernels phase); the long-row passes at the causal shape
         row("fp8_cast", csrc + "fp8_cast.cu",
             "apex_tpu/ops/fp8_cast_kernel.py:31", cast["activation"],
-            max(x["max_abs_err"] for x in cast.values())),
+            max(x["max_abs_err"] for x in cast.values()),
+            device_launches=cast["activation"]["device_launches"],
+            cases=case_rows({k: cast[k] for k in (
+                "activation_decode", "activation_decode_ffn", "cotangent",
+                "weight_row_major")})),
         row("fp8_cast_col", csrc + "fp8_cast.cu",
             "apex_tpu/ops/fp8_cast_kernel.py:31", cast["weight"],
-            cast["weight"]["max_abs_err"]),
+            cast["weight"]["max_abs_err"],
+            device_launches=cast["weight"]["device_launches"]),
         row("fused_softmax_stats", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:160",
             dict(long["stats"], shape=long["shape"],

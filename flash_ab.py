@@ -1,15 +1,16 @@
-"""Time ``chip_smoke.py`` checks of two trees on one GPU, in turns.
+"""Time ``chip_smoke.py`` checks of two trees (or more) on one GPU, in turns.
 
-    python flash_ab.py PARENT_ROOT CHANGE_ROOT [--turns 4]
+    python flash_ab.py PARENT_ROOT CHANGE_ROOT [MORE_ROOTS ...] [--turns N]
         [--checks check_flash,check_flash_bwd,phase_fmha] [--ptxas flash]
 
 Each root is a checkout of this repository (for example a ``git archive``
 of the parent commit unpacked into a git-ignored directory). For every
-turn (parent, change, change, parent, ...) a fresh Python process imports
-``chip_smoke.py`` from that root, builds its kernels there and runs the
-named check functions (``--checks``, comma-separated; by default the
-flash checks and ``phase_fmha``; a name the tree lacks is left out), each
-called with the device phase's result. Each process prints one JSON line
+turn (parent, change, change, parent, ...; with more roots, each root in
+order and then in reverse; by default two turns a root) a fresh Python
+process imports ``chip_smoke.py`` from that root, builds its kernels
+there and runs the named check functions (``--checks``, comma-separated;
+by default the flash checks and ``phase_fmha``; a name the tree lacks is
+left out), each called with the device phase's result. Each process prints one JSON line
 with the check results and the ptxas report of the libraries whose name
 starts with ``--ptxas``; a summary of every ``ms`` in the results
 follows, one line a turn. Compare two versions only inside one such run:
@@ -64,19 +65,22 @@ def times(result, path=""):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("parent")
-    ap.add_argument("change")
-    ap.add_argument("--turns", type=int, default=4)
+    ap.add_argument("roots", nargs="+", metavar="ROOT",
+                    help="the parent's root, the change's, and any more")
+    ap.add_argument("--turns", type=int, default=0,
+                    help="processes to run (default: two a root)")
     ap.add_argument("--checks", default=DEFAULT_CHECKS,
                     help="comma-separated chip_smoke check functions")
     ap.add_argument("--ptxas", default="flash",
                     help="report ptxas for libraries starting with this")
     args = ap.parse_args()
+    if len(args.roots) < 2:
+        ap.error("give at least two roots")
     checks = [c for c in args.checks.split(",") if c]
-    order = [args.parent, args.change, args.change, args.parent]
+    order = args.roots + args.roots[::-1]
     results = []
-    for i in range(args.turns):
-        root = order[i % 4]
+    for i in range(args.turns or len(order)):
+        root = order[i % len(order)]
         proc = subprocess.run([sys.executable, "-c", CHILD, root,
                                ",".join(checks), args.ptxas],
                               capture_output=True, text=True)

@@ -971,3 +971,298 @@ def test_masked_softmax_kernel_multiwarp_rows(gen, dtype, sk):
     torch.cuda.synchronize()
     rtol, atol = SM_TOL[dtype]
     torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+# -------------------------------------- row-norm forward: both launch paths
+
+NORM_FWD_WIDTHS = (64, 100, 768, 1024, 4096, 16384, 20480)
+NORM_FWD_ROWS = (1, 3, 8, 1000, 8192)
+
+
+def _norm_fwd_pair(centred, x, w, b=None):
+    """(kernel, plain) forward outputs (y, mu or None, rstd), one launch
+    counted."""
+    if centred:
+        before = ln.ln_launches
+        got = ln._ln_fwd_cuda(x, w, b, 1e-5)
+        assert ln.ln_launches == before + 1
+        return got, ln._ln_fwd_plain(x, w, b, 1e-5)
+    before = ln.launches
+    y, rstd = ln._rms_fwd_cuda(x, w, 1e-5)
+    assert ln.launches == before + 1
+    y_ref, rstd_ref = ln._rms_fwd_plain(x, w, 1e-5)
+    return (y, None, rstd), (y_ref, None, rstd_ref)
+
+
+def _assert_fwd_near(got, ref, dtype):
+    """y within one ulp of its dtype of its scale (fp32: the summation
+    order); mu and rstd within the fp32 rounding of sums taken in
+    another order."""
+    (y, mu, rstd), (y_ref, mu_ref, rstd_ref) = got, ref
+    assert y.dtype == y_ref.dtype and y.shape == y_ref.shape
+    _assert_near(y, y_ref, LN_REL[dtype], "y")
+    if mu is not None:
+        torch.testing.assert_close(mu, mu_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", NORM_FWD_WIDTHS)
+@pytest.mark.parametrize("rows", NORM_FWD_ROWS)
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("centred", [True, False], ids=["ln", "rms"])
+def test_norm_fwd_kernel_paths_match_plain(gen, dtype, h, rows, affine,
+                                           centred):
+    """LayerNorm and RMSNorm forward on the register path (a warp a row
+    up to 32 x 4 vectors, several warps above, more threads a row when
+    the rows are few) and on the loop path (h = 100 is no multiple of 8;
+    20480 is past the register path's 16384 in 16-bit dtypes, 16384 past
+    its 8192 in fp32); x has a mean of 0.5 so the centring matters."""
+    v = 16 // dtype.itemsize
+    plan = ln._fwd_plan(rows, h, dtype)
+    assert plan.registers == (h % v == 0 and h // v <= 512 * 4)
+    x = (2 * torch.randn(rows, h, generator=gen, device="cuda") + 0.5).to(
+        dtype)
+    w = b = None
+    if affine:
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+        b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+    got, ref = _norm_fwd_pair(centred, x, w, b if centred else None)
+    torch.cuda.synchronize()
+    _assert_fwd_near(got, ref, dtype)
+
+
+@pytest.mark.parametrize("h", [768, 1024, 4096, 100])
+@pytest.mark.parametrize("rows", [8, 1000])
+@pytest.mark.parametrize("centred", [True, False], ids=["ln", "rms"])
+def test_norm_fwd_fp32_params_with_bf16_x(gen, h, rows, centred):
+    """fp32 affine params with bf16 x (the mixed-dtype API): on the
+    register path a vector of x spans two 16-byte vectors of w and b."""
+    x = torch.randn(rows, h, generator=gen, device="cuda").to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+    got, ref = _norm_fwd_pair(centred, x, w, b if centred else None)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16
+    _assert_fwd_near(got, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("centred", [True, False], ids=["ln", "rms"])
+@pytest.mark.parametrize("what", ["x", "w"])
+def test_norm_fwd_unaligned_views_take_the_loop_path(gen, centred, what):
+    """x, or the weight, starting 8 bytes past a 16-byte boundary cannot
+    take 16-byte loads: the plan sends the call to the loop path, which
+    matches the plain version all the same."""
+    rows, h = 300, 1024
+    buf = torch.randn(rows * h + 4, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = buf[4:].view(rows, h) if what == "x" else buf[:rows * h].view(rows, h)
+    wbuf = (1 + 0.1 * torch.randn(h + 4, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    w = wbuf[4:] if what == "w" else wbuf[:h]
+    b = torch.zeros(h + 4, device="cuda", dtype=torch.bfloat16)[4:]
+    assert (x if what == "x" else w).data_ptr() % 16 == 8
+    assert not ln._fwd_plan(rows, h, torch.bfloat16, aligned=False).registers
+    got, ref = _norm_fwd_pair(centred, x, w, b if centred else None)
+    torch.cuda.synchronize()
+    _assert_fwd_near(got, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows,h", [(8192, 1024), (4096, 768), (4096, 4096),
+                                    (512, 4096), (8, 4096), (1000, 100)])
+@pytest.mark.parametrize("centred", [True, False], ids=["ln", "rms"])
+def test_norm_fwd_reruns_are_bit_identical(gen, rows, h, centred):
+    """Every row's sums are taken in an order fixed by the shape: two
+    calls on the same inputs give the same bits of y, mu and rstd."""
+    x = torch.randn(rows, h, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(h, generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn(h, generator=gen, device="cuda").to(torch.bfloat16)
+    outs = [_norm_fwd_pair(centred, x, w, b if centred else None)[0]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(*outs):
+        assert (a is None and c is None) or torch.equal(a, c)
+
+
+@pytest.mark.parametrize("centred", [True, False], ids=["ln", "rms"])
+def test_norm_fwd_refuses_a_plan_that_does_not_fit(gen, monkeypatch,
+                                                   centred):
+    """A plan whose threads cannot hold the row (or whose loop path does
+    not give a block a row) is refused by the C entry point: the call
+    raises and launches nothing, and no plain version runs instead."""
+    x = torch.randn(16, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.ones(4096, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros_like(w)
+    for bad in (ln.FwdPlan(32, 8, 2, True),     # 16 vectors a lane
+                ln.FwdPlan(96, 1, 16, True),    # not a power of two
+                ln.FwdPlan(512, 2, 8, True),    # 1024 threads a block
+                ln.FwdPlan(128, 2, 9, True),    # more blocks than rows
+                ln.FwdPlan(512, 1, 15, False)):  # loop path, a row short
+        monkeypatch.setattr(ln, "_fwd_plan", lambda *a, bad=bad, **k: bad)
+        before = (ln.launches, ln.ln_launches)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            if centred:
+                ln._ln_fwd_cuda(x, w, b, 1e-5)
+            else:
+                ln._rms_fwd_cuda(x, w, 1e-5)
+        assert (ln.launches, ln.ln_launches) == before
+
+
+# ------------------------------------------ fp8 cast: one launch a cast
+
+
+def _device_events(fn):
+    """Names of the device activities (kernels, fills, copies) that one
+    call of ``fn()`` ran, by ``torch.profiler`` (``chip_smoke.py``'s
+    ``device_activities``, which profiles again when the profiler lost
+    every record of a call)."""
+    import chip_smoke
+
+    return chip_smoke.device_activities(fn)
+
+
+def _counter(device="cuda"):
+    """The blocks' counter of the current stream's scratch buffer."""
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    torch.cuda.synchronize()
+    return int(fc._scratch(torch.device(device, torch.cuda.current_device()))
+               [0])
+
+
+@pytest.mark.parametrize("col_major", [False, True])
+@pytest.mark.parametrize("scale", ["number", "tensor"])
+def test_fp8_cast_is_one_launch(gen, col_major, scale):
+    """Once the stream's scratch exists (after a first call), a cast runs
+    exactly one device activity, its kernel: no fill of amax or of the
+    counter before it."""
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    x = torch.randn(512, 4096, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    s = 1.0 if scale == "number" else torch.tensor(0.5, device="cuda")
+    fc._cast_and_scale_cuda(x, s, torch.float8_e4m3fn, 448.0, col_major)
+    fills = fc.fills
+    names = _device_events(lambda: fc._cast_and_scale_cuda(
+        x, s, torch.float8_e4m3fn, 448.0, col_major))
+    assert len(names) == 1, names
+    assert ("cast_scale_t_kernel" if col_major else "cast_scale_kernel") \
+        in names[0]
+    assert fc.fills == fills
+
+
+@pytest.mark.parametrize("col_major", [False, True])
+def test_fp8_cast_amax_falls_back_to_back(gen, col_major):
+    """Casts one after another whose amax falls, over shapes of 1 to
+    hundreds of blocks: each amax is its own x's, exactly (the counter
+    came back to 0 and no slot or word carried the last call's max), and
+    the counter is 0 after every call."""
+    shapes = ((512, 4096), (8, 4096), (8, 14336), (3, 5), (4096, 1024))
+    for i, shape in enumerate(shapes * 2):
+        x = (1000.0 / 2 ** i * torch.rand(shape, generator=gen,
+                                          device="cuda")).to(torch.bfloat16)
+        y, amax, y_ref, amax_ref = _cast_pair(x, 1.0, torch.float8_e4m3fn,
+                                              col_major)
+        _assert_bits(y, y_ref)
+        assert float(amax) == float(amax_ref)
+        assert _counter() == 0
+
+
+def test_fp8_cast_on_two_streams_at_once(gen):
+    """Casts queued on two streams without a sync between them each get
+    their own scratch (their own counter) and their own exact amax."""
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    xs = [[(100.0 * (k + 1) / (i + 1) * torch.randn(
+        512, 4096, generator=gen, device="cuda")).to(torch.bfloat16)
+        for i in range(8)] for k in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for i in range(8):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[k].append(fc._cast_and_scale_cuda(
+                    xs[k][i], 1.0, torch.float8_e4m3fn, 448.0,
+                    col_major=bool(i % 2)))
+    torch.cuda.synchronize()
+    keys = {(torch.cuda.current_device(), s.cuda_stream) for s in streams}
+    assert keys <= set(fc._SCRATCH)
+    for k in range(2):
+        for i, (y, amax) in enumerate(outs[k]):
+            y_ref, amax_ref = fc._cast_and_scale_plain(
+                xs[k][i], 1.0, torch.float8_e4m3fn, 448.0, bool(i % 2))
+            _assert_bits(y, y_ref)
+            assert float(amax) == float(amax_ref)
+        with torch.cuda.stream(streams[k]):
+            assert _counter() == 0
+
+
+def test_fp8_cast_a_thousand_in_a_row(gen):
+    """1000 casts queued back to back, row- and column-major, at grid
+    sizes from 1 to hundreds of blocks: every amax exact."""
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    xs = [(float(2 ** (i % 9)) * torch.randn(shape, generator=gen,
+                                               device="cuda")).to(
+        torch.bfloat16)
+        for i, shape in enumerate(((8, 4096), (512, 4096), (8, 14336),
+                                   (256, 384), (1, 3), (64, 1000)) * 3)]
+    amaxes = []
+    for i in range(1000):
+        x = xs[i % len(xs)]
+        amaxes.append(fc._cast_and_scale_cuda(
+            x, 1.0, torch.float8_e4m3fn, 448.0, col_major=i % 3 == 0)[1])
+    got = torch.stack(amaxes).cpu()
+    want = torch.stack([torch.amax(torch.abs(xs[i % len(xs)].float()))
+                        for i in range(1000)]).cpu()
+    assert torch.equal(got, want)
+    assert _counter() == 0
+
+
+@pytest.mark.parametrize("cols", [4096, 14336])
+@pytest.mark.parametrize("fp8", sorted(FP8, key=str))
+def test_fp8_cast_decode_activation(gen, cols, fp8):
+    """A decode step's [8, 4096] and [8, 14336] activations, some values
+    past the format's max: bits and amax equal the plain version's."""
+    x = 30 * torch.randn(8, cols, generator=gen, device="cuda")
+    x[:, ::97] *= 40
+    x = x.to(torch.bfloat16)
+    y, amax, y_ref, amax_ref = _cast_pair(x, 1.0, fp8)
+    _assert_bits(y, y_ref)
+    assert float(amax) == float(amax_ref)
+
+
+def test_fp8_cast_failed_launch_leaves_the_counter_at_zero(gen,
+                                                           monkeypatch):
+    """A launch that reports an error (here one that counted blocks in
+    before it died: the counter is set by hand) has its counter re-zeroed
+    before the wrapper raises, and the next cast's amax is exact."""
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    x = torch.randn(512, 4096, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    fc._cast_and_scale_cuda(x, 1.0, torch.float8_e4m3fn, 448.0)
+    real = fc._lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def fp8_cast_scale(*args):
+            return 1  # cudaErrorInvalidValue
+
+    scratch = fc._scratch(x.device)
+    scratch[0] = 5
+    monkeypatch.setattr(fc, "_lib", lambda: Refusing())
+    before = fc.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        fc._cast_and_scale_cuda(x, 1.0, torch.float8_e4m3fn, 448.0)
+    assert fc.launches == before
+    assert _counter() == 0
+    monkeypatch.undo()
+    y, amax, y_ref, amax_ref = _cast_pair(x / 3, 1.0, torch.float8_e4m3fn)
+    _assert_bits(y, y_ref)
+    assert float(amax) == float(amax_ref)
