@@ -18,7 +18,7 @@ package's ``value_and_grad(loss_fn)`` -> ``fused_adam(...).update`` ->
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +30,7 @@ from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_rms_norm_affine,
 )
 from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.precision import matmul_amp
 from apex_tpu_torch.transformer.functional.rope import apply_rotary_qk
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -193,11 +194,12 @@ def lm_head_weight(params, cfg: LlamaConfig):
 
 
 def lm_head(params, x, cfg: LlamaConfig):
-    """Final norm + logits [b, s, vocab]: a matmul in the activation
-    dtype, then fp32 (``_logits`` of the reference's generate)."""
+    """Final norm + logits [b, s, vocab] (``llama.py:345``): a matmul in
+    the activation dtype through the amp hook, site ``"lm_head"`` (an
+    fp8 product under the O4 context when registered), then fp32."""
     x = _rmsnorm(x, params["final_norm"], cfg.rms_eps)
     w = lm_head_weight(params, cfg)
-    return torch.matmul(x, w.to(x.dtype)).float()
+    return matmul_amp(x, w.to(x.dtype), name="lm_head").float()
 
 
 def run_layers(x, layers: Dict, cfg: LlamaConfig, positions,
@@ -231,9 +233,15 @@ def forward(params, tokens, cfg: LlamaConfig):
 
 
 def loss_fn(params, batch, cfg: LlamaConfig,
-            remat: Union[bool, str] = True) -> torch.Tensor:
+            remat: Union[bool, str] = True,
+            vocab_chunks: Optional[int] = None) -> torch.Tensor:
     """Mean next-token CE; ``batch = (tokens, targets)``, both [b, s]
-    (``llama.py:399``, single-device and without ``vocab_chunks``)."""
+    (``llama.py:399``, single-device). ``vocab_chunks`` (the streamed
+    lm-head + CE) is not ported yet and raises."""
+    if vocab_chunks:
+        raise NotImplementedError(
+            "llama.loss_fn(vocab_chunks=...) is not ported yet: it waits "
+            "for the chunked lm-head path (ROADMAP.md, Queue 1 item 1)")
     tokens, targets = batch
     logits = lm_head(params, hidden_states(params, tokens, cfg, remat), cfg)
     return torch.mean(vocab_parallel_cross_entropy(logits, targets))

@@ -19,7 +19,12 @@ writes its fp8 bytes column-major (``col_major=True``; values
 untouched). Every other fp8 product (the backward's,
 :func:`einsum_fp8`'s, and all on the CPU) upcasts the fp8 operands to
 fp32, which is exact, and sums in fp32.
-``matmul_amp`` waits for the port of the amp fp8 context.
+
+:func:`matmul_amp` is the routing hook of the library's contraction
+sites (the llama ``lm_head``, the tensor-parallel linears): the product
+the site ran before amp existed until a step enters the O4 fp8 context
+(``amp.scaler.Fp8DelayedScaler.step``), then an fp8 product at the sites
+the scaler was built with.
 """
 
 from __future__ import annotations
@@ -224,3 +229,28 @@ def einsum_fp8(subscripts: str, a, b, scale_a: ScaleLike,
     sa, sb, gs, probe, out = _fp8_args(a, b, scale_a, scale_b, grad_scale,
                                        out_dtype, grad_probe)
     return _EinsumFp8.apply(a, b, sa, sb, gs, probe, subscripts, out)
+
+
+def matmul_amp(a, b, *, name: str = "matmul", keep_acc: bool = False):
+    """The amp-aware contraction (``precision.py:280``).
+
+    Outside an fp8 context it is ``torch.matmul(a, b)`` in the operands'
+    dtype, the product every site ran before (on the card a bf16 product
+    already sums in fp32, so the reference's ``matmul_fp32acc`` upcast
+    would only turn it into an fp32 GEMM), or, with ``keep_acc``, the
+    fp32 accumulator of :func:`matmul_fp32acc`. Inside the O4 context
+    (``amp.scaler.current_fp8()``) a 2-D floating ``b`` goes to the
+    context: a registered ``name`` (call ordinals tell repeated calls
+    apart) runs :func:`matmul_fp8_stats` under its delayed scales and
+    records its amaxes, any other takes the fp32-accumulator product."""
+    from apex_tpu_torch.amp.scaler import current_fp8
+
+    ctx = current_fp8()
+    if (ctx is not None and b.dim() == 2 and a.is_floating_point()
+            and b.is_floating_point()):
+        out = torch.promote_types(a.dtype, b.dtype)
+        return ctx.matmul(a, b, name=name,
+                          out_dtype=_acc_dtype(out) if keep_acc else out)
+    if keep_acc:
+        return matmul_fp32acc(a, b, keep_acc=True)
+    return torch.matmul(a, b)

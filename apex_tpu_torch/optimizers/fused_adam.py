@@ -15,6 +15,11 @@ The step counter ``count`` is an int32 0-dim tensor on the CPU: it
 mirrors the JAX state's int32 scalar, and the fp32 learning rate and
 bias-correction scalars are computed from it on the host, so a step
 never waits for the device.
+
+:class:`FusedAdam` is the stateful class (``fused_adam.py:162``) over
+this transform: ``FusedAdam(params, lr=..., flat=True).step(grads)``
+updates the params in place, the flat Adam kernel once a step for each
+dtype of the params.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from apex_tpu_torch import _device, _tree
 from apex_tpu_torch.ops import flat as _flat
 from apex_tpu_torch.ops.fused_adam_kernel import adam_flat
 from apex_tpu_torch.optimizers import _math
+from apex_tpu_torch.optimizers._base import FusedOptimizer
 
 ScalarOrSchedule = Union[float, Callable[[torch.Tensor], Any]]
 
@@ -114,6 +120,27 @@ def fused_adam(lr: ScalarOrSchedule = 1e-3, bias_correction: bool = True,
         return updates, FusedAdamState(count=count, mu=mu, nu=nu)
 
     return GradientTransformation(init, update)
+
+
+class FusedAdam(FusedOptimizer):
+    """Stateful Apex-style API (``fused_adam.py:162``):
+    ``opt = FusedAdam(params, lr=1e-3); opt.step(grads)``."""
+
+    def __init__(self, params, lr=1e-3, bias_correction=True,
+                 betas=(0.9, 0.999), eps=1e-8, adam_w_mode=True,
+                 weight_decay=0.0, amsgrad=False, set_grad_none=True,
+                 flat=False):
+        if amsgrad:
+            raise RuntimeError("FusedAdam does not support the AMSGrad "
+                               "variant.")
+        del set_grad_none  # no .grad attributes: kept for API parity
+        kw = dict(lr=lr, bias_correction=bias_correction, betas=betas,
+                  eps=eps, adam_w_mode=adam_w_mode,
+                  weight_decay=weight_decay, flat=flat)
+        super().__init__(params, fused_adam(**kw), dict(
+            lr=lr, bias_correction=bias_correction, betas=betas, eps=eps,
+            weight_decay=weight_decay),
+            tx_factory=lambda **ov: fused_adam(**{**kw, **ov}))
 
 
 def opt_state_from_numpy(state, device: _device.DeviceLike = None

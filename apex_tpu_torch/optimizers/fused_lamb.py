@@ -8,7 +8,8 @@ lists), clipping to ``max_grad_norm``, Adam-style moments and the raw
 direction u, a per-tensor trust ratio ||p|| / ||u|| (gated by
 ``use_nvlamb``), and ``-lr * ratio * u`` in each param's dtype. Plain
 PyTorch leaf by leaf, as the JAX package runs it outside any Pallas
-kernel. The stateful ``FusedLAMB`` class is not ported yet.
+kernel. :class:`FusedLAMB` is the stateful class (``fused_lamb.py:103``)
+over it.
 
 The step counter ``count`` is an int32 0-dim tensor on the CPU, as in
 ``fused_adam``; the norms and the clip coefficient stay on the params'
@@ -24,6 +25,7 @@ import torch
 from apex_tpu_torch import _device, _tree
 from apex_tpu_torch.multi_tensor_apply import multi_tensor_l2norm
 from apex_tpu_torch.optimizers import _math
+from apex_tpu_torch.optimizers._base import FusedOptimizer
 from apex_tpu_torch.optimizers.fused_adam import (
     GradientTransformation,
     ScalarOrSchedule,
@@ -105,6 +107,27 @@ def fused_lamb(lr: ScalarOrSchedule = 1e-3, bias_correction: bool = True,
                     nu=_tree.unflatten(paths, [r[2] for r in results])))
 
     return GradientTransformation(init, update)
+
+
+class FusedLAMB(FusedOptimizer):
+    """Stateful Apex-style API (``fused_lamb.py:103``)."""
+
+    def __init__(self, params, lr=1e-3, bias_correction=True,
+                 betas=(0.9, 0.999), eps=1e-6, weight_decay=0.01,
+                 amsgrad=False, adam_w_mode=True, grad_averaging=True,
+                 set_grad_none=True, max_grad_norm=1.0, use_nvlamb=False):
+        if amsgrad:
+            raise RuntimeError("FusedLAMB does not support the AMSGrad "
+                               "variant.")
+        del set_grad_none
+        kw = dict(lr=lr, bias_correction=bias_correction, betas=betas,
+                  eps=eps, weight_decay=weight_decay,
+                  adam_w_mode=adam_w_mode, grad_averaging=grad_averaging,
+                  max_grad_norm=max_grad_norm, use_nvlamb=use_nvlamb)
+        super().__init__(params, fused_lamb(**kw), dict(
+            lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+            max_grad_norm=max_grad_norm),
+            tx_factory=lambda **ov: fused_lamb(**{**kw, **ov}))
 
 
 def opt_state_from_numpy(state, device: _device.DeviceLike = None

@@ -4,11 +4,12 @@ of the per-shard functions of
 
 With no tensor-parallel axis bound the reference's collectives are
 identities: a column- or row-parallel linear is a product plus a bias,
-and the vocab-parallel embedding is a gather. The products are
-``torch.matmul``, which on the GPU is a bf16 product with an fp32
-accumulator, as the reference's ``matmul_amp`` -> ``matmul_fp32acc`` is
-outside the O4 fp8 tier (``ops/precision.py:59,280``). A bound axis
-raises until the multi-GPU slice ports the process groups.
+and the vocab-parallel embedding is a gather. The products go through
+``ops.precision.matmul_amp`` under the reference's site name for these
+per-shard functions, ``"tp_linear"`` (``layers.py:44``): outside the O4
+fp8 context that is ``torch.matmul``, which on the GPU is a bf16 product
+with an fp32 accumulator. A bound axis raises until the multi-GPU slice
+ports the process groups.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from apex_tpu_torch.ops.precision import matmul_amp
 
 
 def _single_device(axis_name: Optional[str]) -> None:
@@ -32,7 +35,7 @@ def column_parallel_linear(x: torch.Tensor, kernel: torch.Tensor,
     """``x @ kernel + bias``, kernel ``(in, out)`` (``layers.py:321``; on
     one shard ``gather_output`` is the identity)."""
     _single_device(axis_name)
-    y = torch.matmul(x, kernel)
+    y = matmul_amp(x, kernel, name="tp_linear")
     return y + bias if bias is not None else y
 
 
@@ -42,7 +45,7 @@ def row_parallel_linear(x: torch.Tensor, kernel: torch.Tensor,
     """``x @ kernel + bias``, kernel ``(in, out)`` (``layers.py:341``; on
     one shard ``input_is_parallel`` and the reduction are identities)."""
     _single_device(axis_name)
-    y = torch.matmul(x, kernel)
+    y = matmul_amp(x, kernel, name="tp_linear")
     return y + bias if bias is not None else y
 
 

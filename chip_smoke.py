@@ -51,6 +51,19 @@ result line) when it fails:
                counts per step, the first step's Adam launch against its
                plain version on the packed slab, finite and falling loss,
                step time, tokens/s, MFU and peak memory.
+6a. amp_training -- the same model, params and batch through
+               ``amp.initialize`` and ``FusedAdam(flat=True)``: at O2
+               (fp32 masters, dynamic loss scale) 3 steps, step-0
+               unscaled grads bit-equal to the unscaled loss's, bf16
+               params equal to their masters rounded, phase 6's exact
+               launches, then an inf grad: the step skipped bit for bit
+               (checksums of params, masters and both Adam slabs), the
+               scale halved; at O4 (the ``lm_head`` on fp8 under delayed
+               scales) 3 steps with exactly 3 casts a step more, the
+               rings' newest column equal to the amaxes computed here,
+               step 1's scales equal to the ring's formula, step 0
+               within a stated tolerance of O2's; step time, tokens/s,
+               MFU, peak memory, the fp8 products' device ms.
 7. profile  -- only with ``--profile``: one more training step under
                ``torch.profiler``, the device's busy share and its time
                by kernel (after phases 8 and 9 too).
@@ -346,10 +359,12 @@ def check_rms(dev):
 
     h, eps = 4096, 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
-        torch.bfloat16)
+    w32 = 1 + 0.1 * torch.randn(h, generator=g, device="cuda")
     out = []
-    for rows in (8, 512, 4096):
+    # bf16 weights at the serving and training rows, then amp O2's pair:
+    # bf16 rows with the fp32 weight amp keeps for norms
+    for rows, w in ((8, w32.to(torch.bfloat16)), (512, w32.to(torch.bfloat16)),
+                    (4096, w32.to(torch.bfloat16)), (4096, w32)):
         x = torch.randn(rows, h, generator=g, device="cuda").to(
             torch.bfloat16)
         y, rstd = ln._rms_fwd_cuda(x, w, eps)
@@ -361,23 +376,27 @@ def check_rms(dev):
                                    atol=1e-6)
         torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
         err = float((y.float() - y_ref.float()).abs().max())
-        nbytes = 2 * rows * h * 2 + h * 2 + rows * 4
+        nbytes = 2 * rows * h * 2 + h * w.element_size() + rows * 4
         sets = copies(lambda: torch.randn(rows, h, device="cuda").to(
             torch.bfloat16), nbytes)
         ms = time_ms(lambda a: ln._rms_fwd_cuda(a, w, eps), [
             (a,) for a in sets])
         plain_ms = time_ms(lambda a: ln._rms_fwd_plain(a, w, eps), [
             (a,) for a in sets])
-        lib_ms = time_ms(lambda a: F.rms_norm(a, (h,), w, eps), [
-            (a,) for a in sets])
+        # F.rms_norm takes no bf16 x with an fp32 weight: no library call
+        # computes the O2 pair
+        lib_ms = (time_ms(lambda a: F.rms_norm(a, (h,), w, eps), [
+            (a,) for a in sets]) if w.dtype == x.dtype else None)
         b_ms, b_by = bound(nbytes, 4.0 * rows * h, dev["fp32_flops"], dev)
         call_ms = host_ms(lambda a: ln._rms_fwd_cuda(a, w, eps),
                           (sets[0],))
         out.append({"shape": [rows, h], "dtype": "bfloat16",
+                    "weight_dtype": str(w.dtype).split(".")[-1],
                     "max_abs_err": err, "ms": ms,
                     **achieved(nbytes, ms, b_ms), "host_ms": call_ms,
                     "plain_ms": plain_ms, "plan": fwd_plan(ln, rows, h),
-                    "library_ms": lib_ms, "library": "F.rms_norm",
+                    "library_ms": lib_ms,
+                    "library": "F.rms_norm" if lib_ms else None,
                     "bound_ms": b_ms, "bound_by": b_by})
     return out
 
@@ -692,13 +711,42 @@ def check_rms_bwd(dev):
 
     ms = time_ms(call, sets)
     b_ms, b_by = bound(nbytes, 10.0 * rows * h, dev["fp32_flops"], dev)
-    return {"shape": [rows, h], "dtype": "bfloat16", "max_abs_err": errs,
-            "ms": ms, **achieved(nbytes, ms, b_ms),
-            "host_ms": host_ms(call, sets[0]),
-            "plain_ms": time_ms(plain, sets),
-            "library_ms": time_ms(library, graphs),
-            "library": "backward of F.rms_norm, dx+dw",
-            "bound_ms": b_ms, "bound_by": b_by}
+    out = {"shape": [rows, h], "dtype": "bfloat16", "max_abs_err": errs,
+           "ms": ms, **achieved(nbytes, ms, b_ms),
+           "host_ms": host_ms(call, sets[0]),
+           "plain_ms": time_ms(plain, sets),
+           "library_ms": time_ms(library, graphs),
+           "library": "backward of F.rms_norm, dx+dw",
+           "bound_ms": b_ms, "bound_by": b_by}
+    del graphs
+    # amp O2's pair: bf16 rows and dy, the fp32 weight, dw in fp32 (an
+    # fp32 sum over the rows in another order: 1e-5 of its scale)
+    w32 = w.float()
+
+    def call32(x, dy, rstd):
+        return ln._rms_bwd_cuda(x, w32, rstd, dy)
+
+    def plain32(x, dy, rstd):
+        return ln._rms_bwd_plain(x, w32, rstd, dy)
+
+    dx, dw = call32(x, dy, rstd)
+    dx_ref, dw_ref = plain32(x, dy, rstd)
+    torch.cuda.synchronize()
+    if dw.dtype != torch.float32 or dx.dtype != torch.bfloat16:
+        raise AssertionError(f"rms bwd with an fp32 weight: dx {dx.dtype}, "
+                             f"dw {dw.dtype}")
+    errs32 = {"dx": max_err(dx, dx_ref, 8e-3, "rms dx (fp32 w)"),
+              "dw": max_err(dw, dw_ref, 1e-5, "rms dw (fp32 w)")}
+    nbytes32 = 3 * rows * h * 2 + rows * 4 + 2 * h * 4
+    ms32 = time_ms(call32, sets)
+    b32, b32_by = bound(nbytes32, 10.0 * rows * h, dev["fp32_flops"], dev)
+    out["fp32_weight"] = {
+        "shape": [rows, h], "dtype": "bfloat16", "weight_dtype": "float32",
+        "max_abs_err": errs32, "ms": ms32, **achieved(nbytes32, ms32, b32),
+        "plain_ms": time_ms(plain32, sets), "library_ms": None,
+        "library": "none: F.rms_norm takes no bf16 x with an fp32 weight",
+        "bound_ms": b32, "bound_by": b32_by}
+    return out
 
 
 def check_adam(dev):
@@ -1031,6 +1079,22 @@ def check_fp8_cast(dev):
         return (1e-3 * torch.randn(512, 14336, generator=g, device="cuda")
                 ).to(torch.bfloat16)
 
+    # amp O4's lm_head casts at the training batch (2 x 2048 tokens):
+    # the final norm's output, the [4096, 128256] weight and the logits'
+    # cotangent (softmax - onehot over 4096 tokens at the loss scale)
+    def lm_input():
+        return torch.randn(TRAIN_BATCH * TRAIN_SEQ, 4096, generator=g,
+                           device="cuda").to(torch.bfloat16)
+
+    def lm_weight():
+        return (torch.randn(4096, 128256, generator=g, device="cuda")
+                * 4096 ** -0.5).to(torch.bfloat16)
+
+    def lm_cotangent():
+        return (16 / 128256 * torch.rand(
+            TRAIN_BATCH * TRAIN_SEQ, 128256, generator=g, device="cuda")
+            ).to(torch.bfloat16)
+
     out = {}
     for name, make, fp8, fmax, col in (
             ("weight", weight, e4m3, 448.0, True),
@@ -1041,7 +1105,10 @@ def check_fp8_cast(dev):
              448.0, False),
             ("activation_decode_ffn", partial(activation, 8, 14336), e4m3,
              448.0, False),
-            ("cotangent", cotangent, e5m2, 57344.0, False)):
+            ("cotangent", cotangent, e5m2, 57344.0, False),
+            ("lm_head_input", lm_input, e4m3, 448.0, False),
+            ("lm_head_weight", lm_weight, e4m3, 448.0, True),
+            ("lm_head_cotangent", lm_cotangent, e5m2, 57344.0, False)):
         x = make()
         amax_x = torch.amax(torch.abs(x)).float()
         # the static (weight) or delayed (cotangent) scale of the path
@@ -1933,6 +2000,386 @@ def phase_training(dev):
         "expected_per_step": want}
 
 
+# amp_training: the stateful amp protocol at the training geometry. O4
+# registers the one product outside the layers, the lm_head
+AMP_STEPS = 3
+AMP_O4_SITES = ["lm_head"]
+AMP_FP8_HISTORY = 16
+# O4 against O2 at step 0, at the same params: the lm_head's inputs
+# quantized to E4M3 and its cotangent to E5M2, at scale 1 on the first
+# step (fresh rings). The loss, a log-sum-exp over 128,256 near-equal
+# logits, barely moves: 7.07e-5 relative on an H100 80GB HBM3 at 700 W,
+# the same in each run; the lm_head's grad moved by 0.0267 in relative
+# L2, the same in each run. The tolerances leave room above those, well
+# below what a wrong scale, layout or operand (O(1)) gives.
+AMP_O4_LOSS_REL = 1e-3
+AMP_O4_GRAD_REL_L2 = 0.05
+# checksums read tensors as int words in chunks of this many
+CHECKSUM_CHUNK = 1 << 27
+
+
+def checksum(t) -> tuple:
+    """(sum, sum of squares) of a tensor's bytes read as int16 or int32
+    words, in int64 (wrapping, so the order of the sums does not
+    matter), chunk by chunk: equal before and after a step means the
+    bytes did not move, without a copy of the tensor."""
+    import torch
+
+    words = t.detach().reshape(-1).view(
+        torch.int16 if t.element_size() == 2 else torch.int32)
+    s = q = torch.zeros((), dtype=torch.int64, device=t.device)
+    for a in range(0, words.numel(), CHECKSUM_CHUNK):
+        w = words[a:a + CHECKSUM_CHUNK].to(torch.int64)
+        s = s + w.sum()
+        q = q + (w * w).sum()
+    return int(s), int(q)
+
+
+def amp_setup(cfg, level: str):
+    """Phase 6's seeded bf16 params and batch, a fresh FusedAdam(flat=True)
+    and amp.initialize at ``level``; then, as the reference's test does
+    (tests/run_amp/test_amp.py:195-206), the optimizer holds the cast
+    params and fp32 copies of them as its masters."""
+    import torch
+
+    from apex_tpu_torch import _tree, amp
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    batch = (tokens, torch.roll(tokens, -1, dims=-1))
+    opt = FusedAdam(params, lr=TRAIN_LR, flat=True)
+    cast, opt, handle = amp.initialize(params, opt, opt_level=level,
+                                       verbosity=0)
+    del params
+    opt.params = cast
+    opt.master_params = _tree.map_leaves(
+        lambda p: p.to(torch.float32, copy=True), cast)
+    torch.cuda.empty_cache()
+    return opt, handle, batch
+
+
+def scaled_grads(opt, handle, batch, cfg, scaled=True):
+    """The loss and the grads of the (scaled) loss at the optimizer's
+    params: ``with handle.scale_loss(loss) as s:`` and autograd."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import llama
+
+    live = _tree.map_leaves(lambda p: p.detach().requires_grad_(),
+                            opt.params)
+    loss = llama.loss_fn(live, batch, cfg, remat=False)
+    if scaled:
+        with handle.scale_loss(loss) as s:
+            grads = torch.autograd.grad(s, _tree.leaves(live))
+    else:
+        grads = torch.autograd.grad(loss, _tree.leaves(live))
+    return loss.detach(), _tree.unflatten(_tree.paths(live), list(grads))
+
+
+def amp_want(total, cfg, adam=1, casts=(0, 0)):
+    L = cfg.num_layers
+    return dict({k: 0 for k in total}, flash_attention_fwd=L,
+                flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
+                rms_norm_fwd=2 * L + 1, rms_norm_bwd=2 * L + 1,
+                fused_adam=adam, fp8_cast=casts[0], fp8_cast_col=casts[1])
+
+
+def step_numbers(step_ms, peak, n_params, cfg, dev) -> dict:
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    flops = step_flops(n_params, cfg.num_layers, cfg.hidden_size, TRAIN_SEQ,
+                       TRAIN_BATCH)
+    return {"step_ms": step_ms, "steady_step_ms": mean_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
+            "mfu": flops / (mean_ms * 1e-3) / dev["bf16_flops"],
+            "peak_memory_bytes": peak}
+
+
+def amp_o2(dev, cfg, profiling=False):
+    """O2: 3 steps of the stateful protocol, then a step with an inf in
+    one grad, which must be skipped (with ``profiling``, one more step
+    under ``torch.profiler`` first)."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    opt, handle, batch = amp_setup(cfg, "O2")
+    n = sum(t.numel() for t in _tree.leaves(opt.params))
+    # the step's largest live set, at the flat Adam launch: bf16 params
+    # (2n), fp32 masters, m and v (12n), the bf16 grads (2n), their fp32
+    # copy, the packed grad and master slabs and the fp32 delta (16n)
+    predicted_peak = 32 * n
+    if list(opt.state.mu) != ["float32"]:
+        raise AssertionError(f"Adam slabs {list(opt.state.mu)}: not one "
+                             f"fp32 slab over the masters")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts, grad0 = [], [], [], {}
+    for i in range(AMP_STEPS):
+        if i == 0:  # the reference: the same loss, no scaling
+            loss_plain, plain = scaled_grads(opt, handle, batch, cfg,
+                                             scaled=False)
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = scaled_grads(opt, handle, batch, cfg)
+        if i == 0:
+            unscaled, _ = handle.scaler.unscale(grads, handle.scaler_state)
+            differ, worst = 0, 0.0
+            for g, r in zip(_tree.leaves(unscaled), _tree.leaves(plain)):
+                differ += int((g.view(torch.int16 if g.element_size() == 2
+                                      else torch.int32)
+                               != r.view(torch.int16 if r.element_size()
+                                         == 2 else torch.int32)).sum())
+                worst = max(worst, float(
+                    torch.linalg.vector_norm((g.float() - r.float()))
+                    / torch.linalg.vector_norm(r.float())))
+            grad0 = {"loss": float(loss), "loss_unscaled": float(loss_plain),
+                     "elements_differing": differ, "worst_rel_l2": worst,
+                     "bit_equal": differ == 0}
+            if differ:
+                raise AssertionError(f"step-0 unscaled grads differ from "
+                                     f"the unscaled loss's: {grad0}")
+            o2_lm_head = unscaled["lm_head"].clone()
+            del unscaled, plain
+        opt.step(grads)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = read_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+        del grads
+        for p, m in zip(_tree.leaves(opt.params),
+                        _tree.leaves(opt.master_params)):
+            if not torch.equal(p, m.to(p.dtype)):
+                raise AssertionError(f"O2 step {i}: a bf16 param is not "
+                                     f"its master rounded")
+        if i == 0:
+            peak_step0 = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated()
+    want = amp_want(counts[0], cfg)
+    check_steps(losses, counts, want)
+    sd = handle.state_dict()
+    if sd["loss_scale"] != 65536.0 or sd["overflows"] != 0:
+        raise AssertionError(f"O2 scaler moved on clean steps: {sd}")
+
+    profile = None
+    if profiling:
+        def o2_step():
+            loss, grads = scaled_grads(opt, handle, batch, cfg)
+            opt.step(grads)
+            return loss
+
+        profile = profile_step("profile_amp_o2", o2_step)
+
+    # the inf step: everything the update touches must stay bit for bit
+    before = read_counts()
+    loss, grads = scaled_grads(opt, handle, batch, cfg)
+    grads["layers"]["wq"].view(-1)[0] = float("inf")
+    tracked = (_tree.leaves(opt.params) + _tree.leaves(opt.master_params)
+               + [opt.state.mu["float32"], opt.state.nu["float32"]])
+    sums = [checksum(t) for t in tracked]
+    count = int(opt.state.count)
+    opt.step(grads)
+    after = read_counts()
+    del grads
+    if [checksum(t) for t in tracked] != sums or int(
+            opt.state.count) != count:
+        raise AssertionError("the overflow step moved params, masters, "
+                             "the Adam slabs or the counter")
+    sd = handle.state_dict()
+    if (sd["loss_scale"], sd["overflows"], sd["skip_streak"]) != (
+            32768.0, 1, 1):
+        raise AssertionError(f"after the overflow step: {sd}")
+    inf_counts = {k: after[k] - before[k] for k in after}
+    if inf_counts != dict(want, fused_adam=0):
+        raise AssertionError(f"overflow step launches {inf_counts}")
+    out = {"level": "O2", "losses": losses,
+           **step_numbers(step_ms, peak, n, cfg, dev),
+           "peak_memory_step0_bytes": peak_step0,
+           "predicted_peak_bytes": predicted_peak,
+           "step0_grads_vs_unscaled_loss": grad0,
+           "masters_bit_consistent": True,
+           "launches_per_step": counts[0], "expected_per_step": want,
+           "overflow_step": {"skipped": True, "tensors_checksummed":
+                             len(tracked), "launches": inf_counts,
+                             "scaler": sd}, "profile": profile}
+    del opt, handle, batch, tracked
+    return out, o2_lm_head
+
+
+def amp_o4(dev, cfg, o2_loss0, o2_lm_head, profiling=False):
+    """O4: 3 steps with the lm_head on fp8 under delayed scales (with
+    ``profiling``, one more step under ``torch.profiler``)."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+    from apex_tpu_torch.ops import precision
+
+    opt, handle, batch = amp_setup(cfg, "O4")
+    n = sum(t.numel() for t in _tree.leaves(opt.params))
+    fp8 = handle.init_fp8(AMP_O4_SITES, history=AMP_FP8_HISTORY)
+    real_cast = fc._cast_and_scale_cuda
+    seen, last = [], {}
+
+    def recording(x, scale, dtype, fmax, col_major=False):
+        # the amax this phase computes itself from the cast's own input
+        seen.append({"shape": list(x.shape), "dtype": str(dtype),
+                     "col_major": col_major,
+                     "amax": torch.amax(torch.abs(x)).float(),
+                     "scale": fc.as_scale(scale, x.device).clone()})
+        y = real_cast(x, scale, dtype, fmax, col_major)
+        last[(str(dtype), col_major, x.shape[-1])] = y[0]
+        return y
+
+    def scaled_loss(p):
+        return handle.scale(llama.loss_fn(p, batch, cfg, remat=False))
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts, rings, used = [], [], [], [], []
+    fc._cast_and_scale_cuda = recording
+    try:
+        for i in range(AMP_STEPS):
+            seen.clear()
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with fp8.step(handle.fp8_state) as ctx:
+                loss, grads = ctx.value_and_grad(scaled_loss)(opt.params)
+            handle.fp8_state = fp8.update(handle.fp8_state, ctx)
+            if i == 0:
+                lm_grad, _ = handle.scaler.unscale(
+                    {"w": grads["lm_head"]}, handle.scaler_state)
+            opt.step(grads)
+            losses.append(float(loss) / float(handle.scaler_state.loss_scale))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = read_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+            del grads
+            if ctx.skipped_sites:
+                raise AssertionError(f"O4 sites fell back: "
+                                     f"{ctx.skipped_sites}")
+            # the ring's newest column against the amaxes seen here: a
+            # and b of the forward (E4M3), then g of the backward (E5M2)
+            col = (int(handle.fp8_state.fwd.cursor) - 1) % AMP_FP8_HISTORY
+            ring_fwd = handle.fp8_state.fwd.ring[:, col].tolist()
+            ring_grad = handle.fp8_state.grad.ring[:, col].tolist()
+            mine = [float(r["amax"]) for r in seen]
+            if ring_fwd + ring_grad != mine:
+                raise AssertionError(f"O4 step {i}: ring column "
+                                     f"{ring_fwd + ring_grad} != the "
+                                     f"amaxes seen {mine}")
+            rings.append({"casts": [{k: v for k, v in r.items()
+                                     if k not in ("amax", "scale")}
+                                    for r in seen], "amax": mine})
+            used.append([float(r["scale"]) for r in seen])
+            if i == 0:
+                # step 1's scales, by history.py's formula over this ring
+                ring = handle.fp8_state
+                expect = []
+                for part, fmax in ((ring.fwd, 448.0), (ring.grad, 57344.0)):
+                    r = part.ring.cpu().numpy()[:, :int(part.filled)]
+                    roll = r.max(axis=1)
+                    expect += [float(np.float32(fmax) / np.float32(v))
+                               if v > 0 else 1.0 for v in roll]
+            if i == 0:
+                peak_step0 = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+    finally:
+        fc._cast_and_scale_cuda = real_cast
+    peak = torch.cuda.max_memory_allocated()
+    if used[1] != expect:
+        raise AssertionError(f"step 1's scales {used[1]} != {expect} from "
+                             f"the ring")
+    want = amp_want(counts[0], cfg, casts=(2, 1))
+    check_steps(losses, counts, want)
+    loss_rel = abs(losses[0] - o2_loss0) / abs(o2_loss0)
+    g4 = lm_grad["w"].float()
+    grad_rel = float(torch.linalg.vector_norm(g4 - o2_lm_head.float())
+                     / torch.linalg.vector_norm(o2_lm_head.float()))
+    against = {"loss_o4": losses[0], "loss_o2": o2_loss0,
+               "loss_rel": loss_rel, "loss_rel_tol": AMP_O4_LOSS_REL,
+               "lm_head_grad_rel_l2": grad_rel,
+               "lm_head_grad_rel_l2_tol": AMP_O4_GRAD_REL_L2}
+    del g4, lm_grad
+    if not (loss_rel <= AMP_O4_LOSS_REL and grad_rel <= AMP_O4_GRAD_REL_L2):
+        raise AssertionError(f"O4 step 0 off O2's: {against}")
+
+    profile = None
+    if profiling:
+        def o4_step():
+            with fp8.step(handle.fp8_state) as ctx:
+                loss, grads = ctx.value_and_grad(scaled_loss)(opt.params)
+            handle.fp8_state = fp8.update(handle.fp8_state, ctx)
+            opt.step(grads)
+            return loss
+
+        profile = profile_step("profile_amp_o4", o4_step)
+
+    # the lm_head's fp8 products at the path's operands (the last step's
+    # casts): the forward on cuBLASLt's fp8 GEMM, the backward's two
+    # products upcast to fp32, and the bf16 product O2 runs in their place
+    h, v = cfg.hidden_size, cfg.vocab_size
+    a8 = last[("torch.float8_e4m3fn", False, h)].reshape(-1, h)
+    b8 = last[("torch.float8_e4m3fn", True, v)]
+    g8 = last[("torch.float8_e5m2", False, v)].reshape(-1, v)
+    x16 = a8.to(torch.bfloat16)
+    w16 = b8.to(torch.bfloat16)
+    prod = {
+        "forward_fp8_ms": time_ms(precision._fp8_product, [(a8, b8)]),
+        "backward_dx_ms": time_ms(
+            lambda g, b: precision._product_upcast(g, b.t()), [(g8, b8)],
+            iters=5),
+        "backward_dw_ms": time_ms(
+            lambda a, g: precision._product_upcast(a.t(), g), [(a8, g8)],
+            iters=5),
+        "bf16_forward_ms": time_ms(torch.matmul, [(x16, w16)]),
+        "flops_each": 2 * a8.shape[0] * h * v}
+    prod["backward_ms"] = prod["backward_dx_ms"] + prod["backward_dw_ms"]
+    out = {"level": "O4", "sites": list(fp8.sites), "losses": losses,
+           **step_numbers(step_ms, peak, n, cfg, dev),
+           "peak_memory_step0_bytes": peak_step0,
+           "launches_per_step": counts[0], "expected_per_step": want,
+           "rings": rings, "scales_used": used,
+           "step1_scales_from_ring": expect, "against_o2_step0": against,
+           "lm_head_products": prod, "profile": profile}
+    del opt, handle, batch, last, a8, b8, g8, x16, w16
+    return out
+
+
+def phase_amp_training(dev, training, profiling=False):
+    """amp at Llama-3-8B width (4 layers, 2 x 2048, phase 6's seeded
+    params and batch): O2 with fp32 masters and the dynamic loss scale,
+    then O4 with the lm_head on fp8, each through FusedAdam(flat=True) and
+    amp.initialize, the optimizer's step patched by amp."""
+    import torch
+
+    from apex_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(num_layers=TRAIN_LAYERS)
+    o2, o2_lm_head = amp_o2(dev, cfg, profiling)
+    gc.collect()
+    torch.cuda.empty_cache()
+    o4 = amp_o4(dev, cfg, o2["step0_grads_vs_unscaled_loss"]["loss"],
+                o2_lm_head, profiling)
+    del o2_lm_head
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "amp_training", "model": "llama3_8b",
+            "num_layers": cfg.num_layers, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "optimizer": "FusedAdam(lr=1e-4, flat=True)",
+            "training_steady_step_ms": training["steady_step_ms"],
+            "training_peak_memory_bytes": training["peak_memory_bytes"],
+            "o2": o2, "o4": o4, "launches": read_counts()}
+
+
 def profile_step(phase: str, step):
     """One more training step, ``step() -> loss``, under ``torch.profiler``
     (``--profile``): the device's busy time by kernel over the step's host
@@ -2415,7 +2862,8 @@ def summary(kernels, counts, path_adam):
         row("rms_norm_fwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:56", rms[1],
             max(x["max_abs_err"] for x in rms), plan=rms[1]["plan"],
-            cases=case_rows({"decode": rms[0], "training": rms[2]})),
+            cases=case_rows({"decode": rms[0], "training": rms[2],
+                             "training_fp32_weight": rms[3]})),
         row("flash_attention_bwd_dq", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:261",
             dict(bwd["dq"], shape=bwd["shape"], **both),
@@ -2434,7 +2882,10 @@ def summary(kernels, counts, path_adam):
                    for c, r in bwd["cases"].items()}),
         row("rms_norm_bwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:189", rbwd,
-            max(rbwd["max_abs_err"].values())),
+            max(rbwd["max_abs_err"].values()),
+            cases=case_rows({"fp32_weight": dict(
+                rbwd["fp32_weight"], max_abs_err=max(
+                    rbwd["fp32_weight"]["max_abs_err"].values()))})),
         row("fused_adam", csrc + "fused_adam.cu",
             "apex_tpu/ops/fused_adam_kernel.py:35",
             dict(adam, shape=[adam["n"]]), adam["max_abs_err"]["delta"],
@@ -2463,11 +2914,13 @@ def summary(kernels, counts, path_adam):
             device_launches=cast["activation"]["device_launches"],
             cases=case_rows({k: cast[k] for k in (
                 "activation_decode", "activation_decode_ffn", "cotangent",
-                "weight_row_major")})),
+                "weight_row_major", "lm_head_input",
+                "lm_head_cotangent")})),
         row("fp8_cast_col", csrc + "fp8_cast.cu",
             "apex_tpu/ops/fp8_cast_kernel.py:31", cast["weight"],
             cast["weight"]["max_abs_err"],
-            device_launches=cast["weight"]["device_launches"]),
+            device_launches=cast["weight"]["device_launches"],
+            cases=case_rows({"lm_head_weight": cast["lm_head_weight"]})),
         row("fused_softmax_stats", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:160",
             dict(long["stats"], shape=long["shape"],
@@ -2534,6 +2987,12 @@ def main() -> int:
             phase = "profile_training"
             emit(profile_step(phase, step))
         del step
+        phase = "amp_training"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        amp_training = phase_amp_training(dev, training, profiling)
+        emit(amp_training)
         results = {}
         for path, run in (("gpt2_training", phase_gpt2_training),
                           ("bert_training", phase_bert_training)):
@@ -2564,6 +3023,7 @@ def main() -> int:
                       "causal", "padding", "causal_padding"))
                   for k in serving["launches"]},
               "training": training["launches"],
+              "amp_training": amp_training["launches"],
               **{path: r["launches"] for path, r in results.items()},
               "fmha": fmha["launches"]}
     emit({"kernel_counts": counts})

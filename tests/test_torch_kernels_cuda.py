@@ -1266,3 +1266,53 @@ def test_fp8_cast_failed_launch_leaves_the_counter_at_zero(gen,
     y, amax, y_ref, amax_ref = _cast_pair(x / 3, 1.0, torch.float8_e4m3fn)
     _assert_bits(y, y_ref)
     assert float(amax) == float(amax_ref)
+
+
+@pytest.mark.parametrize("rows,h", [(37, 64), (1000, 100), (4096, 4096)])
+def test_rms_norm_bf16_rows_fp32_weight_match_plain(gen, rows, h):
+    """amp's O2 pair (norm weights kept fp32, activations bf16): y and dx
+    in bf16 within one bf16 ulp of the output's scale, rstd and dw in
+    fp32 (dw an fp32 sum over the rows in another order), and autograd
+    through ``rms_norm`` launching each kernel once."""
+    x = torch.randn(rows, h, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(rows, h, generator=gen, device="cuda").to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    y, rstd = ln._rms_fwd_cuda(x, w, 1e-5)
+    y_ref, rstd_ref = ln._rms_fwd_plain(x, w, 1e-5)
+    assert y.dtype == torch.bfloat16 and rstd.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=8e-3,
+                               atol=1e-6)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
+    dx, dw = ln._rms_bwd_cuda(x, w, rstd, dy)
+    dx_ref, dw_ref = ln._rms_bwd_plain(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    _assert_near(dx, dx_ref, 8e-3, "dx")
+    _assert_near(dw, dw_ref, 1e-5, "dw")
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    fwd, bwd = ln.launches, ln.bwd_launches
+    out = ln.rms_norm(xl, wl, h, 1e-5)
+    gx, gw = torch.autograd.grad(out, (xl, wl), dy)
+    assert (ln.launches, ln.bwd_launches) == (fwd + 1, bwd + 1)
+    assert gx.dtype == torch.bfloat16 and gw.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", ["input", "weight", "cotangent"])
+def test_fp8_cast_at_the_lm_head_shapes_bits_equal_plain(gen, name):
+    """The three casts an O4 Llama-3-8B step runs at its lm_head (batch 2
+    x 2048): the E4M3 input [4096, 4096] row-major, the E4M3 weight
+    [4096, 128256] column-major and the E5M2 cotangent [4096, 128256]
+    row-major, each at a delayed-style scale fmax / amax."""
+    rows, cols, fp8, col = {
+        "input": (4096, 4096, torch.float8_e4m3fn, False),
+        "weight": (4096, 128256, torch.float8_e4m3fn, True),
+        "cotangent": (4096, 128256, torch.float8_e5m2, False)}[name]
+    spread = {"input": 1.0, "weight": 4096 ** -0.5, "cotangent": 1e-4}[name]
+    x = (spread * torch.randn(rows, cols, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    amax_x = torch.amax(torch.abs(x)).float()
+    scale = torch.full_like(amax_x, FP8[fp8]) / amax_x
+    y, amax, y_ref, amax_ref = _cast_pair(x, scale, fp8, col_major=col)
+    assert y.stride() == ((1, rows) if col else (cols, 1))
+    _assert_bits(y, y_ref)
+    assert float(amax) == float(amax_ref) == float(amax_x)

@@ -35,7 +35,7 @@ WRAPPERS = {
                                "cast_and_scale_stats", "_lib"),
     "ops/precision.py": ("matmul_fp8", "matmul_fp8_stats", "einsum_fp8",
                          "quantize_fp8", "quantize_fp8_stats", "forward",
-                         "backward", "_fp8_product"),
+                         "backward", "_fp8_product", "matmul_amp"),
     "serving/scheduler.py": ("_make_mm", "fp8_weight_scales",
                              "build_decode_step", "build_prefill"),
     "ops/fused_adam_kernel.py": ("_adam_flat_cuda", "adam_flat", "_lib"),
