@@ -27,6 +27,29 @@ def resolve(device: DeviceLike = None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _same(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device
+    return (a.index if a.index is not None else current()) == (
+        b.index if b.index is not None else current())
+
+
+def generator_on(generator: torch.Generator,
+                 device: torch.device) -> torch.Generator:
+    """A generator that draws on ``device``: ``generator`` itself when it
+    lies there, else a new one on ``device`` seeded with one number
+    drawn from ``generator`` (so a CPU generator never moves a tensor's
+    random draws, nor their copy, off the card)."""
+    if _same(generator.device, device):
+        return generator
+    seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=generator,
+                             device=generator.device))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def of(tree) -> Optional[torch.device]:
     """The device of the first tensor found in a nested dict of
     tensors (the params layout), or None for an empty tree."""

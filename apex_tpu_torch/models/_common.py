@@ -7,7 +7,11 @@ from __future__ import annotations
 from typing import Callable, Dict, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from apex_tpu_torch import _tree
 from apex_tpu_torch.normalization.fused_layer_norm import (
@@ -58,19 +62,45 @@ def packed_mlp(x, lp, act_fn: Callable):
     return row_parallel_linear(act_fn(y), lp["wproj"], lp["bproj"])
 
 
+#: the products whose outputs ``remat="dots"`` keeps: matmuls with no
+#: batch dimension (a ``[b, s, h] @ [h, n]`` ``torch.matmul`` lowers to
+#: ``mm``); ``bmm`` has one and is recomputed, as JAX's policy does
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of products with no batch dimension, recompute the rest
+    (the kernels too: a ctypes launch is no aten op, as a
+    ``pallas_call`` is no dot)."""
+    del ctx, args, kwargs
+    if op in _DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def run_stacked(x, layers: Dict, num_layers: int, layer_fn: Callable,
                 remat: Union[bool, str] = True):
     """``x = layer_fn(x, lp)`` for each row ``lp`` of the stacked
-    ``[L, ...]`` weights (the reference's ``lax.scan``). ``remat``: False
-    keeps every activation for the backward; True recomputes each layer
-    in the backward (``torch.utils.checkpoint``, non-reentrant). The
-    ``"dots"`` policy is not ported yet."""
-    if remat not in (False, True):
-        raise NotImplementedError(f"remat={remat!r}: only False and True "
-                                  f"are ported")
+    ``[L, ...]`` weights (the reference's ``lax.scan``; ``x`` is the
+    carry, a tensor or a tuple of them). ``remat``: False keeps every
+    activation for the backward; True recomputes each layer in the
+    backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"``
+    recomputes each layer but keeps its ``mm``/``addmm`` outputs
+    (:func:`_dots_policy`, a selective checkpoint)."""
+    if remat not in (False, True, "dots"):
+        raise ValueError(f"remat must be False, True or 'dots', got "
+                         f"{remat!r}")
     for idx in range(num_layers):
         lp = {name: w[idx] for name, w in layers.items()}
-        if remat:
+        if remat == "dots":
+            x = checkpoint(layer_fn, x, lp, use_reentrant=False,
+                           context_fn=_dots_contexts)
+        elif remat:
             x = checkpoint(layer_fn, x, lp, use_reentrant=False)
         else:
             x = layer_fn(x, lp)

@@ -12,7 +12,7 @@ softmax go through the port's kernels, forward and backward.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -129,7 +129,7 @@ def encoder_layer(x, lp, cfg: BertConfig, pad_mask=None):
 
 
 def forward(params, tokens, cfg: BertConfig, type_ids=None, pad_mask=None,
-            remat: bool = True):
+            remat: Union[bool, str] = True):
     """tokens [b, s] -> hidden states [b, s, h]."""
     s = tokens.shape[1]
     x = vocab_parallel_embedding(tokens, params["embed"])
@@ -167,7 +167,7 @@ def mlm_logits(params, hidden, cfg: BertConfig):
 
 
 def loss_fn(params, batch, cfg: BertConfig, type_ids=None, pad_mask=None,
-            remat: bool = True,
+            remat: Union[bool, str] = True,
             vocab_chunks: Optional[int] = None) -> torch.Tensor:
     """MLM loss; ``batch = (tokens, targets, loss_mask)``: ``loss_mask``
     selects the positions the CE averages over. ``pad_mask`` (True =
@@ -190,7 +190,8 @@ def loss_fn(params, batch, cfg: BertConfig, type_ids=None, pad_mask=None,
 
 
 def train_step(params, opt_state, batch, cfg: BertConfig, tx,
-               type_ids=None, pad_mask=None, remat: bool = True,
+               type_ids=None, pad_mask=None,
+               remat: Union[bool, str] = True,
                vocab_chunks: Optional[int] = None):
     """One training step of :func:`loss_fn` (``_common.train_step``), as
     ``bench.py``'s BERT step: ``(params, opt_state, loss)``, the params

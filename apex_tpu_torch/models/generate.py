@@ -1,11 +1,17 @@
 """KV-cache autoregressive decoding for the llama family (port of
-``apex_tpu/models/generate.py``, llama path; GPT-2 and MoE wait).
+``apex_tpu/models/generate.py``, llama path, dense and MoE; GPT-2 waits).
 
 Prefill is one full-sequence pass through the flash-attention kernel that
 also returns every layer's rotated k / v; decode attends one query token
 against the cache with a plain fp32 softmax. The decode attention is a
 grouped einsum here as in the reference (``generate.py:52``): it is no
 Pallas kernel there.
+
+MoE configs route every token through its top-k experts with no
+capacity drop (the training path's drops are a throughput artifact, not
+an inference semantic): the prefill runs every expert on every token,
+masked by the combine weights; a decode step gathers each token's k
+experts' weights and runs only those, as the reference does.
 
 Greedy (``temperature=0``) or temperature sampling from an explicit
 ``torch.Generator``.
@@ -16,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from apex_tpu_torch import _device
 from apex_tpu_torch.models import llama as _llama
@@ -48,6 +55,60 @@ def _decode_attention(q, k_cache, v_cache, pos):
     return o.reshape(b, 1, nq, d)
 
 
+def _moe_router_weights(xt, lp, cfg):
+    """Top-k combine weights on [T, h] tokens (``generate.py:78``): the
+    training router's selection and normalisation, without its capacity
+    drop. Returns (gate [T, k] fp32, idx [T, k])."""
+    logits = torch.matmul(xt.float(), lp["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    if cfg.moe_top_k > 1:  # GShard/Mixtral renorm; top-1 keeps raw prob
+        gate = gate / torch.clamp(torch.sum(gate, dim=-1, keepdim=True),
+                                  min=1e-9)
+    return gate, idx
+
+
+def _moe_decode_ffn(hm, lp, cfg):
+    """Routed SwiGLU for one decode token a batch row ([b, 1, h];
+    ``generate.py:93``): gather each token's top-k experts' weights
+    ([b, k, h, f]) and run only those."""
+    b, _, h = hm.shape
+    xt = hm.reshape(b, h)
+    gate, idx = _moe_router_weights(xt, lp, cfg)
+    wg = lp["wg"][idx].to(xt.dtype)                       # [b, k, h, f]
+    wu = lp["wu"][idx].to(xt.dtype)
+    wd = lp["wd"][idx].to(xt.dtype)                       # [b, k, f, h]
+    g = torch.einsum("bh,bkhf->bkf", xt, wg)
+    u = torch.einsum("bh,bkhf->bkf", xt, wu)
+    y = torch.einsum("bkf,bkfh->bkh", F.silu(g) * u, wd)
+    out = torch.einsum("bk,bkh->bh", gate.to(xt.dtype), y)
+    return out.reshape(b, 1, h)
+
+
+def _moe_prefill_ffn(hm, lp, cfg):
+    """Routed SwiGLU on the whole prompt [b, s, h] (``generate.py:112``):
+    every expert on every token, masked by the combine weights. Exact
+    (no capacity drop), E/k times the routed work."""
+    b, s, h = hm.shape
+    xt = hm.reshape(-1, h)
+    gate, idx = _moe_router_weights(xt, lp, cfg)
+    w = torch.sum(F.one_hot(idx, cfg.num_experts).float()
+                  * gate[..., None], dim=1)               # [T, E]
+    g = torch.einsum("th,ehf->tef", xt, lp["wg"].to(xt.dtype))
+    u = torch.einsum("th,ehf->tef", xt, lp["wu"].to(xt.dtype))
+    y = torch.einsum("tef,efh->teh", F.silu(g) * u, lp["wd"].to(xt.dtype))
+    out = torch.einsum("te,teh->th", w.to(xt.dtype), y)
+    return out.reshape(b, s, h)
+
+
+def _ffn(cfg, moe_ffn):
+    """The decoder layer's ``ffn`` argument: ``moe_ffn`` bound to
+    ``cfg`` for an MoE config, None (the dense SwiGLU) otherwise."""
+    if not cfg.moe:
+        return None
+    return lambda h, lp: moe_ffn(h, lp, cfg)
+
+
 def _decode_layer(x, lp, cfg, k_cache, v_cache, pos: int):
     """One decode step through one layer. Writes this token's k / v into
     the caches in place (the reference returns updated caches)."""
@@ -58,14 +119,17 @@ def _decode_layer(x, lp, cfg, k_cache, v_cache, pos: int):
 
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
                            device=x.device)
-    return _llama.decoder_layer(x, lp, cfg, positions, attend)[0]
+    return _llama.decoder_layer(x, lp, cfg, positions, attend,
+                                ffn=_ffn(cfg, _moe_decode_ffn))[0]
 
 
 def _prefill_layer(x, lp, cfg, positions, mm=_llama.matmul, sc=None):
     """Full-sequence layer pass that also returns rotated k / v; ``mm``
-    and ``sc`` as in :func:`~apex_tpu_torch.models.llama.decoder_layer`."""
+    and ``sc`` as in :func:`~apex_tpu_torch.models.llama.decoder_layer`
+    (an MoE layer's experts take plain products)."""
     return _llama.decoder_layer(x, lp, cfg, positions,
-                                _llama.causal_attention, mm, sc)
+                                _llama.causal_attention, mm, sc,
+                                ffn=_ffn(cfg, _moe_prefill_ffn))
 
 
 def _sample(logits, temperature: float,
@@ -86,7 +150,8 @@ def generate(params, prompt_tokens: torch.Tensor, cfg, max_new_tokens: int,
     Greedy at ``temperature=0`` (default); otherwise softmax sampling
     from ``generator``. The prompt must be dense (no padding); the cache
     holds ``p + max_new_tokens`` positions. Runs on ``device`` (default:
-    the GPU, raising when there is none), where the params must lie.
+    the GPU, raising when there is none), where the params must lie. MoE
+    configs route every token with no capacity drop.
     """
     if temperature and generator is None:
         raise ValueError("temperature sampling needs a torch.Generator")

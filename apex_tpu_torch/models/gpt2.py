@@ -14,7 +14,7 @@ kernels, forward and backward; the products are ``torch.matmul`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -125,7 +125,8 @@ def decoder_layer(x, lp, cfg: GPT2Config):
     return x + packed_mlp(h, lp, _gelu)
 
 
-def hidden_states(params, tokens, cfg: GPT2Config, remat: bool = True):
+def hidden_states(params, tokens, cfg: GPT2Config,
+                  remat: Union[bool, str] = True):
     """The shared trunk: embeddings, all layers, final LayerNorm
     (pre-head). tokens [b, s] -> [b, s, h]."""
     s = tokens.shape[1]
@@ -139,13 +140,15 @@ def hidden_states(params, tokens, cfg: GPT2Config, remat: bool = True):
     return layer_norm(x, params["lnf_w"], params["lnf_b"], cfg.ln_eps)
 
 
-def forward(params, tokens, cfg: GPT2Config, remat: bool = True):
+def forward(params, tokens, cfg: GPT2Config,
+            remat: Union[bool, str] = True):
     """tokens [b, s] -> fp32 logits [b, s, vocab] (tied head)."""
     x = hidden_states(params, tokens, cfg, remat)
     return torch.matmul(x, params["embed"].T.to(x.dtype)).float()
 
 
-def loss_fn(params, batch, cfg: GPT2Config, remat: bool = True,
+def loss_fn(params, batch, cfg: GPT2Config,
+            remat: Union[bool, str] = True,
             vocab_chunks: Optional[int] = None) -> torch.Tensor:
     """Mean next-token CE; ``batch = (tokens, targets)``, both [b, s].
     ``vocab_chunks`` streams the tied head and the CE so the fp32
@@ -162,7 +165,8 @@ def loss_fn(params, batch, cfg: GPT2Config, remat: bool = True,
 
 
 def train_step(params, opt_state, batch, cfg: GPT2Config, tx,
-               remat: bool = True, vocab_chunks: Optional[int] = None):
+               remat: Union[bool, str] = True,
+               vocab_chunks: Optional[int] = None):
     """One training step of :func:`loss_fn` (``_common.train_step``), as
     ``bench.py``'s GPT-2 step: ``(params, opt_state, loss)``, the params
     updated in place."""

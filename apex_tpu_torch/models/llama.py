@@ -5,9 +5,13 @@ Params are a dict of tensors in the reference's layout: per-layer weights
 stacked on a leading ``[L, ...]`` dim, projections stored ``(in, out)``.
 So :func:`params_from_numpy` takes the JAX package's params as numpy
 arrays with no reshape. Everything here is single-device (no tp/cp/ep,
-no MoE): projections, SwiGLU and the lm head are ``torch.matmul``, as
-the JAX package leaves them to XLA; RMSNorm and attention go through the
-port's kernels, forward and backward.
+no expert parallelism): projections, SwiGLU and the lm head are
+``torch.matmul``, as the JAX package leaves them to XLA; RMSNorm and
+attention go through the port's kernels, forward and backward.
+``num_experts > 0`` swaps the dense SwiGLU MLP for Mixtral-style top-k
+routed SwiGLU experts (:mod:`apex_tpu_torch.transformer.moe`, every
+expert on this device), whose load-balancing aux loss
+:func:`forward_with_aux` and :func:`loss_fn` return.
 
 Two paths share the decoder layer: :func:`forward` (no grad) serves, and
 :func:`loss_fn` / :func:`train_step` train, the counterpart of the JAX
@@ -31,6 +35,10 @@ from apex_tpu_torch.normalization.fused_layer_norm import (
 )
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.precision import matmul_amp
+from apex_tpu_torch.transformer import moe as _moe
+from apex_tpu_torch.transformer.functional.chunked_ce import (
+    chunked_lm_cross_entropy,
+)
 from apex_tpu_torch.transformer.functional.rope import apply_rotary_qk
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -50,6 +58,15 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
+    # Mixtral-style MoE: 0 = dense SwiGLU; > 0 routes tokens through that
+    # many SwiGLU experts (top-k, capacity-dropped)
+    num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+
+    @property
+    def moe(self) -> bool:
+        return self.num_experts > 0
 
     @property
     def head_dim(self) -> int:
@@ -82,7 +99,9 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     """Random params from ``generator`` (drawn on its device), placed on
     ``device`` (default: the GPU, raising when there is none). Same
     layout and init law as the reference; not the same numbers, since
-    torch and jax generators differ."""
+    torch and jax generators differ. An MoE config's expert weights
+    ``[L, E, ...]`` are drawn a layer at a time, so the fp32 draw never
+    holds more than one layer's experts."""
     device = _device.resolve(device)
     h, i, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     nq, nkv, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
@@ -95,6 +114,12 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
+    def by_layer(*shape, fan_in):
+        out = torch.empty((L, *shape), dtype=dt, device=device)
+        for idx in range(L):
+            out[idx] = norm(*shape, fan_in=fan_in)
+        return out
+
     layers = {
         "attn_norm": ones(L, h),
         "wq": norm(L, h, nq * d),
@@ -102,10 +127,23 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
         "wv": norm(L, h, nkv * d),
         "wo": norm(L, nq * d, h),
         "mlp_norm": ones(L, h),
-        "wg": norm(L, h, i),
-        "wu": norm(L, h, i),
-        "wd": norm(L, i, h),
     }
+    if cfg.moe:
+        E = cfg.num_experts
+        router = torch.randn((L, h, E), generator=generator,
+                             dtype=torch.float32, device=generator.device)
+        layers.update({
+            "router": (router * 0.02).to(dt).to(device),
+            "wg": by_layer(E, h, i, fan_in=h),
+            "wu": by_layer(E, h, i, fan_in=h),
+            "wd": by_layer(E, i, h, fan_in=i),
+        })
+    else:
+        layers.update({
+            "wg": norm(L, h, i),
+            "wu": norm(L, h, i),
+            "wd": norm(L, i, h),
+        })
     params = {
         "embed": norm(cfg.vocab_size, h, fan_in=h),
         "layers": layers,
@@ -161,27 +199,78 @@ def causal_attention(q, k, v):
     return flash_attention(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
 
 
+def _dense_ffn(h, lp, mm=matmul, sc=None):
+    """The dense SwiGLU MLP through ``mm(x, w, scale)``."""
+    sc = sc or {}
+    g = mm(h, lp["wg"], sc.get("wg"))
+    u = mm(h, lp["wu"], sc.get("wu"))
+    return mm(F.silu(g) * u, lp["wd"], sc.get("wd"))
+
+
 def decoder_layer(x, lp, cfg: LlamaConfig, positions, attend, mm=matmul,
-                  sc=None):
+                  sc=None, ffn=None):
     """One pre-norm block on a single layer's params ``lp``.
 
     ``attend(q, k, v) -> o [b, s, nq, d]`` is the attention:
     :func:`causal_attention` for a whole sequence, a cache read for
     decode. Its 7 products go through ``mm(x, w, scale)`` with the
     layer's weight scales ``sc`` (the serving scheduler's ``_make_mm``;
-    default :func:`matmul`). Returns ``(x, k, v)`` with this layer's
-    rotated k / v."""
+    default :func:`matmul`). ``ffn(h, lp) -> y`` is the MLP half on the
+    normed stream (default the dense SwiGLU through ``mm``; the MoE
+    paths pass their routed experts). Returns ``(x, k, v)`` with this
+    layer's rotated k / v."""
+    sc = sc or {}
+    x, h, k, v = _attention_half(x, lp, cfg, positions, attend, mm, sc)
+    y = ffn(h, lp) if ffn is not None else _dense_ffn(h, lp, mm, sc)
+    return x + y, k, v
+
+
+def _attention_half(x, lp, cfg: LlamaConfig, positions, attend, mm=matmul,
+                    sc=None):
+    """The block up to its MLP: ``(x, h, k, v)``, x the residual stream
+    after attention and h its MLP-normed copy."""
     b, s, _ = x.shape
     sc = sc or {}
     h = _rmsnorm(x, lp["attn_norm"], cfg.rms_eps)
     q, k, v = _qkv(h, lp, cfg, positions, mm, sc)
     o = attend(q, k, v).reshape(b, s, -1)
     x = x + mm(o, lp["wo"], sc.get("wo"))
-    h = _rmsnorm(x, lp["mlp_norm"], cfg.rms_eps)
-    g = mm(h, lp["wg"], sc.get("wg"))
-    u = mm(h, lp["wu"], sc.get("wu"))
-    return (x + mm(torch.nn.functional.silu(g) * u, lp["wd"], sc.get("wd")),
-            k, v)
+    return x, _rmsnorm(x, lp["mlp_norm"], cfg.rms_eps), k, v
+
+
+def _moe_cfg(cfg: LlamaConfig) -> _moe.MoEConfig:
+    return _moe.MoEConfig(hidden_size=cfg.hidden_size,
+                          ffn_hidden_size=cfg.intermediate_size,
+                          num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                          capacity_factor=cfg.moe_capacity_factor)
+
+
+def _moe_mlp(x, lp, cfg: LlamaConfig):
+    """Mixtral-style routed SwiGLU experts in place of the dense MLP
+    (``llama.py:231``): the training router (capacity drops, balance
+    aux), every expert on this device. Returns (y, aux)."""
+
+    def expert_fn(p, tokens):  # [E, C, h] -> [E, C, h]
+        g = torch.einsum("ech,ehf->ecf", tokens, p["wg"].to(tokens.dtype))
+        u = torch.einsum("ech,ehf->ecf", tokens, p["wu"].to(tokens.dtype))
+        return torch.einsum("ecf,efh->ech", F.silu(g) * u,
+                            p["wd"].to(tokens.dtype))
+
+    return _moe.expert_parallel_apply(
+        expert_fn, {"wg": lp["wg"], "wu": lp["wu"], "wd": lp["wd"]}, x,
+        lp["router"], _moe_cfg(cfg))
+
+
+def decoder_layer_with_aux(x, lp, cfg: LlamaConfig, positions):
+    """The training block (``llama.py:257``): :func:`decoder_layer` with
+    :func:`causal_attention`, and the MoE MLP when ``cfg.moe``. Returns
+    ``(x, aux)``, aux the layer's MoE aux loss (fp32, 0 when dense)."""
+    if not cfg.moe:
+        x = decoder_layer(x, lp, cfg, positions, causal_attention)[0]
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, h, _, _ = _attention_half(x, lp, cfg, positions, causal_attention)
+    y, aux = _moe_mlp(h, lp, cfg)
+    return x + y, aux
 
 
 def embed(params, tokens, cfg: LlamaConfig):
@@ -205,22 +294,35 @@ def lm_head(params, x, cfg: LlamaConfig):
 def run_layers(x, layers: Dict, cfg: LlamaConfig, positions,
                remat: Union[bool, str] = True):
     """Run the stacked ``[L, ...]`` layer weights over the residual
-    stream ``x`` [b, s, h] (``run_layers``, ``llama.py:296``; no MoE, so
-    no aux loss). ``remat`` as in :func:`_common.run_stacked`."""
-    def body(h, lp):
-        return decoder_layer(h, lp, cfg, positions, causal_attention)[0]
+    stream ``x`` [b, s, h] (``run_layers``, ``llama.py:296``). Returns
+    ``(x, aux)``, aux the per-layer MoE aux losses summed (0 when dense).
+    ``remat`` as in :func:`_common.run_stacked`."""
+    def body(carry, lp):
+        h, aux = carry
+        h, a = decoder_layer_with_aux(h, lp, cfg, positions)
+        return h, aux + a
 
-    return _common.run_stacked(x, layers, cfg.num_layers, body, remat)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _common.run_stacked((x, zero), layers, cfg.num_layers, body,
+                               remat)
 
 
 def hidden_states(params, tokens, cfg: LlamaConfig,
                   remat: Union[bool, str] = True):
     """The shared trunk: embed + all decoder layers (pre-final-norm).
-    tokens [b, s] -> hidden [b, s, h] (``llama.py:363``)."""
+    tokens [b, s] -> (hidden [b, s, h], MoE aux loss) (``llama.py:363``)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed(params, tokens, cfg)
     return run_layers(x, params["layers"], cfg, positions, remat)
+
+
+def forward_with_aux(params, tokens, cfg: LlamaConfig,
+                     remat: Union[bool, str] = True):
+    """tokens [b, s] -> (logits [b, s, vocab] fp32, MoE aux loss)
+    (``llama.py:379``), differentiable."""
+    x, aux = hidden_states(params, tokens, cfg, remat)
+    return lm_head(params, x, cfg), aux
 
 
 @torch.no_grad()
@@ -228,29 +330,37 @@ def forward(params, tokens, cfg: LlamaConfig):
     """tokens [b, s] -> logits [b, s, vocab] (fp32), with no autograd
     graph: the serving path's forward. :func:`loss_fn` is the
     differentiable one."""
-    return lm_head(params, hidden_states(params, tokens, cfg, remat=False),
-                   cfg)
+    return forward_with_aux(params, tokens, cfg, remat=False)[0]
 
 
 def loss_fn(params, batch, cfg: LlamaConfig,
             remat: Union[bool, str] = True,
             vocab_chunks: Optional[int] = None) -> torch.Tensor:
-    """Mean next-token CE; ``batch = (tokens, targets)``, both [b, s]
-    (``llama.py:399``, single-device). ``vocab_chunks`` (the streamed
-    lm-head + CE) is not ported yet and raises."""
-    if vocab_chunks:
-        raise NotImplementedError(
-            "llama.loss_fn(vocab_chunks=...) is not ported yet: it waits "
-            "for the chunked lm-head path (ROADMAP.md, Queue 1 item 1)")
+    """Mean next-token CE plus the MoE aux loss (0 when dense);
+    ``batch = (tokens, targets)``, both [b, s] (``llama.py:399``,
+    single-device).
+
+    ``vocab_chunks``: stream the lm head and the CE in that many vocab
+    slices (:func:`chunked_lm_cross_entropy`), so the fp32
+    ``[b*s, vocab]`` logits never exist (``llama.py:412``)."""
     tokens, targets = batch
-    logits = lm_head(params, hidden_states(params, tokens, cfg, remat), cfg)
-    return torch.mean(vocab_parallel_cross_entropy(logits, targets))
+    if vocab_chunks:
+        x, aux = hidden_states(params, tokens, cfg, remat)
+        x = _rmsnorm(x, params["final_norm"], cfg.rms_eps)
+        losses = chunked_lm_cross_entropy(
+            x.reshape(-1, x.shape[-1]), lm_head_weight(params, cfg),
+            targets.reshape(-1), vocab_chunks)
+        return torch.mean(losses) + aux
+    logits, aux = forward_with_aux(params, tokens, cfg, remat)
+    return torch.mean(vocab_parallel_cross_entropy(logits, targets)) + aux
 
 
 def train_step(params, opt_state, batch, cfg: LlamaConfig, tx,
-               remat: Union[bool, str] = False):
+               remat: Union[bool, str] = False,
+               vocab_chunks: Optional[int] = None):
     """One training step of :func:`loss_fn` (``_common.train_step``):
     ``(params, opt_state, loss)``, the params updated in place."""
     return _common.train_step(
         params, opt_state, tx,
-        lambda live: loss_fn(live, batch, cfg, remat=remat))
+        lambda live: loss_fn(live, batch, cfg, remat=remat,
+                             vocab_chunks=vocab_chunks))

@@ -133,7 +133,11 @@ def build_decode_step(cfg, page_size: int, weight_mode: str = "native"):
     inputs are packed ``[max_batch]`` slot tensors; ``tables`` is
     ``[max_batch, max_pages]`` of page indices (trash-padded). Writes
     each slot's new k/v into the pages in place. Greedy (argmax) by
-    design."""
+    design. Dense configs only, as in the reference."""
+    if cfg.moe:
+        raise NotImplementedError(
+            "serving decode is dense-only; MoE routing needs a paged "
+            "expert-gather step (llama dense configs only for now)")
     mm = _make_mm(_normalize_weight_mode(weight_mode))
 
     def _layer(x, lp, sc, kp, vp, tables, pos, page_idx, off):
@@ -175,7 +179,9 @@ def build_prefill(cfg, bucket_len: int, weight_mode: str = "native"):
     ``(params, scales, prompt [1, S], true_len) -> (first_token [1],
     ks [L, S, nkv, d], vs [L, S, nkv, d])``. The pad k/v land in the
     request's pages, but decode overwrites index ``p + t`` before it
-    ever unmasks it."""
+    ever unmasks it. Dense configs only, as in the reference."""
+    if cfg.moe:
+        raise NotImplementedError("serving prefill is dense-only")
     mm = _make_mm(_normalize_weight_mode(weight_mode))
 
     @torch.no_grad()
@@ -216,6 +222,8 @@ class ContinuousBatchScheduler:
                  weight_mode: str = "native",
                  eos_id: Optional[int] = None,
                  device: _device.DeviceLike = None):
+        if cfg.moe:
+            raise NotImplementedError("serving is dense-only")
         if max_batch < 1 or page_size < 1:
             raise ValueError("max_batch and page_size must be >= 1")
         self.device = _device.resolve(device)

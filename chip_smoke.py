@@ -88,6 +88,37 @@ result line) when it fails:
                autograd of the plain reference with the same seed,
                padded rows of o and dqkv exactly 0; forward and
                forward+backward device ms beside SDPA's.
+11. moe_training -- Mixtral-8x7B's widths (vocab 32000, rope theta 1e6,
+               8 experts, top-2, capacity factor 1.25) on the Llama
+               layers, cut to 2 layers, batch 2 x 2048: the step-0
+               gradients of ``loss_fn(remat="dots", vocab_chunks=8)``
+               against an fp32 plain reference with the routing pinned to
+               the kernel pass's (the share of routing choices the two
+               passes' own logits would flip is printed), and against
+               ``remat=False, vocab_chunks=None``; then 3 ``train_step``s
+               with ``fused_adam(flat=True)``: exact launches (flash
+               forward 4, dq 2, dk/dv 2, RMSNorm forward 9, backward 5,
+               Adam 1 a step: "dots" recomputes the kernels), finite and
+               falling loss, finite aux, step time, tokens/s, MFU over the
+               active parameters, peak memory, the router's dropped share
+               and the fp32 dispatch/combine einsums' share of the step.
+12. moe_generate -- the same widths at 16 layers (47 GB of bf16
+               weights): greedy ``generate`` of 32 tokens for 4 prompts
+               of 512: exact launches (flash forward 16 in the prefill,
+               RMSNorm forward 33 in the prefill and in each decode step),
+               a teacher-forced check against the full-sequence
+               ``forward`` at capacity factor 4 (nothing dropped),
+               prefill and decode ms, tokens/s, peak memory.
+13. multihead_attn -- ``contrib.multihead_attn`` at Transformer-big
+               width ([512, 32, 1024], 16 heads of 64, dropout 0.1, the
+               norm-add variants): SelfMultiheadAttn with no mask (flash,
+               dropout in the kernels) and with a key-padding mask (the
+               masked softmax kernel), EncdecMultiheadAttn over 1024 keys
+               (flash, sq != sk): exact launches, outputs and grads
+               against fp32 autograd of the plain reference, forward and
+               forward+backward device ms. The kernels phase checks the
+               flash trio, LayerNorm and the masked softmax at these
+               shapes too.
 
 The last lines are the per-kernel summary, the card line and the result
 object ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -811,10 +842,11 @@ def check_adam(dev):
             "gb_per_s": nbytes / ms / 1e6}
 
 
-def check_layer_norm(dev):
-    """LayerNorm forward and backward at GPT-2's rows (8 x 1024 tokens) x
-    h 1024, eps 1e-5, and BERT's (8 x 512) x 768, eps 1e-12, bf16, with
-    bf16 affine params."""
+def check_layer_norm(dev, cases=((GPT2_BATCH * GPT2_SEQ, 1024, 1e-5),
+                                  (BERT_BATCH * BERT_SEQ, 768, 1e-12))):
+    """LayerNorm forward and backward at each (rows, h, eps) of ``cases``,
+    bf16, with bf16 affine params: by default GPT-2's rows (8 x 1024
+    tokens) x h 1024, eps 1e-5, and BERT's (8 x 512) x 768, eps 1e-12."""
     import torch
     import torch.nn.functional as F
 
@@ -822,8 +854,7 @@ def check_layer_norm(dev):
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     fwd, bwd = [], []
-    for rows, h, eps in ((GPT2_BATCH * GPT2_SEQ, 1024, 1e-5),
-                         (BERT_BATCH * BERT_SEQ, 768, 1e-12)):
+    for rows, h, eps in cases:
         w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
             torch.bfloat16)
         b = (0.1 * torch.randn(h, generator=g, device="cuda")).to(
@@ -926,10 +957,15 @@ def bert_pad_mask(gen, batch, seq):
     return torch.arange(seq, device="cuda")[None, :] >= lengths[:, None]
 
 
-def check_softmax(dev):
-    """The causal kernel at GPT-2's scores [8 x 16 heads, 1024, 1024] and
-    the masked kernel at BERT's [8, 12 heads, 512, 512] with a [8, 1, 1,
-    512] padding mask, bf16, scale 1/8. The library yardstick
+def check_softmax(dev, shapes=(("causal", (GPT2_BATCH * 16, GPT2_SEQ,
+                                            GPT2_SEQ)),
+                               ("masked", (BERT_BATCH, 12, BERT_SEQ,
+                                           BERT_SEQ)))):
+    """Each (kind, shape) of ``shapes``, bf16, scale 1/8: by default the
+    causal kernel at GPT-2's scores [8 x 16 heads, 1024, 1024] and the
+    masked kernel at BERT's [8, 12 heads, 512, 512] with a [8, 1, 1, 512]
+    padding mask (a masked shape [b, n, sq, sk] takes a [b, 1, 1, sk]
+    mask drawn as BERT's). The library yardstick
     (``library_ms``) is torch.softmax in bf16 over ``(x * scale)
     .masked_fill(mask, -10000)`` made in advance: it reads and writes
     bf16 as the kernel does, and leaves out the scale and the fill.
@@ -942,14 +978,13 @@ def check_softmax(dev):
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     scale = 0.125
     out = {}
-    for name, shape in (("causal", (GPT2_BATCH * 16, GPT2_SEQ, GPT2_SEQ)),
-                        ("masked", (BERT_BATCH, 12, BERT_SEQ, BERT_SEQ))):
+    for name, shape in shapes:
         if name == "causal":
             mask = sm._causal_mask(shape[-2], shape[-1], "cuda")
             call = partial(sm._causal_cuda, scale=scale)
             plain = partial(sm._causal_plain, scale=scale)
         else:
-            mask = bert_pad_mask(g, BERT_BATCH, BERT_SEQ)[:, None, None, :]
+            mask = bert_pad_mask(g, shape[0], shape[-1])[:, None, None, :]
             call = partial(sm._masked_cuda, mask=mask, scale=scale)
             plain = partial(sm._masked_plain, mask=mask, scale=scale)
 
@@ -1351,7 +1386,8 @@ def phase_kernels(dev):
            "fused_adam": check_adam(dev),
            "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd,
            "fused_softmax_causal": softmax["causal"],
-           "fused_softmax_masked": softmax["masked"]}
+           "fused_softmax_masked": softmax["masked"],
+           "mha": check_mha_kernels(dev)}
     torch.cuda.empty_cache()
     return out
 
@@ -1752,6 +1788,25 @@ def reference_loss(params, tokens, targets, cfg):
     return -torch.gather(logp, -1, targets[..., None]).mean()
 
 
+def leaf_compare(paths, got, ref):
+    """Per-leaf relative L2 error and cosine of ``got`` against ``ref``
+    (lists of tensors in ``paths`` order), with their worst values."""
+    import torch
+
+    leaves = {}
+    for path, g, r in zip(paths, got, ref):
+        g32, r32 = g.float(), r.float()
+        r_norm = torch.linalg.vector_norm(r32)
+        leaves[".".join(path)] = {
+            "rel_l2": float(torch.linalg.vector_norm(g32 - r32) / r_norm),
+            "cos": float(torch.sum(g32 * r32) / (
+                torch.linalg.vector_norm(g32) * r_norm))}
+        del g32, r32
+    return {"leaves": leaves,
+            "worst_rel_l2": max(v["rel_l2"] for v in leaves.values()),
+            "worst_cos": min(v["cos"] for v in leaves.values())}
+
+
 def grad_check(params, kernel_loss, plain_loss):
     """Per-leaf relative L2 error and cosine of the step-0 gradients of
     ``kernel_loss`` (the kernel path) against ``plain_loss`` (the plain
@@ -1773,25 +1828,17 @@ def grad_check(params, kernel_loss, plain_loss):
     loss32, ref = grads_of(plain_loss,
                            _tree.map_leaves(lambda t: t.float(), params))
     loss16, plain = grads_of(plain_loss, params)
-    leaves = {}
-    for path, g, r, pl in zip(leaf_paths, kernel, ref, plain):
-        r_norm = torch.linalg.vector_norm(r)
-        g32, p32 = g.float(), pl.float()
-        leaves[".".join(path)] = {
-            "rel_l2": float(torch.linalg.vector_norm(g32 - r) / r_norm),
-            "cos": float(torch.sum(g32 * r) / (
-                torch.linalg.vector_norm(g32) * r_norm)),
-            "plain_bf16_rel_l2": float(
-                torch.linalg.vector_norm(p32 - r) / r_norm)}
-        del g32, p32
+    cmp = leaf_compare(leaf_paths, kernel, ref)
+    floor = leaf_compare(leaf_paths, plain, ref)["leaves"]
     del kernel, ref, plain
+    leaves = cmp["leaves"]
+    for name, v in leaves.items():
+        v["plain_bf16_rel_l2"] = floor[name]["rel_l2"]
     bad = {k: v for k, v in leaves.items()
            if not (v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS)}
-    out = {"loss": loss, "loss_fp32_reference": loss32,
-           "loss_plain_bf16": loss16, "rel_l2_tol": GRAD_REL_L2,
-           "cos_tol": GRAD_COS, "leaves": leaves,
-           "worst_rel_l2": max(v["rel_l2"] for v in leaves.values()),
-           "worst_cos": min(v["cos"] for v in leaves.values())}
+    out = dict(cmp, loss=loss, loss_fp32_reference=loss32,
+               loss_plain_bf16=loss16, rel_l2_tol=GRAD_REL_L2,
+               cos_tol=GRAD_COS)
     if bad:
         raise AssertionError(f"gradients off the fp32 reference: {bad}")
     return out
@@ -2796,6 +2843,863 @@ def phase_fmha(dev):
                        "mask, dropout_p 0.1"}
 
 
+# Mixtral-8x7B's widths (Mistral AI's published Mixtral-8x7B-v0.1
+# config: h 4096, ffn 14336, 32/8 heads of 128, vocab 32000, rms eps 1e-5,
+# rope theta 1e6, 8 experts, top-2) on the port's Llama layers, with the
+# reference's capacity factor 1.25
+MOE_OVER = dict(vocab_size=32000, rope_theta=1e6, num_experts=8,
+                moe_top_k=2, moe_capacity_factor=1.25)
+# training: 2 of the 32 layers (3.165 B params; at ~20 B a param of
+# state, bf16 params and grads, fp32 m and v, the packed grads and the
+# delta, ~63 GB before activations: 2 layers are the most one card holds),
+# the Llama phase's batch, sequence and lr
+MOE_TRAIN_LAYERS = 2
+MOE_CHUNKS = 8
+# the remat="dots" + vocab_chunks step against the remat=False,
+# vocab_chunks=None one at step 0, same params, both bf16: their forwards
+# are the same ops on the same values (so the same routing), and they
+# differ in the lm head, an fp32 product of bf16 values in the chunked CE
+# against a bf16 product (each logit rounded once at 2^-9) in the other,
+# which moves every gradient by a few bf16 roundings: 0.88% relative L2
+# at worst on the H100 (remat="dots" itself changes no value)
+MOE_DOTS_REL_L2 = 0.03
+MOE_DOTS_COS = 0.9995
+# generation: 16 of the 32 layers (23.5 B params, 47 GB in bf16; all 32
+# are 93 GB and do not fit one 80 GB card), 4 prompts of 512, 32 new
+MOE_GEN_LAYERS = 16
+MOE_GEN_BATCH, MOE_GEN_PROMPT, MOE_GEN_NEW = 4, 512, 32
+# teacher-forced check of the MoE generation: the full-sequence forward
+# at capacity factor E/k (no token dropped) must put each generated
+# token within a delta of its row's maximum, and the prompt's positions
+# through forward passes of two lengths (``spread``) must agree as well.
+# Two such runs route each token on its own bf16 router logits, and a
+# route near a tie between two experts flips with the rounding of
+# another product shape, moving that token's expert output by O(1) of
+# its gate times the experts' difference (spread 0.890625 on the H100).
+# So the check runs twice:
+# - pinned: every forward takes the generate run's own expert choices
+#   (recorded from its router) with gates from its own probabilities,
+#   as moe_training's reference does; the arithmetic is then held at the
+#   dense model's DELTA;
+# - own routing: the port's forward as a user calls it, held at
+#   DELTA_MOE, with the share of routing choices on which the forward
+#   and the generate run differ held at MOE_ROUTE_FLIPS (bf16 against
+#   fp32 logits flip 0.7-1.2% of choices in moe_training; a wrong router
+#   picks other experts for most tokens).
+DELTA_MOE = 2.0
+MOE_ROUTE_FLIPS = 0.05
+
+# SelfMultiheadAttn / EncdecMultiheadAttn at Transformer-big width (Apex's
+# own multihead_attn test width): [s, b, h] = [512, 32, 1024], 16 heads
+# of 64, dropout 0.1, the norm-add variant; encoder-decoder keys 2 x s
+MHA_S, MHA_B, MHA_H, MHA_HEADS = 512, 32, 1024, 16
+MHA_P_DROP = 0.1
+MHA_SEED = 3_141_592_653
+MHA_EPS = 1e-6  # fused_layer_norm_affine's default
+# outputs against fp32 autograd of the plain reference: within 2e-2 of
+# max |ref| (bf16 LayerNorm, products and attention output each rounded
+# once at 2^-9, P rounded once inside the flash kernels); gradients per
+# leaf by the training phases' bounds (GRAD_REL_L2, GRAD_COS)
+MHA_OUT_REL = 2e-2
+
+
+def check_flash_mha(dev):
+    """The flash forward and backward at the multihead_attn phase's calls:
+    non-causal, head dim 64, dropout MHA_P_DROP, self-attention [32, 512,
+    16, 64] and encoder-decoder (512 queries, 1024 keys), against the
+    plain versions. SDPA with the same dropout_p is the yardstick (its
+    mask bits differ)."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    b, H, d = MHA_B, MHA_HEADS, MHA_H // MHA_HEADS
+    scale = d ** -0.5
+    extras = (None, MHA_P_DROP, MHA_SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    out = {}
+    for case, sq, sk in (("mha_self", MHA_S, MHA_S),
+                         ("mha_encdec", MHA_S, 2 * MHA_S)):
+        def make():
+            q, do = (torch.randn(b, sq, H, d, generator=g, device="cuda").to(
+                torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn(b, sk, H, d, generator=g, device="cuda").to(
+                torch.bfloat16) for _ in range(2))
+            o, lse = fa._flash_fwd_cuda(q, k, v, False, scale, *extras)
+            return q, k, v, o, lse, do, fa._flash_delta(o, do)
+
+        def fwd(q, k, v, *rest):
+            return fa._flash_fwd_cuda(q, k, v, False, scale, *extras)
+
+        def fwd_plain(q, k, v, *rest):
+            return fa._flash_fwd_plain(
+                *(fa._heads_major(t) for t in (q, k, v)), False, scale,
+                *extras)
+
+        def bwd_plain(q, k, v, o, lse, do, delta):
+            return fa._flash_bwd_plain(
+                *(fa._heads_major(t) for t in (q, k, v, o)), lse,
+                fa._heads_major(do), False, scale, *extras)
+
+        def dq_call(q, k, v, o, lse, do, delta):
+            return fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, False,
+                                         scale, *extras)
+
+        def dkv_call(q, k, v, o, lse, do, delta):
+            return fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, False,
+                                          scale, *extras)
+
+        args = make()
+        q, k, v, o, lse, do, delta = args
+        o_ref, lse_ref = fwd_plain(*args)
+        grads = fa._flash_bwd_cuda(q, k, v, o, lse, do, False, scale,
+                                   *extras)
+        ref = bwd_plain(*args)
+        torch.cuda.synchronize()
+        # the tolerances of check_flash and check_flash_bwd
+        o_ref = fa._seq_major(o_ref, b)
+        torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+        errs = {name: max_err(got, fa._seq_major(r, b), 1e-2,
+                              f"flash {name} ({case})")
+                for name, got, r in zip(("dq", "dk", "dv"), grads, ref)}
+        fwd_err = float((o.float() - o_ref.float()).abs().max())
+        del args, q, k, v, o, lse, do, delta, o_ref, lse_ref, grads, ref
+        pairs = b * H * sq * sk
+        q_bytes, kv_bytes = b * sq * H * d * 2, b * sk * H * d * 2
+        fwd_bytes = 2 * q_bytes + 2 * kv_bytes + b * H * sq * 4
+        io = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * H * sq
+        sets = copies(make, io + q_bytes + 2 * kv_bytes)
+
+        def library(q, k, v, *rest):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                dropout_p=MHA_P_DROP, scale=scale)
+
+        graphs = []
+        for q, k, v, o, lse, do, delta in sets:
+            leaves = [t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v)]
+            graphs.append((F.scaled_dot_product_attention(
+                *leaves, dropout_p=MHA_P_DROP, scale=scale), leaves,
+                do.transpose(1, 2)))
+
+        def library_bwd(y, inputs, grad):
+            return torch.autograd.grad(y, inputs, grad, retain_graph=True)
+
+        ms = time_ms(fwd, sets)
+        b_ms, b_by = bound(fwd_bytes, 4.0 * d * pairs, dev["bf16_flops"],
+                           dev)
+        row = {"shape": [b, sq, sk, H, d], "dtype": "bfloat16",
+               "causal": False, "p_drop": MHA_P_DROP,
+               "fwd": {"max_abs_err": fwd_err, "ms": ms,
+                       "host_ms": host_ms(fwd, sets[0]),
+                       # the keep mask's hash on [b, H, sq, sk] int64
+                       # tensors queues slower than the spin: wall clock
+                       "plain_ms": host_ms(fwd_plain, sets[0], iters=3),
+                       "plain_timed": "host wall",
+                       "library_ms": time_ms(library, sets),
+                       "library": "F.scaled_dot_product_attention, "
+                                  "dropout_p 0.1",
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "tflops": 4.0 * d * pairs / ms / 1e9},
+               "bwd": {"max_abs_err": errs,
+                       "plain_ms": host_ms(bwd_plain, sets[0], iters=3),
+                       "plain_timed": "host wall",
+                       "library_ms": time_ms(library_bwd, graphs, iters=5),
+                       "library": "backward of F.scaled_dot_product_"
+                                  "attention, dropout_p 0.1, dq+dk+dv"}}
+        for name, call, flops, nbytes in (
+                ("dq", dq_call, 6.0 * d * pairs, io + q_bytes),
+                ("dkv", dkv_call, 8.0 * d * pairs, io + 2 * kv_bytes)):
+            ms = time_ms(call, sets)
+            b_ms, b_by = bound(nbytes, flops, dev["bf16_flops"], dev)
+            row["bwd"][name] = {"ms": ms, "host_ms": host_ms(call, sets[0]),
+                                "bound_ms": b_ms, "bound_by": b_by,
+                                "tflops": flops / ms / 1e9}
+        out[case] = row
+        del sets, graphs
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_mha_kernels(dev):
+    """The kernels at the multihead_attn phase's own shapes: the flash
+    trio (:func:`check_flash_mha`), LayerNorm on its s x b rows of 1024
+    (eps 1e-6) and the masked softmax on its [32, 16, 512, 512] scores
+    with a key-padding mask."""
+    ln_fwd, ln_bwd = check_layer_norm(dev, ((MHA_S * MHA_B, MHA_H,
+                                             MHA_EPS),))
+    softmax = check_softmax(dev, (("masked", (MHA_B, MHA_HEADS, MHA_S,
+                                              MHA_S)),))
+    return {"flash": check_flash_mha(dev), "layer_norm_fwd": ln_fwd[0],
+            "layer_norm_bwd": ln_bwd[0],
+            "fused_softmax_masked": softmax["masked"]}
+
+
+def record_router(moe, seen, n: int):
+    """Patch ``moe.router_gates`` to keep (detached) the router logits of
+    its first ``n`` calls in ``seen``: a loss pass's forward routes the
+    layers in order, and a recompute's calls come after. Returns the
+    original, to put back."""
+    real = moe.router_gates
+
+    def gates(logits, cfg, with_stats=False):
+        if len(seen) < n:
+            seen.append(logits.detach().clone())
+        return real(logits, cfg, with_stats)
+
+    moe.router_gates = gates
+    return real
+
+
+def moe_reference_loss(params, tokens, targets, cfg, pinned, own):
+    """The MoE training loss through the port's plain functions
+    (_rms_fwd_plain, _reference_attention, the experts and the dispatch
+    and combine written out as einsums) and ordinary autograd, the
+    layers recomputed in the backward (an fp32 copy of the model must fit
+    beside the bf16 one). The routing is the kernel pass's: ``pinned``
+    [layer] = (dispatch [T, E, C], first-choice one-hot [T, E]) from its
+    router logits; the gates come from this pass's own probabilities
+    (top-k renormalised over the kept slots) and so does the balance
+    loss's mean probability. This pass's own router logits go to
+    ``own`` [layer] (first pass only)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.ops.flash_attention import _reference_attention
+    from apex_tpu_torch.ops.layer_norm import _rms_fwd_plain
+
+    def norm(x, w):
+        y, _ = _rms_fwd_plain(x.reshape(-1, x.shape[-1]), w, cfg.rms_eps)
+        return y.reshape(x.shape)
+
+    def heads_major(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+    b, s = tokens.shape
+    d, E = cfg.head_dim, cfg.num_experts
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+
+    def layer(x, lp, idx):
+        q, k, v = llama._qkv(norm(x, lp["attn_norm"]), lp, cfg, positions)
+        o = _reference_attention(heads_major(q), heads_major(k),
+                                 heads_major(v), True, d ** -0.5)
+        o = o.reshape(b, cfg.num_heads, s, d).transpose(1, 2).reshape(
+            b, s, -1)
+        x = x + o @ lp["wo"]
+        xt = norm(x, lp["mlp_norm"]).reshape(b * s, -1)
+        logits = xt.float() @ lp["router"].float()
+        own.setdefault(idx, logits.detach())
+        probs = torch.softmax(logits, dim=-1)
+        dispatch, first = pinned[idx]
+        gates = dispatch.float() * probs[:, :, None]
+        denom = torch.clamp(torch.sum(gates, dim=(1, 2)), min=1e-9)
+        combine = gates / denom[:, None, None]
+        expert_in = torch.einsum("tec,th->ech", dispatch.to(xt.dtype), xt)
+        g = torch.einsum("ech,ehf->ecf", expert_in, lp["wg"])
+        u = torch.einsum("ech,ehf->ecf", expert_in, lp["wu"])
+        y = torch.einsum("ecf,efh->ech", F.silu(g) * u, lp["wd"])
+        out = torch.einsum("tec,ech->th", combine.to(y.dtype), y)
+        balance = 0.01 * E * torch.sum(torch.mean(first, dim=0)
+                                       * torch.mean(probs, dim=0))
+        return x + out.reshape(b, s, -1), balance
+
+    x = params["embed"][tokens]
+    aux = 0.0
+    for idx in range(cfg.num_layers):
+        lp = llama.layer(params, idx)
+        x, a = checkpoint(layer, x, lp, idx, use_reentrant=False)
+        aux = aux + a
+    logits = (norm(x, params["final_norm"]) @ params["lm_head"]).float()
+    return mean_nll(logits, targets) + aux
+
+
+def pin_routing(moe, seen, cfg):
+    """(dispatch, first-choice one-hot) a layer from the kernel pass's
+    router logits ``seen``, as the port's router_gates routes them."""
+    import torch
+
+    from apex_tpu_torch.models import llama
+
+    mcfg = llama._moe_cfg(cfg)
+    return {idx: (moe.router_gates(logits, mcfg)[1],
+                  moe._one_hot(torch.argmax(logits, dim=-1),
+                               cfg.num_experts))
+            for idx, logits in enumerate(seen)}
+
+
+def routing_flips(seen, own, k: int) -> list:
+    """A layer each: the share of the T*k routing choices (the i-th
+    largest router logit of each token) on which the kernel pass's own
+    logits and the fp32 reference's pick different experts."""
+    import torch
+
+    out = []
+    for idx, logits in enumerate(seen):
+        a = torch.topk(logits, k, dim=-1).indices
+        b = torch.topk(own[idx], k, dim=-1).indices
+        out.append(float((a != b).float().mean()))
+    return out
+
+
+def moe_einsum_ms(dev, moe, seen, cfg, x_dtype):
+    """Device ms of the fp32-accumulated dispatch and combine einsums at
+    the training step's shapes (the first layer's routing), forward and
+    backward, timed apart from the step: (dispatch ms, combine ms)."""
+    import torch
+
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.ops.precision import einsum_fp32acc
+
+    combine, dispatch, _ = moe.router_gates(seen[0], llama._moe_cfg(cfg))
+    t, e, c = combine.shape
+    h = cfg.hidden_size
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def make():
+        xt = torch.randn(t, h, generator=g, device="cuda").to(x_dtype)
+        y = torch.randn(e, c, h, generator=g, device="cuda").to(x_dtype)
+        return (xt.requires_grad_(), y.requires_grad_(),
+                combine.clone().requires_grad_())
+
+    sets = copies(make, 2 * (t + e * c) * h)
+
+    def disp(xt, y, comb):
+        out = einsum_fp32acc("tec,th->ech", dispatch.to(xt.dtype), xt)
+        return torch.autograd.grad(out, xt, torch.ones_like(out))
+
+    def comb_(xt, y, comb):
+        out = einsum_fp32acc("tec,ech->th", comb.to(y.dtype), y)
+        return torch.autograd.grad(out, (comb, y), torch.ones_like(out))
+
+    return time_ms(disp, sets, iters=5), time_ms(comb_, sets, iters=5)
+
+
+def phase_moe_training(dev):
+    """Mixtral-8x7B widths at MOE_TRAIN_LAYERS layers, batch 2 x 2048: the
+    step-0 gradients of the remat="dots", vocab_chunks=8 loss against an
+    fp32 plain reference with the routing pinned, and against the
+    remat=False, vocab_chunks=None loss; then TRAIN_STEPS train_steps with
+    fused_adam(flat=True), remat="dots" and vocab_chunks=8."""
+    import dataclasses
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import moe
+
+    cfg = llama.llama3_8b(num_layers=MOE_TRAIN_LAYERS, **MOE_OVER)
+    L, E, k = cfg.num_layers, cfg.num_experts, cfg.moe_top_k
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    batch = (tokens, torch.roll(tokens, -1, dims=-1))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    expert_params = 3 * cfg.hidden_size * cfg.intermediate_size
+    n_active = n_params - L * (E - k) * expert_params
+
+    def kernel_loss(t):
+        return llama.loss_fn(t, batch, cfg, remat="dots",
+                             vocab_chunks=MOE_CHUNKS)
+
+    seen, own, pinned = [], {}, {}
+    real = record_router(moe, seen, L)
+    try:
+        def plain_loss(t):
+            if not pinned:
+                pinned.update(pin_routing(moe, seen, cfg))
+            return moe_reference_loss(t, *batch, cfg, pinned, own)
+
+        grads = grad_check(params, kernel_loss, plain_loss)
+    finally:
+        moe.router_gates = real
+    if len(seen) != L or len(own) != L:
+        raise AssertionError(f"routed {len(seen)} and {len(own)} layers "
+                             f"through the recorders, not {L}")
+    flips = routing_flips(seen, own, k)
+    mcfg = llama._moe_cfg(cfg)
+    stats = [moe.router_gates(x, mcfg, with_stats=True)[3] for x in seen]
+    del own, pinned
+    torch.cuda.empty_cache()
+
+    # the same step-0 loss and grads without recompute or vocab chunks
+    def value_and_grads(loss_of, routed):
+        live = _tree.map_leaves(lambda t: t.detach().requires_grad_(),
+                                params)
+        real = record_router(moe, routed, L)
+        try:
+            loss = loss_of(live)
+        finally:
+            moe.router_gates = real
+        if len(routed) != L:
+            raise AssertionError(f"routed {len(routed)} layers through "
+                                 f"the recorder, not {L}")
+        return float(loss), torch.autograd.grad(loss, _tree.leaves(live))
+
+    seen_d, seen_p = [], []
+    loss_d, g_d = value_and_grads(kernel_loss, seen_d)
+    loss_p, g_p = value_and_grads(
+        lambda t: llama.loss_fn(t, batch, cfg, remat=False), seen_p)
+    dots = leaf_compare(_tree.paths(params), g_d, g_p)
+    dots.update(loss=loss_d, loss_remat_false=loss_p,
+                routing_equal=all(torch.equal(a, b)
+                                  for a, b in zip(seen_d, seen_p)),
+                rel_l2_tol=MOE_DOTS_REL_L2, cos_tol=MOE_DOTS_COS)
+    del g_d, g_p, seen_d, seen_p
+    if not (dots["worst_rel_l2"] <= MOE_DOTS_REL_L2
+            and dots["worst_cos"] >= MOE_DOTS_COS
+            and abs(loss_d - loss_p) <= 1e-3 * abs(loss_p)):
+        raise AssertionError(f"remat='dots' + vocab_chunks off the plain "
+                             f"step: {dots}")
+    torch.cuda.empty_cache()
+
+    tx = fused_adam(lr=TRAIN_LR, flat=True)
+    state = {"opt": tx.init(params)}
+
+    def step():
+        _, state["opt"], loss = llama.train_step(
+            params, state["opt"], batch, cfg, tx, remat="dots",
+            vocab_chunks=MOE_CHUNKS)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms, counts = run_steps(step, TRAIN_STEPS)
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # forward: 2 RMSNorms and a flash forward a layer, the final RMSNorm;
+    # under "dots" the backward recomputes each layer's two RMSNorms and
+    # its flash forward (their outputs are no matmul's)
+    want = dict({k_: 0 for k_ in total}, flash_attention_fwd=2 * L,
+                flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
+                rms_norm_fwd=4 * L + 1, rms_norm_bwd=2 * L + 1,
+                fused_adam=1)
+    check_steps(losses, counts, want)
+    with torch.no_grad():
+        aux_after = float(llama.forward_with_aux(params, tokens, cfg,
+                                                 remat=False)[1])
+    if not math.isfinite(aux_after):
+        raise AssertionError(f"non-finite MoE aux loss after the steps: "
+                             f"{aux_after}")
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])  # step 1 allocates m, v
+    disp_ms, comb_ms = moe_einsum_ms(dev, moe, seen, cfg, cfg.dtype)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    flops = step_flops(n_active, L, cfg.hidden_size, TRAIN_SEQ, TRAIN_BATCH)
+    return step, {
+        "phase": "moe_training", "model": "mixtral_8x7b_widths",
+        "config": dataclasses.asdict(cfg) | {"dtype": "bfloat16"},
+        "num_layers": L, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "params": n_params, "active_params": n_active,
+        "optimizer": "fused_adam(lr=1e-4, flat=True)", "remat": "dots",
+        "vocab_chunks": MOE_CHUNKS, "init_s": init_s, "grad_check": grads,
+        "routing_flip_share": flips,
+        "router_step0": [{key: float(v) for key, v in st.items()}
+                         for st in stats],
+        "dots_vs_plain": dots, "losses": losses, "aux_after_steps": aux_after,
+        "step_ms": step_ms, "steady_step_ms": mean_ms,
+        "tokens_per_s": tokens_per_step / mean_ms * 1e3,
+        "step_flops_active": flops, "tflops_per_s": flops / mean_ms / 1e9,
+        "mfu": flops / (mean_ms * 1e-3) / dev["bf16_flops"],
+        "dispatch_einsum_ms": disp_ms, "combine_einsum_ms": comb_ms,
+        "einsum_share_of_step": L * (disp_ms + comb_ms) / mean_ms,
+        "einsums_timed": "apart from the step, forward+backward at the "
+                         "step's shapes, one layer's each, times L",
+        "peak_memory_bytes": peak, "launches_per_step": counts[0],
+        "launches": total, "expected_per_step": want}
+
+
+def generate_routes(generate, params, prompts, cfg, new: int,
+                    device=None):
+    """``greedy_generate`` (on ``device``, default the GPU) with every
+    call of the module's ``_moe_router_weights`` recorded: (tokens,
+    [layer] -> the expert indices [b, p + new - 1, k] that the run gave
+    each position it ran through the layers, prompt and generated).
+    Raises unless the run routed through the recorder once a layer a
+    pass."""
+    import torch
+
+    calls = []
+    real = generate._moe_router_weights
+
+    def weights(xt, lp, cfg_):
+        gate, idx = real(xt, lp, cfg_)
+        calls.append(idx)
+        return gate, idx
+
+    generate._moe_router_weights = weights
+    try:
+        out = generate.greedy_generate(params, prompts, cfg, new,
+                                       device=device)
+    finally:
+        generate._moe_router_weights = real
+    L = cfg.num_layers
+    if len(calls) != L * new:
+        raise AssertionError(f"generate routed {len(calls)} times through "
+                             f"the recorder, not {L * new}")
+    b, p = prompts.shape
+    return out, [torch.cat([calls[i].reshape(b, p, -1)]
+                           + [calls[j * L + i].reshape(b, 1, -1)
+                              for j in range(1, new)], dim=1)
+                 for i in range(L)]
+
+
+def pinned_forward(moe, llama, params, seq, cfg, routes):
+    """``llama.forward`` of ``seq`` [b, s] with layer i's tokens sent to
+    the experts ``routes[i][:, :s]`` (capacity factor E/k: none dropped)
+    and gated by this pass's own probabilities, top-k renormalised, as
+    ``router_gates`` gates them. The layers call ``moe.router_gates``
+    once each in order; raises unless they did."""
+    import torch
+
+    real = moe.router_gates
+    calls = []
+
+    def gates(logits, mcfg, with_stats=False):
+        t = logits.shape[0]
+        idx = routes[len(calls)][:, :seq.shape[1]].reshape(t, -1)
+        calls.append(idx)
+        k = idx.shape[-1]
+        ranks = torch.arange(k, 0, -1, dtype=torch.float32,
+                             device=logits.device).expand(t, k)
+        forced = torch.zeros((t, logits.shape[1]), dtype=torch.float32,
+                             device=logits.device).scatter(1, idx, ranks)
+        _, dispatch, aux = real(forced, mcfg)
+        if int(dispatch.sum()) != t * k:
+            raise AssertionError("a pinned route was dropped")
+        g = dispatch.float() * torch.softmax(logits.float(), -1)[:, :, None]
+        if k > 1:
+            g = g / torch.clamp(g.sum(dim=(1, 2)), min=1e-9)[:, None, None]
+        return g, dispatch, aux
+
+    moe.router_gates = gates
+    try:
+        logits = llama.forward(params, seq, cfg)
+    finally:
+        moe.router_gates = real
+    if len(calls) != cfg.num_layers:
+        raise AssertionError(f"the forward routed {len(calls)} times "
+                             f"through the pin, not {cfg.num_layers}")
+    return logits
+
+
+def generated_gap(logits, short, out, p: int):
+    """Worst gap of the generated tokens below their row's maximum in
+    ``logits`` (the forward of ``out[:, :-1]``), and the spread of the
+    prompt's positions between it and ``short`` (the prompt alone)."""
+    rows = logits[:, p - 1:]
+    picked = rows.gather(2, out[:, p:, None])[..., 0]
+    gap = rows.max(dim=2).values - picked
+    return {"positions": int(gap.numel()), "worst_gap": float(gap.max()),
+            "exact_argmax": int((gap == 0).sum()),
+            "spread": float((short - logits[:, :p]).abs().max())}
+
+
+def phase_moe_generate(dev):
+    """Mixtral-8x7B widths at MOE_GEN_LAYERS layers (random bf16 weights
+    from a seeded generator): greedy ``generate`` of MOE_GEN_NEW tokens
+    for 4 prompts of 512, exact launches, a warm prefill's time and the
+    decode steps', and the teacher-forced check against the
+    full-sequence ``forward`` at capacity factor E/k, where no token is
+    dropped, pinned to the generate run's routing and on its own."""
+    import dataclasses
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import generate, llama
+    from apex_tpu_torch.transformer import moe
+
+    cfg = llama.llama3_8b(num_layers=MOE_GEN_LAYERS, **MOE_OVER)
+    L, k = cfg.num_layers, cfg.moe_top_k
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (MOE_GEN_BATCH, MOE_GEN_PROMPT), generator=gen,
+                            device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    # the prefill alone (one token), timed warm: the first call of these
+    # shapes allocates and is not counted
+    prefill = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        generate.greedy_generate(params, prompts, cfg, 1)
+        torch.cuda.synchronize()
+        prefill.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = prefill[1]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate.greedy_generate(params, prompts, cfg, MOE_GEN_NEW)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # prefill: a flash forward a layer; prefill and each of the
+    # MOE_GEN_NEW - 1 decode steps: 2 RMSNorms a layer and the final one
+    want = dict({k_: 0 for k_ in counts}, flash_attention_fwd=L,
+                rms_norm_fwd=(2 * L + 1) * MOE_GEN_NEW)
+    if counts != want:
+        raise AssertionError(f"moe_generate launches {counts} != {want}")
+
+    again, routes = generate_routes(generate, params, prompts, cfg,
+                                    MOE_GEN_NEW)
+    if not torch.equal(again, out):
+        raise AssertionError("two equal greedy runs gave other tokens")
+    full = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.moe_top_k)
+    p = MOE_GEN_PROMPT
+    seq = out[:, :-1]
+    own = []
+    real = record_router(moe, own, L)
+    try:
+        logits = llama.forward(params, seq, full)
+    finally:
+        moe.router_gates = real
+    if len(own) != L:
+        raise AssertionError(f"recorded {len(own)} router calls of the "
+                             f"forward, not {L}")
+    tf = generated_gap(logits, llama.forward(params, seq[:, :p], full),
+                        out, p)
+    del logits
+    # the share of (token, choice) pairs whose expert differs between the
+    # forward's own top-k and the generate run's
+    picked = [torch.sort(torch.topk(x, k, dim=-1).indices, -1).values
+              for x in own]
+    flips = [float((a != torch.sort(r.reshape(-1, k), -1).values)
+                   .float().mean()) for a, r in zip(picked, routes)]
+    del own, picked
+    pinned = generated_gap(
+        pinned_forward(moe, llama, params, seq, full, routes),
+        pinned_forward(moe, llama, params, seq[:, :p], full, routes),
+        out, p)
+    tf.update(delta=DELTA_MOE, capacity_factor=full.moe_capacity_factor,
+              pinned=dict(pinned, delta=DELTA), route_flips=flips,
+              route_flips_tol=MOE_ROUTE_FLIPS)
+    if not (tf["worst_gap"] <= DELTA_MOE and tf["spread"] <= DELTA_MOE
+            and pinned["worst_gap"] <= DELTA and pinned["spread"] <= DELTA
+            and max(flips) <= MOE_ROUTE_FLIPS):
+        raise AssertionError(f"moe_generate teacher-forced check failed: "
+                             f"{tf}")
+    decode_ms = (total_ms - prefill_ms) / (MOE_GEN_NEW - 1)
+    return {"phase": "moe_generate", "model": "mixtral_8x7b_widths",
+            "num_layers": L, "dtype": "bfloat16", "init_s": init_s,
+            "params": sum(t.numel() for t in _tree.leaves(params)),
+            "prompts": [MOE_GEN_BATCH, MOE_GEN_PROMPT],
+            "new_tokens": MOE_GEN_NEW, "prefill_ms": prefill_ms,
+            "prefill_cold_ms": prefill[0],
+            "generate_ms": total_ms, "decode_ms_per_token": decode_ms,
+            "decode_timed": "(generate_ms - warm prefill_ms) / "
+                            "(new_tokens - 1)",
+            "tokens_per_s": MOE_GEN_BATCH * MOE_GEN_NEW / total_ms * 1e3,
+            "decode_tokens_per_s": MOE_GEN_BATCH / decode_ms * 1e3,
+            "tokens_sha1": hashlib.sha1(
+                json.dumps(out[:, p:].tolist()).encode()).hexdigest(),
+            "teacher_forced": tf, "peak_memory_bytes": peak,
+            "launches": counts, "expected": want}
+
+
+def mha_plain(mod, x, key=None, pad=None, p_drop=0.0, seed=0):
+    """The multihead_attn modules' math through the plain functions on
+    fp32 copies of their params and inputs: _ln_fwd_plain, the products
+    as matmuls, _reference_attention (with the kernels' keep mask for
+    ``seed``) or, with a key-padding mask ``pad`` [b, sk], the scores
+    through _masked_plain. ``key`` None is self-attention (packed qkv),
+    else encoder-decoder. Returns (out, {name: leaf}) with the leaves
+    requiring grad."""
+    import torch
+
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.transformer.functional.fused_softmax import (
+        _masked_plain,
+    )
+
+    leaves = {name: t.detach().float().requires_grad_()
+              for name, t in mod.named_parameters()}
+    xs = {"query": x.detach().float().requires_grad_()}
+    if key is not None:
+        xs["key"] = key.detach().float().requires_grad_()
+    heads = mod.heads
+    sq, b, h = x.shape
+    d = h // heads
+    ln = plain_ln(MHA_EPS)
+    hq = ln(xs["query"], leaves["lyr_nrm_gamma_weights"],
+            leaves["lyr_nrm_beta_weights"])
+    if key is None:
+        q, k, v = torch.chunk(hq @ leaves["qkv_proj.kernel"], 3, dim=-1)
+    else:
+        q = hq @ leaves["q_proj.kernel"]
+        k, v = torch.chunk(xs["key"] @ leaves["kv_proj.kernel"], 2, dim=-1)
+
+    def heads_major(t):  # [s, b, h] -> [b*heads, s, d]
+        s = t.shape[0]
+        return t.permute(1, 0, 2).reshape(b, s, heads, d).transpose(
+            1, 2).reshape(b * heads, s, d)
+
+    qh, kh, vh = heads_major(q), heads_major(k), heads_major(v)
+    if pad is None:
+        o = fa._reference_attention(qh, kh, vh, False, d ** -0.5, None,
+                                    p_drop, seed)
+    else:
+        sk = kh.shape[1]
+        scores = (qh @ kh.transpose(1, 2)).reshape(b, heads, sq, sk)
+        probs = _masked_plain(scores, pad[:, None, None, :], d ** -0.5)
+        o = probs.reshape(b * heads, sq, sk) @ vh
+    o = o.reshape(b, heads, sq, d).permute(2, 0, 1, 3).reshape(sq, b, h)
+    out = o @ leaves["out_proj.kernel"] + xs["query"]
+    return out, {**leaves, **xs}
+
+
+def phase_multihead_attn(dev):
+    """``contrib.multihead_attn`` at Transformer-big width: a norm-add
+    SelfMultiheadAttn forward and backward with no mask (the flash
+    kernels, dropout inside them) and with a seeded key-padding mask (the
+    masked softmax kernel; checked at dropout 0, then run with
+    ``_inverted_dropout``), and a norm-add EncdecMultiheadAttn over keys
+    twice as long (flash, dropout): exact launches, outputs and input and
+    param grads against fp32 autograd of the plain reference (the flash
+    calls with the same seed, so the same keep mask); forward and
+    forward+backward device ms."""
+    import torch
+
+    from apex_tpu_torch.contrib.multihead_attn import (
+        EncdecMultiheadAttn,
+        SelfMultiheadAttn,
+    )
+
+    s, b, h = MHA_S, MHA_B, MHA_H
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    torch.manual_seed(SEED + 13)  # the modules' init
+    mods = {"self": SelfMultiheadAttn(h, MHA_HEADS, dropout=MHA_P_DROP,
+                                      include_norm_add=True,
+                                      dtype=torch.bfloat16),
+            "encdec": EncdecMultiheadAttn(h, MHA_HEADS, dropout=MHA_P_DROP,
+                                          include_norm_add=True,
+                                          dtype=torch.bfloat16)}
+    with torch.no_grad():
+        for mod in mods.values():  # an affine LayerNorm that is not 1, 0
+            mod.lyr_nrm_gamma_weights.copy_(1 + 0.1 * torch.randn(
+                h, generator=gen, device="cuda"))
+            mod.lyr_nrm_beta_weights.copy_(0.1 * torch.randn(
+                h, generator=gen, device="cuda"))
+    pad = bert_pad_mask(gen, b, s)
+
+    def make(sk=None):
+        x = torch.randn(s, b, h, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        kv = (torch.randn(sk, b, h, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_() if sk else None)
+        dy = torch.randn(s, b, h, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        return x, kv, dy
+
+    # (module, keys, key-padding mask, dropout in the checked call)
+    calls = {"self_flash": ("self", None, None, True),
+             "self_masked": ("self", None, pad, False),
+             "encdec_flash": ("encdec", 2 * s, None, True)}
+
+    def run(name, x, kv, dy, training):
+        mod_name, _, mask, _ = calls[name]
+        mod = mods[mod_name]
+        kw = dict(is_training=training, dropout_key=MHA_SEED)
+        if mod_name == "self":
+            out = mod(x, key_padding_mask=mask, **kw)
+        else:
+            out = mod(x, kv, **kw)
+        leaves = [p for _, p in mod.named_parameters()] + [x] + (
+            [kv] if kv is not None else [])
+        return out, torch.autograd.grad(out, leaves, dy)
+
+    def forward(name, x, kv, dy):
+        """The training forward alone (dropout on), no graph."""
+        mod_name, _, mask, _ = calls[name]
+        with torch.no_grad():
+            if mod_name == "self":
+                return mods["self"](x, key_padding_mask=mask,
+                                    dropout_key=MHA_SEED)
+            return mods["encdec"](x, kv, dropout_key=MHA_SEED)
+
+    results, zero = {}, None
+    for name, (mod_name, sk, mask, dropout) in calls.items():
+        x, kv, dy = make(sk)
+        reset_counts()
+        out, grads = run(name, x, kv, dy, dropout)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        zero = zero or {k: 0 for k in counts}
+        want = dict(zero, layer_norm_fwd=1, layer_norm_bwd=1)
+        if mask is None:
+            want.update(flash_attention_fwd=1, flash_attention_bwd_dq=1,
+                        flash_attention_bwd_dkv=1)
+        else:
+            want.update(fused_softmax_masked=1)
+        if counts != want:
+            raise AssertionError(f"multihead_attn {name} launches {counts} "
+                                 f"!= {want}")
+        ref, leaves = mha_plain(mods[mod_name], x, kv, mask,
+                                MHA_P_DROP if dropout else 0.0, MHA_SEED)
+        names = list(leaves)
+        refs = torch.autograd.grad(ref, list(leaves.values()), dy.float())
+        out_err = max_err(out, ref.detach(), MHA_OUT_REL,
+                          f"multihead_attn {name} output")
+        cmp = leaf_compare([(n,) for n in names], grads, refs)
+        bad = {n: v for n, v in cmp["leaves"].items()
+               if not (v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS)}
+        if bad:
+            raise AssertionError(f"multihead_attn {name} grads off the "
+                                 f"fp32 reference: {bad}")
+        del ref, refs, leaves, grads, out
+        row = {"launches": counts, "expected": want,
+               "p_drop_checked": MHA_P_DROP if dropout else 0.0,
+               "out_max_abs_err": out_err, "out_rel_tol": MHA_OUT_REL,
+               "grads": cmp, "rel_l2_tol": GRAD_REL_L2,
+               "cos_tol": GRAD_COS}
+        if mask is not None:
+            # the masked path with dropout on (_inverted_dropout): the
+            # same launches, finite outputs and grads
+            reset_counts()
+            out, grads = run(name, x, kv, dy, True)
+            torch.cuda.synchronize()
+            if read_counts() != want or not all(
+                    bool(torch.isfinite(t).all()) for t in (out, *grads)):
+                raise AssertionError(f"multihead_attn {name} with dropout: "
+                                     f"launches {read_counts()} or "
+                                     f"non-finite values")
+            row["dropout_run"] = {"launches": read_counts(),
+                                  "p_drop": MHA_P_DROP}
+            del out, grads
+        sets = [make(sk) for _ in range(4)]  # 4 x 32 MB inputs > L2
+        fwd = partial(forward, name)
+        step = partial(lambda n, x, kv, dy: run(n, x, kv, dy, True), name)
+        row.update(forward_ms=time_ms(fwd, sets, iters=10),
+                   forward_host_ms=host_ms(fwd, sets[0]),
+                   forward_backward_ms=time_ms(step, sets, iters=5),
+                   forward_backward_host_ms=host_ms(step, sets[0], iters=5))
+        results[name] = row
+        del sets
+        torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] + r.get("dropout_run", {}).get(
+        "launches", zero)[k] for r in results.values()) for k in zero}
+    return {"phase": "multihead_attn", "shape": [s, b, h],
+            "heads": MHA_HEADS, "dtype": "bfloat16",
+            "dropout": MHA_P_DROP, "seed": MHA_SEED,
+            "include_norm_add": True, "encdec_keys": 2 * s,
+            "valid_keys": int((~pad).sum()), "calls": results,
+            "launches": launches}
+
+
 # the bf16 flash backward's design, named in its two summary rows
 FLASH_BWD_DESIGN = {
     "design": "tensor cores",
@@ -2845,7 +3749,17 @@ def summary(kernels, counts, path_adam):
     smm = kernels["fused_softmax_masked"]
     cast = kernels["fp8_cast"]
     long = kernels["fused_softmax_long"]["causal"]
+    mha, mha_flash = kernels["mha"], kernels["mha"]["flash"]
     csrc = "apex_tpu_torch/ops/csrc/"
+
+    def mha_bwd(part, errs):
+        """The multihead_attn shapes' rows of a flash backward kernel."""
+        return {c: dict(r["bwd"][part], max_abs_err=max(
+                    r["bwd"]["max_abs_err"][e] for e in errs),
+                    plain_ms=r["bwd"]["plain_ms"],
+                    library_ms=r["bwd"]["library_ms"])
+                for c, r in mha_flash.items()}
+
     # the plain and library times of the two flash backward rows are one
     # call each that computes dq, dk and dv together: count them once
     both = {k: bwd[k] for k in ("plain_ms", "library_ms")}
@@ -2857,7 +3771,8 @@ def summary(kernels, counts, path_adam):
             "apex_tpu/ops/flash_attention.py:65", fwd[2],
             max(x["max_abs_err"] for x in fwd),
             training=case_rows({"dense": fwd[3]}),
-            cases=case_rows({x["case"]: x for x in fwd if "case" in x}),
+            cases=case_rows({x["case"]: x for x in fwd if "case" in x}
+                            | {c: r["fwd"] for c, r in mha_flash.items()}),
             **FLASH_FWD_DESIGN),
         row("rms_norm_fwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:56", rms[1],
@@ -2870,7 +3785,8 @@ def summary(kernels, counts, path_adam):
             bwd["max_abs_err"]["dq"], **covers, **FLASH_BWD_DESIGN,
             cases={c: dict(r["dq"], max_abs_err=r["max_abs_err"]["dq"],
                            library_ms=r["library_ms"])
-                   for c, r in bwd["cases"].items()}),
+                   for c, r in bwd["cases"].items()}
+            | mha_bwd("dq", ("dq",))),
         row("flash_attention_bwd_dkv", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:322",
             dict(bwd["dkv"], shape=bwd["shape"], **both),
@@ -2879,7 +3795,8 @@ def summary(kernels, counts, path_adam):
             cases={c: dict(r["dkv"], max_abs_err=max(r["max_abs_err"]["dk"],
                                                      r["max_abs_err"]["dv"]),
                            library_ms=r["library_ms"])
-                   for c, r in bwd["cases"].items()}),
+                   for c, r in bwd["cases"].items()}
+            | mha_bwd("dkv", ("dk", "dv"))),
         row("rms_norm_bwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:189", rbwd,
             max(rbwd["max_abs_err"].values()),
@@ -2895,16 +3812,21 @@ def summary(kernels, counts, path_adam):
         row("layer_norm_fwd", csrc + "layer_norm.cu",
             "apex_tpu/ops/layer_norm.py:40", lnf[0],
             max(x["max_abs_err"] for x in lnf), plan=lnf[0]["plan"],
-            cases=case_rows({"bert": lnf[1]})),
+            cases=case_rows({"bert": lnf[1], "mha": mha["layer_norm_fwd"]})),
         row("layer_norm_bwd", csrc + "layer_norm.cu",
             "apex_tpu/ops/layer_norm.py:163", lnb[0],
-            max(max(x["max_abs_err"].values()) for x in lnb)),
+            max(max(x["max_abs_err"].values()) for x in lnb),
+            cases=case_rows({"bert": dict(lnb[1], max_abs_err=max(
+                lnb[1]["max_abs_err"].values())), "mha": dict(
+                mha["layer_norm_bwd"], max_abs_err=max(
+                    mha["layer_norm_bwd"]["max_abs_err"].values()))})),
         row("fused_softmax_causal", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:104", smc,
             smc["max_abs_err"]),
         row("fused_softmax_masked", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:119", smm,
-            smm["max_abs_err"]),
+            smm["max_abs_err"],
+            cases=case_rows({"mha": mha["fused_softmax_masked"]})),
         # the casts at their serving shapes: the prefill activation
         # row-major, the weight column-major (the other shapes are in the
         # kernels phase); the long-row passes at the causal shape
@@ -3011,6 +3933,25 @@ def main() -> int:
         torch.cuda.empty_cache()
         fmha = phase_fmha(dev)
         emit(fmha)
+        phase = "moe_training"
+        gc.collect()
+        torch.cuda.empty_cache()
+        step, moe_training = phase_moe_training(dev)
+        emit(moe_training)
+        if profiling:
+            phase = "profile_moe_training"
+            emit(profile_step(phase, step))
+        del step
+        phase = "moe_generate"
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_generate = phase_moe_generate(dev)
+        emit(moe_generate)
+        phase = "multihead_attn"
+        gc.collect()
+        torch.cuda.empty_cache()
+        mha = phase_multihead_attn(dev)
+        emit(mha)
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -3025,7 +3966,10 @@ def main() -> int:
               "training": training["launches"],
               "amp_training": amp_training["launches"],
               **{path: r["launches"] for path, r in results.items()},
-              "fmha": fmha["launches"]}
+              "fmha": fmha["launches"],
+              "moe_training": moe_training["launches"],
+              "moe_generate": moe_generate["launches"],
+              "multihead_attn": mha["launches"]}
     emit({"kernel_counts": counts})
     emit(summary(kernels, counts, training["adam_path_check"]))
     print(dev["nvidia_smi"], flush=True)

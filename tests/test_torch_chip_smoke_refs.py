@@ -4,7 +4,7 @@ from the model code they check. Here, on the CPU at tiny() in fp32, each
 must give the model's loss and gradients (both sides take the kernels'
 plain versions on the CPU and differ only in the order of their sums):
 the loss to LOSS_RTOL = 1e-5, every gradient leaf to GRAD_ATOL/GRAD_RTOL
-= 1e-4.
+= 1e-4. The MoE generation check's routing pin is held here too.
 """
 
 import importlib.util
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from apex_tpu_torch import _tree
-from apex_tpu_torch.models import bert, gpt2
+from apex_tpu_torch.models import bert, gpt2, llama
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-5
@@ -72,3 +72,63 @@ def test_reference_matches_the_model(family, smoke):
         torch.testing.assert_close(r, g, rtol=GRAD_RTOL, atol=GRAD_ATOL,
                                    msg=lambda m: f"{path}: {m}")
 
+
+
+@pytest.mark.parametrize("k", [2, 1])
+def test_moe_generate_pin_follows_the_generate_run(k, smoke):
+    """``chip_smoke.py``'s moe_generate pin, on ``tiny(num_experts=4)``
+    in fp32 at capacity factor E/k: ``generate_routes`` gives the tokens
+    of ``greedy_generate`` and, a layer each, the experts that run took
+    at every position (at fp32 the forward's own top-k: these inputs'
+    top-k margin is checked above 1e-4 first); ``pinned_forward`` to
+    those routes gives the unpinned forward's logits within 1e-5 (the
+    same experts and gates, sums in another order); pinned to other
+    routes it does not."""
+    from apex_tpu_torch.models import generate
+    from apex_tpu_torch.transformer import moe
+
+    cfg = llama.tiny(num_layers=2, num_experts=4, moe_top_k=k,
+                     moe_capacity_factor=4.0 / k)
+    params = llama.init_params(torch.Generator().manual_seed(5), cfg,
+                               device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6),
+                            generator=torch.Generator().manual_seed(6))
+    out, routes = smoke.generate_routes(generate, params, prompts, cfg, 4,
+                                         device="cpu")
+    assert torch.equal(out, generate.greedy_generate(params, prompts, cfg,
+                                                     4, device="cpu"))
+    assert [r.shape for r in routes] == [(2, 9, k)] * cfg.num_layers
+    seq = out[:, :-1]
+    own = []
+    real = smoke.record_router(moe, own, cfg.num_layers)
+    try:
+        ref = llama.forward(params, seq, cfg)
+    finally:
+        moe.router_gates = real
+    for logits, r in zip(own, routes):
+        top = torch.topk(logits, min(k + 1, 4), dim=-1).values
+        assert float((top[:, k - 1] - top[:, k]).min()) > 1e-4
+        assert torch.equal(torch.topk(logits, k, dim=-1).indices,
+                           r.reshape(-1, k))
+    got = smoke.pinned_forward(moe, llama, params, seq, cfg, routes)
+    assert moe.router_gates is real
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    shifted = [(r + 1) % cfg.num_experts for r in routes]
+    moved = smoke.pinned_forward(moe, llama, params, seq, cfg, shifted)
+    assert float((moved - ref).abs().max()) > 1e-2
+    tf = smoke.generated_gap(got, smoke.pinned_forward(
+        moe, llama, params, seq[:, :6], cfg, routes), out, 6)
+    assert tf["worst_gap"] == 0.0 and tf["spread"] < 1e-5
+
+
+def test_chip_smoke_defines_each_name_once():
+    """A second top-level ``def`` of a name would silently replace the
+    first for every phase that calls it."""
+    import ast
+    import collections
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = collections.Counter(
+        n.name for n in tree.body
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)))
+    assert [n for n, c in names.items() if c > 1] == []

@@ -1316,3 +1316,123 @@ def test_fp8_cast_at_the_lm_head_shapes_bits_equal_plain(gen, name):
     assert y.stride() == ((1, rows) if col else (cols, 1))
     _assert_bits(y, y_ref)
     assert float(amax) == float(amax_ref) == float(amax_x)
+
+
+# ----------------------------------------------------- multihead_attn shapes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+@pytest.mark.parametrize("sq,sk", [(40, 96), (130, 256), (96, 40)])
+def test_flash_kernels_encdec_views_match_plain(gen, dtype, p_drop, sq, sk):
+    """Non-causal, head dim 64, sq != sk, with and without dropout, on
+    the strided views contrib.multihead_attn passes ([s, b, h*d]
+    transposed to [b, s, h, d]): forward, dq and dk/dv against the plain
+    versions with the same seed."""
+    b, h, d = 3, 4, 64
+    scale = d ** -0.5
+
+    def view(s):  # [s, b, h*d] -> a [b, s, h, d] view, no copy
+        t = torch.randn(s, b, h * d, generator=gen, device="cuda").to(dtype)
+        return t.transpose(0, 1).unflatten(-1, (h, d))
+
+    q, k, v, do = view(sq), view(sk), view(sk), view(sq)
+    extras = (None, p_drop, SEED)
+    o, lse = fa._flash_fwd_cuda(q, k, v, False, scale, *extras)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, False, scale,
+                                    *extras)
+    o_ref, lse_ref = fa._flash_fwd_plain(_flat(q), _flat(k), _flat(v),
+                                         False, scale, *extras)
+    ref = fa._flash_bwd_plain(_flat(q), _flat(k), _flat(v), _flat(o), lse,
+                              _flat(do), False, scale, *extras)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), fa._seq_major(o_ref, b).float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+    rel = 2e-5 if dtype == torch.float32 else 1e-2
+    for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        _assert_near(got, fa._seq_major(r, b), rel, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_softmax_kernel_takes_the_mha_key_padding_mask(gen, dtype):
+    """The [b, 1, sq, sk] key-padding mask _masked_attention builds by
+    expanding [b, sk] (zero strides over the query rows), at 16 heads."""
+    b, n, s = 4, 16, 64
+    x = (4 * torch.randn(b, n, s, s, generator=gen, device="cuda")).to(
+        dtype)
+    pad = torch.arange(s, device="cuda")[None, :] >= torch.tensor(
+        [64, 50, 17, 1], device="cuda")[:, None]
+    mask = pad[:, None, None, :].expand(b, 1, s, s)
+    before = sm.masked_launches
+    y = sm._masked_cuda(x, mask, 0.125)
+    assert sm.masked_launches == before + 1
+    ref = sm._masked_plain(x, mask, 0.125)
+    torch.cuda.synchronize()
+    rtol, atol = SM_TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("kind", ["self", "self_masked", "encdec"])
+def test_multihead_attn_modules_launch_their_kernels(gen, kind):
+    """A module on the card launches its kernels once each, forward and
+    backward, and agrees with the same module's plain path on the CPU
+    (same params, dropout off)."""
+    from apex_tpu_torch.contrib import multihead_attn as mha
+    from apex_tpu_torch.ops import layer_norm as lnm
+
+    h, heads, s, b = 64, 4, 48, 2
+    cls = mha.EncdecMultiheadAttn if kind == "encdec" else \
+        mha.SelfMultiheadAttn
+    cuda_mod = cls(h, heads, include_norm_add=True, bias=True)
+    cpu_mod = cls(h, heads, include_norm_add=True, bias=True, device="cpu")
+    cpu_mod.load_state_dict({k: v.cpu() for k, v in
+                             cuda_mod.state_dict().items()})
+    x = torch.randn(s, b, h, generator=gen, device="cuda")
+    kv = torch.randn(2 * s, b, h, generator=gen, device="cuda")
+    pad = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+    pad[1, 30:] = True
+
+    def run(mod, dev):
+        xs = [x.to(dev).requires_grad_()]
+        kw = {"is_training": False}
+        if kind == "encdec":
+            xs.append(kv.to(dev).requires_grad_())
+        if kind == "self_masked":
+            kw["key_padding_mask"] = pad.to(dev)
+        out = mod(*xs, **kw)
+        grads = torch.autograd.grad(out.square().sum(),
+                                    xs + list(mod.parameters()))
+        return out, grads
+
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches,
+              sm.masked_launches, lnm.ln_launches, lnm.ln_bwd_launches)
+    out, grads = run(cuda_mod, "cuda")
+    after = (fa.launches, fa.dq_launches, fa.dkv_launches,
+             sm.masked_launches, lnm.ln_launches, lnm.ln_bwd_launches)
+    flash = 0 if kind == "self_masked" else 1
+    assert tuple(a - c for a, c in zip(after, before)) == (
+        flash, flash, flash, 1 - flash, 1, 1)
+    ref, ref_grads = run(cpu_mod, "cpu")
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+    for got, r in zip(grads, ref_grads):
+        torch.testing.assert_close(got.cpu(), r, rtol=1e-3, atol=1e-3)
+
+
+def test_inverted_dropout_cpu_generator_on_cuda_probs():
+    """On the card a CPU generator gives a mask drawn on the card, from a
+    CUDA generator seeded with one draw of it."""
+    from apex_tpu_torch.contrib import multihead_attn as mha
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    probs = torch.rand(2, 4, 64, 64, device="cuda")
+    got = mha._inverted_dropout(probs, 0.1, torch.Generator().manual_seed(5))
+    seed = int(torch.randint(0, 2 ** 63 - 1, (),
+                             generator=torch.Generator().manual_seed(5)))
+    keep = torch.rand(probs.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed)) < 0.9
+    assert got.device == probs.device
+    assert torch.equal(got, torch.where(keep, probs / 0.9,
+                                        torch.zeros_like(probs)))

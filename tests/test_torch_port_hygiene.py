@@ -21,6 +21,11 @@ WRAPPERS = {
                                "forward", "backward", "_extras",
                                "_dropout_seed"),
     "contrib/fmha.py": ("fmha", "fmha_packed_qkv", "apply"),
+    "contrib/multihead_attn.py": ("_masked_attention", "_inverted_dropout",
+                                  "forward", "mask_softmax_dropout",
+                                  "__call__", "load_flax_params"),
+    "transformer/moe.py": ("router_gates", "expert_parallel_apply",
+                           "moe_mlp", "init_moe_params"),
     "ops/layer_norm.py": ("_rms_fwd_cuda", "_rms_fwd", "rms_norm", "_lib",
                           "_rms_bwd_cuda", "_rms_bwd", "forward",
                           "backward", "_ln_fwd_cuda", "_ln_fwd",
@@ -37,12 +42,18 @@ WRAPPERS = {
                          "quantize_fp8", "quantize_fp8_stats", "forward",
                          "backward", "_fp8_product", "matmul_amp"),
     "serving/scheduler.py": ("_make_mm", "fp8_weight_scales",
-                             "build_decode_step", "build_prefill"),
+                             "build_decode_step", "build_prefill",
+                             "__init__"),
     "ops/fused_adam_kernel.py": ("_adam_flat_cuda", "adam_flat", "_lib"),
     "optimizers/fused_adam.py": ("fused_adam",),
     "optimizers/fused_lamb.py": ("fused_lamb",),
     "models/_common.py": ("run_stacked", "train_step"),
-    "models/llama.py": ("train_step", "loss_fn", "run_layers"),
+    "models/llama.py": ("train_step", "loss_fn", "run_layers", "_moe_mlp",
+                        "decoder_layer_with_aux", "forward_with_aux",
+                        "hidden_states", "init_params"),
+    "models/generate.py": ("generate", "_moe_router_weights",
+                           "_moe_decode_ffn", "_moe_prefill_ffn",
+                           "_decode_layer", "_prefill_layer"),
     "models/gpt2.py": ("train_step", "loss_fn", "hidden_states"),
     "models/bert.py": ("train_step", "loss_fn", "forward"),
     "ops/_build.py": ("build", "library", "check"),
@@ -213,3 +224,29 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _param_constructors():
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            if isinstance(node, ast.FunctionDef) and (
+                    node.name.startswith("init_") and "params" in node.name
+                    or node.name.endswith("_from_numpy")
+                    and not node.name.startswith("_")):
+                yield str(path.relative_to(PORT)), node
+
+
+@pytest.mark.parametrize(
+    "rel,func", [(rel, node.name) for rel, node in _param_constructors()])
+def test_param_constructors_resolve_their_device(rel, func):
+    """Every function that makes params or state (``init_*params``,
+    ``*_from_numpy``) takes ``device`` and resolves it with
+    ``_device.resolve``: the GPU unless the caller asks for the CPU,
+    never the device of whatever generator it was handed."""
+    node = next(n for r, n in _param_constructors()
+                if r == rel and n.name == func)
+    args = [a.arg for a in node.args.args + node.args.kwonlyargs]
+    assert "device" in args, f"{rel}:{func} takes no device"
+    assert "resolve" in {name for _, name in _called_names(node)}, (
+        f"{rel}:{func} never calls _device.resolve")

@@ -92,18 +92,18 @@ def test_loss_and_grads_match_jax(model):
 
 
 def test_remat_equals_no_remat(model):
-    """Per-layer recompute (torch.utils.checkpoint) gives the same loss
-    and grads as keeping the activations."""
+    """Per-layer recompute (torch.utils.checkpoint), full and with the
+    "dots" policy, gives the same loss and grads as keeping the
+    activations."""
     jcfg, jparams, cfg, tokens, targets = model
     params = _port_params(jparams)
     batch = _port_batch(tokens, targets)
     loss0, g0 = _port_value_and_grad(params, batch, cfg, remat=False)
-    loss1, g1 = _port_value_and_grad(params, batch, cfg, remat=True)
-    assert float(loss0) == float(loss1)
-    for a, b in zip(_tree.leaves(g0), _tree.leaves(g1)):
-        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="dots"):
-        port_llama.loss_fn(params, batch, cfg, remat="dots")
+    for remat in (True, "dots"):
+        loss1, g1 = _port_value_and_grad(params, batch, cfg, remat=remat)
+        assert float(loss0) == float(loss1)
+        for a, b in zip(_tree.leaves(g0), _tree.leaves(g1)):
+            torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
 
 
 def test_three_train_steps_match_jax_step(model):
