@@ -7,7 +7,8 @@ CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import os
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,6 +26,34 @@ def resolve(device: DeviceLike = None) -> torch.device:
             "no CUDA device: apex_tpu_torch runs on the GPU by default; "
             "pass device='cpu' to run the plain PyTorch versions")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def memory(device: DeviceLike = None) -> Tuple[int, int]:
+    """``(total, used)`` bytes of ``device``'s memory, the counterpart of
+    the reference's ``device_hbm_bytes`` (``ops/pallas_config.py:293``):
+    on a CUDA device the total and total - free of one
+    ``torch.cuda.mem_get_info`` call (used counts every byte resident on
+    the card, the weights too). ``APEX_TPU_HBM_BYTES`` overrides the
+    total, as in the reference. A CPU device has no such memory: with the
+    override it reports the override and 0 used, without it it raises,
+    never returning a planning figure."""
+    device = resolve(device)
+    env = os.environ.get("APEX_TPU_HBM_BYTES")
+    override = None
+    if env:
+        try:
+            override = int(env)
+        except ValueError:
+            raise ValueError(f"APEX_TPU_HBM_BYTES must be an integer byte "
+                             f"count, got {env!r}")
+    if device.type != "cuda":
+        if override is None:
+            raise RuntimeError(
+                f"no device memory to read on {device}: pass hbm_bytes or "
+                f"set APEX_TPU_HBM_BYTES")
+        return override, 0
+    free, total = torch.cuda.mem_get_info(device)
+    return (total if override is None else override), total - free
 
 
 def _same(a: torch.device, b: torch.device) -> bool:

@@ -1,15 +1,19 @@
 """apex_tpu_torch.serving — continuous-batching inference runtime on the
 GPU (port of ``apex_tpu.serving``).
 
-Paged KV cache with a trash page, a prefill/decode scheduler over packed
-slot tensors (bf16 or fp8 weights: ``weight_mode``), and request
-telemetry on the metric registry.
+Paged KV cache with a trash page (its budget from the card's memory), a
+prefill/decode scheduler over packed slot tensors whose decode step is one
+CUDA graph (bf16 or fp8 weights: ``weight_mode``), request telemetry on
+the metric registry, and the reference's drain/dump/resume contract for
+preempted servers.
 """
 
 from apex_tpu_torch.serving.engine import ServerMetrics, ServingEngine
 from apex_tpu_torch.serving.kv_cache import (
     PageAllocator,
+    PageBudget,
     PagedKVCache,
+    derive_page_budget,
     page_hbm_bytes,
 )
 from apex_tpu_torch.serving.loadgen import (
@@ -21,6 +25,7 @@ from apex_tpu_torch.serving.loadgen import (
 )
 from apex_tpu_torch.serving.scheduler import (
     ContinuousBatchScheduler,
+    DecodeGraph,
     Request,
     build_decode_step,
     build_prefill,
@@ -30,7 +35,9 @@ from apex_tpu_torch.serving.scheduler import (
 
 __all__ = [
     "ContinuousBatchScheduler",
+    "DecodeGraph",
     "PageAllocator",
+    "PageBudget",
     "PagedKVCache",
     "Request",
     "ServerMetrics",
@@ -38,6 +45,7 @@ __all__ = [
     "TraceRequest",
     "build_decode_step",
     "build_prefill",
+    "derive_page_budget",
     "fp8_weight_scales",
     "make_trace",
     "page_hbm_bytes",

@@ -10,21 +10,38 @@ Page ``P`` (the last one) is the *trash page*: inactive batch slots
 scatter their never-read k/v writes there, which keeps the decode step
 free of per-slot control flow. The allocator never hands it out.
 
-The reference derives its page budget from memory priors calibrated on a
-TPU; here ``num_pages`` is given by the caller until the port measures
-its own. The port updates the page tensors in place where the reference
-rebuilds them with ``.at[].set``.
+The page *budget* (:func:`derive_page_budget`) is derived from the card's
+memory rather than guessed: usable bytes = total x safety - the bytes
+already in use (the weights among them), divided by the per-page
+footprint corrected by the port's own ``hbm_priors.json``
+measured/modeled ratio.
+
+The port updates the page tensors in place where the reference rebuilds
+them with ``.at[].set``: prompt writes, restores and :meth:`defrag` keep
+``k_pages.data_ptr()`` and ``v_pages.data_ptr()`` fixed, so a captured
+decode graph that holds them stays valid.
+
+The emergency dump stores pages as numpy arrays in the reference's
+format (:func:`dump_array`, :func:`load_array`): float32 as it is, bf16
+as 2-byte ``|V2`` items holding the bf16 bits, which is what ``np.savez``
+writes for the reference's ``ml_dtypes`` bf16 arrays. Either package's
+dump loads here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+import math
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from apex_tpu_torch import _device
 
-__all__ = ["PageAllocator", "PagedKVCache", "page_hbm_bytes"]
+__all__ = ["PageAllocator", "PageBudget", "PagedKVCache",
+           "derive_page_budget", "dump_array", "load_array",
+           "page_hbm_bytes"]
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -36,6 +53,89 @@ def page_hbm_bytes(cfg, page_size: int, dtype=None) -> int:
     dtype = cfg.dtype if dtype is None else dtype
     return (2 * cfg.num_layers * page_size * cfg.num_kv_heads
             * cfg.head_dim * _itemsize(dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class PageBudget:
+    """The derivation trail of a page budget (``kv_cache.py:50``)."""
+
+    pages: int
+    page_bytes: int          # modeled bytes per page
+    ratio: float             # hbm_priors measured/modeled correction
+    hbm_bytes: int           # device memory total used
+    watermark_bytes: int     # bytes already in use, subtracted
+    usable_bytes: int        # hbm * safety - watermark (floored at 0)
+    safety: float
+
+
+def derive_page_budget(cfg, page_size: int, *,
+                       hbm_bytes: Optional[int] = None,
+                       watermark_bytes: Optional[int] = None,
+                       priors: Optional[dict] = None,
+                       safety: float = 0.90, dtype=None,
+                       device: _device.DeviceLike = None) -> PageBudget:
+    """Page budget from the card's memory (``kv_cache.py:63``).
+
+    ``pages = floor((hbm x safety - watermark) / ceil(page_bytes x
+    ratio))`` where ``ratio`` is the port's ``serving_decode_step`` prior
+    (the file's default ratio when it has none). Every input is
+    overridable; a missing ``hbm_bytes`` or ``watermark_bytes`` is read
+    from ``device`` (the card unless the caller asks for the CPU) by
+    :func:`apex_tpu_torch._device.memory`: the total, and the bytes in
+    use (total - free). The reference subtracts its memory monitor's
+    watermark instead; the port has no monitor yet.
+    """
+    from apex_tpu_torch.analysis.memory_checks import (
+        load_hbm_priors,
+        prior_for,
+    )
+
+    if not 0.0 < safety <= 1.0:
+        raise ValueError(f"safety must be in (0, 1], got {safety}")
+    if hbm_bytes is None or watermark_bytes is None:
+        total, used = _device.memory(device)
+        hbm_bytes = total if hbm_bytes is None else hbm_bytes
+        watermark_bytes = used if watermark_bytes is None else watermark_bytes
+    if priors is None:
+        priors = load_hbm_priors()
+    ratio = prior_for("serving_decode_step", priors, default=True)
+    page_bytes = page_hbm_bytes(cfg, page_size, dtype=dtype)
+    usable = max(0, int(hbm_bytes * safety) - int(watermark_bytes))
+    pages = int(usable // max(1, int(math.ceil(page_bytes * ratio))))
+    return PageBudget(pages=pages, page_bytes=page_bytes, ratio=ratio,
+                      hbm_bytes=int(hbm_bytes),
+                      watermark_bytes=int(watermark_bytes),
+                      usable_bytes=usable, safety=safety)
+
+
+def dump_array(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as the dump's numpy array: bf16 as ``|V2`` items
+    holding its bits (a view of int16, no conversion), other dtypes as
+    they are."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def load_array(a, dtype: torch.dtype) -> torch.Tensor:
+    """A dump's numpy array (or a tensor) as a host tensor of ``dtype``:
+    ``|V2`` items are bf16 bits (the reference's ``ml_dtypes`` bf16
+    through ``np.savez``, or :func:`dump_array`'s), read bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype)
+    a = np.asarray(a)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        if a.dtype.itemsize != 2:
+            raise TypeError(f"a raw dump array must hold 2-byte bf16 items, "
+                            f"got {a.dtype}")
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    if t.dtype != dtype and not (t.dtype.is_floating_point
+                                 and dtype.is_floating_point):
+        raise TypeError(f"a dump array of {t.dtype} cannot fill {dtype} pages")
+    return t.to(dtype)
 
 
 class PageAllocator:
@@ -144,14 +244,26 @@ class PagedKVCache:
 
     def gather_pages(self, pages: List[int]):
         """``pages`` as host ``(k, v)`` tensors
-        ``[L, n, page_size, nkv, d]``."""
+        ``[L, n, page_size, nkv, d]``: the emergency-dump payload
+        (:func:`dump_array` makes the dump's arrays of them)."""
         idx = self._index(pages)
         return self.k_pages[:, idx].cpu(), self.v_pages[:, idx].cpu()
+
+    def restore_pages(self, pages: List[int], k, v) -> None:
+        """Scatter a dumped payload ``[L, n, page_size, nkv, d]`` back into
+        ``pages``, in place (resume path, ``kv_cache.py:214``). Restoring
+        by scatter, not re-prefilling, is what keeps resumed decodes
+        bit-identical to the uninterrupted run."""
+        idx = self._index(pages)
+        for pages_t, payload in ((self.k_pages, k), (self.v_pages, v)):
+            pages_t[:, idx] = load_array(payload, self.dtype).to(self.device)
 
     def defrag(self) -> Dict[int, int]:
         """Compact live pages to the front; returns {old: new} so the
         caller can rewrite block tables. A no-op ({}) when already
-        compact. One gather-permute per tensor."""
+        compact. One gather-permute per layer, written back in place: the
+        page tensors keep their storage (a captured decode graph reads
+        them by address)."""
         live = self.alloc.live_pages()
         mapping = {old: new for new, old in enumerate(live)}
         if all(old == new for old, new in mapping.items()):
@@ -161,8 +273,9 @@ class PagedKVCache:
         perm.extend(p for p in range(self.num_pages) if p not in taken)
         perm.append(self.trash_page)
         idx = self._index(perm)
-        self.k_pages = torch.index_select(self.k_pages, 1, idx)
-        self.v_pages = torch.index_select(self.v_pages, 1, idx)
+        for pages_t in (self.k_pages, self.v_pages):
+            for layer in pages_t:
+                layer.copy_(torch.index_select(layer, 0, idx))
         for owner in self.alloc.owners():
             self.alloc._owned[owner] = [
                 mapping[p] for p in self.alloc._owned[owner]]

@@ -81,6 +81,7 @@ def summarize(engine, wall_s: float) -> dict:
         "mean_occupancy": engine.mean_occupancy(),
         "decode_steps": engine.scheduler.decode_steps,
         "prefills": engine.scheduler.prefill_count,
+        "decode_retraces": engine.scheduler.decode_retraces(),
     }
     if lats:
         report["latency_p50_ms"] = _percentile(lats, 50)

@@ -8,7 +8,12 @@
 - **decode**: one step over the packed ``[max_batch]`` slot tensors. The
   batch composition (who occupies which slot, who is active) is data
   (block tables, positions, an active mask), never shape. Inactive slots
-  write their k/v to the trash page and pass their token through.
+  write their k/v to the trash page and pass their token through. On the
+  card the step is ONE CUDA graph (:class:`DecodeGraph`), captured at a
+  scheduler's first decode step and replayed on every step after it: the
+  counterpart of the reference's single jitted ``_decode_step``, whose
+  zero-retrace contract :meth:`ContinuousBatchScheduler.decode_retraces`
+  reports (captures after the first, 0 in steady state).
 
 Every decode op is per-slot independent (row-wise gemms, per-row
 attention over the row's own block table, per-row argmax).
@@ -25,9 +30,11 @@ activation at scale 1 and the weight at its static per-layer E4M3 scale
 (:func:`fp8_weight_scales`), two launches of the fp8 cast kernel a
 product. The lm head stays a plain matmul in both modes.
 
-PyTorch runs eagerly, so the reference's "one jit, zero retraces"
-contract has no counterpart yet; a CUDA graph of the decode step will
-take its place.
+The host mirrors of the slot arrays (numpy) are the source of truth,
+as in the reference; :meth:`~ContinuousBatchScheduler.export_requests`
+and :meth:`~ContinuousBatchScheduler.import_request` carry the in-flight
+requests and their pages across a preemption dump. Importing changes
+only data, so the graph is not captured again.
 """
 
 from __future__ import annotations
@@ -44,11 +51,13 @@ import torch
 from apex_tpu_torch import _device
 from apex_tpu_torch.models import generate as _gen
 from apex_tpu_torch.models import llama as _llama
+from apex_tpu_torch.ops import launch_counts
 from apex_tpu_torch.ops.precision import matmul_fp8
 from apex_tpu_torch.serving.kv_cache import PagedKVCache
 
 __all__ = [
     "ContinuousBatchScheduler",
+    "DecodeGraph",
     "Request",
     "build_decode_step",
     "build_prefill",
@@ -209,11 +218,132 @@ def build_prefill(cfg, bucket_len: int, weight_mode: str = "native"):
     return prefill
 
 
+# one capture stream a device for every decode graph of the process, so
+# the fp8 cast's per-stream scratch buffer is made once for all of them
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream decode graphs on ``device`` are captured on."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = torch.cuda.Stream(device=index)
+        _CAPTURE_STREAMS[index] = stream
+    return stream
+
+
+class DecodeGraph:
+    """The decode step over static device inputs: one CUDA graph on the
+    card, the same step called eagerly on a CPU device.
+
+    ``step(tokens, tables, pos, active) -> next_tokens`` runs the decode
+    step on tensors that never move: the inputs are views of one int64
+    device buffer ``[max_batch x (max_pages + 3)]`` (tokens, block
+    tables, positions, the active mask as 0/1), filled each call from
+    the host mirrors through one pinned staging buffer and one copy.
+    Shapes are fixed by ``max_batch`` and ``max_pages``; the batch
+    composition is data. ``pages()`` returns the tensors the step
+    updates in place (the KV pages).
+
+    On the card the first call warms the step up on the capture stream
+    (:func:`capture_stream`) with every slot inactive (the writes land
+    on the trash page), captures it, and every call replays the graph on
+    the caller's stream. The step reads params and pages by address, so
+    they must stay where they are (the cache updates them in place); a
+    call raises when the pages moved. A failed capture or replay raises:
+    there is no eager fallback on the card. The kernels' launch counters
+    advance by the capture's launches on every replay (the capture
+    itself launches nothing)."""
+
+    def __init__(self, step, device: torch.device, max_batch: int,
+                 max_pages: int, pages):
+        self.step = step
+        self.device = device
+        self.max_batch = int(max_batch)
+        self.max_pages = int(max_pages)
+        self.pages = pages
+        n = self.max_batch * (self.max_pages + 3)
+        cuda = device.type == "cuda"
+        self._host = torch.zeros(n, dtype=torch.int64, pin_memory=cuda)
+        self._static = torch.zeros(n, dtype=torch.int64, device=device)
+        self.graph = None
+        self.captures = 0
+        self.capture_s = None
+        self._out = None
+        self._launches = {}
+        self._held = ()
+
+    def inputs(self):
+        """The static inputs: views of the device buffer."""
+        b, p = self.max_batch, self.max_pages
+        buf = self._static
+        return (buf[:b], buf[b:b + b * p].view(b, p),
+                buf[b + b * p:2 * b + b * p], buf[2 * b + b * p:] != 0)
+
+    def _stage(self, tokens, tables, pos, active) -> None:
+        b, p = self.max_batch, self.max_pages
+        host = self._host.numpy()
+        host[:b] = tokens
+        host[b:b + b * p] = np.asarray(tables).reshape(-1)
+        host[b + b * p:2 * b + b * p] = pos
+        host[2 * b + b * p:] = active
+        self._static.copy_(self._host, non_blocking=True)
+
+    def _addresses(self):
+        return tuple(t.data_ptr() for t in self.pages())
+
+    def capture(self) -> None:
+        """Warm the step up on the capture stream and capture it;
+        ``capture_s`` is the host time the two took."""
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(self.device)
+        stream = capture_stream(self.device)
+        tokens, tables, pos, active = self.inputs()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.step(tokens, tables, pos, torch.zeros_like(active))
+        current.wait_stream(stream)
+        before = launch_counts.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = self.step(*self.inputs())
+        self._launches = launch_counts.delta(launch_counts.snapshot(),
+                                             before)
+        launch_counts.restore(before)
+        self.graph, self._out = graph, out
+        self._held = self._addresses()
+        self.captures += 1
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> torch.Tensor:
+        """Replay the captured step on its static inputs as they stand;
+        returns the static output tensor (next tokens, on the device)."""
+        if self._addresses() != self._held:
+            raise RuntimeError(
+                "the KV pages moved since the decode graph was captured: "
+                "the cache must update them in place")
+        self.graph.replay()
+        launch_counts.add(self._launches)
+        return self._out
+
+    def __call__(self, tokens, tables, pos, active) -> np.ndarray:
+        """One decode step from the host mirrors; next tokens as numpy."""
+        self._stage(tokens, tables, pos, active)
+        if self.device.type != "cuda":
+            return self.step(*self.inputs()).numpy()
+        if self.graph is None:
+            self.capture()
+        return self.replay().cpu().numpy()
+
+
 class ContinuousBatchScheduler:
     """Queue + slots + paged cache behind the prefill and decode steps.
 
     Host mirrors (numpy) of the slot arrays are the source of truth;
-    each decode step copies them to the device (same shapes every step).
+    each decode step stages them into the decode graph's static inputs
+    (same shapes every step).
     """
 
     def __init__(self, params, cfg, *, num_pages: int,
@@ -260,6 +390,17 @@ class ContinuousBatchScheduler:
                         if self.weight_mode == "fp8" else {})
         self._decode = build_decode_step(cfg, self.page_size,
                                          self.weight_mode)
+        # closures over the step's operands, not over self: the graph
+        # and its memory pool go with the scheduler, without a cycle
+        decode, scales, cache = self._decode, self._scales, self.cache
+
+        def step(*slots):
+            return decode(params, scales, cache.k_pages, cache.v_pages,
+                          *slots)
+
+        self._graph = DecodeGraph(
+            step, self.device, self.max_batch, self.max_pages_per_req,
+            pages=lambda: (cache.k_pages, cache.v_pages))
         self._prefills: Dict[int, object] = {}
         self.decode_steps = 0
         self.prefill_count = 0
@@ -275,6 +416,16 @@ class ContinuousBatchScheduler:
 
     def num_active(self) -> int:
         return int(np.count_nonzero(self._active))
+
+    def decode_captures(self) -> int:
+        """Captures of this scheduler's decode graph (1 once it decoded
+        on the card, 0 on a CPU device, which runs the step eagerly)."""
+        return self._graph.captures
+
+    def decode_retraces(self) -> int:
+        """Captures of the decode graph after this scheduler's first
+        (``scheduler.py:310``): steady state must report 0."""
+        return max(0, self._graph.captures - 1)
 
     # ------------------------------------------------------- admission
 
@@ -356,15 +507,9 @@ class ContinuousBatchScheduler:
         """One packed decode step; returns requests finished by it."""
         if not self._active.any():
             return []
-        dev = self.device
-        nxt = self._decode(
-            self.params, self._scales, self.cache.k_pages, self.cache.v_pages,
-            torch.from_numpy(self._tokens).to(dev),
-            torch.from_numpy(self._tables).to(dev),
-            torch.from_numpy(self._pos).to(dev),
-            torch.from_numpy(self._active).to(dev))
+        nxt = self._graph(self._tokens, self._tables, self._pos,
+                          self._active)
         self.decode_steps += 1
-        nxt = nxt.cpu().numpy()
         finished = []
         for slot, req in enumerate(self.slots):
             if req is None or not self._active[slot]:
@@ -394,3 +539,58 @@ class ContinuousBatchScheduler:
         self._tables[slot] = self.cache.trash_page
         self._tokens[slot] = 0
         self._pos[slot] = 0
+
+    # --------------------------------------------------- dump / resume
+
+    def _req_record(self, req: Request) -> dict:
+        return {"rid": req.rid,
+                "prompt": [int(t) for t in req.prompt],
+                "max_new_tokens": int(req.max_new_tokens),
+                "arrival_s": float(req.arrival_s)}
+
+    def export_requests(self):
+        """Emergency-dump payload (``scheduler.py:451``): (queued records,
+        inflight records, {name: host tensor} pages). In-flight k/v pages
+        are gathered so resume restores them by scatter: re-prefilling
+        would re-run float math and forfeit bit-identical resumption."""
+        queued = [self._req_record(r) for r in self.queue]
+        inflight, arrays = [], {}
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            pages = self.cache.alloc.pages_of(req.rid)
+            k, v = self.cache.gather_pages(pages)
+            arrays[f"k_{req.rid}"] = k
+            arrays[f"v_{req.rid}"] = v
+            rec = self._req_record(req)
+            rec.update(pos=int(self._pos[slot]),
+                       tokens=[int(t) for t in req.tokens],
+                       npages=len(pages))
+            inflight.append(rec)
+        return queued, inflight, arrays
+
+    def import_request(self, rec: dict, k, v) -> Request:
+        """Rebuild one in-flight request from a dump record and its
+        gathered pages (numpy in the dump's format, or tensors): the
+        pages are restored in place and the slot's mirrors set, so the
+        decode graph replays on as it was."""
+        req = Request(rid=rec["rid"],
+                      prompt=np.asarray(rec["prompt"], np.int32),
+                      max_new_tokens=rec["max_new_tokens"],
+                      arrival_s=rec.get("arrival_s", 0.0),
+                      submit_s=time.monotonic())
+        slot = self.slots.index(None)
+        pages = self.cache.alloc.alloc(rec["npages"], req.rid)
+        self.cache.restore_pages(pages, k, v)
+        req.tokens = list(rec["tokens"])
+        req.state = "active"
+        req.first_token_s = time.monotonic()
+        self.slots[slot] = req
+        self._tokens[slot] = req.tokens[-1]
+        self._pos[slot] = rec["pos"]
+        row = np.full(self.max_pages_per_req, self.cache.trash_page,
+                      np.int64)
+        row[:len(pages)] = pages
+        self._tables[slot] = row
+        self._active[slot] = True
+        return req

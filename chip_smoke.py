@@ -24,19 +24,34 @@ result line) when it fails:
                dropout 0.1 and both, at the training batch.
 4. serving  -- Llama-3-8B at full width and depth, random bf16 weights
                from a seeded generator, served by ``ServingEngine`` over a
-               16-request closed-loop trace; every launch counter must
-               match the path's expected count, and a teacher-forced pass
-               of the full ``forward`` must agree with the engine's tokens.
+               16-request closed-loop trace, its decode step one CUDA
+               graph captured once (``decode_retraces`` 0); every launch
+               counter must match the path's expected count (the graph's
+               replays add its launches), one replayed step profiled
+               must run exactly 65 RMSNorm forwards and no flash kernel,
+               and a teacher-forced pass of the full ``forward`` must
+               agree with the engine's tokens; the tokens' SHA-1.
 5. profile  -- only with ``--profile``: host time per prefill and decode
                step, the device's busy share and its time by kernel.
 5a. serving_fp8 -- the same model and trace through ``ServingEngine(
                weight_mode="fp8")``: exact launches (448 fp8 casts a
                prefill or decode step: 224 row-major activations, 224
-               column-major weights; no fill kernel), the engine's
-               weight scales equal to ones computed here, a
+               column-major weights; one scratch fill, at the first fp8
+               graph's warm-up on the capture stream, none in a replay),
+               the engine's weight scales equal to ones computed here, a
                teacher-forced check against a full-sequence fp8 forward
                built here from the plain functions, and the share of
                tokens equal to phase 4's.
+5c. serving_preempt -- phase 4's params and trace through an engine
+               whose page budget comes from the card's memory
+               (``num_pages=None``: its ``PageBudget``, and the
+               ``hbm_priors.json`` ratio measured from phase 4 beside the
+               committed one), preempted by a ``FaultPlan`` at iteration
+               1 (8 slots mid-decode): the dump (``state.json`` accounts
+               for every request; its bytes and the drain's seconds),
+               then a fresh engine resumed from it serves the rest to
+               phase 4's token SHA-1, its graph captured once; exact
+               launches, peak memory under 80 GB.
 5b. long_context -- ``FusedScaleMaskSoftmax`` forward and backward at
                32,768 keys (causal over GPT-2 345M's 16 heads and the
                last 2048 queries; a padding mask; causal with the padding
@@ -127,10 +142,12 @@ without the ``apex_tpu_torch`` package beside it, the script exits 1.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -220,6 +237,14 @@ DELTA_FP8 = 1.0
 # least SPIN_MS at the H100's clocks (at most 1.98 GHz)
 SPIN_CYCLES = 100_000_000
 SPIN_MS = SPIN_CYCLES / 2.0e9 * 1e3
+
+# the serving_preempt phase: the fault plan preempts the trace at this
+# engine iteration, the first with at least PREEMPT_MIN_INFLIGHT of the 8
+# slots mid-decode (iteration 0 admits 8 requests and decodes once);
+# the dump goes to a git-ignored directory of the checkout and is removed
+PREEMPT_AT = 1
+PREEMPT_MIN_INFLIGHT = 4
+PREEMPT_DUMP = ROOT / "build" / "serving_preempt"
 
 # (substring of the card's name, HBM bytes/s, dense bf16 FLOP/s, fp32
 # FLOP/s outside the tensor cores), from NVIDIA's data sheets
@@ -1425,17 +1450,59 @@ def teacher_forced(forward, engine, rids, delta):
     return out
 
 
-def make_engine(params, cfg, weight_mode="native"):
+def make_engine(params, cfg, weight_mode="native", **kw):
     """The serving geometry: 8 slots and the pages of 8 worst-case
-    requests."""
+    requests (``num_pages=None`` in ``kw``: the page budget, capped at
+    the same)."""
     from apex_tpu_torch.serving import ServingEngine, pages_per_request
 
-    num_pages = MAX_BATCH * pages_per_request(MAX_PROMPT, MAX_NEW,
-                                              PAGE_SIZE)
-    return ServingEngine(params, cfg, num_pages=num_pages,
-                         page_size=PAGE_SIZE, max_batch=MAX_BATCH,
-                         max_prompt_len=MAX_PROMPT, max_new_cap=MAX_NEW,
-                         weight_mode=weight_mode)
+    kw.setdefault("num_pages", MAX_BATCH * pages_per_request(
+        MAX_PROMPT, MAX_NEW, PAGE_SIZE))
+    return ServingEngine(params, cfg, page_size=PAGE_SIZE,
+                         max_batch=MAX_BATCH, max_prompt_len=MAX_PROMPT,
+                         max_new_cap=MAX_NEW, weight_mode=weight_mode, **kw)
+
+
+RMS_FWD_KERNEL = re.compile(r"row_norm::fwd(_rows)?_kernel<false")
+
+
+def replayed_step(engine, cfg, weight_mode, iters: int = 20) -> dict:
+    """One replay of the engine's captured decode graph under
+    ``torch.profiler``: its device kernels by kind, held to exactly the
+    step's launches (2L + 1 RMSNorm forwards, no flash kernel; under fp8
+    7L row-major and 7L column-major casts and no int32 fill, the cast
+    scratch's), and the device ms of a replay (CUDA events around
+    ``iters`` replays after the serving run, every slot idle: the same
+    kernels on the same shapes)."""
+    import torch
+
+    graph = engine.scheduler._graph.graph
+    names = device_activities(graph.replay)
+    seen = {"rms_norm_fwd": sum(bool(RMS_FWD_KERNEL.search(n))
+                                for n in names),
+            "flash": sum("flash" in n for n in names),
+            "fp8_cast": sum("cast_scale_kernel<" in n for n in names),
+            "fp8_cast_col": sum("cast_scale_t_kernel<" in n for n in names),
+            "fill_int32": sum("FillFunctor<int>" in n for n in names),
+            "fill_other": sum("FillFunctor" in n and "FillFunctor<int>"
+                              not in n for n in names),
+            "kernels": len(names)}
+    casts = 7 * cfg.num_layers if weight_mode == "fp8" else 0
+    want = {"rms_norm_fwd": 2 * cfg.num_layers + 1, "flash": 0,
+            "fp8_cast": casts, "fp8_cast_col": casts, "fill_int32": 0}
+    got = {k: seen[k] for k in want}
+    if got != want:
+        raise AssertionError(f"a replayed decode step ran {got} != {want} "
+                             f"(all kernels: {len(names)})")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    graph.replay()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return {**seen, "expected": want,
+            "device_ms": start.elapsed_time(end) / iters}
 
 
 def fp8_weight_scale(w):
@@ -1505,10 +1572,7 @@ def serving_report(engine, report, counts, want, peak):
     """The end-to-end numbers of a served trace, and a SHA-1 of its tokens
     by request id: equal digests mean equal tokens, so a later run can
     show that a path's tokens did not move."""
-    tokens = {rid: res["tokens"]
-              for rid, res in sorted(engine.results.items())}
-    return {"tokens_sha1": hashlib.sha1(
-                json.dumps(tokens).encode()).hexdigest(),
+    return {"tokens_sha1": tokens_sha1(engine.results),
             "num_pages": engine.scheduler.cache.num_pages,
             "page_size": PAGE_SIZE, "max_batch": MAX_BATCH,
             "requests": report["requests"], "tokens": report["tokens"],
@@ -1521,20 +1585,61 @@ def serving_report(engine, report, counts, want, peak):
             "mean_occupancy": report["mean_occupancy"],
             "prefills": engine.scheduler.prefill_count,
             "decode_steps": engine.scheduler.decode_steps,
+            "decode_captures": engine.scheduler.decode_captures(),
+            "decode_retraces": report["decode_retraces"],
+            "capture_s": engine.scheduler._graph.capture_s,
             "peak_memory_bytes": peak, "launches": counts,
             "expected_launches": want}
 
 
+def tokens_sha1(results) -> str:
+    tokens = {rid: res["tokens"] for rid, res in sorted(results.items())}
+    return hashlib.sha1(json.dumps(tokens).encode()).hexdigest()
+
+
+def expected_launches(counts, cfg, engine, weight_mode, fills=0):
+    """A served run's exact launches: the flash forward 32 a prefill, 65
+    RMSNorm forwards a prefill, a decode step (each replay of the graph)
+    and the graph's warm-up step before its capture; under fp8 7L casts
+    of each layout in each of those, and ``fills`` scratch fills. No
+    gradients while serving: the backward and Adam kernels stay at 0."""
+    sched = engine.scheduler
+    calls = (sched.prefill_count + sched.decode_steps
+             + sched.decode_captures())
+    want = dict({k: 0 for k in counts},
+                flash_attention_fwd=cfg.num_layers * sched.prefill_count,
+                rms_norm_fwd=(2 * cfg.num_layers + 1) * calls)
+    if weight_mode == "fp8":
+        want["fp8_cast"] = want["fp8_cast_col"] = 7 * cfg.num_layers * calls
+        want["fp8_cast_fill"] = fills
+    return want
+
+
+def new_scratch(device) -> int:
+    """1 when the decode graphs' capture stream has no fp8 cast scratch
+    yet (the first fp8 graph's warm-up makes it, one fill), else 0."""
+    import torch
+
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+    from apex_tpu_torch.serving.scheduler import capture_stream
+
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    key = (index, capture_stream(device).cuda_stream)
+    return int(key not in fc._SCRATCH)
+
+
 def serve(params, cfg, weight_mode):
-    """The 16-request trace through a fresh engine: (engine, report,
-    launch counts, expected counts, peak memory). Every request must get
-    its full token count and the counts must be exact."""
+    """The 16-request trace through a fresh engine: (engine, trace,
+    report). Every request must get its full token count, the decode
+    graph must be captured once, and the counts must be exact."""
     import torch
 
     from apex_tpu_torch.serving import make_trace, run_closed_loop
 
     engine = make_engine(params, cfg, weight_mode)
     trace = make_trace(**TRACE)
+    fills = new_scratch(engine.device) if weight_mode == "fp8" else 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1542,18 +1647,7 @@ def serve(params, cfg, weight_mode):
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    prefills = engine.scheduler.prefill_count
-    calls = prefills + engine.scheduler.decode_steps
-    # no gradients while serving: the backward and Adam kernels stay at 0;
-    # fp8 casts each product's activation (row-major) and weight
-    # (column-major): 7 x L of each a call, and fills nothing (fp8_cast_fill
-    # 0: the kernels finish amax themselves, and the kernels phase made
-    # the stream's scratch buffer)
-    want = dict({k: 0 for k in counts},
-                flash_attention_fwd=cfg.num_layers * prefills,
-                rms_norm_fwd=(2 * cfg.num_layers + 1) * calls)
-    if weight_mode == "fp8":
-        want["fp8_cast"] = want["fp8_cast_col"] = 7 * cfg.num_layers * calls
+    want = expected_launches(counts, cfg, engine, weight_mode, fills)
     missing = [t.rid for t in trace
                if len(engine.results.get(t.rid, {}).get("tokens", ()))
                != t.max_new_tokens]
@@ -1562,7 +1656,19 @@ def serve(params, cfg, weight_mode):
                              f"{missing}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-    return engine, trace, serving_report(engine, report, counts, want, peak)
+    if engine.scheduler.decode_captures() != 1 or report["decode_retraces"]:
+        raise AssertionError(
+            f"decode graph captured {engine.scheduler.decode_captures()}x, "
+            f"retraces {report['decode_retraces']}: want 1 and 0")
+    out = serving_report(engine, report, counts, want, peak)
+    out["replayed_step"] = replayed_step(engine, cfg, weight_mode)
+    return engine, trace, out
+
+
+def params_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(params_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
 
 
 def phase_serving():
@@ -1582,7 +1688,8 @@ def phase_serving():
                         [longest[0].rid, longest[-1].rid], DELTA)
     return params, cfg, engine.results, {
             "phase": "serving", "model": "llama3_8b", "dtype": "bfloat16",
-            "num_layers": cfg.num_layers, "init_s": init_s, **report,
+            "num_layers": cfg.num_layers, "init_s": init_s,
+            "params_bytes": params_bytes(params), **report,
             "teacher_forced": tf}
 
 
@@ -1621,6 +1728,129 @@ def phase_serving_fp8(params, cfg, native_results):
             **report, "teacher_forced": tf,
             "tokens_equal_to_native": same, "tokens_compared": total,
             "share_equal_to_native": same / total}
+
+
+def page_budget_prior(serving, cfg) -> dict:
+    """The ``serving_decode_step`` prior of ``hbm_priors.json``, measured
+    from the serving phase: (its peak allocated bytes - the params'
+    bytes) / ((num_pages + 1) x page_hbm_bytes), the pages with the
+    activations, prefill buffers and decode graph pool beside them."""
+    from apex_tpu_torch.serving import page_hbm_bytes
+
+    modeled = (serving["num_pages"] + 1) * page_hbm_bytes(cfg, PAGE_SIZE)
+    measured = serving["peak_memory_bytes"] - serving["params_bytes"]
+    return {"ratio": measured / modeled, "modeled_bytes": modeled,
+            "measured_bytes": measured}
+
+
+def phase_serving_preempt(params, cfg, serving):
+    """The serving trace through an engine whose page budget comes from
+    the card's memory (``num_pages=None``) and whose fault plan preempts
+    it at iteration PREEMPT_AT: the drain must dump every request as
+    completed, in flight (at least PREEMPT_MIN_INFLIGHT) or queued, and a
+    fresh engine resumed from the dump must serve the rest to the serving
+    phase's tokens (the same SHA-1), with its decode graph captured once.
+    Peak memory over both engines stays under the card's 80 GB."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch.analysis.memory_checks import load_hbm_priors
+    from apex_tpu_torch.resilience import EXIT_PREEMPTED, FaultPlan, Preempted
+    from apex_tpu_torch.serving import ServingEngine, make_trace
+    from apex_tpu_torch.serving.engine import _PAGES_FILE, _STATE_FILE
+
+    shutil.rmtree(PREEMPT_DUMP, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine(params, cfg, num_pages=None,
+                         fault_plan=FaultPlan.parse(
+                             f"seed={SEED},preempt@{PREEMPT_AT}"),
+                         dump_dir=str(PREEMPT_DUMP))
+    budget = engine.page_budget
+    reserved = torch.cuda.memory_reserved()
+    trace = make_trace(**TRACE)
+    for t in trace:
+        engine.submit(t.prompt, t.max_new_tokens, rid=t.rid,
+                      arrival_s=t.arrival_s)
+    drain_s = None
+    while engine.pending:
+        t0 = time.monotonic()
+        try:
+            engine.step()
+        except Preempted as exc:
+            drain_s = time.monotonic() - t0
+            if exc.exit_code != EXIT_PREEMPTED:
+                raise AssertionError(f"exit code {exc.exit_code}")
+            break
+    if drain_s is None:
+        raise AssertionError("the fault plan did not preempt the engine")
+    with open(PREEMPT_DUMP / _STATE_FILE) as f:
+        state = json.load(f)
+    inflight = state["inflight"]
+    accounted = (set(int(r) for r in state["completed"])
+                 | {r["rid"] for r in inflight}
+                 | {r["rid"] for r in state["queued"]})
+    if accounted != {t.rid for t in trace}:
+        raise AssertionError(f"the dump lost requests: {accounted}")
+    if len(inflight) < PREEMPT_MIN_INFLIGHT:
+        raise AssertionError(f"{len(inflight)} requests in flight at the "
+                             f"drain, want >= {PREEMPT_MIN_INFLIGHT}")
+    dump_bytes = sum(f.stat().st_size for f in PREEMPT_DUMP.iterdir())
+    sched = engine.scheduler
+    calls = sched.prefill_count + sched.decode_steps + sched.decode_captures()
+    del engine, sched
+    gc.collect()
+    t0 = time.monotonic()
+    resumed = ServingEngine.resume(str(PREEMPT_DUMP), params, cfg)
+    torch.cuda.synchronize()
+    resume_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    resumed.run()
+    run_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    sched = resumed.scheduler
+    calls += sched.prefill_count + sched.decode_steps + sched.decode_captures()
+    want = dict({k: 0 for k in counts},
+                flash_attention_fwd=cfg.num_layers * len(trace),
+                rms_norm_fwd=(2 * cfg.num_layers + 1) * calls)
+    digest = tokens_sha1(resumed.results)
+    out = {"phase": "serving_preempt", "preempt_at": PREEMPT_AT,
+           "drain_iteration": state["iteration"],
+           "inflight": len(inflight), "queued": len(state["queued"]),
+           "completed_before": len(state["completed"]),
+           "dump_files": sorted(f.name for f in PREEMPT_DUMP.iterdir()),
+           "dump_bytes": dump_bytes, "drain_s": drain_s,
+           "resume_s": resume_s, "resumed_run_s": run_s,
+           "resumed_tokens": sum(len(r["tokens"])
+                                 for r in resumed.results.values()),
+           "tokens_sha1": digest, "serving_tokens_sha1":
+               serving["tokens_sha1"],
+           "decode_captures": resumed.scheduler.decode_captures(),
+           "decode_retraces": resumed.scheduler.decode_retraces(),
+           "peak_memory_bytes": peak, "launches": counts,
+           "expected_launches": want,
+           "page_budget": dataclasses.asdict(budget),
+           "reserved_bytes_at_budget": reserved,
+           "num_pages": resumed.scheduler.cache.num_pages,
+           "prior_measured": page_budget_prior(serving, cfg),
+           "prior_committed": load_hbm_priors()["priors"][
+               "serving_decode_step"]}
+    shutil.rmtree(PREEMPT_DUMP, ignore_errors=True)
+    if _PAGES_FILE not in out["dump_files"]:
+        raise AssertionError(f"no {_PAGES_FILE} in the dump")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    if digest != serving["tokens_sha1"]:
+        raise AssertionError(f"resumed tokens {digest} != the serving "
+                             f"phase's {serving['tokens_sha1']}")
+    if out["decode_retraces"] or out["decode_captures"] != 1:
+        raise AssertionError(f"resumed decode graph: {out}")
+    if peak >= 80e9:
+        raise AssertionError(f"peak memory {peak} B at or over 80 GB")
+    return out
 
 
 def phase_long_context(dev):
@@ -1736,11 +1966,17 @@ def phase_profile(params, cfg):
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
     decode = spans["decode"]
+    steady = sorted(decode[1:])
     return {"phase": "profile", "requests": len(trace), "wall_ms": wall_ms,
             "prefill_ms": spans["prefill"],
             "prefill_share": sum(spans["prefill"]) / wall_ms,
             "decode_steps": len(decode),
             "decode_step_ms_mean": sum(decode) / max(1, len(decode)),
+            # the first step warms the decode graph up and captures it
+            "first_decode_step_ms": decode[0],
+            "capture_ms": sched._graph.capture_s * 1e3,
+            "decode_step_ms_median": steady[len(steady) // 2],
+            "decode_retraces": sched.decode_retraces(),
             "decode_share": sum(decode) / wall_ms,
             "profiled_wall_ms": profiled_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -1845,18 +2081,9 @@ def grad_check(params, kernel_loss, plain_loss):
 
 
 def reset_counts():
-    from apex_tpu_torch.ops import flash_attention as fa
-    from apex_tpu_torch.ops import fp8_cast_kernel as fc
-    from apex_tpu_torch.ops import fused_adam_kernel as fak
-    from apex_tpu_torch.ops import layer_norm as ln
-    from apex_tpu_torch.transformer.functional import fused_softmax as sm
+    from apex_tpu_torch.ops import launch_counts
 
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    ln.launches = ln.bwd_launches = fak.launches = 0
-    ln.ln_launches = ln.ln_bwd_launches = 0
-    sm.causal_launches = sm.masked_launches = 0
-    sm.stats_launches = sm.apply_launches = 0
-    fc.launches = fc.col_launches = fc.fills = 0
+    launch_counts.restore(dict.fromkeys(launch_counts.snapshot(), 0))
 
 
 def read_counts():
@@ -3890,6 +4117,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         serving_fp8 = phase_serving_fp8(params, cfg, native_results)
         emit(serving_fp8)
+        phase = "serving_preempt"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        serving_preempt = phase_serving_preempt(params, cfg, serving)
+        emit(serving_preempt)
         # the profile's timed scheduler methods close over the engine
         # that holds the serving params: a reference cycle, which only
         # the collector frees
@@ -3959,6 +4192,7 @@ def main() -> int:
         return 1
     counts = {"serving": serving["launches"],
               "serving_fp8": serving_fp8["launches"],
+              "serving_preempt": serving_preempt["launches"],
               "long_context": {
                   k: sum(long_context[c]["launches"][k] for c in (
                       "causal", "padding", "causal_padding"))

@@ -822,7 +822,10 @@ def test_fp8_serving_reaches_the_cast_kernel(gen):
     engine.submit(torch.arange(9).numpy(), 3)
     results = engine.run()
     sched = engine.scheduler
-    want = 7 * cfg.num_layers * (sched.prefill_count + sched.decode_steps)
+    # each prefill, each replayed decode step, and the decode graph's
+    # warm-up step before its capture
+    want = 7 * cfg.num_layers * (sched.prefill_count + sched.decode_steps
+                                 + sched.decode_captures())
     assert _cast_counts() == (row + want, col + want) and want > 0
     assert {rid: len(r["tokens"]) for rid, r in results.items()} == {
         0: 4, 1: 3}
@@ -1436,3 +1439,154 @@ def test_inverted_dropout_cpu_generator_on_cuda_probs():
     assert got.device == probs.device
     assert torch.equal(got, torch.where(keep, probs / 0.9,
                                         torch.zeros_like(probs)))
+
+
+# ------------------------------------------------ the decode step's graph
+
+
+def _tiny_engine(gen, weight_mode="native", params=None, **kw):
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.serving import ServingEngine
+
+    cfg = llama.tiny(dtype=torch.bfloat16)
+    if params is None:
+        params = llama.init_params(gen, cfg, device="cuda")
+    geo = dict(num_pages=48, page_size=8, max_batch=3, max_prompt_len=16,
+               max_new_cap=12, weight_mode=weight_mode,
+               registry=MetricRegistry())
+    geo.update(kw)
+    return cfg, params, ServingEngine(params, cfg, **geo)
+
+
+def _serving_jobs(cfg, n=7, seed=11):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, cfg.vocab_size,
+                          size=int(rng.integers(3, 16))).astype(np.int32),
+             int(rng.integers(3, 13))) for _ in range(n)]
+
+
+class _EagerRunner:
+    """The decode runner with the graph taken out: the same step on the
+    same static inputs, called eagerly on the current stream."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.captures = 0
+
+    def __call__(self, tokens, tables, pos, active):
+        self.graph._stage(tokens, tables, pos, active)
+        return self.graph.step(*self.graph.inputs()).cpu().numpy()
+
+
+def _defrag(sched):
+    mapping = sched.cache.defrag()
+    for row in sched._tables:
+        row[:] = [mapping.get(int(p), int(p)) for p in row]
+    return mapping
+
+
+def _serve(engine, jobs, defrag_at=None):
+    for prompt, max_new in jobs:
+        engine.submit(prompt, max_new)
+    moved = {}
+    while engine.pending:
+        engine.step()
+        if (defrag_at is not None and not moved
+                and len(engine.results) >= defrag_at
+                and engine.scheduler.num_active()):
+            moved = _defrag(engine.scheduler)
+    return engine.results, moved
+
+
+@pytest.mark.parametrize("weight_mode", ["native", "fp8"])
+def test_decode_graph_tokens_equal_the_eager_step(gen, weight_mode):
+    """tiny() in bf16: the graphed decode step gives the eager step's
+    tokens, bit for bit, across refills of 3 slots from 7 requests, an
+    EOS eviction and an in-place defrag, and is captured once."""
+    cfg, params, probe = _tiny_engine(gen, weight_mode)
+    jobs = _serving_jobs(cfg)
+    first, _ = _serve(probe, jobs)
+    eos = first[1]["tokens"][1]
+    results = []
+    for eager in (False, True):
+        _, _, engine = _tiny_engine(gen, weight_mode, params, eos_id=eos)
+        if eager:
+            engine.scheduler._graph = _EagerRunner(engine.scheduler._graph)
+        got, moved = _serve(engine, jobs, defrag_at=2)
+        assert moved
+        results.append(got)
+        if not eager:
+            assert engine.scheduler.decode_captures() == 1
+            assert engine.scheduler.decode_retraces() == 0
+    assert results[0] == results[1]
+    assert len(results[0][1]["tokens"]) <= 2
+
+
+def test_decode_graph_not_captured_again_after_refills_import_and_defrag(
+        gen):
+    cfg, params, engine = _tiny_engine(gen)
+    sched = engine.scheduler
+    jobs = _serving_jobs(cfg)
+    ptrs = (sched.cache.k_pages.data_ptr(), sched.cache.v_pages.data_ptr())
+    _serve(engine, jobs[:5], defrag_at=1)
+    assert sched.decode_captures() == 1
+    # a request exported from another engine mid-decode, imported here
+    _, _, other = _tiny_engine(gen, params=params)
+    for prompt, max_new in jobs[5:]:
+        other.submit(prompt, max_new)
+    other.step()
+    other.step()
+    _, inflight, arrays = other.scheduler.export_requests()
+    for rec in inflight:
+        rec = dict(rec, rid=100 + rec["rid"])
+        sched.import_request(rec, arrays[f"k_{rec['rid'] - 100}"],
+                             arrays[f"v_{rec['rid'] - 100}"])
+    engine.run()
+    assert {100 + rec["rid"] for rec in inflight} <= set(engine.results)
+    assert sched.decode_captures() == 1 and sched.decode_retraces() == 0
+    assert (sched.cache.k_pages.data_ptr(),
+            sched.cache.v_pages.data_ptr()) == ptrs
+
+
+def test_decode_graph_replays_add_the_captured_launches(gen):
+    """A capture launches nothing; its warm-up step launches 2L + 1
+    RMSNorm forwards; every replay adds the capture's 2L + 1."""
+    cfg, _, engine = _tiny_engine(gen)
+    sched = engine.scheduler
+    per_step = 2 * cfg.num_layers + 1
+    engine.submit(torch.arange(5).numpy(), 6)
+    sched.try_admit()
+    before = ln.launches
+    sched.step_decode()
+    assert ln.launches - before == 2 * per_step
+    for _ in range(3):
+        before = ln.launches
+        sched.step_decode()
+        assert ln.launches - before == per_step
+    before = ln.launches
+    sched._graph.replay()
+    torch.cuda.synchronize()
+    assert ln.launches - before == per_step
+
+
+def test_failed_capture_raises(gen):
+    """A host sync inside the step breaks the capture: the step raises,
+    with no eager fallback, and nothing is captured."""
+    cfg, _, engine = _tiny_engine(gen)
+    sched = engine.scheduler
+    step = sched._graph.step
+
+    def syncing(*slots):
+        out = step(*slots)
+        float(out.sum())
+        return out
+
+    sched._graph.step = syncing
+    engine.submit(torch.arange(5).numpy(), 4)
+    with pytest.raises(RuntimeError):
+        engine.step()
+    assert sched.decode_captures() == 0
+    assert sched._graph.graph is None

@@ -43,7 +43,7 @@ WRAPPERS = {
                          "backward", "_fp8_product", "matmul_amp"),
     "serving/scheduler.py": ("_make_mm", "fp8_weight_scales",
                              "build_decode_step", "build_prefill",
-                             "__init__"),
+                             "__init__", "capture", "replay"),
     "ops/fused_adam_kernel.py": ("_adam_flat_cuda", "adam_flat", "_lib"),
     "optimizers/fused_adam.py": ("fused_adam",),
     "optimizers/fused_lamb.py": ("fused_lamb",),
