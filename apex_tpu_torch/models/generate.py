@@ -1,9 +1,12 @@
-"""KV-cache autoregressive decoding for the llama family (port of
-``apex_tpu/models/generate.py``, llama path, dense and MoE; GPT-2 waits).
+"""KV-cache autoregressive decoding (port of
+``apex_tpu/models/generate.py``): the llama family, dense and MoE, and
+GPT-2 (:func:`gpt2_generate`).
 
 Prefill is one full-sequence pass through the flash-attention kernel that
-also returns every layer's rotated k / v; decode attends one query token
-against the cache with a plain fp32 softmax. The decode attention is a
+also returns every layer's (rotated) k / v; decode attends one query
+token against the cache with a plain fp32 softmax. GPT-2's LayerNorms
+run the LayerNorm forward kernel in the prefill and in every decode
+step. The decode attention is a
 grouped einsum here as in the reference (``generate.py:52``): it is no
 Pallas kernel there.
 
@@ -26,8 +29,10 @@ import torch.nn.functional as F
 
 from apex_tpu_torch import _device
 from apex_tpu_torch.models import llama as _llama
+from apex_tpu_torch.models._common import layer_norm as _ln
+from apex_tpu_torch.ops.flash_attention import flash_attention
 
-__all__ = ["greedy_generate", "generate"]
+__all__ = ["greedy_generate", "generate", "gpt2_generate"]
 
 
 def _decode_attention(q, k_cache, v_cache, pos):
@@ -140,6 +145,37 @@ def _sample(logits, temperature: float,
     return torch.argmax(logits, dim=-1)  # first index on a tie
 
 
+def _check_args(params, temperature: float,
+                generator: Optional[torch.Generator],
+                device: _device.DeviceLike):
+    """The run's device, and the generator to sample from there."""
+    if temperature and generator is None:
+        raise ValueError("temperature sampling needs a torch.Generator")
+    dev = _device.resolve(device)
+    held = _device.of(params)
+    if held is not None and held.type != dev.type:
+        raise ValueError(f"params live on {held}, generate runs on {dev}")
+    if generator is not None:
+        generator = _device.generator_on(generator, dev)
+    return dev, generator
+
+
+def _autoregress(prompt_tokens, logits0, decode_step, max_new_tokens: int,
+                 temperature: float, generator):
+    """The shared decode loop (``generate.py:203``): the first token from
+    the prefill's logits, then ``max_new_tokens - 1`` calls of
+    ``decode_step(token [b, 1], pos) -> logits [b, vocab]``."""
+    p = prompt_tokens.shape[1]
+    token = _sample(logits0, temperature, generator)[:, None]
+    new = [token]
+    for pos in range(p, p + max_new_tokens - 1):
+        token = _sample(decode_step(token, pos), temperature,
+                        generator)[:, None]
+        new.append(token)
+    return torch.cat([prompt_tokens] + [t.to(prompt_tokens.dtype)
+                                        for t in new], dim=1)
+
+
 @torch.no_grad()
 def generate(params, prompt_tokens: torch.Tensor, cfg, max_new_tokens: int,
              temperature: float = 0.0,
@@ -153,12 +189,7 @@ def generate(params, prompt_tokens: torch.Tensor, cfg, max_new_tokens: int,
     the GPU, raising when there is none), where the params must lie. MoE
     configs route every token with no capacity drop.
     """
-    if temperature and generator is None:
-        raise ValueError("temperature sampling needs a torch.Generator")
-    dev = _device.resolve(device)
-    held = _device.of(params)
-    if held is not None and held.type != dev.type:
-        raise ValueError(f"params live on {held}, generate runs on {dev}")
+    dev, generator = _check_args(params, temperature, generator, device)
     prompt_tokens = prompt_tokens.to(dev)
     b, p = prompt_tokens.shape
     positions = torch.arange(p, device=dev).expand(b, p)
@@ -171,22 +202,119 @@ def generate(params, prompt_tokens: torch.Tensor, cfg, max_new_tokens: int,
         x, k, v = _prefill_layer(x, _llama.layer(params, i), cfg, positions)
         k_cache[i, :, :p] = k
         v_cache[i, :, :p] = v
-    token = _sample(_llama.lm_head(params, x[:, -1:], cfg)[:, 0],
-                    temperature, generator)[:, None]
-    new = [token]
-    for pos in range(p, max_len - 1):
+
+    def decode_step(token, pos):
         x = _llama.embed(params, token, cfg)
         for i in range(cfg.num_layers):
             x = _decode_layer(x, _llama.layer(params, i), cfg, k_cache[i],
                               v_cache[i], pos)
-        token = _sample(_llama.lm_head(params, x, cfg)[:, 0],
-                        temperature, generator)[:, None]
-        new.append(token)
-    return torch.cat([prompt_tokens] + [t.to(prompt_tokens.dtype)
-                                        for t in new], dim=1)
+        return _llama.lm_head(params, x, cfg)[:, 0]
+
+    logits0 = _llama.lm_head(params, x[:, -1:], cfg)[:, 0]
+    return _autoregress(prompt_tokens, logits0, decode_step, max_new_tokens,
+                        temperature, generator)
 
 
 def greedy_generate(params, prompt_tokens, cfg, max_new_tokens: int,
                     device: _device.DeviceLike = None):
     return generate(params, prompt_tokens, cfg, max_new_tokens,
                     temperature=0.0, device=device)
+
+
+# ------------------------------------------------------------------- gpt2
+
+
+def _gpt2_qkv(x, lp, cfg):
+    """Packed q|k|v projection (``generate.py:264``): [b, s, h] -> three
+    [b, s, n, d]."""
+    b, s, h = x.shape
+    n, d = cfg.num_heads, cfg.head_dim
+    qkv = (torch.matmul(x, lp["wqkv"].reshape(h, -1).to(x.dtype))
+           + lp["bqkv"].reshape(-1))
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+    return (q.reshape(b, s, n, d), k.reshape(b, s, n, d),
+            v.reshape(b, s, n, d))
+
+
+def _gpt2_mlp(x, lp):
+    y = torch.matmul(x, lp["wfc"].to(x.dtype)) + lp["bfc"]
+    y = F.gelu(y, approximate="tanh")
+    return torch.matmul(y, lp["wproj"].to(x.dtype)) + lp["bproj"]
+
+
+def _gpt2_prefill_layer(x, lp, cfg):
+    """One layer over the whole prompt: LayerNorm kernels and the flash
+    forward (causal); returns (x, k, v)."""
+    b, s = x.shape[:2]
+    h = _ln(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
+    q, k, v = _gpt2_qkv(h, lp, cfg)
+    o = flash_attention(q, k, v, causal=True, scale=cfg.head_dim ** -0.5)
+    x = x + (torch.matmul(o.reshape(b, s, -1), lp["wo"].to(x.dtype))
+             + lp["bo"])
+    h = _ln(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
+    return x + _gpt2_mlp(h, lp), k, v
+
+
+def _gpt2_decode_layer(x, lp, cfg, k_cache, v_cache, pos: int):
+    """One decode step through one layer; writes this token's k / v into
+    the caches in place (the reference returns updated caches)."""
+    b = x.shape[0]
+    h = _ln(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
+    q, k, v = _gpt2_qkv(h, lp, cfg)
+    k_cache[:, pos] = k[:, 0]
+    v_cache[:, pos] = v[:, 0]
+    o = _decode_attention(q, k_cache, v_cache, pos).to(x.dtype)
+    x = x + (torch.matmul(o.reshape(b, 1, -1), lp["wo"].to(x.dtype))
+             + lp["bo"])
+    h = _ln(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
+    return x + _gpt2_mlp(h, lp)
+
+
+@torch.no_grad()
+def gpt2_generate(params, prompt_tokens: torch.Tensor, cfg,
+                  max_new_tokens: int, temperature: float = 0.0,
+                  generator: Optional[torch.Generator] = None,
+                  device: _device.DeviceLike = None) -> torch.Tensor:
+    """GPT-2 decode (``generate.py:316``; learned positions, packed qkv,
+    tied head): prompt [b, p] -> tokens [b, p + new]. Greedy at
+    ``temperature=0``, else sampling from ``generator``. Runs on
+    ``device`` (default: the GPU, raising when there is none)."""
+    b, p = prompt_tokens.shape
+    max_len = p + max_new_tokens
+    if max_len > cfg.max_seq_len:
+        raise ValueError(f"prompt + new tokens ({max_len}) exceeds "
+                         f"max_seq_len {cfg.max_seq_len}")
+    dev, generator = _check_args(params, temperature, generator, device)
+    prompt_tokens = prompt_tokens.to(dev)
+    layers = params["layers"]
+
+    def layer(i):
+        return {name: w[i] for name, w in layers.items()}
+
+    def embed(tokens, pos0: int):
+        x = params["embed"][tokens]
+        wpe = params["pos_embed"][pos0:pos0 + tokens.shape[1]]
+        return (x + wpe[None]).to(cfg.dtype)
+
+    def logits_fn(x):
+        x = _ln(x, params["lnf_w"], params["lnf_b"], cfg.ln_eps)
+        return torch.matmul(x, params["embed"].T.to(x.dtype)).float()
+
+    x = embed(prompt_tokens, 0)
+    shape = (cfg.num_layers, b, max_len, cfg.num_heads, cfg.head_dim)
+    k_cache = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    v_cache = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    for i in range(cfg.num_layers):
+        x, k, v = _gpt2_prefill_layer(x, layer(i), cfg)
+        k_cache[i, :, :p] = k
+        v_cache[i, :, :p] = v
+
+    def decode_step(token, pos):
+        x = embed(token, pos)
+        for i in range(cfg.num_layers):
+            x = _gpt2_decode_layer(x, layer(i), cfg, k_cache[i], v_cache[i],
+                                   pos)
+        return logits_fn(x)[:, 0]
+
+    return _autoregress(prompt_tokens, logits_fn(x[:, -1:])[:, 0],
+                        decode_step, max_new_tokens, temperature, generator)

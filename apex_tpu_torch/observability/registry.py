@@ -1,18 +1,21 @@
-"""Thread-safe metric registry, the subset ``ServerMetrics`` uses (port of
-``apex_tpu/observability/registry.py``).
+"""Thread-safe metric registry (port of
+``apex_tpu/observability/registry.py``): the subset ``ServerMetrics`` and
+the resilient training loop use.
 
-Counters, gauges, histograms keyed by (name, labels), structured events,
-and ``to_records`` in the reference's record shape, so a port dump reads
-like a JAX-package dump. Timers, JSONL dump and the fleet stamp wait for
-the observability slice.
+Counters, gauges, histograms and timers keyed by (name, labels),
+structured events, and ``to_records`` in the reference's record shape,
+so a port dump reads like a JAX-package dump. The JSONL dump and the
+fleet stamp wait for the observability slice.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
+import time
+from typing import Optional
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricRegistry",
+__all__ = ["Counter", "Gauge", "Histogram", "Timer", "MetricRegistry",
            "get_registry", "set_registry"]
 
 # bounded per-histogram sample reservoir for percentile estimates; the
@@ -109,7 +112,89 @@ class Histogram(_Metric):
         return rec
 
 
-_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+def _sync(tree) -> None:
+    """Wait for every CUDA device holding a tensor of ``tree``."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    for device in {leaf.device for leaf in _tree.flatten(tree)[0]
+                   if isinstance(leaf, torch.Tensor) and leaf.is_cuda}:
+        torch.cuda.synchronize(device)
+
+
+class Timer(Histogram):
+    """A histogram of seconds with start/stop (``registry.py:144``).
+
+    ``stop(block_on=out)`` first waits for the devices of the tensors in
+    ``out``, so the interval covers their execution. The reference also
+    subtracts the round trip of its device fetch, measured through a
+    tunnel; a local card has no tunnel, and no correction is made here.
+    A running timer holds a profiler scope named ``timer/<name>``
+    (``torch.profiler.record_function``), so phases land named in
+    traces.
+
+    ``total_elapsed`` accumulates elapsed seconds across start/stop
+    pairs; every stop also feeds the histogram.
+    """
+
+    kind = "timer"
+
+    def __init__(self, name, labels):
+        super().__init__(name, labels)
+        self.total_elapsed = 0.0
+        self._start: Optional[float] = None
+        self._scope_cm = None
+
+    def start(self) -> None:
+        if self._start is not None:
+            raise RuntimeError(f"timer {self.name!r} is already running")
+        import torch
+
+        self._scope_cm = torch.profiler.record_function(f"timer/{self.name}")
+        self._scope_cm.__enter__()
+        self._start = time.perf_counter()
+
+    def _close_scope(self) -> None:
+        self._start = None
+        if self._scope_cm is not None:
+            self._scope_cm.__exit__(None, None, None)
+            self._scope_cm = None
+
+    def stop(self, block_on=None) -> float:
+        """End the interval; returns the elapsed seconds. ``block_on``:
+        the tensors the timed region produced, waited for first. Omit it
+        for host-only regions."""
+        if self._start is None:
+            raise RuntimeError(f"timer {self.name!r} is not running")
+        start = self._start
+        try:
+            if block_on is not None:
+                _sync(block_on)
+            now = time.perf_counter()
+        finally:
+            # a sync can surface a deferred device error: the timer must
+            # not stay running with its scope open
+            self._close_scope()
+        elapsed = max(now - start, 0.0)
+        with self._lock:
+            self.total_elapsed += elapsed
+        self.observe(elapsed)
+        return elapsed
+
+    def cancel(self) -> None:
+        """Abandon a running interval without recording it."""
+        self._close_scope()
+
+    def to_record(self) -> dict:
+        rec = super().to_record()
+        rec["total_elapsed"] = self.total_elapsed
+        rec["unit"] = "s"
+        return rec
+
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram,
+          "timer": Timer}
 
 
 class MetricRegistry:
@@ -139,6 +224,9 @@ class MetricRegistry:
 
     def histogram(self, name: str, **labels) -> Histogram:
         return self._get("histogram", name, labels)
+
+    def timer(self, name: str, **labels) -> Timer:
+        return self._get("timer", name, labels)
 
     def event(self, name: str, **fields) -> dict:
         """Append a structured event record; returns it."""

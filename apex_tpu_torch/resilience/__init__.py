@@ -1,18 +1,21 @@
-"""apex_tpu_torch.resilience: fault injection and preemption handling
-(port of ``apex_tpu.resilience``, the pieces the serving engine uses).
+"""apex_tpu_torch.resilience: fault injection, preemption handling and
+the auto-resuming training loop (port of ``apex_tpu.resilience``).
 
 - :mod:`~apex_tpu_torch.resilience.faults`: :class:`FaultPlan`, seeded
-  schedules of preemptions and other faults, the reference's spec
-  language and draws.
+  schedules of preemptions, torn and disk-full checkpoint writes,
+  transient step exceptions, NaN storms, stalls and OOMs, in the
+  reference's spec language and with the reference's draws;
+  :func:`corrupt_tree` and :func:`inject_checkpoint_failures`.
+- :mod:`~apex_tpu_torch.resilience.retry`: :class:`Policy` and
+  :class:`Deadline`, backoff with jitter and attempt, per-class and
+  wall-clock budgets.
 - :mod:`~apex_tpu_torch.resilience.preemption`:
   :class:`PreemptionWatcher`, SIGTERM + pluggable sensors behind one
   thread-safe flag; :data:`EXIT_PREEMPTED` (75) is the resumable exit
   code.
-- :mod:`~apex_tpu_torch.resilience.loop`: :class:`Preempted`.
-
-The reference's ``corrupt_tree``, ``inject_checkpoint_failures``,
-``retry`` (``Policy``, ``Deadline``) and ``ResilientTrainLoop`` wait for
-the checkpoint slice.
+- :mod:`~apex_tpu_torch.resilience.loop`: :class:`ResilientTrainLoop`,
+  auto-resume from the newest valid checkpoint, periodic and emergency
+  saves, and the skip -> rollback -> abort ladder.
 """
 
 from apex_tpu_torch.resilience.faults import (  # noqa: F401
@@ -24,18 +27,34 @@ from apex_tpu_torch.resilience.faults import (  # noqa: F401
     InjectedOom,
     TornWrite,
     TransientStepError,
+    corrupt_tree,
+    inject_checkpoint_failures,
 )
-from apex_tpu_torch.resilience.loop import Preempted  # noqa: F401
+from apex_tpu_torch.resilience.loop import (  # noqa: F401
+    Preempted,
+    ResilientTrainLoop,
+    TrainAborted,
+    chaos_probe,
+    resume_path,
+)
 from apex_tpu_torch.resilience.preemption import (  # noqa: F401
     EXIT_PREEMPTED,
     PreemptionWatcher,
     env_sensor,
     file_sensor,
 )
+from apex_tpu_torch.resilience.retry import (  # noqa: F401
+    DEFAULT_RETRYABLE,
+    Deadline,
+    Policy,
+)
 
 __all__ = [
     "KINDS", "FaultPlan", "FaultInjected", "TornWrite", "DiskFull",
     "TransientStepError", "InjectedOom", "INJECTED_OOM_BYTES",
+    "corrupt_tree", "inject_checkpoint_failures",
+    "Policy", "Deadline", "DEFAULT_RETRYABLE",
     "PreemptionWatcher", "env_sensor", "file_sensor", "EXIT_PREEMPTED",
-    "Preempted",
+    "ResilientTrainLoop", "Preempted", "TrainAborted", "chaos_probe",
+    "resume_path",
 ]

@@ -20,13 +20,15 @@ Faults fire at fixed steps (``kind@7``) or at seeded per-step draws
 planned fault fires *once per process* (:meth:`FaultPlan.should_fire`
 spends it).
 
-The reference's ``corrupt_tree`` (``faults.py:204``) and
-``inject_checkpoint_failures`` (``:228``) act on the training loop's
-state and checkpoints: they wait for the checkpoint slice.
+:func:`corrupt_tree` (``faults.py:204``) poisons a training state the
+way a NaN storm would, and :func:`inject_checkpoint_failures`
+(``:228``) arms :mod:`apex_tpu_torch.checkpoint`'s fault hook with a
+plan's torn-write and disk-full schedule.
 """
 
 from __future__ import annotations
 
+import contextlib
 import errno
 import random
 from typing import Optional
@@ -34,6 +36,7 @@ from typing import Optional
 __all__ = [
     "KINDS", "FaultInjected", "TornWrite", "DiskFull",
     "TransientStepError", "InjectedOom", "INJECTED_OOM_BYTES", "FaultPlan",
+    "corrupt_tree", "inject_checkpoint_failures",
 ]
 
 KINDS = ("preempt", "ckpt_torn", "ckpt_enospc", "step_exc", "nan_grads",
@@ -184,3 +187,61 @@ class FaultPlan:
     def reset(self) -> None:
         """Forget spent faults (a fresh process would)."""
         self._spent.clear()
+
+
+def corrupt_tree(tree):
+    """The injected numeric storm: a tree of NEW NaN-filled tensors (and
+    numpy arrays) where the leaf is floating point; integer and bool
+    leaves (step counters, seeds) and python scalars pass through. The
+    input is left as it was."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    def poison(leaf):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.is_floating_point() or leaf.is_complex():
+                return torch.full_like(leaf, float("nan"))
+            return leaf
+        if isinstance(leaf, (np.ndarray, np.generic)) and np.issubdtype(
+                leaf.dtype, np.inexact):
+            return np.full_like(leaf, np.nan)
+        return leaf
+
+    leaves, treedef = _tree.flatten(tree)
+    return treedef.unflatten([poison(leaf) for leaf in leaves])
+
+
+def _count(registry, kind: str) -> None:
+    reg = registry
+    if reg is None:
+        from apex_tpu_torch.observability import get_registry
+        reg = get_registry()
+    reg.counter("resilience/faults_injected", kind=kind).inc()
+
+
+@contextlib.contextmanager
+def inject_checkpoint_failures(plan: FaultPlan, registry=None):
+    """Arm ``apex_tpu_torch.checkpoint``'s fault hook with this plan's
+    ``ckpt_torn`` (at ``pre_commit``) / ``ckpt_enospc`` (at
+    ``pre_write``) schedule. Saves without a step index key as step
+    ``-1``."""
+    from apex_tpu_torch import checkpoint as ckpt
+
+    def hook(stage, step, path):
+        s = -1 if step is None else int(step)
+        if stage == "pre_write" and plan.should_fire("ckpt_enospc", s):
+            _count(registry, "ckpt_enospc")
+            raise DiskFull(path)
+        if stage == "pre_commit" and plan.should_fire("ckpt_torn", s):
+            _count(registry, "ckpt_torn")
+            raise TornWrite(
+                f"injected: write of {path} killed before commit marker")
+
+    prev = ckpt._FAULT_HOOK
+    ckpt._FAULT_HOOK = hook
+    try:
+        yield plan
+    finally:
+        ckpt._FAULT_HOOK = prev

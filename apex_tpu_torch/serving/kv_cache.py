@@ -22,7 +22,9 @@ them with ``.at[].set``: prompt writes, restores and :meth:`defrag` keep
 decode graph that holds them stays valid.
 
 The emergency dump stores pages as numpy arrays in the reference's
-format (:func:`dump_array`, :func:`load_array`): float32 as it is, bf16
+format (:func:`~apex_tpu_torch._npy.dump_array`,
+:func:`~apex_tpu_torch._npy.load_array`, shared with the checkpoints):
+float32 as it is, bf16
 as 2-byte ``|V2`` items holding the bf16 bits, which is what ``np.savez``
 writes for the reference's ``ml_dtypes`` bf16 arrays. Either package's
 dump loads here.
@@ -34,10 +36,10 @@ import dataclasses
 import math
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from apex_tpu_torch import _device
+from apex_tpu_torch._npy import dump_array, load_array
 
 __all__ = ["PageAllocator", "PageBudget", "PagedKVCache",
            "derive_page_budget", "dump_array", "load_array",
@@ -106,36 +108,6 @@ def derive_page_budget(cfg, page_size: int, *,
                       hbm_bytes=int(hbm_bytes),
                       watermark_bytes=int(watermark_bytes),
                       usable_bytes=usable, safety=safety)
-
-
-def dump_array(t: torch.Tensor) -> np.ndarray:
-    """A host tensor as the dump's numpy array: bf16 as ``|V2`` items
-    holding its bits (a view of int16, no conversion), other dtypes as
-    they are."""
-    t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.dtype("V2"))
-    return t.numpy()
-
-
-def load_array(a, dtype: torch.dtype) -> torch.Tensor:
-    """A dump's numpy array (or a tensor) as a host tensor of ``dtype``:
-    ``|V2`` items are bf16 bits (the reference's ``ml_dtypes`` bf16
-    through ``np.savez``, or :func:`dump_array`'s), read bit for bit."""
-    if isinstance(a, torch.Tensor):
-        return a.to(dtype)
-    a = np.asarray(a)
-    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
-        if a.dtype.itemsize != 2:
-            raise TypeError(f"a raw dump array must hold 2-byte bf16 items, "
-                            f"got {a.dtype}")
-        t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a))
-    if t.dtype != dtype and not (t.dtype.is_floating_point
-                                 and dtype.is_floating_point):
-        raise TypeError(f"a dump array of {t.dtype} cannot fill {dtype} pages")
-    return t.to(dtype)
 
 
 class PageAllocator:

@@ -90,12 +90,38 @@ result line) when it fails:
                (LayerNorm forward 97, backward 49, causal softmax 48 a
                step), finite and falling loss, step time, tokens/s, MFU
                and peak memory.
+8a. gpt2_resilient -- phase 8's model and step (the batch of step s
+               drawn from (seed, s)) under ``ResilientTrainLoop``: 6
+               plain steps give the reference state's SHA-1; then the
+               loop with async checkpoints every 2 steps (2 kept), retries
+               and the plan ``nan_grads@1,ckpt_torn@3,preempt@3`` (a
+               rollback to the starting state, the step-0 write still in
+               flight; a preemption whose emergency save is torn at its
+               commit and retried: exactly one retry, no failed save or
+               flush), then a fresh loop over a template drawn from another
+               seed resumes at step 4: the final state's SHA-1 must equal
+               the reference's, the launches 97 / 49 / 48 for each step
+               executed, replays included, the counters and the directory
+               (committed, valid steps only) as planned, peak under 80 GB;
+               the disk must have room for 4 checkpoints or the phase
+               fails with the bytes it needed. Then ``gpt2_generate`` from
+               the trained params (4 prompts of 512, 32 new, greedy: flash
+               forward 24 in the prefill, LayerNorm forward 49 in the
+               prefill and in each decode step; teacher-forced within
+               DELTA of the full-sequence forward), and the checkpoint's
+               costs: each loop's start-up seconds, an async save's host
+               seconds, the steps it overlaps (wall and device ms), save
+               to commit, GB/s.
 9. bert_training -- bench.py's BERT-base step (12 layers, h 768), batch
                8 x 512 with the 15% masking, plus a padding mask (each
                row's length drawn from the seed in [128, 512], row 0
                full) so that the masked softmax runs, ``fused_lamb(lr=
                1e-3)`` and remat: the same checks (LayerNorm forward 50,
                backward 26, masked softmax 24 a step), sequences/s.
+9a. bert_training_unpadded -- the same with ``pad_mask=None``: the
+               unmasked branch of ``scaled_masked_softmax`` (no kernel,
+               as in the reference), LayerNorm 50 / 26 and no softmax
+               launch a step, the same gradient check.
 10. fmha    -- ``contrib.fmha.FMHAFun.apply`` at BERT-base width (qkv
                [8, 512, 3, 12, 64] bf16, lengths drawn as phase 9 draws
                its padding, dropout 0.1 in training): forward and
@@ -135,8 +161,9 @@ result line) when it fails:
                flash trio, LayerNorm and the masked softmax at these
                shapes too.
 
-The last lines are the per-kernel summary, the card line and the result
-object ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+Each phase's line carries ``script_s``, the seconds since the script
+started. The last lines are the per-kernel summary, the card line and the
+result object ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the ``apex_tpu_torch`` package beside it, the script exits 1.
 """
 
@@ -147,6 +174,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -155,6 +183,7 @@ import traceback
 from functools import partial
 from pathlib import Path
 
+START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
@@ -180,6 +209,25 @@ GPT2_BATCH = 8
 GPT2_SEQ = 1024
 GPT2_LR = 1e-4
 GPT2_CHUNKS = 8
+GPT2_HEADS, GPT2_HEAD_DIM = 16, 64
+
+# the gpt2_resilient phase: phase 8's model and step under
+# ResilientTrainLoop, async saves every 2 steps (2 kept), this fault plan,
+# then a fresh loop resumed to RESILIENT_STEPS; the checkpoints go to a
+# git-ignored directory of the checkout, which must have room for
+# RESILIENT_CKPTS of them, and are removed. An async write's commit is
+# never retried (a failed one is left torn, as in the reference), so the
+# torn fault lands on the emergency save, which is synchronous and goes
+# through the retry policy. Then gpt2_generate from the trained params:
+# GEN_BATCH prompts of GEN_PROMPT tokens, GEN_NEW new.
+RESILIENT_STEPS = 6
+RESILIENT_PLAN = "nan_grads@1,ckpt_torn@3,preempt@3"
+RESILIENT_DIR = ROOT / "build" / "gpt2_resilient"
+RESILIENT_CKPTS = 4
+# then COST_SAVES async saves of the trained state, COST_STEPS steps beside
+# each write
+COST_SAVES, COST_STEPS = 3, 3
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
 
 # bench.py's BERT-base step (bench.py:631-640), plus padding: each row's
 # valid length is drawn in [BERT_MIN_LEN, BERT_SEQ], row 0 full
@@ -253,6 +301,10 @@ PEAKS = (("H100 PCIe", 2.0e12, 756e12, 51e12),
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets ``script_s``, the
+    seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -514,21 +566,25 @@ def check_flash(dev):
 
     from apex_tpu_torch.ops import flash_attention as fa
 
-    H, H_kv, d = 32, 8, 128
-    scale = d ** -0.5
+    llama, gpt2 = (32, 8, 128), (GPT2_HEADS, GPT2_HEADS, GPT2_HEAD_DIM)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = []
     # serving prefills of 128, 200 and 512 tokens; the training batch;
-    # then its varlen and dropout cases
-    for b, s, case in ((1, 128, None), (1, 200, None), (1, 512, None),
-                       (TRAIN_BATCH, TRAIN_SEQ, None),
-                       *((TRAIN_BATCH, TRAIN_SEQ, c) for c in FLASH_CASES)):
+    # then its varlen and dropout cases; then gpt2_generate's prefill
+    for b, s, case, (H, H_kv, d) in (
+            (1, 128, None, llama), (1, 200, None, llama),
+            (1, 512, None, llama), (TRAIN_BATCH, TRAIN_SEQ, None, llama),
+            *((TRAIN_BATCH, TRAIN_SEQ, c, llama) for c in FLASH_CASES),
+            (GEN_BATCH, GEN_PROMPT, "gpt2_generate_prefill", gpt2)):
+        scale = d ** -0.5
+        masked = case in FLASH_CASES
+
         def make():
             return tuple(torch.randn(b, s, n, d, generator=g,
                                      device="cuda").to(torch.bfloat16)
                          for n in (H, H_kv, H_kv))
 
-        extras, lens = (flash_extras(case, H) if case
+        extras, lens = (flash_extras(case, H) if masked
                         else ((None, 0.0, 0), None))
         p_drop = extras[1]
 
@@ -558,7 +614,7 @@ def check_flash(dev):
         nbytes = (2 * b * s * H * d + 2 * kv_rows * H_kv * d) * 2 \
             + b * H * s * 4
         sets = copies(make, nbytes)
-        if case is None:
+        if not masked:
             def library(a, b_, c):
                 return F.scaled_dot_product_attention(
                     a.transpose(1, 2), b_.transpose(1, 2),
@@ -580,7 +636,7 @@ def check_flash(dev):
         # hash alone is some 20 ops on [b, H, s, s] int64 tensors) queues
         # its calls slower than the spin holds the stream: wall clock,
         # synchronised
-        plain_ms = (host_ms(plain, sets[0], iters=3) if case
+        plain_ms = (host_ms(plain, sets[0], iters=3) if masked
                     else time_ms(plain, sets))
         lib_ms = time_ms(library, lib_sets)
         b_ms, b_by = bound(nbytes, flops, dev["bf16_flops"], dev)
@@ -591,9 +647,11 @@ def check_flash(dev):
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by, "pairs": pairs,
                "tflops": flops / ms / 1e9}
-        if case:
+        if masked:
             row.update(case=case, p_drop=p_drop, plain_timed="host wall",
                        kv_lens=None if lens is None else lens.tolist())
+        elif case:
+            row["case"] = case
         out.append(row)
         del sets, lib_sets, q, k, v, o, lse, o_ref, lse_ref
         torch.cuda.empty_cache()
@@ -868,10 +926,14 @@ def check_adam(dev):
 
 
 def check_layer_norm(dev, cases=((GPT2_BATCH * GPT2_SEQ, 1024, 1e-5),
-                                  (BERT_BATCH * BERT_SEQ, 768, 1e-12))):
+                                  (BERT_BATCH * BERT_SEQ, 768, 1e-12),
+                                  (GEN_BATCH * GEN_PROMPT, 1024, 1e-5),
+                                  (GEN_BATCH, 1024, 1e-5))):
     """LayerNorm forward and backward at each (rows, h, eps) of ``cases``,
-    bf16, with bf16 affine params: by default GPT-2's rows (8 x 1024
-    tokens) x h 1024, eps 1e-5, and BERT's (8 x 512) x 768, eps 1e-12."""
+    bf16, with bf16 affine params: by default GPT-2's training rows (8 x
+    1024 tokens) x h 1024, eps 1e-5, BERT's (8 x 512) x 768, eps 1e-12,
+    then gpt2_generate's prefill (4 x 512) and decode step (4) rows at h
+    1024."""
     import torch
     import torch.nn.functional as F
 
@@ -2766,7 +2828,8 @@ def gpt2_plain_loss(params, batch, cfg):
 def bert_plain_loss(params, batch, cfg, pad_mask):
     """The BERT MLM loss through the port's plain functions
     (_ln_fwd_plain, _masked_plain), attention and MLP written out here,
-    and ordinary autograd."""
+    and ordinary autograd. ``pad_mask=None``: an unmasked fp32 softmax."""
+    import torch
     import torch.nn.functional as F
 
     from apex_tpu_torch.transformer.functional.fused_softmax import (
@@ -2775,10 +2838,12 @@ def bert_plain_loss(params, batch, cfg, pad_mask):
 
     tokens, targets, loss_mask = batch
     ln = plain_ln(cfg.ln_eps)
-    mask = pad_mask[:, None, None, :]
 
     def softmax(scores, scale):
-        return _masked_plain(scores, mask, scale)
+        if pad_mask is None:
+            return torch.softmax(scores.float() * scale, dim=-1).to(
+                scores.dtype)
+        return _masked_plain(scores, pad_mask[:, None, None, :], scale)
 
     def layer(x, lp):
         x = ln(x + plain_attention(x, lp, cfg.num_heads, softmax),
@@ -2886,10 +2951,321 @@ def phase_gpt2_training(dev):
             "launches": total, "expected_per_step": want}
 
 
-def phase_bert_training(dev):
+def state_digests(state) -> list:
+    """(path, SHA-1 of the bytes) of every leaf of a state tree, in leaf
+    order, each copied to the host in turn."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    out = []
+    for path, leaf in _tree.flatten_with_path(state)[0]:
+        raw = leaf.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+        out.append((path, hashlib.sha1(raw).hexdigest()))
+    return out
+
+
+def digest(leaf_digests) -> str:
+    return hashlib.sha1("".join(d for _, d in leaf_digests).encode()
+                        ).hexdigest()
+
+
+def resilient_events(reg) -> list:
+    return [[e["name"], (e.get("fields") or {}).get("step")]
+            for e in reg.events()]
+
+
+def phase_gpt2_resilient(dev):
+    """Phase 8's GPT-2 345M step under ResilientTrainLoop: a reference
+    trajectory of RESILIENT_STEPS plain steps; the same steps under
+    RESILIENT_PLAN with async checkpoints, preempted, then a fresh loop
+    resumed from a template drawn from another seed: the final state's
+    SHA-1 must equal the reference's, with exact launches. Then the
+    checkpoint's costs, then gpt2_generate from the trained params."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch.models import gpt2
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.resilience import (
+        FaultInjected,
+        FaultPlan,
+        Policy,
+        Preempted,
+        ResilientTrainLoop,
+    )
+
+    cfg = gpt2.gpt2_345m()
+    tx = fused_adam(lr=GPT2_LR)
+    L = cfg.num_layers
+
+    def init_state(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = gpt2.init_params(gen, cfg, device="cuda")
+        return {"params": params, "opt": tx.init(params)}
+
+    def batch_of(step):
+        # the batch of step s comes from (seed, s) alone: a deterministic
+        # step_fn, as the loop's bit-for-bit resume requires
+        gen = torch.Generator(device="cuda").manual_seed(
+            SEED * 1_000_003 + step)
+        tokens = torch.randint(0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ),
+                               generator=gen, device="cuda")
+        return tokens, torch.roll(tokens, -1, dims=-1)
+
+    device_ms = []  # [step, device ms] of every step_fn call, in order
+
+    def step_fn(state, step):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        params, opt, loss = gpt2.train_step(
+            state["params"], state["opt"], batch_of(step), cfg, tx,
+            remat=True, vocab_chunks=GPT2_CHUNKS)
+        end.record()
+        metrics = {"loss": float(loss)}
+        device_ms.append([step, start.elapsed_time(end)])
+        return {"params": params, "opt": opt}, metrics
+
+    # ---- reference trajectory
+    state = init_state(SEED)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _tree.flatten(state)[0])
+    need = RESILIENT_CKPTS * nbytes
+    RESILIENT_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(RESILIENT_DIR).free
+    if free < need:
+        raise RuntimeError(f"gpt2_resilient needs {need} bytes free for "
+                           f"{RESILIENT_CKPTS} checkpoints of {nbytes} "
+                           f"bytes under {RESILIENT_DIR}, the disk has "
+                           f"{free}")
+    losses, step_ms = [], []
+    for step in range(RESILIENT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, step)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+    ref = state_digests(state)
+    base_ms = statistics.median(step_ms[1:])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- chaos run, then a fresh loop: another process would resume so
+    shutil.rmtree(RESILIENT_DIR, ignore_errors=True)
+    reg = MetricRegistry()
+    device_ms.clear()
+
+    def loop():
+        return ResilientTrainLoop(
+            step_fn, directory=str(RESILIENT_DIR), save_every=2,
+            async_save=True, max_to_keep=2,
+            retry_policy=Policy(max_attempts=3, initial_backoff=0.01,
+                                retry_on=(OSError, FaultInjected),
+                                seed=SEED, registry=reg),
+            fault_plan=FaultPlan.parse(RESILIENT_PLAN), registry=reg)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = loop()
+    try:
+        first.run(init_state(SEED), RESILIENT_STEPS)
+        raise AssertionError("the chaos run was not preempted")
+    except Preempted as e:
+        preempted = {"step": e.step, "checkpoint": e.checkpoint_path
+                     is not None, "exit_code": e.exit_code}
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    template = init_state(SEED + 1)
+    if state_digests(template["params"]["embed"])[0][1] == dict(ref)[
+            "['params']['embed']"]:
+        raise AssertionError("the resume template equals the result")
+    second = loop()
+    final = second.run(template, RESILIENT_STEPS)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = state_digests(final)
+    if got != ref:
+        bad = [p for (p, a), (_, b) in zip(got, ref) if a != b]
+        raise AssertionError(f"resumed state differs from the reference "
+                             f"trajectory at {len(bad)} leaves, first "
+                             f"{bad[:5]}")
+    events = resilient_events(reg)
+    executed = sum(1 for name, _ in events if name == "step_done")
+    want = dict({k: 0 for k in counts},
+                layer_norm_fwd=(4 * L + 1) * executed,
+                layer_norm_bwd=(2 * L + 1) * executed,
+                fused_softmax_causal=2 * L * executed)
+    if counts != want:
+        raise AssertionError(f"gpt2_resilient launches {counts} != {want}")
+    counters = {m.name + "".join(f"{{{k}={v}}}" for k, v in
+                                 sorted(m.labels.items())): m.value
+                for m in reg.metrics() if m.kind == "counter"}
+    # the torn emergency save is retried once and commits; nothing else
+    # fails, so no checkpoint_failures counter and no failed flush
+    expect = {"resilience/rollbacks": 1, "resilience/emergency_saves": 1,
+              "resilience/resumes": 1, "resilience/retries{scope=default}": 1,
+              "resilience/checkpoint_failures": None,
+              **{f"resilience/faults_injected{{kind={k}}}": 1
+                 for k in ("nan_grads", "ckpt_torn", "preempt")}}
+    off = {k: (counters.get(k), v) for k, v in expect.items()
+           if counters.get(k) != v}
+    failed = [e for e in events if e[0].endswith("_failed")]
+    if (off or failed or preempted["step"] != 3
+            or second.resumed_from != 3):
+        raise AssertionError(f"counters {off}, failures {failed}, "
+                             f"preempted {preempted}, resumed from "
+                             f"{second.resumed_from}")
+    names = sorted(os.listdir(RESILIENT_DIR))
+    valid = ckpt.valid_steps(str(RESILIENT_DIR), deep=True)
+    if names != [f"step_{s:08d}" for s in valid] or not (
+            ckpt.latest_valid_step(str(RESILIENT_DIR))
+            == second.manager.latest_valid_step(deep=True) == valid[-1]
+            == RESILIENT_STEPS - 1):
+        raise AssertionError(f"checkpoint dir {names}, valid {valid}")
+    if peak >= 80e9:
+        raise AssertionError(f"peak memory {peak} bytes")
+    ckpt_bytes = sum(m["size"] for m in ckpt.read_manifest(
+        str(RESILIENT_DIR / f"step_{valid[-1]:08d}"))["files"].values())
+    timers = {r["name"]: r for r in (m.to_record() for m in reg.metrics())
+              if r["type"] == "timer"}
+    resumed = [e["fields"]["duration_s"] for e in reg.events()
+               if e["name"] == "resumed"]
+    saved = [[e["fields"]["step"], e["fields"]["duration_s"]]
+             for e in reg.events() if e["name"] == "checkpoint_saved"]
+    in_flight = [[e["fields"]["step"], e["fields"]["duration_s"] * 1e3]
+                 for e in reg.events() if e["name"] == "step_done"]
+    # each loop's start-up: the first's host copy of its cold state (its
+    # fallback while the step-0 write is in flight), the second's gc and
+    # restore
+    startup = [e["fields"]["startup_s"] for e in reg.events()
+               if e["name"] == "attempt_start"]
+    chaos = {"plan": RESILIENT_PLAN, "preempted": preempted,
+             "resumed_from": second.resumed_from, "events": events,
+             "steps_executed": executed, "counters": counters,
+             "valid_steps": valid, "sha1": digest(got),
+             "launches": counts, "expected": want,
+             "peak_memory_bytes": peak,
+             "checkpoint_saved_host_s": saved, "step_done_ms": in_flight,
+             "step_device_ms": list(device_ms), "startup_s": startup,
+             "emergency_save_s": timers["resilience/emergency_save_s"]
+             ["total"],
+             "preempt_drain_s": timers["resilience/preempt_drain_s"]
+             ["total"],
+             "restore_s": resumed, "gc_s": timers["resilience/ckpt_gc_s"]
+             ["total"]}
+
+    # ---- gpt2_generate from the trained params (before the cost runs
+    # below step them further)
+    params = final["params"]
+    generated = gpt2_generate_check(params, cfg)
+
+    # ---- the checkpoint's costs: an async save's host seconds (the
+    # first allocates the pinned buffers), the steps it overlaps, and the
+    # time from save to commit
+    writer = ckpt.AsyncCheckpointWriter()
+    costs = []
+    for n in range(COST_SAVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer.save(str(RESILIENT_DIR), final, step=100 + n)
+        host_s = time.perf_counter() - t0
+        overlapped = []
+        device_ms.clear()
+        for i in range(COST_STEPS):
+            t1 = time.perf_counter()
+            final, _ = step_fn(final, RESILIENT_STEPS + COST_STEPS * n + i)
+            overlapped.append((time.perf_counter() - t1) * 1e3)
+        busy = writer.writing
+        writer.wait()
+        write_s = time.perf_counter() - t0
+        costs.append({"async_save_host_s": host_s,
+                      "step_ms_write_in_flight": overlapped,
+                      "step_device_ms_write_in_flight": [
+                          ms for _, ms in device_ms],
+                      "write_in_flight_after_steps": busy,
+                      "save_to_commit_s": write_s,
+                      "write_gb_per_s": ckpt_bytes / write_s / 1e9})
+    writer.close()
+    shutil.rmtree(RESILIENT_DIR, ignore_errors=True)
+    return {"phase": "gpt2_resilient", "model": "gpt2_345m",
+            "num_layers": L, "dtype": "bfloat16", "batch": GPT2_BATCH,
+            "seq": GPT2_SEQ, "optimizer": "fused_adam(lr=1e-4) tree",
+            "remat": True, "vocab_chunks": GPT2_CHUNKS,
+            "state_bytes": nbytes, "checkpoint_bytes": ckpt_bytes,
+            "disk_free_bytes": free, "disk_needed_bytes": need,
+            "reference": {"losses": losses, "step_ms": step_ms,
+                          "median_step_ms": base_ms, "sha1": digest(ref)},
+            "chaos": chaos, "costs": costs,
+            "emergency_write_gb_per_s": ckpt_bytes / chaos[
+                "emergency_save_s"] / 1e9,
+            "generate": generated, "launches": counts}
+
+
+def gpt2_generate_check(params, cfg):
+    """Greedy gpt2_generate of GEN_NEW tokens for GEN_BATCH prompts of
+    GEN_PROMPT: exact launches (flash forward a layer in the prefill,
+    LayerNorm forward 2 a layer and the final one in the prefill and in
+    each decode step), a teacher-forced check against the full-sequence
+    forward, a warm prefill's time and the decode steps'."""
+    import torch
+
+    from apex_tpu_torch.models import generate, gpt2
+
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    prompts = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                            generator=gen, device="cuda")
+    prefill = []
+    for _ in range(2):  # the first call of these shapes allocates
+        t0 = time.perf_counter()
+        generate.gpt2_generate(params, prompts, cfg, 1)
+        torch.cuda.synchronize()
+        prefill.append((time.perf_counter() - t0) * 1e3)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate.gpt2_generate(params, prompts, cfg, GEN_NEW)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    want = dict({k: 0 for k in counts}, flash_attention_fwd=L,
+                layer_norm_fwd=(2 * L + 1) * GEN_NEW)
+    if counts != want:
+        raise AssertionError(f"gpt2_generate launches {counts} != {want}")
+    p = GEN_PROMPT
+    with torch.no_grad():
+        tf = generated_gap(
+            gpt2.forward(params, out[:, :-1], cfg, remat=False),
+            gpt2.forward(params, out[:, :p], cfg, remat=False), out, p)
+    tf["delta"] = DELTA
+    if not (tf["worst_gap"] <= DELTA and tf["spread"] <= DELTA):
+        raise AssertionError(f"gpt2_generate teacher-forced check failed: "
+                             f"{tf}")
+    decode_ms = (total_ms - prefill[1]) / (GEN_NEW - 1)
+    return {"prompts": [GEN_BATCH, GEN_PROMPT], "new_tokens": GEN_NEW,
+            "prefill_ms": prefill[1], "prefill_cold_ms": prefill[0],
+            "generate_ms": total_ms, "decode_ms_per_token": decode_ms,
+            "decode_timed": "(generate_ms - warm prefill_ms) / "
+                            "(new_tokens - 1)",
+            "tokens_per_s": GEN_BATCH * GEN_NEW / total_ms * 1e3,
+            "decode_tokens_per_s": GEN_BATCH / decode_ms * 1e3,
+            "tokens_sha1": hashlib.sha1(
+                json.dumps(out[:, p:].tolist()).encode()).hexdigest(),
+            "teacher_forced": tf, "launches": counts, "expected": want}
+
+
+def phase_bert_training(dev, padded: bool = True):
     """BERT-base, 12 layers, batch 8 x 512 with the 15% masking and a
-    padding mask: the step-0 gradient check, then TRAIN_STEPS
-    train_steps with fused_lamb."""
+    padding mask (``padded``; else ``pad_mask=None``, the unmasked branch
+    of ``scaled_masked_softmax``, which takes no kernel): the step-0
+    gradient check, then TRAIN_STEPS train_steps with fused_lamb."""
     import torch
 
     from apex_tpu_torch import _tree
@@ -2904,9 +3280,13 @@ def phase_bert_training(dev):
     tokens = torch.randint(4, cfg.vocab_size, shape, generator=gen,
                            device="cuda")
     mlm = torch.rand(shape, generator=gen, device="cuda") < 0.15
-    pad = bert_pad_mask(gen, BERT_BATCH, BERT_SEQ)
-    inputs = torch.where(mlm, 3, torch.where(pad, 0, tokens))
-    batch = (inputs, tokens, (mlm & ~pad).float())
+    if padded:
+        pad = bert_pad_mask(gen, BERT_BATCH, BERT_SEQ)
+        inputs = torch.where(mlm, 3, torch.where(pad, 0, tokens))
+        batch = (inputs, tokens, (mlm & ~pad).float())
+    else:
+        pad = None
+        batch = (torch.where(mlm, 3, tokens), tokens, mlm.float())
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for t in _tree.leaves(params))
@@ -2934,13 +3314,17 @@ def phase_bert_training(dev):
     # the embedding's and the MLM head's LayerNorms, 2 a layer, and the
     # recompute of each layer's 2 and its softmax in the backward
     want = dict({k: 0 for k in total}, layer_norm_fwd=4 * L + 2,
-                layer_norm_bwd=2 * L + 2, fused_softmax_masked=2 * L)
+                layer_norm_bwd=2 * L + 2,
+                fused_softmax_masked=2 * L if padded else 0)
     check_steps(losses, counts, want)
     mean_ms = sum(step_ms[1:]) / len(step_ms[1:])  # step 1 allocates m, v
     return step, {
-            "phase": "bert_training", "model": "bert_base", "num_layers": L,
+            "phase": "bert_training" if padded else "bert_training_unpadded",
+            "model": "bert_base", "num_layers": L,
             "dtype": "bfloat16", "batch": BERT_BATCH, "seq": BERT_SEQ,
-            "valid_tokens": int((~pad).sum()),
+            "pad_mask": padded,
+            "valid_tokens": BERT_BATCH * BERT_SEQ - (
+                int(pad.sum()) if padded else 0),
             "masked_tokens": int(batch[2].sum()), "params": n_params,
             "optimizer": "fused_lamb(lr=1e-3)", "remat": True,
             "init_s": init_s, "grad_check": grads, "losses": losses,
@@ -4039,7 +4423,9 @@ def summary(kernels, counts, path_adam):
         row("layer_norm_fwd", csrc + "layer_norm.cu",
             "apex_tpu/ops/layer_norm.py:40", lnf[0],
             max(x["max_abs_err"] for x in lnf), plan=lnf[0]["plan"],
-            cases=case_rows({"bert": lnf[1], "mha": mha["layer_norm_fwd"]})),
+            cases=case_rows({"bert": lnf[1], "mha": mha["layer_norm_fwd"],
+                             "gpt2_generate_prefill": lnf[2],
+                             "gpt2_generate_decode": lnf[3]})),
         row("layer_norm_bwd", csrc + "layer_norm.cu",
             "apex_tpu/ops/layer_norm.py:163", lnb[0],
             max(max(x["max_abs_err"].values()) for x in lnb),
@@ -4149,12 +4535,20 @@ def main() -> int:
         amp_training = phase_amp_training(dev, training, profiling)
         emit(amp_training)
         results = {}
-        for path, run in (("gpt2_training", phase_gpt2_training),
-                          ("bert_training", phase_bert_training)):
+        for path, run in (
+                ("gpt2_training", phase_gpt2_training),
+                ("gpt2_resilient", None),
+                ("bert_training", phase_bert_training),
+                ("bert_training_unpadded",
+                 partial(phase_bert_training, padded=False))):
             phase = path
             gc.collect()
             torch.cuda.empty_cache()
             reset_counts()
+            if run is None:
+                results[path] = phase_gpt2_resilient(dev)
+                emit(results[path])
+                continue
             step, results[path] = run(dev)
             emit(results[path])
             if profiling:
@@ -4200,6 +4594,8 @@ def main() -> int:
               "training": training["launches"],
               "amp_training": amp_training["launches"],
               **{path: r["launches"] for path, r in results.items()},
+              "gpt2_generate": results["gpt2_resilient"]["generate"][
+                  "launches"],
               "fmha": fmha["launches"],
               "moe_training": moe_training["launches"],
               "moe_generate": moe_generate["launches"],

@@ -51,6 +51,8 @@ def _case(family, smoke):
     mlm[0, 0] = True
     inputs = torch.where(mlm, 3, torch.where(pad, 0, targets))
     batch = (inputs, targets, mlm.float())
+    if family == "bert_unpadded":  # pad_mask=None: the unmasked softmax
+        pad = None
     return (params,
             lambda t: bert.loss_fn(t, batch, cfg, pad_mask=pad, remat=True),
             lambda t: smoke.bert_plain_loss(t, batch, cfg, pad))
@@ -62,7 +64,7 @@ def _loss_and_grads(loss_of, params):
     return loss.detach(), torch.autograd.grad(loss, _tree.leaves(live))
 
 
-@pytest.mark.parametrize("family", ["gpt2", "bert"])
+@pytest.mark.parametrize("family", ["gpt2", "bert", "bert_unpadded"])
 def test_reference_matches_the_model(family, smoke):
     params, model_loss, ref_loss = _case(family, smoke)
     loss, grads = _loss_and_grads(model_loss, params)

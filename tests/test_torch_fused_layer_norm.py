@@ -198,3 +198,89 @@ def test_ln_cpu_path_never_counts_a_launch():
 def test_ln_normalized_shape_mismatch_is_loud():
     with pytest.raises(ValueError, match="normalized_shape"):
         port_ln.layer_norm(torch.zeros(3, 8), None, None, (4,))
+
+
+def test_rms_functions_match_jax():
+    """mixed_dtype_fused_rms_norm_affine (bf16 input, fp32 weight) and
+    the unfused manual_rms_norm against the JAX package's."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 4, 64)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(64)).astype(np.float32)
+    jax_fln = importlib.import_module(
+        "apex_tpu.normalization.fused_layer_norm")
+    X, W = map(torch.from_numpy, (x, w))
+    with pallas_config.force("interpret"):
+        ref = jax_fln.mixed_dtype_fused_rms_norm_affine(
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), 64)
+    got = port_fln.mixed_dtype_fused_rms_norm_affine(X.to(torch.bfloat16), W,
+                                                     64)
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+           "bfloat16", "mixed rms")
+    for weight in (W, None):
+        got = port_fln.manual_rms_norm(X, (64,), weight, EPS)
+        ref = jax_fln.manual_rms_norm(
+            jnp.asarray(x), (64,),
+            None if weight is None else jnp.asarray(w), EPS)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   rtol=FP32_RTOL, atol=FP32_ATOL)
+    got = port_fln.manual_rms_norm(X.to(torch.bfloat16), 64, None, EPS)
+    ref = jax_fln.manual_rms_norm(jnp.asarray(x, jnp.bfloat16), 64, None,
+                                  EPS)
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+           "bfloat16", "manual rms bf16")
+
+
+MODULES = ["FusedLayerNorm", "FusedRMSNorm", "MixedFusedLayerNorm",
+           "MixedFusedRMSNorm"]
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("name", MODULES)
+def test_module_classes_match_flax(name, affine):
+    """Each module class against the JAX package's flax module with the
+    same params: forward and the gradients of x and every param, fp32,
+    and the mixed classes on bf16 input with fp32 params."""
+    import jax
+
+    jax_fln = importlib.import_module(
+        "apex_tpu.normalization.fused_layer_norm")
+    rng = np.random.default_rng(MODULES.index(name))
+    mixed = name.startswith("Mixed")
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    g = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    jmod = getattr(jax_fln, name)(64, eps=EPS, elementwise_affine=affine)
+    mod = getattr(port_fln, name)(64, eps=EPS, elementwise_affine=affine,
+                                  device="cpu")
+    jx = jnp.asarray(x, jnp.bfloat16 if mixed else jnp.float32)
+    with pallas_config.force("interpret"):
+        variables = jmod.init(jax.random.PRNGKey(0), jx)
+    params = dict(variables.get("params", {}))
+    assert sorted(params) == sorted(n for n, _ in mod.named_parameters())
+    for pname, p in mod.named_parameters():
+        assert p.dtype == torch.float32 and tuple(p.shape) == (64,)
+        value = (1 + 0.1 * rng.standard_normal(64)).astype(np.float32)
+        params[pname] = jnp.asarray(value)
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(value))
+
+    def jfn(p, xx):
+        return jmod.apply({"params": p}, xx)
+
+    with pallas_config.force("interpret"):
+        y_ref, vjp = jax.vjp(jfn, params, jx)
+        dp_ref, dx_ref = vjp(jnp.asarray(g, y_ref.dtype))
+    tx = torch.from_numpy(x).to(torch.bfloat16 if mixed
+                                else torch.float32).requires_grad_()
+    y = mod(tx)
+    assert y.dtype == tx.dtype
+    leaves = [tx] + [p for _, p in mod.named_parameters()]
+    grads = torch.autograd.grad(y, leaves, torch.from_numpy(g).to(y.dtype))
+    kind = "bfloat16" if mixed else "float32"
+    _close(_np(y.detach()), _np(y_ref), kind, "y")
+    _close(_np(grads[0]), _np(dx_ref), kind, "dx")
+    for (pname, _), got in zip(mod.named_parameters(), grads[1:]):
+        # fp32 param grads summed over bf16 terms: the two sums round
+        # their bf16 products alike, so one bf16 ulp of the sum bounds them
+        _close(_np(got), _np(dp_ref[pname]), kind, pname)

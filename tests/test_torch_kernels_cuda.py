@@ -61,6 +61,26 @@ def test_flash_fwd_kernel_matches_plain(gen, dtype, causal, h_kv, sq, sk, d):
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("b,s", [(4, 512), (1, 7), (2, 130)])
+def test_flash_fwd_kernel_at_gpt2_generate_prefill(gen, b, s):
+    """gpt2_generate's prefill: GPT-2 345M's 16 heads of 64, causal, no
+    GQA, bf16 (4 prompts of 512 in chip_smoke.py's gpt2_resilient
+    phase), and ragged prompt lengths; one launch a call."""
+    h, d = 16, 64
+    q, k, v = (torch.randn(b, s, h, d, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    before = fa.launches
+    o, lse = fa._flash_fwd_cuda(q, k, v, True, d ** -0.5)
+    assert fa.launches == before + 1
+    flat = [t.transpose(1, 2).reshape(-1, s, d) for t in (q, k, v)]
+    o_ref, lse_ref = fa._flash_fwd_plain(*flat, True, d ** -0.5)
+    o_ref = o_ref.reshape(b, h, s, d).transpose(1, 2)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+
+
 def test_flash_rejects_what_the_kernel_does_not_take(gen):
     q = torch.zeros(1, 8, 2, 192, device="cuda")
     with pytest.raises(ValueError, match="head dims"):

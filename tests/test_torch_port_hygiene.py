@@ -53,7 +53,10 @@ WRAPPERS = {
                         "hidden_states", "init_params"),
     "models/generate.py": ("generate", "_moe_router_weights",
                            "_moe_decode_ffn", "_moe_prefill_ffn",
-                           "_decode_layer", "_prefill_layer"),
+                           "_decode_layer", "_prefill_layer",
+                           "gpt2_generate", "_gpt2_prefill_layer",
+                           "_gpt2_decode_layer"),
+    "normalization/fused_layer_norm.py": ("forward",),
     "models/gpt2.py": ("train_step", "loss_fn", "hidden_states"),
     "models/bert.py": ("train_step", "loss_fn", "forward"),
     "ops/_build.py": ("build", "library", "check"),
@@ -250,3 +253,46 @@ def test_param_constructors_resolve_their_device(rel, func):
     assert "device" in args, f"{rel}:{func} takes no device"
     assert "resolve" in {name for _, name in _called_names(node)}, (
         f"{rel}:{func} never calls _device.resolve")
+
+
+def test_checkpoint_convert_and_norm_entry_points_raise_without_a_gpu(
+        monkeypatch, tmp_path):
+    """A restore with no target, the HF converters, the norm modules and
+    the chaos probe land on the card unless asked for the CPU."""
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.models import convert, gpt2
+    from apex_tpu_torch.normalization import fused_layer_norm as fln
+    from apex_tpu_torch.resilience import chaos_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gpt2.tiny(num_layers=1)
+    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    checkpoint.save_checkpoint(str(tmp_path / "c"), params, step=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.restore_checkpoint(str(tmp_path / "c"))
+    got = checkpoint.restore_checkpoint(str(tmp_path / "c"), device="cpu")
+    assert got["embed"].device.type == "cpu"
+    sd = {"wte.weight": params["embed"], "wpe.weight": params["pos_embed"],
+          "ln_f.weight": params["lnf_w"], "ln_f.bias": params["lnf_b"]}
+    names = {"ln_1.weight": "ln1_w", "ln_1.bias": "ln1_b",
+             "attn.c_attn.weight": "wqkv", "attn.c_attn.bias": "bqkv",
+             "attn.c_proj.weight": "wo", "attn.c_proj.bias": "bo",
+             "ln_2.weight": "ln2_w", "ln_2.bias": "ln2_b",
+             "mlp.c_fc.weight": "wfc", "mlp.c_fc.bias": "bfc",
+             "mlp.c_proj.weight": "wproj", "mlp.c_proj.bias": "bproj"}
+    for hf, ours in names.items():
+        sd[f"h.0.{hf}"] = params["layers"][ours][0].reshape(
+            64, -1) if ours == "wqkv" else params["layers"][ours][0].reshape(
+            -1) if ours == "bqkv" else params["layers"][ours][0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.gpt2_from_hf(sd, cfg=cfg)
+    back, _ = convert.gpt2_from_hf(sd, cfg=cfg, device="cpu")
+    assert torch.equal(back["layers"]["wqkv"], params["layers"]["wqkv"])
+    for cls in (fln.FusedLayerNorm, fln.FusedRMSNorm,
+                fln.MixedFusedLayerNorm, fln.MixedFusedRMSNorm):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(8)
+        assert cls(8, device="cpu").weight.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos_probe("preempt@1", str(tmp_path / "p"), steps=2)
