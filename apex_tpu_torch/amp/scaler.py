@@ -39,11 +39,16 @@ from apex_tpu_torch.observability.numerics.history import (
 )
 
 
-def _multi_gpu(what: str, axes) -> None:
-    if axes:
-        raise NotImplementedError(
-            f"{what}={tuple(axes)!r}: reductions over mesh axes wait for "
-            f"the multi-GPU slice of the port")
+def _vote(x: torch.Tensor, axes, op) -> torch.Tensor:
+    """``x`` reduced with ``op`` over the process groups bound to
+    ``axes`` (``apex_tpu_torch.distributed``), the reference's
+    psum/pmax over mesh axes; ``x`` as it is when ``axes`` is empty."""
+    if not axes:
+        return x
+    from apex_tpu_torch.distributed import backend
+
+    return backend.all_reduce(x, getattr(backend.ReduceOp, op),
+                              tuple(axes))
 
 
 def _flat(tree) -> list:
@@ -447,11 +452,16 @@ class Fp8DelayedScaler:
 
     def update(self, state: Fp8ScalingState, ctx: _Fp8Apply,
                reduce_axes=()) -> Fp8ScalingState:
-        """Write this step's amaxes into the rings (one column each)."""
-        _multi_gpu("reduce_axes", reduce_axes)
+        """Write this step's amaxes into the rings (one column each).
+        With ``reduce_axes`` (the names of process groups) every
+        observation is max-reduced over them first, so that every rank
+        writes the same column and the delayed scales stay replicated
+        (``scaler.py:556``)."""
         return Fp8ScalingState(
-            fwd=self.fwd_history.update(state.fwd, ctx.fwd_amax()),
-            grad=self.grad_history.update(state.grad, ctx.grad_amax()),
+            fwd=self.fwd_history.update(
+                state.fwd, _vote(ctx.fwd_amax(), reduce_axes, "MAX")),
+            grad=self.grad_history.update(
+                state.grad, _vote(ctx.grad_amax(), reduce_axes, "MAX")),
             steps=state.steps + 1)
 
     def state_dict(self, state: Fp8ScalingState) -> dict:
@@ -482,10 +492,16 @@ def scaled_update(tx, scaler: LossScaler, grads, opt_state, params,
     read on the host; on overflow ``tx.update`` is not called, the
     updates are zeros in each param's dtype (the port's transforms return
     updates in the params' dtypes) and ``opt_state`` is returned as it
-    was. Returns ``(updates, opt_state, scaler_state, overflow)``, the
-    overflow a 0-dim bool tensor on the CPU."""
-    _multi_gpu("overflow_reduce_axes", overflow_reduce_axes)
+    was. With ``overflow_reduce_axes`` (the names of process groups) the
+    flag is summed over them, so that every rank skips the step if any
+    rank overflowed (``scaler.py:603-623``). Returns ``(updates,
+    opt_state, scaler_state, overflow)``, the overflow a 0-dim bool
+    tensor on the CPU."""
     unscaled, overflow = scaler.unscale(grads, scaler_state)
+    if overflow_reduce_axes:
+        device = next((g.device for g in _flat(grads)), overflow.device)
+        overflow = _vote(overflow.to(device, torch.float32),
+                         overflow_reduce_axes, "SUM") > 0
     overflow = torch.tensor(bool(overflow))
     if overflow:
         updates = map_tree(torch.zeros_like, params)

@@ -476,9 +476,14 @@ def _commit(tmp: str, final: str, step, overwrite: bool,
     return final
 
 
-def _schema_or_none(state: Any) -> Optional[dict]:
+def _schema_or_none(state: Any, specs: Optional[Sequence] = None
+                    ) -> Optional[dict]:
     """Best-effort format-2 schema: a tree the encoder cannot describe
-    degrades the marker to format 1 rather than failing the save."""
+    degrades the marker to format 1 rather than failing the save. Given
+    ``specs``, the schema with them: a list that does not match the
+    state fails the save."""
+    if specs is not None:
+        return state_schema_of(state, specs)
     try:
         return state_schema_of(state)
     except Exception:  # noqa: BLE001 — the schema is advisory metadata
@@ -493,16 +498,19 @@ def _paths(path: str, step: Optional[int]):
 
 
 def save_checkpoint(path: str, state: Any, step: Optional[int] = None,
-                    overwrite: bool = True) -> str:
+                    overwrite: bool = True,
+                    specs: Optional[Sequence] = None) -> str:
     """Save a state tree, blocking. ``step`` appends a step subdirectory
     (``path/step_00000010``). Atomic: data in ``<dir>.tmp``, the commit
-    marker, then the rename."""
+    marker, then the rename. ``specs``: the partition spec of each leaf,
+    in leaf order, for the schema (the reference reads each array's own
+    sharding; a tensor has none), e.g. a gathered ZeRO-1 state's."""
     final, tmp = _paths(path, step)
     _check_overwrite(final, overwrite)
     if os.path.isdir(tmp):  # stale torn write from a previous crash
         shutil.rmtree(tmp, ignore_errors=True)
     _fault_point("pre_write", step, tmp)
-    schema = _schema_or_none(state)
+    schema = _schema_or_none(state, specs)
     pairs, treedef = _tree.flatten_with_path(state)
     host = _host_copies([leaf for _, leaf in pairs])
     manifest = _write_leaves(tmp, pairs, host, treedef)
@@ -672,7 +680,9 @@ class AsyncCheckpointWriter:
         return self._thread is not None and self._thread.is_alive()
 
     def save(self, path: str, state: Any, step: Optional[int] = None,
-             overwrite: bool = True) -> str:
+             overwrite: bool = True,
+             specs: Optional[Sequence] = None) -> str:
+        """``specs`` as in :func:`save_checkpoint`."""
         final, tmp = _paths(path, step)
         _check_overwrite(final, overwrite)
         with self._lock:
@@ -680,7 +690,10 @@ class AsyncCheckpointWriter:
             if os.path.isdir(tmp):
                 shutil.rmtree(tmp, ignore_errors=True)
             _fault_point("pre_write", step, tmp)
-            schema = _schema_or_none(state)
+            schema = _schema_or_none(state, specs)
+            # made here, not by the writer thread: once save returns, the
+            # write in flight's dir exists (``in_flight_tmp``)
+            os.makedirs(tmp)
             pairs, treedef = _tree.flatten_with_path(state)
             snap = _Snapshot([leaf for _, leaf in pairs], self._buffers,
                              self._streams)
@@ -748,11 +761,17 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self._writer = AsyncCheckpointWriter() if async_save else None
 
-    def save(self, step: int, state: Any) -> str:
+    def save(self, step: int, state: Any,
+             specs: Optional[Sequence] = None) -> str:
+        """Save ``state`` as ``step``; ``specs`` as in
+        :func:`save_checkpoint` (a gathered ZeRO-1 state's, from
+        :meth:`~apex_tpu_torch.parallel.Zero1FusedAdam.state_specs`)."""
         if self._writer is not None:
-            p = self._writer.save(self.directory, state, step=step)
+            p = self._writer.save(self.directory, state, step=step,
+                                  specs=specs)
         else:
-            p = save_checkpoint(self.directory, state, step=step)
+            p = save_checkpoint(self.directory, state, step=step,
+                                specs=specs)
         self._gc()
         return p
 

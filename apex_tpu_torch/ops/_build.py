@@ -16,6 +16,7 @@ after its launch, and :func:`check` raises when that is not 0.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -69,8 +70,18 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel that has no up-to-date library, one
     ``nvcc`` process per source, all started together. Returns
     ``{name: compiler output}`` for the ones it built (``-Xptxas -v``
-    lists registers, shared memory and spills per kernel)."""
+    lists registers, shared memory and spills per kernel).
+
+    Processes that build at once (the ranks of one host) take turns on
+    an exclusive lock of the build directory, so each library is
+    compiled once; the lock goes with the process that holds it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names)
+
+
+def _build_locked(names: Iterable[str]) -> Dict[str, str]:
     procs = {}
     for name in names:
         out = library_path(name)

@@ -215,7 +215,10 @@ class FusedOptimizer:
 
 def opt_partition_specs(tx, params, param_specs):
     """Sharding specs of a fused optimizer's state
-    (``_base.py:199``): waits for the multi-GPU slice."""
+    (``_base.py:199``): waits for the Megatron slice of the multi-GPU
+    port. The data-parallel slice shards optimizer state with
+    :class:`apex_tpu_torch.parallel.Zero1FusedAdam`."""
     raise NotImplementedError(
-        "opt_partition_specs waits for the multi-GPU slice of the port "
-        "(sharded optimizer state over torch.distributed)")
+        "opt_partition_specs waits for the Megatron slice of the multi-GPU "
+        "port (ROADMAP.md Queue 1 item 5); ZeRO-1 sharded Adam state is "
+        "apex_tpu_torch.parallel.Zero1FusedAdam")

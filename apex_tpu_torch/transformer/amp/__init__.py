@@ -1,6 +1,7 @@
 """Counterpart of ``apex_tpu.transformer.amp`` (the pipeline-parallel
 ``GradScaler``): not ported yet. Every name raises
-``NotImplementedError``; it waits for the multi-GPU slice."""
+``NotImplementedError``; it waits for the Megatron slice of the
+multi-GPU port."""
 
 
 def __getattr__(name):
@@ -8,4 +9,5 @@ def __getattr__(name):
         raise AttributeError(name)
     raise NotImplementedError(
         f"apex_tpu_torch.transformer.amp.{name} is not ported yet: it "
-        f"waits for the multi-GPU slice (ROADMAP.md, Queue 1 item 6)")
+        f"waits for the Megatron slice of the multi-GPU port (ROADMAP.md, "
+        f"Queue 1 item 5)")

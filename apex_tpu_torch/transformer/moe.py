@@ -45,7 +45,8 @@ def _single_device(ep_axis: Optional[str]) -> None:
     if ep_axis is not None:
         raise NotImplementedError(
             f"expert-parallel axis {ep_axis!r}: the all_to_all dispatch "
-            f"waits for the multi-GPU slice; only ep_axis=None (every "
+            f"waits for the expert-parallel slice of the multi-GPU port "
+            f"(ROADMAP.md Queue 1 item 5); only ep_axis=None (every "
             f"expert on this device) is ported")
 
 

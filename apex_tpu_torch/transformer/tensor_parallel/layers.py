@@ -8,8 +8,8 @@ and the vocab-parallel embedding is a gather. The products go through
 ``ops.precision.matmul_amp`` under the reference's site name for these
 per-shard functions, ``"tp_linear"`` (``layers.py:44``): outside the O4
 fp8 context that is ``torch.matmul``, which on the GPU is a bf16 product
-with an fp32 accumulator. A bound axis raises until the multi-GPU slice
-ports the process groups.
+with an fp32 accumulator. A bound axis raises until the Megatron slice of
+the multi-GPU port.
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ def _single_device(axis_name: Optional[str]) -> None:
     if axis_name is not None:
         raise NotImplementedError(
             f"tensor-parallel axis {axis_name!r}: only the single-device "
-            f"path (axis_name=None) is ported")
+            f"path (axis_name=None) is ported; tensor parallelism over "
+            f"real groups waits for the Megatron slice of the multi-GPU "
+            f"port (ROADMAP.md Queue 1 item 5)")
 
 
 def column_parallel_linear(x: torch.Tensor, kernel: torch.Tensor,

@@ -21,7 +21,10 @@ result line) when it fails:
                passes at 32,768 keys (causal and padding-masked); the
                flash backward twice, the two calls bit for bit; the flash
                forward and backward also with kv_lens [2048, 1500],
-               dropout 0.1 and both, at the training batch.
+               dropout 0.1 and both, at the training batch; LayerNorm,
+               the causal softmax and the flat Adam also at a
+               data-parallel rank's shapes (4 x 1024 rows, [64, 1024,
+               1024], the ZeRO-1 shard and the replicated GPT-2 slab).
 4. serving  -- Llama-3-8B at full width and depth, random bf16 weights
                from a seeded generator, served by ``ServingEngine`` over a
                16-request closed-loop trace, its decode step one CUDA
@@ -160,6 +163,40 @@ result line) when it fails:
                forward+backward device ms. The kernels phase checks the
                flash trio, LayerNorm and the masked softmax at these
                shapes too.
+14. ddp_training -- GPT-2 345M at full width and depth, a global batch
+               of 8 x 1024 split 4 a rank over 2 ranks, launched through
+               ``python -m apex_tpu_torch.parallel.multiproc --nprocs 2
+               --backend gloo``: both ranks on the one card, gloo staging
+               every collective through host memory (NCCL takes one rank
+               a GPU), so its times are not those of NCCL over NVLink.
+               3 steps of (a) DDP, ``overlapped_value_and_grad`` (bf16
+               buckets all-reduced from the backward) and the replicated
+               flat ``fused_adam``, and of (b) ``Zero1FusedAdam`` (fp32
+               reduce-scatter, the flat Adam kernel on the rank's shard,
+               bf16 all-gather). After each step: every rank's params
+               bit-identical (``replica_divergence`` 0), (b) equal bit for
+               bit to (c), the fp32 all-reduce of (b)'s local grads with
+               the replicated flat Adam, (b) against (a) within the most
+               two Adam trajectories apart by gradient rounding can
+               differ, (a)'s synced grads within 2^-8 rel. L2 of the fp32
+               all-reduce of the same step's local grads, exact launches
+               a rank (97 / 49 / 48, Adam 1 for (a), one a bucket for
+               (b)); at step 0 the synced grads of
+               (a) and (c) against the global batch's fp32 plain
+               reference (rel. L2 <= 0.05, cosine >= 0.998). Prints step
+               ms a rank, global tokens/s, the bucket plan, each bucket's
+               issue against the backward's end, the wait after it,
+               ``grad_sync_comms_bytes``, optimizer-state bytes a rank,
+               peak memory a rank, and SyncBatchNorm at a ResNet-50
+               stage ([32, 256, 56, 56] bf16 over the 2 ranks) against one
+               BatchNorm2d of the global batch.
+15. ddp_nccl -- the same model and batch on one rank over NCCL: 2
+               steps each of the single-device ``gpt2.train_step`` with
+               ``fused_adam(flat=True)``, of DDP and of ZeRO-1; after
+               each, DDP and ZeRO-1 equal the single-device step bit for
+               bit, params and moments (every reduction is the
+               identity); exact launches; each step's ms (the first
+               cold, the second steady).
 
 Each phase's line carries ``script_s``, the seconds since the script
 started. The last lines are the per-kernel summary, the card line and the
@@ -863,14 +900,14 @@ def check_rms_bwd(dev):
     return out
 
 
-def check_adam(dev):
-    """One flat Adam pass over a 2^27-element slab: bf16 params, fp32
-    grads and m/v, fused_adam's defaults at bench.py's lr."""
+def check_adam(dev, n: int = 1 << 27):
+    """One flat Adam pass over an n-element slab (2^27, or a ZeRO-1 shard):
+    bf16 params, fp32 grads and m/v, fused_adam's defaults at bench.py's
+    lr."""
     import torch
 
     from apex_tpu_torch.ops import fused_adam_kernel as fak
 
-    n = 1 << 27
     kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
               adam_w_mode=True, bias_correction=True)
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1448,6 +1485,19 @@ def check_long_softmax(dev):
     return out
 
 
+def gpt2_345m_numel() -> int:
+    """The elements of GPT-2 345M's params: the replicated flat Adam
+    slab of the data-parallel phases' DDP update."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import gpt2
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = gpt2.init_params(gen, gpt2.gpt2_345m(), device="cuda")
+    return sum(t.numel() for t in _tree.leaves(params))
+
+
 def phase_kernels(dev):
     import torch
 
@@ -1455,6 +1505,11 @@ def phase_kernels(dev):
     torch.backends.cudnn.allow_tf32 = False
     ln_fwd, ln_bwd = check_layer_norm(dev)
     softmax = check_softmax(dev)
+    # a data-parallel rank's shapes: its DDP_BATCH / DDP_RANKS sequences
+    (ddp_ln_fwd,), (ddp_ln_bwd,) = check_layer_norm(
+        dev, cases=((DDP_ROWS, 1024, 1e-5),))
+    ddp_softmax = check_softmax(dev, shapes=(
+        ("causal", (DDP_ROWS // GPT2_SEQ * 16, GPT2_SEQ, GPT2_SEQ)),))
     long_softmax = check_long_softmax(dev)
     fp8_cast = check_fp8_cast(dev)
     # a cast is one launch: its kernel finishes amax, nothing is filled
@@ -1471,8 +1526,13 @@ def phase_kernels(dev):
            "flash_attention_bwd": check_flash_bwd(dev),
            "rms_norm_bwd": check_rms_bwd(dev),
            "fused_adam": check_adam(dev),
+           "fused_adam_zero1_shard": check_adam(dev, ZERO1_SHARD),
+           "fused_adam_ddp_slab": check_adam(dev, gpt2_345m_numel()),
            "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd,
+           "layer_norm_fwd_ddp_rank": ddp_ln_fwd,
+           "layer_norm_bwd_ddp_rank": ddp_ln_bwd,
            "fused_softmax_causal": softmax["causal"],
+           "fused_softmax_causal_ddp_rank": ddp_softmax["causal"],
            "fused_softmax_masked": softmax["masked"],
            "mha": check_mha_kernels(dev)}
     torch.cuda.empty_cache()
@@ -4311,6 +4371,615 @@ def phase_multihead_attn(dev):
             "launches": launches}
 
 
+# ------------------------------------------------ data-parallel phases
+
+# ddp_training: GPT-2 345M at full width and depth, a global batch of
+# DDP_BATCH x GPT2_SEQ split over DDP_RANKS ranks, launched through the
+# port's own launcher. The card is one H100 and NCCL takes one rank per
+# GPU, so the ranks time-share the card over gloo, which stages every
+# collective through host memory: the phase's times are those of that
+# set-up, not of NCCL over NVLink. ddp_nccl: the same step on one rank
+# over NCCL, where every reduction is the identity.
+DDP_RANKS = 2
+DDP_BATCH = 8
+DDP_STEPS = 3
+DDP_NCCL_STEPS = 2
+DDP_TIMEOUT = {"ddp_training": 480, "ddp_nccl": 300}
+# the flat Adam kernel at the ZeRO-1 shard of GPT-2 345M's largest bucket
+# (wfc or wproj, [24, 1024, 4096] each, one bucket apiece at the 10 MB
+# cap), in the kernels phase
+ZERO1_SHARD = 24 * 1024 * 4096 // DDP_RANKS
+# a rank's LayerNorm rows; its causal softmax is [DDP_ROWS / GPT2_SEQ x 16
+# heads, GPT2_SEQ, GPT2_SEQ]
+DDP_ROWS = DDP_BATCH // DDP_RANKS * GPT2_SEQ
+# DDP's synced grads (bf16 buckets) against the fp32 all-reduce of the
+# same step's local grads (computed again, bit for bit: ddp_nccl shows
+# the backward deterministic), per leaf: at 2 ranks each element is one
+# bf16 rounding of a + b (at most half an ulp of an 8-bit significand,
+# 2^-8 relative) and an exact halving, so the rel. L2 is at most 2^-8.
+# A wrong scale or a dropped bucket is off by ~1.
+DDP_SYNC_REL_L2 = 2.0 ** -8
+DDP_LABEL = ("2 ranks time-sharing one H100 over gloo (collectives staged "
+             "through host memory): not a measure of NCCL over NVLink")
+# the optional SyncBatchNorm check: a ResNet-50 stage's activations,
+# bf16, the batch split over the ranks, against one BatchNorm2d of the
+# global batch in fp32. The output is bf16, rounded by at most 2^-8 of
+# values up to ~5 (0.0195); the fp32 statistics are sums over 1.6 M
+# elements a channel in another order
+SYNCBN_SHAPE = (32, 256, 56, 56)
+SYNCBN_OUT_ATOL = 2e-2
+SYNCBN_STAT_RTOL = 1e-4
+
+
+def adam_step_bound(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The most one Adam step t (1-based, bias-corrected, no weight decay)
+    can move an element, in units of lr, whatever the gradients: by
+    Cauchy-Schwarz, |m_t| <= (1-b1) sqrt(sum_k (b1^2/b2)^k / (1-b2))
+    sqrt(v_t), so |m^_t| / sqrt(v^_t) <= (1-b1)/(1-b1^t)
+    sqrt((1-b2^t)/(1-b2)) sqrt(sum_{k<t} (b1^2/b2)^k) (1 at t = 1)."""
+    series = sum((b1 * b1 / b2) ** k for k in range(t))
+    return ((1 - b1) / (1 - b1 ** t) * math.sqrt((1 - b2 ** t) / (1 - b2))
+            * math.sqrt(series))
+
+
+def trajectory_gap(pa, pb, steps: int, lr: float) -> dict:
+    """Largest |pa - pb| over each leaf of two bf16 param trees that
+    started equal and took ``steps`` Adam steps on gradients rounded
+    differently, beside the most they can differ: each step moves each
+    side by at most ``lr * adam_step_bound(t)``, and each side rounds
+    its sum to bf16 each step (half a bf16 ulp, at most 2^-8 of the
+    leaf's largest value)."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    worst = {"gap": 0.0, "bound": 0.0, "ratio": 0.0, "leaf": None}
+    differing = 0
+    for path, a, b in zip(_tree.paths(pa), _tree.leaves(pa),
+                          _tree.leaves(pb)):
+        gap = float((a.float() - b.float()).abs().max())
+        top = float(torch.maximum(a.float().abs().max(),
+                                  b.float().abs().max()))
+        bound = sum(2 * lr * adam_step_bound(t) + top * 2.0 ** -8
+                    for t in range(1, steps + 1))
+        differing += int((a != b).sum())
+        if gap / bound >= worst["ratio"]:
+            worst = {"gap": gap, "bound": bound, "ratio": gap / bound,
+                     "leaf": ".".join(path)}
+    if worst["ratio"] > 1.0:
+        raise AssertionError(f"trajectories {worst['gap']} apart at "
+                             f"{worst['leaf']}, above the bound "
+                             f"{worst['bound']}")
+    return dict(worst, differing_elements=differing)
+
+
+def worst_rel_l2(paths, got, want) -> dict:
+    """The largest per-leaf ||got - want|| / ||want|| and its leaf."""
+    worst = {"rel_l2": 0.0, "leaf": None}
+    for path, g, w in zip(paths, got, want):
+        num, den = float((g.float() - w.float()).norm()), float(w.norm())
+        rel = num / den if den else (0.0 if num == 0.0 else math.inf)
+        if rel >= worst["rel_l2"]:
+            worst = {"rel_l2": rel, "leaf": ".".join(path)}
+    return worst
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    return all(torch.equal(x, y) for x, y in zip(_tree.leaves(a),
+                                                 _tree.leaves(b)))
+
+
+def counts_delta(before):
+    after = read_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def gpt2_want(cfg, adam: int) -> dict:
+    """One GPT-2 step's launches a rank (the gpt2_training phase's) with
+    ``adam`` Adam launches."""
+    L = cfg.num_layers
+    return dict({k: 0 for k in read_counts()}, layer_norm_fwd=4 * L + 1,
+                layer_norm_bwd=2 * L + 1, fused_softmax_causal=2 * L,
+                fused_adam=adam)
+
+
+def gpt2_rank_setup(device):
+    """GPT-2 345M params and the global batch from SEED, as the
+    gpt2_training phase draws them (the same numbers on every rank)."""
+    import torch
+
+    from apex_tpu_torch.models import gpt2
+
+    cfg = gpt2.gpt2_345m()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = gpt2.init_params(gen, cfg, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (DDP_BATCH, GPT2_SEQ),
+                           generator=gen, device=device)
+    return cfg, params, (tokens, torch.roll(tokens, -1, dims=-1))
+
+
+def local_grads(loss_of, params, batch):
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    live = _tree.map_leaves(lambda t: t.detach().requires_grad_(), params)
+    loss = loss_of(live, batch)
+    grads = torch.autograd.grad(loss, _tree.leaves(live))
+    return loss.detach(), _tree.unflatten(_tree.paths(params), list(grads))
+
+
+def overlap_report(trace, plan) -> dict:
+    """Each bucket's issue against the backward's end: the device ms the
+    backward still ran after the bucket's all-reduce was issued, and the
+    host ms from the backward's end until every reduction was waited
+    on."""
+    end_t, end_ev = trace.end
+    rows = []
+    for k, t, ev in trace.issued:
+        b = plan.buckets[k]
+        rows.append({"bucket": k, "leaves": len(b.indices),
+                     "mb": b.total * 2 / 2 ** 20,
+                     "backward_ms_after_issue": ev.elapsed_time(end_ev),
+                     "host_ms_before_end": (end_t - t) * 1e3})
+    return {"buckets": rows,
+            "issued_before_backward_end": [
+                r["bucket"] for r in rows
+                if r["backward_ms_after_issue"] > 0.05],
+            "wait_after_backward_host_ms": (trace.synced[0] - end_t) * 1e3}
+
+
+def syncbn_check(rank, n, device) -> dict:
+    import torch
+
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    x = torch.randn(SYNCBN_SHAPE, generator=gen, device=device).mul_(
+        2.0).add_(0.5).to(torch.bfloat16)
+    per = SYNCBN_SHAPE[0] // n
+    bn = SyncBatchNorm(SYNCBN_SHAPE[1], device=device)
+    with torch.no_grad():
+        y = bn(x[rank * per:(rank + 1) * per])
+    ref = torch.nn.BatchNorm2d(SYNCBN_SHAPE[1]).to(device).train()
+    with torch.no_grad():
+        y_ref = ref(x.float())[rank * per:(rank + 1) * per]
+    torch.cuda.synchronize(device)
+    out_err = float((y.float() - y_ref).abs().max())
+    stats = {name: float(((getattr(bn, name) - getattr(ref, name)).abs()
+                          / getattr(ref, name).abs().clamp(min=1e-6)).max())
+             for name in ("running_mean", "running_var")}
+    if out_err > SYNCBN_OUT_ATOL or max(stats.values()) > SYNCBN_STAT_RTOL:
+        raise AssertionError(f"SyncBatchNorm off the global BatchNorm: "
+                             f"output {out_err}, stats {stats}")
+    return {"shape": list(SYNCBN_SHAPE), "dtype": "bfloat16",
+            "max_abs_err": out_err, "atol": SYNCBN_OUT_ATOL,
+            "stat_rel_err": stats, "stat_rtol": SYNCBN_STAT_RTOL}
+
+
+def ddp_training_rank(rank, n, device) -> dict:
+    """One rank of ddp_training: (a) DDP, ``overlapped_value_and_grad``
+    (bf16 buckets all-reduced inside the backward) and the replicated flat
+    fused Adam; (b) ``Zero1FusedAdam`` (fp32 reduce-scatter, the flat
+    Adam kernel on the rank's shard, bf16 all-gather); (c) the fp32
+    reduction of (b)'s local grads with the replicated flat fused Adam,
+    which (b) must equal bit for bit. Three steps each on the rank's
+    slice of the global batch; before each DDP step, the fp32 all-reduce
+    of the same step's local grads, which DDP's synced grads must equal
+    within DDP_SYNC_REL_L2."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.distributed import backend as B
+    from apex_tpu_torch.distributed.divergence import replica_divergence
+    from apex_tpu_torch.models import gpt2
+    from apex_tpu_torch.ops import flat as flat_ops
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.parallel import (
+        Zero1FusedAdam,
+        grad_sync_comms_bytes,
+        overlapped_value_and_grad,
+        plan_overlap,
+        sync_gradients_flat,
+    )
+
+    cfg, params, batch = gpt2_rank_setup(device)
+    per = DDP_BATCH // n
+    local = tuple(t[rank * per:(rank + 1) * per] for t in batch)
+
+    def loss_of(p, b):
+        return gpt2.loss_fn(p, b, cfg, remat=True, vocab_chunks=GPT2_CHUNKS)
+
+    # the fp32 plain reference of the global batch's grads, on rank 0
+    ref = None
+    if rank == 0:
+        _, ref = local_grads(lambda p, b: gpt2_plain_loss(p, b, cfg),
+                             _tree.map_leaves(lambda t: t.float(), params),
+                             batch)
+        ref = _tree.leaves(ref)
+        torch.cuda.empty_cache()
+    B.barrier("dp")
+    paths = _tree.paths(params)
+    pa = params
+    pb = _tree.map_leaves(torch.clone, params)
+    pc = _tree.map_leaves(torch.clone, params)
+    txa = fused_adam(lr=GPT2_LR, flat=True)
+    txc = fused_adam(lr=GPT2_LR, flat=True)
+    zopt = Zero1FusedAdam(lr=GPT2_LR, axis_name="dp")
+    sa, sc, zs = txa.init(pa), txc.init(pc), zopt.init(pb)
+    plan = plan_overlap(params)
+    vg = overlapped_value_and_grad(loss_of, axis_name="dp")
+    n_buckets = len(zopt.plan_for(pb).buckets)
+    torch.cuda.reset_peak_memory_stats(device)
+    steps, grad_checks = [], {}
+    for s in range(DDP_STEPS):
+        # this step's local grads of pa, reduced in fp32: what DDP's bf16
+        # buckets must equal within bf16 rounding (outside the counts)
+        _, gl = local_grads(loss_of, pa, local)
+        want = sync_gradients_flat(_tree.map_leaves(lambda g: g.float(),
+                                                    gl), "dp")
+        del gl
+        torch.cuda.synchronize(device)
+        t0, c0 = time.perf_counter(), read_counts()
+        loss_a, ga = vg(pa, local)
+        with torch.no_grad():
+            upd, sa = txa.update(ga, sa, pa)
+            for p, u in zip(_tree.leaves(pa), _tree.leaves(upd)):
+                p.add_(u)
+        del upd
+        loss_a = float(loss_a)
+        ddp_ms = (time.perf_counter() - t0) * 1e3
+        counts_a = counts_delta(c0)
+        overlap = overlap_report(vg.last_trace, plan)
+        if ref is not None and s == 0:
+            grad_checks["ddp_bf16_allreduce"] = leaf_compare(
+                paths, _tree.leaves(ga), ref)
+        sync_gap = worst_rel_l2(paths, _tree.leaves(ga), _tree.leaves(want))
+        del ga, want
+        torch.cuda.synchronize(device)
+        t0, c0 = time.perf_counter(), read_counts()
+        loss_b, gl = local_grads(loss_of, pb, local)
+        t1 = time.perf_counter()
+        pb, zs = zopt.step(gl, zs, pb)
+        loss_b = float(loss_b)
+        zero_ms, zero_opt_ms = ((time.perf_counter() - t) * 1e3
+                                for t in (t0, t1))
+        counts_b = counts_delta(c0)
+        c0 = read_counts()
+        synced = sync_gradients_flat(_tree.map_leaves(
+            lambda g: g.float(), gl), "dp")
+        del gl
+        if ref is not None and s == 0:
+            grad_checks["fp32_reduce"] = leaf_compare(
+                paths, _tree.leaves(synced), ref)
+        with torch.no_grad():
+            upd, sc = txc.update(synced, sc, pc)
+            for p, u in zip(_tree.leaves(pc), _tree.leaves(upd)):
+                p.add_(u)
+        del upd, synced
+        counts_c = counts_delta(c0)
+        div = {"ddp": float(replica_divergence(pa, "dp")),
+               "zero1": float(replica_divergence(pb, "dp"))}
+        steps.append({
+            "step": s, "ddp_loss": loss_a, "zero1_loss": loss_b,
+            "ddp_step_ms": ddp_ms, "zero1_step_ms": zero_ms,
+            "zero1_optimizer_ms": zero_opt_ms, "replica_divergence": div,
+            "ddp_vs_fp32_reduce": sync_gap,
+            "zero1_equals_fp32_reduce_replicated": trees_equal(pb, pc),
+            "zero1_vs_ddp_bf16": trajectory_gap(pa, pb, s + 1, GPT2_LR),
+            "overlap": overlap, "launches_ddp": counts_a,
+            "launches_zero1": counts_b, "launches_fp32_reduce": counts_c})
+    peak = torch.cuda.max_memory_allocated(device)
+    full = zopt.gather_state(zs)
+    zmu, znu = zopt.unpack_state(pb, full)
+    meta = flat_ops.tree_meta(pc)
+    cmu = flat_ops.unflatten_tree(sc.mu, meta)
+    cnu = flat_ops.unflatten_tree(sc.nu, meta)
+    del full
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    return {
+        "steps": steps, "grad_check": grad_checks,
+        "moments_equal": trees_equal(zmu, cmu) and trees_equal(znu, cnu),
+        "want_ddp": gpt2_want(cfg, 1),
+        "want_zero1": gpt2_want(cfg, n_buckets),
+        "want_fp32_reduce": dict(gpt2_want(cfg, 1), layer_norm_fwd=0,
+                                 layer_norm_bwd=0, fused_softmax_causal=0),
+        "bucket_plan": {"count": len(plan.buckets),
+                        "bytes": [b.total * 2 for b in plan.buckets],
+                        "cap_mb": plan.bucket_cap_mb},
+        "zero1_buckets": n_buckets,
+        "comms_bytes": {
+            "allreduce_fp32_grads": grad_sync_comms_bytes(params, n),
+            "allreduce_bf16_grads": grad_sync_comms_bytes(
+                params, n, grad_dtype=torch.bfloat16),
+            "zero1": zopt.comms_bytes(params)},
+        "optimizer_state_bytes": {
+            "ddp_replicated": sum(t.numel() * 4 for t in
+                                  list(sa.mu.values()) + list(sa.nu.values())),
+            "zero1": sum(t.numel() * 4 for t in zs.mu + zs.nu)},
+        "params": n_params, "peak_memory_bytes": peak,
+        "syncbn": syncbn_check(rank, n, device)}
+
+
+def ddp_nccl_rank(rank, n, device) -> dict:
+    """The one rank of ddp_nccl: DDP_NCCL_STEPS steps each of the
+    single-device ``gpt2.train_step`` with ``fused_adam(flat=True)``, of
+    DDP (``overlapped_value_and_grad``, NCCL) and of ZeRO-1, from the same
+    params and batch; at one rank every reduction is the identity (``*
+    pre / n`` is ``* 1.0``), so after each step DDP and ZeRO-1 must equal
+    the single-device step bit for bit. The first step of each is cold
+    (cuBLAS plans, the allocator), the later ones steady."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.distributed import backend as B
+    from apex_tpu_torch.models import gpt2
+    from apex_tpu_torch.ops import flat as flat_ops
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.parallel import (
+        Zero1FusedAdam,
+        overlapped_value_and_grad,
+    )
+
+    cfg, params, batch = gpt2_rank_setup(device)
+
+    def loss_of(p, b):
+        return gpt2.loss_fn(p, b, cfg, remat=True, vocab_chunks=GPT2_CHUNKS)
+
+    B.barrier("dp")  # NCCL makes its communicator here, not in a step
+    pa = _tree.map_leaves(torch.clone, params)
+    pb = _tree.map_leaves(torch.clone, params)
+    tx, txa = fused_adam(lr=GPT2_LR, flat=True), fused_adam(lr=GPT2_LR,
+                                                            flat=True)
+    s_ref, sa = tx.init(params), txa.init(pa)
+    vg = overlapped_value_and_grad(loss_of, axis_name="dp")
+    zopt = Zero1FusedAdam(lr=GPT2_LR, axis_name="dp")
+    zs = zopt.init(pb)
+    meta = flat_ops.tree_meta(params)
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        t0, c0 = time.perf_counter(), read_counts()
+        fn()
+        torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) * 1e3, counts_delta(c0)
+
+    def single():
+        nonlocal s_ref
+        _, s_ref, _ = gpt2.train_step(params, s_ref, batch, cfg, tx,
+                                      remat=True, vocab_chunks=GPT2_CHUNKS)
+
+    def ddp():
+        nonlocal sa
+        _, ga = vg(pa, batch)
+        with torch.no_grad():
+            upd, sa = txa.update(ga, sa, pa)
+            for p, u in zip(_tree.leaves(pa), _tree.leaves(upd)):
+                p.add_(u)
+
+    def zero1():
+        nonlocal pb, zs
+        _, gl = local_grads(loss_of, pb, batch)
+        pb, zs = zopt.step(gl, zs, pb)
+
+    steps = []
+    for step in range(DDP_NCCL_STEPS):
+        row = {"step": step}
+        for name, fn in (("single_device", single), ("ddp", ddp),
+                         ("zero1", zero1)):
+            row[name + "_step_ms"], row["launches_" + name] = timed(fn)
+        ref_mu = flat_ops.unflatten_tree(s_ref.mu, meta)
+        ref_nu = flat_ops.unflatten_tree(s_ref.nu, meta)
+        zmu, znu = zopt.unpack_state(pb, zopt.gather_state(zs))
+        zero_params_equal = trees_equal(pb, params)
+        row.update({
+            "ddp_params_equal": trees_equal(pa, params),
+            "ddp_moments_equal": all(torch.equal(sa.mu[k], s_ref.mu[k])
+                                     and torch.equal(sa.nu[k], s_ref.nu[k])
+                                     for k in s_ref.mu),
+            "zero1_moments_equal": trees_equal(zmu, ref_mu)
+            and trees_equal(znu, ref_nu),
+            "zero1_params_equal": zero_params_equal,
+            "zero1_params_gap": None if zero_params_equal
+            else trajectory_gap(pb, params, step + 1, GPT2_LR)})
+        del ref_mu, ref_nu, zmu, znu
+        steps.append(row)
+    return {"steps": steps, "want_ddp": gpt2_want(cfg, 1),
+            "want_zero1": gpt2_want(cfg, len(zopt.plan_for(pb).buckets)),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def ddp_worker(argv) -> int:
+    """A rank of a data-parallel phase (``--ddp-worker PHASE DIR``, run by
+    ``python -m apex_tpu_torch.parallel.multiproc``, which started the
+    process group and picked the device): writes ``DIR/rank<r>.json``."""
+    import torch
+
+    from apex_tpu_torch.distributed import backend as B
+    from apex_tpu_torch.parallel.multiproc import initialize_distributed
+
+    phase, out_dir = argv[0], Path(argv[1])
+    rank, n, device = initialize_distributed()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = {"ddp_training": ddp_training_rank, "ddp_nccl": ddp_nccl_rank}
+    result = {"rank": rank, "world_size": n,
+              "backend": torch.distributed.get_backend(),
+              "device": str(device),
+              "kind": torch.cuda.get_device_name(device),
+              **run[phase](rank, n, device)}
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
+    B.barrier("dp")
+    return 0
+
+
+def launch_ranks(phase: str, nprocs: int, backend: str) -> tuple:
+    """Run ``phase``'s ranks through the port's launcher; their results
+    and the launch's seconds. A rank that fails fails the launch."""
+    import shutil
+
+    from apex_tpu_torch.parallel import multiproc
+
+    out_dir = ROOT / "build" / phase
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.monotonic()
+    rc = multiproc.launch([str(ROOT / "chip_smoke.py"), "--ddp-worker",
+                           phase, str(out_dir)], nprocs, backend=backend,
+                          env=env, timeout=DDP_TIMEOUT[phase])
+    seconds = time.monotonic() - t0
+    if rc != 0:
+        raise RuntimeError(f"{phase}: a rank exited with {rc}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(nprocs)]
+    shutil.rmtree(out_dir)
+    return ranks, seconds
+
+
+def total_launches(ranks, keys) -> dict:
+    """Every rank's launches of the run, summed over ranks."""
+    out = {}
+    for r in ranks:
+        for key in keys:
+            for s in (r["steps"] if "steps" in r else [r]):
+                for k, v in s[key].items():
+                    out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_ddp_training(dev):
+    """GPT-2 345M on DDP_RANKS ranks over gloo on the one card: DDP and
+    ZeRO-1, the checks of :func:`ddp_training_rank` held here."""
+    ranks, seconds = launch_ranks("ddp_training", DDP_RANKS, "gloo")
+    for r in ranks:
+        for s in r["steps"]:
+            for key, want in (("launches_ddp", r["want_ddp"]),
+                              ("launches_zero1", r["want_zero1"]),
+                              ("launches_fp32_reduce",
+                               r["want_fp32_reduce"])):
+                if s[key] != want:
+                    raise AssertionError(f"rank {r['rank']} step "
+                                         f"{s['step']} {key} {s[key]} != "
+                                         f"{want}")
+            if any(v != 0.0 for v in s["replica_divergence"].values()):
+                raise AssertionError(f"ranks diverged: step {s['step']} "
+                                     f"{s['replica_divergence']}")
+            gap = s["ddp_vs_fp32_reduce"]
+            if not gap["rel_l2"] <= DDP_SYNC_REL_L2:
+                raise AssertionError(
+                    f"rank {r['rank']} step {s['step']}: DDP's synced grads "
+                    f"{gap['rel_l2']} rel. L2 off the fp32 all-reduce of "
+                    f"the same local grads at {gap['leaf']}, above "
+                    f"{DDP_SYNC_REL_L2}")
+            if not s["zero1_equals_fp32_reduce_replicated"]:
+                raise AssertionError(
+                    f"ZeRO-1 params differ from the fp32-reduced replicated "
+                    f"step at step {s['step']}")
+        if not r["moments_equal"]:
+            raise AssertionError("ZeRO-1 moments differ from the replicated "
+                                 "fp32-reduced step's")
+        if not all(math.isfinite(s["ddp_loss"]) for s in r["steps"]) or \
+                not r["steps"][-1]["ddp_loss"] < r["steps"][0]["ddp_loss"]:
+            raise AssertionError(f"ddp loss: "
+                                 f"{[s['ddp_loss'] for s in r['steps']]}")
+    checks = ranks[0]["grad_check"]
+    for name, cmp in checks.items():
+        bad = {k: v for k, v in cmp["leaves"].items()
+               if not (v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS)}
+        if bad:
+            raise AssertionError(f"{name} grads off the global batch's fp32 "
+                                 f"reference: {bad}")
+    steady = [max(r["steps"][s]["ddp_step_ms"] for r in ranks)
+              for s in range(1, DDP_STEPS)]
+    zsteady = [max(r["steps"][s]["zero1_step_ms"] for r in ranks)
+               for s in range(1, DDP_STEPS)]
+    ddp_ms, zero_ms = sum(steady) / len(steady), sum(zsteady) / len(zsteady)
+    tokens = DDP_BATCH * GPT2_SEQ
+    r0 = ranks[0]
+    return {
+        "phase": "ddp_training", "label": DDP_LABEL, "model": "gpt2_345m",
+        "ranks": DDP_RANKS, "backend": r0["backend"],
+        "devices": sorted({r["device"] for r in ranks}),
+        "global_batch": DDP_BATCH, "seq": GPT2_SEQ, "steps": DDP_STEPS,
+        "launch_s": seconds,
+        "grad_check": {k: {kk: v[kk] for kk in ("worst_rel_l2", "worst_cos")}
+                       for k, v in checks.items()},
+        "rel_l2_tol": GRAD_REL_L2, "cos_tol": GRAD_COS,
+        "ddp_step_ms": ddp_ms, "zero1_step_ms": zero_ms,
+        "global_tokens_per_s": {"ddp": tokens / ddp_ms * 1e3,
+                                "zero1": tokens / zero_ms * 1e3},
+        "losses": {"ddp": [s["ddp_loss"] for s in r0["steps"]],
+                   "zero1": [s["zero1_loss"] for s in r0["steps"]]},
+        "zero1_vs_ddp_bf16": [s["zero1_vs_ddp_bf16"] for s in r0["steps"]],
+        "ddp_vs_fp32_reduce": [max(r["steps"][s]["ddp_vs_fp32_reduce"]
+                                   ["rel_l2"] for r in ranks)
+                               for s in range(DDP_STEPS)],
+        "ddp_vs_fp32_reduce_tol": DDP_SYNC_REL_L2,
+        "bucket_plan": r0["bucket_plan"], "zero1_buckets": r0["zero1_buckets"],
+        "comms_bytes": dict(r0["comms_bytes"], zero1_over_allreduce_fp32=(
+            r0["comms_bytes"]["zero1"]
+            / r0["comms_bytes"]["allreduce_fp32_grads"])),
+        "overlap": {f"rank{r['rank']}": r["steps"][-1]["overlap"]
+                    for r in ranks},
+        "zero1_optimizer_ms": [max(r["steps"][s]["zero1_optimizer_ms"]
+                                   for r in ranks)
+                               for s in range(DDP_STEPS)],
+        "optimizer_state_bytes": dict(r0["optimizer_state_bytes"], ratio=(
+            r0["optimizer_state_bytes"]["zero1"]
+            / r0["optimizer_state_bytes"]["ddp_replicated"])),
+        "peak_memory_bytes": {f"rank{r['rank']}": r["peak_memory_bytes"]
+                              for r in ranks},
+        "syncbn": {f"rank{r['rank']}": r["syncbn"] for r in ranks},
+        "launches_per_step": {"ddp": r0["steps"][0]["launches_ddp"],
+                              "zero1": r0["steps"][0]["launches_zero1"]},
+        "launches": total_launches(ranks, ("launches_ddp", "launches_zero1",
+                                           "launches_fp32_reduce"))}
+
+
+def phase_ddp_nccl(dev):
+    """The same model and step on one rank over NCCL: after each step,
+    DDP and ZeRO-1 each equal the single-device step bit for bit."""
+    ranks, seconds = launch_ranks("ddp_nccl", 1, "nccl")
+    r = ranks[0]
+    if r["backend"] != "nccl":
+        raise AssertionError(f"backend {r['backend']}, not nccl")
+    for s in r["steps"]:
+        for key in ("ddp_params_equal", "ddp_moments_equal",
+                    "zero1_moments_equal"):
+            if not s[key]:
+                raise AssertionError(f"ddp_nccl step {s['step']}: {key} "
+                                     f"is false")
+        for key, want in (("launches_ddp", r["want_ddp"]),
+                          ("launches_single_device", r["want_ddp"]),
+                          ("launches_zero1", r["want_zero1"])):
+            if s[key] != want:
+                raise AssertionError(f"ddp_nccl step {s['step']} {key} "
+                                     f"{s[key]} != {want}")
+    step_ms = {name: [s[name + "_step_ms"] for s in r["steps"]]
+               for name in ("single_device", "ddp", "zero1")}
+    return {"phase": "ddp_nccl", "model": "gpt2_345m", "ranks": 1,
+            "backend": r["backend"], "device": r["device"],
+            "batch": DDP_BATCH, "seq": GPT2_SEQ, "launch_s": seconds,
+            **{k: all(s[k] for s in r["steps"]) for k in (
+                "ddp_params_equal", "ddp_moments_equal",
+                "zero1_params_equal", "zero1_moments_equal")},
+            "zero1_params_gap": [s["zero1_params_gap"] for s in r["steps"]],
+            "step_ms": step_ms,
+            "steady_step_ms": {k: v[-1] for k, v in step_ms.items()},
+            "step_ms_note": "each step of the three paths in turn, "
+                            "synchronised; the first is cold",
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "launches": total_launches([r],
+                                       ("launches_single_device",
+                                        "launches_ddp", "launches_zero1"))}
+
+
 # the bf16 flash backward's design, named in its two summary rows
 FLASH_BWD_DESIGN = {
     "design": "tensor cores",
@@ -4329,9 +4998,12 @@ FLASH_FWD_DESIGN = {
                    "from registers and B = V transposed"}
 
 
-def case_rows(rows, keys=("ms", "bound_ms", "bound_by", "library_ms",
-                          "plain_ms", "max_abs_err")):
-    """The varlen and dropout cases of a flash check, by case name."""
+CASE_KEYS = ("ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
+             "max_abs_err")
+
+
+def case_rows(rows, keys=CASE_KEYS):
+    """The ``keys`` of each case of a check, by case name."""
     return {name: {k: r[k] for k in keys if k in r}
             for name, r in rows.items()}
 
@@ -4417,7 +5089,14 @@ def summary(kernels, counts, path_adam):
         row("fused_adam", csrc + "fused_adam.cu",
             "apex_tpu/ops/fused_adam_kernel.py:35",
             dict(adam, shape=[adam["n"]]), adam["max_abs_err"]["delta"],
-            path_max_abs_err=path_adam),
+            path_max_abs_err=path_adam,
+            cases=case_rows({
+                case: dict(kernels[key], shape=[kernels[key]["n"]],
+                           max_abs_err=kernels[key]["max_abs_err"]["delta"])
+                for case, key in (("zero1_shard", "fused_adam_zero1_shard"),
+                                  ("ddp_replicated_slab",
+                                   "fused_adam_ddp_slab"))},
+                keys=CASE_KEYS + ("shape",))),
         # LayerNorm at GPT-2's shape (the BERT shape's numbers are in the
         # kernels phase), errors over both
         row("layer_norm_fwd", csrc + "layer_norm.cu",
@@ -4425,17 +5104,22 @@ def summary(kernels, counts, path_adam):
             max(x["max_abs_err"] for x in lnf), plan=lnf[0]["plan"],
             cases=case_rows({"bert": lnf[1], "mha": mha["layer_norm_fwd"],
                              "gpt2_generate_prefill": lnf[2],
-                             "gpt2_generate_decode": lnf[3]})),
+                             "gpt2_generate_decode": lnf[3],
+                             "ddp_rank": kernels["layer_norm_fwd_ddp_rank"]},
+                            keys=CASE_KEYS + ("shape",))),
         row("layer_norm_bwd", csrc + "layer_norm.cu",
             "apex_tpu/ops/layer_norm.py:163", lnb[0],
             max(max(x["max_abs_err"].values()) for x in lnb),
-            cases=case_rows({"bert": dict(lnb[1], max_abs_err=max(
-                lnb[1]["max_abs_err"].values())), "mha": dict(
-                mha["layer_norm_bwd"], max_abs_err=max(
-                    mha["layer_norm_bwd"]["max_abs_err"].values()))})),
+            cases=case_rows({name: dict(r, max_abs_err=max(
+                r["max_abs_err"].values())) for name, r in (
+                    ("bert", lnb[1]), ("mha", mha["layer_norm_bwd"]),
+                    ("ddp_rank", kernels["layer_norm_bwd_ddp_rank"]))},
+                keys=CASE_KEYS + ("shape",))),
         row("fused_softmax_causal", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:104", smc,
-            smc["max_abs_err"]),
+            smc["max_abs_err"], cases=case_rows(
+                {"ddp_rank": kernels["fused_softmax_causal_ddp_rank"]},
+                keys=CASE_KEYS + ("shape",))),
         row("fused_softmax_masked", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:119", smm,
             smm["max_abs_err"],
@@ -4481,6 +5165,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if "--ddp-worker" in sys.argv[1:]:
+        return ddp_worker(sys.argv[sys.argv.index("--ddp-worker") + 1:])
     profiling = "--profile" in sys.argv[1:]
     phase = "device"
     try:
@@ -4579,6 +5265,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         mha = phase_multihead_attn(dev)
         emit(mha)
+        for path, run in (("ddp_training", phase_ddp_training),
+                          ("ddp_nccl", phase_ddp_nccl)):
+            phase = path
+            gc.collect()
+            torch.cuda.empty_cache()
+            results[path] = run(dev)
+            emit(results[path])
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -4599,7 +5292,9 @@ def main() -> int:
               "fmha": fmha["launches"],
               "moe_training": moe_training["launches"],
               "moe_generate": moe_generate["launches"],
-              "multihead_attn": mha["launches"]}
+              "multihead_attn": mha["launches"],
+              "ddp_training": results["ddp_training"]["launches"],
+              "ddp_nccl": results["ddp_nccl"]["launches"]}
     emit({"kernel_counts": counts})
     emit(summary(kernels, counts, training["adam_path_check"]))
     print(dev["nvidia_smi"], flush=True)

@@ -134,7 +134,8 @@ def test_delayed_scaler_sequence_matches_jax():
         Fp8DelayedScaler(["x"]).load_state_dict(jf.state_dict(js), "cpu")
     with pytest.raises(ValueError, match="at least one site"):
         Fp8DelayedScaler([])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # the vote over a group: outside a process group the name is unbound
+    with pytest.raises(NameError, match="unbound axis name"):
         pf.update(ps, _Observed(fwd, grad, torch.from_numpy),
                   reduce_axes=("dp",))
 

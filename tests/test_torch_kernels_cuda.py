@@ -1610,3 +1610,104 @@ def test_failed_capture_raises(gen):
         engine.step()
     assert sched.decode_captures() == 0
     assert sched._graph.graph is None
+
+
+# ------------------------------------------------ data parallelism
+
+
+@pytest.fixture
+def one_rank(gen, tmp_path, request):
+    """A process group of this process alone, over the backend given as
+    the test's parameter, torn down after the test."""
+    from apex_tpu_torch.distributed import backend as B
+
+    B.init_process_group(request.param, init_method=f"file://{tmp_path}/s",
+                         world_size=1, rank=0)
+    yield request.param
+    B.destroy_process_group()
+
+
+def _zero_case(gen, dtype):
+    p = {"w": torch.randn(37, 11, generator=gen, device="cuda").to(dtype),
+         "b": torch.randn(13, generator=gen, device="cuda").to(dtype)}
+    g = {k: torch.randn(v.shape, generator=gen, device="cuda").to(dtype)
+         for k, v in p.items()}
+    return p, g
+
+
+@pytest.mark.parametrize("one_rank", ["gloo", "nccl"], indirect=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero1_shard_update_launches_the_adam_kernel(one_rank, gen, dtype):
+    """ZeRO-1's shard update is the hand-written flat Adam kernel, one
+    launch a bucket, and at one rank equals the replicated flat step bit
+    for bit (params and moments)."""
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.ops import flat as flat_ops
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.parallel import Zero1FusedAdam
+
+    zp, g = _zero_case(gen, dtype)
+    rp = _tree.map_leaves(torch.clone, zp)
+    opt = Zero1FusedAdam(lr=1e-2, axis_name="dp", bucket_cap_mb=0.0005)
+    tx = fused_adam(lr=1e-2, flat=True)
+    zs, rs = opt.init(zp), tx.init(rp)
+    before = fak.launches
+    zp, zs = opt.step(g, zs, zp)
+    assert fak.launches == before + len(zs.mu) > before + 1
+    upd, rs = tx.update(g, rs, rp)
+    for p, u in zip(_tree.leaves(rp), _tree.leaves(upd)):
+        p.add_(u)
+    assert all(torch.equal(zp[k], rp[k]) for k in zp)
+    mu, _ = opt.unpack_state(zp, opt.gather_state(zs))
+    ref_mu = flat_ops.unflatten_tree(rs.mu, flat_ops.tree_meta(rp))
+    assert all(torch.equal(mu[k], ref_mu[k]) for k in mu)
+    assert all(m.is_cuda for m in zs.mu)
+
+
+@pytest.mark.parametrize("one_rank", ["gloo", "nccl"], indirect=True)
+def test_overlapped_value_and_grad_on_cuda_equals_autograd(one_rank, gen):
+    """The buckets' all-reduces issued from the backward on the card (one
+    rank: the identity) give autograd's grads bit for bit, and the trace
+    holds a CUDA event for each bucket."""
+    from apex_tpu_torch.parallel import overlapped_value_and_grad
+
+    p = {"w1": torch.randn(64, 64, generator=gen, device="cuda"),
+         "w2": torch.randn(64, 8, generator=gen, device="cuda")}
+    x = torch.randn(32, 64, generator=gen, device="cuda")
+
+    def loss(q, x):
+        return (torch.tanh(x @ q["w1"]) @ q["w2"]).square().mean()
+
+    fn = overlapped_value_and_grad(loss, axis_name="dp",
+                                   bucket_cap_mb=0.01)
+    value, grads = fn(p, x)
+    live = {k: v.detach().requires_grad_() for k, v in p.items()}
+    ref = torch.autograd.grad(loss(live, x), [live["w1"], live["w2"]])
+    assert torch.equal(grads["w1"], ref[0])
+    assert torch.equal(grads["w2"], ref[1])
+    assert len(fn.last_trace.issued) == 2
+    assert all(ev is not None for _, _, ev in fn.last_trace.issued)
+
+
+def test_zero1_on_two_ranks_sharing_the_gpu_over_gloo(gen, tmp_path):
+    """Two ranks on the one card over gloo (CUDA tensors reduced through
+    the host): ZeRO-1 equals the replicated step bit for bit, launches the
+    Adam kernel once a bucket a step, and the ranks' params agree."""
+    import numpy as np
+
+    from torch_dist_worker import run_ranks
+
+    rng = np.random.default_rng(3)
+    inputs = {"zp_w": rng.standard_normal((37, 11)).astype(np.float32),
+              "zp_b": rng.standard_normal(13).astype(np.float32)}
+    for step in range(3):
+        inputs[f"zg{step}_w"] = rng.standard_normal((2, 37, 11)).astype(
+            np.float32)
+        inputs[f"zg{step}_b"] = rng.standard_normal((2, 13)).astype(
+            np.float32)
+    ranks = run_ranks("cuda", 2, tmp_path, inputs, cpu=False)
+    for res in ranks:
+        assert bool(res["equal"])
+        assert int(res["launches"]) == 3 * int(res["buckets"])
+        assert str(res["device"]).startswith("cuda")
+        assert float(res["divergence"]) == 0.0

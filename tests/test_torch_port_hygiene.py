@@ -257,11 +257,13 @@ def test_param_constructors_resolve_their_device(rel, func):
 
 def test_checkpoint_convert_and_norm_entry_points_raise_without_a_gpu(
         monkeypatch, tmp_path):
-    """A restore with no target, the HF converters, the norm modules and
-    the chaos probe land on the card unless asked for the CPU."""
+    """A restore with no target, the HF converters, the norm modules
+    (SyncBatchNorm too) and the chaos probe land on the card unless asked
+    for the CPU."""
     from apex_tpu_torch import checkpoint
     from apex_tpu_torch.models import convert, gpt2
     from apex_tpu_torch.normalization import fused_layer_norm as fln
+    from apex_tpu_torch.parallel import SyncBatchNorm
     from apex_tpu_torch.resilience import chaos_probe
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -294,5 +296,9 @@ def test_checkpoint_convert_and_norm_entry_points_raise_without_a_gpu(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(8)
         assert cls(8, device="cpu").weight.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyncBatchNorm(8)
+    bn = SyncBatchNorm(8, device="cpu")
+    assert bn.weight.device.type == bn.running_var.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         chaos_probe("preempt@1", str(tmp_path / "p"), steps=2)
