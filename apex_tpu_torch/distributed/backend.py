@@ -127,6 +127,21 @@ def bind(axis_name, group: "dist.ProcessGroup") -> None:
     _GROUPS[_key(axis_name)] = group
 
 
+def unbind(axis_name) -> None:
+    """Forget the group bound to ``axis_name`` (a name or a tuple of
+    names); an unbound name is left as it is."""
+    _GROUPS.pop(_key(axis_name), None)
+
+
+def is_bound(axis_name) -> bool:
+    """True when ``axis_name`` (a name, or a tuple of names bound as a
+    whole or one by one) resolves to groups here: the counterpart of an
+    axis being bound inside ``shard_map``."""
+    key = _key(axis_name)
+    return bool(key) and (key in _GROUPS
+                          or all((name,) in _GROUPS for name in key))
+
+
 def new_group(axis_name, ranks: Optional[Sequence[int]] = None,
               backend: Optional[str] = None):
     """A group of ``ranks`` (default all) bound to ``axis_name`` on its

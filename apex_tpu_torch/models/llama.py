@@ -1,13 +1,31 @@
-"""Llama model family, single-device (port of
-``apex_tpu/models/llama.py``).
+"""Llama model family (port of ``apex_tpu/models/llama.py``).
 
 Params are a dict of tensors in the reference's layout: per-layer weights
 stacked on a leading ``[L, ...]`` dim, projections stored ``(in, out)``.
 So :func:`params_from_numpy` takes the JAX package's params as numpy
-arrays with no reshape. Everything here is single-device (no tp/cp/ep,
-no expert parallelism): projections, SwiGLU and the lm head are
+arrays with no reshape. Projections, SwiGLU and the lm head are
 ``torch.matmul``, as the JAX package leaves them to XLA; RMSNorm and
 attention go through the port's kernels, forward and backward.
+
+Tensor and sequence parallelism: with a group bound to ``tp_axis``
+(default ``"tp"``, :mod:`apex_tpu_torch.transformer.parallel_state`)
+the params are this rank's shards (:func:`param_specs`: column kernels
+split their output dim, row kernels their input dim, the embedding and
+the head the vocab) and the layers run the reference's collectives:
+each half-block enters its column products through one ``copy_to``
+(or, under ``sequence_parallel``, one all-gather of the sequence) and
+leaves the row product through an all-reduce (or a reduce-scatter of
+the sequence); the embedding and the cross entropy are vocab-parallel.
+Every rank's autograd gives the true gradients of its shards; what is
+replicated over tp gets its true gradient on each rank, except the
+norm scales under ``sequence_parallel``, which apply to this rank's
+rows only and are summed over tp by the caller, as the reference's
+train step does (``examples/llama_train.py:231-235``). :func:`stage_fn`
+and :func:`split_stages` are the pipeline view. With no group bound the
+code is the single-device path, unchanged. Context and expert
+parallelism are later slices: a ``cp_axis`` or ``ep_axis`` bound to
+more than one rank raises.
+
 ``num_experts > 0`` swaps the dense SwiGLU MLP for Mixtral-style top-k
 routed SwiGLU experts (:mod:`apex_tpu_torch.transformer.moe`, every
 expert on this device), whose load-balancing aux loss
@@ -28,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch import _device
+from apex_tpu_torch.distributed import backend as _backend
 from apex_tpu_torch.models import _common
 from apex_tpu_torch.models._common import fan_in_normal
 from apex_tpu_torch.normalization.fused_layer_norm import (
@@ -40,8 +59,13 @@ from apex_tpu_torch.transformer.functional.chunked_ce import (
     chunked_lm_cross_entropy,
 )
 from apex_tpu_torch.transformer.functional.rope import apply_rotary_qk
+from apex_tpu_torch.transformer.tensor_parallel import mappings
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    row_parallel_linear,
+    vocab_parallel_embedding,
 )
 
 
@@ -187,9 +211,10 @@ def _qkv(x, lp, cfg: LlamaConfig, positions, mm=matmul, sc=None):
     b, s, _ = x.shape
     d = cfg.head_dim
     sc = sc or {}
-    q = mm(x, lp["wq"], sc.get("wq")).reshape(b, s, cfg.num_heads, d)
-    k = mm(x, lp["wk"], sc.get("wk")).reshape(b, s, cfg.num_kv_heads, d)
-    v = mm(x, lp["wv"], sc.get("wv")).reshape(b, s, cfg.num_kv_heads, d)
+    # the heads this rank holds: all of them, or a tp shard's
+    q = mm(x, lp["wq"], sc.get("wq")).reshape(b, s, -1, d)
+    k = mm(x, lp["wk"], sc.get("wk")).reshape(b, s, -1, d)
+    v = mm(x, lp["wv"], sc.get("wv")).reshape(b, s, -1, d)
     q, k = apply_rotary_qk(q, k, positions=positions, base=cfg.rope_theta)
     return q, k, v
 
@@ -199,16 +224,22 @@ def causal_attention(q, k, v):
     return flash_attention(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
 
 
-def _dense_ffn(h, lp, mm=matmul, sc=None):
-    """The dense SwiGLU MLP through ``mm(x, w, scale)``."""
+def _identity(h):
+    return h
+
+
+def _dense_ffn(h, lp, mm=matmul, sc=None, enter=_identity, row=None):
+    """The dense SwiGLU MLP through ``mm(x, w, scale)``; ``enter`` and
+    ``row`` as in :func:`decoder_layer`."""
     sc = sc or {}
+    h = enter(h)
     g = mm(h, lp["wg"], sc.get("wg"))
     u = mm(h, lp["wu"], sc.get("wu"))
-    return mm(F.silu(g) * u, lp["wd"], sc.get("wd"))
+    return (row or mm)(F.silu(g) * u, lp["wd"], sc.get("wd"))
 
 
 def decoder_layer(x, lp, cfg: LlamaConfig, positions, attend, mm=matmul,
-                  sc=None, ffn=None):
+                  sc=None, ffn=None, enter=_identity, row=None):
     """One pre-norm block on a single layer's params ``lp``.
 
     ``attend(q, k, v) -> o [b, s, nq, d]`` is the attention:
@@ -217,24 +248,30 @@ def decoder_layer(x, lp, cfg: LlamaConfig, positions, attend, mm=matmul,
     layer's weight scales ``sc`` (the serving scheduler's ``_make_mm``;
     default :func:`matmul`). ``ffn(h, lp) -> y`` is the MLP half on the
     normed stream (default the dense SwiGLU through ``mm``; the MoE
-    paths pass their routed experts). Returns ``(x, k, v)`` with this
-    layer's rotated k / v."""
+    paths pass their routed experts). ``enter(h)`` takes each half's
+    normed stream to its column products and ``row(y, w, scale)`` is the
+    product that leaves the half (default ``mm``): the identity and
+    ``mm`` on one device, the tensor-parallel regions on a rank's shards
+    (:func:`_tp_hooks`). Returns ``(x, k, v)`` with this layer's rotated
+    k / v."""
     sc = sc or {}
-    x, h, k, v = _attention_half(x, lp, cfg, positions, attend, mm, sc)
-    y = ffn(h, lp) if ffn is not None else _dense_ffn(h, lp, mm, sc)
+    x, h, k, v = _attention_half(x, lp, cfg, positions, attend, mm, sc,
+                                 enter, row)
+    y = (ffn(h, lp) if ffn is not None
+         else _dense_ffn(h, lp, mm, sc, enter, row))
     return x + y, k, v
 
 
 def _attention_half(x, lp, cfg: LlamaConfig, positions, attend, mm=matmul,
-                    sc=None):
+                    sc=None, enter=_identity, row=None):
     """The block up to its MLP: ``(x, h, k, v)``, x the residual stream
     after attention and h its MLP-normed copy."""
-    b, s, _ = x.shape
     sc = sc or {}
-    h = _rmsnorm(x, lp["attn_norm"], cfg.rms_eps)
+    h = enter(_rmsnorm(x, lp["attn_norm"], cfg.rms_eps))
+    b, s = h.shape[:2]
     q, k, v = _qkv(h, lp, cfg, positions, mm, sc)
     o = attend(q, k, v).reshape(b, s, -1)
-    x = x + mm(o, lp["wo"], sc.get("wo"))
+    x = x + (row or mm)(o, lp["wo"], sc.get("wo"))
     return x, _rmsnorm(x, lp["mlp_norm"], cfg.rms_eps), k, v
 
 
@@ -261,20 +298,107 @@ def _moe_mlp(x, lp, cfg: LlamaConfig):
         lp["router"], _moe_cfg(cfg))
 
 
-def decoder_layer_with_aux(x, lp, cfg: LlamaConfig, positions):
-    """The training block (``llama.py:257``): :func:`decoder_layer` with
+def _bound(axis) -> bool:
+    return axis is not None and _backend.is_bound(axis)
+
+
+def _later_slices(cp_axis, ep_axis) -> None:
+    """Context and expert parallelism are later slices of the port: an
+    axis of either bound to more than one rank raises."""
+    for axis, what in ((cp_axis, "context"), (ep_axis, "expert")):
+        if _bound(axis) and _backend.get_world_size(axis) > 1:
+            raise NotImplementedError(
+                f"{what}-parallel axis {axis!r} over "
+                f"{_backend.get_world_size(axis)} ranks: the port's llama "
+                f"runs tensor, sequence and pipeline parallelism; "
+                f"{what} parallelism is a later slice of the multi-GPU "
+                f"port (ROADMAP.md, Queue 1 item 5)")
+
+
+def _check_heads(cfg: LlamaConfig, tp_axis) -> None:
+    tp = _backend.get_world_size(tp_axis) if _bound(tp_axis) else 1
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide num_heads={cfg.num_heads} and "
+            f"num_kv_heads={cfg.num_kv_heads}")
+
+
+def _tp_hooks(tp_axis, sequence_parallel):
+    """:func:`decoder_layer`'s ``enter`` and ``row`` on this rank's
+    shards (``llama.py:270``, ``:205``). ``enter`` is the all-gather of
+    the sequence under sequence parallelism (its backward a
+    reduce-scatter), else ``copy_to`` (its backward an all-reduce), so
+    the replicated input gets the sum of the ranks' partial cotangents.
+    ``row`` is the row-parallel product: all-reduced, or
+    reduce-scattered over the sequence under sequence parallelism."""
+    def enter(h):
+        if sequence_parallel:
+            return mappings.gather_from_sequence_parallel_region(
+                h, tp_axis, seq_dim=1)
+        return mappings.copy_to_tensor_model_parallel_region(h, tp_axis)
+
+    def row(y, w, scale=None):
+        del scale
+        return row_parallel_linear(
+            y, w, input_is_parallel=True,
+            sequence_parallel_enabled=sequence_parallel, axis_name=tp_axis,
+            seq_dim=1)
+
+    return enter, row
+
+
+def decoder_layer_with_aux(x, lp, cfg: LlamaConfig, positions, *,
+                           tp_axis: Optional[str] = "tp",
+                           sequence_parallel: bool = False,
+                           cp_axis: Optional[str] = None,
+                           ep_axis: Optional[str] = None):
+    """The training block (``llama.py:257``, the reference's
+    ``decoder_layer``): :func:`decoder_layer` with
     :func:`causal_attention`, and the MoE MLP when ``cfg.moe``. Returns
-    ``(x, aux)``, aux the layer's MoE aux loss (fp32, 0 when dense)."""
+    ``(x, aux)``, aux the layer's MoE aux loss (fp32, 0 when dense).
+    With ``tp_axis`` bound, ``lp`` holds this rank's shards and ``x`` is
+    sequence-split under sequence parallelism; the MoE MLP then runs
+    every expert on every tp rank (routing is the same on each), and its
+    input keeps this rank's slice of a cotangent every rank holds
+    whole."""
+    _later_slices(cp_axis, ep_axis)
+    hooks = {}
+    moe_in = moe_out = _identity
+    if _bound(tp_axis):
+        _check_heads(cfg, tp_axis)
+        hooks = dict(zip(("enter", "row"),
+                         _tp_hooks(tp_axis, sequence_parallel)))
+        if sequence_parallel:
+            def moe_in(h):
+                return mappings.gather_from_sequence_parallel_region(
+                    h, tp_axis, seq_dim=1, tensor_parallel_output_grad=False)
+
+            def moe_out(y):
+                return mappings.scatter_to_sequence_parallel_region(
+                    y, tp_axis, seq_dim=1)
     if not cfg.moe:
-        x = decoder_layer(x, lp, cfg, positions, causal_attention)[0]
+        x = decoder_layer(x, lp, cfg, positions, causal_attention,
+                          **hooks)[0]
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
-    x, h, _, _ = _attention_half(x, lp, cfg, positions, causal_attention)
-    y, aux = _moe_mlp(h, lp, cfg)
-    return x + y, aux
+    x, h, _, _ = _attention_half(x, lp, cfg, positions, causal_attention,
+                                 **hooks)
+    y, aux = _moe_mlp(moe_in(h), lp, cfg)
+    return x + moe_out(y), aux
 
 
-def embed(params, tokens, cfg: LlamaConfig):
-    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
+def embed(params, tokens, cfg: LlamaConfig, tp_axis: Optional[str] = "tp",
+          sequence_parallel: bool = False):
+    """Token embeddings [b, s, h] in ``cfg.dtype`` (``llama.py:331``):
+    vocab-parallel with ``tp_axis`` bound, then split over the sequence
+    under sequence parallelism."""
+    if not _bound(tp_axis):
+        return F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    x = vocab_parallel_embedding(tokens, params["embed"],
+                                 tp_axis).to(cfg.dtype)
+    if sequence_parallel:
+        x = mappings.scatter_to_sequence_parallel_region(x, tp_axis,
+                                                         seq_dim=1)
+    return x
 
 
 def lm_head_weight(params, cfg: LlamaConfig):
@@ -282,85 +406,208 @@ def lm_head_weight(params, cfg: LlamaConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def lm_head(params, x, cfg: LlamaConfig):
+def lm_head(params, x, cfg: LlamaConfig, tp_axis: Optional[str] = "tp",
+            sequence_parallel: bool = False):
     """Final norm + logits [b, s, vocab] (``llama.py:345``): a matmul in
     the activation dtype through the amp hook, site ``"lm_head"`` (an
-    fp8 product under the O4 context when registered), then fp32."""
+    fp8 product under the O4 context when registered), then fp32. With
+    ``tp_axis`` bound the logits are this rank's vocab slice
+    [b, s, vocab/tp]; under sequence parallelism ``x`` is all-gathered
+    first."""
+    tp = _bound(tp_axis)
+    if tp and sequence_parallel:
+        x = mappings.gather_from_sequence_parallel_region(x, tp_axis,
+                                                          seq_dim=1)
     x = _rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    if tp and not sequence_parallel:
+        x = mappings.copy_to_tensor_model_parallel_region(x, tp_axis)
     w = lm_head_weight(params, cfg)
     return matmul_amp(x, w.to(x.dtype), name="lm_head").float()
 
 
+def _num_layers(layers: Dict) -> int:
+    return next(iter(layers.values())).shape[0]
+
+
 def run_layers(x, layers: Dict, cfg: LlamaConfig, positions,
-               remat: Union[bool, str] = True):
+               remat: Union[bool, str] = True, *,
+               tp_axis: Optional[str] = "tp",
+               sequence_parallel: bool = False,
+               cp_axis: Optional[str] = None,
+               ep_axis: Optional[str] = None):
     """Run the stacked ``[L, ...]`` layer weights over the residual
-    stream ``x`` [b, s, h] (``run_layers``, ``llama.py:296``). Returns
+    stream ``x`` [b, s, h] (``run_layers``, ``llama.py:296``; L is the
+    weights' leading dim, a pipeline stage's share under pp). Returns
     ``(x, aux)``, aux the per-layer MoE aux losses summed (0 when dense).
     ``remat`` as in :func:`_common.run_stacked`."""
+    kw = dict(tp_axis=tp_axis, sequence_parallel=sequence_parallel,
+              cp_axis=cp_axis, ep_axis=ep_axis)
+
     def body(carry, lp):
         h, aux = carry
-        h, a = decoder_layer_with_aux(h, lp, cfg, positions)
+        h, a = decoder_layer_with_aux(h, lp, cfg, positions, **kw)
         return h, aux + a
 
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _common.run_stacked((x, zero), layers, cfg.num_layers, body,
+    return _common.run_stacked((x, zero), layers, _num_layers(layers), body,
                                remat)
 
 
 def hidden_states(params, tokens, cfg: LlamaConfig,
-                  remat: Union[bool, str] = True):
+                  remat: Union[bool, str] = True, *,
+                  tp_axis: Optional[str] = "tp",
+                  sequence_parallel: bool = False,
+                  cp_axis: Optional[str] = None,
+                  ep_axis: Optional[str] = None):
     """The shared trunk: embed + all decoder layers (pre-final-norm).
-    tokens [b, s] -> (hidden [b, s, h], MoE aux loss) (``llama.py:363``)."""
+    tokens [b, s] -> (hidden [b, s, h], MoE aux loss) (``llama.py:363``);
+    under sequence parallelism hidden is this rank's [b, s/tp, h]."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed(params, tokens, cfg)
-    return run_layers(x, params["layers"], cfg, positions, remat)
+    x = embed(params, tokens, cfg, tp_axis, sequence_parallel)
+    return run_layers(x, params["layers"], cfg, positions, remat,
+                      tp_axis=tp_axis, sequence_parallel=sequence_parallel,
+                      cp_axis=cp_axis, ep_axis=ep_axis)
 
 
 def forward_with_aux(params, tokens, cfg: LlamaConfig,
-                     remat: Union[bool, str] = True):
+                     remat: Union[bool, str] = True, *,
+                     tp_axis: Optional[str] = "tp",
+                     sequence_parallel: bool = False,
+                     cp_axis: Optional[str] = None,
+                     ep_axis: Optional[str] = None):
     """tokens [b, s] -> (logits [b, s, vocab] fp32, MoE aux loss)
-    (``llama.py:379``), differentiable."""
-    x, aux = hidden_states(params, tokens, cfg, remat)
-    return lm_head(params, x, cfg), aux
+    (``llama.py:379``), differentiable; vocab-split with ``tp_axis``
+    bound."""
+    x, aux = hidden_states(params, tokens, cfg, remat, tp_axis=tp_axis,
+                           sequence_parallel=sequence_parallel,
+                           cp_axis=cp_axis, ep_axis=ep_axis)
+    return lm_head(params, x, cfg, tp_axis, sequence_parallel), aux
 
 
 @torch.no_grad()
-def forward(params, tokens, cfg: LlamaConfig):
+def forward(params, tokens, cfg: LlamaConfig, *,
+            tp_axis: Optional[str] = "tp", sequence_parallel: bool = False,
+            cp_axis: Optional[str] = None, ep_axis: Optional[str] = None):
     """tokens [b, s] -> logits [b, s, vocab] (fp32), with no autograd
     graph: the serving path's forward. :func:`loss_fn` is the
     differentiable one."""
-    return forward_with_aux(params, tokens, cfg, remat=False)[0]
+    return forward_with_aux(params, tokens, cfg, remat=False,
+                            tp_axis=tp_axis,
+                            sequence_parallel=sequence_parallel,
+                            cp_axis=cp_axis, ep_axis=ep_axis)[0]
 
 
 def loss_fn(params, batch, cfg: LlamaConfig,
             remat: Union[bool, str] = True,
-            vocab_chunks: Optional[int] = None) -> torch.Tensor:
+            vocab_chunks: Optional[int] = None, *,
+            tp_axis: Optional[str] = "tp", sequence_parallel: bool = False,
+            cp_axis: Optional[str] = None,
+            ep_axis: Optional[str] = None) -> torch.Tensor:
     """Mean next-token CE plus the MoE aux loss (0 when dense);
-    ``batch = (tokens, targets)``, both [b, s] (``llama.py:399``,
-    single-device).
+    ``batch = (tokens, targets)``, both [b, s] (``llama.py:399``).
 
     ``vocab_chunks``: stream the lm head and the CE in that many vocab
     slices (:func:`chunked_lm_cross_entropy`), so the fp32
-    ``[b*s, vocab]`` logits never exist (``llama.py:412``)."""
+    ``[b*s, vocab]`` logits never exist (``llama.py:412``); with
+    ``tp_axis`` bound the per-rank streams merge vocab-parallel, and the
+    final norm runs on this rank's rows before the sequence is gathered
+    (row by row the same values), so its scale's gradient is tp-partial
+    under sequence parallelism, as the decoder norms' are."""
     tokens, targets = batch
+    kw = dict(tp_axis=tp_axis, sequence_parallel=sequence_parallel,
+              cp_axis=cp_axis, ep_axis=ep_axis)
     if vocab_chunks:
-        x, aux = hidden_states(params, tokens, cfg, remat)
+        x, aux = hidden_states(params, tokens, cfg, remat, **kw)
         x = _rmsnorm(x, params["final_norm"], cfg.rms_eps)
+        tp = _bound(tp_axis)
+        if tp and sequence_parallel:
+            # the chunked CE all-reduces d_hidden: every rank holds it whole
+            x = mappings.gather_from_sequence_parallel_region(
+                x, tp_axis, seq_dim=1, tensor_parallel_output_grad=False)
         losses = chunked_lm_cross_entropy(
             x.reshape(-1, x.shape[-1]), lm_head_weight(params, cfg),
-            targets.reshape(-1), vocab_chunks)
+            targets.reshape(-1), vocab_chunks,
+            tp_axis=tp_axis if tp else None)
         return torch.mean(losses) + aux
-    logits, aux = forward_with_aux(params, tokens, cfg, remat)
-    return torch.mean(vocab_parallel_cross_entropy(logits, targets)) + aux
+    logits, aux = forward_with_aux(params, tokens, cfg, remat, **kw)
+    return torch.mean(vocab_parallel_cross_entropy(
+        logits, targets, axis_name=tp_axis,
+        local=not _bound(tp_axis))) + aux
 
 
 def train_step(params, opt_state, batch, cfg: LlamaConfig, tx,
                remat: Union[bool, str] = False,
-               vocab_chunks: Optional[int] = None):
+               vocab_chunks: Optional[int] = None, *,
+               tp_axis: Optional[str] = "tp",
+               sequence_parallel: bool = False):
     """One training step of :func:`loss_fn` (``_common.train_step``):
-    ``(params, opt_state, loss)``, the params updated in place."""
+    ``(params, opt_state, loss)``, the params updated in place. As in
+    :func:`loss_fn`, a group bound to ``tp_axis`` makes ``params`` this
+    rank's shards; ``tp_axis=None`` keeps the single-device path in a
+    process whose tp group is bound."""
     return _common.train_step(
         params, opt_state, tx,
         lambda live: loss_fn(live, batch, cfg, remat=remat,
-                             vocab_chunks=vocab_chunks))
+                             vocab_chunks=vocab_chunks, tp_axis=tp_axis,
+                             sequence_parallel=sequence_parallel))
+
+
+def param_specs(cfg: LlamaConfig, tp_axis: str = "tp",
+                ep_axis: str = "ep") -> Dict:
+    """The partition spec of each leaf of :func:`init_params`'s tree
+    (``llama.py:425``), in the port's form: a tuple with one entry a dim,
+    the axis a dim is split over or None. Column kernels split the
+    output dim, row kernels the input dim, the embedding and the head
+    the vocab dim; norms replicate (``()``)."""
+    t = tp_axis
+    layer_specs = {
+        "attn_norm": (), "mlp_norm": (),
+        "wq": (None, None, t), "wk": (None, None, t),
+        "wv": (None, None, t), "wo": (None, t, None),
+    }
+    if cfg.moe:
+        # experts split over ep_axis (orthogonal to tp); router replicates
+        e = ep_axis
+        layer_specs.update({
+            "router": (),
+            "wg": (None, e, None, None),
+            "wu": (None, e, None, None),
+            "wd": (None, e, None, None),
+        })
+    else:
+        layer_specs.update({
+            "wg": (None, None, t), "wu": (None, None, t),
+            "wd": (None, t, None),
+        })
+    specs = {"embed": (t, None), "layers": layer_specs, "final_norm": ()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, t)
+    return specs
+
+
+# ------------------------------------------------------------- pipeline view
+
+
+def stage_fn(stage_params, x, cfg: LlamaConfig, positions,
+             tp_axis: Optional[str] = "tp", cp_axis: Optional[str] = None,
+             sequence_parallel: bool = False,
+             ep_axis: Optional[str] = None):
+    """One pipeline stage's stacked layer slice applied to the residual
+    stream (``llama.py:463``), for ``pipeline_parallel.schedules``; the
+    embedding and the head live outside (:func:`embed`, :func:`lm_head`
+    on the first and last stage). The MoE aux loss is dropped: the
+    pipeline carries activations only."""
+    x, _ = run_layers(x, stage_params, cfg, positions, remat=False,
+                      tp_axis=tp_axis, sequence_parallel=sequence_parallel,
+                      cp_axis=cp_axis, ep_axis=ep_axis)
+    return x
+
+
+def split_stages(params, n_stages: int) -> Dict:
+    """The stacked ``[L, ...]`` layers as ``[n_stages, L / n_stages, ...]``
+    views (``llama.py:481``): stage ``r`` is row ``r``."""
+    def r(x):
+        return x.reshape(n_stages, x.shape[0] // n_stages, *x.shape[1:])
+
+    return {k: r(v) for k, v in params["layers"].items()}

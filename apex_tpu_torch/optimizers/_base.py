@@ -213,12 +213,40 @@ class FusedOptimizer:
         self.defaults.update(state_dict.get("defaults", {}))
 
 
+def _replicated_specs(node):
+    """``node`` with each tensor replaced by the replicated spec ``()``."""
+    if isinstance(node, torch.Tensor):
+        return ()
+    if isinstance(node, dict):
+        return {k: _replicated_specs(v) for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(type(node), "_fields"):
+        return type(node)(*[_replicated_specs(v) for v in node])
+    if isinstance(node, (list, tuple)):
+        return type(node)(_replicated_specs(v) for v in node)
+    return node
+
+
 def opt_partition_specs(tx, params, param_specs):
-    """Sharding specs of a fused optimizer's state
-    (``_base.py:199``): waits for the Megatron slice of the multi-GPU
-    port. The data-parallel slice shards optimizer state with
-    :class:`apex_tpu_torch.parallel.Zero1FusedAdam`."""
-    raise NotImplementedError(
-        "opt_partition_specs waits for the Megatron slice of the multi-GPU "
-        "port (ROADMAP.md Queue 1 item 5); ZeRO-1 sharded Adam state is "
-        "apex_tpu_torch.parallel.Zero1FusedAdam")
+    """Partition specs of ``tx.init(params)``'s state (``_base.py:199``)
+    whose moment trees mirror the params' sharding: the Fused*
+    ``(count, mu, nu)`` states get ``mu=param_specs, nu=param_specs``,
+    every other leaf (the counter, a ``flat=True`` state's dtype-keyed
+    slabs, which do not mirror the params) replicates. A spec is the
+    port's per-leaf form of a ``PartitionSpec``: a tuple with one entry a
+    dim (an axis name, a tuple of names, or None), ``()`` replicated.
+    The state's structure is read from ``tx.init`` on meta tensors, so
+    nothing is allocated."""
+    meta = _tree.map_leaves(
+        lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+    shapes = tx.init(meta)
+    specs = _replicated_specs(shapes)
+    if hasattr(specs, "_replace") and hasattr(specs, "mu"):
+        mirrors = (isinstance(shapes.mu, dict)
+                   and _tree.paths(shapes.mu) == _tree.paths(params)
+                   and all(isinstance(m, torch.Tensor)
+                           and tuple(m.shape) == tuple(p.shape)
+                           for m, p in zip(_tree.leaves(shapes.mu),
+                                           _tree.leaves(params))))
+        if mirrors:
+            specs = specs._replace(mu=param_specs, nu=param_specs)
+    return specs

@@ -197,6 +197,30 @@ result line) when it fails:
                bit, params and moments (every reduction is the
                identity); exact launches; each step's ms (the first
                cold, the second steady).
+16. megatron_training -- Llama-3-8B widths at 4 layers over tp 2 x pp 2
+               (4 ranks through the launcher, ``--backend gloo``, sharing
+               the one card: not NCCL over NVLink), sequence parallelism
+               on, 4 microbatches of 1 x 2048, 3 steps of
+               ``apex_tpu_torch.examples.llama_train.Megatron3D`` with
+               ``fused_adam(flat=True)``: exact launches a rank (flash
+               16 / 8 / 8 with the recomputed stage, RMSNorm 32 / 16 and
+               36 / 20 on the last stage, Adam 1); the step-0 loss and
+               every rank's gradient blocks (saved under the git-ignored
+               ``build/megatron_training``, removed after) against fp32
+               autograd of the plain functions over the same 4
+               microbatches (rel. L2 <= 0.05, cosine >= 0.998); the
+               params after 3 steps against ``llama.train_step`` on the
+               global batch within the Adam trajectory bound; step ms,
+               global tokens/s, the collectives' share of an instrumented
+               step, peak memory a rank and over the ranks.
+17. megatron_nccl -- the same step on one NCCL rank (every group of
+               one, M = 1, 2 layers) beside ``llama.train_step``: params
+               and Adam moments equal bit for bit after each of 2 steps,
+               exact launches.
+
+The kernels phase also checks the flash trio at a megatron rank's heads
+(1 x 2048 x 16/4 x 128), the RMSNorm forward and backward on its
+sequence-split rows ([1024, 4096]) and the flat Adam on its slab.
 
 Each phase's line carries ``script_s``, the seconds since the script
 started. The last lines are the per-kernel summary, the card line and the
@@ -496,7 +520,10 @@ def fwd_plan(ln, rows: int, h: int):
     return None if plan is None else plan(rows, h, torch.bfloat16)._asdict()
 
 
-def check_rms(dev):
+def check_rms(dev, rows_list=(8, 512, 4096), fp32_weight=True):
+    """RMSNorm forward on bf16 rows of ``rows_list`` x 4096 with a bf16
+    weight; amp O2's pair too (the fp32 weight amp keeps for norms) at
+    the last rows with ``fp32_weight``."""
     import torch
     import torch.nn.functional as F
 
@@ -506,10 +533,10 @@ def check_rms(dev):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     w32 = 1 + 0.1 * torch.randn(h, generator=g, device="cuda")
     out = []
-    # bf16 weights at the serving and training rows, then amp O2's pair:
-    # bf16 rows with the fp32 weight amp keeps for norms
-    for rows, w in ((8, w32.to(torch.bfloat16)), (512, w32.to(torch.bfloat16)),
-                    (4096, w32.to(torch.bfloat16)), (4096, w32)):
+    cases = [(rows, w32.to(torch.bfloat16)) for rows in rows_list]
+    if fp32_weight:
+        cases.append((rows_list[-1], w32))
+    for rows, w in cases:
         x = torch.randn(rows, h, generator=g, device="cuda").to(
             torch.bfloat16)
         y, rstd = ln._rms_fwd_cuda(x, w, eps)
@@ -591,9 +618,10 @@ def sdpa_mask(b, s, lens, causal: bool):
     return ok
 
 
-def check_flash(dev):
+def check_flash(dev, shapes=None):
     """The forward at the serving prefills and the training batch (dense,
-    causal), then the varlen and dropout cases at the training batch.
+    causal), then the varlen and dropout cases at the training batch
+    (or at ``shapes``: ``(b, s, case, (H, H_kv, d))`` each).
     SDPA is the yardstick: GQA through enable_gqa when dense; with a
     mask or dropout, on k and v expanded to the query heads beforehand
     (not timed), with the boolean mask and dropout_p (its mask bits
@@ -608,7 +636,7 @@ def check_flash(dev):
     out = []
     # serving prefills of 128, 200 and 512 tokens; the training batch;
     # then its varlen and dropout cases; then gpt2_generate's prefill
-    for b, s, case, (H, H_kv, d) in (
+    for b, s, case, (H, H_kv, d) in shapes or (
             (1, 128, None, llama), (1, 200, None, llama),
             (1, 512, None, llama), (TRAIN_BATCH, TRAIN_SEQ, None, llama),
             *((TRAIN_BATCH, TRAIN_SEQ, c, llama) for c in FLASH_CASES),
@@ -695,17 +723,19 @@ def check_flash(dev):
     return out
 
 
-def check_flash_bwd(dev):
-    """dq and dk/dv at the training shape, against _flash_bwd_plain on the
-    same (q, k, v, o, lse, do), dense and then in the varlen and dropout
-    cases (``cases``). The plain and library times cover all of dq, dk
-    and dv (they compute them together)."""
+def check_flash_bwd(dev, shape=(TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128),
+                    with_cases=True):
+    """dq and dk/dv at the training shape (or ``shape``: b, s, H, H_kv,
+    d), against _flash_bwd_plain on the same (q, k, v, o, lse, do), dense
+    and then in the varlen and dropout cases (``cases``, with
+    ``with_cases``). The plain and library times cover all of dq, dk and
+    dv (they compute them together)."""
     import torch
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import flash_attention as fa
 
-    b, s, H, H_kv, d = TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128
+    b, s, H, H_kv, d = shape
     scale = d ** -0.5
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
@@ -714,7 +744,7 @@ def check_flash_bwd(dev):
             torch.bfloat16)
 
     res, cases = None, {}
-    for case in (None, *FLASH_CASES):
+    for case in (None, *(FLASH_CASES if with_cases else ())):
         extras, lens = (flash_extras(case, H) if case
                         else ((None, 0.0, 0), None))
         p_drop = extras[1]
@@ -816,14 +846,15 @@ def check_flash_bwd(dev):
     return res
 
 
-def check_rms_bwd(dev):
-    """The backward at the training path's rows (b*s = 4096) x h 4096."""
+def check_rms_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, fp32_weight=True):
+    """The backward at the training path's rows (b*s = 4096, or ``rows``)
+    x h 4096; amp O2's fp32-weight pair too with ``fp32_weight``."""
     import torch
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import layer_norm as ln
 
-    rows, h, eps = TRAIN_BATCH * TRAIN_SEQ, 4096, 1e-5
+    h, eps = 4096, 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
         torch.bfloat16)
@@ -870,6 +901,8 @@ def check_rms_bwd(dev):
            "library": "backward of F.rms_norm, dx+dw",
            "bound_ms": b_ms, "bound_by": b_by}
     del graphs
+    if not fp32_weight:
+        return out
     # amp O2's pair: bf16 rows and dy, the fp32 weight, dw in fp32 (an
     # fp32 sum over the rows in another order: 1e-5 of its scale)
     w32 = w.float()
@@ -1534,9 +1567,52 @@ def phase_kernels(dev):
            "fused_softmax_causal": softmax["causal"],
            "fused_softmax_causal_ddp_rank": ddp_softmax["causal"],
            "fused_softmax_masked": softmax["masked"],
-           "mha": check_mha_kernels(dev)}
+           "mha": check_mha_kernels(dev),
+           "megatron": check_megatron_kernels(dev)}
     torch.cuda.empty_cache()
     return out
+
+
+def megatron_slab_numel() -> int:
+    """The elements of a megatron_training rank's flat Adam slab: its
+    stage's layers at 1/tp of their projections (the norms whole) and
+    1/tp of the embedding and the head, and the final norm."""
+    from apex_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(num_layers=MEG_LAYERS)
+    h, i, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    nq, nkv = cfg.num_heads * d, cfg.num_kv_heads * d
+    per_layer = (2 * h * nq + 2 * h * nkv + 3 * h * i) // MEG_TP + 2 * h
+    return (cfg.num_layers // MEG_PP * per_layer
+            + 2 * cfg.vocab_size * h // MEG_TP + h)
+
+
+def check_megatron_kernels(dev):
+    """The kernels at the megatron phases' shapes. A megatron_training
+    rank: flash causal at 1 x 2048 with its 16 query and 4 KV heads (GQA
+    rep 4), the RMSNorm forward and backward on a microbatch's
+    sequence-split rows ([1024, 4096]) and, on the last stage, the final
+    norm on the gathered sequence ([2048, 4096]), flat Adam on its slab.
+    megatron_nccl (tp 1, no sequence split): flash at 1 x 2048 with all
+    32 / 8 heads, every norm on [2048, 4096]."""
+    H, H_kv = 32 // MEG_TP, 8 // MEG_TP
+    rows = MEG_MB * MEG_SEQ // MEG_TP
+    full = MEG_MB * MEG_SEQ
+    fwd = check_flash(dev, shapes=(
+        (MEG_MB, MEG_SEQ, "megatron_rank", (H, H_kv, 128)),
+        (MEG_MB, MEG_SEQ, "megatron_nccl", (32, 8, 128))))
+    rms = check_rms(dev, rows_list=(rows, full), fp32_weight=False)
+    return {"flash_fwd": fwd[0], "flash_fwd_nccl": fwd[1],
+            "flash_bwd": check_flash_bwd(dev, shape=(MEG_MB, MEG_SEQ, H,
+                                                     H_kv, 128),
+                                         with_cases=False),
+            "flash_bwd_nccl": check_flash_bwd(
+                dev, shape=(MEG_MB, MEG_SEQ, 32, 8, 128), with_cases=False),
+            "rms_fwd": rms[0], "rms_fwd_full_rows": rms[1],
+            "rms_bwd": check_rms_bwd(dev, rows=rows, fp32_weight=False),
+            "rms_bwd_full_rows": check_rms_bwd(dev, rows=full,
+                                               fp32_weight=False),
+            "adam": check_adam(dev, megatron_slab_numel())}
 
 
 def teacher_forced(forward, engine, rids, delta):
@@ -4793,6 +4869,508 @@ def ddp_nccl_rank(rank, n, device) -> dict:
             "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
 
 
+
+# megatron_training: Llama-3-8B widths at MEG_LAYERS layers over tp 2 x
+# pp 2 (dp 1), 4 ranks time-sharing the one card over gloo, sequence
+# parallelism on, MEG_M microbatches of 1 x 2048, fused_adam(flat=True)
+MEG_TP, MEG_PP, MEG_LAYERS = 2, 2, 4
+MEG_M, MEG_MB, MEG_SEQ = 4, 1, TRAIN_SEQ
+MEG_STEPS = 3
+# megatron_nccl: one NCCL rank (every group of one), M = 1, at 2 layers
+MEG_NCCL_LAYERS, MEG_NCCL_STEPS = 2, 2
+MEG_TIMEOUT = {"megatron_training": 900, "megatron_nccl": 420}
+MEG_LABEL = ("4 ranks time-sharing one H100 over gloo (collectives and "
+             "pipeline shifts staged through host memory): not a measure "
+             "of NCCL over NVLink")
+# the collectives each rank times in the instrumented step
+MEG_TIMED = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
+             "reduce_scatter_tensor", "reduce_scatter_single", "broadcast")
+
+
+def megatron_setup(device, num_layers: int, microbatches: int):
+    """Llama-3-8B widths at ``num_layers`` layers, its random bf16 params
+    and ``microbatches`` x [MEG_MB, MEG_SEQ] tokens from SEED: the same
+    numbers in every process that calls it on the card."""
+    import torch
+
+    from apex_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(num_layers=num_layers)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (microbatches, MEG_MB, MEG_SEQ),
+                           generator=gen, device=device)
+    return cfg, params, tokens
+
+
+def megatron_want(cfg, last_stage: bool) -> dict:
+    """One 3-D step's launches on a rank: each of the M microbatches runs
+    the stage's layers forward, again in the backward (the stage is
+    recomputed), and backward; the last stage adds the final norm of
+    each microbatch; one flat Adam launch (every param is bf16)."""
+    per_stage = cfg.num_layers // MEG_PP
+    extra = MEG_M if last_stage else 0
+    return dict({k: 0 for k in read_counts()},
+                flash_attention_fwd=2 * per_stage * MEG_M,
+                flash_attention_bwd_dq=per_stage * MEG_M,
+                flash_attention_bwd_dkv=per_stage * MEG_M,
+                rms_norm_fwd=2 * 2 * per_stage * MEG_M + extra,
+                rms_norm_bwd=2 * per_stage * MEG_M + extra, fused_adam=1)
+
+
+class CollectiveTimer:
+    """While on, every ``torch.distributed`` collective of MEG_TIMED and
+    every pipeline shift is timed on the host, the card synchronised
+    before (so queued compute is not counted) and after."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from apex_tpu_torch.transformer.pipeline_parallel import p2p
+
+        self.on, self.ms, self.calls = False, 0.0, 0
+        self._saved = []
+        for mod, name in [(dist, n) for n in MEG_TIMED] + [(p2p,
+                                                            "shift_raw")]:
+            fn = getattr(mod, name, None)
+            if fn is not None:
+                self._saved.append((mod, name, fn))
+                setattr(mod, name, self._wrap(fn))
+
+    def _wrap(self, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            if not self.on:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            return out
+        return timed
+
+    def restore(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def megatron_blocks(tree: dict, coords: dict, what: str, out_dir: Path,
+                    rank: int) -> None:
+    """Save this rank's blocks of a {stage, io} tree for the parent: the
+    stage blocks (unique to each (pp, tp) at dp 1) and, on pp rank 0,
+    the io blocks (the same on every pp rank)."""
+    import torch
+
+    blocks = {"stage." + k: v.detach().cpu() for k, v in tree["stage"].items()}
+    if coords["pp"][0] == 0:
+        blocks.update({"io." + k: v.detach().cpu()
+                       for k, v in tree["io"].items()})
+    torch.save(blocks, out_dir / f"{what}_r{rank}.pt")
+
+
+def megatron_training_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of megatron_training: the example's 3-D step over its
+    shards for MEG_STEPS steps; saves its first and last steps' gradient
+    blocks, its param blocks before the last step and its final param
+    blocks for the parent's checks."""
+    import torch
+
+    from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.initialize_model_parallel(MEG_TP, MEG_PP)
+    t0 = time.monotonic()
+    cfg, params, tokens = megatron_setup(device, MEG_LAYERS, MEG_M)
+    stage, io = ex.shard_params(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    targets = torch.roll(tokens, -1, dims=-1)
+    step = ex.Megatron3D(cfg, fused_adam(lr=TRAIN_LR, flat=True), MEG_M,
+                         MEG_MB, MEG_SEQ, sequence_parallel=True)
+    opt_state = step.tx.init({"stage": stage, "io": io})
+    coords = step.coords
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    timer = CollectiveTimer()
+    torch.cuda.reset_peak_memory_stats(device)
+    steps = []
+    for i in range(MEG_STEPS):
+        last = i == MEG_STEPS - 1
+        timer.on = last
+        if last:
+            # the params the last step's gradients are taken at
+            megatron_blocks({"stage": stage, "io": io}, coords,
+                            "params_last_in", out_dir, rank)
+        before = read_counts()
+        torch.distributed.barrier()  # the ranks start each step together
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g_stage, g_io = step.grads(stage, io, tokens, targets)
+        if i == 0 or last:
+            # the first and last steps' gradients for the parent's fp32
+            # checks (not timed)
+            torch.cuda.synchronize()
+            t_save = time.perf_counter()
+            megatron_blocks({"stage": g_stage, "io": g_io}, coords,
+                            "grads" if i == 0 else "grads_last", out_dir,
+                            rank)
+            t0 += time.perf_counter() - t_save
+        opt_state = step.apply(stage, io, opt_state, g_stage, g_io)
+        del g_stage, g_io
+        loss = float(loss)  # waits for the step
+        torch.cuda.synchronize()
+        steps.append({"step": i, "loss": loss,
+                      "step_ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": counts_delta(before),
+                      "collective_ms": timer.ms if timer.on else None,
+                      "collective_calls": timer.calls if timer.on else None})
+    timer.on = False
+    timer.restore()
+    megatron_blocks({"stage": stage, "io": io}, coords, "params", out_dir,
+                    rank)
+    last_stage = coords["pp"][0] == coords["pp"][1] - 1
+    return {"coords": {k: v[0] for k, v in coords.items()},
+            "steps": steps, "init_s": init_s,
+            "want": megatron_want(cfg, last_stage),
+            "shard_params": sum(t.numel() for t in
+                                list(stage.values()) + list(io.values())),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(device)}
+
+
+def megatron_nccl_rank(rank, n, device, out_dir: Path) -> dict:
+    """One NCCL rank, every group of one: the example's 3-D step with M =
+    1 (the tensor-parallel layers, each region over a group of one)
+    beside ``llama.train_step`` on the single-device path on the same
+    params and batch; after each step the params and Adam moments must
+    be equal bit for bit."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.ops import flat as _flat
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.initialize_model_parallel(1, 1)
+    cfg, single, tokens = megatron_setup(device, MEG_NCCL_LAYERS, 1)
+    stage, io = ex.shard_params(single, cfg)
+    targets = torch.roll(tokens, -1, dims=-1)
+    step = ex.Megatron3D(cfg, fused_adam(lr=TRAIN_LR, flat=True), 1, MEG_MB,
+                         MEG_SEQ, sequence_parallel=True)
+    tx = fused_adam(lr=TRAIN_LR, flat=True)
+    s3d = step.tx.init({"stage": stage, "io": io})
+    s1 = tx.init(single)
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def moments(state, tree):
+        meta = _flat.tree_meta(tree)
+        return (_flat.unflatten_tree(state.mu, meta),
+                _flat.unflatten_tree(state.nu, meta))
+
+    steps = []
+    for i in range(MEG_NCCL_STEPS):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss3d, s3d = step.train_step(stage, io, s3d, tokens, targets)
+        loss3d = float(loss3d)
+        ms3d = (time.perf_counter() - t0) * 1e3
+        mid = read_counts()
+        t0 = time.perf_counter()
+        # tp_axis=None: decoder_layer's single-device path, though this
+        # process binds a tp group (of one)
+        single, s1, loss1 = llama.train_step(
+            single, s1, (tokens[0], targets[0]), cfg, tx, remat=False,
+            tp_axis=None)
+        loss1 = float(loss1)
+        ms1 = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        pairs = [(stage[k], single["layers"][k]) for k in stage] + \
+            [(io[k], single[k]) for k in io]
+        m3, v3 = moments(s3d, {"stage": stage, "io": io})
+        m1, v1 = moments(s1, single)
+        mpairs = [(m3["stage"][k], m1["layers"][k]) for k in stage] + \
+            [(m3["io"][k], m1[k]) for k in io] + \
+            [(v3["stage"][k], v1["layers"][k]) for k in stage] + \
+            [(v3["io"][k], v1[k]) for k in io]
+        steps.append({
+            "step": i, "loss_3d": loss3d, "loss_single_device": loss1,
+            "params_equal": all(torch.equal(a, b) for a, b in pairs),
+            "moments_equal": all(torch.equal(a, b) for a, b in mpairs),
+            "params_max_abs_diff": max(float((a.float() - b.float()).abs()
+                                             .max()) for a, b in pairs),
+            "step_ms_3d": ms3d, "step_ms_single_device": ms1,
+            "launches_3d": {k: mid[k] - before[k] for k in mid},
+            "launches_single_device": {k: after[k] - mid[k]
+                                       for k in after}})
+    want = megatron_want(cfg, True)
+    # M = 1 and one stage of every layer
+    want.update(flash_attention_fwd=2 * cfg.num_layers,
+                flash_attention_bwd_dq=cfg.num_layers,
+                flash_attention_bwd_dkv=cfg.num_layers,
+                rms_norm_fwd=4 * cfg.num_layers + 1,
+                rms_norm_bwd=2 * cfg.num_layers + 1)
+    single_want = dict(want, flash_attention_fwd=cfg.num_layers,
+                       rms_norm_fwd=2 * cfg.num_layers + 1)
+    return {"steps": steps, "want_3d": want, "want_single_device":
+            single_want, "num_layers": cfg.num_layers,
+            "params": sum(t.numel() for t in _tree.leaves(single)),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def _block_of(full, spec, coords):
+    """``full``'s block at ``coords`` (axis -> index) under ``spec``."""
+    out = full
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        size = full.shape[dim] // {"pp": MEG_PP, "tp": MEG_TP, "dp": 1}[axis]
+        out = out.narrow(dim, coords[axis] * size, size)
+    return out
+
+
+def megatron_leaves(cfg, ranks, out_dir: Path, what: str):
+    """``(name, full-layout getter, rank block)`` for every block the
+    ranks saved: stage leaves as ``stage.<k>`` (the layers' rows of the
+    block's pp stage), io leaves as ``io.<k>``."""
+    import torch
+
+    from apex_tpu_torch.examples import llama_train as ex
+
+    sspec, ispec = ex.stage_specs(cfg), ex.io_specs(cfg)
+    for r in ranks:
+        c = r["coords"]
+        blocks = torch.load(out_dir / f"{what}_r{r['rank']}.pt")
+        for name, block in blocks.items():
+            part, key = name.split(".", 1)
+            if part == "stage":
+                def get(tree, key=key, c=c):
+                    full = tree["layers"][key].reshape(
+                        MEG_PP, -1, *tree["layers"][key].shape[1:])
+                    return _block_of(full, sspec[key], c)[0]
+            else:
+                def get(tree, key=key, c=c):
+                    return _block_of(tree[key], ispec[key], c)
+            yield name, get, block
+
+
+def megatron_grad_check(cfg, params, tokens, ranks, out_dir: Path,
+                        what: str):
+    """The ranks' gradient blocks ``what`` against fp32 autograd of the
+    plain functions at ``params`` (the full bf16 tree), the
+    microbatches' mean (the global batch's): ``(leaves, loss)``, each
+    leaf's rel. L2 and cosine over its blocks, and the fp32 loss."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    targets = torch.roll(tokens, -1, dims=-1)
+    p32 = _tree.map_leaves(lambda t: t.float().requires_grad_(), params)
+    grads32 = [torch.zeros_like(t) for t in _tree.leaves(p32)]
+    loss32 = 0.0
+    for m in range(MEG_M):
+        loss = reference_loss(p32, tokens[m], targets[m], cfg) / MEG_M
+        for acc, g in zip(grads32, torch.autograd.grad(
+                loss, _tree.leaves(p32))):
+            acc.add_(g)
+        loss32 += float(loss.detach())
+    ref = _tree.unflatten(_tree.paths(p32), grads32)
+    del p32, grads32
+    torch.cuda.empty_cache()
+    sums = {}
+    for name, get, block in megatron_leaves(cfg, ranks, out_dir, what):
+        g = block.to("cuda").float()
+        r = get(ref)
+        acc = sums.setdefault(name, [0.0, 0.0, 0.0, 0.0])
+        acc[0] += float(torch.sum((g - r) ** 2))
+        acc[1] += float(torch.sum(r * r))
+        acc[2] += float(torch.sum(g * r))
+        acc[3] += float(torch.sum(g * g))
+    del ref
+    torch.cuda.empty_cache()
+    return ({k: {"rel_l2": math.sqrt(a[0] / a[1]),
+                 "cos": a[2] / math.sqrt(a[1] * a[3])}
+             for k, a in sums.items()}, loss32)
+
+
+def phase_megatron_training(dev):
+    """Llama-3-8B widths on 4 gloo ranks (tp 2 x pp 2, sequence
+    parallel), 3 steps of the example's 3-D step: exact launches a rank,
+    the first and last steps' losses and gradients (every rank's blocks)
+    against an fp32 plain-autograd reference of the global batch at the
+    params each step took them at, the params after 3
+    steps against ``llama.train_step`` within the Adam trajectory bound;
+    step ms, global tokens/s, the collectives' share of a step, peak
+    memory a rank."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.optimizers import fused_adam
+
+    ranks, seconds, out_dir = launch_ranks("megatron_training",
+                                           MEG_TP * MEG_PP, "gloo",
+                                           keep=True)
+    for r in ranks:
+        for st in r["steps"]:
+            if st["launches"] != r["want"]:
+                raise AssertionError(f"megatron rank {r['rank']} step "
+                                     f"{st['step']}: launches "
+                                     f"{st['launches']} != {r['want']}")
+    losses = [st["loss"] for st in ranks[0]["steps"]]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"megatron loss: {losses}")
+    for r in ranks:
+        if [st["loss"] for st in r["steps"]] != losses:
+            raise AssertionError("megatron ranks report different losses")
+    # the first and last steps' gradients against fp32 autograd of the
+    # plain functions on the params each was taken at
+    cfg, params, tokens = megatron_setup("cuda", MEG_LAYERS, MEG_M)
+    checks = {"step0": megatron_grad_check(cfg, params, tokens, ranks,
+                                           out_dir, "grads")}
+    for name, get, block in megatron_leaves(cfg, ranks, out_dir,
+                                            "params_last_in"):
+        get(params).copy_(block.to("cuda"))
+    checks[f"step{MEG_STEPS - 1}"] = megatron_grad_check(
+        cfg, params, tokens, ranks, out_dir, "grads_last")
+    del params
+    torch.cuda.empty_cache()
+    for (step, (leaves, loss32)), loss in zip(checks.items(),
+                                             (losses[0], losses[-1])):
+        bad = {k: v for k, v in leaves.items()
+               if not (v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS)}
+        if bad:
+            raise AssertionError(f"megatron {step} gradients off the fp32 "
+                                 f"reference: {bad}")
+        if abs(loss - loss32) > 2e-2 * abs(loss32):
+            raise AssertionError(f"megatron {step} loss {loss} vs the fp32 "
+                                 f"reference's {loss32}")
+    # the same 3 steps on one device: the trajectories within Adam's bound
+    cfg, params, tokens = megatron_setup("cuda", MEG_LAYERS, MEG_M)
+    batch = (tokens.reshape(MEG_M * MEG_MB, MEG_SEQ),
+             torch.roll(tokens, -1, dims=-1).reshape(MEG_M * MEG_MB, MEG_SEQ))
+    tx = fused_adam(lr=TRAIN_LR, flat=True)
+    opt_state = tx.init(params)
+    single_losses = []
+    for _ in range(MEG_STEPS):
+        params, opt_state, loss = llama.train_step(params, opt_state, batch,
+                                                   cfg, tx, remat=True)
+        single_losses.append(float(loss))
+    del opt_state
+    torch.cuda.empty_cache()
+    # trajectory_gap's bound, block by block (each block's largest value)
+    worst = {"gap": 0.0, "bound": 0.0, "ratio": 0.0, "leaf": None}
+    for name, get, block in megatron_leaves(cfg, ranks, out_dir, "params"):
+        a, b = block.to("cuda").float(), get(params).float()
+        gap = float((a - b).abs().max())
+        top = float(torch.maximum(a.abs().max(), b.abs().max()))
+        b_ = sum(2 * TRAIN_LR * adam_step_bound(t) + top * 2.0 ** -8
+                 for t in range(1, MEG_STEPS + 1))
+        if gap / b_ >= worst["ratio"]:
+            worst = {"gap": gap, "bound": b_, "ratio": gap / b_,
+                     "leaf": name}
+    del params
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir)
+    if worst["ratio"] > 1.0:
+        raise AssertionError(f"megatron and single-device trajectories "
+                             f"{worst['gap']} apart at {worst['leaf']}, "
+                             f"above the bound {worst['bound']}")
+    step_ms = [max(r["steps"][i]["step_ms"] for r in ranks)
+               for i in range(MEG_STEPS)]
+    steady = step_ms[1]
+    coll = [r["steps"][-1]["collective_ms"] / r["steps"][-1]["step_ms"]
+            for r in ranks]
+    tokens_per_step = MEG_M * MEG_MB * MEG_SEQ
+    peaks = {f"rank{r['rank']}": r["peak_memory_bytes"] for r in ranks}
+    reserved = {f"rank{r['rank']}": r["peak_reserved_bytes"] for r in ranks}
+    return {
+        "phase": "megatron_training", "label": MEG_LABEL,
+        "model": "llama3_8b", "num_layers": MEG_LAYERS, "dtype": "bfloat16",
+        "tp": MEG_TP, "pp": MEG_PP, "dp": 1, "sequence_parallel": True,
+        "microbatches": MEG_M, "microbatch": [MEG_MB, MEG_SEQ],
+        "optimizer": "fused_adam(lr=1e-4, flat=True)", "remat": "per stage",
+        "launch_s": seconds, "init_s": max(r["init_s"] for r in ranks),
+        "losses": losses, "single_device_losses": single_losses,
+        "grad_check": {
+            step: {"loss_fp32_reference": loss32, "leaves": leaves,
+                   "worst_rel_l2": max(v["rel_l2"] for v in leaves.values()),
+                   "worst_cos": min(v["cos"] for v in leaves.values())}
+            for step, (leaves, loss32) in checks.items()},
+        "grad_check_tol": {"rel_l2": GRAD_REL_L2, "cos": GRAD_COS},
+        "trajectory_gap": worst,
+        "step_ms": step_ms, "steady_step_ms": steady,
+        "step_ms_note": "the slowest rank; step 0 holds the first Adam "
+                        "slab allocations, step 2 is the instrumented one",
+        "global_tokens_per_s": tokens_per_step / steady * 1e3,
+        "collective_share_instrumented_step": {
+            f"rank{r['rank']}": c for r, c in zip(ranks, coll)},
+        "collective_ms_instrumented_step": {
+            f"rank{r['rank']}": r["steps"][-1]["collective_ms"]
+            for r in ranks},
+        "collective_calls": ranks[0]["steps"][-1]["collective_calls"],
+        "collective_note": "host time blocked in each collective or "
+                           "shift, from a synchronise to its return: the "
+                           "other ranks' compute on the shared card is "
+                           "included, not gloo's transfer alone",
+        "instrumented_step_ms": step_ms[-1],
+        "peak_memory_bytes": peaks,
+        "peak_memory_total_bytes": sum(peaks.values()),
+        "peak_reserved_bytes": reserved,
+        "peak_reserved_total_bytes": sum(reserved.values()),
+        "shard_params": {f"rank{r['rank']}": r["shard_params"]
+                         for r in ranks},
+        "launches_per_step": {f"rank{r['rank']}": r["steps"][0]["launches"]
+                              for r in ranks},
+        "launches": total_launches(ranks, ("launches",))}
+
+
+def phase_megatron_nccl(dev):
+    """The 3-D step on one NCCL rank (M = 1, every group of one) beside
+    the single-device step: params and moments equal bit for bit after
+    each of MEG_NCCL_STEPS steps, exact launches."""
+    ranks, seconds = launch_ranks("megatron_nccl", 1, "nccl")
+    r = ranks[0]
+    if r["backend"] != "nccl":
+        raise AssertionError(f"backend {r['backend']}, not nccl")
+    for st in r["steps"]:
+        for key in ("params_equal", "moments_equal"):
+            if not st[key]:
+                raise AssertionError(f"megatron_nccl step {st['step']}: "
+                                     f"{key} is false "
+                                     f"({st['params_max_abs_diff']})")
+        for key, want in (("launches_3d", r["want_3d"]),
+                          ("launches_single_device",
+                           r["want_single_device"])):
+            if st[key] != want:
+                raise AssertionError(f"megatron_nccl step {st['step']} "
+                                     f"{key} {st[key]} != {want}")
+    return {"phase": "megatron_nccl", "model": "llama3_8b",
+            "num_layers": r["num_layers"], "ranks": 1,
+            "backend": r["backend"], "device": r["device"],
+            "microbatches": 1, "seq": MEG_SEQ, "launch_s": seconds,
+            "params_equal": all(st["params_equal"] for st in r["steps"]),
+            "moments_equal": all(st["moments_equal"] for st in r["steps"]),
+            "losses": {"3d": [st["loss_3d"] for st in r["steps"]],
+                       "single_device": [st["loss_single_device"]
+                                         for st in r["steps"]]},
+            "step_ms": {"3d": [st["step_ms_3d"] for st in r["steps"]],
+                        "single_device": [st["step_ms_single_device"]
+                                          for st in r["steps"]]},
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "launches": total_launches([r], ("launches_3d",
+                                             "launches_single_device"))}
+
+
 def ddp_worker(argv) -> int:
     """A rank of a data-parallel phase (``--ddp-worker PHASE DIR``, run by
     ``python -m apex_tpu_torch.parallel.multiproc``, which started the
@@ -4806,7 +5384,10 @@ def ddp_worker(argv) -> int:
     rank, n, device = initialize_distributed()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run = {"ddp_training": ddp_training_rank, "ddp_nccl": ddp_nccl_rank}
+    run = {"ddp_training": ddp_training_rank, "ddp_nccl": ddp_nccl_rank,
+           "megatron_training": partial(megatron_training_rank,
+                                        out_dir=out_dir),
+           "megatron_nccl": partial(megatron_nccl_rank, out_dir=out_dir)}
     result = {"rank": rank, "world_size": n,
               "backend": torch.distributed.get_backend(),
               "device": str(device),
@@ -4817,9 +5398,12 @@ def ddp_worker(argv) -> int:
     return 0
 
 
-def launch_ranks(phase: str, nprocs: int, backend: str) -> tuple:
+def launch_ranks(phase: str, nprocs: int, backend: str,
+                 keep: bool = False) -> tuple:
     """Run ``phase``'s ranks through the port's launcher; their results
-    and the launch's seconds. A rank that fails fails the launch."""
+    and the launch's seconds (and, with ``keep``, the directory they wrote,
+    left for the caller to remove). A rank that fails fails the
+    launch."""
     import shutil
 
     from apex_tpu_torch.parallel import multiproc
@@ -4832,12 +5416,15 @@ def launch_ranks(phase: str, nprocs: int, backend: str) -> tuple:
     t0 = time.monotonic()
     rc = multiproc.launch([str(ROOT / "chip_smoke.py"), "--ddp-worker",
                            phase, str(out_dir)], nprocs, backend=backend,
-                          env=env, timeout=DDP_TIMEOUT[phase])
+                          env=env, timeout={**DDP_TIMEOUT,
+                                            **MEG_TIMEOUT}[phase])
     seconds = time.monotonic() - t0
     if rc != 0:
         raise RuntimeError(f"{phase}: a rank exited with {rc}")
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
              for r in range(nprocs)]
+    if keep:
+        return ranks, seconds, out_dir
     shutil.rmtree(out_dir)
     return ranks, seconds
 
@@ -5033,7 +5620,17 @@ def summary(kernels, counts, path_adam):
     cast = kernels["fp8_cast"]
     long = kernels["fused_softmax_long"]["causal"]
     mha, mha_flash = kernels["mha"], kernels["mha"]["flash"]
+    meg = kernels["megatron"]
     csrc = "apex_tpu_torch/ops/csrc/"
+
+    def meg_bwd(part, errs):
+        """The megatron phases' rows of a flash backward kernel."""
+        return {case: dict(
+            r[part], shape=r["shape"], plain_ms=r["plain_ms"],
+            library_ms=r["library_ms"],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs))
+            for case, r in (("megatron_rank", meg["flash_bwd"]),
+                            ("megatron_nccl", meg["flash_bwd_nccl"]))}
 
     def mha_bwd(part, errs):
         """The multihead_attn shapes' rows of a flash backward kernel."""
@@ -5055,13 +5652,20 @@ def summary(kernels, counts, path_adam):
             max(x["max_abs_err"] for x in fwd),
             training=case_rows({"dense": fwd[3]}),
             cases=case_rows({x["case"]: x for x in fwd if "case" in x}
-                            | {c: r["fwd"] for c, r in mha_flash.items()}),
+                            | {c: r["fwd"] for c, r in mha_flash.items()}
+                            | {"megatron_rank": meg["flash_fwd"],
+                               "megatron_nccl": meg["flash_fwd_nccl"]},
+                            keys=CASE_KEYS + ("shape",)),
             **FLASH_FWD_DESIGN),
         row("rms_norm_fwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:56", rms[1],
             max(x["max_abs_err"] for x in rms), plan=rms[1]["plan"],
             cases=case_rows({"decode": rms[0], "training": rms[2],
-                             "training_fp32_weight": rms[3]})),
+                             "training_fp32_weight": rms[3],
+                             "megatron_sp_rows": meg["rms_fwd"],
+                             "megatron_last_stage_norm_and_nccl":
+                                 meg["rms_fwd_full_rows"]},
+                            keys=CASE_KEYS + ("shape",))),
         row("flash_attention_bwd_dq", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:261",
             dict(bwd["dq"], shape=bwd["shape"], **both),
@@ -5069,7 +5673,7 @@ def summary(kernels, counts, path_adam):
             cases={c: dict(r["dq"], max_abs_err=r["max_abs_err"]["dq"],
                            library_ms=r["library_ms"])
                    for c, r in bwd["cases"].items()}
-            | mha_bwd("dq", ("dq",))),
+            | mha_bwd("dq", ("dq",)) | meg_bwd("dq", ("dq",))),
         row("flash_attention_bwd_dkv", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:322",
             dict(bwd["dkv"], shape=bwd["shape"], **both),
@@ -5079,13 +5683,20 @@ def summary(kernels, counts, path_adam):
                                                      r["max_abs_err"]["dv"]),
                            library_ms=r["library_ms"])
                    for c, r in bwd["cases"].items()}
-            | mha_bwd("dkv", ("dk", "dv"))),
+            | mha_bwd("dkv", ("dk", "dv"))
+            | meg_bwd("dkv", ("dk", "dv"))),
         row("rms_norm_bwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:189", rbwd,
             max(rbwd["max_abs_err"].values()),
             cases=case_rows({"fp32_weight": dict(
                 rbwd["fp32_weight"], max_abs_err=max(
-                    rbwd["fp32_weight"]["max_abs_err"].values()))})),
+                    rbwd["fp32_weight"]["max_abs_err"].values())),
+                "megatron_sp_rows": dict(meg["rms_bwd"], max_abs_err=max(
+                    meg["rms_bwd"]["max_abs_err"].values())),
+                "megatron_last_stage_norm_and_nccl": dict(
+                    meg["rms_bwd_full_rows"], max_abs_err=max(
+                        meg["rms_bwd_full_rows"]["max_abs_err"].values()))},
+                keys=CASE_KEYS + ("shape",))),
         row("fused_adam", csrc + "fused_adam.cu",
             "apex_tpu/ops/fused_adam_kernel.py:35",
             dict(adam, shape=[adam["n"]]), adam["max_abs_err"]["delta"],
@@ -5095,7 +5706,10 @@ def summary(kernels, counts, path_adam):
                            max_abs_err=kernels[key]["max_abs_err"]["delta"])
                 for case, key in (("zero1_shard", "fused_adam_zero1_shard"),
                                   ("ddp_replicated_slab",
-                                   "fused_adam_ddp_slab"))},
+                                   "fused_adam_ddp_slab"))}
+                | {"megatron_rank_slab": dict(
+                    meg["adam"], shape=[meg["adam"]["n"]],
+                    max_abs_err=meg["adam"]["max_abs_err"]["delta"])},
                 keys=CASE_KEYS + ("shape",))),
         # LayerNorm at GPT-2's shape (the BERT shape's numbers are in the
         # kernels phase), errors over both
@@ -5266,7 +5880,9 @@ def main() -> int:
         mha = phase_multihead_attn(dev)
         emit(mha)
         for path, run in (("ddp_training", phase_ddp_training),
-                          ("ddp_nccl", phase_ddp_nccl)):
+                          ("ddp_nccl", phase_ddp_nccl),
+                          ("megatron_training", phase_megatron_training),
+                          ("megatron_nccl", phase_megatron_nccl)):
             phase = path
             gc.collect()
             torch.cuda.empty_cache()
@@ -5294,7 +5910,9 @@ def main() -> int:
               "moe_generate": moe_generate["launches"],
               "multihead_attn": mha["launches"],
               "ddp_training": results["ddp_training"]["launches"],
-              "ddp_nccl": results["ddp_nccl"]["launches"]}
+              "ddp_nccl": results["ddp_nccl"]["launches"],
+              "megatron_training": results["megatron_training"]["launches"],
+              "megatron_nccl": results["megatron_nccl"]["launches"]}
     emit({"kernel_counts": counts})
     emit(summary(kernels, counts, training["adam_path_check"]))
     print(dev["nvidia_smi"], flush=True)

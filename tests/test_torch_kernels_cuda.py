@@ -1711,3 +1711,23 @@ def test_zero1_on_two_ranks_sharing_the_gpu_over_gloo(gen, tmp_path):
         assert int(res["launches"]) == 3 * int(res["buckets"])
         assert str(res["device"]).startswith("cuda")
         assert float(res["divergence"]) == 0.0
+
+
+def test_pipeline_shift_on_cuda_tensors_over_gloo(gen, tmp_path):
+    """Two pipeline stages sharing the card over gloo: the shift moves
+    rank 0's CUDA tensor to rank 1 (rank 0 gets zeros) and its backward
+    moves rank 1's cotangent back, staged through host memory. Prints
+    whether gloo's own send took the CUDA tensor."""
+    import numpy as np
+
+    from torch_dist_worker import run_ranks
+
+    r0, r1 = run_ranks("megatron_cuda", 2, tmp_path, {}, cpu=False)
+    print("gloo send of a CUDA tensor:",
+          str(r0["send_cuda_error"]) or "taken as it is", "| receiver:",
+          str(r1["recv_error"]) or r1["recv_data"])
+    np.testing.assert_array_equal(r0["shift"], np.zeros(3))
+    np.testing.assert_array_equal(r1["shift"], np.ones(3))
+    np.testing.assert_array_equal(r0["shift_grad"], np.full(3, 20.0))
+    np.testing.assert_array_equal(r1["shift_grad"], np.zeros(3))
+    assert str(r1["shift_device"]).startswith("cuda")

@@ -230,8 +230,10 @@ def test_error_paths():
     flat = FusedAdam(_port(tree), flat=True)
     with pytest.raises(ValueError, match="does not match"):
         flat.load_state_dict(FusedAdam(_port(tree)).state_dict())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_opt.opt_partition_specs(flat.tx, flat.params, None)
+    # a flat state's slabs do not mirror the params: they replicate
+    specs = port_opt.opt_partition_specs(flat.tx, flat.params, None)
+    assert specs.count == () and all(
+        v == () for v in list(specs.mu.values()) + list(specs.nu.values()))
     for name in ("fused_sgd", "FusedSGD", "fused_novograd", "FusedNovoGrad",
                  "fused_adagrad", "FusedAdagrad",
                  "fused_mixed_precision_lamb", "FusedMixedPrecisionLamb"):

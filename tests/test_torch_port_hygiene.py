@@ -302,3 +302,17 @@ def test_checkpoint_convert_and_norm_entry_points_raise_without_a_gpu(
     assert bn.weight.device.type == bn.running_var.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         chaos_probe("preempt@1", str(tmp_path / "p"), steps=2)
+
+
+def test_tensor_parallel_modules_raise_without_a_gpu(monkeypatch):
+    """The Megatron slice's module forms are made on the GPU unless asked
+    for the CPU."""
+    from apex_tpu_torch.transformer.tensor_parallel import layers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: layers.ColumnParallelLinear(4, 8, **kw),
+                 lambda **kw: layers.RowParallelLinear(8, 4, **kw),
+                 lambda **kw: layers.VocabParallelEmbedding(16, 4, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu").weight.device.type == "cpu"

@@ -652,6 +652,10 @@ def main(argv) -> int:
         rank=None if launched else int(os.environ["RANK"]))
     with np.load(directory / "inputs.npz") as f:
         inputs = {k: f[k] for k in f.files}
+    if suite not in SUITES:  # the Megatron slice's suites
+        from torch_megatron_suites import SUITES as megatron
+
+        SUITES.update(megatron)
     out = SUITES[suite](rank, n, inputs, directory)
     np.savez(directory / f"rank{rank}.npz", **out)
     B.barrier("dp")
