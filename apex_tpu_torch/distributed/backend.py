@@ -326,20 +326,65 @@ def reduce_scatter(x: torch.Tensor, group: Group = "dp", axis: int = 0,
     return out.movedim(0, axis).contiguous()
 
 
-def all_to_all(x: torch.Tensor, group: Group = "cp", split_axis: int = 0,
-               concat_axis: int = 0) -> torch.Tensor:
-    """Chunk ``i`` of ``x`` along ``split_axis`` goes to rank ``i``; the
-    chunks received are concatenated along ``concat_axis`` (ref
-    ``backend.py:132``, tiled)."""
-    g = get_group(group)
+def _host_staged(x: torch.Tensor, g) -> bool:
+    """True when ``x`` must pass through host memory to cross ``g``: a
+    CUDA tensor over gloo, which takes CPU tensors for all-to-all."""
+    return x.is_cuda and dist.get_backend(g) == "gloo"
+
+
+def _all_to_all_raw(x: torch.Tensor, g, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all over ``g`` (not differentiable): one
+    ``all_to_all_single`` on the chunks laid end to end. Over gloo a
+    CUDA tensor is copied to pinned host memory, exchanged there and
+    copied back; over NCCL the device tensors go as they are."""
     n = dist.get_world_size(g)
     if x.shape[split_axis] % n:
         raise ValueError(f"all_to_all: dim {split_axis} of "
                          f"{tuple(x.shape)} does not split over {n} ranks")
-    send = [c.contiguous() for c in x.chunk(n, dim=split_axis)]
-    recv = [torch.empty_like(c) for c in send]
-    dist.all_to_all(recv, send, group=g)
-    return torch.cat(recv, dim=concat_axis)
+    chunks = x.chunk(n, dim=split_axis)
+    staged = _host_staged(x, g)
+    where = "cpu" if staged else x.device
+    send = torch.empty((x.numel(),), dtype=x.dtype, device=where,
+                       pin_memory=staged)
+    step = x.numel() // n
+    for i, c in enumerate(chunks):
+        send[i * step:(i + 1) * step].view(c.shape).copy_(c)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=g)
+    if staged:
+        recv = recv.to(x.device)
+    shape = chunks[0].shape
+    return torch.cat([recv[i * step:(i + 1) * step].view(shape)
+                      for i in range(n)], dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its gradient is the inverse all-to-all (the
+    split and concat axes swapped), as JAX transposes ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, x, g, split_axis, concat_axis):
+        ctx.g, ctx.axes = g, (split_axis, concat_axis)
+        return _all_to_all_raw(x, g, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, gy):
+        split_axis, concat_axis = ctx.axes
+        return (_AllToAll.apply(gy, ctx.g, concat_axis, split_axis), None,
+                None, None)
+
+
+def all_to_all(x: torch.Tensor, group: Group = "cp", split_axis: int = 0,
+               concat_axis: int = 0) -> torch.Tensor:
+    """Chunk ``i`` of ``x`` along ``split_axis`` goes to rank ``i``; the
+    chunks received are concatenated along ``concat_axis`` (ref
+    ``backend.py:132``, tiled). Differentiable: the gradient goes back
+    through the inverse all-to-all. CUDA tensors over a gloo group are
+    staged through pinned host memory."""
+    g = get_group(group)
+    split_axis, concat_axis = split_axis % x.dim(), concat_axis % x.dim()
+    return _AllToAll.apply(x, g, split_axis, concat_axis)
 
 
 def broadcast(x: torch.Tensor, src: int = 0, group: Group = "dp"

@@ -38,6 +38,7 @@ import torch
 
 from apex_tpu_torch import _tree
 from apex_tpu_torch.distributed import backend as _backend
+from apex_tpu_torch.examples._common import apply_updates, coords_of, shard
 from apex_tpu_torch.models import llama
 from apex_tpu_torch.transformer import parallel_state as ps
 from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
@@ -93,22 +94,7 @@ def io_specs(cfg: llama.LlamaConfig) -> Dict:
 
 def _coords() -> Dict[str, tuple]:
     """axis -> (this rank's index, the axis's size)."""
-    return {a: (_backend.get_rank(a), _backend.get_world_size(a))
-            for a in AXES}
-
-
-def shard(full: torch.Tensor, spec, coords=None) -> torch.Tensor:
-    """This rank's block of ``full`` under ``spec`` (one entry a dim: an
-    axis name or None), a copy."""
-    coords = coords or _coords()
-    out = full
-    for dim, axis in enumerate(spec):
-        if axis is None:
-            continue
-        r, n = coords[axis]
-        size = full.shape[dim] // n
-        out = out.narrow(dim, r * size, size)
-    return out.clone()
+    return coords_of(AXES)
 
 
 def shard_params(params, cfg: llama.LlamaConfig, coords=None):
@@ -222,15 +208,10 @@ class Megatron3D:
             loss = _backend.all_reduce(loss, _backend.ReduceOp.AVG, "dp")
         return loss, g_stage, g_io
 
-    @torch.no_grad()
     def apply(self, stage, io, opt_state, g_stage, g_io):
         """``tx`` on every shard, in place; the new optimizer state."""
-        params = {"stage": stage, "io": io}
-        updates, opt_state = self.tx.update(
-            {"stage": g_stage, "io": g_io}, opt_state, params)
-        for p, u in zip(_tree.leaves(params), _tree.leaves(updates)):
-            p.add_(u)
-        return opt_state
+        return apply_updates(self.tx, {"stage": stage, "io": io}, opt_state,
+                             {"stage": g_stage, "io": g_io})
 
     def train_step(self, stage, io, opt_state, tokens, targets):
         """One step on this rank's ``[M, mb, s]`` tokens: ``(loss,

@@ -4,7 +4,7 @@ loop over stacked weights and the train step."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch.utils.checkpoint import (
@@ -14,13 +14,18 @@ from torch.utils.checkpoint import (
 )
 
 from apex_tpu_torch import _tree
+from apex_tpu_torch.distributed import backend as _backend
 from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_layer_norm_affine,
 )
+from apex_tpu_torch.ops.precision import matmul_amp
+from apex_tpu_torch.transformer.tensor_parallel import mappings
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     column_parallel_linear,
     row_parallel_linear,
+    vocab_parallel_embedding,
 )
+from apex_tpu_torch.transformer.tensor_parallel.mappings import _axis_bound
 
 
 def fan_in_normal(generator: torch.Generator, *shape, fan_in=None,
@@ -37,29 +42,89 @@ def layer_norm(x, w, b, eps):
     return fused_layer_norm_affine(x, w, b, (x.shape[-1],), eps=eps)
 
 
+def bound_tp(tp_axis: Optional[str]) -> Optional[str]:
+    """``tp_axis`` when a group is bound to it, else None: the one test
+    of whether the gpt2/bert layers run tensor-parallel."""
+    return tp_axis if _axis_bound(tp_axis) else None
+
+
+def tp_size(tp_axis: Optional[str]) -> int:
+    """Ranks in the group bound to ``tp_axis``; 1 when none is
+    (``_common.py:59``)."""
+    tp = bound_tp(tp_axis)
+    return _backend.get_world_size(tp) if tp is not None else 1
+
+
+def _linear(x, w, b):
+    """The single-device product plus bias: what the column- and
+    row-parallel linears compute with no group bound (the amp site
+    ``"tp_linear"``, as theirs)."""
+    return matmul_amp(x, w, name="tp_linear") + b
+
+
+def _column(x, w, b, tp):
+    if tp is None:
+        return _linear(x, w, b)
+    return column_parallel_linear(x, w, b, gather_output=False,
+                                  axis_name=tp)
+
+
+def _row(x, w, b, tp):
+    if tp is None:
+        return _linear(x, w, b)
+    return row_parallel_linear(x, w, b, input_is_parallel=True,
+                               axis_name=tp)
+
+
 def packed_qkv_attention(x, lp, num_heads: int, head_dim: int,
-                         softmax_fn: Callable):
+                         softmax_fn: Callable,
+                         tp_axis: Optional[str] = None):
     """Megatron packed-qkv attention of the gpt2/bert families
-    (``_common.py:65``), single-device. ``lp`` carries wqkv [h, 3, h],
-    bqkv [3, h], wo and bo; ``softmax_fn(scores, scale) -> probs`` is the
-    mask flavour (causal for gpt2, padding for bert). The score and
-    probs-times-v products are ``torch.einsum``, outside any kernel, as in
-    the reference."""
+    (``_common.py:65``). ``lp`` carries wqkv [h, 3, h], bqkv [3, h], wo
+    and bo; ``softmax_fn(scores, scale) -> probs`` is the mask flavour
+    (causal for gpt2, padding for bert). With a group bound to
+    ``tp_axis`` ``lp`` is this rank's shard: wqkv split on its last dim,
+    so the rank holds its heads of each of q, k and v ([h, 3, h/tp], a
+    thirds split of the local product is exact), wo on its input dim.
+    The score and probs-times-v products are ``torch.einsum``, outside
+    any kernel, as in the reference."""
     b, s, h = x.shape
-    n, d = num_heads, head_dim
-    qkv = column_parallel_linear(x, lp["wqkv"].reshape(h, -1),
-                                 lp["bqkv"].reshape(-1))
+    tp = bound_tp(tp_axis)
+    n, d = num_heads // tp_size(tp), head_dim
+    qkv = _column(x, lp["wqkv"].reshape(h, -1), lp["bqkv"].reshape(-1), tp)
     q, k, v = (t.reshape(b, s, n, d) for t in torch.chunk(qkv, 3, dim=-1))
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
     probs = softmax_fn(scores, d ** -0.5).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, n * d)
-    return row_parallel_linear(o, lp["wo"], lp["bo"])
+    return _row(o, lp["wo"], lp["bo"], tp)
 
 
-def packed_mlp(x, lp, act_fn: Callable):
-    """fc -> act -> proj (``_common.py:93``), single-device."""
-    y = column_parallel_linear(x, lp["wfc"], lp["bfc"])
-    return row_parallel_linear(act_fn(y), lp["wproj"], lp["bproj"])
+def packed_mlp(x, lp, act_fn: Callable, tp_axis: Optional[str] = None):
+    """fc -> act -> proj (``_common.py:93``), column- then row-parallel
+    with a group bound to ``tp_axis``."""
+    tp = bound_tp(tp_axis)
+    y = _column(x, lp["wfc"], lp["bfc"], tp)
+    return _row(act_fn(y), lp["wproj"], lp["bproj"], tp)
+
+
+def token_embedding(tokens, table, tp_axis: Optional[str] = None):
+    """The rows of ``table`` for ``tokens``: vocab-parallel (this rank's
+    rows, summed over tp) with a group bound to ``tp_axis``."""
+    tp = bound_tp(tp_axis)
+    if tp is None:
+        return torch.nn.functional.embedding(tokens, table)
+    return vocab_parallel_embedding(tokens, table, tp)
+
+
+def tied_logits(x, embed, tp_axis: Optional[str] = None):
+    """fp32 logits of the tied head ``x @ embed.T``: this rank's vocab
+    slice with a group bound to ``tp_axis``, whose input gradient is
+    then all-reduced (``copy_to``), as every rank's slice reads the
+    whole of ``x``."""
+    tp = bound_tp(tp_axis)
+    if tp is not None:
+        x = mappings.copy_to_tensor_model_parallel_region(x, tp)
+    return torch.matmul(x, embed.T.to(x.dtype)).float()
 
 
 #: the products whose outputs ``remat="dots"`` keeps: matmuls with no

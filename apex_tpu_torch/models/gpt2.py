@@ -1,4 +1,4 @@
-"""GPT-2 family, single-device (port of ``apex_tpu/models/gpt2.py``).
+"""GPT-2 family (port of ``apex_tpu/models/gpt2.py``).
 
 The reference's GPT-2 345M benchmark model: a pre-norm transformer with
 learned positions, packed-qkv attention through the causal fused
@@ -9,6 +9,16 @@ weights stacked ``[L, ...]``, projections ``(in, out)``, ``wqkv`` [L, h,
 no reshape. LayerNorm and the causal softmax go through the port's
 kernels, forward and backward; the products are ``torch.matmul`` and
 ``torch.einsum``, as the JAX package leaves them to XLA.
+
+Tensor parallelism: with a group bound to ``tp_axis`` (default ``"tp"``)
+the params are this rank's shards (:func:`param_specs`): the packed qkv
+and the fc kernels split their output dim, wo and the proj kernel their
+input dim, the embedding its vocab rows; the layers run the reference's
+column/row collectives, the embedding lookup and the cross entropy are
+vocab-parallel, and each rank's causal softmax takes its
+``num_heads / tp`` heads. Each rank's autograd gives the true gradients
+of its shards and of what is replicated. With no group bound it is the
+single-device path.
 """
 
 from __future__ import annotations
@@ -22,10 +32,13 @@ import torch.nn.functional as F
 from apex_tpu_torch import _device
 from apex_tpu_torch.models import _common
 from apex_tpu_torch.models._common import (
+    bound_tp,
     fan_in_normal,
     layer_norm,
     packed_mlp,
     packed_qkv_attention,
+    tied_logits,
+    token_embedding,
 )
 from apex_tpu_torch.transformer.functional.chunked_ce import (
     chunked_lm_cross_entropy,
@@ -35,7 +48,6 @@ from apex_tpu_torch.transformer.functional.fused_softmax import (
 )
 from apex_tpu_torch.transformer.tensor_parallel import (
     vocab_parallel_cross_entropy,
-    vocab_parallel_embedding,
 )
 
 
@@ -99,6 +111,26 @@ def init_params(generator: torch.Generator, cfg: GPT2Config,
     }
 
 
+def param_specs(cfg: GPT2Config, tp_axis: str = "tp") -> Dict:
+    """The partition spec of each leaf of :func:`init_params`'s tree
+    (``gpt2.py:93``) in the port's form: a tuple with one entry a dim,
+    the axis a dim is split over or None; ``()`` replicates."""
+    del cfg
+    t = tp_axis
+    return {
+        "embed": (t, None), "pos_embed": (),
+        "layers": {
+            "ln1_w": (), "ln1_b": (),
+            "wqkv": (None, None, None, t), "bqkv": (None, None, t),
+            "wo": (None, t, None), "bo": (),
+            "ln2_w": (), "ln2_b": (),
+            "wfc": (None, None, t), "bfc": (None, t),
+            "wproj": (None, t, None), "bproj": (),
+        },
+        "lnf_w": (), "lnf_b": (),
+    }
+
+
 def params_from_numpy(tree, device: _device.DeviceLike = None) -> Dict:
     """The JAX package's params as numpy arrays (e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's, with
@@ -116,61 +148,76 @@ def _gelu(y):
     return F.gelu(y, approximate="tanh")
 
 
-def decoder_layer(x, lp, cfg: GPT2Config):
-    """One pre-norm block on a single layer's params ``lp``."""
+def decoder_layer(x, lp, cfg: GPT2Config, tp_axis: Optional[str] = "tp"):
+    """One pre-norm block on a single layer's params ``lp`` (this rank's
+    shards with ``tp_axis`` bound)."""
     h = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
     x = x + packed_qkv_attention(h, lp, cfg.num_heads, cfg.head_dim,
-                                 _causal_softmax)
+                                 _causal_softmax, tp_axis)
     h = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
-    return x + packed_mlp(h, lp, _gelu)
+    return x + packed_mlp(h, lp, _gelu, tp_axis)
+
+
+def embed(params, tokens, cfg: GPT2Config, tp_axis: Optional[str] = "tp"):
+    """Token (vocab-parallel with ``tp_axis`` bound) plus position
+    embeddings, in ``cfg.dtype``."""
+    s = tokens.shape[1]
+    x = token_embedding(tokens, params["embed"], tp_axis)
+    return (x + params["pos_embed"][None, :s]).to(cfg.dtype)
 
 
 def hidden_states(params, tokens, cfg: GPT2Config,
-                  remat: Union[bool, str] = True):
+                  remat: Union[bool, str] = True,
+                  tp_axis: Optional[str] = "tp"):
     """The shared trunk: embeddings, all layers, final LayerNorm
     (pre-head). tokens [b, s] -> [b, s, h]."""
-    s = tokens.shape[1]
-    x = vocab_parallel_embedding(tokens, params["embed"])
-    x = (x + params["pos_embed"][None, :s]).to(cfg.dtype)
+    x = embed(params, tokens, cfg, tp_axis)
 
     def body(h, lp):
-        return decoder_layer(h, lp, cfg)
+        return decoder_layer(h, lp, cfg, tp_axis)
 
     x = _common.run_stacked(x, params["layers"], cfg.num_layers, body, remat)
     return layer_norm(x, params["lnf_w"], params["lnf_b"], cfg.ln_eps)
 
 
 def forward(params, tokens, cfg: GPT2Config,
-            remat: Union[bool, str] = True):
-    """tokens [b, s] -> fp32 logits [b, s, vocab] (tied head)."""
-    x = hidden_states(params, tokens, cfg, remat)
-    return torch.matmul(x, params["embed"].T.to(x.dtype)).float()
+            remat: Union[bool, str] = True, tp_axis: Optional[str] = "tp"):
+    """tokens [b, s] -> fp32 logits [b, s, vocab] (tied head); this
+    rank's vocab slice [b, s, vocab/tp] with ``tp_axis`` bound."""
+    x = hidden_states(params, tokens, cfg, remat, tp_axis)
+    return tied_logits(x, params["embed"], tp_axis)
 
 
 def loss_fn(params, batch, cfg: GPT2Config,
             remat: Union[bool, str] = True,
-            vocab_chunks: Optional[int] = None) -> torch.Tensor:
+            vocab_chunks: Optional[int] = None,
+            tp_axis: Optional[str] = "tp") -> torch.Tensor:
     """Mean next-token CE; ``batch = (tokens, targets)``, both [b, s].
     ``vocab_chunks`` streams the tied head and the CE so the fp32
-    [b*s, vocab] logits never exist (``gpt2.py:168``)."""
+    [b*s, vocab] logits never exist (``gpt2.py:168``). With ``tp_axis``
+    bound the CE is vocab-parallel."""
     tokens, targets = batch
+    tp = bound_tp(tp_axis)
     if vocab_chunks:
-        x = hidden_states(params, tokens, cfg, remat)
+        x = hidden_states(params, tokens, cfg, remat, tp_axis)
         losses = chunked_lm_cross_entropy(
             x.reshape(-1, x.shape[-1]), params["embed"].T,
-            targets.reshape(-1), vocab_chunks)
+            targets.reshape(-1), vocab_chunks, tp_axis=tp)
         return torch.mean(losses)
-    logits = forward(params, tokens, cfg, remat)
-    return torch.mean(vocab_parallel_cross_entropy(logits, targets))
+    logits = forward(params, tokens, cfg, remat, tp_axis)
+    return torch.mean(vocab_parallel_cross_entropy(
+        logits, targets, axis_name=tp_axis, local=tp is None))
 
 
 def train_step(params, opt_state, batch, cfg: GPT2Config, tx,
                remat: Union[bool, str] = True,
-               vocab_chunks: Optional[int] = None):
+               vocab_chunks: Optional[int] = None,
+               tp_axis: Optional[str] = "tp"):
     """One training step of :func:`loss_fn` (``_common.train_step``), as
     ``bench.py``'s GPT-2 step: ``(params, opt_state, loss)``, the params
-    updated in place."""
+    updated in place (this rank's shards with ``tp_axis`` bound, whose
+    gradients need no reduction over tp)."""
     return _common.train_step(
         params, opt_state, tx,
         lambda live: loss_fn(live, batch, cfg, remat=remat,
-                             vocab_chunks=vocab_chunks))
+                             vocab_chunks=vocab_chunks, tp_axis=tp_axis))

@@ -22,14 +22,24 @@ norm scales under ``sequence_parallel``, which apply to this rank's
 rows only and are summed over tp by the caller, as the reference's
 train step does (``examples/llama_train.py:231-235``). :func:`stage_fn`
 and :func:`split_stages` are the pipeline view. With no group bound the
-code is the single-device path, unchanged. Context and expert
-parallelism are later slices: a ``cp_axis`` or ``ep_axis`` bound to
-more than one rank raises.
+code is the single-device path, unchanged.
+
+Context parallelism: with a group bound to ``cp_axis`` the tokens are
+this rank's shard of the sequence, the positions are global
+(:func:`_positions`) and attention is
+:func:`~apex_tpu_torch.transformer.context_parallel.ring_attention`; it
+composes with tp (the ring runs on this rank's heads). Expert
+parallelism: with a group bound to ``ep_axis`` the MoE layers hold this
+rank's experts (:func:`param_specs`) and tokens reach them through the
+two all-to-alls of ``moe.expert_parallel_apply``. As in the reference,
+``cp_axis`` and ``ep_axis`` default to ``"cp"`` and ``"ep"``: a process
+that binds either group gets that parallelism unless it passes None (a
+group of one rank gives the unbound path's results bit for bit).
 
 ``num_experts > 0`` swaps the dense SwiGLU MLP for Mixtral-style top-k
-routed SwiGLU experts (:mod:`apex_tpu_torch.transformer.moe`, every
-expert on this device), whose load-balancing aux loss
-:func:`forward_with_aux` and :func:`loss_fn` return.
+routed SwiGLU experts (:mod:`apex_tpu_torch.transformer.moe`), whose
+load-balancing aux loss :func:`forward_with_aux` and :func:`loss_fn`
+return.
 
 Two paths share the decoder layer: :func:`forward` (no grad) serves, and
 :func:`loss_fn` / :func:`train_step` train, the counterpart of the JAX
@@ -55,6 +65,10 @@ from apex_tpu_torch.normalization.fused_layer_norm import (
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.precision import matmul_amp
 from apex_tpu_torch.transformer import moe as _moe
+from apex_tpu_torch.transformer.context_parallel import (
+    context_parallel_positions,
+    ring_attention,
+)
 from apex_tpu_torch.transformer.functional.chunked_ce import (
     chunked_lm_cross_entropy,
 )
@@ -67,6 +81,7 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     row_parallel_linear,
     vocab_parallel_embedding,
 )
+from apex_tpu_torch.transformer.tensor_parallel.mappings import _axis_bound
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,12 +297,14 @@ def _moe_cfg(cfg: LlamaConfig) -> _moe.MoEConfig:
                           capacity_factor=cfg.moe_capacity_factor)
 
 
-def _moe_mlp(x, lp, cfg: LlamaConfig):
+def _moe_mlp(x, lp, cfg: LlamaConfig, ep_axis: Optional[str] = "ep"):
     """Mixtral-style routed SwiGLU experts in place of the dense MLP
     (``llama.py:231``): the training router (capacity drops, balance
-    aux), every expert on this device. Returns (y, aux)."""
+    aux). With ``ep_axis`` bound ``lp`` holds this rank's experts and
+    the tokens reach them by all-to-all; else every expert is here.
+    Returns (y, aux)."""
 
-    def expert_fn(p, tokens):  # [E, C, h] -> [E, C, h]
+    def expert_fn(p, tokens):  # [E_local, C', h] -> [E_local, C', h]
         g = torch.einsum("ech,ehf->ecf", tokens, p["wg"].to(tokens.dtype))
         u = torch.einsum("ech,ehf->ecf", tokens, p["wu"].to(tokens.dtype))
         return torch.einsum("ecf,efh->ech", F.silu(g) * u,
@@ -295,28 +312,32 @@ def _moe_mlp(x, lp, cfg: LlamaConfig):
 
     return _moe.expert_parallel_apply(
         expert_fn, {"wg": lp["wg"], "wu": lp["wu"], "wd": lp["wd"]}, x,
-        lp["router"], _moe_cfg(cfg))
+        lp["router"], _moe_cfg(cfg), ep_axis=ep_axis)
 
 
-def _bound(axis) -> bool:
-    return axis is not None and _backend.is_bound(axis)
+def _attend(cp_axis):
+    """The training attention: the ring over ``cp_axis`` when it is
+    bound (``llama.py:196-198``), else :func:`causal_attention`."""
+    if not _axis_bound(cp_axis):
+        return causal_attention
+
+    def ring(q, k, v):
+        return ring_attention(q, k, v, axis_name=cp_axis, causal=True)
+    return ring
 
 
-def _later_slices(cp_axis, ep_axis) -> None:
-    """Context and expert parallelism are later slices of the port: an
-    axis of either bound to more than one rank raises."""
-    for axis, what in ((cp_axis, "context"), (ep_axis, "expert")):
-        if _bound(axis) and _backend.get_world_size(axis) > 1:
-            raise NotImplementedError(
-                f"{what}-parallel axis {axis!r} over "
-                f"{_backend.get_world_size(axis)} ranks: the port's llama "
-                f"runs tensor, sequence and pipeline parallelism; "
-                f"{what} parallelism is a later slice of the multi-GPU "
-                f"port (ROADMAP.md, Queue 1 item 5)")
+def _positions(b: int, s_local: int, cp_axis, device) -> torch.Tensor:
+    """[b, s_local] position ids (``llama.py:288``): global ones of this
+    rank's shard with ``cp_axis`` bound."""
+    if _axis_bound(cp_axis):
+        pos = context_parallel_positions(s_local, cp_axis, device=device)
+    else:
+        pos = torch.arange(s_local, device=device)
+    return pos.expand(b, s_local)
 
 
 def _check_heads(cfg: LlamaConfig, tp_axis) -> None:
-    tp = _backend.get_world_size(tp_axis) if _bound(tp_axis) else 1
+    tp = _backend.get_world_size(tp_axis) if _axis_bound(tp_axis) else 1
     if cfg.num_heads % tp or cfg.num_kv_heads % tp:
         raise ValueError(
             f"tp={tp} must divide num_heads={cfg.num_heads} and "
@@ -350,21 +371,23 @@ def _tp_hooks(tp_axis, sequence_parallel):
 def decoder_layer_with_aux(x, lp, cfg: LlamaConfig, positions, *,
                            tp_axis: Optional[str] = "tp",
                            sequence_parallel: bool = False,
-                           cp_axis: Optional[str] = None,
-                           ep_axis: Optional[str] = None):
+                           cp_axis: Optional[str] = "cp",
+                           ep_axis: Optional[str] = "ep"):
     """The training block (``llama.py:257``, the reference's
     ``decoder_layer``): :func:`decoder_layer` with
     :func:`causal_attention`, and the MoE MLP when ``cfg.moe``. Returns
     ``(x, aux)``, aux the layer's MoE aux loss (fp32, 0 when dense).
     With ``tp_axis`` bound, ``lp`` holds this rank's shards and ``x`` is
     sequence-split under sequence parallelism; the MoE MLP then runs
-    every expert on every tp rank (routing is the same on each), and its
-    input keeps this rank's slice of a cotangent every rank holds
-    whole."""
-    _later_slices(cp_axis, ep_axis)
+    this rank's experts on every tp rank (routing is the same on each),
+    and its input keeps this rank's slice of a cotangent every rank
+    holds whole. ``cp_axis`` bound: ring attention over this rank's
+    sequence shard; ``ep_axis`` bound: ``lp`` holds this rank's
+    experts."""
+    attend = _attend(cp_axis)
     hooks = {}
     moe_in = moe_out = _identity
-    if _bound(tp_axis):
+    if _axis_bound(tp_axis):
         _check_heads(cfg, tp_axis)
         hooks = dict(zip(("enter", "row"),
                          _tp_hooks(tp_axis, sequence_parallel)))
@@ -377,12 +400,10 @@ def decoder_layer_with_aux(x, lp, cfg: LlamaConfig, positions, *,
                 return mappings.scatter_to_sequence_parallel_region(
                     y, tp_axis, seq_dim=1)
     if not cfg.moe:
-        x = decoder_layer(x, lp, cfg, positions, causal_attention,
-                          **hooks)[0]
+        x = decoder_layer(x, lp, cfg, positions, attend, **hooks)[0]
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
-    x, h, _, _ = _attention_half(x, lp, cfg, positions, causal_attention,
-                                 **hooks)
-    y, aux = _moe_mlp(moe_in(h), lp, cfg)
+    x, h, _, _ = _attention_half(x, lp, cfg, positions, attend, **hooks)
+    y, aux = _moe_mlp(moe_in(h), lp, cfg, ep_axis)
     return x + moe_out(y), aux
 
 
@@ -391,7 +412,7 @@ def embed(params, tokens, cfg: LlamaConfig, tp_axis: Optional[str] = "tp",
     """Token embeddings [b, s, h] in ``cfg.dtype`` (``llama.py:331``):
     vocab-parallel with ``tp_axis`` bound, then split over the sequence
     under sequence parallelism."""
-    if not _bound(tp_axis):
+    if not _axis_bound(tp_axis):
         return F.embedding(tokens, params["embed"]).to(cfg.dtype)
     x = vocab_parallel_embedding(tokens, params["embed"],
                                  tp_axis).to(cfg.dtype)
@@ -414,7 +435,7 @@ def lm_head(params, x, cfg: LlamaConfig, tp_axis: Optional[str] = "tp",
     ``tp_axis`` bound the logits are this rank's vocab slice
     [b, s, vocab/tp]; under sequence parallelism ``x`` is all-gathered
     first."""
-    tp = _bound(tp_axis)
+    tp = _axis_bound(tp_axis)
     if tp and sequence_parallel:
         x = mappings.gather_from_sequence_parallel_region(x, tp_axis,
                                                           seq_dim=1)
@@ -433,8 +454,8 @@ def run_layers(x, layers: Dict, cfg: LlamaConfig, positions,
                remat: Union[bool, str] = True, *,
                tp_axis: Optional[str] = "tp",
                sequence_parallel: bool = False,
-               cp_axis: Optional[str] = None,
-               ep_axis: Optional[str] = None):
+               cp_axis: Optional[str] = "cp",
+               ep_axis: Optional[str] = "ep"):
     """Run the stacked ``[L, ...]`` layer weights over the residual
     stream ``x`` [b, s, h] (``run_layers``, ``llama.py:296``; L is the
     weights' leading dim, a pipeline stage's share under pp). Returns
@@ -457,13 +478,14 @@ def hidden_states(params, tokens, cfg: LlamaConfig,
                   remat: Union[bool, str] = True, *,
                   tp_axis: Optional[str] = "tp",
                   sequence_parallel: bool = False,
-                  cp_axis: Optional[str] = None,
-                  ep_axis: Optional[str] = None):
+                  cp_axis: Optional[str] = "cp",
+                  ep_axis: Optional[str] = "ep"):
     """The shared trunk: embed + all decoder layers (pre-final-norm).
     tokens [b, s] -> (hidden [b, s, h], MoE aux loss) (``llama.py:363``);
-    under sequence parallelism hidden is this rank's [b, s/tp, h]."""
+    under sequence parallelism hidden is this rank's [b, s/tp, h]; with
+    ``cp_axis`` bound ``tokens`` are this rank's sequence shard."""
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    positions = _positions(b, s, cp_axis, tokens.device)
     x = embed(params, tokens, cfg, tp_axis, sequence_parallel)
     return run_layers(x, params["layers"], cfg, positions, remat,
                       tp_axis=tp_axis, sequence_parallel=sequence_parallel,
@@ -474,8 +496,8 @@ def forward_with_aux(params, tokens, cfg: LlamaConfig,
                      remat: Union[bool, str] = True, *,
                      tp_axis: Optional[str] = "tp",
                      sequence_parallel: bool = False,
-                     cp_axis: Optional[str] = None,
-                     ep_axis: Optional[str] = None):
+                     cp_axis: Optional[str] = "cp",
+                     ep_axis: Optional[str] = "ep"):
     """tokens [b, s] -> (logits [b, s, vocab] fp32, MoE aux loss)
     (``llama.py:379``), differentiable; vocab-split with ``tp_axis``
     bound."""
@@ -488,7 +510,7 @@ def forward_with_aux(params, tokens, cfg: LlamaConfig,
 @torch.no_grad()
 def forward(params, tokens, cfg: LlamaConfig, *,
             tp_axis: Optional[str] = "tp", sequence_parallel: bool = False,
-            cp_axis: Optional[str] = None, ep_axis: Optional[str] = None):
+            cp_axis: Optional[str] = "cp", ep_axis: Optional[str] = "ep"):
     """tokens [b, s] -> logits [b, s, vocab] (fp32), with no autograd
     graph: the serving path's forward. :func:`loss_fn` is the
     differentiable one."""
@@ -502,8 +524,8 @@ def loss_fn(params, batch, cfg: LlamaConfig,
             remat: Union[bool, str] = True,
             vocab_chunks: Optional[int] = None, *,
             tp_axis: Optional[str] = "tp", sequence_parallel: bool = False,
-            cp_axis: Optional[str] = None,
-            ep_axis: Optional[str] = None) -> torch.Tensor:
+            cp_axis: Optional[str] = "cp",
+            ep_axis: Optional[str] = "ep") -> torch.Tensor:
     """Mean next-token CE plus the MoE aux loss (0 when dense);
     ``batch = (tokens, targets)``, both [b, s] (``llama.py:399``).
 
@@ -520,7 +542,7 @@ def loss_fn(params, batch, cfg: LlamaConfig,
     if vocab_chunks:
         x, aux = hidden_states(params, tokens, cfg, remat, **kw)
         x = _rmsnorm(x, params["final_norm"], cfg.rms_eps)
-        tp = _bound(tp_axis)
+        tp = _axis_bound(tp_axis)
         if tp and sequence_parallel:
             # the chunked CE all-reduces d_hidden: every rank holds it whole
             x = mappings.gather_from_sequence_parallel_region(
@@ -533,24 +555,30 @@ def loss_fn(params, batch, cfg: LlamaConfig,
     logits, aux = forward_with_aux(params, tokens, cfg, remat, **kw)
     return torch.mean(vocab_parallel_cross_entropy(
         logits, targets, axis_name=tp_axis,
-        local=not _bound(tp_axis))) + aux
+        local=not _axis_bound(tp_axis))) + aux
 
 
 def train_step(params, opt_state, batch, cfg: LlamaConfig, tx,
                remat: Union[bool, str] = False,
                vocab_chunks: Optional[int] = None, *,
                tp_axis: Optional[str] = "tp",
-               sequence_parallel: bool = False):
+               sequence_parallel: bool = False,
+               cp_axis: Optional[str] = "cp",
+               ep_axis: Optional[str] = "ep"):
     """One training step of :func:`loss_fn` (``_common.train_step``):
     ``(params, opt_state, loss)``, the params updated in place. As in
     :func:`loss_fn`, a group bound to ``tp_axis`` makes ``params`` this
     rank's shards; ``tp_axis=None`` keeps the single-device path in a
-    process whose tp group is bound."""
+    process whose tp group is bound. The update applies this rank's own
+    gradients: a caller that splits the tokens over cp or ep reduces
+    them first (``examples/long_context.py``, ``examples/moe_train.py``);
+    with every such group of one rank it is the single-device step."""
     return _common.train_step(
         params, opt_state, tx,
         lambda live: loss_fn(live, batch, cfg, remat=remat,
                              vocab_chunks=vocab_chunks, tp_axis=tp_axis,
-                             sequence_parallel=sequence_parallel))
+                             sequence_parallel=sequence_parallel,
+                             cp_axis=cp_axis, ep_axis=ep_axis))
 
 
 def param_specs(cfg: LlamaConfig, tp_axis: str = "tp",
@@ -592,7 +620,7 @@ def param_specs(cfg: LlamaConfig, tp_axis: str = "tp",
 def stage_fn(stage_params, x, cfg: LlamaConfig, positions,
              tp_axis: Optional[str] = "tp", cp_axis: Optional[str] = None,
              sequence_parallel: bool = False,
-             ep_axis: Optional[str] = None):
+             ep_axis: Optional[str] = "ep"):
     """One pipeline stage's stacked layer slice applied to the residual
     stream (``llama.py:463``), for ``pipeline_parallel.schedules``; the
     embedding and the head live outside (:func:`embed`, :func:`lm_head`

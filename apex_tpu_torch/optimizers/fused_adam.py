@@ -108,15 +108,20 @@ def fused_adam(lr: ScalarOrSchedule = 1e-3, bias_correction: bool = True,
         else:
             m_leaves = _tree.leaves(state.mu)
             v_leaves = _tree.leaves(state.nu)
-            results = [_math.adam_step(g, p, m, v, lr=lr_t, step=step, **kw)
-                       for g, p, m, v in zip(g_leaves, p_leaves, m_leaves,
-                                             v_leaves)]
+            # each leaf's fp32 delta is cast to the param's dtype as it is
+            # made, so no more than one leaf's fp32 delta is alive
+            deltas, mus, nus = [], [], []
+            for g, p, m, v in zip(g_leaves, p_leaves, m_leaves, v_leaves):
+                delta, m, v = _math.adam_step(g, p, m, v, lr=lr_t,
+                                              step=step, **kw)
+                deltas.append(delta.to(p.dtype))
+                mus.append(m)
+                nus.append(v)
+                del delta
             paths = _tree.paths(params)
-            updates = _tree.unflatten(
-                paths, [r[0].to(p.dtype) for r, p in zip(results,
-                                                          p_leaves)])
-            mu = _tree.unflatten(paths, [r[1] for r in results])
-            nu = _tree.unflatten(paths, [r[2] for r in results])
+            updates = _tree.unflatten(paths, deltas)
+            mu = _tree.unflatten(paths, mus)
+            nu = _tree.unflatten(paths, nus)
         return updates, FusedAdamState(count=count, mu=mu, nu=nu)
 
     return GradientTransformation(init, update)

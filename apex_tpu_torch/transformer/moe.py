@@ -1,5 +1,4 @@
-"""Mixture-of-Experts, single-device (port of
-``apex_tpu/transformer/moe.py``).
+"""Mixture-of-Experts (port of ``apex_tpu/transformer/moe.py``).
 
 The GShard/Switch formulation as the reference writes it, static-shaped
 throughout:
@@ -12,10 +11,13 @@ throughout:
 - the dispatch, combine and expert contractions sum in fp32
   (``ops.precision.einsum_fp32acc``), as the reference pins them.
 
-Expert parallelism (the reference's two ``all_to_all`` collectives over
-a bound ``'ep'`` axis) waits for the multi-GPU slice: ``ep_axis`` must be
-None, which is the reference's own unbound-axis path ("everything runs
-locally, identical math").
+Expert parallelism: with a group bound to ``ep_axis`` (default
+``"ep"``) the expert weights are this rank's ``E / ep`` experts
+(:func:`moe_param_specs`), the router and the routing see all E, and the
+dispatched ``[E, C, h]`` tokens cross the group twice by tiled
+all-to-all (``distributed.backend.all_to_all``, differentiable):
+``[E, C, h] -> [E/ep, ep*C, h]`` before the experts and back after.
+With no group bound every expert runs here, the same math.
 """
 
 from __future__ import annotations
@@ -26,7 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch import _device
+from apex_tpu_torch.distributed import backend as _backend
 from apex_tpu_torch.ops.precision import einsum_fp32acc as _ein_fp32acc
+from apex_tpu_torch.transformer.tensor_parallel.mappings import _axis_bound
+
+EXPERT_AXIS = "ep"
 
 
 class MoEConfig(NamedTuple):
@@ -39,15 +45,6 @@ class MoEConfig(NamedTuple):
     aux_loss_coef: float = 1e-2
     # router z-loss (ST-MoE §4, arXiv:2202.08906); 0 disables (default)
     z_loss_coef: float = 0.0
-
-
-def _single_device(ep_axis: Optional[str]) -> None:
-    if ep_axis is not None:
-        raise NotImplementedError(
-            f"expert-parallel axis {ep_axis!r}: the all_to_all dispatch "
-            f"waits for the expert-parallel slice of the multi-GPU port "
-            f"(ROADMAP.md Queue 1 item 5); only ep_axis=None (every "
-            f"expert on this device) is ported")
 
 
 def init_moe_params(generator: torch.Generator, cfg: MoEConfig,
@@ -71,6 +68,15 @@ def init_moe_params(generator: torch.Generator, cfg: MoEConfig,
                          device=dev) * 0.02
     return {"router": router.to(dtype).to(device), "wi": uniform(e, h, f),
             "wo": uniform(e, f, h)}
+
+
+def moe_param_specs(cfg: MoEConfig, ep_axis: str = EXPERT_AXIS):
+    """The partition spec of each leaf of :func:`init_moe_params`'s tree
+    (``moe.py:71``) in the port's tuple form: the stacked experts split
+    over ``ep_axis`` on dim 0, the router replicated."""
+    del cfg
+    return {"router": (), "wi": (ep_axis, None, None),
+            "wo": (ep_axis, None, None)}
 
 
 def _capacity(tokens: int, cfg: MoEConfig) -> int:
@@ -160,18 +166,20 @@ def router_gates(logits: torch.Tensor, cfg: MoEConfig,
 
 def expert_parallel_apply(expert_fn, expert_params, x: torch.Tensor,
                           router: torch.Tensor, cfg: MoEConfig,
-                          ep_axis: Optional[str] = None,
+                          ep_axis: Optional[str] = EXPERT_AXIS,
                           router_key: Optional[torch.Generator] = None,
                           with_stats: bool = False):
     """Route tokens through per-expert functions; returns (y, aux)
     (``moe.py:168``), or (y, aux, stats) ``with_stats``.
 
-    ``expert_fn(expert_params, tokens)`` maps [E, C, h] -> [E, C, h] with
-    the stacked params of every expert. ``router_key``, a
+    ``expert_fn(expert_params, tokens)`` maps [E_local, C', h] ->
+    [E_local, C', h] with the stacked params of this rank's experts:
+    with a group bound to ``ep_axis`` the tokens of every rank for this
+    rank's E/ep experts (C' = ep * C), else all E experts on this
+    rank's tokens. The stats are this rank's. ``router_key``, a
     ``torch.Generator``, draws the multiplicative router jitter when
     ``cfg.router_jitter`` > 0 (the law of the reference's, not its
     numbers), on the logits' device (``_device.generator_on``)."""
-    _single_device(ep_axis)
     lead = x.shape[:-1]
     h = x.shape[-1]
     xt = x.reshape(-1, h)
@@ -187,7 +195,16 @@ def expert_parallel_apply(expert_fn, expert_params, x: torch.Tensor,
     combine, dispatch, aux = gated[:3]
 
     expert_in = _ein_fp32acc("tec,th->ech", dispatch.to(xt.dtype), xt)
+    ep = _axis_bound(ep_axis)
+    if ep:
+        # [E, C, h] -> [E/n, n*C, h]: expert chunk j to rank j, every
+        # rank's C-token slab for this rank's experts along capacity
+        expert_in = _backend.all_to_all(expert_in, ep_axis, split_axis=0,
+                                        concat_axis=1)
     y = expert_fn(expert_params, expert_in)
+    if ep:
+        # back: capacity slab j to rank j, experts in global order
+        y = _backend.all_to_all(y, ep_axis, split_axis=1, concat_axis=0)
     out = _ein_fp32acc("tec,ech->th", combine.to(xt.dtype), y)
     out = out.reshape(*lead, h).to(x.dtype)
     if with_stats:
@@ -196,12 +213,13 @@ def expert_parallel_apply(expert_fn, expert_params, x: torch.Tensor,
 
 
 def moe_mlp(params, x: torch.Tensor, cfg: MoEConfig,
-            ep_axis: Optional[str] = None,
+            ep_axis: Optional[str] = EXPERT_AXIS,
             activation=lambda y: F.gelu(y, approximate="tanh"),
             router_key: Optional[torch.Generator] = None,
             with_stats: bool = False):
     """MoE feed-forward on [..., h]; returns (y, aux) (``moe.py:226``).
-    ``params``: ``router`` [h, E], ``wi`` [E, h, f], ``wo`` [E, f, h].
+    ``params``: ``router`` [h, E], ``wi`` [E, h, f], ``wo`` [E, f, h]
+    (with ``ep_axis`` bound, this rank's [E/ep, ...] experts).
     The default activation is ``jax.nn.gelu``'s default, the tanh
     approximation."""
 

@@ -1,6 +1,5 @@
 """Tensor parallelism over the ``"tp"`` group (counterpart of
-``apex_tpu.transformer.tensor_parallel``). ``memory.py`` is not ported
-yet (ROADMAP.md, Queue 1 item 5)."""
+``apex_tpu.transformer.tensor_parallel``)."""
 
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -29,6 +28,12 @@ from apex_tpu_torch.transformer.tensor_parallel.mappings import (
     reduce_scatter_to_tensor_model_parallel_region,
     scatter_to_sequence_parallel_region,
     scatter_to_tensor_model_parallel_region,
+)
+from apex_tpu_torch.transformer.tensor_parallel.memory import (
+    MemoryBuffer,
+    RingMemBuffer,
+    allocate_mem_buff,
+    get_mem_buff,
 )
 from apex_tpu_torch.transformer.tensor_parallel.random import (
     CudaRNGStatesTracker,
@@ -68,6 +73,10 @@ __all__ = [
     "gather_from_sequence_parallel_region",
     "reduce_scatter_to_sequence_parallel_region",
     "reduce_scatter_to_tensor_model_parallel_region",
+    "MemoryBuffer",
+    "RingMemBuffer",
+    "allocate_mem_buff",
+    "get_mem_buff",
     "RNGStatesTracker",
     "CudaRNGStatesTracker",
     "checkpoint",

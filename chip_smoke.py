@@ -1568,7 +1568,8 @@ def phase_kernels(dev):
            "fused_softmax_causal_ddp_rank": ddp_softmax["causal"],
            "fused_softmax_masked": softmax["masked"],
            "mha": check_mha_kernels(dev),
-           "megatron": check_megatron_kernels(dev)}
+           "megatron": check_megatron_kernels(dev),
+           "slice": check_slice_kernels(dev)}
     torch.cuda.empty_cache()
     return out
 
@@ -2222,23 +2223,34 @@ def reference_loss(params, tokens, targets, cfg):
     return -torch.gather(logp, -1, targets[..., None]).mean()
 
 
-def leaf_compare(paths, got, ref):
+def block_compare(blocks):
     """Per-leaf relative L2 error and cosine of ``got`` against ``ref``
-    (lists of tensors in ``paths`` order), with their worst values."""
+    over ``(name, got, ref)`` blocks, a leaf's blocks (each rank's, when
+    it is split) summed into one figure, with their worst values."""
     import torch
 
-    leaves = {}
-    for path, g, r in zip(paths, got, ref):
+    sums = {}
+    for name, g, r in blocks:
         g32, r32 = g.float(), r.float()
-        r_norm = torch.linalg.vector_norm(r32)
-        leaves[".".join(path)] = {
-            "rel_l2": float(torch.linalg.vector_norm(g32 - r32) / r_norm),
-            "cos": float(torch.sum(g32 * r32) / (
-                torch.linalg.vector_norm(g32) * r_norm))}
+        part = torch.stack([torch.sum((g32 - r32) ** 2),
+                            torch.sum(r32 * r32), torch.sum(g32 * r32),
+                            torch.sum(g32 * g32)]).cpu().double()
+        sums[name] = sums[name] + part if name in sums else part
         del g32, r32
+    # in tensors, so that a leaf of zeros reads nan or inf, not raises
+    leaves = {k: {"rel_l2": float(torch.sqrt(a[0] / a[1])),
+                  "cos": float(a[2] / torch.sqrt(a[1] * a[3]))}
+              for k, a in sums.items()}
     return {"leaves": leaves,
             "worst_rel_l2": max(v["rel_l2"] for v in leaves.values()),
             "worst_cos": min(v["cos"] for v in leaves.values())}
+
+
+def leaf_compare(paths, got, ref):
+    """:func:`block_compare` of whole leaves (lists of tensors in
+    ``paths`` order)."""
+    return block_compare((".".join(p), g, r)
+                         for p, g, r in zip(paths, got, ref))
 
 
 def grad_check(params, kernel_loss, plain_loss):
@@ -4884,7 +4896,8 @@ MEG_LABEL = ("4 ranks time-sharing one H100 over gloo (collectives and "
              "of NCCL over NVLink")
 # the collectives each rank times in the instrumented step
 MEG_TIMED = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
-             "reduce_scatter_tensor", "reduce_scatter_single", "broadcast")
+             "reduce_scatter_tensor", "reduce_scatter_single", "broadcast",
+             "all_to_all_single")
 
 
 def megatron_setup(device, num_layers: int, microbatches: int):
@@ -4929,15 +4942,16 @@ class CollectiveTimer:
         from apex_tpu_torch.transformer.pipeline_parallel import p2p
 
         self.on, self.ms, self.calls = False, 0.0, 0
+        self.by_name = {}  # name -> [ms, calls]
         self._saved = []
         for mod, name in [(dist, n) for n in MEG_TIMED] + [(p2p,
                                                             "shift_raw")]:
             fn = getattr(mod, name, None)
             if fn is not None:
                 self._saved.append((mod, name, fn))
-                setattr(mod, name, self._wrap(fn))
+                setattr(mod, name, self._wrap(fn, name))
 
-    def _wrap(self, fn):
+    def _wrap(self, fn, name):
         import torch
 
         def timed(*args, **kwargs):
@@ -4947,8 +4961,12 @@ class CollectiveTimer:
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            self.ms += (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3
+            self.ms += ms
             self.calls += 1
+            acc = self.by_name.setdefault(name, [0.0, 0])
+            acc[0] += ms
+            acc[1] += 1
             return out
         return timed
 
@@ -5125,15 +5143,10 @@ def megatron_nccl_rank(rank, n, device, out_dir: Path) -> dict:
             "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
 
 
-def _block_of(full, spec, coords):
-    """``full``'s block at ``coords`` (axis -> index) under ``spec``."""
-    out = full
-    for dim, axis in enumerate(spec):
-        if axis is None:
-            continue
-        size = full.shape[dim] // {"pp": MEG_PP, "tp": MEG_TP, "dp": 1}[axis]
-        out = out.narrow(dim, coords[axis] * size, size)
-    return out
+def meg_coords(c) -> dict:
+    """A megatron rank's (pp, tp) coordinates, as ``examples._common``
+    takes them (dp is 1: whole)."""
+    return {"pp": (c["pp"], MEG_PP), "tp": (c["tp"], MEG_TP)}
 
 
 def megatron_leaves(cfg, ranks, out_dir: Path, what: str):
@@ -5143,22 +5156,23 @@ def megatron_leaves(cfg, ranks, out_dir: Path, what: str):
     import torch
 
     from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.examples._common import block
 
     sspec, ispec = ex.stage_specs(cfg), ex.io_specs(cfg)
     for r in ranks:
-        c = r["coords"]
-        blocks = torch.load(out_dir / f"{what}_r{r['rank']}.pt")
-        for name, block in blocks.items():
+        c = meg_coords(r["coords"])
+        for name, saved in torch.load(
+                out_dir / f"{what}_r{r['rank']}.pt").items():
             part, key = name.split(".", 1)
             if part == "stage":
                 def get(tree, key=key, c=c):
                     full = tree["layers"][key].reshape(
                         MEG_PP, -1, *tree["layers"][key].shape[1:])
-                    return _block_of(full, sspec[key], c)[0]
+                    return block(full, sspec[key], c)[0]
             else:
                 def get(tree, key=key, c=c):
-                    return _block_of(tree[key], ispec[key], c)
-            yield name, get, block
+                    return block(tree[key], ispec[key], c)
+            yield name, get, saved
 
 
 def megatron_grad_check(cfg, params, tokens, ranks, out_dir: Path,
@@ -5184,20 +5198,12 @@ def megatron_grad_check(cfg, params, tokens, ranks, out_dir: Path,
     ref = _tree.unflatten(_tree.paths(p32), grads32)
     del p32, grads32
     torch.cuda.empty_cache()
-    sums = {}
-    for name, get, block in megatron_leaves(cfg, ranks, out_dir, what):
-        g = block.to("cuda").float()
-        r = get(ref)
-        acc = sums.setdefault(name, [0.0, 0.0, 0.0, 0.0])
-        acc[0] += float(torch.sum((g - r) ** 2))
-        acc[1] += float(torch.sum(r * r))
-        acc[2] += float(torch.sum(g * r))
-        acc[3] += float(torch.sum(g * g))
+    leaves = block_compare(
+        (name, saved.to("cuda"), get(ref))
+        for name, get, saved in megatron_leaves(cfg, ranks, out_dir, what))
     del ref
     torch.cuda.empty_cache()
-    return ({k: {"rel_l2": math.sqrt(a[0] / a[1]),
-                 "cos": a[2] / math.sqrt(a[1] * a[3])}
-             for k, a in sums.items()}, loss32)
+    return leaves["leaves"], loss32
 
 
 def phase_megatron_training(dev):
@@ -5342,6 +5348,7 @@ def phase_megatron_nccl(dev):
     r = ranks[0]
     if r["backend"] != "nccl":
         raise AssertionError(f"backend {r['backend']}, not nccl")
+    check_card_peak(ranks, "mp_nccl")
     for st in r["steps"]:
         for key in ("params_equal", "moments_equal"):
             if not st[key]:
@@ -5371,6 +5378,1089 @@ def phase_megatron_nccl(dev):
                                              "launches_single_device"))}
 
 
+# ------------------------------------------------------------------
+# Context, expert and GPT-2 tensor parallelism: the cp_training,
+# ep_training, gpt2_tp_training and mp_nccl phases and the ring's kernel
+# calls. The multi-rank phases share the one card over gloo: the K/V
+# rotations, the all-to-alls and the gradient reductions are staged
+# through pinned host memory, so their times are not NVLink's.
+
+# cp_training: Llama-3-8B widths at 2 layers, one sequence of CP_SEQ
+# tokens over cp 2 (CP_SEQ / 2 a rank)
+CP_LAYERS, CP_SEQ, CP_RANKS, CP_CHUNKS = 2, 16384, 2, 8
+# ep_training: Mixtral-8x7B widths at 2 layers over ep 2 (4 experts a
+# rank), EP_BATCH x TRAIN_SEQ tokens, one sequence a rank; capacity E / k
+EP_LAYERS, EP_RANKS, EP_BATCH, EP_CHUNKS = 2, 2, 2, 8
+# gpt2_tp_training: GPT-2 345M at tp 2 x dp 2, the global batch DDP_BATCH
+# x GPT2_SEQ (4 x 1024 a dp rank); a checkpoint after step 1, resumed
+GTP_TP, GTP_DP = 2, 2
+GTP_CKPT_DIR = ROOT / "build" / "gpt2_tp_ckpt"
+SLICE_STEPS = 3
+# mp_nccl: each bound path at a group of one, MP_STEPS steps, against the
+# same steps with the axis unbound
+MP_STEPS = 2
+MP_MOE_LAYERS = 1
+SLICE_TIMEOUT = {"cp_training": 900, "ep_training": 900,
+                 "gpt2_tp_training": 900, "mp_nccl": 600}
+# the ring's outputs against their plain versions: relative L2 over each
+# of RING_CHUNKS query (or key) slices, so that slices of small outputs
+# are held as tightly as those of large ones
+RING_REL_L2, RING_CHUNKS = 1e-2, 16
+# cp_training's ranks also run ring_attention on a whole sequence of
+# RING_SEQ tokens at RING_HEADS query and KV heads, held in the parent
+# against the plain forward and backward of the whole sequence (whose
+# score matrices must fit on the card beside it)
+RING_SEQ, RING_HEADS = 8192, (8, 2)
+SLICE_LABEL = ("ranks time-sharing one H100 over gloo (collectives, K/V "
+               "rotations and all-to-alls staged through pinned host "
+               "memory): not a measure of NCCL over NVLink")
+
+
+def rel_l2(got, ref, chunks: int = 1, dim: int = 1) -> float:
+    """The largest relative L2 error of ``got`` against ``ref`` over
+    ``chunks`` equal slices along ``dim``, each slice against its own
+    norm."""
+    import torch
+
+    return max(float(torch.linalg.vector_norm(g - r)
+                     / torch.linalg.vector_norm(r))
+               for g, r in zip(got.float().chunk(chunks, dim),
+                               ref.float().chunk(chunks, dim)))
+
+
+def rel_l2_check(got, ref, tol: float, what: str, chunks: int = 1) -> float:
+    """:func:`rel_l2` over ``chunks`` row slices, failing above
+    ``tol``."""
+    err = rel_l2(got, ref, chunks)
+    if not err <= tol:
+        raise AssertionError(f"{what}: relative L2 {err} > {tol}")
+    return err
+
+
+def planted_fault(got, ref, tol: float, what: str, chunks: int = 1) -> float:
+    """:func:`rel_l2` of a planted fault, failing if
+    :func:`rel_l2_check` would pass it."""
+    err = rel_l2(got, ref, chunks)
+    if err <= tol:
+        raise AssertionError(f"{what}: the planted fault reads {err}, "
+                             f"within {tol}")
+    return err
+
+
+def drop_key_tile(q, k, v, o, lse, causal: bool, scale: float, lo: int,
+                  hi: int):
+    """``o`` less keys [lo, hi)'s share of P V, the lse kept: what a
+    flash forward would give that skipped one key tile in its P V sum
+    but not in its row sums. q [b, s, H, d], k/v [b, s, H_kv, d], lse
+    [b * H, s]; fp32."""
+    import torch
+
+    b, s, H, _ = q.shape
+    rep = H // k.shape[2]
+    kt, vt = (t[:, lo:hi].float().repeat_interleave(rep, 2) for t in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kt)
+    if causal:
+        rows = torch.arange(s, device=q.device)[:, None]
+        cols = torch.arange(lo, hi, device=q.device)[None, :]
+        sc = sc.masked_fill(cols > rows, float("-inf"))
+    p = torch.exp(sc - lse.view(b, H, s)[..., None])
+    return o.float() - torch.einsum("bhqk,bkhd->bqhd", p, vt)
+
+
+def check_ring_kernels(dev):
+    """The flash kernels as the cp 2 ring calls them at cp_training's
+    shapes (a rank's q [1, 8192, 32, 128], k/v [1, 8192, 8, 128], bf16):
+    a diagonal (causal) and a full block forward; the backward of the
+    full (off-diagonal) and the diagonal block with the merged (global)
+    o and lse of rank 1's two blocks; each against its plain version
+    (o and the gradients also by :func:`rel_l2_check` over RING_CHUNKS
+    row slices, which must refuse the planted fault of
+    :func:`drop_key_tile`: one 64-key tile of 128 missing from P V),
+    timed beside SDPA on the same block. The
+    ring itself is held against the whole sequence in cp_training
+    (:func:`ring_rank`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.transformer.context_parallel import _merge_lse
+
+    H, H_kv, d, b = 32, 8, 128, 1
+    s = CP_SEQ // CP_RANKS
+    scale = d ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def randn(n, ss=s):
+        return torch.randn(b, ss, n, d, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    def hm(*ts):
+        return [fa._heads_major(t) for t in ts]
+
+    def pairs_of(causal, ss=s):
+        return H * (causal_pairs(b, ss) if causal else b * ss * ss)
+
+    def sdpa(causal):
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, scale=scale, enable_gqa=True)
+        return library
+
+    out = {}
+    io = (2 * b * s * H + 2 * b * s * H_kv) * d * 2 + b * H * s * 4
+    for name, causal in (("ring_diagonal_block", True),
+                         ("ring_full_block", False)):
+        def make():
+            return randn(H), randn(H_kv), randn(H_kv)
+
+        def kernel(q, k, v, causal=causal):
+            return fa._flash_fwd_cuda(q, k, v, causal, scale)
+
+        def plain(q, k, v, causal=causal):
+            return fa._flash_fwd_plain(*hm(q, k, v), causal, scale)
+
+        q, k, v = make()
+        o, lse = kernel(q, k, v)
+        o_ref, lse_ref = plain(q, k, v)
+        o_ref = o_ref.reshape(b, H, s, d).transpose(1, 2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+        err = float((o.float() - o_ref.float()).abs().max())
+        rel = rel_l2_check(o, o_ref, RING_REL_L2, f"{name} o", RING_CHUNKS)
+        planted = planted_fault(drop_key_tile(
+            q, k, v, o_ref, lse_ref, causal, scale, s // 2, s // 2 + 64),
+            o_ref, RING_REL_L2, f"{name} o, a key tile dropped",
+            RING_CHUNKS)
+        del o, lse, o_ref, lse_ref
+        sets = [(q, k, v)]
+        ms = time_ms(kernel, sets)
+        flops = 4.0 * d * pairs_of(causal)
+        b_ms, b_by = bound(io, flops, dev["bf16_flops"], dev)
+        out[name] = {"shape": [b, s, H, H_kv, d], "dtype": "bfloat16",
+                     "causal": causal, "max_abs_err": err,
+                     "rel_l2": rel, "rel_l2_tol": RING_REL_L2,
+                     "rel_l2_planted_fault": planted, "ms": ms,
+                     "plain_ms": time_ms(plain, sets, iters=5),
+                     "library_ms": time_ms(sdpa(causal), sets),
+                     "library": "F.scaled_dot_product_attention "
+                                "(enable_gqa)",
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "tflops": flops / ms / 1e9}
+        del sets, q, k, v
+        torch.cuda.empty_cache()
+
+    # rank 1's two blocks merged, then each block's backward with the
+    # merged o and lse
+    q, k0, v0, k1, v1, do = (randn(H), randn(H_kv), randn(H_kv),
+                             randn(H_kv), randn(H_kv), randn(H))
+    o_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    lse_acc = torch.full((b * H, s), float("-inf"), device="cuda")
+    for k, v, causal in ((k0, v0, False), (k1, v1, True)):
+        o_acc, lse_acc = _merge_lse(o_acc, lse_acc,
+                                    *fa._flash_fwd_cuda(q, k, v, causal,
+                                                        scale))
+    o_glob, lse_glob = o_acc.to(torch.bfloat16), lse_acc
+    del o_acc
+    delta = fa._flash_delta(o_glob, do)
+    for name, (k, v, causal) in (("ring_offdiag_global_lse", (k0, v0, False)),
+                                 ("ring_diag_global_lse", (k1, v1, True))):
+        dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o_glob, lse_glob, do,
+                                        causal, scale)
+        ref = fa._flash_bwd_plain(*hm(q, k, v, o_glob), lse_glob, *hm(do),
+                                  causal, scale)
+        torch.cuda.synchronize()
+        errs, rels = {}, {}
+        for t, got, r, n in (("dq", dq, ref[0], H), ("dk", dk, ref[1], H_kv),
+                             ("dv", dv, ref[2], H_kv)):
+            r = r.reshape(b, n, s, d).transpose(1, 2)
+            errs[t] = max_err(got, r, 1e-2, f"ring {name} {t}")
+            rels[t] = rel_l2_check(got, r, RING_REL_L2, f"ring {name} {t}",
+                                   RING_CHUNKS)
+        del dq, dk, dv, ref
+        sets = [(q, k, v, o_glob, lse_glob, do, delta)]
+
+        def plain(q, k, v, o, lse, do, delta, causal=causal):
+            return fa._flash_bwd_plain(*hm(q, k, v, o), lse, *hm(do),
+                                       causal, scale)
+
+        graph_q, graph_k, graph_v = (t.transpose(1, 2).detach()
+                                     .requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            graph_q, graph_k, graph_v, is_causal=causal, scale=scale,
+            enable_gqa=True)
+
+        def library(out_, inputs, grad):
+            return torch.autograd.grad(out_, inputs, grad, retain_graph=True)
+
+        pairs = pairs_of(causal)
+        r = {"shape": [b, s, H, H_kv, d], "dtype": "bfloat16",
+             "causal": causal, "max_abs_err": errs, "rel_l2": rels,
+             "rel_l2_tol": RING_REL_L2,
+             "lse": "merged over rank 1's two blocks",
+             "plain_ms": host_ms(plain, sets[0], iters=3),
+             "plain_timed": "host wall",
+             "library_ms": time_ms(library, [(lib_out, (graph_q, graph_k,
+                                                        graph_v),
+                                              do.transpose(1, 2))]),
+             "library": "backward of F.scaled_dot_product_attention on the "
+                        "block alone (its own softmax), dq+dk+dv"}
+        for part, call, flops, nbytes in (
+                ("dq", lambda q, k, v, o, lse, do, delta, c=causal:
+                 fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, c, scale),
+                 6.0 * d * pairs, io + 2 * b * s * H * d * 2),
+                ("dkv", lambda q, k, v, o, lse, do, delta, c=causal:
+                 fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, c, scale),
+                 8.0 * d * pairs, io + 2 * 2 * b * s * H_kv * d * 2)):
+            ms = time_ms(call, sets)
+            b_ms, b_by = bound(nbytes, flops, dev["bf16_flops"], dev)
+            r[part] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "tflops": flops / ms / 1e9}
+        out[name] = r
+        del sets, lib_out, graph_q, graph_k, graph_v
+        torch.cuda.empty_cache()
+    del q, k0, v0, k1, v1, do, o_glob, lse_glob, delta
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_slice_kernels(dev):
+    """The kernels at this slice's other new shapes: RMSNorm forward and
+    backward on a cp_training rank's rows ([8192, 4096]) and an
+    ep_training rank's ([2048, 4096]); the causal softmax on a
+    gpt2_tp_training rank's [4 x 8 heads, 1024, 1024] (its LayerNorm rows,
+    4 x 1024 x 1024, are the ddp rank's shape, checked there; the ep
+    rank's attention, [1, 2048, 32/8, 128], is megatron_nccl's)."""
+    rows_cp, rows_ep = CP_SEQ // CP_RANKS, TRAIN_SEQ
+    rms = check_rms(dev, rows_list=(rows_cp, rows_ep), fp32_weight=False)
+    heads = DDP_BATCH // GTP_DP * GPT2_HEADS // GTP_TP
+    return {"ring": check_ring_kernels(dev),
+            "rms_fwd_cp_rank": rms[0], "rms_fwd_ep_rank": rms[1],
+            "rms_bwd_cp_rank": check_rms_bwd(dev, rows=rows_cp,
+                                             fp32_weight=False),
+            "rms_bwd_ep_rank": check_rms_bwd(dev, rows=rows_ep,
+                                             fp32_weight=False),
+            "softmax_gpt2_tp_rank": check_softmax(dev, shapes=(
+                ("causal", (heads, GPT2_SEQ, GPT2_SEQ)),))["causal"]}
+
+
+def save_tree(tree, path: Path) -> None:
+    """The leaves of ``tree`` by dotted path, on the host."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    torch.save({".".join(p): t.detach().cpu() for p, t in
+                zip(_tree.paths(tree), _tree.leaves(tree))}, path)
+
+
+def slice_step(step_fn, steps: int, timer, save0=None, in_turns=False,
+               after=None):
+    """``steps`` calls of ``step_fn() -> (loss, grads, apply)``: each
+    step synchronised and timed on the host (the ranks start together),
+    its launches, and on the last step the collectives' host ms by name;
+    ``save0(grads)`` keeps step 0's gradients and ``after(i)`` runs after
+    step i (neither timed). ``in_turns``: the ranks apply their updates
+    one after another, each returning its cached memory to the card
+    before the next (ranks sharing one card cannot all hold the tree
+    Adam's new moments beside the old at once)."""
+    import torch
+
+    rank = torch.distributed.get_rank()
+    world = torch.distributed.get_world_size()
+    out = []
+    for i in range(steps):
+        last = i == steps - 1
+        timer.on = last
+        timer.by_name.clear()
+        timer.ms = 0.0
+        before = read_counts()
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, apply = step_fn()
+        if i == 0 and save0 is not None:
+            torch.cuda.synchronize()
+            t_save = time.perf_counter()
+            save0(grads)
+            t0 += time.perf_counter() - t_save
+        if in_turns:
+            torch.cuda.empty_cache()
+            for turn in range(world):
+                if turn == rank:
+                    apply(grads)
+                    grads = None
+                    torch.cuda.empty_cache()
+                torch.distributed.barrier()
+        else:
+            apply(grads)
+        del grads
+        loss = float(loss)
+        torch.cuda.synchronize()
+        out.append({"step": i, "loss": loss,
+                    "step_ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": counts_delta(before),
+                    "collective_ms": dict(timer.by_name) if last else None})
+        if after is not None:
+            after(i)
+    timer.on = False
+    timer.restore()
+    return out
+
+
+def ring_want(L: int, blocks: int) -> dict:
+    """A Llama step's launches with per-layer recompute and vocab chunks,
+    each layer's attention ``blocks`` flash calls (1 off the ring)."""
+    return dict({k: 0 for k in read_counts()},
+                flash_attention_fwd=2 * L * blocks,
+                flash_attention_bwd_dq=L * blocks,
+                flash_attention_bwd_dkv=L * blocks,
+                rms_norm_fwd=4 * L + 1, rms_norm_bwd=2 * L + 1)
+
+
+def cp_setup(device):
+    import torch
+
+    from apex_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b(num_layers=CP_LAYERS, max_seq_len=CP_SEQ)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (1, CP_SEQ), generator=gen,
+                           device=device)
+    return cfg, params, (tokens, torch.roll(tokens, -1, dims=-1))
+
+
+def ring_inputs(device):
+    """The whole sequence's q, k, v and cotangent for the ring check,
+    [1, RING_SEQ, heads, 128] bf16, the same on every rank."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 21)
+    H, H_kv = RING_HEADS
+    return [torch.randn(1, RING_SEQ, n, 128, generator=g, device=device)
+            .to(torch.bfloat16) for n in (H, H_kv, H_kv, H)]
+
+
+def ring_rank(rank, n, out_dir: Path) -> dict:
+    """``ring_attention`` over the cp group on this rank's share of
+    :func:`ring_inputs`, forward and backward: o, dq, dk and dv saved
+    for the parent, and the flash launches it made."""
+    import torch
+
+    from apex_tpu_torch.transformer.context_parallel import ring_attention
+
+    s = RING_SEQ // n
+    Q, K, V, dO = ring_inputs("cuda")
+    q, k, v = (t[:, rank * s:(rank + 1) * s].clone().requires_grad_()
+               for t in (Q, K, V))
+    before = read_counts()
+    o = ring_attention(q, k, v, "cp", causal=True)
+    o.backward(dO[:, rank * s:(rank + 1) * s])
+    torch.cuda.synchronize()
+    launches = {k_: v_ for k_, v_ in counts_delta(before).items() if v_}
+    torch.save({"o": o.detach().cpu(), "dq": q.grad.cpu(),
+                "dk": k.grad.cpu(), "dv": v.grad.cpu()},
+               out_dir / f"ring_r{rank}.pt")
+    del Q, K, V, dO, q, k, v, o
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_ring_whole(ranks, out_dir: Path) -> dict:
+    """The ranks' ring over the whole sequence against the plain forward
+    and backward of it: each rank's r + 1 flash forwards, dq and dk/dv
+    launches, max |ring - plain| (o within 2e-2 and the gradients within
+    1e-2 of their largest value) and the relative L2 of each rank's
+    rows (its query rows; for dk and dv its keys) within RING_REL_L2.
+    The check must refuse the planted fault of a merge that drops rank
+    1's off-diagonal block."""
+    import torch
+
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    for r in ranks:
+        n = r["rank"] + 1
+        want = {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+                "flash_attention_bwd_dkv": n}
+        if r["ring_launches"] != want:
+            raise AssertionError(f"ring rank {r['rank']} launches "
+                                 f"{r['ring_launches']} != {want}")
+    (H, H_kv), S, d = RING_HEADS, RING_SEQ, 128
+    scale = d ** -0.5
+    parts = [torch.load(out_dir / f"ring_r{r}.pt") for r in range(CP_RANKS)]
+    ring = {t: torch.cat([p[t] for p in parts], 1).to("cuda")
+            for t in ("o", "dq", "dk", "dv")}
+    del parts
+    Q, K, V, dO = ring_inputs("cuda")
+    hm = [fa._heads_major(t) for t in (Q, K, V)]
+    o_flat, lse = fa._flash_fwd_plain(*hm, True, scale)
+    ref = {"o": fa._seq_major(o_flat, 1)}
+    ref.update(zip(("dq", "dk", "dv"), (
+        fa._seq_major(g, 1) for g in fa._flash_bwd_plain(
+            *hm, o_flat, lse, fa._heads_major(dO), True, scale))))
+    out = {"shape": [1, S, H, H_kv, d], "ranks": CP_RANKS,
+           "ring_launches": {f"rank{r['rank']}": r["ring_launches"]
+                             for r in ranks},
+           "max_abs_err": {}, "rel_l2": {}, "rel_l2_tol": RING_REL_L2}
+    for t in ("o", "dq", "dk", "dv"):
+        out["max_abs_err"][t] = max_err(ring[t], ref[t],
+                                        2e-2 if t == "o" else 1e-2,
+                                        f"ring {t} vs whole")
+        out["rel_l2"][t] = rel_l2_check(ring[t], ref[t], RING_REL_L2,
+                                        f"ring {t} vs whole", CP_RANKS)
+    s = S // CP_RANKS
+    half = [t[:, s:] for t in (Q, K, V)]
+    merge_dropped = torch.cat(
+        [ring["o"][:, :s], fa._flash_fwd_cuda(*half, True, scale)[0]], 1)
+    out["rel_l2_planted_fault"] = planted_fault(
+        merge_dropped, ref["o"], RING_REL_L2,
+        "ring o, rank 1's off-diagonal block dropped", CP_RANKS)
+    del ring, ref, Q, K, V, dO, hm, o_flat, lse, half, merge_dropped
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_training_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of cp_training: the long-context example's step on its half
+    of the sequence for SLICE_STEPS steps (tree fused_adam, per-layer
+    recompute, CP_CHUNKS vocab chunks); rank 0 saves the reduced step-0
+    gradients."""
+    import torch
+
+    from apex_tpu_torch.examples import long_context as ex
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.initialize_model_parallel(context_parallel_size_=n)
+    ring_launches = ring_rank(rank, n, out_dir)
+    t0 = time.monotonic()
+    cfg, params, (tokens, targets) = cp_setup(device)
+    step = ex.ContextParallelStep(cfg, fused_adam(lr=TRAIN_LR), remat=True,
+                                  vocab_chunks=CP_CHUNKS)
+    local = (step.local_batch(tokens), step.local_batch(targets))
+    state = {"opt": step.tx.init(params)}
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    timer = CollectiveTimer()
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def one():
+        loss, grads = step.grads(params, *local)
+
+        def apply(g):
+            state["opt"] = step.apply(params, state["opt"], g)
+        return loss, grads, apply
+
+    def save0(grads):
+        if rank == 0:
+            save_tree(grads, out_dir / "grads0.pt")
+
+    steps = slice_step(one, SLICE_STEPS, timer, save0, in_turns=True)
+    return {"steps": steps, "init_s": init_s, "ring_launches": ring_launches,
+            "want": ring_want(cfg.num_layers, rank + 1),
+            "local_tokens": int(local[0].numel()),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(device)}
+
+
+def slice_report(ranks, tokens_per_step: int) -> dict:
+    """Step ms (the slowest rank), global tokens/s, each rank's
+    collectives by name on the instrumented (last) step, peak memory."""
+    steps = len(ranks[0]["steps"])
+    step_ms = [max(r["steps"][i]["step_ms"] for r in ranks)
+               for i in range(steps)]
+    steady = step_ms[1:-1] or step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    peaks = {f"rank{r['rank']}": r["peak_memory_bytes"] for r in ranks}
+    return {
+        "label": f"{len(ranks)} {SLICE_LABEL}",
+        "losses": [st["loss"] for st in ranks[0]["steps"]],
+        "step_ms": step_ms, "steady_step_ms": mean_ms,
+        "step_ms_note": "the slowest rank; step 0 allocates the Adam "
+                        "moments, the last step is the instrumented one",
+        "global_tokens_per_s": tokens_per_step / mean_ms * 1e3,
+        "collective_ms_instrumented_step": {
+            f"rank{r['rank']}": r["steps"][-1]["collective_ms"]
+            for r in ranks},
+        "instrumented_step_ms": {f"rank{r['rank']}": r["steps"][-1]["step_ms"]
+                                 for r in ranks},
+        "collective_note": "host time blocked in each collective or "
+                           "shift, from a synchronise to its return: the "
+                           "other ranks' compute on the shared card is "
+                           "included",
+        "peak_memory_bytes": peaks,
+        "peak_memory_total_bytes": sum(peaks.values()),
+        "peak_memory_note": "each rank's own peak (allocated); the ranks "
+                            "apply their updates in turns, so their peaks "
+                            "do not coincide: card_peak_used_bytes is the "
+                            "card's",
+        "card_peak_used_bytes": ranks[0]["card_peak_used_bytes"],
+        "card_used_before_bytes": ranks[0]["card_used_before_bytes"],
+        "card_peak_note": "the largest total - free of "
+                          "torch.cuda.mem_get_info sampled every 50 ms "
+                          "while the ranks ran: every process on the card, "
+                          "caches included",
+        "peak_reserved_bytes": {f"rank{r['rank']}": r["peak_reserved_bytes"]
+                                for r in ranks},
+        "launches_per_step": {f"rank{r['rank']}": r["steps"][0]["launches"]
+                              for r in ranks},
+        "launches": total_launches(ranks, ("launches",))}
+
+
+def check_card_peak(ranks, what: str) -> None:
+    """The card's used peak while the ranks ran (every process on it)
+    under 80 GB."""
+    peak = ranks[0]["card_peak_used_bytes"]
+    if peak >= 80e9:
+        raise AssertionError(f"{what}: the card's peak {peak} B at or over "
+                             f"80 GB")
+
+
+def check_rank_steps(ranks, what: str) -> None:
+    """Exact launches a rank a step, the same losses on every rank,
+    finite and falling, and :func:`check_card_peak`."""
+    check_card_peak(ranks, what)
+    for r in ranks:
+        for st in r["steps"]:
+            if st["launches"] != r["want"]:
+                raise AssertionError(f"{what} rank {r['rank']} step "
+                                     f"{st['step']}: launches "
+                                     f"{st['launches']} != {r['want']}")
+    losses = [st["loss"] for st in ranks[0]["steps"]]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{what} loss: {losses}")
+    for r in ranks:
+        if [st["loss"] for st in r["steps"]] != losses:
+            raise AssertionError(f"{what} ranks report different losses")
+
+
+def compare_saved(paths, saved: dict, ref_of) -> dict:
+    """``leaf_compare`` of the saved gradient blocks against
+    ``ref_of(path) -> tensor``, a leaf at a time on the card."""
+    got, ref, names = [], [], []
+    for path in paths:
+        name = ".".join(path)
+        names.append(path)
+        got.append(saved[name].to("cuda"))
+        ref.append(ref_of(path))
+    return leaf_compare(names, got, ref)
+
+
+def check_grads(cmp: dict, what: str) -> None:
+    bad = {k: v for k, v in cmp["leaves"].items()
+           if not (v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS)}
+    if bad:
+        raise AssertionError(f"{what} gradients off the reference: {bad}")
+
+
+def phase_cp_training(dev):
+    """Llama-3-8B widths at CP_LAYERS layers, one CP_SEQ-token sequence
+    over cp 2 on 2 gloo ranks, SLICE_STEPS steps of the long-context
+    example's step: exact launches a rank (rank r runs r + 1 ring blocks a
+    layer a pass), the step-0 loss within 5e-3 of the single-device loss
+    of the whole sequence and the reduced step-0 gradients within
+    GRAD_REL_L2 / GRAD_COS of the single-device port step's (the same
+    kernels, run here after the ranks exit)."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples import long_context as ex
+    from apex_tpu_torch.models import llama
+
+    ranks, seconds, out_dir = launch_ranks("cp_training", CP_RANKS, "gloo",
+                                           keep=True)
+    check_rank_steps(ranks, "cp_training")
+    ring_whole = check_ring_whole(ranks, out_dir)
+    cfg, params, batch = cp_setup("cuda")
+    live = _tree.map_leaves(lambda t: t.detach().requires_grad_(), params)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = llama.loss_fn(live, batch, cfg, remat=True,
+                         vocab_chunks=CP_CHUNKS, tp_axis=None)
+    grads = torch.autograd.grad(loss, _tree.leaves(live))
+    loss = float(loss)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    single_peak = torch.cuda.max_memory_allocated()
+    del live
+    saved = torch.load(out_dir / "grads0.pt")
+    paths = _tree.paths(params)
+    by_path = dict(zip((tuple(p) for p in paths), grads))
+    cmp = compare_saved(paths, saved, lambda p: by_path[tuple(p)])
+    del grads, by_path, saved, params
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir)
+    loss0 = ranks[0]["steps"][0]["loss"]
+    if abs(loss0 - loss) > ex.PARITY_TOL * max(1.0, abs(loss)):
+        raise AssertionError(f"cp_training step-0 loss {loss0} != the "
+                             f"single-device {loss}")
+    check_grads(cmp, "cp_training")
+    report = slice_report(ranks, CP_SEQ)
+    ring = {f"rank{r['rank']}": (r["steps"][-1]["collective_ms"] or {})
+            .get("shift_raw", [0.0, 0])[0] / r["steps"][-1]["step_ms"]
+            for r in ranks}
+    return {"phase": "cp_training", "model": "llama3_8b",
+            "num_layers": CP_LAYERS, "dtype": "bfloat16", "cp": CP_RANKS,
+            "dp": 1, "seq": CP_SEQ, "seq_a_rank": CP_SEQ // CP_RANKS,
+            "optimizer": "fused_adam(lr=1e-4) tree", "remat": True,
+            "vocab_chunks": CP_CHUNKS, "launch_s": seconds,
+            "init_s": max(r["init_s"] for r in ranks),
+            "parity": {"loss_step0": loss0, "loss_single_device": loss,
+                       "tol": ex.PARITY_TOL},
+            "grad_check": dict(cmp, rel_l2_tol=GRAD_REL_L2,
+                               cos_tol=GRAD_COS,
+                               reference="single-device port step on the "
+                                         "whole sequence (same kernels)"),
+            "single_device_step_ms": single_ms,
+            "single_device_peak_bytes": single_peak,
+            "ring_vs_whole_sequence": ring_whole,
+            "ring_share_instrumented_step": ring,
+            "ring_note": "host ms in the K/V and dK/dV rotations "
+                         "(shift_raw) over the instrumented step's ms",
+            "want_per_step": {f"rank{r['rank']}": r["want"] for r in ranks},
+            **report}
+
+
+def ep_config():
+    from apex_tpu_torch.models import llama
+
+    over = dict(MOE_OVER, moe_capacity_factor=MOE_OVER["num_experts"]
+                / MOE_OVER["moe_top_k"])
+    return llama.llama3_8b(num_layers=EP_LAYERS, **over)
+
+
+def ep_setup(device, cfg):
+    import torch
+
+    from apex_tpu_torch.models import llama
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (EP_BATCH, TRAIN_SEQ),
+                           generator=gen, device=device)
+    return params, (tokens, torch.roll(tokens, -1, dims=-1))
+
+
+def ep_training_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of ep_training: Llama MoE with its experts split over ep,
+    its sequence of the batch, SLICE_STEPS steps (tree fused_adam,
+    per-layer recompute, EP_CHUNKS vocab chunks), the gradients reduced
+    by the moe_train example's ``reduce_ep_grads``; step 0's router
+    logits and gradients saved (rank 0 all its leaves, rank 1 its
+    experts)."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.distributed import backend as B
+    from apex_tpu_torch.examples import moe_train as ex
+    from apex_tpu_torch.examples._common import apply_updates, shard_tree
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import moe
+
+    ex.bind_ep_grid(1, n)
+    t0 = time.monotonic()
+    cfg = ep_config()
+    specs = llama.param_specs(cfg)
+    full, (tokens, targets) = ep_setup(device, cfg)
+    params = shard_tree(full, specs, {"ep": (rank, n)})
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = (tokens[rank:rank + 1], targets[rank:rank + 1])
+    tx = fused_adam(lr=TRAIN_LR)
+    state = {"opt": tx.init(params), "seen": []}
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    timer = CollectiveTimer()
+    torch.cuda.reset_peak_memory_stats(device)
+    L = cfg.num_layers
+
+    def one():
+        live = _tree.map_leaves(lambda t: t.detach().requires_grad_(),
+                                params)
+        real = (record_router(moe, state["seen"], L)
+                if not state["seen"] else None)
+        try:
+            loss = llama.loss_fn(live, batch, cfg, remat=True,
+                                 vocab_chunks=EP_CHUNKS, tp_axis=None,
+                                 ep_axis="ep")
+        finally:
+            if real is not None:
+                moe.router_gates = real
+        grads = _tree.unflatten(_tree.paths(live), list(
+            torch.autograd.grad(loss, _tree.leaves(live))))
+        del live
+        grads = ex.reduce_ep_grads(grads, specs, n)
+        loss = B.all_reduce(loss.detach(), B.ReduceOp.AVG, "ep")
+
+        def apply(g):
+            state["opt"] = apply_updates(tx, params, state["opt"], g)
+        return loss, grads, apply
+
+    def save0(grads):
+        keep = grads if rank == 0 else {"layers": {
+            k: v for k, v in grads["layers"].items()
+            if "ep" in specs["layers"][k]}}
+        save_tree(keep, out_dir / f"grads0_r{rank}.pt")
+        torch.save([x.cpu() for x in state["seen"]],
+                   out_dir / f"router0_r{rank}.pt")
+
+    steps = slice_step(one, SLICE_STEPS, timer, save0, in_turns=True)
+    mcfg = llama._moe_cfg(cfg)
+    dropped = [float(moe.router_gates(x, mcfg, with_stats=True)[3][
+        "dropped_frac"]) for x in state["seen"]]
+    return {"steps": steps, "init_s": init_s, "want": ring_want(L, 1),
+            "dropped_frac_step0": dropped,
+            "shard_params": sum(t.numel() for t in _tree.leaves(params)),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(device)}
+
+
+def phase_ep_training(dev):
+    """Mixtral-8x7B widths at EP_LAYERS layers over ep 2 on 2 gloo ranks
+    (4 experts and one sequence a rank, capacity E / k), SLICE_STEPS
+    steps: exact launches, nothing dropped, and the reduced step-0
+    gradients (the expert shards put together) against fp32 plain
+    autograd of the mean of the ranks' sequence losses, each routed as
+    its rank routed it (``moe_reference_loss`` with ``pin_routing``)."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.transformer import moe
+
+    ranks, seconds, out_dir = launch_ranks("ep_training", EP_RANKS, "gloo",
+                                           keep=True)
+    check_rank_steps(ranks, "ep_training")
+    if any(x != 0.0 for r in ranks for x in r["dropped_frac_step0"]):
+        raise AssertionError(f"ep_training dropped tokens: "
+                             f"{[r['dropped_frac_step0'] for r in ranks]}")
+    cfg = ep_config()
+    specs = llama.param_specs(cfg)
+    params, (tokens, targets) = ep_setup("cuda", cfg)
+    p32 = _tree.map_leaves(lambda t: t.float().requires_grad_(), params)
+    paths = _tree.paths(params)
+    del params
+    torch.cuda.empty_cache()
+    grads32 = [torch.zeros_like(t) for t in _tree.leaves(p32)]
+    loss32 = 0.0
+    for r in range(EP_RANKS):
+        seen = [x.to("cuda") for x in torch.load(out_dir /
+                                                 f"router0_r{r}.pt")]
+        pinned = pin_routing(moe, seen, cfg)
+        loss = moe_reference_loss(p32, tokens[r:r + 1], targets[r:r + 1],
+                                  cfg, pinned, {}) / EP_RANKS
+        for acc, g in zip(grads32, torch.autograd.grad(loss,
+                                                       _tree.leaves(p32))):
+            acc.add_(g)
+        loss32 += float(loss.detach())
+        del seen, pinned, loss
+    ref = dict(zip((tuple(p) for p in paths), grads32))
+    del p32, grads32
+    torch.cuda.empty_cache()
+    saved = [torch.load(out_dir / f"grads0_r{r}.pt")
+             for r in range(EP_RANKS)]
+    assembled = {}
+    for path in paths:
+        name = ".".join(path)
+        if "ep" in specs["layers"].get(path[-1], ()) and path[0] == "layers":
+            assembled[name] = torch.cat([s[name] for s in saved], dim=1)
+        else:
+            assembled[name] = saved[0][name]
+    del saved
+    cmp = compare_saved(paths, assembled, lambda p: ref[tuple(p)])
+    del assembled, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir)
+    check_grads(cmp, "ep_training")
+    loss0 = ranks[0]["steps"][0]["loss"]
+    report = slice_report(ranks, EP_BATCH * TRAIN_SEQ)
+    a2a = {f"rank{r['rank']}": (r["steps"][-1]["collective_ms"] or {})
+           .get("all_to_all_single", [0.0, 0])
+           for r in ranks}
+    return {"phase": "ep_training", "model": "mixtral_8x7b_widths",
+            "num_layers": EP_LAYERS, "dtype": "bfloat16", "ep": EP_RANKS,
+            "experts_a_rank": cfg.num_experts // EP_RANKS,
+            "capacity_factor": cfg.moe_capacity_factor,
+            "batch": EP_BATCH, "seq": TRAIN_SEQ,
+            "optimizer": "fused_adam(lr=1e-4) tree", "remat": True,
+            "vocab_chunks": EP_CHUNKS, "launch_s": seconds,
+            "init_s": max(r["init_s"] for r in ranks),
+            "dropped_frac_step0": [r["dropped_frac_step0"] for r in ranks],
+            "shard_params": {f"rank{r['rank']}": r["shard_params"]
+                             for r in ranks},
+            "grad_check": dict(cmp, loss=loss0, loss_fp32_reference=loss32,
+                               rel_l2_tol=GRAD_REL_L2, cos_tol=GRAD_COS,
+                               reference="fp32 plain autograd, each rank's "
+                                         "sequence routed as it was"),
+            "all_to_all_ms_calls_instrumented_step": a2a,
+            **report}
+
+
+def gpt2_tp_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of gpt2_tp_training: the gpt2_train example's step over its
+    tp shards and dp slice of the global batch, SLICE_STEPS steps (tree
+    fused_adam, remat, GPT2_CHUNKS vocab chunks); dp rank 0 saves its
+    step-0 gradient blocks. After step 1 the state is saved through the
+    example's CheckpointManager; after the last step it is restored and
+    the last step run again: the two end states' SHA-1s."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples import gpt2_train as ex
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.initialize_model_parallel(GTP_TP)
+    t0 = time.monotonic()
+    cfg, full, (tokens, targets) = gpt2_rank_setup(device)
+    params = ex.shard_params(full, cfg)
+    del full
+    step = ex.TensorParallelGPT2Step(cfg, fused_adam(lr=GPT2_LR), remat=True,
+                                     vocab_chunks=GPT2_CHUNKS)
+    local = (step.local_batch(tokens), step.local_batch(targets))
+    state = {"opt": step.tx.init(params)}
+    manager = ex.checkpoint_manager(str(GTP_CKPT_DIR), rank)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    timer = CollectiveTimer()
+    torch.cuda.reset_peak_memory_stats(device)
+    save_s = []
+
+    def one():
+        loss, grads = step.grads(params, *local)
+
+        def apply(g):
+            state["opt"] = step.apply(params, state["opt"], g)
+        return loss, grads, apply
+
+    def save0(grads):
+        if step.coords["dp"][0] == 0:
+            save_tree(grads, out_dir / f"grads0_r{rank}.pt")
+
+    def after(i):
+        if i == 1:  # the checkpoint the resume starts from
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            manager.save(1, ex.train_state(params, state["opt"], 1))
+            save_s.append(time.monotonic() - t)
+
+    steps = slice_step(one, SLICE_STEPS, timer, save0, after=after)
+    final = digest(state_digests(ex.train_state(params, state["opt"],
+                                                SLICE_STEPS - 1)))
+    # resume: the step-1 checkpoint into a fresh state, the last step again
+    t = time.monotonic()
+    st = manager.restore(ex.train_state(params, state["opt"], 0), step=1,
+                         device=device)
+    restore_s = time.monotonic() - t
+    p2, o2 = st["params"], st["opt"]
+    resumed_from = int(st["it"])
+    _, o2 = step.train_step(p2, o2, *local)
+    resumed = digest(state_digests(ex.train_state(p2, o2, SLICE_STEPS - 1)))
+    return {"steps": steps, "init_s": init_s,
+            "coords": {k: v[0] for k, v in step.coords.items()},
+            "want": gpt2_want(cfg, 0), "final_sha1": final,
+            "resumed_sha1": resumed, "resumed_from": resumed_from,
+            "save_s": save_s, "restore_s": restore_s,
+            "shard_params": sum(t.numel() for t in _tree.leaves(params)),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(device)}
+
+
+def phase_gpt2_tp_training(dev):
+    """GPT-2 345M at tp 2 x dp 2 on 4 gloo ranks, SLICE_STEPS steps of
+    the gpt2_train example's step: exact launches a rank (LayerNorm
+    forward 97, backward 49, causal softmax 48), every rank's step-0
+    gradient blocks against fp32 plain autograd of the single-device
+    model on the global batch, and the resumed state's SHA-1 equal to the
+    uninterrupted run's on every rank."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples._common import block
+    from apex_tpu_torch.models import gpt2
+
+    shutil.rmtree(GTP_CKPT_DIR, ignore_errors=True)
+    ranks, seconds, out_dir = launch_ranks("gpt2_tp_training",
+                                           GTP_TP * GTP_DP, "gloo",
+                                           keep=True)
+    shutil.rmtree(GTP_CKPT_DIR, ignore_errors=True)
+    check_rank_steps(ranks, "gpt2_tp_training")
+    for r in ranks:
+        if r["resumed_sha1"] != r["final_sha1"] or r["resumed_from"] != 1:
+            raise AssertionError(f"gpt2_tp_training rank {r['rank']}: the "
+                                 f"resumed state {r['resumed_sha1']} != "
+                                 f"{r['final_sha1']}")
+    cfg, params, batch = gpt2_rank_setup("cuda")
+    specs = gpt2.param_specs(cfg)
+    p32 = _tree.map_leaves(lambda t: t.float().requires_grad_(), params)
+    paths = _tree.paths(params)
+    del params
+    loss = gpt2_plain_loss(p32, batch, cfg)
+    ref = dict(zip((tuple(p) for p in paths),
+                   torch.autograd.grad(loss, _tree.leaves(p32))))
+    loss32 = float(loss.detach())
+    del p32, loss
+    torch.cuda.empty_cache()
+
+    def blocks():
+        for r in ranks:
+            if r["coords"]["dp"] != 0:
+                continue
+            coords = {"tp": (r["coords"]["tp"], GTP_TP)}
+            saved = torch.load(out_dir / f"grads0_r{r['rank']}.pt")
+            for path in paths:
+                spec = specs[path[0]] if len(path) == 1 else \
+                    specs[path[0]][path[1]]
+                yield (".".join(path), saved[".".join(path)].to("cuda"),
+                       block(ref[tuple(path)], spec, coords))
+
+    cmp = block_compare(blocks())
+    del ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir)
+    check_grads(cmp, "gpt2_tp_training")
+    report = slice_report(ranks, DDP_BATCH * GPT2_SEQ)
+    return {"phase": "gpt2_tp_training", "model": "gpt2_345m",
+            "num_layers": cfg.num_layers, "dtype": "bfloat16",
+            "tp": GTP_TP, "dp": GTP_DP, "batch": DDP_BATCH, "seq": GPT2_SEQ,
+            "optimizer": "fused_adam(lr=1e-4) tree", "remat": True,
+            "vocab_chunks": GPT2_CHUNKS, "launch_s": seconds,
+            "init_s": max(r["init_s"] for r in ranks),
+            "grad_check": dict(cmp, loss=ranks[0]["steps"][0]["loss"],
+                               loss_fp32_reference=loss32,
+                               rel_l2_tol=GRAD_REL_L2, cos_tol=GRAD_COS),
+            "checkpoint": {
+                "resumed_from_step": 1, "sha1_equal": True,
+                "final_sha1": {f"rank{r['rank']}": r["final_sha1"]
+                               for r in ranks},
+                "save_s": max(max(r["save_s"]) for r in ranks),
+                "restore_s": max(r["restore_s"] for r in ranks)},
+            "shard_params": {f"rank{r['rank']}": r["shard_params"]
+                             for r in ranks},
+            **report}
+
+
+def mp_nccl_rank(rank, n, device, out_dir: Path) -> dict:
+    """One NCCL rank, every group of one: MP_STEPS train steps of each
+    bound path (Llama with cp_axis bound, Llama MoE with ep_axis bound,
+    GPT-2 with tp_axis bound) and of the same steps with the axis
+    unbound, from the same seeded state: the end states' SHA-1s and each
+    run's launches."""
+    import torch
+
+    from apex_tpu_torch.distributed import backend as B
+    from apex_tpu_torch.models import gpt2, llama
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.initialize_model_parallel(1)
+    B.new_group("ep", ranks=[0])
+
+    def run(make, train):
+        params, batch = make()
+        tx = fused_adam(lr=TRAIN_LR)
+        opt = tx.init(params)
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(MP_STEPS):
+            params, opt, loss = train(params, opt, batch, tx)
+            losses.append(float(loss))
+        ms = (time.perf_counter() - t0) * 1e3 / MP_STEPS
+        out = {"sha1": digest(state_digests({"params": params, "opt": opt})),
+               "losses": losses, "launches": counts_delta(before),
+               "step_ms": ms}
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def llama_make(cfg, rows):
+        def make():
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            params = llama.init_params(gen, cfg, device=device)
+            tokens = torch.randint(0, cfg.vocab_size, (rows, TRAIN_SEQ),
+                                   generator=gen, device=device)
+            return params, (tokens, torch.roll(tokens, -1, dims=-1))
+        return make
+
+    dense = llama.llama3_8b(num_layers=2)
+    moe_cfg = llama.llama3_8b(num_layers=MP_MOE_LAYERS, **dict(
+        MOE_OVER, moe_capacity_factor=MOE_OVER["num_experts"]
+        / MOE_OVER["moe_top_k"]))
+    g2 = gpt2.gpt2_345m(num_layers=2)
+
+    def gpt2_make():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        params = gpt2.init_params(gen, g2, device=device)
+        tokens = torch.randint(0, g2.vocab_size, (2, GPT2_SEQ),
+                               generator=gen, device=device)
+        return params, (tokens, torch.roll(tokens, -1, dims=-1))
+
+    torch.cuda.reset_peak_memory_stats(device)
+    out = {}
+    for name, make, train_of in (
+            ("cp", llama_make(dense, 1), lambda axis: lambda p, o, b, tx:
+             llama.train_step(p, o, b, dense, tx, remat=True,
+                              vocab_chunks=8, tp_axis=None, cp_axis=axis)),
+            ("ep", llama_make(moe_cfg, 1), lambda axis: lambda p, o, b, tx:
+             llama.train_step(p, o, b, moe_cfg, tx, remat=True,
+                              vocab_chunks=8, tp_axis=None, ep_axis=axis)),
+            ("tp", gpt2_make, lambda axis: lambda p, o, b, tx:
+             gpt2.train_step(p, o, b, g2, tx, remat=True,
+                             vocab_chunks=GPT2_CHUNKS, tp_axis=axis))):
+        axis = {"cp": "cp", "ep": "ep", "tp": "tp"}[name]
+        out[name] = {"bound": run(make, train_of(axis)),
+                     "unbound": run(make, train_of(None))}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def phase_mp_nccl(dev):
+    """The cp, ep and tp paths each bound to an NCCL group of one, against
+    the same steps unbound: equal SHA-1s of the end states (bit for bit)
+    and equal launches."""
+    ranks, seconds = launch_ranks("mp_nccl", 1, "nccl")
+    r = ranks[0]
+    if r["backend"] != "nccl":
+        raise AssertionError(f"backend {r['backend']}, not nccl")
+    check_card_peak(ranks, "mp_nccl")
+    for name in ("cp", "ep", "tp"):
+        a, b = r[name]["bound"], r[name]["unbound"]
+        if a["sha1"] != b["sha1"] or a["launches"] != b["launches"]:
+            raise AssertionError(f"mp_nccl {name}: bound {a} != unbound {b}")
+        if not all(math.isfinite(x) for x in a["losses"]):
+            raise AssertionError(f"mp_nccl {name} losses {a['losses']}")
+    return {"phase": "mp_nccl", "ranks": 1, "backend": r["backend"],
+            "device": r["device"], "launch_s": seconds, "steps": MP_STEPS,
+            "paths": {"cp": "llama3_8b 2 layers, 1 x 2048, cp_axis bound "
+                            "(a ring of one)",
+                      "ep": f"mixtral widths {MP_MOE_LAYERS} layer, 1 x "
+                            f"2048, ep_axis bound (all-to-all over one)",
+                      "tp": "gpt2_345m 2 layers, 2 x 1024, tp_axis bound"},
+            "bit_equal": True,
+            **{name: r[name] for name in ("cp", "ep", "tp")},
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "card_peak_used_bytes": r["card_peak_used_bytes"],
+            "launches": total_launches(
+                [{"steps": [{"l": r[name][k]["launches"]}
+                            for name in ("cp", "ep", "tp")
+                            for k in ("bound", "unbound")]}], ("l",))}
+
+
 def ddp_worker(argv) -> int:
     """A rank of a data-parallel phase (``--ddp-worker PHASE DIR``, run by
     ``python -m apex_tpu_torch.parallel.multiproc``, which started the
@@ -5387,7 +6477,11 @@ def ddp_worker(argv) -> int:
     run = {"ddp_training": ddp_training_rank, "ddp_nccl": ddp_nccl_rank,
            "megatron_training": partial(megatron_training_rank,
                                         out_dir=out_dir),
-           "megatron_nccl": partial(megatron_nccl_rank, out_dir=out_dir)}
+           "megatron_nccl": partial(megatron_nccl_rank, out_dir=out_dir),
+           "cp_training": partial(cp_training_rank, out_dir=out_dir),
+           "ep_training": partial(ep_training_rank, out_dir=out_dir),
+           "gpt2_tp_training": partial(gpt2_tp_rank, out_dir=out_dir),
+           "mp_nccl": partial(mp_nccl_rank, out_dir=out_dir)}
     result = {"rank": rank, "world_size": n,
               "backend": torch.distributed.get_backend(),
               "device": str(device),
@@ -5396,6 +6490,38 @@ def ddp_worker(argv) -> int:
     (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
     B.barrier("dp")
     return 0
+
+
+class DevicePeak:
+    """While open, samples the card's used memory (total - free: every
+    process on it, the ranks' caches and this process's included) on a
+    thread every ``period`` s; ``peak`` is the largest sample."""
+
+    def __init__(self, period: float = 0.05):
+        import threading
+
+        import torch
+
+        free, total = torch.cuda.mem_get_info()
+        self.period, self.peak, self.before = period, 0, total - free
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        import torch
+
+        while not self._stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            self.peak = max(self.peak, total - free)
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
 
 
 def launch_ranks(phase: str, nprocs: int, backend: str,
@@ -5413,16 +6539,24 @@ def launch_ranks(phase: str, nprocs: int, backend: str,
     out_dir.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    if phase in SLICE_TIMEOUT:
+        # two 8B-width ranks share the card: segments that grow in place
+        # keep each rank's cache close to what it allocated
+        env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.monotonic()
-    rc = multiproc.launch([str(ROOT / "chip_smoke.py"), "--ddp-worker",
-                           phase, str(out_dir)], nprocs, backend=backend,
-                          env=env, timeout={**DDP_TIMEOUT,
-                                            **MEG_TIMEOUT}[phase])
+    with DevicePeak() as card:
+        rc = multiproc.launch([str(ROOT / "chip_smoke.py"), "--ddp-worker",
+                               phase, str(out_dir)], nprocs, backend=backend,
+                              env=env, timeout={**DDP_TIMEOUT, **MEG_TIMEOUT,
+                                                **SLICE_TIMEOUT}[phase])
     seconds = time.monotonic() - t0
     if rc != 0:
         raise RuntimeError(f"{phase}: a rank exited with {rc}")
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
              for r in range(nprocs)]
+    for r in ranks:
+        r["card_peak_used_bytes"] = card.peak
+        r["card_used_before_bytes"] = card.before
     if keep:
         return ranks, seconds, out_dir
     shutil.rmtree(out_dir)
@@ -5536,6 +6670,7 @@ def phase_ddp_nccl(dev):
     r = ranks[0]
     if r["backend"] != "nccl":
         raise AssertionError(f"backend {r['backend']}, not nccl")
+    check_card_peak(ranks, "mp_nccl")
     for s in r["steps"]:
         for key in ("ddp_params_equal", "ddp_moments_equal",
                     "zero1_moments_equal"):
@@ -5621,7 +6756,22 @@ def summary(kernels, counts, path_adam):
     long = kernels["fused_softmax_long"]["causal"]
     mha, mha_flash = kernels["mha"], kernels["mha"]["flash"]
     meg = kernels["megatron"]
+    sl = kernels["slice"]
+    ring = sl["ring"]
     csrc = "apex_tpu_torch/ops/csrc/"
+
+    def ring_bwd(part, errs):
+        """The ring's backward calls with the merged lse: a row each."""
+        return {case: dict(ring[case][part], shape=ring[case]["shape"],
+                           plain_ms=ring[case]["plain_ms"],
+                           library_ms=ring[case]["library_ms"],
+                           max_abs_err=max(ring[case]["max_abs_err"][e]
+                                           for e in errs))
+                for case in ("ring_offdiag_global_lse",
+                             "ring_diag_global_lse")}
+
+    def rms_bwd_row(r):
+        return dict(r, max_abs_err=max(r["max_abs_err"].values()))
 
     def meg_bwd(part, errs):
         """The megatron phases' rows of a flash backward kernel."""
@@ -5654,7 +6804,9 @@ def summary(kernels, counts, path_adam):
             cases=case_rows({x["case"]: x for x in fwd if "case" in x}
                             | {c: r["fwd"] for c, r in mha_flash.items()}
                             | {"megatron_rank": meg["flash_fwd"],
-                               "megatron_nccl": meg["flash_fwd_nccl"]},
+                               "megatron_nccl": meg["flash_fwd_nccl"]}
+                            | {c: ring[c] for c in ("ring_diagonal_block",
+                                                    "ring_full_block")},
                             keys=CASE_KEYS + ("shape",)),
             **FLASH_FWD_DESIGN),
         row("rms_norm_fwd", csrc + "rms_norm.cu",
@@ -5664,7 +6816,9 @@ def summary(kernels, counts, path_adam):
                              "training_fp32_weight": rms[3],
                              "megatron_sp_rows": meg["rms_fwd"],
                              "megatron_last_stage_norm_and_nccl":
-                                 meg["rms_fwd_full_rows"]},
+                                 meg["rms_fwd_full_rows"],
+                             "cp_rank": sl["rms_fwd_cp_rank"],
+                             "ep_rank": sl["rms_fwd_ep_rank"]},
                             keys=CASE_KEYS + ("shape",))),
         row("flash_attention_bwd_dq", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:261",
@@ -5673,7 +6827,8 @@ def summary(kernels, counts, path_adam):
             cases={c: dict(r["dq"], max_abs_err=r["max_abs_err"]["dq"],
                            library_ms=r["library_ms"])
                    for c, r in bwd["cases"].items()}
-            | mha_bwd("dq", ("dq",)) | meg_bwd("dq", ("dq",))),
+            | mha_bwd("dq", ("dq",)) | meg_bwd("dq", ("dq",))
+            | ring_bwd("dq", ("dq",))),
         row("flash_attention_bwd_dkv", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:322",
             dict(bwd["dkv"], shape=bwd["shape"], **both),
@@ -5684,7 +6839,8 @@ def summary(kernels, counts, path_adam):
                            library_ms=r["library_ms"])
                    for c, r in bwd["cases"].items()}
             | mha_bwd("dkv", ("dk", "dv"))
-            | meg_bwd("dkv", ("dk", "dv"))),
+            | meg_bwd("dkv", ("dk", "dv"))
+            | ring_bwd("dkv", ("dk", "dv"))),
         row("rms_norm_bwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:189", rbwd,
             max(rbwd["max_abs_err"].values()),
@@ -5695,7 +6851,9 @@ def summary(kernels, counts, path_adam):
                     meg["rms_bwd"]["max_abs_err"].values())),
                 "megatron_last_stage_norm_and_nccl": dict(
                     meg["rms_bwd_full_rows"], max_abs_err=max(
-                        meg["rms_bwd_full_rows"]["max_abs_err"].values()))},
+                        meg["rms_bwd_full_rows"]["max_abs_err"].values())),
+                "cp_rank": rms_bwd_row(sl["rms_bwd_cp_rank"]),
+                "ep_rank": rms_bwd_row(sl["rms_bwd_ep_rank"])},
                 keys=CASE_KEYS + ("shape",))),
         row("fused_adam", csrc + "fused_adam.cu",
             "apex_tpu/ops/fused_adam_kernel.py:35",
@@ -5732,7 +6890,8 @@ def summary(kernels, counts, path_adam):
         row("fused_softmax_causal", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:104", smc,
             smc["max_abs_err"], cases=case_rows(
-                {"ddp_rank": kernels["fused_softmax_causal_ddp_rank"]},
+                {"ddp_rank": kernels["fused_softmax_causal_ddp_rank"],
+                 "gpt2_tp_rank": sl["softmax_gpt2_tp_rank"]},
                 keys=CASE_KEYS + ("shape",))),
         row("fused_softmax_masked", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:119", smm,
@@ -5882,7 +7041,11 @@ def main() -> int:
         for path, run in (("ddp_training", phase_ddp_training),
                           ("ddp_nccl", phase_ddp_nccl),
                           ("megatron_training", phase_megatron_training),
-                          ("megatron_nccl", phase_megatron_nccl)):
+                          ("megatron_nccl", phase_megatron_nccl),
+                          ("cp_training", phase_cp_training),
+                          ("ep_training", phase_ep_training),
+                          ("gpt2_tp_training", phase_gpt2_tp_training),
+                          ("mp_nccl", phase_mp_nccl)):
             phase = path
             gc.collect()
             torch.cuda.empty_cache()

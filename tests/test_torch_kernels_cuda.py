@@ -1731,3 +1731,131 @@ def test_pipeline_shift_on_cuda_tensors_over_gloo(gen, tmp_path):
     np.testing.assert_array_equal(r0["shift_grad"], np.full(3, 20.0))
     np.testing.assert_array_equal(r1["shift_grad"], np.zeros(3))
     assert str(r1["shift_device"]).startswith("cuda")
+
+
+# ------------------------------------------------ context parallelism
+
+
+def _ring_case(gen, dtype, h_kv, s=96, b=2, h=4, d=64):
+    """Rank 1's view of a cp 2 ring: its queries, the block from rank 0
+    (whole) and its own (diagonal), and a cotangent."""
+    def randn(n):
+        return torch.randn(b, s, n, d, generator=gen, device="cuda").to(dtype)
+    return randn(h), randn(h_kv), randn(h_kv), randn(h_kv), randn(h_kv), \
+        randn(h)
+
+
+def _merged(q, blocks, scale):
+    """(o, lse) of ``q`` over the ``(k, v, causal)`` blocks, merged by
+    logsumexp in fp32 as the ring merges them; o in q's dtype."""
+    from apex_tpu_torch.transformer.context_parallel import _merge_lse
+
+    b, s, h, _ = q.shape
+    o = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    lse = torch.full((b * h, s), float("-inf"), device="cuda")
+    for k, v, causal in blocks:
+        o, lse = _merge_lse(o, lse, *fa._flash_fwd_cuda(q, k, v, causal,
+                                                        scale))
+    return o.to(q.dtype), lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h_kv", [4, 2])
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["offdiag", "diag"])
+def test_flash_bwd_with_the_rings_global_lse_matches_plain(gen, dtype, h_kv,
+                                                          causal):
+    """The dq and dk/dv kernels called as the ring calls them: one
+    block's k and v with the o and lse merged over two blocks (on the
+    off-diagonal block the lse exceeds the block's own row maximum),
+    against ``_flash_bwd_plain`` on the same inputs."""
+    q, k0, v0, k1, v1, do = _ring_case(gen, dtype, h_kv)
+    d = q.shape[-1]
+    scale = d ** -0.5
+    o, lse = _merged(q, ((k0, v0, False), (k1, v1, True)), scale)
+    k, v = (k0, v0) if not causal else (k1, v1)
+    before = (fa.dq_launches, fa.dkv_launches)
+    got = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = fa._flash_bwd_plain(*(fa._heads_major(t) for t in (q, k, v, o)),
+                              lse, fa._heads_major(do), causal, scale)
+    rel = 2e-5 if dtype == torch.float32 else 1e-2
+    for g, r, n in zip(got, ref, (q.shape[2], h_kv, h_kv)):
+        r = r.reshape(q.shape[0], n, q.shape[1], d).transpose(1, 2)
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= rel * float(r.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h_kv", [4, 2])
+def test_ring_of_two_blocks_matches_the_whole_sequence_kernel(gen, dtype,
+                                                              h_kv):
+    """Both ranks of a causal cp 2 ring, emulated: rank 0's diagonal
+    block, rank 1's full and diagonal blocks merged by lse, and their
+    backward calls with the merged (o, lse), dK/dV summed in fp32, held
+    against the forward and backward kernels on the whole sequence."""
+    s = 96
+    q0, k0, v0, k1, v1, do1 = _ring_case(gen, dtype, h_kv, s=s)
+    q1, do0 = (torch.randn(q0.shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(2))
+    d = q0.shape[-1]
+    scale = d ** -0.5
+    o0, l0 = _merged(q0, ((k0, v0, True),), scale)
+    o1, l1 = _merged(q1, ((k0, v0, False), (k1, v1, True)), scale)
+    dq0, dk0, dv0 = fa._flash_bwd_cuda(q0, k0, v0, o0, l0, do0, True, scale)
+    dq1a, dk0b, dv0b = fa._flash_bwd_cuda(q1, k0, v0, o1, l1, do1, False,
+                                          scale)
+    dq1b, dk1, dv1 = fa._flash_bwd_cuda(q1, k1, v1, o1, l1, do1, True,
+                                        scale)
+    Q, K, V, dO = (torch.cat(p, 1) for p in ((q0, q1), (k0, k1), (v0, v1),
+                                             (do0, do1)))
+    O, L = fa._flash_fwd_cuda(Q, K, V, True, scale)
+    dQ, dK, dV = fa._flash_bwd_cuda(Q, K, V, O, L, dO, True, scale)
+    ring = {"o": torch.cat([o0, o1], 1).float(),
+            "dq": torch.cat([dq0.float(), dq1a.float() + dq1b.float()], 1),
+            "dk": torch.cat([dk0.float() + dk0b.float(), dk1.float()], 1),
+            "dv": torch.cat([dv0.float() + dv0b.float(), dv1.float()], 1)}
+    rel = 2e-5 if dtype == torch.float32 else 2e-2
+    for name, want in (("o", O), ("dq", dQ), ("dk", dK), ("dv", dV)):
+        err = float((ring[name] - want.float()).abs().max())
+        assert err <= rel * float(want.float().abs().max()), (name, err)
+
+
+def test_ring_and_all_to_all_on_cuda_tensors_over_gloo(gen, tmp_path):
+    """Two ranks sharing the card over a throwaway gloo group: the
+    differentiable all-to-all and the ring (K/V rotations staged through
+    pinned host memory) on CUDA tensors, against the all-to-all's own
+    definition and the whole-sequence plain attention."""
+    import numpy as np
+
+    from torch_dist_worker import run_ranks
+
+    rng = np.random.default_rng(5)
+    inputs = {t: rng.standard_normal((1, 64, 4, 32)).astype(np.float32)
+              for t in ("q", "do")}
+    inputs.update({t: rng.standard_normal((1, 64, 2, 32)).astype(np.float32)
+                   for t in ("k", "v")})
+    ranks = run_ranks("cp_cuda", 2, tmp_path, inputs, cpu=False)
+    # the all-to-all: row r of each sender's x arrives at rank r, in
+    # sender order; the cotangent of the piece from sender s (s + 1)
+    # goes back to s
+    for r, res in enumerate(ranks):
+        assert str(res["device"]).startswith("cuda")
+        want = np.concatenate([100 * r + 10 * src + np.arange(6.0)
+                               for src in (0, 1)])
+        np.testing.assert_array_equal(res["a2a"], want.reshape(1, 12))
+        np.testing.assert_array_equal(res["a2a_grad"], np.full((2, 6),
+                                                               r + 1.0))
+    flat = [torch.from_numpy(inputs[t]).transpose(1, 2).reshape(-1, 64, 32)
+            for t in ("q", "k", "v", "do")]
+    o, lse = fa._flash_fwd_plain(*flat[:3], True, 32 ** -0.5)
+    dq, dk, dv = fa._flash_bwd_plain(*flat[:3], o, lse, flat[3], True,
+                                     32 ** -0.5)
+    for name, full, n in (("o", o, 4), ("dq", dq, 4), ("dk", dk, 2),
+                          ("dv", dv, 2)):
+        full = full.reshape(1, n, 64, 32).transpose(1, 2).numpy()
+        for r, res in enumerate(ranks):
+            want = full[:, 32 * r:32 * (r + 1)]
+            np.testing.assert_allclose(res[name], want, rtol=0,
+                                       atol=2e-5 * np.abs(full).max())

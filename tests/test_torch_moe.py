@@ -190,16 +190,20 @@ def test_init_moe_params_layout():
 
 
 def test_expert_parallel_axis_raises():
-    """The all_to_all dispatch waits for the multi-GPU slice."""
+    """An ``ep_axis`` with no group bound to it is the reference's
+    unbound-axis path: every expert runs here, the same numbers as
+    ``ep_axis=None`` (the bound path, the all-to-all dispatch, is held
+    on gloo ranks by ``tests/test_torch_expert_parallel.py``)."""
     cfg = moe.MoEConfig(**_cfg())
     params = moe.init_moe_params(torch.Generator().manual_seed(0), cfg,
                                  device="cpu")
-    x = torch.zeros(4, 16)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        moe.moe_mlp(params, x, cfg, ep_axis="ep")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        moe.expert_parallel_apply(lambda p, t: t, {}, x, params["router"],
-                                  cfg, ep_axis="ep")
+    x = torch.randn(4, 16, generator=torch.Generator().manual_seed(1))
+    y, aux = moe.moe_mlp(params, x, cfg, ep_axis="ep")
+    y0, aux0 = moe.moe_mlp(params, x, cfg, ep_axis=None)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
+    assert moe.moe_param_specs(cfg) == {"router": (),
+                                        "wi": ("ep", None, None),
+                                        "wo": ("ep", None, None)}
 
 
 def test_init_moe_params_needs_a_gpu_by_default(monkeypatch):

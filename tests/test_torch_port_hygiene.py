@@ -26,6 +26,9 @@ WRAPPERS = {
                                   "__call__", "load_flax_params"),
     "transformer/moe.py": ("router_gates", "expert_parallel_apply",
                            "moe_mlp", "init_moe_params"),
+    "transformer/context_parallel.py": ("ring_attention", "forward",
+                                        "backward", "_rotate"),
+    "distributed/backend.py": ("all_to_all", "_all_to_all_raw"),
     "ops/layer_norm.py": ("_rms_fwd_cuda", "_rms_fwd", "rms_norm", "_lib",
                           "_rms_bwd_cuda", "_rms_bwd", "forward",
                           "backward", "_ln_fwd_cuda", "_ln_fwd",

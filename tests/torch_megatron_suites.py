@@ -338,9 +338,14 @@ def suite_megatron_tp(rank, n, inp, directory):
     out["llama_heads_error"] = np.array(_error(
         lambda: llama.loss_fn(shards, batch, llama.tiny(num_kv_heads=1),
                               remat=False)))
-    out["llama_cp_error"] = np.array(_error(
-        lambda: llama.loss_fn(shards, batch, cfg, remat=False,
-                              cp_axis="tp")))
+    # a ring of one (the cp group of one rank bound here) is the
+    # diagonal block merged with nothing: the flash path's loss exactly
+    # (``shards`` are the MoE config's, the loop's last)
+    moe_cfg = llama.tiny(num_experts=4)
+    out["llama_cp1_loss"] = _np(llama.loss_fn(shards, batch, moe_cfg,
+                                              remat=False, cp_axis="cp"))
+    out["llama_tp_loss"] = _np(llama.loss_fn(shards, batch, moe_cfg,
+                                             remat=False, cp_axis=None))
     ps.destroy_model_parallel()
     return out
 
