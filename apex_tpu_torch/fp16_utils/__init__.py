@@ -9,4 +9,4 @@ def __getattr__(name):
         raise AttributeError(name)
     raise NotImplementedError(
         f"apex_tpu_torch.fp16_utils.{name} is not ported yet: it waits "
-        f"for the fp16_utils slice (ROADMAP.md, Queue 1 item 7)")
+        f"for the fp16_utils slice (ROADMAP.md, Queue 1 item 6.5)")

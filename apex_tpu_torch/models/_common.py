@@ -1,9 +1,10 @@
 """Shared model-zoo helpers (port of ``apex_tpu/models/_common.py``): the
-init law, the transformer pieces GPT-2 and BERT share, the per-layer
-loop over stacked weights and the train step."""
+init law, the BatchNorm switch, the transformer pieces GPT-2 and BERT
+share, the per-layer loop over stacked weights and the train step."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -19,6 +20,7 @@ from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_layer_norm_affine,
 )
 from apex_tpu_torch.ops.precision import matmul_amp
+from apex_tpu_torch.parallel import sync_batchnorm
 from apex_tpu_torch.transformer.tensor_parallel import mappings
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     column_parallel_linear,
@@ -36,6 +38,82 @@ def fan_in_normal(generator: torch.Generator, *shape, fan_in=None,
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return x.mul_(scale).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchNorm:
+    """Plain BatchNorm or cross-rank SyncBatchNorm (``_common.py:20``),
+    functional over the params and running stats a model's tree holds
+    for it: ``{"scale", "bias"}`` and ``{"mean", "var"}`` under the key
+    :attr:`inner`, as flax nests them.
+
+    ``momentum`` is the fraction of a running stat KEPT each step (flax's
+    convention). The two branches differ as the reference's do:
+
+    - plain (flax ``nn.BatchNorm``): mean and the BIASED variance of the
+      batch, ``E[x^2] - E[x]^2`` in fp32 clipped at 0 (flax's fast
+      variance), the running stats moved by ``momentum``;
+    - ``sync``: :func:`~apex_tpu_torch.parallel.sync_batchnorm.
+      sync_batch_norm` over the group bound to ``axis_name`` (None, or
+      ``torch.distributed`` not started: this rank's batch), Chan's merge,
+      momentum ``1 - momentum`` (torch's convention, the fraction
+      replaced) and the UNBIASED running variance.
+
+    Statistics are fp32; the output has ``x``'s dtype."""
+
+    sync: bool = False
+    axis_name: Optional[str] = "data"
+    momentum: float = 0.9
+    eps: float = 1e-5
+
+    @property
+    def inner(self) -> str:
+        """The key of the normalisation's own params and stats."""
+        return "SyncBatchNorm_0" if self.sync else "BatchNorm_0"
+
+    def init(self, features: int, device) -> tuple:
+        """``(params, batch_stats)`` of a fresh layer, fp32, nested under
+        :attr:`inner`: scale 1, bias 0, mean 0, var 1 (flax's inits)."""
+        def full(value):
+            return torch.full((features,), value, dtype=torch.float32,
+                              device=device)
+
+        return ({self.inner: {"scale": full(1.0), "bias": full(0.0)}},
+                {self.inner: {"mean": full(0.0), "var": full(1.0)}})
+
+    def __call__(self, params, stats, x, train: bool, ch: int = -1):
+        """``(y, new_stats)``: ``params`` and ``stats`` this layer's
+        (keyed by :attr:`inner`), ``ch`` the channel dim of ``x``.
+        ``new_stats`` holds new tensors in training, ``stats`` itself
+        otherwise."""
+        p, s = params[self.inner], stats[self.inner]
+        if self.sync:
+            y, mean, var = sync_batchnorm.sync_batch_norm(
+                x, p["scale"], p["bias"], s["mean"], s["var"], train,
+                momentum=1.0 - self.momentum, eps=self.eps, ch=ch,
+                group=self.axis_name)
+            return y, ({self.inner: {"mean": mean, "var": var}}
+                       if train else stats)
+        ch = ch % x.dim()
+        if not train:
+            return sync_batchnorm.normalize_running(
+                x, p["scale"], p["bias"], s["mean"], s["var"], self.eps,
+                ch), stats
+        dims = [i for i in range(x.dim()) if i != ch]
+        with torch.no_grad():
+            x32 = x.float()
+            mean = x32.mean(dims)
+            var = torch.clamp(torch.square(x32).mean(dims)
+                              - torch.square(mean), min=0.0)
+            del x32
+            count = torch.tensor(float(x.numel() // x.shape[ch]),
+                                 device=x.device)
+            m = self.momentum
+            new = {"mean": m * s["mean"] + (1 - m) * mean,
+                   "var": m * s["var"] + (1 - m) * var}
+        y = sync_batchnorm.normalize(x, p["scale"], p["bias"], mean, var,
+                                     count, self.eps, ch)
+        return y, {self.inner: new}
 
 
 def layer_norm(x, w, b, eps):

@@ -1,9 +1,9 @@
 """Fused optimizer update math (port of ``apex_tpu/optimizers/_math.py``).
 
-The elementwise Adam and LAMB bodies over tensors, as the reference's
-CUDA multi-tensor kernels compute them; the tree paths of ``fused_adam``
-and ``fused_lamb`` apply them leaf by leaf. State math is fp32; params
-may be any float dtype.
+The elementwise Adam, SGD and LAMB bodies over tensors, as the
+reference's CUDA multi-tensor kernels compute them; the tree paths of
+``fused_adam``, ``fused_sgd`` and ``fused_lamb`` apply them leaf by
+leaf. State math is fp32; params may be any float dtype.
 """
 
 from __future__ import annotations
@@ -30,6 +30,27 @@ def adam_step(g, p, m, v, *, lr, b1, b2, eps, weight_decay, adam_w_mode,
     if adam_w_mode and weight_decay:
         update = update + weight_decay * p32
     return -lr * update, m, v
+
+
+def sgd_step(g, p, buf, *, lr, momentum, dampening, nesterov, weight_decay,
+             wd_after_momentum, first_run: bool):
+    """One (momentum) SGD update (``_math.py:53``). Returns (delta,
+    new_buf) with delta = new_p - p in fp32; ``buf`` is not modified.
+    ``first_run`` seeds the momentum buffer with the raw gradient, as the
+    reference's first touch of a buffer does."""
+    g32 = g.float()
+    p32 = p.float()
+    if weight_decay and not wd_after_momentum:
+        g32 = g32 + weight_decay * p32
+    if momentum:
+        buf = (g32.clone() if first_run
+               else momentum * buf + (1.0 - dampening) * g32)
+        d = g32 + momentum * buf if nesterov else buf
+    else:
+        d = g32
+    if weight_decay and wd_after_momentum:
+        d = d + weight_decay * p32
+    return -lr * d, buf
 
 
 def lamb_moments(g, p, m, v, *, b1, b2, grad_averaging, clip_coeff,

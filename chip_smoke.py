@@ -218,6 +218,49 @@ result line) when it fails:
                and Adam moments equal bit for bit after each of 2 steps,
                exact launches.
 
+18. resnet50_training -- the imagenet example's model and step (BASELINE's
+               "ResNet-50 O2"): ``resnet50()``, 1000 classes, a resident
+               batch of 256 x 224 x 224 x 3 from the seed, amp O2
+               (bf16 convolutions in channels_last, fp32 BatchNorm
+               leaves, dynamic loss scale), ``fused_sgd(lr 0.1, momentum
+               0.9, wd 1e-4)``. First the BatchNorm's written-out backward
+               at the stem's shape against fp32 autograd of the composite;
+               then the step-0 gradients: the fp32 step of the port's
+               functions against fp32 autograd through ``F.batch_norm``
+               (0.05 / 0.998), the O2 step unit by unit (stem, 16
+               bottlenecks, head, each fed the fp32 pass's input and
+               incoming gradient) against fp32 (RN_UNIT_REL_L2 /
+               RN_UNIT_COS), the O2 step end to end beside fp32 (reported:
+               the model amplifies bf16 rounding, in the reference too);
+               then 4 steps: no launch of any hand-written kernel, finite
+               and falling loss, every running stat moved, step ms,
+               images/s, MFU (3 x 2 x the forward's multiply-adds) and
+               peak; then the example itself at ``--arch resnet50
+               --image-size 224`` on one NCCL rank through its
+               PrefetchLoader (its images/s and which bound it), and the
+               loader alone.
+19. resnet50_ddp -- the same on 2 gloo ranks sharing the card, 128
+               images a rank, SyncBatchNorm over "data" and DDP: the
+               step-0 mean fp32 gradients against the single-device fp32
+               gradients of the 256 images (0.05 / 0.998; the O2 ones
+               reported), 3 steps after which every rank's masters,
+               momentum buffers and batch stats have one SHA-1, step ms a
+               rank, images/s, the collectives' share of an instrumented
+               step (gloo through the host, not NCCL).
+20. resnet50_ddp_nccl -- one NCCL rank: a DDP + SyncBatchNorm step
+               ("data" bound, a group of one) and the single-device step
+               (nothing bound) from the same state, cuDNN deterministic:
+               masters, momentum buffers and batch stats bit for bit.
+21. simple_distributed -- the example's ``main`` on 2 gloo ranks: both
+               of its OK lines, no kernel launched.
+22. bert_train -- the example's data-parallel step at ``bert_base()``
+               widths on 2 gloo ranks, 8 x 512 a rank with BERT's seeded
+               padding (the masked softmax) and ``fused_lamb``: step-0
+               mean gradients against the fp32 gradients of the 16
+               sequences through the plain functions (0.05 / 0.998),
+               exact launches a step a rank (LayerNorm 50 / 26, masked
+               softmax 24: remat), step ms, sequences/s.
+
 The kernels phase also checks the flash trio at a megatron rank's heads
 (1 x 2048 x 16/4 x 128), the RMSNorm forward and backward on its
 sequence-split rows ([1024, 4096]) and the flat Adam on its slab.
@@ -6481,7 +6524,13 @@ def ddp_worker(argv) -> int:
            "cp_training": partial(cp_training_rank, out_dir=out_dir),
            "ep_training": partial(ep_training_rank, out_dir=out_dir),
            "gpt2_tp_training": partial(gpt2_tp_rank, out_dir=out_dir),
-           "mp_nccl": partial(mp_nccl_rank, out_dir=out_dir)}
+           "mp_nccl": partial(mp_nccl_rank, out_dir=out_dir),
+           "resnet50_ddp": partial(resnet50_ddp_rank, out_dir=out_dir),
+           "resnet50_ddp_nccl": partial(resnet50_ddp_nccl_rank,
+                                        out_dir=out_dir),
+           "simple_distributed": partial(simple_distributed_rank,
+                                         out_dir=out_dir),
+           "bert_train": partial(bert_train_rank, out_dir=out_dir)}
     result = {"rank": rank, "world_size": n,
               "backend": torch.distributed.get_backend(),
               "device": str(device),
@@ -6548,7 +6597,8 @@ def launch_ranks(phase: str, nprocs: int, backend: str,
         rc = multiproc.launch([str(ROOT / "chip_smoke.py"), "--ddp-worker",
                                phase, str(out_dir)], nprocs, backend=backend,
                               env=env, timeout={**DDP_TIMEOUT, **MEG_TIMEOUT,
-                                                **SLICE_TIMEOUT}[phase])
+                                                **SLICE_TIMEOUT,
+                                                **BASELINE_TIMEOUT}[phase])
     seconds = time.monotonic() - t0
     if rc != 0:
         raise RuntimeError(f"{phase}: a rank exited with {rc}")
@@ -6700,6 +6750,834 @@ def phase_ddp_nccl(dev):
             "launches": total_launches([r],
                                        ("launches_single_device",
                                         "launches_ddp", "launches_zero1"))}
+
+
+# ------------------------------------------------------ the BASELINE slice
+
+# imagenet_resnet50's model at amp O2 (bf16 convolutions and activations,
+# fp32 BatchNorm leaves, dynamic loss scale) with fused_sgd: ResNet-50,
+# 1000 classes, a resident batch of RN_BATCH 224 x 224 images
+RN_BATCH = 256
+RN_IMAGE = 224
+RN_CLASSES = 1000
+RN_LR, RN_MOMENTUM, RN_WD = 0.1, 0.9, 1e-4
+RN_STEPS = 3
+# the example itself, through its PrefetchLoader: RN_EXAMPLE_STEPS steps of
+# an epoch (the first, which picks cuDNN's algorithms, not timed) and its
+# validation, the loader on RN_EXAMPLE_WORKERS threads
+RN_EXAMPLE_STEPS = 6
+RN_EXAMPLE_WORKERS = 4
+RN_EXAMPLE_TIMEOUT = 300
+RN_DDP_RANKS = 2
+# bert_train's ranks: bert_base() widths, BT_BATCH sequences of BERT_SEQ a
+# rank, BERT's seeded padding and 15% masking, fused_lamb(lr=BERT_LR)
+BT_RANKS = 2
+BT_BATCH = 8
+BT_STEPS = 3
+BASELINE_TIMEOUT = {"resnet50_ddp": 480, "resnet50_ddp_nccl": 300,
+                    "simple_distributed": 180, "bert_train": 480}
+BASELINE_LABEL = ("2 ranks time-sharing one H100 over gloo (collectives "
+                  "staged through host memory): not a measure of NCCL over "
+                  "NVLink")
+
+
+def rn_setup(device, sync_bn: bool):
+    """ResNet-50 (bf16 activations), its fp32 variables and the resident
+    global batch from SEED: the same numbers in every process."""
+    import torch
+
+    from apex_tpu_torch.models import resnet
+
+    model = resnet.resnet50(num_classes=RN_CLASSES, sync_bn=sync_bn,
+                            dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    variables = resnet.init_variables(gen, model, device=device)
+    x = torch.randn((RN_BATCH, RN_IMAGE, RN_IMAGE, 3), generator=gen,
+                    device=device)
+    y = torch.randint(0, RN_CLASSES, (RN_BATCH,), generator=gen,
+                      device=device)
+    return model, variables, x, y
+
+
+def rn_step(model, axis_name):
+    """The imagenet example's step at O2 (``keep_batchnorm_fp32``, dynamic
+    loss scale) with ``fused_sgd``; ``axis_name`` None: one device's."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.imagenet_resnet50 import (
+        DataParallelResNetStep,
+    )
+    from apex_tpu_torch.optimizers import fused_sgd
+
+    handle = amp.initialize(None, opt_level="O2", verbosity=0)
+    tx = fused_sgd(lr=RN_LR, momentum=RN_MOMENTUM, weight_decay=RN_WD)
+    return DataParallelResNetStep(model, handle, tx, axis_name=axis_name)
+
+
+# ResNet-50's gradients. End to end, its bf16 (O2) gradients are not
+# held to fp32: at the reference's init (BatchNorm in training mode, every
+# scale 1) the network amplifies rounding, and the reference's own bf16
+# step disagrees with its fp32 step by logits 26% and a median leaf 1.19
+# rel. L2 (the JAX package on the CPU, 16 images of 64^2; the port reads
+# 31% and 1.22). So the gated checks are (a) the port's fp32 gradients,
+# its written-out BatchNorm backward included, against fp32 ordinary
+# autograd through torch's own ``F.batch_norm`` (GRAD_REL_L2 /
+# GRAD_COS, as the other training phases), and (b) the bf16 step unit
+# by unit (the stem, each bottleneck, the head), each fed the fp32
+# pass's input and incoming gradient rounded to bf16, against the fp32
+# unit: bf16 rounding of dy survives BatchNorm's backward, which
+# subtracts its batch mean and its projection on x_hat, so a bottleneck
+# reads up to 0.14 rel. L2 (cos 0.990) on the CPU at 16 images and 0.164
+# (cos 0.9865) on the H100 at 256; RN_UNIT_REL_L2 sits above that, and
+# RN_UNIT_COS is the cosine an error of that size orthogonal to the
+# gradient leaves (1 - 0.25^2 / 2 = 0.969, rounded down); a wrong
+# padding, layout or cast reads O(1). The end-to-end bf16 figures are
+# reported beside them.
+RN_UNIT_REL_L2 = 0.25
+RN_UNIT_COS = 0.96
+
+
+class torch_batch_norm:
+    """While open, the port's BatchNorm normalises through torch's own
+    ``F.batch_norm`` in training mode (ordinary autograd; cuDNN on the
+    card) instead of its written-out Function: the plain reference of
+    the statistics' backward. Its statistics are torch's (Welford), the
+    port's the fast variance: equal up to fp32 rounding."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from apex_tpu_torch.parallel import sync_batchnorm as sbn
+
+        def plain(x, weight, bias, mean, var, total, eps, ch, group=None,
+                  group_size=None):
+            if ch != 1 or group is not None:
+                raise ValueError("the plain reference is single-device "
+                                 "NCHW-ordered")
+            return F.batch_norm(x, None, None, weight, bias, True, 0.0, eps)
+
+        self._saved, sbn.normalize = sbn.normalize, plain
+        return self
+
+    def __exit__(self, *exc):
+        from apex_tpu_torch.parallel import sync_batchnorm as sbn
+
+        sbn.normalize = self._saved
+
+
+def rn_fp32_grads(variables, x, y, sync_bn: bool = False,
+                  axis_name=None):
+    """The step-0 loss and gradients of the fp32 model (fp32 params,
+    activations and convolutions, TF32 off) through the port's
+    functions; the mean CE of this process's rows."""
+    import torch
+
+    from apex_tpu_torch.examples.imagenet_resnet50 import cross_entropy
+    from apex_tpu_torch.models import resnet
+
+    model = resnet.resnet50(num_classes=RN_CLASSES, sync_bn=sync_bn,
+                            axis_name=axis_name, dtype=torch.float32)
+    return local_grads(
+        lambda live, b: cross_entropy(model.apply(
+            {"params": live, "batch_stats": variables["batch_stats"]},
+            b[0])[0], b[1]), variables["params"], (x, y))
+
+
+def rn_units(model):
+    """The ResNet as units ``(name, param keys, fn(params, stats, x))`` on
+    NCHW-ordered activations in training mode: the stem (convolution,
+    BatchNorm, ReLU, max pool) and each bottleneck; the head is
+    :func:`rn_head`."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.models import resnet
+
+    bn = model._bn()
+
+    def stem(p, s, x):
+        x = resnet.conv(x, p["Conv_0"]["kernel"], (2, 2))
+        x, _ = bn(p["BatchNorm_0"], s["BatchNorm_0"], x, True, ch=1)
+        return resnet.max_pool(F.relu(x))
+
+    out = [("stem", ("Conv_0", "BatchNorm_0"), stem)]
+    for name, block, _ in model.blocks():
+        out.append((name, (name,),
+                    lambda p, s, x, b=block, n=name:
+                    b.forward(p[n], s[n], x, True)[0]))
+    return out
+
+
+def rn_head(p, x):
+    """The spatial mean and the fp32 Dense (``ResNet.apply``'s tail)."""
+    d = p["Dense_0"]
+    return x.mean((2, 3)).float() @ d["kernel"].float() + d["bias"].float()
+
+
+def rn_unitwise(model16, variables, policy, x, y) -> dict:
+    """The O2 step unit by unit: the fp32 pass's input and incoming
+    gradient of each unit (the stem, every bottleneck, the head), rounded
+    to bf16, through the unit with the O2 params; its param gradients and
+    its input gradient against the fp32 unit's (``leaf_compare``)."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples.imagenet_resnet50 import cross_entropy
+    from apex_tpu_torch.models import resnet
+
+    p32, s = variables["params"], variables["batch_stats"]
+    p16 = policy.cast_model(p32)
+    units = rn_units(model16)
+
+    def local(fn, p, xin, gy, keys):
+        live = {k: _tree.map_leaves(lambda t: t.detach().requires_grad_(),
+                                    p[k]) for k in keys}
+        xl = xin.detach().requires_grad_()
+        out = fn(live, s, xl)
+        leaves = [t for k in keys for t in _tree.leaves(live[k])]
+        names = [(k,) + q for k in keys for q in _tree.paths(live[k])]
+        grads = torch.autograd.grad(out, leaves + [xl], gy)
+        return names, list(grads[:-1]), grads[-1]
+
+    xs = [resnet._to_nchw(x)]
+    with torch.no_grad():
+        for _, _, fn in units:
+            xs.append(fn(p32, s, xs[-1]))
+
+    def head_loss(p, xin):
+        return cross_entropy(rn_head(p, xin), y)
+
+    names, g32, gx = local(lambda p, _, xin: head_loss(p, xin), p32, xs[-1],
+                           None, ("Dense_0",))
+    _, g16, _ = local(lambda p, _, xin: head_loss(p, xin), p16,
+                      xs[-1].to(torch.bfloat16), None, ("Dense_0",))
+    rows = {"head": leaf_compare(names, g16, g32)}
+    for k in range(len(units) - 1, -1, -1):
+        name, keys, fn = units[k]
+        names, g32, dx32 = local(fn, p32, xs[k], gx, keys)
+        _, g16, dx16 = local(fn, p16, xs[k].to(torch.bfloat16),
+                             gx.to(torch.bfloat16), keys)
+        rows[name] = leaf_compare(names + [("dx",)], g16 + [dx16],
+                                  g32 + [dx32])
+        gx = dx32
+        xs[k + 1] = None
+    del xs, gx
+    worst = {"rel_l2": max(r["worst_rel_l2"] for r in rows.values()),
+             "cos": min(r["worst_cos"] for r in rows.values())}
+    bad = {n: (r["worst_rel_l2"], r["worst_cos"]) for n, r in rows.items()
+           if not (r["worst_rel_l2"] <= RN_UNIT_REL_L2
+                   and r["worst_cos"] >= RN_UNIT_COS)}
+    if bad:
+        raise AssertionError(f"O2 units off fp32: {bad}")
+    return {"units": {n: {"worst_rel_l2": r["worst_rel_l2"],
+                          "worst_cos": r["worst_cos"]}
+                      for n, r in rows.items()},
+            "worst": worst, "rel_l2_tol": RN_UNIT_REL_L2,
+            "cos_tol": RN_UNIT_COS}
+
+
+def rn_unscaled(grads, sstate) -> list:
+    """The leaves of a step's fp32 grads of the scaled loss, unscaled."""
+    from apex_tpu_torch import _tree
+
+    inv = 1.0 / float(sstate.loss_scale)
+    return [g * inv for g in _tree.leaves(grads)]
+
+
+def check_batch_norm(dev) -> dict:
+    """The BatchNorm's written-out backward (``sync_batchnorm._BatchNorm``)
+    at the ResNet-50 stem's shape, bf16 channels_last [256, 64, 112, 112]
+    with fp32 scale and bias, against ordinary autograd of the composite
+    in fp32 on the same values: output, dx, dscale, dbias. Plain PyTorch
+    on both sides (the reference's BatchNorm is XLA ops, no Pallas
+    kernel), so nothing is launched by a kernel wrapper."""
+    import torch
+
+    from apex_tpu_torch.parallel import sync_batchnorm as sbn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    shape = (RN_BATCH, 64, RN_IMAGE // 2, RN_IMAGE // 2)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.rand(64, generator=gen, device="cuda") + 0.5
+    b = torch.randn(64, generator=gen, device="cuda")
+    dy = torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    before = read_counts()
+
+    def fn(x, w, b):
+        xs, ws, bs = (t.detach().requires_grad_() for t in (x, w, b))
+        y, _, _ = sbn.sync_batch_norm(xs, ws, bs, None, None, True, ch=1,
+                                      group=None)
+        y.backward(dy)
+        return y.detach(), xs.grad, ws.grad, bs.grad
+
+    got = fn(x, w, b)
+    if read_counts() != before:
+        raise AssertionError("the BatchNorm launched a kernel wrapper")
+    xr, wr, br = (t.detach().float().requires_grad_() for t in (x, w, b))
+    mean = xr.mean((0, 2, 3), keepdim=True)
+    var = (xr - mean).square().mean((0, 2, 3), keepdim=True)
+    yr = (xr - mean) * torch.rsqrt(var + 1e-5) * wr.view(1, -1, 1, 1) \
+        + br.view(1, -1, 1, 1)
+    yr.backward(dy.float())
+    # bf16 output and dx: one rounding each (2^-8 of values up to ~10)
+    errs = {"y": max_err(got[0], yr.detach(), 2 ** -7, "batch_norm y"),
+            "dx": max_err(got[1], xr.grad, 2 ** -7, "batch_norm dx"),
+            "dscale": max_err(got[2], wr.grad, 1e-3, "batch_norm dscale"),
+            "dbias": max_err(got[3], br.grad, 1e-3, "batch_norm dbias")}
+    del xr, wr, br, yr, mean, var
+    nbytes = 2 * x.numel() * 2 * 2  # x and y, x and dy read, dx written
+    # a forward and backward is some thirty launches: timed by
+    # synchronised wall clock (the host queues them slower than a spin
+    # holds the stream)
+    ms = host_ms(fn, (x, w, b), iters=5)
+    bound_ms, by = bound(nbytes, 0, 1.0, dev)
+    library_ms = host_ms(lambda a: torch.nn.functional.batch_norm(
+        a.detach().requires_grad_(), None, None, w, b, training=True
+    ).backward(dy), (x,), iters=5)
+    return {"shape": list(shape), "dtype": "bfloat16", "max_abs_err": errs,
+            "fwd_bwd_host_ms": ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_host_ms": library_ms,
+            "library": "F.batch_norm(training=True) forward and backward "
+                       "(cuDNN), timed only"}
+
+
+def forward_macs(model, image_size: int) -> int:
+    """Multiply-adds of one image's forward pass through the
+    convolutions and the Dense, from their shapes (ResNet-50 at 224:
+    about 4.1 G)."""
+    def out(size, s):
+        return -(-size // s)
+
+    hw = out(image_size, 2)
+    macs = hw * hw * model.width * 3 * 49
+    hw = out(hw, 2)
+    for _, block, cin in model.blocks():
+        f = block.features
+        s1 = block.strides if block.stride_1x1 else (1, 1)
+        h1 = out(hw, s1[0])
+        h3 = out(hw, block.strides[0])
+        macs += h1 * h1 * f * cin + h3 * h3 * f * f * 9 + h3 * h3 * 4 * f * f
+        if block.projects(cin):
+            macs += h3 * h3 * 4 * f * cin
+        hw = h3
+    return macs + model.blocks()[-1][1].features * 4 * model.num_classes
+
+
+def tree_leaves_changed(a, b) -> tuple:
+    """(leaves of ``a`` that differ from ``b``'s, leaves in all)."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    la, lb = _tree.leaves(a), _tree.leaves(b)
+    return sum(not torch.equal(x, y) for x, y in zip(la, lb)), len(la)
+
+
+def run_example(args, timeout: float) -> str:
+    """An example under the port's launcher (1 NCCL rank): its stdout."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "apex_tpu_torch.parallel.multiproc",
+         "--nprocs", "1", "--backend", "nccl", *args],
+        capture_output=True, text=True, timeout=timeout, env=env)
+    if proc.returncode != 0:
+        raise RuntimeError(f"example exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def loader_images_per_s(batches: int = 4) -> float:
+    """The example's synthetic ShardDataset through PrefetchLoader alone,
+    on the host: images/s of its batches (no device work)."""
+    from apex_tpu_torch.examples.imagenet_resnet50 import ShardDataset
+
+    ds = ShardDataset("", batches + 1, RN_BATCH, RN_IMAGE, RN_CLASSES,
+                      seed=100)
+    it = iter(ds.loader(4, RN_EXAMPLE_WORKERS))
+    next(it)  # the workers started, the first batch out
+    t0 = time.perf_counter()
+    n = sum(1 for _ in it)
+    return n * RN_BATCH / (time.perf_counter() - t0)
+
+
+def phase_resnet50_training(dev):
+    """ResNet-50 at O2 on the card: the BatchNorm at the stem's shape, the
+    step-0 gradients against fp32 autograd, RN_STEPS + 1 steps of the
+    imagenet example's step on a resident batch (no hand-written kernel:
+    every count 0), then the example itself through its loader. Returns
+    the fp32 reference gradients (on the host) for the DDP phase."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import resnet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bn = check_batch_norm(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.monotonic()
+    model, variables, x, y = rn_setup("cuda", sync_bn=False)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    master, stats0 = variables["params"], variables["batch_stats"]
+    paths = _tree.paths(master)
+    step = rn_step(model, None)
+    sstate = step.handle.scaler_state
+    # (a) fp32: the port's functions against torch's batch_norm autograd
+    with torch_batch_norm():
+        loss_ref, ref = rn_fp32_grads(variables, x, y)
+    ref = _tree.leaves(ref)
+    loss32, got32 = rn_fp32_grads(variables, x, y)
+    fp32_cmp = leaf_compare(paths, _tree.leaves(got32), ref)
+    check_grads(fp32_cmp, "resnet50_training fp32")
+    del got32
+    # the O2 step's end to end, reported
+    grads, loss0, _ = step.grads(master, stats0, x, y, sstate)
+    o2_cmp = leaf_compare(paths, rn_unscaled(grads, sstate), ref)
+    ref_host = {".".join(p): r.cpu() for p, r in zip(paths, ref)}
+    del grads, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the O2 step unit by unit
+    units = rn_unitwise(model, variables, step.handle.policy, x, y)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = {"opt": step.tx.init(master), "sstate": sstate,
+             "stats": stats0}
+
+    def one():
+        state["opt"], state["sstate"], state["stats"], loss, ovf = \
+            step.step(master, state["opt"], state["sstate"],
+                      state["stats"], x, y)
+        if bool(ovf):
+            raise AssertionError("resnet50_training: the step overflowed")
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    start = read_counts()
+    losses, step_ms, counts = run_steps(one, RN_STEPS + 1)
+    peak = torch.cuda.max_memory_allocated()
+    total = {k: v - start[k] for k, v in read_counts().items()}
+    check_steps(losses, counts, dict.fromkeys(total, 0))
+    if peak >= 80e9:
+        raise AssertionError(f"resnet50_training peak {peak} B")
+    moved, n_stats = tree_leaves_changed(state["stats"], stats0)
+    if moved != n_stats:
+        raise AssertionError(f"running stats: {moved} of {n_stats} moved")
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    macs = forward_macs(model, RN_IMAGE)
+    flops = 3 * 2 * macs * RN_BATCH
+    del master, variables, state, x, y, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    loader = loader_images_per_s()
+    out = run_example([str(ROOT / "apex_tpu_torch" / "examples" /
+                           "imagenet_resnet50.py"),
+                       "--arch", "resnet50", "--image-size", str(RN_IMAGE),
+                       "--classes", str(RN_CLASSES), "-b", str(RN_BATCH),
+                       "--steps-per-epoch", str(RN_EXAMPLE_STEPS),
+                       "--epochs", "1", "--workers", str(RN_EXAMPLE_WORKERS),
+                       "--print-freq", "1"], RN_EXAMPLE_TIMEOUT)
+    lines = out.splitlines()
+    rate = [float(ln.split(":")[1].split()[0]) for ln in lines
+            if ln.startswith("epoch 0:") and "images/s" in ln]
+    ex_losses = [float(ln.split("loss")[1].split()[0]) for ln in lines
+                 if ln.startswith("epoch ") and " step " in ln]
+    val = [ln for ln in lines if ln.startswith("val: top1")]
+    if len(rate) != 1 or len(ex_losses) != RN_EXAMPLE_STEPS or not val or \
+            not all(math.isfinite(v) for v in ex_losses):
+        raise AssertionError(f"imagenet example output: {out[-2000:]}")
+    resident = RN_BATCH / steady * 1e3
+    return ref_host, {
+        "phase": "resnet50_training", "model": "resnet50",
+        "classes": RN_CLASSES, "image": RN_IMAGE, "batch": RN_BATCH,
+        "opt_level": "O2", "keep_batchnorm_fp32": True,
+        "loss_scale": "dynamic",
+        "optimizer": f"fused_sgd(lr={RN_LR}, momentum={RN_MOMENTUM}, "
+                     f"weight_decay={RN_WD})",
+        "init_s": init_s, "batch_norm": bn,
+        "grad_check_fp32": dict(fp32_cmp, loss=float(loss32),
+                                loss_reference=float(loss_ref),
+                                reference="fp32 autograd through "
+                                          "F.batch_norm (cuDNN)",
+                                rel_l2_tol=GRAD_REL_L2, cos_tol=GRAD_COS),
+        "grad_check_o2_units": units,
+        "o2_vs_fp32_end_to_end": {
+            "worst_rel_l2": o2_cmp["worst_rel_l2"],
+            "worst_cos": o2_cmp["worst_cos"],
+            "median_rel_l2": sorted(v["rel_l2"] for v in o2_cmp[
+                "leaves"].values())[len(o2_cmp["leaves"]) // 2],
+            "loss_o2": float(loss0), "loss_fp32": float(loss_ref),
+            "gated": False},
+        "losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+        "images_per_s": resident,
+        "forward_macs_per_image": macs, "step_flops": flops,
+        "mfu": flops / (steady / 1e3) / dev["bf16_flops"],
+        "mfu_count": "3 x 2 x forward multiply-adds (convolutions and the "
+                     "Dense, from their shapes) x batch, over the card's "
+                     "dense bf16 peak",
+        "peak_memory_bytes": peak,
+        "running_stats_moved": [moved, n_stats],
+        "launches_per_step": counts[0], "launches": total,
+        "example": {"images_per_s": rate[0], "losses": ex_losses,
+                    "val": val[0], "steps": RN_EXAMPLE_STEPS,
+                    "workers": RN_EXAMPLE_WORKERS,
+                    "loader_alone_images_per_s": loader,
+                    "bound_by": ("the host loader" if loader < resident
+                                 else "the device step")}}
+
+
+def resnet50_ddp_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of resnet50_ddp: SyncBatchNorm over "data", its rows of the
+    global batch, the example's DDP step. Rank 0 saves the step-0 synced
+    gradients, fp32 and O2 (unscaled); after RN_STEPS steps the SHA-1 of
+    the masters, momentum buffers and batch stats; then one step with the
+    collectives timed."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.parallel import sync_gradients_flat
+
+    model, variables, x, y = rn_setup(device, sync_bn=True)
+    per = RN_BATCH // n
+    x, y = x[rank * per:(rank + 1) * per], y[rank * per:(rank + 1) * per]
+    master, stats = variables["params"], variables["batch_stats"]
+    paths = _tree.paths(master)
+    # step 0 in fp32 (the gated check) and at O2 (reported): the mean
+    # over the ranks of the gradients of each rank's mean CE
+    _, g32 = rn_fp32_grads(variables, x, y, sync_bn=True, axis_name="data")
+    g32 = [sync for sync in _tree.leaves(
+        sync_gradients_flat(g32, "data"))]
+    step = rn_step(model, "data")
+    sstate = step.handle.scaler_state
+    grads, _, _ = step.grads(master, stats, x, y, sstate)
+    if rank == 0:
+        torch.save({"fp32": {".".join(p): g.cpu() for p, g in zip(
+            paths, g32)}, "o2": {".".join(p): g.cpu() for p, g in zip(
+                paths, rn_unscaled(grads, sstate))}},
+            out_dir / "grads0.pt")
+    del grads, g32
+    opt = step.tx.init(master)
+    torch.cuda.reset_peak_memory_stats(device)
+    steps, start = [], read_counts()
+    for s in range(RN_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        opt, sstate, stats, loss, ovf = step.step(master, opt, sstate,
+                                                  stats, x, y)
+        steps.append({"step": s, "loss": float(loss),
+                      "step_ms": (time.perf_counter() - t0) * 1e3,
+                      "overflow": bool(ovf)})
+    launches = {k: v - start[k] for k, v in read_counts().items()}
+    digests = {"params": digest(state_digests(master)),
+               "momentum": digest(state_digests(opt.momentum_buffer)),
+               "batch_stats": digest(state_digests(stats))}
+    timer = CollectiveTimer()
+    timer.on = True
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    step.step(master, opt, sstate, stats, x, y)
+    torch.cuda.synchronize(device)
+    timed_ms = (time.perf_counter() - t0) * 1e3
+    timer.restore()
+    return {"steps": steps, "launches": launches, "digests": digests,
+            "instrumented_step_ms": timed_ms,
+            "collective_ms": timer.ms, "collective_calls": timer.calls,
+            "collectives_by_name": timer.by_name,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def phase_resnet50_ddp(dev, ref_host):
+    """ResNet-50 at O2 on RN_DDP_RANKS gloo ranks sharing the card, DDP +
+    SyncBatchNorm: the step-0 mean gradient against the fp32 gradient of
+    the whole batch on one device, replicas bit-identical, no kernel."""
+    import shutil
+
+    import torch
+
+    ranks, seconds, out_dir = launch_ranks("resnet50_ddp", RN_DDP_RANKS,
+                                           "gloo", keep=True)
+    saved = torch.load(out_dir / "grads0.pt")
+    shutil.rmtree(out_dir)
+    names = sorted(saved["fp32"])
+
+    def against_reference(got):
+        # the reference is the single-device plain-BatchNorm model's: the
+        # same leaves under BatchNorm_0 where the sync model's are under
+        # SyncBatchNorm_0
+        return leaf_compare(
+            [n.split(".") for n in names], [got[n].cuda() for n in names],
+            [ref_host[n.replace("SyncBatchNorm_0", "BatchNorm_0")].cuda()
+             for n in names])
+
+    cmp = against_reference(saved["fp32"])
+    o2 = against_reference(saved["o2"])
+    del saved
+    check_grads(cmp, "resnet50_ddp step 0 (fp32)")
+    check_card_peak(ranks, "resnet50_ddp")
+    r0 = ranks[0]
+    for r in ranks:
+        if r["digests"] != r0["digests"]:
+            raise AssertionError(f"resnet50_ddp replicas differ: "
+                                 f"{[q['digests'] for q in ranks]}")
+        if [s["loss"] for s in r["steps"]] != [s["loss"]
+                                               for s in r0["steps"]]:
+            raise AssertionError("resnet50_ddp ranks report other losses")
+        if any(v for v in r["launches"].values()):
+            raise AssertionError(f"resnet50_ddp launched {r['launches']}")
+    losses = [s["loss"] for s in r0["steps"]]
+    if not all(math.isfinite(v) for v in losses) or any(
+            s["overflow"] for s in r0["steps"]):
+        raise AssertionError(f"resnet50_ddp losses {r0['steps']}")
+    step_ms = [max(r["steps"][s]["step_ms"] for r in ranks)
+               for s in range(RN_STEPS)]
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    return {"phase": "resnet50_ddp", "label": BASELINE_LABEL,
+            "model": "resnet50", "ranks": RN_DDP_RANKS,
+            "backend": r0["backend"], "sync_bn": True, "opt_level": "O2",
+            "global_batch": RN_BATCH, "image": RN_IMAGE,
+            "launch_s": seconds,
+            "grad_check_fp32": {k: cmp[k] for k in ("worst_rel_l2",
+                                                     "worst_cos")},
+            "grad_check_reference": "the single-device fp32 gradients of "
+                                    "the global batch (resnet50_training's "
+                                    "F.batch_norm autograd)",
+            "rel_l2_tol": GRAD_REL_L2, "cos_tol": GRAD_COS,
+            "o2_vs_fp32_end_to_end": {
+                "worst_rel_l2": o2["worst_rel_l2"],
+                "worst_cos": o2["worst_cos"], "gated": False},
+            "replicas_bit_identical": True, "digests": r0["digests"],
+            "losses": losses, "step_ms_per_rank": step_ms,
+            "steady_step_ms": steady,
+            "images_per_s": RN_BATCH / steady * 1e3,
+            "collective_share_of_instrumented_step": {
+                f"rank{r['rank']}": r["collective_ms"]
+                / r["instrumented_step_ms"] for r in ranks},
+            "collectives": {f"rank{r['rank']}": r["collectives_by_name"]
+                            for r in ranks},
+            "peak_memory_bytes": {f"rank{r['rank']}": r["peak_memory_bytes"]
+                                  for r in ranks},
+            "card_peak_used_bytes": r0["card_peak_used_bytes"],
+            "launches": total_launches(
+                [{"launches": r["launches"]} for r in ranks],
+                ("launches",))}
+
+
+def resnet50_ddp_nccl_rank(rank, n, device, out_dir: Path) -> dict:
+    """One NCCL rank: a DDP + SyncBatchNorm step ("data" bound, a group of
+    one) beside the single-device step (nothing bound) from the same
+    state, cuDNN deterministic; params, momentum buffers and batch stats
+    compared bit for bit."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    del rank, n, out_dir
+    torch.backends.cudnn.deterministic = True
+    model, variables, x, y = rn_setup(device, sync_bn=True)
+    sides = {}
+    for name, m, axis in (("single_device",
+                           dataclasses.replace(model, axis_name=None), None),
+                          ("ddp", model, "data")):
+        step = rn_step(m, axis)
+        master = _tree.map_leaves(torch.clone, variables["params"])
+        stats = _tree.map_leaves(torch.clone, variables["batch_stats"])
+        start = read_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        opt, sstate, stats, loss, _ = step.step(
+            master, step.tx.init(master), step.handle.scaler_state, stats,
+            x, y)
+        torch.cuda.synchronize(device)
+        sides[name] = {"master": master, "momentum": opt.momentum_buffer,
+                       "stats": stats, "loss": float(loss),
+                       "step_ms": (time.perf_counter() - t0) * 1e3,
+                       "launches": {k: v - start[k]
+                                    for k, v in read_counts().items()}}
+    a, b = sides["single_device"], sides["ddp"]
+
+    def equal(key):
+        return all(torch.equal(p, q) for p, q in zip(_tree.leaves(a[key]),
+                                                     _tree.leaves(b[key])))
+
+    return {"params_equal": equal("master"),
+            "momentum_equal": equal("momentum"),
+            "batch_stats_equal": equal("stats"),
+            "losses": [a["loss"], b["loss"]],
+            "step_ms": {k: v["step_ms"] for k, v in sides.items()},
+            "launches": {k: v["launches"] for k, v in sides.items()},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def phase_resnet50_ddp_nccl(dev):
+    ranks, seconds = launch_ranks("resnet50_ddp_nccl", 1, "nccl")
+    r = ranks[0]
+    if r["backend"] != "nccl":
+        raise AssertionError(f"backend {r['backend']}, not nccl")
+    for key in ("params_equal", "momentum_equal", "batch_stats_equal"):
+        if not r[key]:
+            raise AssertionError(f"resnet50_ddp_nccl: {key} is false")
+    if any(v for side in r["launches"].values() for v in side.values()):
+        raise AssertionError(f"resnet50_ddp_nccl launched {r['launches']}")
+    return {"phase": "resnet50_ddp_nccl", "model": "resnet50", "ranks": 1,
+            "backend": r["backend"], "device": r["device"],
+            "batch": RN_BATCH, "launch_s": seconds,
+            **{k: r[k] for k in ("params_equal", "momentum_equal",
+                                 "batch_stats_equal", "losses", "step_ms",
+                                 "peak_memory_bytes")},
+            "note": "cuDNN deterministic; each side's first step, cold",
+            "launches": total_launches(
+                [{"launches": side} for side in r["launches"].values()],
+                ("launches",))}
+
+
+def simple_distributed_rank(rank, n, device, out_dir: Path) -> dict:
+    """The simple_distributed example's ``main`` on this rank (its two
+    checks assert inside), its standard output captured."""
+    import contextlib
+    import io
+
+    from apex_tpu_torch.examples import simple_distributed
+
+    del rank, n, device, out_dir
+    buf, start = io.StringIO(), read_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = simple_distributed.main([])
+    return {"rc": rc, "stdout": buf.getvalue(),
+            "seconds": time.perf_counter() - t0,
+            "launches": {k: v - start[k] for k, v in read_counts().items()}}
+
+
+def phase_simple_distributed(dev):
+    ranks, seconds = launch_ranks("simple_distributed", RN_DDP_RANKS,
+                                  "gloo")
+    out = ranks[0]["stdout"]
+    for want in ("DDP grad == global-batch grad: OK", "converged: OK"):
+        if want not in out:
+            raise AssertionError(f"simple_distributed: no {want!r}: {out}")
+    if any(r["rc"] for r in ranks) or any(
+            v for r in ranks for v in r["launches"].values()):
+        raise AssertionError(f"simple_distributed: {ranks}")
+    return {"phase": "simple_distributed", "label": BASELINE_LABEL,
+            "ranks": RN_DDP_RANKS, "backend": ranks[0]["backend"],
+            "devices": sorted({r["device"] for r in ranks}),
+            "stdout": out.splitlines(), "launch_s": seconds,
+            "main_s": max(r["seconds"] for r in ranks),
+            "launches": total_launches(ranks, ("launches",))}
+
+
+def bt_setup(device, ranks: int):
+    """bert_base() params and the global batch of ``BT_BATCH * ranks``
+    sequences from SEED, as phase_bert_training draws them: 15% masking,
+    each row's padding from its seeded length."""
+    import torch
+
+    from apex_tpu_torch.models import bert
+
+    cfg = bert.bert_base()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = bert.init_params(gen, cfg, device=device)
+    shape = (BT_BATCH * ranks, BERT_SEQ)
+    tokens = torch.randint(4, cfg.vocab_size, shape, generator=gen,
+                           device=device)
+    mlm = torch.rand(shape, generator=gen, device=device) < 0.15
+    pad = bert_pad_mask(gen, *shape)
+    inputs = torch.where(mlm, 3, torch.where(pad, 0, tokens))
+    return cfg, params, (inputs, tokens, (mlm & ~pad).float()), pad
+
+
+def bert_train_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of bert_train: the example's data-parallel step on its rows
+    (remat, as ``bert.loss_fn`` defaults). Rank 0 saves the step-0 mean
+    gradients; then BT_STEPS steps with their launches."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples import bert_train
+    from apex_tpu_torch.optimizers import fused_lamb
+
+    cfg, params, batch, pad = bt_setup(device, n)
+    batch = tuple(bert_train.rank_rows(t) for t in batch)
+    pad = bert_train.rank_rows(pad)
+    _, grads = bert_train.grads(params, batch, cfg, pad_mask=pad)
+    if rank == 0:
+        torch.save({".".join(p): g.cpu() for p, g in zip(
+            _tree.paths(params), _tree.leaves(grads))},
+            out_dir / "grads0.pt")
+    del grads
+    tx = fused_lamb(lr=BERT_LR)
+    opt = tx.init(params)
+    torch.cuda.reset_peak_memory_stats(device)
+    steps = []
+    for s in range(BT_STEPS):
+        start = read_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        loss, opt = bert_train.train_step(params, opt, batch, cfg, tx,
+                                          pad_mask=pad)
+        steps.append({"step": s, "loss": float(loss),
+                      "step_ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": {k: v - start[k]
+                                   for k, v in read_counts().items()}})
+    L = cfg.num_layers
+    # remat: the embedding's and the MLM head's LayerNorms, 2 a layer and
+    # their recompute, the softmax of every layer and its recompute
+    want = dict({k: 0 for k in read_counts()}, layer_norm_fwd=4 * L + 2,
+                layer_norm_bwd=2 * L + 2, fused_softmax_masked=2 * L)
+    return {"steps": steps, "want": want,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def phase_bert_train(dev):
+    """bert_train on BT_RANKS gloo ranks at bert_base() widths: the
+    step-0 mean gradients against the global batch's fp32 gradients of
+    the plain functions on one device; exact launches."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    ranks, seconds, out_dir = launch_ranks("bert_train", BT_RANKS, "gloo",
+                                           keep=True)
+    saved = torch.load(out_dir / "grads0.pt")
+    shutil.rmtree(out_dir)
+    check_rank_steps(ranks, "bert_train")
+    cfg, params, batch, pad = bt_setup("cuda", BT_RANKS)
+    loss32, ref = local_grads(
+        lambda live, b: bert_plain_loss(live, b, cfg, pad),
+        _tree.map_leaves(lambda t: t.float(), params), batch)
+    paths = _tree.paths(params)
+    cmp = leaf_compare(paths, [saved[".".join(p)].cuda() for p in paths],
+                       _tree.leaves(ref))
+    del saved, ref, params
+    check_grads(cmp, "bert_train step 0")
+    r0 = ranks[0]
+    step_ms = [max(r["steps"][s]["step_ms"] for r in ranks)
+               for s in range(BT_STEPS)]
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    seqs = BT_BATCH * BT_RANKS
+    return {"phase": "bert_train", "label": BASELINE_LABEL,
+            "model": "bert_base", "ranks": BT_RANKS,
+            "backend": r0["backend"], "global_batch": seqs,
+            "seq": BERT_SEQ, "pad_mask": True, "remat": True,
+            "optimizer": f"fused_lamb(lr={BERT_LR})", "launch_s": seconds,
+            "grad_check": {k: cmp[k] for k in ("worst_rel_l2",
+                                                "worst_cos")},
+            "loss_fp32_reference": float(loss32),
+            "rel_l2_tol": GRAD_REL_L2, "cos_tol": GRAD_COS,
+            "losses": [s["loss"] for s in r0["steps"]],
+            "step_ms_per_rank": step_ms, "steady_step_ms": steady,
+            "sequences_per_s": seqs / steady * 1e3,
+            "launches_per_step_per_rank": r0["want"],
+            "peak_memory_bytes": {f"rank{r['rank']}": r["peak_memory_bytes"]
+                                  for r in ranks},
+            "card_peak_used_bytes": r0["card_peak_used_bytes"],
+            "launches": total_launches(ranks, ("launches",))}
 
 
 # the bf16 flash backward's design, named in its two summary rows
@@ -7051,6 +7929,24 @@ def main() -> int:
             torch.cuda.empty_cache()
             results[path] = run(dev)
             emit(results[path])
+        phase = "resnet50_training"
+        gc.collect()
+        torch.cuda.empty_cache()
+        rn_ref, results[phase] = phase_resnet50_training(dev)
+        emit(results[phase])
+        for path, run in (
+                ("resnet50_ddp", partial(phase_resnet50_ddp,
+                                         ref_host=rn_ref)),
+                ("resnet50_ddp_nccl", phase_resnet50_ddp_nccl),
+                ("simple_distributed", phase_simple_distributed),
+                ("bert_train", phase_bert_train)):
+            phase = path
+            gc.collect()
+            torch.cuda.empty_cache()
+            results[path] = run(dev)
+            emit(results[path])
+            if path == "resnet50_ddp":
+                del rn_ref
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit({"phase": phase, "ok": False,

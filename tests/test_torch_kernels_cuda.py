@@ -1859,3 +1859,108 @@ def test_ring_and_all_to_all_on_cuda_tensors_over_gloo(gen, tmp_path):
             want = full[:, 32 * r:32 * (r + 1)]
             np.testing.assert_allclose(res[name], want, rtol=0,
                                        atol=2e-5 * np.abs(full).max())
+
+
+# ------------------------------------------------- the BASELINE slice
+
+
+def _composite_batch_norm(x, w, b, eps):
+    """Training-mode BatchNorm over dim 1 in fp32 written with ordinary
+    autograd (mean, biased variance, normalise)."""
+    x32 = x.float()
+    mean = x32.mean((0, 2, 3), keepdim=True)
+    var = (x32 - mean).square().mean((0, 2, 3), keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps) * w.view(1, -1, 1, 1) \
+        + b.view(1, -1, 1, 1)
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_function_matches_autograd_on_the_card(gen, dtype):
+    """The BatchNorm's written-out backward (``sync_batchnorm._BatchNorm``)
+    on a channels_last CUDA tensor, against autograd of the composite in
+    fp32 on the same bf16-exact inputs."""
+    from apex_tpu_torch.ops import launch_counts
+    from apex_tpu_torch.parallel import sync_batchnorm as sbn
+
+    x = (torch.randn(8, 16, 12, 12, generator=gen, device="cuda") * 2 + 1
+         ).to(dtype).contiguous(memory_format=torch.channels_last)
+    w = torch.rand(16, generator=gen, device="cuda") + 0.5
+    b = torch.randn(16, generator=gen, device="cuda")
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    before = launch_counts.snapshot()
+    xs, ws, bs = (t.detach().requires_grad_() for t in (x, w, b))
+    y, _, _ = sbn.sync_batch_norm(xs, ws, bs, None, None, True, ch=1,
+                                  group=None)
+    y.backward(dy)
+    assert launch_counts.snapshot() == before  # plain PyTorch: no kernel
+    xr, wr, br = (t.detach().float().requires_grad_() for t in (x, w, b))
+    yr = _composite_batch_norm(xr, wr, br, 1e-5)
+    yr.backward(dy.float())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), yr, rtol=tol, atol=tol)
+    for got, ref in ((xs.grad, xr.grad), (ws.grad, wr.grad),
+                     (bs.grad, br.grad)):
+        torch.testing.assert_close(got.float(), ref, rtol=tol,
+                                   atol=tol * float(ref.abs().max()))
+
+
+def test_resnet_o2_step_runs_on_the_card(gen):
+    """The BASELINE entry points on the card: ``resnet.init_variables``
+    and ``mlp.init_params`` default to it; the fp32 ResNet's logits and
+    gradients on the card equal the CPU's (TF32 off; 1e-4 of each leaf's
+    largest value: the convolutions sum in another order); a step at amp
+    O2 (channels_last bf16 convolutions, fp32 BatchNorm leaves) with
+    ``fused_sgd`` gives finite gradients and moves the running stats; no
+    hand-written kernel is launched. (At this size bf16 gradients sit
+    0.1-0.3 rel. L2 from fp32 on any device, the reference's too:
+    BatchNorm's backward cancels most of dy; chip_smoke.py holds the
+    ResNet-50 step to fp32.)"""
+    from apex_tpu_torch import _tree, amp
+    from apex_tpu_torch.models import mlp, resnet
+    from apex_tpu_torch.ops import launch_counts
+    from apex_tpu_torch.optimizers import fused_sgd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = resnet.tiny(dtype=torch.bfloat16)
+    v = resnet.init_variables(torch.Generator(device="cuda").manual_seed(0),
+                              model)
+    assert all(t.is_cuda for t in _tree.leaves(v))
+    x = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (8,), generator=gen, device="cuda")
+    policy = amp.initialize(None, opt_level="O2", verbosity=0).policy
+    before = launch_counts.snapshot()
+
+    def grads(m, params, stats, x, y):
+        live = _tree.map_leaves(lambda p: p.detach().requires_grad_(),
+                                params)
+        logits, new = m.apply({"params": live, "batch_stats": stats}, x)
+        loss = torch.nn.functional.cross_entropy(logits, y)
+        return logits, torch.autograd.grad(loss, _tree.leaves(live)), new
+
+    l32, g32, _ = grads(resnet.tiny(), v["params"], v["batch_stats"], x, y)
+    cpu = _tree.map_leaves(lambda t: t.cpu(), v)
+    lc, gc, _ = grads(resnet.tiny(), cpu["params"], cpu["batch_stats"],
+                      x.cpu(), y.cpu())
+    torch.testing.assert_close(l32.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g32, gc):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+    _, g16, stats = grads(model, policy.cast_model(v["params"]),
+                          v["batch_stats"], x, y)
+    assert all(torch.isfinite(t).all() for t in g16)
+    tx = fused_sgd(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    grads32 = _tree.unflatten(_tree.paths(v["params"]),
+                              [t.float() for t in g16])
+    upd, _ = tx.update(grads32, tx.init(v["params"]), v["params"])
+    assert all(u.is_cuda and torch.isfinite(u).all()
+               for u in _tree.leaves(upd))
+    assert not torch.equal(stats["BatchNorm_0"]["BatchNorm_0"]["var"],
+                           v["batch_stats"]["BatchNorm_0"]["BatchNorm_0"][
+                               "var"])
+    cfg = mlp.MLPConfig(sizes=(16, 8, 4))
+    p = mlp.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    assert mlp.forward(p, torch.ones(2, 16, device="cuda"), cfg).is_cuda
+    torch.cuda.synchronize()
+    assert launch_counts.snapshot() == before

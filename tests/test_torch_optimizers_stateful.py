@@ -234,7 +234,8 @@ def test_error_paths():
     specs = port_opt.opt_partition_specs(flat.tx, flat.params, None)
     assert specs.count == () and all(
         v == () for v in list(specs.mu.values()) + list(specs.nu.values()))
-    for name in ("fused_sgd", "FusedSGD", "fused_novograd", "FusedNovoGrad",
+    # fused_sgd / FusedSGD are ported (tests/test_torch_fused_sgd.py)
+    for name in ("fused_novograd", "FusedNovoGrad",
                  "fused_adagrad", "FusedAdagrad",
                  "fused_mixed_precision_lamb", "FusedMixedPrecisionLamb"):
         with pytest.raises(NotImplementedError, match="not ported"):

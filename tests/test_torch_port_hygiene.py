@@ -74,7 +74,21 @@ def _port_sources():
 
 def _banned(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "apex_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "apex_tpu")
+
+
+# the BASELINE slice's modules: present, and covered by the import rule
+# above like every other file of the port
+BASELINE_MODULES = ("models/resnet.py", "models/mlp.py",
+                    "optimizers/fused_sgd.py", "runtime/host.py",
+                    "examples/imagenet_resnet50.py",
+                    "examples/simple_distributed.py",
+                    "examples/bert_train.py")
+
+
+@pytest.mark.parametrize("rel", BASELINE_MODULES)
+def test_baseline_modules_are_checked(rel):
+    assert PORT / rel in _port_sources()
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -319,3 +333,35 @@ def test_tensor_parallel_modules_raise_without_a_gpu(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
         assert make(device="cpu").weight.device.type == "cpu"
+
+
+def test_baseline_entry_points_raise_without_a_gpu(monkeypatch):
+    """The ResNet's and the MLP's params land on the card unless asked
+    for the CPU; the optimizer and the loader need no device."""
+    import numpy as np
+
+    from apex_tpu_torch.models import mlp, resnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    model = resnet.tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet.init_variables(gen, model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet.Bottleneck(8).init(gen, 8)
+    v = resnet.init_variables(gen, model, device="cpu")
+    flax_tree = {"params": {"Conv_0": {"kernel": np.zeros((7, 7, 3, 8),
+                                                          np.float32)}}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet.variables_from_flax(flax_tree)
+    assert resnet.variables_from_flax(flax_tree, device="cpu")["params"][
+        "Conv_0"]["kernel"].shape == (8, 3, 7, 7)
+    logits, _ = model.apply(v, torch.zeros(1, 32, 32, 3), train=False)
+    assert logits.shape == (1, 10)
+    cfg = mlp.MLPConfig(sizes=(4, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mlp.init_params(gen, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mlp.params_from_numpy({"layers": [{"w": np.zeros((4, 3))}]})
+    assert mlp.init_params(gen, cfg, device="cpu")["layers"][0][
+        "w"].device.type == "cpu"

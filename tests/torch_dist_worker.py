@@ -627,10 +627,83 @@ def suite_cuda(rank, n, inp, directory):
             "divergence": _np(replica_divergence(zp, "dp"))}
 
 
+def _flat_tree(prefix, tree, out):
+    """``tree``'s tensors into ``out`` under ``prefix/key/...`` names."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flat_tree(f"{prefix}/{k}", v, out)
+        else:
+            out[f"{prefix}/{k}"] = _np(v)
+
+
+def suite_resnet(rank, n, inp, directory):
+    """``resnet.tiny(sync_bn=True)`` on this rank's rows: the train-mode
+    logits, the new batch stats and the local grads of the mean CE; then
+    the imagenet example's DDP step (O0) at the same params and its
+    synced fp32 grads (tests/test_torch_resnet.py)."""
+    import torch
+
+    from apex_tpu_torch import _tree, amp
+    from apex_tpu_torch.examples.imagenet_resnet50 import (
+        DataParallelResNetStep,
+        cross_entropy,
+    )
+    from apex_tpu_torch.models import resnet
+    from apex_tpu_torch.optimizers import fused_sgd
+
+    model = resnet.tiny(sync_bn=True)
+    variables = resnet.init_variables(torch.Generator().manual_seed(3),
+                                      model, device="cpu")
+    rows = inp["x"].shape[0] // n
+    x = _t(inp["x"][rank * rows:(rank + 1) * rows])
+    y = _t(inp["y"][rank * rows:(rank + 1) * rows]).long()
+    out = {}
+    live = _tree.map_leaves(lambda p: p.clone().requires_grad_(),
+                            variables["params"])
+    logits, stats = model.apply({"params": live,
+                                 "batch_stats": variables["batch_stats"]},
+                                x, train=True)
+    grads = torch.autograd.grad(cross_entropy(logits, y),
+                                _tree.leaves(live))
+    out["logits"] = _np(logits)
+    _flat_tree("stats", stats, out)
+    _flat_tree("grads", _tree.unflatten(_tree.paths(live), list(grads)),
+               out)
+    handle = amp.initialize(None, opt_level="O0", verbosity=0)
+    step = DataParallelResNetStep(model, handle, fused_sgd(lr=0.1))
+    synced, loss, _ = step.grads(variables["params"],
+                                 variables["batch_stats"], x, y,
+                                 handle.scaler_state)
+    _flat_tree("synced", synced, out)
+    out["loss"] = _np(loss)
+    return out
+
+
+def suite_bert_train(rank, n, inp, directory):
+    """The bert_train example's data-parallel gradients of its first
+    global batch on this rank's rows (tests/test_torch_baseline_
+    examples.py)."""
+    import torch
+
+    from apex_tpu_torch.examples import bert_train as ex
+    from apex_tpu_torch.models import bert
+
+    cfg = ex.tiny_config(layers=2, seq=int(inp["seq"]))
+    params = bert.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    batch = ex.make_batch(0, cfg, int(inp["rows"]), int(inp["seq"]))
+    loss, grads = ex.grads(params, tuple(ex.rank_rows(t) for t in batch),
+                           cfg)
+    out = {"loss": _np(loss)}
+    _flat_tree("grads", grads, out)
+    return out
+
+
 SUITES = {"backend": suite_backend, "ddp": suite_ddp,
           "zero1": suite_zero1, "syncbn": suite_syncbn, "amp": suite_amp,
           "multiproc": suite_multiproc, "train": suite_train,
-          "cuda": suite_cuda}
+          "cuda": suite_cuda, "resnet": suite_resnet,
+          "bert_train": suite_bert_train}
 
 
 def main(argv) -> int:
