@@ -8,11 +8,15 @@ plain PyTorch version beside it: a CUDA tensor launches the kernel, a CPU
 tensor takes the plain version.
 
 Ported so far: the serving path (``serving.ServingEngine`` over the
-llama family, bf16 or fp8 weights), the single-device training steps of
-Llama, GPT-2 and BERT, and the fused softmax at any row length
-(``transformer.functional.FusedScaleMaskSoftmax``), through a Hopper
-kernel for each of the JAX package's 13 Pallas kernels. See ROADMAP.md
-for what follows.
+llama family, bf16 or fp8 weights, preemption and resume); the training
+steps of Llama (dense and MoE), GPT-2, BERT, ResNet, DCGAN and the MLPs
+(``mlp``, ``fused_dense``), with amp O0–O4, checkpoints and the
+resilient loop; data parallelism (DDP, ZeRO-1, SyncBatchNorm) and model
+parallelism (the tp/pp/dp/cp/ep groups, the tensor-parallel layers, the
+pipeline schedules, ring attention, expert dispatch) with their
+examples, the 3-D one at O4 with checkpoints; the transformer samplers
+and test harness. Every one of the JAX package's 13 Pallas kernels has a
+Hopper kernel. See ROADMAP.md for what follows.
 """
 
 __version__ = "0.1.0"

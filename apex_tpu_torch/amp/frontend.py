@@ -220,8 +220,9 @@ def initialize(models=None, optimizers=None, enabled: bool = True,
                max_loss_scale=2.0 ** 24, half_dtype=torch.bfloat16,
                verbosity: int = 1, **kwargs):
     """Apex's ``amp.initialize`` (``frontend.py:210``). ``models`` is a
-    params tree (or None). Returns ``(cast_params, optimizers, handle)``
-    with an optimizer, ``(cast_params, handle)`` without, and the
+    params tree, a list or tuple of them, or None. Returns
+    ``(cast_params, optimizers, handle)`` with an optimizer,
+    ``(cast_params, handle)`` without, and the
     :class:`~apex_tpu_torch.amp.handle.AmpHandle` alone with no params.
     With amp enabled the optimizer (a ``FusedOptimizer`` or a list of
     them) is attached: its ``step`` unscales, skips on overflow and, at
@@ -259,9 +260,13 @@ def initialize(models=None, optimizers=None, enabled: bool = True,
 
     if models is None:
         return handle
-    # disabled amp leaves the params and the optimizer untouched
-    cast_params = (handle.policy.cast_model(models)
-                   if (props.enabled and props.cast_model_type) else models)
+    # disabled amp leaves the params and the optimizer untouched; a list
+    # of models (Apex's list-of-models form) casts each
+    cast_params = models
+    if props.enabled and props.cast_model_type:
+        cast = handle.policy.cast_model
+        cast_params = (type(models)(cast(m) for m in models)
+                       if isinstance(models, (list, tuple)) else cast(models))
     if optimizers is None:
         return cast_params, handle
     if props.enabled:

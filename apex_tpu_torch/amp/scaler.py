@@ -18,7 +18,9 @@ matmul sites (two E4M3 forward rows and one E5M2 gradient row each), and
 ``ops.precision.matmul_amp`` call inside the block that names a
 registered site an fp8 product under its delayed scales, recording this
 step's amaxes. Sites are identified by (name, call ordinal); a site the
-scaler was not built with takes the fp32-accumulator product. Gradients
+scaler was not built with takes the product it runs outside the context
+(``matmul_amp``'s: ``torch.matmul``, or the fp32 accumulator for
+``keep_acc``), the same bits inside and out. Gradients
 go through ``ctx.value_and_grad``: the E5M2 amaxes come back as the
 gradients of per-site zero probes (one fp32 leaf tensor of one element a
 site, whose element ``i`` each site's ``grad_probe`` is).
@@ -234,19 +236,23 @@ class _Fp8ContextBase:
         return f"{name}#{k}"
 
 
-def _fp32acc_fallback(a, b, out_dtype):
-    """The product of a site that runs no fp8 (``scaler.py:312``): the
-    fp32 accumulator all the way to ``out_dtype``."""
+def _outside_product(a, b, out_dtype):
+    """The product of a site that runs no fp8 (``scaler.py:312``): the one
+    ``matmul_amp`` runs outside the context, so that an unregistered site
+    computes the same bits inside it and out, as the reference's do:
+    ``torch.matmul`` in the operands' dtype, or, for an accumulator
+    ``out_dtype`` (``keep_acc``), the fp32 accumulator."""
     from apex_tpu_torch.ops.precision import matmul_fp32acc
 
-    y = matmul_fp32acc(a, b, keep_acc=True)
-    return y.to(torch.promote_types(a.dtype, b.dtype) if out_dtype is None
-                else out_dtype)
+    out = torch.promote_types(a.dtype, b.dtype)
+    if out_dtype is None or out_dtype == out:
+        return torch.matmul(a, b)
+    return matmul_fp32acc(a, b, keep_acc=True).to(out_dtype)
 
 
 class Fp8SiteRecorder(_Fp8ContextBase):
     """Discovery context: records each fp8-eligible call site's name in
-    call order while computing the fp32-accumulator product. Feed
+    call order while computing the product the site runs outside. Feed
     ``rec.sites`` to :class:`Fp8DelayedScaler`."""
 
     def __init__(self):
@@ -256,7 +262,7 @@ class Fp8SiteRecorder(_Fp8ContextBase):
     def matmul(self, a, b, name="matmul", out_dtype=None):
         self._site(name)
         self.sites.append(name)
-        return _fp32acc_fallback(a, b, out_dtype)
+        return _outside_product(a, b, out_dtype)
 
 
 class _Fp8Apply(_Fp8ContextBase):
@@ -296,7 +302,7 @@ class _Fp8Apply(_Fp8ContextBase):
         fwd, grad = self.scaler.fwd_history, self.scaler.grad_history
         if f"{site}/a" not in fwd.paths:
             self.skipped_sites.append(site)
-            return _fp32acc_fallback(a, b, out_dtype)
+            return _outside_product(a, b, out_dtype)
         ia, ib = fwd.index(f"{site}/a"), fwd.index(f"{site}/b")
         ig = grad.index(f"{site}/g")
         y, amax_a, amax_b = _prec.matmul_fp8_stats(

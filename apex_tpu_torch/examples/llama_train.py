@@ -23,16 +23,44 @@ shards (:func:`shard`). A train step:
    reductions give the gradient of the global batch's mean loss;
 5. updates its shards with ``fused_adam``.
 
-Not ported here (ROADMAP.md, Queue 1 item 5): ``--auto-shard``,
-``--opt-level O4``, the checkpoint and resilience flags and the
-observability tiers.
+Each dp rank's loss is its microbatches' mean divided by dp, and the
+reductions over dp are sums: the gradient of the global batch's mean
+loss, as the reference's means give it, and (for a power-of-two dp) the
+same bits. So every cotangent is the global mean loss's, which the fp8
+tier's E5M2 observations need.
+
+``--opt-level O4`` (``:145-152``) runs the lm head in fp8 under one
+``Fp8DelayedScaler(["lm_head"], history=16)``: the last stage folds its
+M microbatches into one lm-head call (``:186-201``), so a step has one
+site, and :meth:`Megatron3D.grads` takes the grad probes' gradients
+through the step context's ``value_and_grad``. The observations are
+voted ``MAX`` over pp, dp and tp (``:212-225``), so every rank holds the
+same rings. The stages before the last run no lm head and contribute 0
+to the vote; the reference says its earlier stages observe their bubble
+activations (``:216-220``), a deliberate difference (ROADMAP.md, Queue
+3) that makes the rings those of one device's O4 step on the global
+batch.
+
+``--checkpoint-dir DIR [--save-every N] [--resume]`` drives the steps
+through ``ResilientTrainLoop`` (``:394-414``): auto-resume from the
+newest valid checkpoint, periodic and emergency saves, a ``FaultPlan``
+from ``APEX_TPU_FAULT_PLAN``, exit 75 on preemption. Each rank saves its
+shards, its optimizer state and, at O4, the fp8 state to ``DIR/rank<r>``
+(the reference saves one global checkpoint of the sharded arrays; here
+every rank writes its own, as ``gpt2_train.py`` does); the batches are a
+pure function of the step, so a resumed run reaches the uninterrupted
+run's state.
+
+Not ported here (ROADMAP.md, Queue 1 items 5.3 and 5.4): ``--auto-shard``
+and the observability tiers.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -69,6 +97,14 @@ def parse_args(argv=None):
                    help="overfit one fixed batch (deterministic decrease)")
     p.add_argument("--flat", action="store_true",
                    help="fused_adam(flat=True): one Adam launch a step")
+    p.add_argument("--opt-level", default="O0", choices=["O0", "O4"],
+                   help="O4: the lm head in fp8 (E4M3 forward, E5M2 "
+                        "gradient) under delayed per-tensor scaling")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="save each rank's train state under DIR/rank<r>")
+    p.add_argument("--save-every", type=int, default=5)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest step in --checkpoint-dir")
     return p.parse_args(argv)
 
 
@@ -111,17 +147,29 @@ def shard_params(params, cfg: llama.LlamaConfig, coords=None):
     return stage, io
 
 
+FP8_SITES = ("lm_head",)
+FP8_HISTORY = 16
+
+
 class Megatron3D:
     """The reference example's train step over this rank's shards.
 
     ``cfg``: the model; ``tx``: the optimizer (``fused_adam``);
     ``microbatches`` x ``microbatch_size`` sequences of ``seq`` tokens a
     dp rank a step; ``sequence_parallel``. The grid comes from
-    ``parallel_state`` (``initialize_model_parallel``)."""
+    ``parallel_state`` (``initialize_model_parallel``).
+
+    ``opt_level="O4"``: the lm head runs in fp8 under :attr:`fp8` (an
+    ``Fp8DelayedScaler`` of :data:`FP8_SITES`); its state is
+    :attr:`fp8_state`, fresh rings on ``device``, which every
+    :meth:`grads` call moves on by one step."""
 
     def __init__(self, cfg: llama.LlamaConfig, tx, microbatches: int,
                  microbatch_size: int, seq: int,
-                 sequence_parallel: bool = True):
+                 sequence_parallel: bool = True, opt_level: str = "O0",
+                 device=None):
+        if opt_level not in ("O0", "O4"):
+            raise ValueError(f"opt_level O0 or O4, got {opt_level!r}")
         self.cfg, self.tx = cfg, tx
         self.M, self.mb, self.s = microbatches, microbatch_size, seq
         self.coords = _coords()
@@ -129,6 +177,12 @@ class Megatron3D:
         if seq % self.coords["tp"][1]:
             raise ValueError(f"seq {seq} must split over tp "
                              f"{self.coords['tp'][1]}")
+        self.fp8 = self.fp8_state = None
+        if opt_level == "O4":
+            from apex_tpu_torch.amp import Fp8DelayedScaler
+
+            self.fp8 = Fp8DelayedScaler(FP8_SITES, history=FP8_HISTORY)
+            self.fp8_state = self.fp8.init(device)
 
     def local_batch(self, tokens: torch.Tensor) -> torch.Tensor:
         """This dp rank's ``[M, mb, s]`` of the global ``[M, mb * dp, s]``
@@ -137,9 +191,11 @@ class Megatron3D:
         return tokens[:, r * self.mb:(r + 1) * self.mb]
 
     def loss(self, stage, io, tokens, targets):
-        """The loss (the mean over this dp rank's microbatches, summed
-        over pp), differentiable w.r.t. ``stage`` and ``io``; ``tokens``
-        and ``targets`` are this rank's ``[M, mb, s]``."""
+        """The loss (the mean over this dp rank's microbatches divided by
+        dp, summed over pp), differentiable w.r.t. ``stage`` and ``io``;
+        ``tokens`` and ``targets`` are this rank's ``[M, mb, s]``. At O4
+        the last stage takes the lm head once over the M microbatches
+        folded together (``:186-201``): the same mean, one fp8 site."""
         cfg, sp = self.cfg, self.sp
         M, mb, s = self.M, self.mb, self.s
         s_local = s // self.coords["tp"][1] if sp else s
@@ -165,35 +221,54 @@ class Megatron3D:
             return torch.mean(vocab_parallel_cross_entropy(
                 logits, t, axis_name="tp"))
 
-        return _last_stage_mean_loss(mb_loss, outs, targets, "pp")
+        if self.fp8 is not None:  # one "microbatch" of all M
+            outs = outs.reshape(1, M * mb, *outs.shape[2:])
+            targets = targets.reshape(1, M * mb, s)
+        loss = _last_stage_mean_loss(mb_loss, outs, targets, "pp")
+        return loss / self.coords["dp"][1]
 
-    def grads(self, stage, io, tokens, targets):
-        """``(loss, stage_grads, io_grads)`` with the reference's
-        reductions (``:228-235``) applied: the gradients of the global
-        batch's mean loss w.r.t. this rank's shards, and the loss
-        averaged over dp."""
-        live = {"stage": _tree.map_leaves(
-            lambda p: p.detach().requires_grad_(), stage),
-            "io": _tree.map_leaves(lambda p: p.detach().requires_grad_(),
-                                   io)}
-        loss = self.loss(live["stage"], live["io"], tokens, targets)
+    def _local_grads(self, stage, io, tokens, targets):
+        """``(loss, {"stage", "io"} grads)`` of this rank's loss; at O4
+        through the fp8 step context, whose update then votes the step's
+        observations over every axis."""
+        trees = {"stage": stage, "io": io}
+
+        def loss_of(t):
+            return self.loss(t["stage"], t["io"], tokens, targets)
+
+        if self.fp8 is not None:
+            with self.fp8.step(self.fp8_state) as ctx:
+                loss, grads = ctx.value_and_grad(loss_of)(trees)
+            self.fp8_state = self.fp8.update(self.fp8_state, ctx,
+                                             reduce_axes=AXES)
+            return loss, grads
+        live = _tree.map_leaves(lambda p: p.detach().requires_grad_(),
+                                trees)
+        loss = loss_of(live)
         leaves = _tree.leaves(live)
         # the first stage holds no loss, the others no embedding lookup:
         # their grads are zeros, as the reference's masked ones are
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = _tree.unflatten(_tree.paths(live), [
+        return loss.detach(), _tree.unflatten(_tree.paths(live), [
             torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)])
-        del live
+
+    def grads(self, stage, io, tokens, targets):
+        """``(loss, stage_grads, io_grads)`` with the reference's
+        reductions (``:228-235``) applied: the gradients of the global
+        batch's mean loss w.r.t. this rank's shards, and that loss. At O4
+        :attr:`fp8_state` moves on by this step."""
+        loss, grads = self._local_grads(stage, io, tokens, targets)
         g_stage, g_io = grads["stage"], grads["io"]
         dp = self.coords["dp"][1]
+        total = _backend.ReduceOp.SUM
         if dp > 1:
-            g_stage = {k: _backend.all_reduce(v, _backend.ReduceOp.AVG, "dp")
+            g_stage = {k: _backend.all_reduce(v, total, "dp")
                        for k, v in g_stage.items()}
-        g_io = {k: _backend.all_reduce(v, _backend.ReduceOp.SUM, "pp")
+        g_io = {k: _backend.all_reduce(v, total, "pp")
                 for k, v in g_io.items()}
         if dp > 1:
-            g_io = {k: _backend.all_reduce(v, _backend.ReduceOp.AVG, "dp")
+            g_io = {k: _backend.all_reduce(v, total, "dp")
                     for k, v in g_io.items()}
         if self.sp:  # sequence-parallel norm scales saw this rank's rows
             g_stage = {k: (_backend.all_reduce(v, _backend.ReduceOp.SUM,
@@ -203,9 +278,8 @@ class Megatron3D:
             g_io = {k: (_backend.all_reduce(v, _backend.ReduceOp.SUM, "tp")
                         if k == "final_norm" else v)
                     for k, v in g_io.items()}
-        loss = loss.detach()
         if dp > 1:
-            loss = _backend.all_reduce(loss, _backend.ReduceOp.AVG, "dp")
+            loss = _backend.all_reduce(loss, total, "dp")
         return loss, g_stage, g_io
 
     def apply(self, stage, io, opt_state, g_stage, g_io):
@@ -232,9 +306,69 @@ def make_batch(step: int, cfg: llama.LlamaConfig, M: int, rows: int,
     return tokens, torch.roll(tokens, -1, dims=-1)
 
 
+def train_state(step3d: Megatron3D, stage, io, opt_state) -> Dict:
+    """The state a rank checkpoints: its shards, its optimizer state and,
+    at O4, the fp8 scaling state."""
+    state = {"stage": stage, "io": io, "opt": opt_state}
+    if step3d.fp8 is not None:
+        state["fp8"] = step3d.fp8_state
+    return state
+
+
+def checkpoint_dir(directory: str, rank: int) -> str:
+    """This rank's checkpoint directory under ``directory``."""
+    return os.path.join(directory, f"rank{rank}")
+
+
+def run(step3d: Megatron3D, state: Dict, num_steps: int,
+        batch_of: Callable[[int], tuple], *, directory: Optional[str] = None,
+        save_every: int = 5, resume: bool = False, fault_plan=None,
+        watcher=None, exit_on_preempt: bool = False, log=None):
+    """Steps up to ``num_steps`` under ``ResilientTrainLoop``
+    (``:394-414``): ``batch_of(step)`` gives this rank's ``(tokens,
+    targets)``; ``directory`` (this rank's) holds the checkpoints, saved
+    every ``save_every`` steps and at the last (0: none but an emergency
+    save), restored from when ``resume``. Returns ``(state, losses,
+    loop)``, ``losses`` the steps this call ran, by step."""
+    from apex_tpu_torch.resilience import ResilientTrainLoop
+
+    losses: Dict[int, float] = {}
+
+    def step_fn(st, it):
+        tokens, targets = batch_of(it)
+        if step3d.fp8 is not None:
+            step3d.fp8_state = st["fp8"]
+        t0 = time.perf_counter()
+        loss, opt_state = step3d.train_step(st["stage"], st["io"], st["opt"],
+                                            tokens, targets)
+        losses[it] = loss = float(loss)
+        if log is not None:
+            log(f"step {it:3d}  loss {loss:.4f}  "
+                f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+        return (train_state(step3d, st["stage"], st["io"], opt_state),
+                {"loss": loss})
+
+    loop = ResilientTrainLoop(
+        step_fn, directory=directory or None, save_every=save_every,
+        max_to_keep=2, fault_plan=fault_plan, watcher=watcher,
+        auto_resume=resume, check_state_every=0,
+        exit_on_preempt=exit_on_preempt,
+        on_resume=None if log is None else
+        (lambda it: log(f"=> resumed from step {it}")))
+    state = loop.run(state, num_steps)
+    if step3d.fp8 is not None:
+        step3d.fp8_state = state["fp8"]
+    return state, losses, loop
+
+
 def main(argv: Optional[list] = None) -> int:
     from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.parallel.multiproc import initialize_distributed
+    from apex_tpu_torch.resilience import (
+        FaultPlan,
+        PreemptionWatcher,
+        env_sensor,
+    )
 
     args = parse_args(argv)
     rank, world, device = initialize_distributed()
@@ -249,28 +383,44 @@ def main(argv: Optional[list] = None) -> int:
     del params
     M, mb, s = args.microbatches, args.microbatch_size, args.seq
     step3d = Megatron3D(cfg, fused_adam(lr=args.lr, flat=args.flat), M, mb, s,
-                        sequence_parallel=not args.no_sequence_parallel)
-    opt_state = step3d.tx.init({"stage": stage, "io": io})
-    first = last = None
-    for it in range(args.steps):
+                        sequence_parallel=not args.no_sequence_parallel,
+                        opt_level=args.opt_level, device=device)
+
+    def log(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    if step3d.fp8 is not None:
+        log(f"opt-level O4: lm_head in fp8 (E4M3/E5M2, delayed scaling, "
+            f"history={FP8_HISTORY})")
+
+    def batch_of(it):
         tokens, targets = make_batch(it, cfg, M, mb * args.dp, s,
                                      args.fixed_data, device)
-        t0 = time.perf_counter()
-        loss, opt_state = step3d.train_step(
-            stage, io, opt_state, step3d.local_batch(tokens),
-            step3d.local_batch(targets))
-        loss = float(loss)
-        dt = time.perf_counter() - t0
-        first = loss if first is None else first
-        last = loss
-        if rank == 0:
-            print(f"step {it:3d}  loss {loss:.4f}  ({dt * 1e3:.0f} ms  "
-                  f"{M * mb * args.dp * s / dt:.0f} tok/s)", flush=True)
-    if rank == 0 and first is not None:
-        print(f"mesh pp={args.pp} dp={args.dp} tp={args.tp} sp={step3d.sp}: "
-              f"loss {first:.4f} -> {last:.4f} "
-              f"({'decreased' if last < first else 'NOT decreased'})",
-              flush=True)
+        return step3d.local_batch(tokens), step3d.local_batch(targets)
+
+    spec = os.environ.get("APEX_TPU_FAULT_PLAN")
+    watcher = PreemptionWatcher(sensors=[env_sensor()]).install()
+    try:
+        _, losses, loop = run(
+            step3d, train_state(step3d, stage, io,
+                                step3d.tx.init({"stage": stage, "io": io})),
+            args.steps, batch_of,
+            directory=(checkpoint_dir(args.checkpoint_dir, rank)
+                       if args.checkpoint_dir else None),
+            save_every=args.save_every, resume=args.resume,
+            fault_plan=FaultPlan.parse(spec) if spec else None,
+            watcher=watcher, exit_on_preempt=True, log=log)
+    finally:
+        watcher.uninstall()
+    if not losses:
+        log(f"nothing to do: resumed step + 1 "
+            f"({(loop.resumed_from or 0) + 1}) >= --steps {args.steps}")
+    else:
+        first, last = losses[min(losses)], losses[max(losses)]
+        log(f"mesh pp={args.pp} dp={args.dp} tp={args.tp} sp={step3d.sp}: "
+            f"loss {first:.4f} -> {last:.4f} "
+            f"({'decreased' if last < first else 'NOT decreased'})")
     ps.destroy_model_parallel()
     return 0
 

@@ -101,14 +101,12 @@ def _product_upcast(a8, b8):
 def _fp8_product(a8, b8):
     """``jnp.matmul(a8, b8, preferred_element_type=f32)`` for a 2-D
     column-major ``b8``: cuBLASLt's fp8 GEMM on the card (a row-major
-    ``[M, K]`` times a column-major ``[K, N]``), an exact upcast
-    elsewhere."""
-    if not a8.is_cuda:
-        return _product_upcast(a8, b8)
+    ``[M, K]`` times a column-major ``[K, N]``, K and N multiples of 16),
+    an exact upcast elsewhere and for other K or N (an MLP's one-unit
+    output layer)."""
     k, n = b8.shape
-    if k % 16 or n % 16:
-        raise ValueError(f"the fp8 GEMM on the card needs K and N multiples "
-                         f"of 16, got K={k}, N={n}")
+    if not a8.is_cuda or k % 16 or n % 16:
+        return _product_upcast(a8, b8)
     one = torch.ones((), dtype=torch.float32, device=a8.device)
     acc = torch._scaled_mm(a8.reshape(-1, k), b8, scale_a=one, scale_b=one,
                            out_dtype=torch.float32)
@@ -242,7 +240,8 @@ def matmul_amp(a, b, *, name: str = "matmul", keep_acc: bool = False):
     (``amp.scaler.current_fp8()``) a 2-D floating ``b`` goes to the
     context: a registered ``name`` (call ordinals tell repeated calls
     apart) runs :func:`matmul_fp8_stats` under its delayed scales and
-    records its amaxes, any other takes the fp32-accumulator product."""
+    records its amaxes, any other takes the product it runs outside the
+    context."""
     from apex_tpu_torch.amp.scaler import current_fp8
 
     ctx = current_fp8()

@@ -261,9 +261,58 @@ result line) when it fails:
                exact launches a step a rank (LayerNorm 50 / 26, masked
                softmax 24: remat), step ms, sequences/s.
 
+23. megatron_o4 -- (after mp_nccl) the 3-D example at ``--opt-level
+               O4``: Llama-3-8B widths at 2 layers (one a stage) over tp 2
+               x pp 2 on 4 gloo ranks, sequence parallel, 4 microbatches
+               of 1 x 2048, flat Adam, the lm head on fp8 under one
+               ``Fp8DelayedScaler(["lm_head"])``, its observations voted
+               MAX over every axis. The example's ``run`` (its
+               ``ResilientTrainLoop``) with a fault plan that preempts
+               after step 1: the emergency save of each rank's shards,
+               Adam state and fp8 state under the git-ignored
+               ``build/megatron_o4_ckpt`` (removed after; the phase fails
+               first when the disk lacks the room), then step 2 from
+               memory; a second launch restores a template of zeros from
+               the save and runs step 2. Checked: finite losses, equal on
+               every rank; the rings equal on every rank after each step
+               and, after step 0, equal within 1e-2 to one device's O4
+               step on the global batch; step 0's gradient blocks against
+               that step's (0.05 / 0.998; beside fp32 autograd, reported);
+               each rank's resumed SHA-1 equal to its uninterrupted one;
+               exact launches a step a rank (the last stage's final norm
+               once, its three casts: the input [4, 2048, 4096] E4M3, the
+               weight shard [4096, 64128] E4M3 column-major, the
+               cotangent [4, 2048, 64128] E5M2; none on the first stage).
+               Prints step ms, checkpoint bytes, the save's GB/s, the
+               restore's seconds and the card's peak.
+24. megatron_o4_nccl -- one NCCL rank, every group of one, M = 1: two
+               3-D O4 steps beside one device's O4 step (the fp8 context
+               over ``llama.loss_fn`` and the same flat Adam): params,
+               moments and both rings bit for bit after each, exact
+               launches.
+25. mlp_fused_dense -- (after bert_train) ``apex_tpu_torch.mlp.MLP([480,
+               1024, 1024, 512, 256, 1])`` at batch 1024 with each
+               activation and ``FusedDenseGeluDense(1024, 4096, 1024)``
+               over 8 x 1024 tokens: bf16 forward+backward against fp32
+               autograd of the plain functions on the same values
+               (0.05 / 0.998; ReLU's signs pinned to the bf16 run's); two
+               O4 steps under an ``Fp8DelayedScaler`` of the module's
+               sites, the second equal bit for bit to the same step with
+               the plain cast (beside fp32 products and fp32, reported);
+               exact casts a step (15 / 5 an MLP step, 4 / 2 a fused
+               dense step); forward+backward ms.
+26. dcgan -- the DCGAN example at its model's defaults (latent 100,
+               width 64), batch 64, O2, 20 steps: its ``main`` prints OK;
+               step 0's D and G gradients against fp32 autograd through
+               ``F.batch_norm`` (0.05 / 0.998, or within one bf16 rounding
+               of the tree's largest gradient where the gradient is (near)
+               0); finite losses, each loss-scale state advanced every
+               step, no kernel launched, step ms.
+
 The kernels phase also checks the flash trio at a megatron rank's heads
 (1 x 2048 x 16/4 x 128), the RMSNorm forward and backward on its
-sequence-split rows ([1024, 4096]) and the flat Adam on its slab.
+sequence-split rows ([1024, 4096]) and the flat Adam on its slab, and
+the fp8 casts at megatron_o4's and mlp_fused_dense's shapes.
 
 Each phase's line carries ``script_s``, the seconds since the script
 started. The last lines are the per-kernel summary, the card line and the
@@ -1330,6 +1379,14 @@ def check_fp8_cast(dev):
             TRAIN_BATCH * TRAIN_SEQ, 128256, generator=g, device="cuda")
             ).to(torch.bfloat16)
 
+    def normal(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device="cuda")
+                ).to(torch.bfloat16)
+
+    def uniform(shape, scale):
+        return (scale * torch.rand(shape, generator=g, device="cuda")
+                ).to(torch.bfloat16)
+
     out = {}
     for name, make, fp8, fmax, col in (
             ("weight", weight, e4m3, 448.0, True),
@@ -1343,7 +1400,33 @@ def check_fp8_cast(dev):
             ("cotangent", cotangent, e5m2, 57344.0, False),
             ("lm_head_input", lm_input, e4m3, 448.0, False),
             ("lm_head_weight", lm_weight, e4m3, 448.0, True),
-            ("lm_head_cotangent", lm_cotangent, e5m2, 57344.0, False)):
+            ("lm_head_cotangent", lm_cotangent, e5m2, 57344.0, False),
+            # megatron_o4's lm head on a last-stage rank: the gathered
+            # input, the vocab-parallel weight shard, the logits' shard
+            # cotangent (no loss scale)
+            ("lm_head_input_3d", partial(normal, (MEG_M * MEG_MB, MEG_SEQ,
+                                                  4096)), e4m3, 448.0,
+             False),
+            ("lm_head_weight_shard", partial(normal, (4096, 128256 // MEG_TP),
+                                             4096 ** -0.5), e4m3, 448.0,
+             True),
+            ("lm_head_cotangent_shard", partial(
+                uniform, (MEG_M * MEG_MB, MEG_SEQ, 128256 // MEG_TP),
+                1 / 128256 / 8192), e5m2, 57344.0, False),
+            # mlp_fused_dense's largest operands: the MLP's 1024 x 1024
+            # layer at batch 1024, the fused dense's second product
+            ("mlp_activation", partial(normal, (MLP_BATCH, 1024)), e4m3,
+             448.0, False),
+            ("mlp_weight", partial(normal, (1024, 1024), 1024 ** -0.5), e4m3,
+             448.0, True),
+            ("fused_dense_activation", partial(
+                normal, FDGD_TOKENS + (FDGD_SIZES[1],)), e4m3, 448.0, False),
+            ("fused_dense_weight", partial(
+                normal, FDGD_SIZES[1:], FDGD_SIZES[1] ** -0.5), e4m3, 448.0,
+             True),
+            ("fused_dense_cotangent", partial(
+                normal, FDGD_TOKENS + (FDGD_SIZES[1],), 1e-3), e5m2, 57344.0,
+             False)):
         x = make()
         amax_x = torch.amax(torch.abs(x)).float()
         # the static (weight) or delayed (cotangent) scale of the path
@@ -6530,7 +6613,12 @@ def ddp_worker(argv) -> int:
                                         out_dir=out_dir),
            "simple_distributed": partial(simple_distributed_rank,
                                          out_dir=out_dir),
-           "bert_train": partial(bert_train_rank, out_dir=out_dir)}
+           "bert_train": partial(bert_train_rank, out_dir=out_dir),
+           "megatron_o4": partial(megatron_o4_rank, out_dir=out_dir),
+           "megatron_o4_resume": partial(megatron_o4_resume_rank,
+                                         out_dir=out_dir),
+           "megatron_o4_nccl": partial(megatron_o4_nccl_rank,
+                                       out_dir=out_dir)}
     result = {"rank": rank, "world_size": n,
               "backend": torch.distributed.get_backend(),
               "device": str(device),
@@ -6598,7 +6686,8 @@ def launch_ranks(phase: str, nprocs: int, backend: str,
                                phase, str(out_dir)], nprocs, backend=backend,
                               env=env, timeout={**DDP_TIMEOUT, **MEG_TIMEOUT,
                                                 **SLICE_TIMEOUT,
-                                                **BASELINE_TIMEOUT}[phase])
+                                                **BASELINE_TIMEOUT,
+                                                **MEGO4_TIMEOUT}[phase])
     seconds = time.monotonic() - t0
     if rc != 0:
         raise RuntimeError(f"{phase}: a rank exited with {rc}")
@@ -7580,6 +7669,893 @@ def phase_bert_train(dev):
             "launches": total_launches(ranks, ("launches",))}
 
 
+# ------------------------------------------------------------------
+# The 3-D example at O4 with its checkpoint and resume (megatron_o4,
+# megatron_o4_nccl), apex_tpu_torch.mlp and fused_dense with their fp8
+# sites (mlp_fused_dense), and DCGAN (dcgan).
+
+# megatron_o4: Llama-3-8B widths at 2 layers (one a stage) over tp 2 x
+# pp 2, 4 microbatches of 1 x 2048, the lm head on fp8; a preemption
+# after step 1 (its emergency save), step 2 from memory, then a second
+# launch resumed from the save to step 2
+MEGO4_LAYERS, MEGO4_STEPS, MEGO4_PREEMPT = 2, 3, 1
+MEGO4_DIR = ROOT / "build" / "megatron_o4_ckpt"
+# the rings after step 0 against one device's O4 step on the global
+# batch: a max of the same values summed in another order
+MEGO4_RING_REL = 1e-2
+MEGO4_TIMEOUT = {"megatron_o4": 900, "megatron_o4_resume": 600,
+                 "megatron_o4_nccl": 420}
+
+
+def mego4_setup(device):
+    """The 3-D step at O4 on this rank's shards, its train state, and the
+    batch (the same every step, as in megatron_training)."""
+    import torch
+
+    from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.initialize_model_parallel(MEG_TP, MEG_PP)
+    cfg, params, tokens = megatron_setup(device, MEGO4_LAYERS, MEG_M)
+    stage, io = ex.shard_params(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = ex.Megatron3D(cfg, fused_adam(lr=TRAIN_LR, flat=True), MEG_M,
+                         MEG_MB, MEG_SEQ, sequence_parallel=True,
+                         opt_level="O4", device=device)
+    state = ex.train_state(step, stage, io,
+                           step.tx.init({"stage": stage, "io": io}))
+    return cfg, step, state, (tokens, torch.roll(tokens, -1, dims=-1))
+
+
+def mego4_want(cfg, last_stage: bool, first_step: bool) -> dict:
+    """One O4 3-D step's launches on a rank: megatron_training's, with
+    the last stage's lm head taken once over the folded microbatches
+    (one final norm forward and backward, not M) and its three casts: the
+    input E4M3 row-major, the weight shard E4M3 column-major, the
+    logits' cotangent E5M2 row-major (plus the cast scratch's fill at
+    the process's first cast)."""
+    want = megatron_want(cfg, last_stage)
+    if last_stage:
+        want["rms_norm_fwd"] -= MEG_M - 1
+        want["rms_norm_bwd"] -= MEG_M - 1
+        want.update(fp8_cast=2, fp8_cast_col=1,
+                    fp8_cast_fill=int(first_step))
+    return want
+
+
+class StepRecorder:
+    """Wraps a Megatron3D's ``train_step`` (and ``grads``) to record each
+    step's loss, host ms (the ranks started together, the card
+    synchronised), launches, casts (shape, format, layout) and the rings
+    after it; ``grads_of`` saves step 0's gradient blocks."""
+
+    def __init__(self, step, rank, out_dir, grads_of=None):
+        from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+        self.steps, self.it, self.casts = [], None, []
+        self.opt_state = None
+        real_train, real_grads = step.train_step, step.grads
+        self._fc, self._real_cast = fc, fc._cast_and_scale_cuda
+        save_s = [0.0]
+
+        def cast(x, scale, dtype, fmax, col_major=False):
+            self.casts.append({"shape": list(x.shape),
+                               "fp8": str(dtype).split(".")[-1],
+                               "col_major": col_major})
+            return self._real_cast(x, scale, dtype, fmax, col_major)
+
+        def grads(stage, io, tokens, targets):
+            import torch
+
+            out = real_grads(stage, io, tokens, targets)
+            if grads_of is not None and self.it == grads_of:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                megatron_blocks({"stage": out[1], "io": out[2]},
+                                step.coords, "grads", out_dir, rank)
+                save_s[0] = time.perf_counter() - t
+            return out
+
+        def train_step(stage, io, opt_state, tokens, targets):
+            import torch
+
+            self.casts = []
+            before = read_counts()
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, opt_state = real_train(stage, io, opt_state, tokens,
+                                         targets)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.steps.append({
+                "step": self.it, "loss": loss,
+                "step_ms": (t1 - t0 - save_s[0]) * 1e3,
+                "launches": counts_delta(before), "casts": self.casts,
+                "fwd_ring": step.fp8_state.fwd.ring.tolist(),
+                "grad_ring": step.fp8_state.grad.ring.tolist(),
+                "t_start": t0, "t_end": t1})
+            save_s[0] = 0.0
+            self.opt_state = opt_state
+            return torch.tensor(loss), opt_state
+
+        step.grads, step.train_step = grads, train_step
+        fc._cast_and_scale_cuda = cast
+
+    def batch_of(self, batch):
+        def of(it):
+            self.it = it
+            return batch
+        return of
+
+    def restore(self):
+        self._fc._cast_and_scale_cuda = self._real_cast
+
+
+def tree_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def megatron_o4_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of megatron_o4: the example's resilient loop at O4 with a
+    fault plan that preempts after step MEGO4_PREEMPT (the emergency save
+    under MEGO4_DIR/rank<r>), then the uninterrupted run's last step from
+    the state in memory: its digest; step 0's gradient blocks."""
+    import torch
+
+    from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.resilience import FaultPlan, Preempted
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    t0 = time.monotonic()
+    cfg, step, state, batch = mego4_setup(device)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rec = StepRecorder(step, rank, out_dir, grads_of=0)
+    torch.cuda.reset_peak_memory_stats(device)
+    rank_dir = Path(ex.checkpoint_dir(str(MEGO4_DIR), rank))
+    try:
+        ex.run(step, state, MEGO4_STEPS, rec.batch_of(batch),
+               directory=str(rank_dir), save_every=0,
+               fault_plan=FaultPlan.parse(f"preempt@{MEGO4_PREEMPT}"))
+        raise AssertionError("the fault plan's preemption did not trip")
+    except Preempted as exc:
+        preempted_at = exc.step
+        save_s = time.perf_counter() - rec.steps[-1]["t_end"]
+    ckpt_bytes = tree_bytes(rank_dir)
+    # the uninterrupted run goes on from the state in memory
+    last = ex.train_state(step, state["stage"], state["io"], rec.opt_state)
+    for it in range(MEGO4_PREEMPT + 1, MEGO4_STEPS):
+        rec.it = it
+        _, opt = step.train_step(last["stage"], last["io"], last["opt"],
+                                 *batch)
+        last = ex.train_state(step, last["stage"], last["io"], opt)
+    rec.restore()
+    sha = digest(state_digests(last))
+    last_stage = step.coords["pp"][0] == MEG_PP - 1
+    ps.destroy_model_parallel()
+    return {"coords": {k: v[0] for k, v in step.coords.items()},
+            "steps": [{k: v for k, v in s.items() if k[:2] != "t_"}
+                      for s in rec.steps],
+            "init_s": init_s, "preempted_at": preempted_at,
+            "emergency_save_s": save_s, "checkpoint_bytes": ckpt_bytes,
+            "sha1": sha, "last_stage": last_stage,
+            "want": [mego4_want(cfg, last_stage, i == 0)
+                     for i in range(MEGO4_STEPS)],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def megatron_o4_resume_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of the second launch: a template of zeros restored from the
+    emergency save by the example's loop (``resume=True``), which runs
+    the last step: its digest, the seconds from the loop's start to that
+    step's (the restore)."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    cfg, step, state, batch = mego4_setup(device)
+    with torch.no_grad():
+        for leaf in _tree.flatten(state)[0]:
+            leaf.zero_()  # the restore, not the seed, must fill the state
+    rec = StepRecorder(step, rank, out_dir)
+    logs = []
+    rank_dir = ex.checkpoint_dir(str(MEGO4_DIR), rank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses, loop = ex.run(step, state, MEGO4_STEPS,
+                                 rec.batch_of(batch), directory=rank_dir,
+                                 save_every=0, resume=True, log=logs.append)
+    rec.restore()
+    restore_s = rec.steps[0]["t_start"] - t0 if rec.steps else None
+    last_stage = step.coords["pp"][0] == MEG_PP - 1
+    ps.destroy_model_parallel()
+    return {"coords": {k: v[0] for k, v in step.coords.items()},
+            "resumed_from": loop.resumed_from, "log": logs[:1],
+            "steps": [{k: v for k, v in s.items() if k[:2] != "t_"}
+                      for s in rec.steps],
+            "restore_s": restore_s, "sha1": digest(state_digests(state)),
+            "want": mego4_want(cfg, last_stage, True)}
+
+
+def mego4_single_step(cfg, params, tokens):
+    """One device's O4 step on the global batch (the M microbatches as
+    one batch of M x mb rows): its loss, the rings after it and its
+    gradients."""
+    from apex_tpu_torch.amp import Fp8DelayedScaler
+    from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.models import llama
+
+    import torch
+
+    fp8 = Fp8DelayedScaler(ex.FP8_SITES, history=ex.FP8_HISTORY)
+    state = fp8.init("cuda")
+    rows = tokens.reshape(MEG_M * MEG_MB, MEG_SEQ)
+    batch = (rows, torch.roll(rows, -1, dims=-1))
+    with fp8.step(state) as ctx:
+        loss, grads = ctx.value_and_grad(
+            lambda p: llama.loss_fn(p, batch, cfg, remat=True,
+                                    tp_axis=None))(params)
+    state = fp8.update(state, ctx)
+    return float(loss), state.fwd.ring.cpu(), state.grad.ring.cpu(), grads
+
+
+def phase_megatron_o4(dev):
+    """The 3-D example at O4 (megatron_o4_rank, then
+    megatron_o4_resume_rank): finite losses, equal on every rank; the
+    rings equal on every rank after each step, and after step 0, with the
+    step's loss, within MEGO4_RING_REL of one device's O4 step on the
+    global batch; step 0's gradient blocks against that step's (0.05 /
+    0.998) and beside fp32 autograd of the plain functions (reported);
+    the resumed digest equal to the uninterrupted one on every rank;
+    exact launches and casts a step a rank; the card under 80 GB."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(MEGO4_DIR, ignore_errors=True)
+    MEGO4_DIR.mkdir(parents=True)
+    # a rank's state: bf16 shards, fp32 moments (10 bytes a parameter)
+    need = 4 * 10 * 640e6
+    free = shutil.disk_usage(MEGO4_DIR).free
+    if free < need:
+        raise RuntimeError(f"megatron_o4 needs {need:.0f} bytes free under "
+                           f"{MEGO4_DIR} for its checkpoint, the disk has "
+                           f"{free}")
+    try:
+        ranks, seconds, out_dir = launch_ranks("megatron_o4", MEG_TP * MEG_PP,
+                                               "gloo", keep=True)
+        resumed, resume_seconds = launch_ranks("megatron_o4_resume",
+                                               MEG_TP * MEG_PP, "gloo")
+    finally:
+        shutil.rmtree(MEGO4_DIR, ignore_errors=True)
+    check_card_peak(ranks, "megatron_o4")
+    check_card_peak(resumed, "megatron_o4 resumed")
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    if len(losses) != MEGO4_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"megatron_o4 losses {losses}")
+    for r in ranks:
+        if [s["loss"] for s in r["steps"]] != losses:
+            raise AssertionError("megatron_o4 ranks report different losses")
+        if r["preempted_at"] != MEGO4_PREEMPT:
+            raise AssertionError(f"rank {r['rank']} preempted at "
+                                 f"{r['preempted_at']}")
+        for i, s in enumerate(r["steps"]):
+            if s["launches"] != r["want"][i]:
+                raise AssertionError(f"megatron_o4 rank {r['rank']} step "
+                                     f"{i}: launches {s['launches']} != "
+                                     f"{r['want'][i]}")
+            if (s["fwd_ring"], s["grad_ring"]) != (
+                    ranks[0]["steps"][i]["fwd_ring"],
+                    ranks[0]["steps"][i]["grad_ring"]):
+                raise AssertionError(f"megatron_o4 step {i}: rank "
+                                     f"{r['rank']}'s rings differ")
+    from apex_tpu_torch.models import llama
+
+    arch = llama.llama3_8b(num_layers=MEGO4_LAYERS)
+    h, v_tp = arch.hidden_size, arch.vocab_size // MEG_TP
+    tokens_step = MEG_M * MEG_MB * MEG_SEQ
+    want_casts = [
+        {"shape": [MEG_M * MEG_MB, MEG_SEQ, h], "fp8": "float8_e4m3fn",
+         "col_major": False},
+        {"shape": [h, v_tp], "fp8": "float8_e4m3fn", "col_major": True},
+        {"shape": [MEG_M * MEG_MB, MEG_SEQ, v_tp], "fp8": "float8_e5m2",
+         "col_major": False}]
+    for r in ranks + resumed:
+        for s in r["steps"]:
+            if s["casts"] != (want_casts if r["coords"]["pp"] == MEG_PP - 1
+                              else []):
+                raise AssertionError(f"megatron_o4 rank {r['rank']} step "
+                                     f"{s['step']}: casts {s['casts']}")
+    for r, q in zip(ranks, resumed):
+        if q["resumed_from"] != MEGO4_PREEMPT or q["log"] != [
+                f"=> resumed from step {MEGO4_PREEMPT}"]:
+            raise AssertionError(f"rank {q['rank']} resumed from "
+                                 f"{q['resumed_from']}: {q['log']}")
+        if [s["step"] for s in q["steps"]] != list(range(
+                MEGO4_PREEMPT + 1, MEGO4_STEPS)):
+            raise AssertionError(f"rank {q['rank']} resumed steps "
+                                 f"{[s['step'] for s in q['steps']]}")
+        if q["steps"][0]["launches"] != q["want"]:
+            raise AssertionError(f"resumed rank {q['rank']}: launches "
+                                 f"{q['steps'][0]['launches']} != "
+                                 f"{q['want']}")
+        if q["sha1"] != r["sha1"]:
+            raise AssertionError(f"rank {r['rank']}: resumed state "
+                                 f"{q['sha1']} != uninterrupted {r['sha1']}")
+        if q["steps"][0]["loss"] != r["steps"][-1]["loss"]:
+            raise AssertionError("the resumed last step's loss differs")
+    # step 0's gradients and the rings after it against one device's O4
+    # step on the same batch (at step 0 both cast at scale 1); the
+    # gradients beside fp32 autograd of the plain functions, reported
+    cfg, params, tokens = megatron_setup("cuda", MEGO4_LAYERS, MEG_M)
+    loss1, fwd1, grad1, ref = mego4_single_step(cfg, params, tokens)
+    leaves = block_compare(
+        (name, saved.to("cuda"), get(ref)) for name, get, saved in
+        megatron_leaves(cfg, ranks, out_dir, "grads"))["leaves"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = {k: x for k, x in leaves.items()
+           if not (x["rel_l2"] <= GRAD_REL_L2 and x["cos"] >= GRAD_COS)}
+    if bad:
+        raise AssertionError(f"megatron_o4 step-0 gradients off one "
+                             f"device's O4 step: {bad}")
+    if abs(losses[0] - loss1) > MEGO4_RING_REL * abs(loss1):
+        raise AssertionError(f"megatron_o4 step-0 loss {losses[0]} vs one "
+                             f"device's O4 {loss1}")
+    fp32_leaves, loss32 = megatron_grad_check(cfg, params, tokens, ranks,
+                                              out_dir, "grads")
+    shutil.rmtree(out_dir)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_err = {}
+    for part, single in (("fwd", fwd1), ("grad", grad1)):
+        got = torch.tensor(ranks[0]["steps"][0][f"{part}_ring"])[:, 0]
+        ring_err[part] = float(((got - single[:, 0]).abs()
+                                / single[:, 0].abs()).max())
+    if not max(ring_err.values()) <= MEGO4_RING_REL:
+        raise AssertionError(f"megatron_o4 rings after step 0 off one "
+                             f"device's: {ring_err}")
+    step_ms = [max(r["steps"][i]["step_ms"] for r in ranks)
+               for i in range(MEGO4_STEPS)]
+    ckpt = sum(r["checkpoint_bytes"] for r in ranks)
+    save_s = max(r["emergency_save_s"] for r in ranks)
+    peaks = {f"rank{r['rank']}": r["peak_memory_bytes"] for r in ranks}
+    return {
+        "phase": "megatron_o4", "label": MEG_LABEL, "model": "llama3_8b",
+        "num_layers": MEGO4_LAYERS, "dtype": "bfloat16", "tp": MEG_TP,
+        "pp": MEG_PP, "dp": 1, "sequence_parallel": True,
+        "microbatches": MEG_M, "microbatch": [MEG_MB, MEG_SEQ],
+        "opt_level": "O4", "fp8_sites": ["lm_head#0"],
+        "optimizer": "fused_adam(lr=1e-4, flat=True)",
+        "launch_s": seconds, "resume_launch_s": resume_seconds,
+        "init_s": max(r["init_s"] for r in ranks), "losses": losses,
+        "grad_check_step0": {
+            "against": "one device's O4 step on the global batch",
+            "loss_single_device_o4": loss1, "leaves": leaves,
+            "worst_rel_l2": max(x["rel_l2"] for x in leaves.values()),
+            "worst_cos": min(x["cos"] for x in leaves.values())},
+        "grad_check_tol": {"rel_l2": GRAD_REL_L2, "cos": GRAD_COS},
+        "step0_vs_fp32_reported": {
+            "loss_fp32_reference": loss32, "leaves": fp32_leaves,
+            "worst_rel_l2": max(x["rel_l2"] for x in fp32_leaves.values()),
+            "worst_cos": min(x["cos"] for x in fp32_leaves.values()),
+            "note": "the logits' cotangent cast to E5M2 at scale 1 (no "
+                    "loss scale, as the reference's example) flushes its "
+                    "softmax part (~1e-9) to zero"},
+        "rings_step0": {"fwd": ranks[0]["steps"][0]["fwd_ring"],
+                        "grad": ranks[0]["steps"][0]["grad_ring"]},
+        "single_device_o4": {"loss": loss1, "fwd": fwd1[:, 0].tolist(),
+                             "grad": grad1[:, 0].tolist(),
+                             "max_rel_err": ring_err,
+                             "tol": MEGO4_RING_REL},
+        "casts_last_stage": want_casts,
+        "step_ms": step_ms, "steady_step_ms": step_ms[-1],
+        "global_tokens_per_s": tokens_step / step_ms[-1] * 1e3,
+        "preempted_after_step": MEGO4_PREEMPT,
+        "checkpoint_bytes": ckpt,
+        "checkpoint_bytes_per_rank": {f"rank{r['rank']}":
+                                      r["checkpoint_bytes"] for r in ranks},
+        "emergency_save_s": save_s, "commit_gb_per_s": ckpt / save_s / 1e9,
+        "restore_s": max(q["restore_s"] for q in resumed),
+        "sha1": {f"rank{r['rank']}": r["sha1"] for r in ranks},
+        "resumed_sha1_equal": True,
+        "peak_memory_bytes": peaks,
+        "card_peak_used_bytes": max(ranks[0]["card_peak_used_bytes"],
+                                    resumed[0]["card_peak_used_bytes"]),
+        "launches_per_step": {f"rank{r['rank']}": r["steps"][1]["launches"]
+                              for r in ranks},
+        "launches": {k: v + total_launches(resumed, ("launches",))[k]
+                     for k, v in total_launches(ranks,
+                                                ("launches",)).items()}}
+
+
+def megatron_o4_nccl_rank(rank, n, device, out_dir: Path) -> dict:
+    """One NCCL rank, every group of one: the example's 3-D step at O4 (M
+    = 1) beside one device's O4 step (the ``Fp8DelayedScaler`` context
+    over ``llama.loss_fn`` and the same flat Adam) on the same params and
+    batch; after each step params, Adam moments and both rings equal bit
+    for bit."""
+    import torch
+
+    from apex_tpu_torch.amp import Fp8DelayedScaler
+    from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.examples._common import apply_updates
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.ops import flat as _flat
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.initialize_model_parallel(1, 1)
+    cfg, single, tokens = megatron_setup(device, MEG_NCCL_LAYERS, 1)
+    stage, io = ex.shard_params(single, cfg)
+    targets = torch.roll(tokens, -1, dims=-1)
+    step = ex.Megatron3D(cfg, fused_adam(lr=TRAIN_LR, flat=True), 1, MEG_MB,
+                         MEG_SEQ, sequence_parallel=True, opt_level="O4",
+                         device=device)
+    tx = fused_adam(lr=TRAIN_LR, flat=True)
+    fp8 = Fp8DelayedScaler(ex.FP8_SITES, history=ex.FP8_HISTORY)
+    s3d, s1, f1 = step.tx.init({"stage": stage, "io": io}), tx.init(single), \
+        fp8.init(device)
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def moments(state, tree):
+        meta = _flat.tree_meta(tree)
+        return (_flat.unflatten_tree(state.mu, meta),
+                _flat.unflatten_tree(state.nu, meta))
+
+    def single_loss(p):
+        return llama.loss_fn(p, (tokens[0], targets[0]), cfg, remat=False,
+                             tp_axis=None)
+
+    steps = []
+    for i in range(MEG_NCCL_STEPS):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss3d, s3d = step.train_step(stage, io, s3d, tokens, targets)
+        loss3d = float(loss3d)
+        ms3d = (time.perf_counter() - t0) * 1e3
+        mid = read_counts()
+        t0 = time.perf_counter()
+        with fp8.step(f1) as ctx:
+            loss1, grads = ctx.value_and_grad(single_loss)(single)
+        f1 = fp8.update(f1, ctx)
+        s1 = apply_updates(tx, single, s1, grads)
+        loss1 = float(loss1)
+        del grads
+        ms1 = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        pairs = [(stage[k], single["layers"][k]) for k in stage] + \
+            [(io[k], single[k]) for k in io]
+        m3, v3 = moments(s3d, {"stage": stage, "io": io})
+        m1, v1 = moments(s1, single)
+        mpairs = [(m3["stage"][k], m1["layers"][k]) for k in stage] + \
+            [(m3["io"][k], m1[k]) for k in io] + \
+            [(v3["stage"][k], v1["layers"][k]) for k in stage] + \
+            [(v3["io"][k], v1[k]) for k in io]
+        rings = [(step.fp8_state.fwd.ring, f1.fwd.ring),
+                 (step.fp8_state.grad.ring, f1.grad.ring)]
+        steps.append({
+            "step": i, "loss_3d": loss3d, "loss_single_device": loss1,
+            "params_equal": all(torch.equal(a, b) for a, b in pairs),
+            "moments_equal": all(torch.equal(a, b) for a, b in mpairs),
+            "rings_equal": all(torch.equal(a, b) for a, b in rings),
+            "grad_ring": step.fp8_state.grad.ring[:, i].tolist(),
+            "params_max_abs_diff": max(float((a.float() - b.float()).abs()
+                                             .max()) for a, b in pairs),
+            "step_ms_3d": ms3d, "step_ms_single_device": ms1,
+            "launches_3d": {k: mid[k] - before[k] for k in mid},
+            "launches_single_device": {k: after[k] - mid[k]
+                                       for k in after}})
+    want = megatron_want(cfg, True)
+    # M = 1, one stage of every layer, the lm head's three casts
+    want.update(flash_attention_fwd=2 * cfg.num_layers,
+                flash_attention_bwd_dq=cfg.num_layers,
+                flash_attention_bwd_dkv=cfg.num_layers,
+                rms_norm_fwd=4 * cfg.num_layers + 1,
+                rms_norm_bwd=2 * cfg.num_layers + 1, fp8_cast=2,
+                fp8_cast_col=1)
+    single_want = dict(want, flash_attention_fwd=cfg.num_layers,
+                       rms_norm_fwd=2 * cfg.num_layers + 1)
+    return {"steps": steps, "want_3d": want, "want_single_device":
+            single_want, "num_layers": cfg.num_layers,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def phase_megatron_o4_nccl(dev):
+    """megatron_o4_nccl_rank on one NCCL rank: params, moments and rings
+    bit for bit after each step, the E5M2 ring written, exact launches
+    (the first step's count the cast scratch's fill on the 3-D side)."""
+    ranks, seconds = launch_ranks("megatron_o4_nccl", 1, "nccl")
+    r = ranks[0]
+    if r["backend"] != "nccl":
+        raise AssertionError(f"backend {r['backend']}, not nccl")
+    check_card_peak(ranks, "megatron_o4_nccl")
+    for st in r["steps"]:
+        for key in ("params_equal", "moments_equal", "rings_equal"):
+            if not st[key]:
+                raise AssertionError(f"megatron_o4_nccl step {st['step']}: "
+                                     f"{key} is false "
+                                     f"({st['params_max_abs_diff']})")
+        if not st["grad_ring"][0] > 0:
+            raise AssertionError("megatron_o4_nccl: the E5M2 ring is empty")
+        fill = int(st["step"] == 0)
+        for key, want in (("launches_3d", dict(r["want_3d"],
+                                               fp8_cast_fill=fill)),
+                          ("launches_single_device",
+                           r["want_single_device"])):
+            if st[key] != want:
+                raise AssertionError(f"megatron_o4_nccl step {st['step']} "
+                                     f"{key} {st[key]} != {want}")
+    return {"phase": "megatron_o4_nccl", "model": "llama3_8b",
+            "num_layers": r["num_layers"], "ranks": 1,
+            "backend": r["backend"], "device": r["device"],
+            "microbatches": 1, "seq": MEG_SEQ, "opt_level": "O4",
+            "launch_s": seconds,
+            "params_equal": all(st["params_equal"] for st in r["steps"]),
+            "moments_equal": all(st["moments_equal"] for st in r["steps"]),
+            "rings_equal": all(st["rings_equal"] for st in r["steps"]),
+            "losses": {"3d": [st["loss_3d"] for st in r["steps"]],
+                       "single_device": [st["loss_single_device"]
+                                         for st in r["steps"]]},
+            "step_ms": {"3d": [st["step_ms_3d"] for st in r["steps"]],
+                        "single_device": [st["step_ms_single_device"]
+                                          for st in r["steps"]]},
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "launches": total_launches([r], ("launches_3d",
+                                             "launches_single_device"))}
+
+
+# mlp_fused_dense: Apex's run_mlp sizes and GPT-2 345M's MLP
+MLP_SIZES, MLP_BATCH = (480, 1024, 1024, 512, 256, 1), 1024
+FDGD_SIZES, FDGD_TOKENS = (1024, 4096, 1024), (8, 1024)
+# O4 runs two steps: the first fills the rings at scale 1, the second
+# (timed and held) runs under the delayed scales
+MLP_O4_STEPS = 2
+
+
+def mlp_case(name: str):
+    """``(fn, inputs bf16, cotangent fp32, fp8 sites, casts a step)`` of
+    a case: an MLP with one activation, or the fused dense GeLU dense."""
+    import torch
+
+    from apex_tpu_torch import fused_dense, mlp
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    if name.startswith("mlp_"):
+        act = name[4:]
+        m = mlp.MLP(MLP_SIZES, activation=act, seed=SEED, device="cuda")
+        x = torch.randn(MLP_BATCH, MLP_SIZES[0], generator=g, device="cuda")
+        inputs = [x] + m.flat()
+        n = len(MLP_SIZES) - 1
+        fn = partial(mlp.mlp_function, True, act)
+        out_shape = (MLP_BATCH, MLP_SIZES[-1])
+        sites, casts = ["mlp"] * n, (2 * n, n)
+    else:
+        d_in, d_mid, d_out = FDGD_SIZES
+        m = fused_dense.FusedDenseGeluDense(d_in, d_mid, d_out, seed=SEED,
+                                            device="cuda")
+        x = torch.randn(*FDGD_TOKENS, d_in, generator=g, device="cuda")
+        p = m.params
+        inputs = [x, p["weight1"], p["bias1"], p["weight2"], p["bias2"]]
+        fn = fused_dense.fused_dense_gelu_dense_function
+        out_shape = FDGD_TOKENS + (d_out,)
+        sites, casts = ["fused_dense"] * 2, (4, 2)
+    r = torch.randn(out_shape, generator=g, device="cuda")
+    return fn, [t.to(torch.bfloat16) for t in inputs], r, sites, casts
+
+
+def mlp_plain32(name: str, inputs, masks=None):
+    """The case's function in fp32 with ordinary autograd: the plain
+    reference. ``masks`` pins ReLU's (the bf16 run's signs)."""
+    import torch
+    import torch.nn.functional as F
+
+    if name.startswith("mlp_"):
+        act, y = name[4:], inputs[0]
+        wb = inputs[1:]
+        n = len(wb) // 2
+        for i in range(n):
+            y = y @ wb[2 * i] + wb[2 * i + 1]
+            if i < n - 1:
+                if act == "relu":
+                    y = y * masks[i] if masks is not None else F.relu(y)
+                elif act == "sigmoid":
+                    y = torch.sigmoid(y)
+        return y
+    x, w1, b1, w2, b2 = inputs
+    return F.gelu(x @ w1 + b1) @ w2 + b2
+
+
+def relu_masks(inputs):
+    """The bf16 MLP's ReLU signs, layer by layer, as ``mlp._forward``
+    computes them (fp32 sums, bias, ReLU, then the bf16 rounding)."""
+    import torch
+
+    y, wb, masks = inputs[0], inputs[1:], []
+    n = len(wb) // 2
+    for i in range(n - 1):
+        z = torch.matmul(y.float(), wb[2 * i].float()) + wb[2 * i + 1]
+        masks.append((z > 0).float())
+        y = torch.relu(z).to(torch.bfloat16)
+    return masks
+
+
+def fwd_bwd(fn, inputs, r, ctx=None):
+    """``(y, grads)`` of ``sum(fn(*inputs) * r)``; through the fp8 step
+    context's value_and_grad when ``ctx`` is given."""
+    import torch
+
+    argnums = tuple(range(len(inputs)))
+    ys = []
+
+    def loss(*xs):
+        y = fn(*xs)
+        ys.append(y.detach())
+        return (y.float() * r).sum()
+
+    if ctx is not None:
+        _, grads = ctx.value_and_grad(loss, argnums=argnums)(*inputs)
+        return ys[0], list(grads)
+    live = [t.detach().requires_grad_() for t in inputs]
+    grads = torch.autograd.grad(loss(*live), live)
+    return ys[0], list(grads)
+
+
+class plain_fp8:
+    """While open, the fp8 casts take the plain cast (no kernel launch)
+    and, with ``upcast``, the products the fp32 product of the fp8
+    values instead of cuBLASLt's fp8 GEMM."""
+
+    def __init__(self, upcast: bool = False):
+        self.upcast = upcast
+
+    def __enter__(self):
+        from apex_tpu_torch.ops import fp8_cast_kernel as fc
+        from apex_tpu_torch.ops import precision
+
+        self._saved = (fc._cast_and_scale_cuda, precision._fp8_product)
+        fc._cast_and_scale_cuda = fc._cast_and_scale_plain
+        if self.upcast:
+            precision._fp8_product = precision._product_upcast
+        return self
+
+    def __exit__(self, *exc):
+        from apex_tpu_torch.ops import fp8_cast_kernel as fc
+        from apex_tpu_torch.ops import precision
+
+        fc._cast_and_scale_cuda, precision._fp8_product = self._saved
+
+
+def phase_mlp_fused_dense(dev):
+    """``apex_tpu_torch.mlp.MLP(MLP_SIZES)`` at batch MLP_BATCH with each
+    activation, and ``FusedDenseGeluDense(*FDGD_SIZES)`` over FDGD_TOKENS:
+    bf16 forward+backward (no kernel launched) against fp32 autograd of
+    the plain functions on the same bf16 values (0.05 / 0.998; ReLU's
+    signs pinned to the bf16 run's, as MoE's routes are); O4 under an
+    ``Fp8DelayedScaler`` of the module's sites: the second step equal bit
+    for bit to the same step with the plain cast, at the same scales;
+    beside it with fp32 products in place of the fp8 GEMM, and beside
+    fp32 (reported: E5M2 keeps 2 mantissa bits, and a chain of fp8
+    layers re-rounds any difference); exact casts a step;
+    forward+backward ms."""
+    import torch
+
+    from apex_tpu_torch.amp import Fp8DelayedScaler
+
+    reset_counts()
+    out, total = {}, {}
+    for name in ("mlp_none", "mlp_relu", "mlp_sigmoid",
+                 "fused_dense_gelu_dense"):
+        fn, inputs, r, sites, casts = mlp_case(name)
+        names = ["output"] + [f"input{i}" for i in range(len(inputs))]
+        before = read_counts()
+        y16, g16 = fwd_bwd(fn, inputs, r)
+        bf16_counts = counts_delta(before)
+        if any(bf16_counts.values()):
+            raise AssertionError(f"{name} bf16 launched {bf16_counts}")
+        masks = relu_masks(inputs) if name == "mlp_relu" else None
+        x32 = [t.float() for t in inputs]
+        y32, g32 = fwd_bwd(lambda *a: mlp_plain32(name, a, masks), x32, r)
+        bf16 = block_compare(zip(names, [y16] + g16, [y32] + g32))
+        e2e = None
+        if masks is not None:  # the signs unpinned: reported
+            yu, gu = fwd_bwd(lambda *a: mlp_plain32(name, a), x32, r)
+            e2e = block_compare(zip(names, [y16] + g16, [yu] + gu))
+            del yu, gu
+        bf16_ms = host_ms(lambda: fwd_bwd(fn, inputs, r), (), iters=10)
+        fp8 = Fp8DelayedScaler(sites, history=16)
+        state = fp8.init("cuda")
+        o4_counts = []
+        for i in range(MLP_O4_STEPS):
+            before = read_counts()
+            with fp8.step(state) as ctx:
+                y8, g8 = fwd_bwd(fn, inputs, r, ctx)
+            o4_counts.append(counts_delta(before))
+            if i == MLP_O4_STEPS - 1:
+                with plain_fp8(), fp8.step(state) as pctx:
+                    yp, gp = fwd_bwd(fn, inputs, r, pctx)
+                with plain_fp8(upcast=True), fp8.step(state) as pctx:
+                    yu, gu = fwd_bwd(fn, inputs, r, pctx)
+
+                def timed():
+                    with fp8.step(state) as c:
+                        fwd_bwd(fn, inputs, r, c)
+
+                o4_ms = host_ms(timed, (), iters=10)
+            state = fp8.update(state, ctx)
+        want = dict({k: 0 for k in o4_counts[0]}, fp8_cast=casts[0],
+                    fp8_cast_col=casts[1])
+        for c in o4_counts:
+            if c != want:
+                raise AssertionError(f"{name} O4 launches {c} != {want}")
+        if not (bf16["worst_rel_l2"] <= GRAD_REL_L2
+                and bf16["worst_cos"] >= GRAD_COS):
+            raise AssertionError(f"{name} bf16 vs fp32: {bf16}")
+        # the cast kernel against the plain cast on the path: bit for bit
+        if not all(torch.equal(a, b) for a, b in zip([y8] + g8,
+                                                     [yp] + gp)):
+            raise AssertionError(f"{name} O4: the cast kernel's step != the "
+                                 f"plain cast's")
+        if not all(bool(torch.isfinite(t).all()) for t in [y8] + g8):
+            raise AssertionError(f"{name} O4: non-finite outputs or grads")
+        o4_upcast = block_compare(zip(names, [y8] + g8, [yu] + gu))
+        o4_vs_fp32 = block_compare(zip(names, [y8] + g8, [y32] + g32))
+        for c in o4_counts:
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        out[name] = {
+            "shape": list(inputs[0].shape),
+            "bf16": {k: bf16[k] for k in ("worst_rel_l2", "worst_cos")},
+            "bf16_end_to_end_unpinned": None if e2e is None else {
+                k: e2e[k] for k in ("worst_rel_l2", "worst_cos")},
+            "o4_equal_to_plain_cast": True,
+            "o4_vs_fp32_products_reported": {
+                k: o4_upcast[k] for k in ("worst_rel_l2", "worst_cos")},
+            "o4_vs_fp32_reported": {k: o4_vs_fp32[k] for k in (
+                "worst_rel_l2", "worst_cos")},
+            "bf16_fwd_bwd_ms": bf16_ms, "o4_fwd_bwd_ms": o4_ms,
+            "o4_casts_per_step": {"fp8_cast": casts[0],
+                                  "fp8_cast_col": casts[1]},
+            "rings_after": {"fwd": state.fwd.ring[:, :MLP_O4_STEPS].tolist(),
+                            "grad": state.grad.ring[:, :MLP_O4_STEPS]
+                            .tolist()}}
+        del inputs, y16, g16, y32, g32, y8, g8, yp, gp, yu, gu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"phase": "mlp_fused_dense", "mlp_sizes": list(MLP_SIZES),
+            "mlp_batch": MLP_BATCH, "fused_dense": list(FDGD_SIZES),
+            "fused_dense_tokens": list(FDGD_TOKENS), "dtype": "bfloat16",
+            "tol": {"rel_l2": GRAD_REL_L2, "cos": GRAD_COS},
+            "ms_note": "host ms of a synchronised forward+backward, the "
+                       "mean of 10",
+            "cases": out, "launches": total}
+
+
+# dcgan: the model's own defaults (the public DCGAN example's nz = 100,
+# ngf = ndf = 64), batch 64, O2, 20 steps
+DCGAN_ARGS = ["--steps", "20", "--batch", "64", "--latent", "100",
+              "--width", "64", "--opt-level", "O2"]
+# a leaf whose gradient is (near) 0 is held by its largest error against
+# the tree's largest gradient instead: a bias feeding a training-mode
+# BatchNorm (the batch mean removes it), or D's logit bias, whose real
+# and fake cotangents cancel at init after each was rounded to its bf16
+# leaf at O2 (one bf16 rounding, 2^-8, of terms the size of the largest)
+DCGAN_FLOOR = 2.0 ** -8
+
+
+def phase_dcgan(dev):
+    """The DCGAN example (``apex_tpu_torch.examples.dcgan``) at
+    DCGAN_ARGS on the card: its ``main`` prints OK; the same trainer
+    stepped here: finite errD and errG, each of the three loss-scale
+    states advanced once a step, no kernel launched, step ms; step 0's
+    D and G gradients (fp32 compute on the O2 params) against fp32
+    autograd through ``F.batch_norm`` (0.05 / 0.998, or a largest error
+    within DCGAN_FLOOR of the tree's largest gradient)."""
+    import contextlib
+    import io
+    import statistics
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.amp._amp_state import _amp_state
+    from apex_tpu_torch.examples import dcgan
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = dcgan.main(DCGAN_ARGS)
+    if rc != 0 or "dcgan amp training ran to completion: OK" not in \
+            buf.getvalue():
+        raise AssertionError(f"dcgan main rc {rc}: {buf.getvalue()[-500:]}")
+    args = dcgan.parse_args(DCGAN_ARGS)
+    device = torch.device("cuda")
+    trainer, varG, varD, optG, optD, sstates = dcgan.setup(args, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    z = torch.randn((args.batch, args.latent), generator=gen, device=device)
+    real = dcgan.real_batch(gen, args.batch, device)
+
+    # step 0's gradients at the O2 params, then fp32 through F.batch_norm
+    fake, _ = trainer.fake_batch(varG, z)
+    d16, _, _ = trainer.d_grads(varD, sstates[0], sstates[1], real, fake)
+    g16, _, _ = trainer.g_grads(varG, varD, sstates[2], z)
+
+    def fp32(var):
+        return {"params": _tree.map_leaves(lambda t: t.float(),
+                                           var["params"]),
+                "batch_stats": var["batch_stats"]}
+
+    with torch_batch_norm():
+        d32, _, _ = trainer.d_grads(fp32(varD), sstates[0], sstates[1],
+                                    real, fake)
+        g32, _, _ = trainer.g_grads(fp32(varG), fp32(varD), sstates[2], z)
+    grad_check = {}
+    for net, got, ref in (("D", d16, d32), ("G", g16, g32)):
+        paths = _tree.paths(ref)
+        cmp = leaf_compare(paths, _tree.leaves(got), _tree.leaves(ref))
+        top = max(float(t.abs().max()) for t in _tree.leaves(ref))
+        floor = {".".join(p): float((a.float() - b).abs().max()) / top
+                 for p, a, b in zip(paths, _tree.leaves(got),
+                                    _tree.leaves(ref))}
+        bad = {k: dict(v, err_over_largest=floor[k])
+               for k, v in cmp["leaves"].items()
+               if not (v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS)
+               and not floor[k] <= DCGAN_FLOOR}
+        if bad:
+            raise AssertionError(f"dcgan step-0 {net} gradients: {bad}")
+        by_rel = {k: v for k, v in cmp["leaves"].items()
+                  if v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS}
+        grad_check[net] = {
+            "worst_rel_l2": max(v["rel_l2"] for v in by_rel.values()),
+            "worst_cos": min(v["cos"] for v in by_rel.values()),
+            "held_by_floor": {k: floor[k] for k in cmp["leaves"]
+                              if k not in by_rel}}
+    del d16, g16, d32, g32
+
+    errs, step_ms = [], []
+    reset_counts()
+    before = read_counts()
+    for _ in range(args.steps):
+        z = torch.randn((args.batch, args.latent), generator=gen,
+                        device=device)
+        real = dcgan.real_batch(gen, args.batch, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optG, optD, sstates, errD, errG = trainer.step(
+            varG, varD, optG, optD, sstates, z, real)
+        errs.append((float(errD), float(errG)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = counts_delta(before)
+    _amp_state.handle = None
+    if any(launches.values()):
+        raise AssertionError(f"dcgan launched {launches}")
+    if not all(math.isfinite(a) and math.isfinite(b) for a, b in errs):
+        raise AssertionError(f"dcgan losses {errs}")
+    steps = [int(s.steps) for s in sstates]
+    if steps != [args.steps] * 3:
+        raise AssertionError(f"dcgan scale states advanced {steps} times")
+    return {"phase": "dcgan", "latent": args.latent, "width": args.width,
+            "batch": args.batch, "opt_level": args.opt_level,
+            "steps": args.steps, "main_ok": True,
+            "grad_check_step0": grad_check,
+            "grad_check_tol": {"rel_l2": GRAD_REL_L2, "cos": GRAD_COS},
+            "errD": [e[0] for e in errs], "errG": [e[1] for e in errs],
+            "loss_scales": [float(s.loss_scale) for s in sstates],
+            "scale_state_steps": steps,
+            "step_ms": step_ms,
+            "steady_step_ms": statistics.median(step_ms[1:]),
+            "launches": launches}
+
+
 # the bf16 flash backward's design, named in its two summary rows
 FLASH_BWD_DESIGN = {
     "design": "tensor cores",
@@ -7785,12 +8761,16 @@ def summary(kernels, counts, path_adam):
             cases=case_rows({k: cast[k] for k in (
                 "activation_decode", "activation_decode_ffn", "cotangent",
                 "weight_row_major", "lm_head_input",
-                "lm_head_cotangent")})),
+                "lm_head_cotangent", "lm_head_input_3d",
+                "lm_head_cotangent_shard", "mlp_activation",
+                "fused_dense_activation", "fused_dense_cotangent")})),
         row("fp8_cast_col", csrc + "fp8_cast.cu",
             "apex_tpu/ops/fp8_cast_kernel.py:31", cast["weight"],
             cast["weight"]["max_abs_err"],
             device_launches=cast["weight"]["device_launches"],
-            cases=case_rows({"lm_head_weight": cast["lm_head_weight"]})),
+            cases=case_rows({k: cast[k] for k in (
+                "lm_head_weight", "lm_head_weight_shard", "mlp_weight",
+                "fused_dense_weight")})),
         row("fused_softmax_stats", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:160",
             dict(long["stats"], shape=long["shape"],
@@ -7923,7 +8903,9 @@ def main() -> int:
                           ("cp_training", phase_cp_training),
                           ("ep_training", phase_ep_training),
                           ("gpt2_tp_training", phase_gpt2_tp_training),
-                          ("mp_nccl", phase_mp_nccl)):
+                          ("mp_nccl", phase_mp_nccl),
+                          ("megatron_o4", phase_megatron_o4),
+                          ("megatron_o4_nccl", phase_megatron_o4_nccl)):
             phase = path
             gc.collect()
             torch.cuda.empty_cache()
@@ -7939,7 +8921,9 @@ def main() -> int:
                                          ref_host=rn_ref)),
                 ("resnet50_ddp_nccl", phase_resnet50_ddp_nccl),
                 ("simple_distributed", phase_simple_distributed),
-                ("bert_train", phase_bert_train)):
+                ("bert_train", phase_bert_train),
+                ("mlp_fused_dense", phase_mlp_fused_dense),
+                ("dcgan", phase_dcgan)):
             phase = path
             gc.collect()
             torch.cuda.empty_cache()

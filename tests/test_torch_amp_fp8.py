@@ -218,8 +218,8 @@ def test_context_protocol_details():
 
 def test_unregistered_and_outside_sites():
     """Outside a context matmul_amp is torch.matmul exactly; inside one an
-    unregistered site takes the fp32-accumulator product (keep_acc: the
-    accumulator itself), as JAX's does."""
+    unregistered site takes the same product (keep_acc: the fp32
+    accumulator itself), as JAX's takes its outside product."""
     a = torch.from_numpy(_rand((8, 16), 4, 3.0)).to(torch.bfloat16)
     b = torch.from_numpy(_rand((16, 4), 5)).to(torch.bfloat16)
     assert current_fp8() is None
@@ -238,7 +238,7 @@ def test_unregistered_and_outside_sites():
         jacc = jax_prec.matmul_amp(ja, jb, name="unknown", keep_acc=True)
     assert ctx.skipped_sites == ["unknown#0", "unknown#1"]
     assert y.dtype == torch.bfloat16 and acc.dtype == torch.float32
-    assert torch.equal(y, precision.matmul_fp32acc(a, b))
+    assert torch.equal(y, torch.matmul(a, b))
     assert torch.equal(acc, precision.matmul_fp32acc(a, b, keep_acc=True))
     np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), rtol=1e-6)
 

@@ -134,3 +134,52 @@ def test_chip_smoke_defines_each_name_once():
         n.name for n in tree.body
         if isinstance(n, (ast.FunctionDef, ast.ClassDef)))
     assert [n for n, c in names.items() if c > 1] == []
+
+
+@pytest.mark.parametrize("name", ["mlp_none", "mlp_relu", "mlp_sigmoid",
+                                  "fused_dense_gelu_dense"])
+def test_mlp_fused_dense_reference_matches_the_modules(name, smoke):
+    """mlp_fused_dense's fp32 reference (``mlp_plain32``) gives the port's
+    MLP and fused dense layers in fp32, and its pinned ReLU signs
+    (``relu_masks``) the signs the port's chain computes: pinned, the
+    reference is unchanged."""
+    from apex_tpu_torch import fused_dense, mlp
+
+    gen = torch.Generator().manual_seed(1)
+    if name.startswith("mlp_"):
+        m = mlp.MLP([24, 32, 16, 1], activation=name[4:], device="cpu")
+        inputs = [torch.randn(8, 24, generator=gen)] + m.flat()
+        fn = lambda *a: mlp.mlp_function(True, name[4:], *a)  # noqa: E731
+    else:
+        p = fused_dense.FusedDenseGeluDense(16, 32, 8, device="cpu").params
+        inputs = [torch.randn(2, 3, 16, generator=gen), p["weight1"],
+                  p["bias1"], p["weight2"], p["bias2"]]
+        fn = fused_dense.fused_dense_gelu_dense_function
+    r = torch.randn(fn(*inputs).shape, generator=gen)
+    y, grads = smoke.fwd_bwd(fn, inputs, r)
+    y32, g32 = smoke.fwd_bwd(lambda *a: smoke.mlp_plain32(name, a), inputs,
+                             r)
+    torch.testing.assert_close(y, y32, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    for g, want in zip(grads, g32):
+        torch.testing.assert_close(g, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    if name == "mlp_relu":
+        masks = smoke.relu_masks(inputs)
+        pinned = smoke.fwd_bwd(lambda *a: smoke.mlp_plain32(name, a, masks),
+                               inputs, r)
+        torch.testing.assert_close(pinned[0], y32, rtol=0, atol=0)
+
+
+def test_megatron_o4_launches_follow_megatron_training(smoke):
+    """megatron_o4's launches: megatron_training's with the last stage's
+    final norm once (the folded lm head) and its three casts, the fill at
+    a process's first cast."""
+    cfg = llama.llama3_8b(num_layers=smoke.MEGO4_LAYERS)
+    first = smoke.mego4_want(cfg, False, True)
+    assert first == smoke.megatron_want(cfg, False)
+    last = smoke.mego4_want(cfg, True, True)
+    base = smoke.megatron_want(cfg, True)
+    assert last["rms_norm_fwd"] == base["rms_norm_fwd"] - smoke.MEG_M + 1
+    assert last["rms_norm_bwd"] == base["rms_norm_bwd"] - smoke.MEG_M + 1
+    assert (last["fp8_cast"], last["fp8_cast_col"],
+            last["fp8_cast_fill"]) == (2, 1, 1)
+    assert smoke.mego4_want(cfg, True, False)["fp8_cast_fill"] == 0

@@ -63,6 +63,14 @@ WRAPPERS = {
     "models/gpt2.py": ("train_step", "loss_fn", "hidden_states"),
     "models/bert.py": ("train_step", "loss_fn", "forward"),
     "ops/_build.py": ("build", "library", "check"),
+    # the fp8 sites of the MLP, the fused dense layers and the 3-D
+    # example's lm head: on the card their casts launch the cast kernel
+    "mlp.py": ("mlp_function", "_forward", "forward", "backward"),
+    "fused_dense.py": ("fused_dense_function", "dense_no_bias_function",
+                       "fused_dense_gelu_dense_function", "_fdgd_forward",
+                       "forward", "backward"),
+    "examples/llama_train.py": ("loss", "_local_grads", "grads",
+                                "train_step"),
 }
 
 
@@ -86,7 +94,20 @@ BASELINE_MODULES = ("models/resnet.py", "models/mlp.py",
                     "examples/bert_train.py")
 
 
-@pytest.mark.parametrize("rel", BASELINE_MODULES)
+# the 3-D example's O4 slice's modules (mlp, fused_dense, DCGAN, the
+# samplers and the test harness)
+SLICE_MODULES = ("mlp.py", "fused_dense.py", "models/dcgan.py",
+                 "examples/dcgan.py", "examples/llama_train.py",
+                 "transformer/_data/_batchsampler.py",
+                 "transformer/testing/arguments.py",
+                 "transformer/testing/global_vars.py",
+                 "transformer/testing/commons.py",
+                 "transformer/testing/distributed_test_base.py",
+                 "transformer/testing/standalone_gpt.py",
+                 "transformer/testing/standalone_bert.py")
+
+
+@pytest.mark.parametrize("rel", BASELINE_MODULES + SLICE_MODULES)
 def test_baseline_modules_are_checked(rel):
     assert PORT / rel in _port_sources()
 
@@ -365,3 +386,33 @@ def test_baseline_entry_points_raise_without_a_gpu(monkeypatch):
         mlp.params_from_numpy({"layers": [{"w": np.zeros((4, 3))}]})
     assert mlp.init_params(gen, cfg, device="cpu")["layers"][0][
         "w"].device.type == "cpu"
+
+
+def test_slice_entry_points_raise_without_a_gpu(monkeypatch):
+    """The MLP, the fused dense layers, DCGAN's variables, the toy stage
+    model and the 3-D example's fp8 state land on the card unless asked
+    for the CPU."""
+    import numpy as np
+
+    from apex_tpu_torch import fused_dense, mlp
+    from apex_tpu_torch.models import dcgan
+    from apex_tpu_torch.transformer.testing import commons
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    makers = (lambda **kw: mlp.MLP([4, 3], **kw).params[0]["w"],
+              lambda **kw: fused_dense.FusedDense(4, 3, **kw).params[
+                  "weight"],
+              lambda **kw: fused_dense.FusedDenseGeluDense(4, 8, 3, **kw)
+              .params["weight1"],
+              lambda **kw: dcgan.init_variables(
+                  gen, dcgan.Generator(latent_dim=4, width=2), **kw)[
+                  "params"]["Dense_0"]["kernel"],
+              lambda **kw: dcgan.variables_from_flax(
+                  {"params": {"Dense_0": {"kernel": np.zeros((2, 2))}}},
+                  **kw)["params"]["Dense_0"]["kernel"],
+              lambda **kw: commons.init_toy_stage_params(gen, 4, **kw)["w"])
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu").device.type == "cpu"

@@ -725,12 +725,14 @@ def main(argv) -> int:
         rank=None if launched else int(os.environ["RANK"]))
     with np.load(directory / "inputs.npz") as f:
         inputs = {k: f[k] for k in f.files}
-    if suite not in SUITES:  # the Megatron and cp/ep/tp slices' suites
+    if suite not in SUITES:  # the Megatron, cp/ep/tp and examples' suites
         from torch_cp_suites import SUITES as cp_ep_tp
+        from torch_example_suites import SUITES as examples
         from torch_megatron_suites import SUITES as megatron
 
         SUITES.update(megatron)
         SUITES.update(cp_ep_tp)
+        SUITES.update(examples)
     out = SUITES[suite](rank, n, inputs, directory)
     np.savez(directory / f"rank{rank}.npz", **out)
     B.barrier("dp")
