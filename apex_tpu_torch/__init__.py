@@ -15,7 +15,11 @@ resilient loop; data parallelism (DDP, ZeRO-1, SyncBatchNorm) and model
 parallelism (the tp/pp/dp/cp/ep groups, the tensor-parallel layers, the
 pipeline schedules, ring attention, expert dispatch) with their
 examples, the 3-D one at O4 with checkpoints; the transformer samplers
-and test harness. Every one of the JAX package's 13 Pallas kernels has a
+and test harness; every fused optimizer (Adam, SGD, LAMB, Adagrad,
+NovoGrad, mixed-precision LAMB) with LARC and the multi-tensor ops; the
+pre-amp fp16 workflow (``fp16_utils.FP16_Optimizer``); the RNNs
+(``rnn``, the mLSTM among them) and weight norm
+(``reparameterization``). Every one of the JAX package's 13 Pallas kernels has a
 Hopper kernel. See ROADMAP.md for what follows.
 """
 

@@ -4,9 +4,11 @@
 (padded-dense packed qkv, per-sequence lengths, dropout inside the
 kernels). :mod:`multihead_attn`: ``SelfMultiheadAttn``,
 ``EncdecMultiheadAttn`` and ``MaskSoftmaxDropout`` over the flash,
-masked-softmax and LayerNorm kernels.
+masked-softmax and LayerNorm kernels. :mod:`clip_grad`: the global-norm
+gradient clip. :mod:`optimizers`: the contrib ``FP16_Optimizer`` and the
+legacy fused optimizers.
 """
 
-from apex_tpu_torch.contrib import fmha, multihead_attn
+from apex_tpu_torch.contrib import clip_grad, fmha, multihead_attn, optimizers
 
-__all__ = ["fmha", "multihead_attn"]
+__all__ = ["clip_grad", "fmha", "multihead_attn", "optimizers"]

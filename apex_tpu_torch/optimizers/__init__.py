@@ -4,9 +4,10 @@ Each optimizer exists as a functional transform (``fused_adam(...)``,
 ``init`` / ``update``) and as an Apex-style stateful class
 (``FusedAdam(params, ...)``, ``step(grads)``) over it. ``fused_adam`` /
 ``FusedAdam``, ``fused_sgd`` / ``FusedSGD`` and ``fused_lamb`` /
-``FusedLAMB`` are ported; ``fused_novograd``, ``fused_adagrad`` and
-``fused_mixed_precision_lamb`` are not yet: each raises
-``NotImplementedError``.
+``FusedLAMB``, ``fused_adagrad`` / ``FusedAdagrad``, ``fused_novograd``
+/ ``FusedNovoGrad`` and ``fused_mixed_precision_lamb`` /
+``FusedMixedPrecisionLamb`` (fp32 masters in its state).
+``opt_state_from_numpy`` carries any of their JAX states across.
 """
 
 from apex_tpu_torch.optimizers._base import (  # noqa: F401
@@ -20,10 +21,25 @@ from apex_tpu_torch.optimizers.fused_adam import (  # noqa: F401
     fused_adam,
     opt_state_from_numpy,
 )
+from apex_tpu_torch.optimizers.fused_adagrad import (  # noqa: F401
+    FusedAdagrad,
+    FusedAdagradState,
+    fused_adagrad,
+)
 from apex_tpu_torch.optimizers.fused_lamb import (  # noqa: F401
     FusedLAMB,
     FusedLAMBState,
     fused_lamb,
+)
+from apex_tpu_torch.optimizers.fused_mixed_precision_lamb import (  # noqa: F401
+    FusedMixedPrecisionLamb,
+    FusedMPLambState,
+    fused_mixed_precision_lamb,
+)
+from apex_tpu_torch.optimizers.fused_novograd import (  # noqa: F401
+    FusedNovoGrad,
+    FusedNovoGradState,
+    fused_novograd,
 )
 from apex_tpu_torch.optimizers.fused_sgd import (  # noqa: F401
     FusedSGD,
@@ -32,27 +48,13 @@ from apex_tpu_torch.optimizers.fused_sgd import (  # noqa: F401
 )
 
 
-def _not_ported(name: str):
-    def raise_not_ported(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet: it waits for the port of "
-            f"apex_tpu/optimizers/ beyond FusedAdam, FusedSGD and "
-            f"FusedLAMB (ROADMAP.md, Queue 1 item 6.3)")
-
-    raise_not_ported.__name__ = name
-    return raise_not_ported
-
-
-fused_novograd = _not_ported("fused_novograd")
-FusedNovoGrad = _not_ported("FusedNovoGrad")
-fused_adagrad = _not_ported("fused_adagrad")
-FusedAdagrad = _not_ported("FusedAdagrad")
-fused_mixed_precision_lamb = _not_ported("fused_mixed_precision_lamb")
-FusedMixedPrecisionLamb = _not_ported("FusedMixedPrecisionLamb")
-
 __all__ = [
     "FusedOptimizer", "opt_partition_specs",
     "FusedAdam", "FusedAdamState", "fused_adam", "opt_state_from_numpy",
     "FusedLAMB", "FusedLAMBState", "fused_lamb", "GradientTransformation",
     "FusedSGD", "FusedSGDState", "fused_sgd",
+    "FusedAdagrad", "FusedAdagradState", "fused_adagrad",
+    "FusedNovoGrad", "FusedNovoGradState", "fused_novograd",
+    "FusedMixedPrecisionLamb", "FusedMPLambState",
+    "fused_mixed_precision_lamb",
 ]

@@ -1,9 +1,9 @@
 """Fused optimizer update math (port of ``apex_tpu/optimizers/_math.py``).
 
-The elementwise Adam, SGD and LAMB bodies over tensors, as the
-reference's CUDA multi-tensor kernels compute them; the tree paths of
-``fused_adam``, ``fused_sgd`` and ``fused_lamb`` apply them leaf by
-leaf. State math is fp32; params may be any float dtype.
+The elementwise Adam, Adagrad, SGD, LAMB and NovoGrad bodies over
+tensors, as the reference's CUDA multi-tensor kernels compute them; the
+tree paths of the fused optimizers apply them leaf by leaf. State math
+is fp32; params may be any float dtype.
 """
 
 from __future__ import annotations
@@ -30,6 +30,22 @@ def adam_step(g, p, m, v, *, lr, b1, b2, eps, weight_decay, adam_w_mode,
     if adam_w_mode and weight_decay:
         update = update + weight_decay * p32
     return -lr * update, m, v
+
+
+def adagrad_step(g, p, h, *, lr, eps, weight_decay, adagrad_w_mode):
+    """One Adagrad update (``_math.py:40``). Returns (delta, new_h);
+    ``h`` is not modified. L2 mode adds the decay to the gradient before
+    the accumulation, the decoupled mode (``adagrad_w_mode``) to the
+    update after the division."""
+    g32 = g.float()
+    p32 = p.float()
+    if not adagrad_w_mode and weight_decay:
+        g32 = g32 + weight_decay * p32
+    h = h + torch.square(g32)
+    update = g32 / (torch.sqrt(h) + eps)
+    if adagrad_w_mode and weight_decay:
+        update = update + weight_decay * p32
+    return -lr * update, h
 
 
 def sgd_step(g, p, buf, *, lr, momentum, dampening, nesterov, weight_decay,
@@ -91,3 +107,35 @@ def lamb_trust_ratio(p_norm, u_norm, *, weight_decay, use_nvlamb):
     if not use_nvlamb and not weight_decay:
         ratio = torch.ones_like(ratio)
     return ratio
+
+
+def novograd_step(g, p, m, v_norm, *, lr, b1, b2, eps, weight_decay,
+                  grad_averaging, reg_inside_moment, step, bias_correction,
+                  norm_type):
+    """One NovoGrad update (``_math.py:117``). Returns (delta, new_m,
+    new_v_norm). ``v_norm`` is the per-tensor EMA of the gradient's norm
+    (the norm, not its square): L2 (``norm_type`` 2) blends root of
+    squares, ``sqrt(b2 v^2 + (1 - b2) n^2)``, Linf (0) blends linearly;
+    with ``bias_correction`` m is corrected by ``1 - b1^t`` and the norm
+    by ``sqrt(1 - b2^t)``."""
+    g32 = g.float()
+    p32 = p.float()
+    if norm_type == 0:
+        gnorm = torch.amax(torch.abs(g32))
+        v_new = b2 * v_norm + (1.0 - b2) * gnorm
+    else:
+        gnorm = torch.sqrt(torch.sum(torch.square(g32)))
+        v_new = torch.sqrt(b2 * torch.square(v_norm)
+                           + (1.0 - b2) * torch.square(gnorm))
+    v_hat = (v_new / torch.sqrt(1.0 - b2 ** step) if bias_correction
+             else v_new)
+    scaled = g32 / (v_hat + eps)
+    if weight_decay and reg_inside_moment:
+        scaled = scaled + weight_decay * p32
+    beta1_coeff = (1.0 - b1) if grad_averaging else 1.0
+    m = b1 * m + beta1_coeff * scaled
+    m_hat = m / (1.0 - b1 ** step) if bias_correction else m
+    update = m_hat
+    if weight_decay and not reg_inside_moment:
+        update = update + weight_decay * p32
+    return -lr * update, m, v_new

@@ -148,13 +148,48 @@ class FusedAdam(FusedOptimizer):
             tx_factory=lambda **ov: fused_adam(**{**kw, **ov}))
 
 
-def opt_state_from_numpy(state, device: _device.DeviceLike = None
-                         ) -> FusedAdamState:
-    """The JAX package's ``FusedAdamState`` with numpy leaves (e.g.
-    ``jax.tree_util.tree_map(np.asarray, state)``), in either mode, as
-    the port's: the optimizer half of carrying a run across."""
-    device = _device.resolve(device)
-    return FusedAdamState(
-        count=torch.tensor(int(state.count), dtype=torch.int32),
-        mu=_device.from_numpy(state.mu, device),
-        nu=_device.from_numpy(state.nu, device))
+def _state_classes() -> dict:
+    """The port's optimizer states by class name (imported here: the
+    modules that define them import this one)."""
+    from apex_tpu_torch.optimizers.fused_adagrad import FusedAdagradState
+    from apex_tpu_torch.optimizers.fused_lamb import FusedLAMBState
+    from apex_tpu_torch.optimizers.fused_mixed_precision_lamb import (
+        FusedMPLambState,
+    )
+    from apex_tpu_torch.optimizers.fused_novograd import FusedNovoGradState
+    from apex_tpu_torch.optimizers.fused_sgd import FusedSGDState
+    from apex_tpu_torch.parallel.larc import LARCState
+
+    return {cls.__name__: cls for cls in (
+        FusedAdamState, FusedLAMBState, FusedSGDState, FusedAdagradState,
+        FusedNovoGradState, FusedMPLambState, LARCState)}
+
+
+def _state_from_numpy(state, device: torch.device, classes: dict):
+    fields = {}
+    for name, value in zip(state._fields, state):
+        if name == "count":
+            fields[name] = torch.tensor(int(value), dtype=torch.int32)
+        elif hasattr(value, "_fields"):
+            fields[name] = _state_from_numpy(value, device, classes)
+        else:
+            fields[name] = _device.from_numpy(value, device)
+    cls = classes.get(type(state).__name__)
+    if cls is None:
+        raise TypeError(f"no port of optimizer state "
+                        f"{type(state).__name__}: expected one of "
+                        f"{sorted(classes)}")
+    return cls(**fields)
+
+
+def opt_state_from_numpy(state, device: _device.DeviceLike = None):
+    """The JAX package's optimizer state with numpy leaves (e.g.
+    ``jax.tree_util.tree_map(np.asarray, state)``) as the port's, by its
+    class name: ``FusedAdamState`` in either mode, ``FusedLAMBState``,
+    ``FusedSGDState``, ``FusedAdagradState(count, sum)``,
+    ``FusedNovoGradState(count, mu, v_norm)``, ``FusedMPLambState(master,
+    inner)`` and ``LARCState(inner, count)``, nested states converted in
+    turn. Counts become int32 tensors on the CPU, every other leaf lands
+    on ``device``: the optimizer half of carrying a run across."""
+    return _state_from_numpy(state, _device.resolve(device),
+                             _state_classes())

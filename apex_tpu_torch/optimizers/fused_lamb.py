@@ -22,14 +22,15 @@ from typing import Any, NamedTuple
 
 import torch
 
-from apex_tpu_torch import _device, _tree
+from apex_tpu_torch import _tree
 from apex_tpu_torch.multi_tensor_apply import multi_tensor_l2norm
 from apex_tpu_torch.optimizers import _math
 from apex_tpu_torch.optimizers._base import FusedOptimizer
-from apex_tpu_torch.optimizers.fused_adam import (
+from apex_tpu_torch.optimizers.fused_adam import (  # noqa: F401
     GradientTransformation,
     ScalarOrSchedule,
     _lr_at,
+    opt_state_from_numpy,
 )
 
 
@@ -128,14 +129,3 @@ class FusedLAMB(FusedOptimizer):
             lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
             max_grad_norm=max_grad_norm),
             tx_factory=lambda **ov: fused_lamb(**{**kw, **ov}))
-
-
-def opt_state_from_numpy(state, device: _device.DeviceLike = None
-                         ) -> FusedLAMBState:
-    """The JAX package's ``FusedLAMBState`` with numpy leaves (e.g.
-    ``jax.tree_util.tree_map(np.asarray, state)``) as the port's."""
-    device = _device.resolve(device)
-    return FusedLAMBState(
-        count=torch.tensor(int(state.count), dtype=torch.int32),
-        mu=_device.from_numpy(state.mu, device),
-        nu=_device.from_numpy(state.nu, device))

@@ -3,9 +3,10 @@ bucketed all-reduce overlapped with the backward, ZeRO-1 FusedAdam,
 SyncBatchNorm and the launcher, over the process groups of
 :mod:`apex_tpu_torch.distributed`.
 
-``auto_shard`` (it needs the reference's ``analysis/planner.py``) and
-``LARC`` (with ROADMAP.md Queue 1 item 6's optimizers) are not ported
-yet and raise.
+``LARC`` / ``larc`` rescale each leaf's gradient by its layer-wise
+adaptive rate before an inner optimizer's step. ``auto_shard`` (it
+needs the reference's ``analysis/planner.py``) is not ported yet and
+raises.
 """
 
 import importlib
@@ -19,6 +20,7 @@ from apex_tpu_torch.parallel.distributed import (
     sync_gradients_bucketed,
     sync_gradients_flat,
 )
+from apex_tpu_torch.parallel.larc import LARC, LARCState, larc
 from apex_tpu_torch.parallel.overlap import (
     OverlapPlan,
     OverlapTrace,
@@ -77,8 +79,6 @@ def __getattr__(name):
     raise AttributeError(name)
 
 
-LARC = _not_ported("LARC", "the optimizers of ROADMAP.md Queue 1 item 6")
-larc = _not_ported("larc", "the optimizers of ROADMAP.md Queue 1 item 6")
 auto_shard = _not_ported(
     "auto_shard", "the port of apex_tpu/analysis/planner.py (ROADMAP.md "
     "Queue 1 item 8)")
@@ -92,5 +92,5 @@ __all__ = [
     "grad_sync_comms_bytes",
     "Zero1AdamState", "Zero1FusedAdam", "zero1_fused_adam",
     "SyncBatchNorm", "convert_syncbn_model", "create_syncbn_process_group",
-    "LARC", "larc", "auto_shard", "multiproc",
+    "LARC", "LARCState", "larc", "auto_shard", "multiproc",
 ]

@@ -24,7 +24,9 @@ result line) when it fails:
                dropout 0.1 and both, at the training batch; LayerNorm,
                the causal softmax and the flat Adam also at a
                data-parallel rank's shapes (4 x 1024 rows, [64, 1024,
-               1024], the ZeRO-1 shard and the replicated GPT-2 slab).
+               1024], the ZeRO-1 shard and the replicated GPT-2 slab at
+               12 layers); the flat Adam also on rnn_mlstm's fp32 master
+               slab.
 4. serving  -- Llama-3-8B at full width and depth, random bf16 weights
                from a seeded generator, served by ``ServingEngine`` over a
                16-request closed-loop trace, its decode step one CUDA
@@ -93,8 +95,9 @@ result line) when it fails:
                (LayerNorm forward 97, backward 49, causal softmax 48 a
                step), finite and falling loss, step time, tokens/s, MFU
                and peak memory.
-8a. gpt2_resilient -- phase 8's model and step (the batch of step s
-               drawn from (seed, s)) under ``ResilientTrainLoop``: 6
+8a. gpt2_resilient -- phase 8's model at 12 of its 24 layers, and its
+               step (the batch of step s drawn from (seed, s)) under
+               ``ResilientTrainLoop``: 6
                plain steps give the reference state's SHA-1; then the
                loop with async checkpoints every 2 steps (2 kept), retries
                and the plan ``nan_grads@1,ckpt_torn@3,preempt@3`` (a
@@ -103,13 +106,13 @@ result line) when it fails:
                commit and retried: exactly one retry, no failed save or
                flush), then a fresh loop over a template drawn from another
                seed resumes at step 4: the final state's SHA-1 must equal
-               the reference's, the launches 97 / 49 / 48 for each step
+               the reference's, the launches 49 / 25 / 24 for each step
                executed, replays included, the counters and the directory
                (committed, valid steps only) as planned, peak under 80 GB;
                the disk must have room for 4 checkpoints or the phase
                fails with the bytes it needed. Then ``gpt2_generate`` from
                the trained params (4 prompts of 512, 32 new, greedy: flash
-               forward 24 in the prefill, LayerNorm forward 49 in the
+               forward 12 in the prefill, LayerNorm forward 25 in the
                prefill and in each decode step; teacher-forced within
                DELTA of the full-sequence forward), and the checkpoint's
                costs: each loop's start-up seconds, an async save's host
@@ -163,8 +166,9 @@ result line) when it fails:
                forward+backward device ms. The kernels phase checks the
                flash trio, LayerNorm and the masked softmax at these
                shapes too.
-14. ddp_training -- GPT-2 345M at full width and depth, a global batch
-               of 8 x 1024 split 4 a rank over 2 ranks, launched through
+14. ddp_training -- GPT-2 345M's widths at 12 of its 24 layers, a
+               global batch of 8 x 1024 split 4 a rank over 2 ranks,
+               launched through
                ``python -m apex_tpu_torch.parallel.multiproc --nprocs 2
                --backend gloo``: both ranks on the one card, gloo staging
                every collective through host memory (NCCL takes one rank
@@ -180,7 +184,7 @@ result line) when it fails:
                two Adam trajectories apart by gradient rounding can
                differ, (a)'s synced grads within 2^-8 rel. L2 of the fp32
                all-reduce of the same step's local grads, exact launches
-               a rank (97 / 49 / 48, Adam 1 for (a), one a bucket for
+               a rank (49 / 25 / 24, Adam 1 for (a), one a bucket for
                (b)); at step 0 the synced grads of
                (a) and (c) against the global batch's fp32 plain
                reference (rel. L2 <= 0.05, cosine >= 0.998). Prints step
@@ -238,7 +242,14 @@ result line) when it fails:
                peak; then the example itself at ``--arch resnet50
                --image-size 224`` on one NCCL rank through its
                PrefetchLoader (its images/s and which bound it), and the
-               loader alone.
+               loader alone. Between the two, from the state after its
+               steps, 3 more O2 steps with the FusedSGD wrapped in
+               ``LARC(trust_coefficient=0.02, clip=True)``: each leaf's
+               rescaled gradient within 1e-6 of the formula in float64
+               on the host, the params and momentum after each step bit
+               for bit a FusedSGD step without weight decay on those
+               gradients (LARC owns the decay), finite losses, no kernel
+               launched, step ms beside the plain step's.
 19. resnet50_ddp -- the same on 2 gloo ranks sharing the card, 128
                images a rank, SyncBatchNorm over "data" and DDP: the
                step-0 mean fp32 gradients against the single-device fp32
@@ -308,6 +319,51 @@ result line) when it fails:
                of the tree's largest gradient where the gradient is (near)
                0); finite losses, each loss-scale state advanced every
                step, no kernel launched, step ms.
+27. rnn_mlstm -- NVIDIA/sentiment-discovery's byte-level language model
+               (Radford et al. 2017): 256 bytes, a 64-wide embedding,
+               ``rnn.mLSTM(64, 4096)``, a 4096 -> 256 decoder, 128 x 256
+               bytes, weight norm on every RNN weight of 2+ dims (made
+               inside the forward). The fp32 step-0 gradients end to end
+               against float64 autograd of the same model (1e-3 rel. L2
+               a leaf); one bf16 cell step against fp32 (0.05 / 0.998;
+               the bf16 gradients over all 256 steps reported beside
+               fp32); then 4 steps of the bf16 model under
+               ``FP16_Optimizer(FusedAdam(lr=5e-4, flat=True),
+               dynamic_loss_scale=True)`` with ``clip_master_grads(1.0)``,
+               an inf planted at step 2: the clip norm equal to
+               ``multi_tensor_l2norm`` of the unscaled fp32 gradients
+               (1e-6), the model tree its masters rounded, bit for bit,
+               after every step, step 2 skipped (masters, Adam slabs and
+               model unchanged bit for bit, the scale 2^32 -> 2^31, no
+               Adam launch), one flat Adam launch each other step; step
+               ms, bytes/s, MFU, peak.
+28. bert_optimizers -- BERT-base (bf16, phase 9's padded batch) 3 steps
+               each under ``FusedMixedPrecisionLamb``, ``FusedNovoGrad``
+               and ``FusedAdagrad`` from the same params: finite losses,
+               LayerNorm 50 / 26 and the masked softmax 24 a step; after
+               step 1 each optimizer's state (MP-LAMB's masters too)
+               within 1e-5 rel. L2 a leaf of the same transform run on
+               the CPU on host copies of that step's inputs; MP-LAMB's
+               bf16 params equal to p + (round(master) - p), the
+               reference's update, and the count of them that differ
+               from round(master); on the step-0 gradients
+               ``multi_tensor_applier`` with ``multi_tensor_l2norm``
+               (per tensor), ``_scale`` and ``_axpby`` against float64
+               on the card (1e-6), and with an inf planted every op
+               reports it; each optimizer's update ms (CUDA events)
+               beside the step ms.
+
+The multi-rank paths run in three launches (``SUITES``): the five
+one-rank NCCL paths (ddp_nccl, megatron_nccl, mp_nccl, megatron_o4_nccl,
+resnet50_ddp_nccl: ``nccl_suite``), the 2-rank gloo paths (ddp_training,
+cp_training, ep_training, resnet50_ddp, bert_train, simple_distributed:
+``gloo2_suite``) and the 4-rank ones (megatron_training,
+gpt2_tp_training: ``gloo4_suite``), each at the turn of its first phase;
+each phase then checks its own path, with that path's seconds (cp and
+ep are checked before the 4-rank launch, to free the disk). megatron_o4
+keeps a launch of its own, and a second one that resumes from its
+emergency save in fresh processes. mp_nccl compares its end states byte
+for byte on the card (no SHA-1 of them).
 
 The kernels phase also checks the flash trio at a megatron rank's heads
 (1 x 2048 x 16/4 x 128), the RMSNorm forward and backward on its
@@ -374,12 +430,15 @@ GPT2_HEADS, GPT2_HEAD_DIM = 16, 64
 # through the retry policy. Then gpt2_generate from the trained params:
 # GEN_BATCH prompts of GEN_PROMPT tokens, GEN_NEW new.
 RESILIENT_STEPS = 6
+# GPT-2 345M's widths at half its depth: the checkpoints, the saves and
+# the steps the loop runs around them half as long
+RESILIENT_LAYERS = 12
 RESILIENT_PLAN = "nan_grads@1,ckpt_torn@3,preempt@3"
 RESILIENT_DIR = ROOT / "build" / "gpt2_resilient"
 RESILIENT_CKPTS = 4
 # then COST_SAVES async saves of the trained state, COST_STEPS steps beside
 # each write
-COST_SAVES, COST_STEPS = 3, 3
+COST_SAVES, COST_STEPS = 1, 3
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
 
 # bench.py's BERT-base step (bench.py:631-640), plus padding: each row's
@@ -1025,10 +1084,11 @@ def check_rms_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, fp32_weight=True):
     return out
 
 
-def check_adam(dev, n: int = 1 << 27):
-    """One flat Adam pass over an n-element slab (2^27, or a ZeRO-1 shard):
-    bf16 params, fp32 grads and m/v, fused_adam's defaults at bench.py's
-    lr."""
+def check_adam(dev, n: int = 1 << 27, p_dtype: str = "bfloat16",
+               lr: float = TRAIN_LR):
+    """One flat Adam pass over an n-element slab (2^27, or a path's slab):
+    params in ``p_dtype`` (bf16, or the fp32 masters of FP16_Optimizer),
+    fp32 grads and m/v, fused_adam's defaults at ``lr``."""
     import torch
 
     from apex_tpu_torch.ops import fused_adam_kernel as fak
@@ -1041,32 +1101,33 @@ def check_adam(dev, n: int = 1 << 27):
         return torch.randn(n, generator=g, device="cuda").mul_(scale)
 
     grad, m, v = randn(1e-3), randn(1e-4), randn(1e-3).square_()
-    p = randn(2e-2).to(torch.bfloat16)
+    p = randn(2e-2).to(getattr(torch, p_dtype))
     m_ref, v_ref = m.clone(), v.clone()
-    delta, _, _ = fak._adam_flat_cuda(grad, p, m, v, TRAIN_LR, 10, **kw)
-    d_ref, _, _ = fak._adam_flat_plain(grad, p, m_ref, v_ref, TRAIN_LR, 10,
-                                       **kw)
+    delta, _, _ = fak._adam_flat_cuda(grad, p, m, v, lr, 10, **kw)
+    d_ref, _, _ = fak._adam_flat_plain(grad, p, m_ref, v_ref, lr, 10, **kw)
     torch.cuda.synchronize()
     # the kernel rounds every operation on its own, as the plain
     # version's eager ops do: m and v within a few fp32 ulps, delta
-    # within one bf16 ulp
+    # within one bf16 ulp, or a few fp32 ulps through the quotient
     torch.testing.assert_close(m, m_ref, rtol=2e-6, atol=0)
     torch.testing.assert_close(v, v_ref, rtol=2e-6, atol=0)
-    torch.testing.assert_close(delta.float(), d_ref.float(), rtol=8e-3,
-                               atol=0)
+    torch.testing.assert_close(
+        delta.float(), d_ref.float(), atol=0,
+        rtol=8e-3 if p_dtype == "bfloat16" else 1e-5)
     errs = {"delta": float((delta.float() - d_ref.float()).abs().max()),
             "m": float((m - m_ref).abs().max()),
             "v": float((v - v_ref).abs().max())}
     del m_ref, v_ref, d_ref, delta
     # g, p, m, v read once; delta, m, v written once
-    nbytes = n * (4 + 2 + 4 + 4 + 2 + 4 + 4)
-    sets = [(grad, p, m, v)]  # 3.2 GB: one set is far beyond L2
+    pb = p.element_size()
+    nbytes = n * (4 + pb + 4 + 4 + pb + 4 + 4)
+    sets = [(grad, p, m, v)]  # one set is far beyond L2
 
     def call(grad, p, m, v):
-        return fak._adam_flat_cuda(grad, p, m, v, TRAIN_LR, 10, **kw)
+        return fak._adam_flat_cuda(grad, p, m, v, lr, 10, **kw)
 
     def plain(grad, p, m, v):
-        return fak._adam_flat_plain(grad, p, m, v, TRAIN_LR, 10, **kw)
+        return fak._adam_flat_plain(grad, p, m, v, lr, 10, **kw)
 
     ms = time_ms(call, sets)
     plain_ms = time_ms(plain, sets, iters=5)
@@ -1074,11 +1135,11 @@ def check_adam(dev, n: int = 1 << 27):
     del m, v, p
     param = torch.zeros(n, device="cuda", requires_grad=True)
     param.grad = grad
-    opt = torch.optim.AdamW([param], lr=TRAIN_LR, betas=(0.9, 0.999),
+    opt = torch.optim.AdamW([param], lr=lr, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=0.0, fused=True)
     lib_ms = time_ms(opt.step, [()])
     b_ms, b_by = bound(nbytes, 15.0 * n, dev["fp32_flops"], dev)
-    return {"n": n, "param_dtype": "bfloat16", "max_abs_err": errs,
+    return {"n": n, "param_dtype": p_dtype, "lr": lr, "max_abs_err": errs,
             "ms": ms, "host_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms,
             "library": "torch.optim.AdamW(fused=True).step on fp32 "
@@ -1644,16 +1705,30 @@ def check_long_softmax(dev):
     return out
 
 
-def gpt2_345m_numel() -> int:
-    """The elements of GPT-2 345M's params: the replicated flat Adam
-    slab of the data-parallel phases' DDP update."""
+def ddp_adam_slabs() -> tuple:
+    """The flat Adam slabs of the data-parallel phases (GPT-2 345M's
+    params at DDP_LAYERS): the replicated slab of their DDP update, and
+    the ZeRO-1 shard of their largest bucket at DDP_RANKS ranks."""
     import torch
 
     from apex_tpu_torch import _tree
     from apex_tpu_torch.models import gpt2
+    from apex_tpu_torch.parallel.zero import Zero1FusedAdam
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = gpt2.init_params(gen, gpt2.gpt2_345m(), device="cuda")
+    params = gpt2.init_params(gen, gpt2.gpt2_345m(num_layers=DDP_LAYERS),
+                              device="cuda")
+    plan = Zero1FusedAdam(lr=GPT2_LR, num_shards=DDP_RANKS).plan_for(params)
+    return (sum(t.numel() for t in _tree.leaves(params)),
+            max(int(b.padded) for b in plan.buckets) // DDP_RANKS)
+
+
+def mlstm_master_numel() -> int:
+    """The elements of rnn_mlstm's params: FP16_Optimizer's fp32 master
+    slab, which its flat Adam updates."""
+    from apex_tpu_torch import _tree
+
+    _, params = mlstm_lm("cuda")
     return sum(t.numel() for t in _tree.leaves(params))
 
 
@@ -1670,6 +1745,7 @@ def phase_kernels(dev):
     ddp_softmax = check_softmax(dev, shapes=(
         ("causal", (DDP_ROWS // GPT2_SEQ * 16, GPT2_SEQ, GPT2_SEQ)),))
     long_softmax = check_long_softmax(dev)
+    ddp_slab, zero1_shard = ddp_adam_slabs()
     fp8_cast = check_fp8_cast(dev)
     # a cast is one launch: its kernel finishes amax, nothing is filled
     for name, r in fp8_cast.items():
@@ -1685,8 +1761,11 @@ def phase_kernels(dev):
            "flash_attention_bwd": check_flash_bwd(dev),
            "rms_norm_bwd": check_rms_bwd(dev),
            "fused_adam": check_adam(dev),
-           "fused_adam_zero1_shard": check_adam(dev, ZERO1_SHARD),
-           "fused_adam_ddp_slab": check_adam(dev, gpt2_345m_numel()),
+           "fused_adam_zero1_shard": check_adam(dev, zero1_shard,
+                                                lr=GPT2_LR),
+           "fused_adam_ddp_slab": check_adam(dev, ddp_slab, lr=GPT2_LR),
+           "fused_adam_mlstm_masters": check_adam(
+               dev, mlstm_master_numel(), p_dtype="float32", lr=MLSTM_LR),
            "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd,
            "layer_norm_fwd_ddp_rank": ddp_ln_fwd,
            "layer_norm_bwd_ddp_rank": ddp_ln_bwd,
@@ -3274,7 +3353,7 @@ def phase_gpt2_resilient(dev):
         ResilientTrainLoop,
     )
 
-    cfg = gpt2.gpt2_345m()
+    cfg = gpt2.gpt2_345m(num_layers=RESILIENT_LAYERS)
     tx = fused_adam(lr=GPT2_LR)
     L = cfg.num_layers
 
@@ -3550,17 +3629,7 @@ def phase_bert_training(dev, padded: bool = True):
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = bert.init_params(gen, cfg, device="cuda")
-    shape = (BERT_BATCH, BERT_SEQ)
-    tokens = torch.randint(4, cfg.vocab_size, shape, generator=gen,
-                           device="cuda")
-    mlm = torch.rand(shape, generator=gen, device="cuda") < 0.15
-    if padded:
-        pad = bert_pad_mask(gen, BERT_BATCH, BERT_SEQ)
-        inputs = torch.where(mlm, 3, torch.where(pad, 0, tokens))
-        batch = (inputs, tokens, (mlm & ~pad).float())
-    else:
-        pad = None
-        batch = (torch.where(mlm, 3, tokens), tokens, mlm.float())
+    batch, pad = bert_batch(gen, cfg, padded)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for t in _tree.leaves(params))
@@ -4587,7 +4656,7 @@ def phase_multihead_attn(dev):
 
 # ------------------------------------------------ data-parallel phases
 
-# ddp_training: GPT-2 345M at full width and depth, a global batch of
+# ddp_training: GPT-2 345M's widths (at DDP_LAYERS), a global batch of
 # DDP_BATCH x GPT2_SEQ split over DDP_RANKS ranks, launched through the
 # port's own launcher. The card is one H100 and NCCL takes one rank per
 # GPU, so the ranks time-share the card over gloo, which stages every
@@ -4596,13 +4665,10 @@ def phase_multihead_attn(dev):
 # over NCCL, where every reduction is the identity.
 DDP_RANKS = 2
 DDP_BATCH = 8
+# ddp_training and ddp_nccl run GPT-2 345M's widths at half its depth
+DDP_LAYERS = 12
 DDP_STEPS = 3
 DDP_NCCL_STEPS = 2
-DDP_TIMEOUT = {"ddp_training": 480, "ddp_nccl": 300}
-# the flat Adam kernel at the ZeRO-1 shard of GPT-2 345M's largest bucket
-# (wfc or wproj, [24, 1024, 4096] each, one bucket apiece at the 10 MB
-# cap), in the kernels phase
-ZERO1_SHARD = 24 * 1024 * 4096 // DDP_RANKS
 # a rank's LayerNorm rows; its causal softmax is [DDP_ROWS / GPT2_SEQ x 16
 # heads, GPT2_SEQ, GPT2_SEQ]
 DDP_ROWS = DDP_BATCH // DDP_RANKS * GPT2_SEQ
@@ -4701,14 +4767,16 @@ def gpt2_want(cfg, adam: int) -> dict:
                 fused_adam=adam)
 
 
-def gpt2_rank_setup(device):
-    """GPT-2 345M params and the global batch from SEED, as the
-    gpt2_training phase draws them (the same numbers on every rank)."""
+def gpt2_rank_setup(device, num_layers=None):
+    """GPT-2 345M params (at ``num_layers``, default its 24) and the
+    global batch from SEED, as the gpt2_training phase draws them (the
+    same numbers on every rank)."""
     import torch
 
     from apex_tpu_torch.models import gpt2
 
-    cfg = gpt2.gpt2_345m()
+    cfg = gpt2.gpt2_345m(**({} if num_layers is None
+                            else {"num_layers": num_layers}))
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = gpt2.init_params(gen, cfg, device=device)
     tokens = torch.randint(0, cfg.vocab_size, (DDP_BATCH, GPT2_SEQ),
@@ -4801,7 +4869,7 @@ def ddp_training_rank(rank, n, device) -> dict:
         sync_gradients_flat,
     )
 
-    cfg, params, batch = gpt2_rank_setup(device)
+    cfg, params, batch = gpt2_rank_setup(device, DDP_LAYERS)
     per = DDP_BATCH // n
     local = tuple(t[rank * per:(rank + 1) * per] for t in batch)
 
@@ -4939,7 +5007,7 @@ def ddp_nccl_rank(rank, n, device) -> dict:
         overlapped_value_and_grad,
     )
 
-    cfg, params, batch = gpt2_rank_setup(device)
+    cfg, params, batch = gpt2_rank_setup(device, DDP_LAYERS)
 
     def loss_of(p, b):
         return gpt2.loss_fn(p, b, cfg, remat=True, vocab_chunks=GPT2_CHUNKS)
@@ -5016,7 +5084,6 @@ MEG_M, MEG_MB, MEG_SEQ = 4, 1, TRAIN_SEQ
 MEG_STEPS = 3
 # megatron_nccl: one NCCL rank (every group of one), M = 1, at 2 layers
 MEG_NCCL_LAYERS, MEG_NCCL_STEPS = 2, 2
-MEG_TIMEOUT = {"megatron_training": 900, "megatron_nccl": 420}
 MEG_LABEL = ("4 ranks time-sharing one H100 over gloo (collectives and "
              "pipeline shifts staged through host memory): not a measure "
              "of NCCL over NVLink")
@@ -5348,9 +5415,7 @@ def phase_megatron_training(dev):
     from apex_tpu_torch.models import llama
     from apex_tpu_torch.optimizers import fused_adam
 
-    ranks, seconds, out_dir = launch_ranks("megatron_training",
-                                           MEG_TP * MEG_PP, "gloo",
-                                           keep=True)
+    ranks, seconds, out_dir = suite_ranks("megatron_training", keep=True)
     for r in ranks:
         for st in r["steps"]:
             if st["launches"] != r["want"]:
@@ -5470,7 +5535,7 @@ def phase_megatron_nccl(dev):
     """The 3-D step on one NCCL rank (M = 1, every group of one) beside
     the single-device step: params and moments equal bit for bit after
     each of MEG_NCCL_STEPS steps, exact launches."""
-    ranks, seconds = launch_ranks("megatron_nccl", 1, "nccl")
+    ranks, seconds = suite_ranks("megatron_nccl")
     r = ranks[0]
     if r["backend"] != "nccl":
         raise AssertionError(f"backend {r['backend']}, not nccl")
@@ -5526,8 +5591,6 @@ SLICE_STEPS = 3
 # same steps with the axis unbound
 MP_STEPS = 2
 MP_MOE_LAYERS = 1
-SLICE_TIMEOUT = {"cp_training": 900, "ep_training": 900,
-                 "gpt2_tp_training": 900, "mp_nccl": 600}
 # the ring's outputs against their plain versions: relative L2 over each
 # of RING_CHUNKS query (or key) slices, so that slices of small outputs
 # are held as tightly as those of large ones
@@ -6099,8 +6162,7 @@ def phase_cp_training(dev):
     from apex_tpu_torch.examples import long_context as ex
     from apex_tpu_torch.models import llama
 
-    ranks, seconds, out_dir = launch_ranks("cp_training", CP_RANKS, "gloo",
-                                           keep=True)
+    ranks, seconds, out_dir = suite_ranks("cp_training", keep=True)
     check_rank_steps(ranks, "cp_training")
     ring_whole = check_ring_whole(ranks, out_dir)
     cfg, params, batch = cp_setup("cuda")
@@ -6264,8 +6326,7 @@ def phase_ep_training(dev):
     from apex_tpu_torch.models import llama
     from apex_tpu_torch.transformer import moe
 
-    ranks, seconds, out_dir = launch_ranks("ep_training", EP_RANKS, "gloo",
-                                           keep=True)
+    ranks, seconds, out_dir = suite_ranks("ep_training", keep=True)
     check_rank_steps(ranks, "ep_training")
     if any(x != 0.0 for r in ranks for x in r["dropped_frac_step0"]):
         raise AssertionError(f"ep_training dropped tokens: "
@@ -6417,10 +6478,7 @@ def phase_gpt2_tp_training(dev):
     from apex_tpu_torch.examples._common import block
     from apex_tpu_torch.models import gpt2
 
-    shutil.rmtree(GTP_CKPT_DIR, ignore_errors=True)
-    ranks, seconds, out_dir = launch_ranks("gpt2_tp_training",
-                                           GTP_TP * GTP_DP, "gloo",
-                                           keep=True)
+    ranks, seconds, out_dir = suite_ranks("gpt2_tp_training", keep=True)
     shutil.rmtree(GTP_CKPT_DIR, ignore_errors=True)
     check_rank_steps(ranks, "gpt2_tp_training")
     for r in ranks:
@@ -6482,10 +6540,12 @@ def mp_nccl_rank(rank, n, device, out_dir: Path) -> dict:
     """One NCCL rank, every group of one: MP_STEPS train steps of each
     bound path (Llama with cp_axis bound, Llama MoE with ep_axis bound,
     GPT-2 with tp_axis bound) and of the same steps with the axis
-    unbound, from the same seeded state: the end states' SHA-1s and each
-    run's launches."""
+    unbound, from the same seeded state: whether the two end states
+    (params and Adam moments) are equal byte for byte, and each run's
+    launches."""
     import torch
 
+    from apex_tpu_torch import _tree
     from apex_tpu_torch.distributed import backend as B
     from apex_tpu_torch.models import gpt2, llama
     from apex_tpu_torch.optimizers import fused_adam
@@ -6506,13 +6566,15 @@ def mp_nccl_rank(rank, n, device, out_dir: Path) -> dict:
             params, opt, loss = train(params, opt, batch, tx)
             losses.append(float(loss))
         ms = (time.perf_counter() - t0) * 1e3 / MP_STEPS
-        out = {"sha1": digest(state_digests({"params": params, "opt": opt})),
-               "losses": losses, "launches": counts_delta(before),
+        out = {"losses": losses, "launches": counts_delta(before),
                "step_ms": ms}
-        del params, opt
+        del batch
         gc.collect()
         torch.cuda.empty_cache()
-        return out
+        return out, {"params": params, "opt": opt}
+
+    def bits(t):
+        return t.detach().reshape(-1).view(torch.uint8)
 
     def llama_make(cfg, rows):
         def make():
@@ -6549,25 +6611,41 @@ def mp_nccl_rank(rank, n, device, out_dir: Path) -> dict:
              gpt2.train_step(p, o, b, g2, tx, remat=True,
                              vocab_chunks=GPT2_CHUNKS, tp_axis=axis))):
         axis = {"cp": "cp", "ep": "ep", "tp": "tp"}[name]
-        out[name] = {"bound": run(make, train_of(axis)),
-                     "unbound": run(make, train_of(None))}
+        # both end states on the card (the ep path's two take it to
+        # ~75 GB), compared byte for byte, leaf by leaf
+        bound, end_bound = run(make, train_of(axis))
+        unbound, end = run(make, train_of(None))
+        a, _ = _tree.flatten(end_bound)
+        b, _ = _tree.flatten(end)
+        equal = len(a) == len(b) and all(
+            x.dtype == y.dtype and x.shape == y.shape
+            and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+        out[name] = {"bound": bound, "unbound": unbound,
+                     "state_bit_equal": equal, "state_leaves": len(a),
+                     "state_bytes": sum(x.numel() * x.element_size()
+                                        for x in a)}
+        del a, b, end, end_bound
+        gc.collect()
+        torch.cuda.empty_cache()
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     return out
 
 
 def phase_mp_nccl(dev):
     """The cp, ep and tp paths each bound to an NCCL group of one, against
-    the same steps unbound: equal SHA-1s of the end states (bit for bit)
-    and equal launches."""
-    ranks, seconds = launch_ranks("mp_nccl", 1, "nccl")
+    the same steps unbound: the end states equal byte for byte and equal
+    launches."""
+    ranks, seconds = suite_ranks("mp_nccl")
     r = ranks[0]
     if r["backend"] != "nccl":
         raise AssertionError(f"backend {r['backend']}, not nccl")
     check_card_peak(ranks, "mp_nccl")
     for name in ("cp", "ep", "tp"):
         a, b = r[name]["bound"], r[name]["unbound"]
-        if a["sha1"] != b["sha1"] or a["launches"] != b["launches"]:
-            raise AssertionError(f"mp_nccl {name}: bound {a} != unbound {b}")
+        if not r[name]["state_bit_equal"] or a["launches"] != b["launches"]:
+            raise AssertionError(f"mp_nccl {name}: bound {a} != unbound "
+                                 f"{b} (state bit for bit: "
+                                 f"{r[name]['state_bit_equal']})")
         if not all(math.isfinite(x) for x in a["losses"]):
             raise AssertionError(f"mp_nccl {name} losses {a['losses']}")
     return {"phase": "mp_nccl", "ranks": 1, "backend": r["backend"],
@@ -6600,6 +6678,19 @@ def ddp_worker(argv) -> int:
     rank, n, device = initialize_distributed()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    result = {"rank": rank, "world_size": n,
+              "backend": torch.distributed.get_backend(),
+              "device": str(device),
+              "kind": torch.cuda.get_device_name(device),
+              **rank_fn(phase, out_dir)(rank, n, device)}
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
+    B.barrier("dp")
+    return 0
+
+
+def rank_fn(phase: str, out_dir: Path):
+    """The function a rank of ``phase`` runs, ``(rank, n, device) ->
+    result``."""
     run = {"ddp_training": ddp_training_rank, "ddp_nccl": ddp_nccl_rank,
            "megatron_training": partial(megatron_training_rank,
                                         out_dir=out_dir),
@@ -6618,15 +6709,114 @@ def ddp_worker(argv) -> int:
            "megatron_o4_resume": partial(megatron_o4_resume_rank,
                                          out_dir=out_dir),
            "megatron_o4_nccl": partial(megatron_o4_nccl_rank,
-                                       out_dir=out_dir)}
-    result = {"rank": rank, "world_size": n,
-              "backend": torch.distributed.get_backend(),
-              "device": str(device),
-              "kind": torch.cuda.get_device_name(device),
-              **run[phase](rank, n, device)}
-    (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
-    B.barrier("dp")
-    return 0
+                                       out_dir=out_dir),
+           **{suite: partial(suite_rank, out_dir=out_dir, suite=suite)
+              for suite in SUITES}}
+    return run[phase]
+
+
+# paths that share one launch, in this order: the processes' start and
+# their collectives' set-up are paid once a launch. After each path its
+# groups are torn down (the launch's bindings restored) and its memory
+# freed; resnet50_ddp_nccl (deterministic cuDNN) and simple_distributed
+# come last in theirs. A launch comes at the first of its phases; each
+# phase then checks its own path's result, with that path's seconds.
+SUITES = {
+    "nccl_suite": (1, "nccl", ("ddp_nccl", "megatron_nccl", "mp_nccl",
+                               "megatron_o4_nccl", "resnet50_ddp_nccl")),
+    "gloo2_suite": (2, "gloo", ("ddp_training", "cp_training",
+                                "ep_training", "resnet50_ddp", "bert_train",
+                                "simple_distributed")),
+    "gloo4_suite": (4, "gloo", ("megatron_training", "gpt2_tp_training")),
+}
+SUITE_OF = {p: name for name, (_, _, paths) in SUITES.items()
+            for p in paths}
+# megatron_o4 keeps a launch of its own: beside the other 4-rank paths'
+# host memory, its ranks' host copies of their states (the loops' start
+# states, the emergency save's pinned buffers) outgrow the machine's
+LAUNCH_TIMEOUT = {**dict.fromkeys(SUITES, 1200), "megatron_o4": 900,
+                  "megatron_o4_resume": 600}
+_SUITE_RESULTS: dict = {}
+
+
+def suite_rank(rank, n, device, out_dir: Path, suite: str) -> dict:
+    """A rank running every path of ``suite`` in turn: each path's
+    result, its seconds and its own peak memory."""
+    import torch
+
+    from apex_tpu_torch.distributed import backend as B
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    bound = dict(B._GROUPS)
+    paths = {}
+    for phase in SUITES[suite][2]:
+        sub = out_dir / phase
+        sub.mkdir(exist_ok=True)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.monotonic()
+        paths[phase] = dict(rank_fn(phase, sub)(rank, n, device),
+                            path_s=time.monotonic() - t0)
+        ps.destroy_model_parallel()
+        B._GROUPS.clear()
+        B._GROUPS.update(bound)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return {"paths": paths}
+
+
+def mego4_prepare() -> None:
+    """megatron_o4's checkpoint directory, empty, on a disk with room for
+    the four ranks' states (bf16 shards and fp32 moments: 10 bytes a
+    parameter)."""
+    import shutil
+
+    shutil.rmtree(MEGO4_DIR, ignore_errors=True)
+    MEGO4_DIR.mkdir(parents=True)
+    need = 4 * 10 * 640e6
+    free = shutil.disk_usage(MEGO4_DIR).free
+    if free < need:
+        raise RuntimeError(f"megatron_o4 needs {need:.0f} bytes free under "
+                           f"{MEGO4_DIR} for its checkpoint, the disk has "
+                           f"{free}")
+
+
+def suite_ranks(phase: str, keep: bool = False) -> tuple:
+    """``launch_ranks`` for a path of SUITES: the suite's one launch at
+    the first call (its line emitted then); this path's result on every
+    rank, its seconds in that launch (the slowest rank's) and, with
+    ``keep``, the directory it wrote, which the caller removes."""
+    import shutil
+
+    suite = SUITE_OF[phase]
+    if suite not in _SUITE_RESULTS:
+        nprocs, backend, paths = SUITES[suite]
+        if "gpt2_tp_training" in paths:
+            shutil.rmtree(GTP_CKPT_DIR, ignore_errors=True)
+        try:
+            ranks, seconds, out_dir = launch_ranks(suite, nprocs, backend,
+                                                   keep=True)
+        finally:
+            shutil.rmtree(GTP_CKPT_DIR, ignore_errors=True)
+        _SUITE_RESULTS[suite] = {"ranks": ranks, "out_dir": out_dir,
+                                 "left": set(paths)}
+        emit({"phase": suite, "paths": list(paths), "ranks": nprocs,
+              "backend": backend, "launch_s": seconds,
+              "path_s": {p: max(r["paths"][p]["path_s"] for r in ranks)
+                         for p in paths}})
+    res = _SUITE_RESULTS[suite]
+    mine = [dict({k: v for k, v in r.items() if k != "paths"},
+                 **r["paths"][phase]) for r in res["ranks"]]
+    seconds = max(r["path_s"] for r in mine)
+    sub = res["out_dir"] / phase
+    res["left"].discard(phase)
+    if not res["left"]:  # the last path read: the rank files go
+        for f in res["out_dir"].glob("rank*.json"):
+            f.unlink()
+    if keep:
+        return mine, seconds, sub
+    shutil.rmtree(sub)
+    return mine, seconds
 
 
 class DevicePeak:
@@ -6676,18 +6866,14 @@ def launch_ranks(phase: str, nprocs: int, backend: str,
     out_dir.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT), os.environ.get("PYTHONPATH", "")]))
-    if phase in SLICE_TIMEOUT:
-        # two 8B-width ranks share the card: segments that grow in place
-        # keep each rank's cache close to what it allocated
-        env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    # ranks of 8B widths share the card: segments that grow in place keep
+    # each rank's cache close to what it allocated
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.monotonic()
     with DevicePeak() as card:
         rc = multiproc.launch([str(ROOT / "chip_smoke.py"), "--ddp-worker",
                                phase, str(out_dir)], nprocs, backend=backend,
-                              env=env, timeout={**DDP_TIMEOUT, **MEG_TIMEOUT,
-                                                **SLICE_TIMEOUT,
-                                                **BASELINE_TIMEOUT,
-                                                **MEGO4_TIMEOUT}[phase])
+                              env=env, timeout=LAUNCH_TIMEOUT[phase])
     seconds = time.monotonic() - t0
     if rc != 0:
         raise RuntimeError(f"{phase}: a rank exited with {rc}")
@@ -6716,7 +6902,7 @@ def total_launches(ranks, keys) -> dict:
 def phase_ddp_training(dev):
     """GPT-2 345M on DDP_RANKS ranks over gloo on the one card: DDP and
     ZeRO-1, the checks of :func:`ddp_training_rank` held here."""
-    ranks, seconds = launch_ranks("ddp_training", DDP_RANKS, "gloo")
+    ranks, seconds = suite_ranks("ddp_training")
     for r in ranks:
         for s in r["steps"]:
             for key, want in (("launches_ddp", r["want_ddp"]),
@@ -6805,7 +6991,7 @@ def phase_ddp_training(dev):
 def phase_ddp_nccl(dev):
     """The same model and step on one rank over NCCL: after each step,
     DDP and ZeRO-1 each equal the single-device step bit for bit."""
-    ranks, seconds = launch_ranks("ddp_nccl", 1, "nccl")
+    ranks, seconds = suite_ranks("ddp_nccl")
     r = ranks[0]
     if r["backend"] != "nccl":
         raise AssertionError(f"backend {r['backend']}, not nccl")
@@ -6863,8 +7049,6 @@ RN_DDP_RANKS = 2
 BT_RANKS = 2
 BT_BATCH = 8
 BT_STEPS = 3
-BASELINE_TIMEOUT = {"resnet50_ddp": 480, "resnet50_ddp_nccl": 300,
-                    "simple_distributed": 180, "bert_train": 480}
 BASELINE_LABEL = ("2 ranks time-sharing one H100 over gloo (collectives "
                   "staged through host memory): not a measure of NCCL over "
                   "NVLink")
@@ -7259,6 +7443,8 @@ def phase_resnet50_training(dev):
     steady = sum(step_ms[1:]) / len(step_ms[1:])
     macs = forward_macs(model, RN_IMAGE)
     flops = 3 * 2 * macs * RN_BATCH
+    larc = resnet_larc_steps(step, master, state, x, y)
+    larc["plain_steady_step_ms"] = steady
     del master, variables, state, x, y, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -7310,7 +7496,7 @@ def phase_resnet50_training(dev):
                      "dense bf16 peak",
         "peak_memory_bytes": peak,
         "running_stats_moved": [moved, n_stats],
-        "launches_per_step": counts[0], "launches": total,
+        "launches_per_step": counts[0], "launches": total, "larc": larc,
         "example": {"images_per_s": rate[0], "losses": ex_losses,
                     "val": val[0], "steps": RN_EXAMPLE_STEPS,
                     "workers": RN_EXAMPLE_WORKERS,
@@ -7387,8 +7573,7 @@ def phase_resnet50_ddp(dev, ref_host):
 
     import torch
 
-    ranks, seconds, out_dir = launch_ranks("resnet50_ddp", RN_DDP_RANKS,
-                                           "gloo", keep=True)
+    ranks, seconds, out_dir = suite_ranks("resnet50_ddp", keep=True)
     saved = torch.load(out_dir / "grads0.pt")
     shutil.rmtree(out_dir)
     names = sorted(saved["fp32"])
@@ -7502,7 +7687,7 @@ def resnet50_ddp_nccl_rank(rank, n, device, out_dir: Path) -> dict:
 
 
 def phase_resnet50_ddp_nccl(dev):
-    ranks, seconds = launch_ranks("resnet50_ddp_nccl", 1, "nccl")
+    ranks, seconds = suite_ranks("resnet50_ddp_nccl")
     r = ranks[0]
     if r["backend"] != "nccl":
         raise AssertionError(f"backend {r['backend']}, not nccl")
@@ -7542,8 +7727,7 @@ def simple_distributed_rank(rank, n, device, out_dir: Path) -> dict:
 
 
 def phase_simple_distributed(dev):
-    ranks, seconds = launch_ranks("simple_distributed", RN_DDP_RANKS,
-                                  "gloo")
+    ranks, seconds = suite_ranks("simple_distributed")
     out = ranks[0]["stdout"]
     for want in ("DDP grad == global-batch grad: OK", "converged: OK"):
         if want not in out:
@@ -7631,8 +7815,7 @@ def phase_bert_train(dev):
 
     from apex_tpu_torch import _tree
 
-    ranks, seconds, out_dir = launch_ranks("bert_train", BT_RANKS, "gloo",
-                                           keep=True)
+    ranks, seconds, out_dir = suite_ranks("bert_train", keep=True)
     saved = torch.load(out_dir / "grads0.pt")
     shutil.rmtree(out_dir)
     check_rank_steps(ranks, "bert_train")
@@ -7683,8 +7866,6 @@ MEGO4_DIR = ROOT / "build" / "megatron_o4_ckpt"
 # the rings after step 0 against one device's O4 step on the global
 # batch: a max of the same values summed in another order
 MEGO4_RING_REL = 1e-2
-MEGO4_TIMEOUT = {"megatron_o4": 900, "megatron_o4_resume": 600,
-                 "megatron_o4_nccl": 420}
 
 
 def mego4_setup(device):
@@ -7783,6 +7964,7 @@ class StepRecorder:
             self.opt_state = opt_state
             return torch.tensor(loss), opt_state
 
+        self._step, self._real_step = step, (real_grads, real_train)
         step.grads, step.train_step = grads, train_step
         fc._cast_and_scale_cuda = cast
 
@@ -7793,7 +7975,9 @@ class StepRecorder:
         return of
 
     def restore(self):
+        """Put back the step's methods and the cast."""
         self._fc._cast_and_scale_cuda = self._real_cast
+        self._step.grads, self._step.train_step = self._real_step
 
 
 def tree_bytes(path: Path) -> int:
@@ -7869,9 +8053,9 @@ def megatron_o4_resume_rank(rank, n, device, out_dir: Path) -> dict:
     rank_dir = ex.checkpoint_dir(str(MEGO4_DIR), rank)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, losses, loop = ex.run(step, state, MEGO4_STEPS,
-                                 rec.batch_of(batch), directory=rank_dir,
-                                 save_every=0, resume=True, log=logs.append)
+    state, _, loop = ex.run(step, state, MEGO4_STEPS, rec.batch_of(batch),
+                            directory=rank_dir, save_every=0, resume=True,
+                            log=logs.append)
     rec.restore()
     restore_s = rec.steps[0]["t_start"] - t0 if rec.steps else None
     last_stage = step.coords["pp"][0] == MEG_PP - 1
@@ -7881,6 +8065,7 @@ def megatron_o4_resume_rank(rank, n, device, out_dir: Path) -> dict:
             "steps": [{k: v for k, v in s.items() if k[:2] != "t_"}
                       for s in rec.steps],
             "restore_s": restore_s, "sha1": digest(state_digests(state)),
+            # a new process: its first cast fills the scratch
             "want": mego4_want(cfg, last_stage, True)}
 
 
@@ -7919,15 +8104,7 @@ def phase_megatron_o4(dev):
 
     import torch
 
-    shutil.rmtree(MEGO4_DIR, ignore_errors=True)
-    MEGO4_DIR.mkdir(parents=True)
-    # a rank's state: bf16 shards, fp32 moments (10 bytes a parameter)
-    need = 4 * 10 * 640e6
-    free = shutil.disk_usage(MEGO4_DIR).free
-    if free < need:
-        raise RuntimeError(f"megatron_o4 needs {need:.0f} bytes free under "
-                           f"{MEGO4_DIR} for its checkpoint, the disk has "
-                           f"{free}")
+    mego4_prepare()
     try:
         ranks, seconds, out_dir = launch_ranks("megatron_o4", MEG_TP * MEG_PP,
                                                "gloo", keep=True)
@@ -8175,7 +8352,7 @@ def phase_megatron_o4_nccl(dev):
     """megatron_o4_nccl_rank on one NCCL rank: params, moments and rings
     bit for bit after each step, the E5M2 ring written, exact launches
     (the first step's count the cast scratch's fill on the 3-D side)."""
-    ranks, seconds = launch_ranks("megatron_o4_nccl", 1, "nccl")
+    ranks, seconds = suite_ranks("megatron_o4_nccl")
     r = ranks[0]
     if r["backend"] != "nccl":
         raise AssertionError(f"backend {r['backend']}, not nccl")
@@ -8555,6 +8732,623 @@ def phase_dcgan(dev):
             "steady_step_ms": statistics.median(step_ms[1:]),
             "launches": launches}
 
+# rnn_mlstm: NVIDIA/sentiment-discovery's byte-level language model, the
+# multiplicative LSTM of Radford et al. 2017: 256 byte values, a 64-wide
+# embedding, one mLSTM of 4096, sequences of 256 bytes, batch 128. Weight
+# norm on every RNN weight of two dims or more, made inside the forward;
+# a bf16 model under FP16_Optimizer(FusedAdam(lr=5e-4, flat=True)) with
+# a dynamic loss scale; the gradients clipped to MLSTM_CLIP each step and
+# an inf planted in one gradient leaf at MLSTM_INF_STEP
+MLSTM_VOCAB, MLSTM_EMBED, MLSTM_HIDDEN = 256, 64, 4096
+MLSTM_SEQ, MLSTM_BATCH, MLSTM_STEPS, MLSTM_LR = 256, 128, 4, 5e-4
+MLSTM_CLIP, MLSTM_INF_STEP = 1.0, 2
+# the fp32 gradients against float64 autograd of the same model: fp32
+# rounding (2^-24) over 256 recurrent steps reads ~1e-6; a wrong gate,
+# norm or carry moves a leaf by O(1)
+MLSTM_FP64_REL = 1e-3
+# FP16_Optimizer's clip norm against multi_tensor_l2norm of the same
+# unscaled fp32 gradients: two fp32 sums of squares in other orders
+MLSTM_CLIP_REL = 1e-6
+# the bf16 cell step against fp32 is taken at this timestep, from the
+# fp32 forward's carry
+MLSTM_CELL_T = MLSTM_SEQ // 2
+
+
+def mlstm_lm(device, vocab=MLSTM_VOCAB, embed=MLSTM_EMBED,
+             hidden=MLSTM_HIDDEN, seed=SEED):
+    """The phase's model: ``rnn.mLSTM(embed, hidden)`` between its own
+    plain embedding [vocab, embed] and decoder ([vocab, hidden] and
+    [vocab]), weight norm on the RNN's weights of two dims or more.
+    Returns the model and its fp32 params ``{"embed", "rnn", "dec_w",
+    "dec_b"}``, drawn from ``seed``."""
+    import torch
+
+    from apex_tpu_torch import rnn
+    from apex_tpu_torch.reparameterization import apply_weight_norm
+
+    model = rnn.mLSTM(embed, hidden, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    bound = hidden ** -0.5
+    params = {"embed": 0.1 * torch.randn(vocab, embed, generator=gen,
+                                         device=device),
+              "rnn": apply_weight_norm(model.params[0]),
+              "dec_w": torch.empty(vocab, hidden, device=device).uniform_(
+                  -bound, bound, generator=gen),
+              "dec_b": torch.zeros(vocab, device=device)}
+    model.params = None  # the tree above is the one trained
+    return model, params
+
+
+def mlstm_lm_loss(params, model, tokens):
+    """The mean next-byte cross entropy of ``tokens`` [B, S + 1] (fp32
+    logits): the embedding, the mLSTM over the weights
+    ``compute_weights`` makes from (g, v), the decoder."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.reparameterization import compute_weights
+
+    x = params["embed"][tokens[:, :-1]].transpose(0, 1)
+    out, _ = model(x, params=[compute_weights(params["rnn"])])
+    logits = torch.matmul(out, params["dec_w"].t()) + params["dec_b"]
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           tokens[:, 1:].t().reshape(-1))
+
+
+def mlstm_step_flops(batch=MLSTM_BATCH, seq=MLSTM_SEQ, embed=MLSTM_EMBED,
+                     hidden=MLSTM_HIDDEN, vocab=MLSTM_VOCAB) -> int:
+    """A train step's matmul FLOPs: a timestep's forward products (x W_mih,
+    h W_mhh, x W_ih, m W_hh, the decoder) times 3 for the backward, times
+    the sequence."""
+    per_t = 2 * batch * (embed * hidden + hidden * hidden
+                         + embed * 4 * hidden + hidden * 4 * hidden
+                         + hidden * vocab)
+    return 3 * per_t * seq
+
+
+def mlstm_cell_grads(layer, x, carry, cot, dtype):
+    """One mLSTM cell step in ``dtype`` over the weights made from the
+    weight-normed ``layer``: the gradients of <h', cot_h> + <c', cot_c>
+    w.r.t. the layer's leaves, in ``layer``'s leaf order."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.reparameterization import compute_weights
+    from apex_tpu_torch.rnn.cells import mlstm_cell
+
+    def loss_of(p, x):
+        (h, c), _ = mlstm_cell(compute_weights(p),
+                               tuple(s.to(dtype) for s in carry),
+                               x.to(dtype))
+        return (h.float() * cot[0]).sum() + (c.float() * cot[1]).sum()
+
+    _, grads = local_grads(loss_of, _tree.map_leaves(lambda t: t.to(dtype),
+                                                     layer), x)
+    return _tree.leaves(grads)
+
+
+def phase_rnn_mlstm(dev):
+    """The byte-level mLSTM at full width: the fp32 step-0 gradients end
+    to end against float64 autograd of the same model (MLSTM_FP64_REL),
+    one bf16 cell step against fp32 (GRAD_REL_L2 / GRAD_COS; the bf16
+    gradients over all MLSTM_SEQ steps reported beside fp32), then
+    MLSTM_STEPS steps of the bf16 model under FP16_Optimizer: the clip
+    norm equal to multi_tensor_l2norm's, the model tree equal to its
+    masters rounded after every step, the inf step skipped bit for bit
+    with the scale halved and no Adam launch, one flat Adam launch each
+    other step, finite losses."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer, tofp16
+    from apex_tpu_torch.multi_tensor_apply import multi_tensor_l2norm
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    model, params = mlstm_lm("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    tokens = torch.randint(0, MLSTM_VOCAB, (MLSTM_BATCH, MLSTM_SEQ + 1),
+                           generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    paths = _tree.paths(params)
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+
+    def loss_of(tree, tokens):
+        return mlstm_lm_loss(tree, model, tokens)
+
+    # (a) fp32 end to end against float64 autograd of the same model
+    loss32, g32 = local_grads(loss_of, params, tokens)
+    loss64, g64 = local_grads(loss_of, _tree.map_leaves(
+        lambda t: t.double(), params), tokens)
+    fp64_cmp = leaf_compare(paths, _tree.leaves(g32), _tree.leaves(g64))
+    del g64
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not fp64_cmp["worst_rel_l2"] <= MLSTM_FP64_REL:
+        raise AssertionError(f"rnn_mlstm fp32 gradients off float64: "
+                             f"{fp64_cmp}")
+    # the bf16 model end to end, reported beside fp32
+    loss16, g16 = local_grads(loss_of, tofp16(params), tokens)
+    bf16_cmp = leaf_compare(paths, _tree.leaves(g16), _tree.leaves(g32))
+    del g16, g32
+    # (b) one bf16 cell step against fp32 at MLSTM_CELL_T, from the fp32
+    # forward's carry there
+    from apex_tpu_torch.reparameterization import compute_weights
+
+    with torch.no_grad():
+        x = params["embed"][tokens[:, :-1]].transpose(0, 1)
+        _, finals = model(x[:MLSTM_CELL_T],
+                          params=[compute_weights(params["rnn"])])
+    carry = finals[0]
+    cot = [torch.randn(MLSTM_BATCH, MLSTM_HIDDEN, generator=gen,
+                       device="cuda") for _ in range(2)]
+    cell_paths = _tree.paths(params["rnn"])
+    cell32 = mlstm_cell_grads(params["rnn"], x[MLSTM_CELL_T], carry, cot,
+                              torch.float32)
+    cell16 = mlstm_cell_grads(params["rnn"], x[MLSTM_CELL_T], carry, cot,
+                              torch.bfloat16)
+    cell_cmp = leaf_compare(cell_paths, cell16, cell32)
+    del cell16, cell32, x, finals, carry
+    bad = {k: v for k, v in cell_cmp["leaves"].items()
+           if not (v["rel_l2"] <= GRAD_REL_L2 and v["cos"] >= GRAD_COS)}
+    if bad:
+        raise AssertionError(f"rnn_mlstm bf16 cell step off fp32: {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the bf16 model under FP16_Optimizer
+    opt = FP16_Optimizer(FusedAdam(tofp16(params), lr=MLSTM_LR, flat=True),
+                         dynamic_loss_scale=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = read_counts()
+    steps = []
+    for s in range(MLSTM_STEPS):
+        scale = opt.loss_scale
+        before = read_counts()
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        loss, grads = local_grads(lambda t, b: opt.scale_loss(loss_of(t, b)),
+                                  opt.model_params, tokens)
+        loss = float(loss) / scale
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        if s == MLSTM_INF_STEP:
+            grads["dec_b"][0] = float("inf")
+        # the clip norm's reference: the unscaled fp32 gradients' L2 norm
+        ref_norm = float(multi_tensor_l2norm(
+            [g.float() * (1.0 / scale) for g in _tree.leaves(grads)])[0])
+        if s == MLSTM_INF_STEP:
+            kept = [t.clone() for t in _tree.leaves(
+                (opt.optimizer.params, opt.optimizer.state.mu,
+                 opt.optimizer.state.nu, opt.model_params))]
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        grads, norm = opt.clip_master_grads(grads, MLSTM_CLIP)
+        model16 = opt.step(grads)
+        torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        del grads
+        launches = counts_delta(before)
+        norm = float(norm)
+        if s == MLSTM_INF_STEP:
+            if math.isfinite(norm) or math.isfinite(ref_norm):
+                raise AssertionError(f"rnn_mlstm inf step: norms {norm}, "
+                                     f"{ref_norm}")
+            if not opt.overflow or opt.loss_scale != scale / 2:
+                raise AssertionError(f"rnn_mlstm inf step: overflow "
+                                     f"{opt.overflow}, scale {scale} -> "
+                                     f"{opt.loss_scale}")
+            now = _tree.leaves((opt.optimizer.params, opt.optimizer.state.mu,
+                                opt.optimizer.state.nu, opt.model_params))
+            if not all(torch.equal(a, b) for a, b in zip(kept, now)):
+                raise AssertionError("rnn_mlstm: the skipped step moved "
+                                     "the masters, moments or model")
+            del kept, now
+        else:
+            rel = abs(norm - ref_norm) / ref_norm
+            if not rel <= MLSTM_CLIP_REL:
+                raise AssertionError(f"rnn_mlstm step {s}: clip norm {norm}"
+                                     f" vs multi_tensor_l2norm {ref_norm}")
+            if opt.overflow or opt.loss_scale != scale:
+                raise AssertionError(f"rnn_mlstm step {s}: overflow "
+                                     f"{opt.overflow}, scale {scale} -> "
+                                     f"{opt.loss_scale}")
+        want = dict(dict.fromkeys(launches, 0),
+                    fused_adam=int(s != MLSTM_INF_STEP))
+        if launches != want:
+            raise AssertionError(f"rnn_mlstm step {s}: launches {launches}"
+                                 f" != {want}")
+        if not all(torch.equal(m.to(p.dtype), p) for m, p in zip(
+                _tree.leaves(opt.optimizer.params), _tree.leaves(model16))):
+            raise AssertionError(f"rnn_mlstm step {s}: the model tree is "
+                                 f"not its masters rounded")
+        if not math.isfinite(loss):
+            raise AssertionError(f"rnn_mlstm step {s}: loss {loss}")
+        steps.append({"step": s, "loss": loss, "loss_scale": scale,
+                      "clip_norm": norm, "l2norm": ref_norm,
+                      "skipped": bool(opt.overflow),
+                      "step_ms": (t_b - t_a + t_d - t_c) * 1e3,
+                      "launches": launches})
+    peak = torch.cuda.max_memory_allocated()
+    total = counts_delta(start)
+    if peak >= 80e9:
+        raise AssertionError(f"rnn_mlstm peak {peak} B")
+    timed = [st["step_ms"] for st in steps[1:]
+             if not st["skipped"]]
+    steady = sum(timed) / len(timed)
+    flops = mlstm_step_flops()
+    return {"phase": "rnn_mlstm", "model": "sentiment-discovery mLSTM",
+            "vocab": MLSTM_VOCAB, "embed": MLSTM_EMBED,
+            "hidden": MLSTM_HIDDEN, "seq": MLSTM_SEQ, "batch": MLSTM_BATCH,
+            "params": n_params, "weight_norm": "every RNN weight of 2+ dims",
+            "optimizer": f"FP16_Optimizer(FusedAdam(lr={MLSTM_LR}, "
+                         f"flat=True), dynamic_loss_scale=True)",
+            "dtype": "bfloat16", "init_s": init_s,
+            "grad_check_fp32_vs_fp64": dict(
+                fp64_cmp, loss=float(loss32), loss_fp64=float(loss64),
+                rel_l2_tol=MLSTM_FP64_REL),
+            "grad_check_bf16_cell": dict(cell_cmp, timestep=MLSTM_CELL_T,
+                                         rel_l2_tol=GRAD_REL_L2,
+                                         cos_tol=GRAD_COS),
+            "bf16_vs_fp32_end_to_end": dict(bf16_cmp, loss=float(loss16),
+                                            gated=False),
+            "steps": steps, "steady_step_ms": steady,
+            "bytes_per_s": MLSTM_BATCH * MLSTM_SEQ / steady * 1e3,
+            "step_flops": flops,
+            "mfu": flops / (steady / 1e3) / dev["bf16_flops"],
+            "mfu_count": "3 x 2 x B x (the mLSTM's four products and the "
+                         "decoder's) per timestep x S, over the card's "
+                         "dense bf16 peak",
+            "peak_memory_bytes": peak, "launches": total}
+
+
+# bert_optimizers: BERT-base's step (bf16 params, the padded 8 x 512
+# batch with 15% masking) under the last three optimizers, each from the
+# same seeded params for BERT_OPT_STEPS steps; after step 1 each
+# optimizer's state against the same transform run on the CPU on host
+# copies of its inputs (BERT_OPT_STATE_REL per leaf, relative L2: the
+# card's and the CPU's reductions sum in other orders)
+BERT_OPTIMIZERS = (
+    ("mp_lamb", "FusedMixedPrecisionLamb",
+     dict(lr=1e-3, weight_decay=0.01, max_grad_norm=1.0)),
+    ("novograd", "FusedNovoGrad",
+     dict(lr=1e-3, betas=(0.95, 0.98), weight_decay=0.001)),
+    ("adagrad", "FusedAdagrad", dict(lr=1e-2)))
+BERT_OPT_STEPS = 3
+BERT_OPT_STATE_REL = 1e-5
+# the multi-tensor ops on BERT-base's gradients against float64 on the
+# card: fp32 sums and products, relative L2 per leaf (norms: relative)
+MT_REL = 1e-6
+
+
+def host_copy(tree):
+    """``tree`` (any state tree) with every tensor copied to the host."""
+    from apex_tpu_torch import _tree
+
+    leaves, treedef = _tree.flatten(tree)
+    return treedef.unflatten([t.detach().cpu() for t in leaves])
+
+
+def check_multi_tensor(grads, params) -> dict:
+    """``multi_tensor_applier`` with ``multi_tensor_l2norm``
+    (per_tensor), ``_scale`` and ``_axpby`` on the gradient leaves
+    against float64 on the card (MT_REL); then with an inf planted in one
+    leaf every op reports it."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.multi_tensor_apply import (
+        multi_tensor_applier,
+        multi_tensor_axpby,
+        multi_tensor_l2norm,
+        multi_tensor_l2norm_scale,
+        multi_tensor_scale,
+    )
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm(got.double() - want)
+                     / torch.linalg.vector_norm(want))
+
+    g, p = _tree.leaves(grads), _tree.leaves(params)
+    sq = torch.stack([torch.sum(t.double() ** 2) for t in g])
+    total, per = multi_tensor_applier(multi_tensor_l2norm, None, [g], True)
+    norm_err = max(abs(float(total) / float(torch.sqrt(sq.sum())) - 1.0),
+                   float(((per.double() / torch.sqrt(sq)) - 1.0).abs().max()))
+    scaled, flag_s = multi_tensor_applier(multi_tensor_scale, None, [g, g],
+                                          1.0 / 3.0, torch.float32)
+    scale_err = max(rel(o, t.double() / 3.0) for o, t in zip(scaled, g))
+    del scaled
+    a, b = 0.5, -2.0
+    out, flag_a = multi_tensor_applier(multi_tensor_axpby, None, [g, p, g],
+                                       a, b, torch.float32)
+    axpby_err = max(rel(o, a * x.double() + b * y.double())
+                    for o, x, y in zip(out, g, p))
+    del out
+    errs = {"l2norm": norm_err, "scale": scale_err, "axpby": axpby_err}
+    if not max(errs.values()) <= MT_REL or bool(flag_s) or bool(flag_a):
+        raise AssertionError(f"multi-tensor ops off float64: {errs}, "
+                             f"flags {bool(flag_s)} {bool(flag_a)}")
+    bad = list(g)
+    i = max(range(len(g)), key=lambda k: g[k].numel())
+    bad[i] = bad[i].clone()
+    bad[i].view(-1)[7] = float("inf")
+    flags = {
+        "l2norm_nonfinite": not bool(torch.isfinite(
+            multi_tensor_applier(multi_tensor_l2norm, None, [bad])[0])),
+        "scale": bool(multi_tensor_applier(multi_tensor_scale, None,
+                                           [bad, bad], 0.5)[1]),
+        "axpby": bool(multi_tensor_applier(multi_tensor_axpby, None,
+                                           [bad, p, bad], 1.0, 1.0)[1]),
+        "l2norm_scale": bool(multi_tensor_applier(
+            multi_tensor_l2norm_scale, None, [bad], 0.5)[3])}
+    if not all(flags.values()):
+        raise AssertionError(f"an inf went unreported: {flags}")
+    return {"leaves": len(g), "elements": sum(t.numel() for t in g),
+            "max_rel_err": errs, "tol": MT_REL, "inf_reported": flags}
+
+
+def bert_batch(gen, cfg, padded: bool = True):
+    """phase_bert_training's batch: 8 x 512 tokens with 15% masking and,
+    ``padded``, the seeded padding mask; ``(batch, pad)``."""
+    import torch
+
+    shape = (BERT_BATCH, BERT_SEQ)
+    tokens = torch.randint(4, cfg.vocab_size, shape, generator=gen,
+                           device="cuda")
+    mlm = torch.rand(shape, generator=gen, device="cuda") < 0.15
+    if not padded:
+        return (torch.where(mlm, 3, tokens), tokens, mlm.float()), None
+    pad = bert_pad_mask(gen, BERT_BATCH, BERT_SEQ)
+    inputs = torch.where(mlm, 3, torch.where(pad, 0, tokens))
+    return (inputs, tokens, (mlm & ~pad).float()), pad
+
+
+def phase_bert_optimizers(dev):
+    """BERT-base under FusedMixedPrecisionLamb, FusedNovoGrad and
+    FusedAdagrad (BERT_OPTIMIZERS), each BERT_OPT_STEPS steps from the
+    same params: finite losses, exact launches (LayerNorm 50 / 26, the
+    masked softmax 24 a step), the state after step 1 against the same
+    transform on the CPU, MP-LAMB's bf16 params as the reference forms
+    them; the multi-tensor ops on the step-0 gradients."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch import optimizers as opts
+    from apex_tpu_torch.models import bert
+
+    cfg = bert.bert_base()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params0 = bert.init_params(gen, cfg, device="cuda")
+    batch, pad = bert_batch(gen, cfg)
+    paths = _tree.paths(params0)
+
+    def loss_of(tree, batch):
+        return bert.loss_fn(tree, batch, cfg, pad_mask=pad, remat=True)
+
+    _, grads = local_grads(loss_of, params0, batch)
+    multi_tensor = check_multi_tensor(grads, params0)
+    del grads
+    L = cfg.num_layers
+    want = dict(dict.fromkeys(read_counts(), 0), layer_norm_fwd=4 * L + 2,
+                layer_norm_bwd=2 * L + 2, fused_softmax_masked=2 * L)
+    start = read_counts()
+    out = {}
+    for name, cls, kw in BERT_OPTIMIZERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = getattr(opts, cls)(_tree.map_leaves(torch.clone, params0),
+                                 **kw)
+        losses, step_ms, update_ms, counts = [], [], [], []
+        for s in range(BERT_OPT_STEPS):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = local_grads(loss_of, opt.params, batch)
+            losses.append(float(loss))
+            t1 = time.perf_counter()
+            if s == 1:
+                host = (host_copy(grads), host_copy(opt.params),
+                        host_copy(opt.state))
+                p_old = _tree.map_leaves(torch.clone, opt.params)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            opt.step(grads)
+            ev[1].record()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            del grads
+            counts.append(counts_delta(before))
+            step_ms.append((t1 - t0 + t3 - t2) * 1e3)
+            update_ms.append(ev[0].elapsed_time(ev[1]))
+            if s == 1:
+                state_cmp, mp = bert_opt_state_check(name, opt, host, p_old)
+                del host, p_old
+        if any(c != want for c in counts):
+            raise AssertionError(f"bert_optimizers {name}: launches "
+                                 f"{counts} != {want}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"bert_optimizers {name}: losses {losses}")
+        out[name] = {"optimizer": f"{cls}({kw})", "losses": losses,
+                     "step_ms": step_ms, "update_ms": update_ms,
+                     "update_timed": "CUDA events around opt.step",
+                     "state_after_step1_vs_cpu": state_cmp, **mp}
+        del opt
+    return {"phase": "bert_optimizers", "model": "bert_base",
+            "num_layers": L, "dtype": "bfloat16", "batch": BERT_BATCH,
+            "seq": BERT_SEQ, "pad_mask": True, "remat": True,
+            "params": sum(t.numel() for t in _tree.leaves(params0)),
+            "leaves": len(paths), "steps": BERT_OPT_STEPS,
+            "optimizers": out, "multi_tensor": multi_tensor,
+            "state_rel_l2_tol": BERT_OPT_STATE_REL,
+            "expected_per_step": want, "launches": counts_delta(start)}
+
+
+def bert_opt_state_check(name, opt, host, p_old):
+    """The state after the step just taken against ``opt.tx.update`` on
+    the host copies of that step's gradients, params and state; for
+    MP-LAMB also its bf16 params against ``p + (round(master) - p)`` (the
+    reference's update) and the count of them that differ from
+    ``round(master)``."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    grads, params, state = host
+    with torch.no_grad():
+        _, want = opt.tx.update(grads, state, params)
+    got = host_copy(opt.state)
+    g_leaves, g_def = _tree.flatten(got)
+    w_leaves, w_def = _tree.flatten(want)
+    if str(g_def) != str(w_def):
+        raise AssertionError(f"bert_optimizers {name}: state {g_def} vs "
+                             f"{w_def}")
+    worst = 0.0
+    for a, b in zip(g_leaves, w_leaves):
+        if a.dtype == torch.int32:
+            if not torch.equal(a, b):
+                raise AssertionError(f"bert_optimizers {name}: count "
+                                     f"{a} != {b}")
+            continue
+        num = float(torch.linalg.vector_norm((a.double() - b.double())))
+        den = float(torch.linalg.vector_norm(b.double()))
+        worst = max(worst, num / den if den else num)
+    if not worst <= BERT_OPT_STATE_REL:
+        raise AssertionError(f"bert_optimizers {name}: state off the CPU's "
+                             f"by {worst}")
+    cmp = {"worst_rel_l2": worst, "leaves": len(g_leaves)}
+    if name != "mp_lamb":
+        return cmp, {}
+    masters = _tree.leaves(opt.state.master)
+    follows = all(torch.equal(p, q + (m.to(q.dtype) - q)) for p, q, m in zip(
+        _tree.leaves(opt.params), _tree.leaves(p_old), masters))
+    differ = sum(int((p != m.to(p.dtype)).sum()) for p, m in zip(
+        _tree.leaves(opt.params), masters))
+    if not follows:
+        raise AssertionError("bert_optimizers mp_lamb: the bf16 params are "
+                             "not p + (round(master) - p)")
+    n = sum(p.numel() for p in _tree.leaves(opt.params))
+    return cmp, {"bf16_params_follow_reference": True,
+                 "bf16_differ_from_round_master": differ,
+                 "bf16_elements": n}
+
+
+# LARC on resnet50_training's state after its steps: RN_LARC_STEPS more
+# O2 steps with its FusedSGD wrapped in LARC (Apex's defaults); each
+# leaf's rescaled gradient against the formula in float64 on the host
+RN_LARC_STEPS = 3
+RN_LARC_TRUST, RN_LARC_EPS = 0.02, 1e-8
+RN_LARC_REL = 1e-6
+
+
+def larc_reference(g, p, lr, trust=RN_LARC_TRUST, clip=True,
+                   eps=RN_LARC_EPS, weight_decay=RN_WD):
+    """LARC's rescaled gradient in float64 on the host
+    (``apex_tpu/parallel/larc.py:40``): the rate trust * ||p|| / (||g|| +
+    wd ||p|| + eps), clipped to min(rate / lr, 1), 1 where a norm is 0,
+    times the gradient plus the decay."""
+    g64, p64 = g.detach().cpu().double(), p.detach().cpu().double()
+    pn, gn = float(p64.norm()), float(g64.norm())
+    rate = trust * pn / (gn + pn * weight_decay + eps)
+    if clip:
+        rate = min(rate / lr, 1.0)
+    scale = rate if pn > 0 and gn > 0 else 1.0
+    return (g64 + weight_decay * p64) * scale
+
+
+def resnet_larc_steps(step, master, state, x, y) -> dict:
+    """RN_LARC_STEPS O2 steps from resnet50_training's state with
+    ``LARC(FusedSGD(lr, momentum, weight_decay), trust_coefficient=0.02,
+    clip=True)``: the inner FusedSGD rebuilt with weight_decay 0; each
+    leaf's rescaled gradient (``larc_scale``, as LARC's transform takes
+    it) within RN_LARC_REL of :func:`larc_reference`; the params and
+    momentum after each step bit for bit a ``fused_sgd`` (no decay) step
+    on those rescaled gradients; finite losses; no kernel launched."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.optimizers import FusedSGD, fused_sgd
+    from apex_tpu_torch.parallel import LARC
+    from apex_tpu_torch.parallel.larc import larc_scale
+
+    paths = _tree.paths(master)
+    sgd = FusedSGD(master, lr=RN_LR, momentum=RN_MOMENTUM,
+                   weight_decay=RN_WD)
+    sgd.state = state["opt"]
+    opt = LARC(sgd, trust_coefficient=RN_LARC_TRUST, clip=True,
+               eps=RN_LARC_EPS)
+    plain_sgd = fused_sgd(lr=RN_LR, momentum=RN_MOMENTUM)
+    sstate, stats = state["sstate"], state["stats"]
+    losses, step_ms, worst = [], [], 0.0
+    start = read_counts()
+    for s in range(RN_LARC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, loss, stats = step.grads(master, stats, x, y, sstate)
+        g = rn_unscaled(grads, sstate)
+        del grads
+        finite = bool(torch.stack([torch.isfinite(t).all()
+                                   for t in g]).all())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if not finite:
+            raise AssertionError(f"resnet50 LARC step {s} overflowed")
+        losses.append(float(loss))
+        scaled = [larc_scale(gi, pi, lr=RN_LR, trust_coefficient=RN_LARC_TRUST,
+                             clip=True, eps=RN_LARC_EPS,
+                             weight_decay=RN_WD)
+                  for gi, pi in zip(g, _tree.leaves(master))]
+        for sc, gi, pi in zip(scaled, g, _tree.leaves(master)):
+            ref = larc_reference(gi, pi, RN_LR)
+            num = float(torch.linalg.vector_norm(sc.cpu().double() - ref))
+            den = float(torch.linalg.vector_norm(ref))
+            worst = max(worst, num / den if den else num)
+        p_ref = _tree.map_leaves(torch.clone, master)
+        s_ref = opt.optim.state._replace(momentum_buffer=_tree.map_leaves(
+            torch.clone, opt.optim.state.momentum_buffer))
+        with torch.no_grad():
+            upd, s_ref = plain_sgd.update(_tree.unflatten(paths, scaled),
+                                          s_ref, p_ref)
+            for p, u in zip(_tree.leaves(p_ref), _tree.leaves(upd)):
+                p.add_(u)
+        del scaled, upd
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step(_tree.unflatten(paths, g))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del g
+        step_ms.append((t1 - t0 + t3 - t2) * 1e3)
+        if not (trees_equal(master, p_ref) and trees_equal(
+                opt.state.inner.momentum_buffer, s_ref.momentum_buffer)):
+            raise AssertionError(f"resnet50 LARC step {s}: not a FusedSGD "
+                                 f"step on the rescaled gradients")
+        del p_ref, s_ref
+    if not worst <= RN_LARC_REL:
+        raise AssertionError(f"resnet50 LARC rescaled gradients off the "
+                             f"formula by {worst}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"resnet50 LARC losses {losses}")
+    launches = counts_delta(start)
+    if any(launches.values()):
+        raise AssertionError(f"resnet50 LARC launched {launches}")
+    return {"optimizer": f"LARC(FusedSGD(lr={RN_LR}, momentum="
+                         f"{RN_MOMENTUM}, weight_decay={RN_WD}), "
+                         f"trust_coefficient={RN_LARC_TRUST}, clip=True)",
+            "inner_weight_decay": 0.0, "larc_weight_decay": RN_WD,
+            "inner_weight_decay_shown_by": "each step bit for bit a "
+                                           "fused_sgd step without decay",
+            "steps": RN_LARC_STEPS, "losses": losses, "step_ms": step_ms,
+            "steady_step_ms": sum(step_ms[1:]) / len(step_ms[1:]),
+            "rescaled_worst_rel_l2": worst, "tol": RN_LARC_REL,
+            "params_bit_equal_fused_sgd": True, "launches": launches}
+
+
 
 # the bf16 flash backward's design, named in its two summary rows
 FLASH_BWD_DESIGN = {
@@ -8718,7 +9512,9 @@ def summary(kernels, counts, path_adam):
                            max_abs_err=kernels[key]["max_abs_err"]["delta"])
                 for case, key in (("zero1_shard", "fused_adam_zero1_shard"),
                                   ("ddp_replicated_slab",
-                                   "fused_adam_ddp_slab"))}
+                                   "fused_adam_ddp_slab"),
+                                  ("mlstm_fp32_masters",
+                                   "fused_adam_mlstm_masters"))}
                 | {"megatron_rank_slab": dict(
                     meg["adam"], shape=[meg["adam"]["n"]],
                     max_abs_err=meg["adam"]["max_abs_err"]["delta"])},
@@ -8896,12 +9692,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         mha = phase_multihead_attn(dev)
         emit(mha)
+        # the 2-rank launch's paths that leave the most on the disk (cp,
+        # ep) are checked, and their files removed, before the 4-rank
+        # launches
         for path, run in (("ddp_training", phase_ddp_training),
                           ("ddp_nccl", phase_ddp_nccl),
-                          ("megatron_training", phase_megatron_training),
-                          ("megatron_nccl", phase_megatron_nccl),
                           ("cp_training", phase_cp_training),
                           ("ep_training", phase_ep_training),
+                          ("megatron_training", phase_megatron_training),
+                          ("megatron_nccl", phase_megatron_nccl),
                           ("gpt2_tp_training", phase_gpt2_tp_training),
                           ("mp_nccl", phase_mp_nccl),
                           ("megatron_o4", phase_megatron_o4),
@@ -8923,7 +9722,9 @@ def main() -> int:
                 ("simple_distributed", phase_simple_distributed),
                 ("bert_train", phase_bert_train),
                 ("mlp_fused_dense", phase_mlp_fused_dense),
-                ("dcgan", phase_dcgan)):
+                ("dcgan", phase_dcgan),
+                ("rnn_mlstm", phase_rnn_mlstm),
+                ("bert_optimizers", phase_bert_optimizers)):
             phase = path
             gc.collect()
             torch.cuda.empty_cache()

@@ -183,3 +183,150 @@ def test_megatron_o4_launches_follow_megatron_training(smoke):
     assert (last["fp8_cast"], last["fp8_cast_col"],
             last["fp8_cast_fill"]) == (2, 1, 1)
     assert smoke.mego4_want(cfg, True, False)["fp8_cast_fill"] == 0
+
+
+def test_mlstm_model_and_loss_match_the_reference(smoke):
+    """rnn_mlstm's model and loss (``mlstm_lm``, ``mlstm_lm_loss``), at a
+    tiny width on the CPU: the same params through the JAX package's
+    mLSTM, weight norm and a cross entropy give the same loss (1e-5) and
+    gradients (1e-4 relative L2 per leaf)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from apex_tpu import reparameterization as jrp
+    from apex_tpu import rnn as jrnn
+
+    model, params = smoke.mlstm_lm("cpu", vocab=16, embed=4, hidden=8)
+    assert set(params["rnn"]) == {
+        "w_ih_g", "w_ih_v", "w_hh_g", "w_hh_v", "w_mih_g", "w_mih_v",
+        "w_mhh_g", "w_mhh_v", "b_ih", "b_hh"}
+    tokens = torch.randint(0, 16, (3, 7), generator=torch.Generator()
+                           .manual_seed(0))
+    loss, grads = _loss_and_grads(
+        lambda t: smoke.mlstm_lm_loss(t, model, tokens), params)
+    jm = jrnn.mLSTM(4, 8)
+    tok = jnp.asarray(tokens.numpy())
+
+    def jloss(p):
+        x = jnp.swapaxes(p["embed"][tok[:, :-1]], 0, 1)
+        out, _ = jm(x, params=[jrp.compute_weights(p["rnn"])])
+        logits = out @ p["dec_w"].T + p["dec_b"]
+        logp = jax.nn.log_softmax(logits, axis=-1)
+        tgt = jnp.swapaxes(tok[:, 1:], 0, 1)
+        return -jnp.mean(jnp.take_along_axis(logp, tgt[..., None], -1))
+
+    jp = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), params)
+    jl, jg = jax.value_and_grad(jloss)(jp)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    for path, g, r in zip(_tree.paths(params), grads,
+                          jax.tree_util.tree_leaves(jg)):
+        r = np.asarray(r)
+        assert np.linalg.norm(g.numpy() - r) <= 1e-4 * np.linalg.norm(r), \
+            path
+    # the bf16 cell step and the fp32 one agree at this width too
+    x = params["embed"][tokens[:, 0]]
+    carry = (torch.randn(3, 8), torch.randn(3, 8))
+    cot = [torch.randn(3, 8), torch.randn(3, 8)]
+    g32 = smoke.mlstm_cell_grads(params["rnn"], x, carry, cot,
+                                 torch.float32)
+    g16 = smoke.mlstm_cell_grads(params["rnn"], x, carry, cot,
+                                 torch.bfloat16)
+    cmp = smoke.leaf_compare(_tree.paths(params["rnn"]), g16, g32)
+    assert cmp["worst_rel_l2"] <= smoke.GRAD_REL_L2
+
+
+def test_mlstm_step_flops_count(smoke):
+    """rnn_mlstm's FLOP count: forward 2 B (64 * 4096 + 4096^2 + 64 *
+    16384 + 4096 * 16384 + 4096 * 256) a timestep, times 3, times 256."""
+    smoke_flops = smoke.mlstm_step_flops()
+    per_t = 2 * 128 * (64 * 4096 + 4096 ** 2 + 64 * 16384 + 4096 * 16384
+                       + 4096 * 256)
+    assert smoke_flops == 3 * per_t * 256
+
+
+def test_larc_reference_matches_larc_scale(smoke):
+    """The resnet50_training LARC check's float64 formula
+    (``larc_reference``) against the port's ``larc_scale``: clipped and
+    not, with and without decay, zero norms unscaled."""
+    from apex_tpu_torch.parallel.larc import larc_scale
+
+    gen = torch.Generator().manual_seed(3)
+    for scale_g in (1e-3, 1.0, 100.0):
+        g = scale_g * torch.randn(6, 5, generator=gen)
+        p = torch.randn(6, 5, generator=gen)
+        for clip in (True, False):
+            for wd in (0.0, 1e-4):
+                got = larc_scale(g, p, lr=0.1, trust_coefficient=0.02,
+                                 clip=clip, eps=1e-8, weight_decay=wd)
+                want = smoke.larc_reference(g, p, 0.1, clip=clip,
+                                            weight_decay=wd)
+                torch.testing.assert_close(got.double(), want, rtol=1e-6,
+                                           atol=1e-12)
+    zero = torch.zeros(4)
+    g = torch.randn(4, generator=gen)
+    torch.testing.assert_close(smoke.larc_reference(g, zero, 0.1,
+                                                    weight_decay=0.0),
+                               g.double())
+
+
+def test_multi_tensor_check_runs_and_catches(smoke):
+    """bert_optimizers' multi-tensor check at a small size on the CPU:
+    it passes on honest ops and reports the planted inf."""
+    gen = torch.Generator().manual_seed(4)
+    grads = {"a": torch.randn(40, 3, generator=gen).bfloat16(),
+             "b": torch.randn(17, generator=gen).bfloat16()}
+    params = {"a": torch.randn(40, 3, generator=gen).bfloat16(),
+              "b": torch.randn(17, generator=gen).bfloat16()}
+    out = smoke.check_multi_tensor(grads, params)
+    assert all(out["inf_reported"].values())
+    assert max(out["max_rel_err"].values()) <= smoke.MT_REL
+
+
+@pytest.mark.parametrize("name", ["mp_lamb", "novograd", "adagrad"])
+def test_bert_optimizer_state_check(name, smoke):
+    """bert_optimizers' check of one step against the CPU transform, and
+    MP-LAMB's ``p + (round(master) - p)`` count, on a tiny tree."""
+    from apex_tpu_torch import optimizers as opts
+
+    _, cls, kw = next(o for o in smoke.BERT_OPTIMIZERS if o[0] == name)
+    gen = torch.Generator().manual_seed(5)
+    params = {"w": torch.randn(64, 8, generator=gen).bfloat16(),
+              "b": torch.randn(8, generator=gen).bfloat16()}
+    opt = getattr(opts, cls)(params, **kw)
+    for s in range(2):
+        grads = {k: torch.randn(v.shape, generator=gen).bfloat16()
+                 for k, v in params.items()}
+        host = (smoke.host_copy(grads), smoke.host_copy(opt.params),
+                smoke.host_copy(opt.state))
+        p_old = _tree.map_leaves(torch.clone, opt.params)
+        opt.step(grads)
+    cmp, mp = smoke.bert_opt_state_check(name, opt, host, p_old)
+    assert cmp["worst_rel_l2"] == 0.0
+    if name == "mp_lamb":
+        assert mp["bf16_params_follow_reference"]
+        assert 0 <= mp["bf16_differ_from_round_master"] <= mp[
+            "bf16_elements"]
+    else:
+        assert mp == {}
+
+
+def test_suites_run_each_multi_rank_path(smoke):
+    """Every phase that launches ranks but megatron_o4 (its own launch,
+    and its resume in fresh processes) runs in one of the suites'
+    launches (the one-rank NCCL paths, the 2-rank and the 4-rank gloo
+    paths), each path once, with a rank function."""
+    paths = [p for _, _, ps in smoke.SUITES.values() for p in ps]
+    assert len(paths) == len(set(paths)) == 13
+    assert "megatron_o4" not in paths
+    own = {"megatron_o4", "megatron_o4_resume"}
+    assert set(smoke.LAUNCH_TIMEOUT) == set(smoke.SUITES) | own
+    for phase in own:
+        assert callable(smoke.rank_fn(phase, pathlib.Path(".")))
+    assert smoke.SUITES["nccl_suite"][2][-1] == "resnet50_ddp_nccl"
+    for name, (nprocs, backend, ps) in smoke.SUITES.items():
+        assert (nprocs, backend) == {"nccl_suite": (1, "nccl"),
+                                     "gloo2_suite": (2, "gloo"),
+                                     "gloo4_suite": (4, "gloo")}[name]
+        for phase in ps + (name,):
+            assert callable(smoke.rank_fn(phase, pathlib.Path(".")))

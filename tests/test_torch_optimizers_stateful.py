@@ -234,12 +234,17 @@ def test_error_paths():
     specs = port_opt.opt_partition_specs(flat.tx, flat.params, None)
     assert specs.count == () and all(
         v == () for v in list(specs.mu.values()) + list(specs.nu.values()))
-    # fused_sgd / FusedSGD are ported (tests/test_torch_fused_sgd.py)
-    for name in ("fused_novograd", "FusedNovoGrad",
-                 "fused_adagrad", "FusedAdagrad",
-                 "fused_mixed_precision_lamb", "FusedMixedPrecisionLamb"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            getattr(port_opt, name)(tree)
+    # every optimizer of the reference is ported (fused_sgd in
+    # tests/test_torch_fused_sgd.py, the rest in
+    # tests/test_torch_optimizers_rest.py): each refuses AMSGrad as the
+    # reference's classes do
+    for name in ("FusedNovoGrad", "FusedMixedPrecisionLamb"):
+        with pytest.raises(RuntimeError, match="AMSGrad"):
+            getattr(port_opt, name)(_port(tree), amsgrad=True)
+    for name in ("fused_novograd", "fused_adagrad",
+                 "fused_mixed_precision_lamb"):
+        state = getattr(port_opt, name)().init(_port(tree))
+        assert _tree.leaves(state)
 
 
 def test_rebuild_that_changes_the_state_layout_raises():
