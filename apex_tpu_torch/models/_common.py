@@ -65,6 +65,8 @@ class BatchNorm:
     axis_name: Optional[str] = "data"
     momentum: float = 0.9
     eps: float = 1e-5
+    # sync only: groups of this many consecutive ranks share statistics
+    group_size: Optional[int] = None
 
     @property
     def inner(self) -> str:
@@ -91,7 +93,7 @@ class BatchNorm:
             y, mean, var = sync_batchnorm.sync_batch_norm(
                 x, p["scale"], p["bias"], s["mean"], s["var"], train,
                 momentum=1.0 - self.momentum, eps=self.eps, ch=ch,
-                group=self.axis_name)
+                group=self.axis_name, group_size=self.group_size)
             return y, ({self.inner: {"mean": mean, "var": var}}
                        if train else stats)
         ch = ch % x.dim()

@@ -39,11 +39,12 @@ __all__ = [
 
 
 def _state_dict(model_or_sd) -> Mapping[str, torch.Tensor]:
-    """Every weight as an fp32 CPU tensor (the reference reads fp32 numpy
-    arrays)."""
+    """Every weight as an fp32 tensor (the reference reads fp32 numpy
+    arrays): a tensor stays on its device, so a state dict made on the
+    card is converted there; an array lands on the CPU."""
     sd = (model_or_sd.state_dict() if hasattr(model_or_sd, "state_dict")
           else model_or_sd)
-    return {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
+    return {k: torch.as_tensor(v).detach().to(torch.float32)
             for k, v in sd.items()}
 
 

@@ -353,11 +353,66 @@ result line) when it fails:
                reports it; each optimizer's update ms (CUDA events)
                beside the step ms.
 
-The multi-rank paths run in three launches (``SUITES``): the five
+29. contrib -- (after bert_optimizers) each contrib path once at a
+               user's widths: ``softmax_cross_entropy_loss`` at Llama-3-8B's
+               vocabulary (4096 x 128,256 bf16 logits, smoothing 0.1,
+               padding_idx 0, half_to_float); ``focal_loss`` at MLPerf
+               RetinaNet's (8 images x 120,087 anchors x 264 classes
+               padded to 272, bf16, alpha 0.25, gamma 2);
+               ``FastLayerNorm(768)`` at BERT-base's rows (8 x 512, bf16:
+               exactly 1 + 1 LayerNorm launches); the conv epilogues,
+               ``FrozenBatchNorm2d`` and ``BatchNorm2d_NHWC`` (fused ReLU,
+               add+ReLU) at ResNet-50's layer 1 (64 x 56 x 56, 64 -> 256,
+               bf16); each against fp32 autograd (0.05 / 0.998, dlogits
+               within 2^-8 of their scale), timed beside the library
+               call where there is one. ASP over BERT-base (m4n2_1d on
+               every eligible leaf, equal to the mask counted on the host;
+               one masked ``fused_adam(flat=True)`` step: every pruned
+               weight exactly 0, one Adam launch a dtype bucket); the
+               RNN-T joint (ReLU), a linear to 4097 symbols and
+               ``transducer_loss`` at the Emformer joiner's widths (4 x
+               375 x 101 x 1024, bf16), forward+backward ms and peak, and
+               on a cut (1 x 64 x 16) in fp32 the loss and dlogits against
+               float64 (1e-5, 1e-4).
+30. hf_finetune -- the example at its defaults (the tiny HF-layout
+               Llama, global batch 8 x 32, 12 steps) on 2 gloo ranks: the
+               loss falls, the replicas end with one SHA-1, exact launches
+               (flash 4 / 2 / 2 and RMSNorm 9 / 5 a step, the sample's 2
+               and 40), step-0 synced gradients 0.05 / 0.998 of one
+               device's fp32 gradients of the global batch.
+31. contrib_dist -- on 2 gloo ranks: ``halo_exchange_1d`` and the four
+               exchangers on [16, 28 + 2, 56, 64] slabs (boundary rules
+               exact on every rank); ``SpatialBottleneck(64)`` on a [16,
+               56, 56, 256] fp32 map split over H, BatchNorm statistics
+               over the spatial group, and ``BatchNorm2d_NHWC(bn_group=
+               2)`` with add+ReLU: output, input gradient (and the
+               block's param gradients summed over the ranks) within 1e-5
+               rel. L2 of one device on the whole map or batch (its
+               ReLU decisions pinned to the split run's, the flips
+               counted; a param gradient also within twice one device's
+               own distance from float64);
+               ``DistributedFusedAdam`` and ``DistributedFusedLAMB`` over
+               BERT-base (each rank's gradients of 8 x 512): one step each
+               against the replicated ``fused_adam(flat=True)`` /
+               ``fused_lamb`` step on the mean gradients (Adam's moments
+               gathered from the shards bit for bit, LAMB's within 1e-6;
+               bf16 params within one ulp), one flat Adam launch a dtype
+               bucket a rank, none for LAMB.
+32. hf_finetune_nccl -- the example's chain at Llama-3-8B's HF config
+               cut to 2 layers (1.49 B fp32 params, the HF-layout dict
+               drawn on the card, through ``llama_from_hf``) on one NCCL
+               rank: step-0 synced gradients within 1e-3 rel. L2 (cosine
+               0.99999) of fp32 autograd of the plain functions, 3 steps
+               of the example's fixed batch (8 x 32, vocab chunks 4, the
+               tree ``fused_adam``) with exact launches (flash 4 / 2 / 2,
+               RMSNorm 9 / 5 a step), a falling loss, 8 greedy tokens
+               (flash 2, RMSNorm 40), peak under 80 GB.
+
+The multi-rank paths run in three launches (``SUITES``): the six
 one-rank NCCL paths (ddp_nccl, megatron_nccl, mp_nccl, megatron_o4_nccl,
-resnet50_ddp_nccl: ``nccl_suite``), the 2-rank gloo paths (ddp_training,
-cp_training, ep_training, resnet50_ddp, bert_train, simple_distributed:
-``gloo2_suite``) and the 4-rank ones (megatron_training,
+hf_finetune_nccl, resnet50_ddp_nccl: ``nccl_suite``), the 2-rank gloo
+paths (ddp_training, cp_training, ep_training, resnet50_ddp, bert_train,
+hf_finetune, contrib_dist, simple_distributed: ``gloo2_suite``) and the 4-rank ones (megatron_training,
 gpt2_tp_training: ``gloo4_suite``), each at the turn of its first phase;
 each phase then checks its own path, with that path's seconds (cp and
 ep are checked before the 4-rank launch, to free the disk). megatron_o4
@@ -378,6 +433,7 @@ without the ``apex_tpu_torch`` package beside it, the script exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -6710,6 +6766,10 @@ def rank_fn(phase: str, out_dir: Path):
                                          out_dir=out_dir),
            "megatron_o4_nccl": partial(megatron_o4_nccl_rank,
                                        out_dir=out_dir),
+           "hf_finetune_nccl": partial(hf_finetune_nccl_rank,
+                                       out_dir=out_dir),
+           "hf_finetune": partial(hf_finetune_rank, out_dir=out_dir),
+           "contrib_dist": partial(contrib_dist_rank, out_dir=out_dir),
            **{suite: partial(suite_rank, out_dir=out_dir, suite=suite)
               for suite in SUITES}}
     return run[phase]
@@ -6723,9 +6783,11 @@ def rank_fn(phase: str, out_dir: Path):
 # phase then checks its own path's result, with that path's seconds.
 SUITES = {
     "nccl_suite": (1, "nccl", ("ddp_nccl", "megatron_nccl", "mp_nccl",
-                               "megatron_o4_nccl", "resnet50_ddp_nccl")),
+                               "megatron_o4_nccl", "hf_finetune_nccl",
+                               "resnet50_ddp_nccl")),
     "gloo2_suite": (2, "gloo", ("ddp_training", "cp_training",
                                 "ep_training", "resnet50_ddp", "bert_train",
+                                "hf_finetune", "contrib_dist",
                                 "simple_distributed")),
     "gloo4_suite": (4, "gloo", ("megatron_training", "gpt2_tp_training")),
 }
@@ -9350,6 +9412,1425 @@ def resnet_larc_steps(step, master, state, x, y) -> dict:
 
 
 
+# ------------------------------------------------------------------
+# The rest of contrib and the hf_finetune example: contrib (this
+# process), hf_finetune and contrib_dist (gloo2_suite), hf_finetune_nccl
+# (nccl_suite).
+
+# hf_finetune_nccl: the example's chain at Llama-3-8B's HF config cut to
+# HF_LAYERS layers, fp32 (1.49 B params) from the HF-layout state dict,
+# the example's fixed batch of 8 x 32 and vocab chunks, 3 steps, then 8
+# greedy tokens
+HF_LAYERS, HF_STEPS, HF_NEW = 2, 3, 8
+HF_BATCH, HF_SEQ, HF_CHUNKS, HF_LR = 8, 32, 4, 1e-3
+# its step-0 gradients (the flash and RMSNorm kernels on fp32 FMAs, the
+# chunked CE) against fp32 autograd of the plain functions: fp32 sums in
+# other orders, nothing rounded to a narrower type
+HF_GRAD_REL, HF_GRAD_COS = 1e-3, 0.99999
+# hf_finetune: the example at its defaults on 2 gloo ranks, 12 steps as
+# the reference's own test runs it (tests/run_examples/test_examples.py:
+# 116)
+HF_EXAMPLE_STEPS, HF_RANKS = 12, 2
+# contrib: xentropy at Llama-3-8B's vocabulary, 4096 tokens of bf16
+# logits, smoothing 0.1, padding_idx 0 (every 7th token), half_to_float
+XENT_ROWS, XENT_VOCAB, XENT_SMOOTHING = 4096, 128256, 0.1
+# MLPerf Training's RetinaNet (ResNeXt-50 FPN on the OpenImages subset):
+# 264 classes (logits padded to 272), 800 x 800 images, 9 anchors a
+# location at strides 8-128 (100^2 + 50^2 + 25^2 + 13^2 + 7^2 locations):
+# 120,087 anchors an image; about 120 of them matched to an object
+FOCAL_BATCH, FOCAL_ANCHORS, FOCAL_CLASSES, FOCAL_PADDED = 8, 120087, 264, 272
+FOCAL_ALPHA, FOCAL_GAMMA, FOCAL_POSITIVE = 0.25, 2.0, 1e-3
+# FastLayerNorm at BERT-base's rows
+FLN_SHAPE = (8, 512, 768)
+# ResNet-50's layer 1: batch 64, 56 x 56, 64 -> 256 channels
+RN_L1_BATCH, RN_L1_HW, RN_L1_IN, RN_L1_OUT = 64, 56, 64, 256
+# the joiner of torchaudio's Emformer RNN-T LibriSpeech recipe: dim 1024,
+# 4097 symbols (4096 word pieces and the blank); T 375 (15 s at a 40 ms
+# stride) and U 100 are this script's choice; the float64 check on a cut
+RNNT_B, RNNT_T, RNNT_U, RNNT_DIM, RNNT_VOCAB = 4, 375, 100, 1024, 4097
+RNNT_F_LEN, RNNT_Y_LEN = (375, 350, 300, 250), (100, 90, 80, 60)
+RNNT_CUT = (1, 64, 16)
+# fp32 against float64 over T + U log-sum-exp steps
+RNNT_LOSS_REL, RNNT_GRAD_REL = 1e-5, 1e-4
+# contrib_dist: the halo slabs [16, 28 + 2, 56, 64] (a 56-row map over 2
+# ranks); SpatialBottleneck(64) on a [16, 56, 56, 256] fp32 map split
+# over H; BatchNorm2d_NHWC(bn_group=2) on [16, 56, 56, 256]; the
+# distributed optimizers over BERT-base at dp 2
+CD_HALO_SHAPE = (16, 56, 56, 64)
+CD_MAP_SHAPE = (16, 56, 56, 256)
+CD_FEATURES = 64
+# the split block and the global-batch BatchNorm against one device's on
+# the whole map, fp32 both
+CD_REL_L2 = 1e-5
+# DistributedFusedLAMB's moments against the replicated fused_lamb's:
+# the clip coefficient's global norm summed in another order
+CD_LAMB_STATE_REL = 1e-6
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 products and convolutions in fp32 (no TF32) while open."""
+    import torch
+
+    kept = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = kept
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made while open (timing loops, comparison runs) are
+    taken back out of the counters."""
+    from apex_tpu_torch.ops import launch_counts
+
+    kept = launch_counts.snapshot()
+    try:
+        yield
+    finally:
+        launch_counts.restore(kept)
+
+
+@contextlib.contextmanager
+def relu_decisions(record=None, pinned=None, flips=None):
+    """While open, ``F.relu`` records each call's decisions (x > 0) into
+    ``record``; with ``pinned`` it applies the given decisions in call
+    order instead (x * mask) and adds to ``flips[0]`` the elements where
+    its own would differ. A ReLU input within rounding of 0 takes
+    either side in two runs that sum in other orders, and moves its
+    gradient by O(|dy|): a check of gradients pins them, as MoE checks
+    pin routes."""
+    import torch.nn.functional as F
+
+    real = F.relu
+    masks = iter(pinned or ())
+
+    def relu(x, inplace=False):
+        if pinned is None:
+            record.append((x > 0).detach())
+            return real(x)
+        mask = next(masks).to(x.device)
+        flips[0] += int(((x > 0) != mask).sum())
+        return x * mask.to(x.dtype)
+
+    F.relu = relu
+    try:
+        yield
+    finally:
+        F.relu = real
+
+
+def events_ms(fn, iters: int = 3) -> float:
+    """Mean device ms of ``fn()`` (CUDA events around ``iters`` calls
+    after one warm-up): for calls long beside their launch overhead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def agree(got, ref) -> dict:
+    """rel. L2 and cosine of one tensor against its reference."""
+    return block_compare([("x", got, ref)])["leaves"]["x"]
+
+
+def check_agree(cmp: dict, rel: float, cos: float, what: str) -> dict:
+    if not (cmp["rel_l2"] <= rel and cmp["cos"] >= cos):
+        raise AssertionError(f"{what}: {cmp} off {rel} / {cos}")
+    return cmp
+
+
+def bf16_ulps(got, ref, old) -> float:
+    """The largest |got - ref| in bf16 ulps of the largest of |got|,
+    |ref|, |old| and the step |got - old|: two updates of ``old``
+    rounded to bf16 in another order (the step itself, or the sum) differ
+    by up to one such ulp, also where the step cancels most of ``old``."""
+    import torch
+
+    g, r, o = got.float(), ref.float(), old.float()
+    mag = torch.stack([g.abs(), r.abs(), o.abs(), (g - o).abs()]).amax(0)
+    mag = torch.clamp(mag, min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - r).abs() / ulp).max())
+
+
+def contrib_xentropy(gen) -> dict:
+    """softmax_cross_entropy_loss at XENT_ROWS x XENT_VOCAB bf16 with
+    half_to_float: losses and dlogits against fp32 autograd of the plain
+    formula on the same values; device ms forward+backward beside the
+    plain formula's and ``F.cross_entropy``'s."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+
+    logits = (torch.randn(XENT_ROWS, XENT_VOCAB, generator=gen,
+                          device="cuda") * 2).bfloat16()
+    labels = torch.randint(1, XENT_VOCAB, (XENT_ROWS,), generator=gen,
+                           device="cuda")
+    labels[::7] = 0
+    s = XENT_SMOOTHING
+
+    def port(x):
+        loss = softmax_cross_entropy_loss(x, labels, s, 0, True)
+        loss.sum().backward()
+        return loss
+
+    def plain(x):
+        lp = torch.log_softmax(x, dim=-1)
+        loss = -((1 - s) * lp.gather(1, labels[:, None])[:, 0]
+                 + s * lp.mean(dim=-1))
+        loss = torch.where(labels == 0, 0.0, loss)
+        loss.sum().backward()
+        return loss
+
+    def library(x):
+        loss = F.cross_entropy(x, labels, ignore_index=0, label_smoothing=s,
+                               reduction="none")
+        loss.sum().backward()
+        return loss
+
+    x = logits.clone().requires_grad_()
+    loss = port(x)
+    y = logits.float().requires_grad_()
+    ref = plain(y)
+    out = {"shape": [XENT_ROWS, XENT_VOCAB], "smoothing": s,
+           "padding_idx": 0, "half_to_float": True,
+           "loss_dtype": str(loss.dtype).rsplit(".", 1)[-1],
+           "loss_max_abs_err": max_err(loss.detach(), ref.detach(), 1e-5,
+                                       "xentropy loss"),
+           "dlogits_max_abs_err": max_err(x.grad, y.grad, 2 ** -8,
+                                          "xentropy dlogits"),
+           "dlogits": agree(x.grad, y.grad)}
+    del x, y, loss, ref
+    out["ms"] = events_ms(lambda: port(logits.clone().requires_grad_()))
+    f32 = logits.float()
+    out["plain_ms"] = events_ms(lambda: plain(f32.clone().requires_grad_()))
+    out["library_ms"] = events_ms(
+        lambda: library(f32.clone().requires_grad_()))
+    out["library"] = "F.cross_entropy(fp32 copy, label_smoothing, " \
+                     "ignore_index)"
+    return out
+
+
+def contrib_focal(gen) -> dict:
+    """focal_loss at MLPerf RetinaNet's sizes (bf16 logits, 272 padded
+    classes, 264 real): loss and dlogits against fp32 autograd of the same
+    formula on the same values; forward+backward device ms."""
+    import torch
+
+    from apex_tpu_torch.contrib.focal_loss import focal_loss
+
+    shape = (FOCAL_BATCH, FOCAL_ANCHORS)
+    logits = (torch.randn(*shape, FOCAL_PADDED, generator=gen,
+                          device="cuda") * 2 - 2).bfloat16()
+    matched = torch.rand(shape, generator=gen, device="cuda") \
+        < FOCAL_POSITIVE
+    targets = torch.where(matched, torch.randint(
+        0, FOCAL_CLASSES, shape, generator=gen, device="cuda"), -1)
+    npos = (targets >= 0).sum().float()
+
+    def run(x):
+        loss = focal_loss(x, targets, npos, FOCAL_CLASSES, FOCAL_ALPHA,
+                          FOCAL_GAMMA)
+        loss.backward()
+        return loss
+
+    x = logits.clone().requires_grad_()
+    loss = run(x)
+    y = logits.float().requires_grad_()
+    ref = run(y)
+    out = {"shape": [*shape, FOCAL_PADDED], "classes": FOCAL_CLASSES,
+           "alpha": FOCAL_ALPHA, "gamma": FOCAL_GAMMA,
+           "positives": int(npos), "loss": float(loss.detach()),
+           "loss_rel_err": abs(float(loss.detach()) - float(ref.detach()))
+           / abs(float(ref.detach())),
+           "dlogits_max_abs_err": max_err(x.grad, y.grad, 2 ** -8,
+                                          "focal dlogits"),
+           "padded_grads_zero": bool((x.grad[..., FOCAL_CLASSES:] == 0)
+                                     .all())}
+    if not (out["loss_rel_err"] <= 1e-6 and out["padded_grads_zero"]):
+        raise AssertionError(f"focal loss: {out}")
+    del x, y
+    out["ms"] = events_ms(lambda: run(logits.clone().requires_grad_()))
+    return out
+
+
+def contrib_fast_layer_norm(gen) -> dict:
+    """FastLayerNorm(768) at BERT-base's rows, bf16: exactly one LayerNorm
+    forward and one backward launch, y, dx, dw and db against fp32
+    autograd of ``F.layer_norm`` (0.05 / 0.998); ms beside the
+    library's."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib.layer_norm import FastLayerNorm
+
+    h = FLN_SHAPE[-1]
+    mod = FastLayerNorm(h)
+    with torch.no_grad():
+        mod.weight.normal_(1.0, 0.1, generator=gen)
+        mod.bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(FLN_SHAPE, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(FLN_SHAPE, generator=gen, device="cuda").bfloat16()
+    before = read_counts()
+    xs = x.clone().requires_grad_()
+    y = mod(xs)
+    y.backward(dy)
+    launches = counts_delta(before)
+    want = dict(dict.fromkeys(launches, 0), layer_norm_fwd=1,
+                layer_norm_bwd=1)
+    if launches != want:
+        raise AssertionError(f"FastLayerNorm launches {launches} != {want}")
+    w32 = mod.weight.detach().clone().requires_grad_()
+    b32 = mod.bias.detach().clone().requires_grad_()
+    x32 = x.float().requires_grad_()
+    y32 = F.layer_norm(x32, (h,), w32, b32, 1e-5)
+    y32.backward(dy.float())
+    out = {"shape": list(FLN_SHAPE), "dtype": "bfloat16",
+           "launches": launches}
+    for name, got, ref in (("y", y, y32), ("dx", xs.grad, x32.grad),
+                           ("dw", mod.weight.grad, w32.grad),
+                           ("db", mod.bias.grad, b32.grad)):
+        out[name] = check_agree(agree(got.detach(), ref.detach()),
+                                GRAD_REL_L2, GRAD_COS, f"FastLayerNorm {name}")
+
+    def kernel():
+        mod(x.clone().requires_grad_()).backward(dy)
+
+    w16, b16 = (t.detach().bfloat16().requires_grad_()
+                for t in (mod.weight, mod.bias))
+
+    def library():
+        F.layer_norm(x.clone().requires_grad_(), (h,), w16, b16,
+                     1e-5).backward(dy)
+
+    with uncounted():
+        out["ms"] = events_ms(kernel, 20)
+        out["library_ms"] = events_ms(library, 20)
+    return out
+
+
+def contrib_conv(gen) -> dict:
+    """The four conv epilogues, FrozenBatchNorm2d and BatchNorm2d_NHWC
+    (bn_group 1: fused ReLU, add+ReLU) at ResNet-50's layer 1, bf16,
+    against fp32 (0.05 / 0.998): outputs, and the ConvBiasReLU's and the
+    BatchNorm's gradients; forward+backward ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+    from apex_tpu_torch.contrib.bottleneck import FrozenBatchNorm2d
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+
+    B, HW, cin, cout = RN_L1_BATCH, RN_L1_HW, RN_L1_IN, RN_L1_OUT
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = randn(B, HW, HW, cin).bfloat16()
+    w1 = randn(1, 1, cin, cout, scale=cin ** -0.5).bfloat16()
+    w3 = randn(3, 3, cin, cin, scale=(9 * cin) ** -0.5).bfloat16()
+    b1, b3 = randn(cout, scale=0.1).bfloat16(), randn(cin, scale=0.1) \
+        .bfloat16()
+    mask = (torch.rand(B, HW, HW, cin, generator=gen, device="cuda")
+            < 0.5).bfloat16()
+    dy = randn(B, HW, HW, cout).bfloat16()
+    frozen = FrozenBatchNorm2d(cin)
+    fv = {"frozen": {"weight": 1 + randn(cin, scale=0.1),
+                     "bias": randn(cin, scale=0.1),
+                     "running_mean": randn(cin, scale=0.1),
+                     "running_var": 1 + randn(cin, scale=0.1).abs()}}
+    scale, bias = frozen.get_scale_bias(fv)
+    out = {"shape": [B, HW, HW, cin], "out_channels": cout,
+           "dtype": "bfloat16"}
+    before = read_counts()
+    with no_tf32():
+        # ConvBiasReLU (the expansion 1x1), forward and backward
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w1, b1))
+        y = cbr.ConvBiasReLU(xs, ws, bs)
+        y.backward(dy)
+        x32, w32, b32 = (t.float().requires_grad_() for t in (x, w1, b1))
+        y32 = cbr.ConvBiasReLU(x32, w32, b32)
+        y32.backward(dy.float())
+        for name, got, ref in (("conv_bias_relu_y", y, y32),
+                               ("conv_bias_relu_dx", xs.grad, x32.grad),
+                               ("conv_bias_relu_dw", ws.grad, w32.grad),
+                               ("conv_bias_relu_db", bs.grad, b32.grad)):
+            out[name] = check_agree(agree(got.detach(), ref.detach()),
+                                    GRAD_REL_L2, GRAD_COS, name)
+        del xs, ws, bs, y, x32, w32, b32, y32
+        # the 3x3 with its padding, the mask and the frozen affine
+        for name, fn, args in (
+                ("conv_bias", cbr.ConvBias, (x, w3, b3)),
+                ("conv_bias_mask_relu", cbr.ConvBiasMaskReLU,
+                 (x, w3, b3, mask)),
+                ("conv_frozen_scale_bias_relu", cbr.ConvFrozenScaleBiasReLU,
+                 (x, w3, scale[0, 0, 0].bfloat16(),
+                  bias[0, 0, 0].bfloat16()))):
+            got = fn(*args, padding=1)
+            ref = fn(*(a.float() for a in args), padding=1)
+            out[name] = check_agree(agree(got, ref), GRAD_REL_L2, GRAD_COS,
+                                    name)
+        frozen_y = frozen.apply(fv, x)
+        out["frozen_batchnorm"] = check_agree(
+            agree(frozen_y, x.float() * scale + bias), GRAD_REL_L2,
+            GRAD_COS, "FrozenBatchNorm2d")
+        # BatchNorm2d_NHWC on the 256 channels, fused ReLU and add+ReLU
+        z = randn(B, HW, HW, cout).bfloat16()
+        act = randn(B, HW, HW, cout).bfloat16()
+        for name, bn, zz in (
+                ("groupbn_fuse_relu", BatchNorm2d_NHWC(cout, fuse_relu=True),
+                 None),
+                ("groupbn_add_relu", BatchNorm2d_NHWC(cout), z)):
+            v = bn.init()
+            xs = act.clone().requires_grad_()
+            y, _ = bn.apply(v, xs, zz)
+            y.backward(dy)
+            x32 = act.float().requires_grad_()
+            p = v["params"]["BatchNorm_0"]
+            y32 = F.batch_norm(x32.permute(0, 3, 1, 2), None, None,
+                               p["scale"], p["bias"], True, 0.0, 1e-5) \
+                .permute(0, 2, 3, 1)
+            if zz is not None:
+                y32 = y32 + zz.float()
+            y32 = torch.relu(y32)
+            y32.backward(dy.float())
+            out[name] = {k: check_agree(agree(g.detach(), r.detach()),
+                                        GRAD_REL_L2, GRAD_COS,
+                                        f"{name} {k}")
+                         for k, g, r in (("y", y, y32),
+                                         ("dx", xs.grad, x32.grad))}
+        launches = counts_delta(before)
+        if any(launches.values()):
+            raise AssertionError(f"conv/groupbn launched kernels: "
+                                 f"{launches}")
+
+        def conv_step():
+            cbr.ConvBiasReLU(x.clone().requires_grad_(),
+                             w1.clone().requires_grad_(),
+                             b1.clone().requires_grad_()).backward(dy)
+
+        def bn_step():
+            y, _ = BatchNorm2d_NHWC(cout, fuse_relu=True).apply(
+                v, act.clone().requires_grad_())
+            y.backward(dy)
+
+        out["conv_bias_relu_ms"] = events_ms(conv_step, 10)
+        out["groupbn_ms"] = events_ms(bn_step, 10)
+    return out
+
+
+def contrib_asp(gen) -> dict:
+    """ASP over BERT-base: m4n2_1d masks of every eligible leaf, equal to
+    the plain mask computed on host copies; one step of
+    ``fused_adam(flat=True)`` under ``init_optimizer_for_pruning`` on the
+    masked params (one flat Adam launch a dtype bucket, the model's
+    LayerNorm and masked softmax launches), after which every pruned
+    weight is exactly 0."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.contrib.sparsity import ASP
+    from apex_tpu_torch.models import bert
+    from apex_tpu_torch.ops.flat import tree_meta
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg = bert.bert_base()
+    params = bert.init_params(gen, cfg, device="cuda")
+    t0 = time.perf_counter()
+    masks = ASP.compute_sparse_masks(params)
+    torch.cuda.synchronize()
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    paths = _tree.paths(params)
+    masked = [p for p in paths if _leaf(masks, p) is not None]
+    for path in masked:
+        host = host_mn_mask(_leaf(params, path).cpu().float())
+        if not torch.equal(_leaf(masks, path).cpu(), host):
+            raise AssertionError(f"ASP mask of {path} != the host's")
+    params = ASP.apply(params, masks)
+    tx = ASP.init_optimizer_for_pruning(fused_adam(lr=BERT_LR, flat=True),
+                                        masks)
+    state = tx.init(params)
+    batch, pad = bert_batch(gen, cfg)
+    before = read_counts()
+    loss, grads = local_grads(
+        lambda live, b: bert.loss_fn(live, b, cfg, pad_mask=pad,
+                                     remat=True, tp_axis=None),
+        params, batch)
+    with torch.no_grad():
+        updates, state = tx.update(grads, state, params)
+        for p, u in zip(_tree.leaves(params), _tree.leaves(updates)):
+            p.add_(u)
+    torch.cuda.synchronize()
+    launches = counts_delta(before)
+    L = cfg.num_layers
+    buckets = len(tree_meta(params)[2])
+    want = dict(dict.fromkeys(launches, 0), layer_norm_fwd=4 * L + 2,
+                layer_norm_bwd=2 * L + 2, fused_softmax_masked=2 * L,
+                fused_adam=buckets)
+    if launches != want:
+        raise AssertionError(f"ASP step launches {launches} != {want}")
+    nonzero, density = 0, []
+    for path in masked:
+        p, m = _leaf(params, path), _leaf(masks, path)
+        nonzero += int((p[~m] != 0).sum())
+        density.append(float(m.float().mean()))
+    if nonzero or not math.isfinite(float(loss)):
+        raise AssertionError(f"ASP: {nonzero} pruned weights not 0 after "
+                             f"the step, loss {float(loss)}")
+    return {"model": "bert_base", "pattern": "m4n2_1d",
+            "params_numel": sum(t.numel() for t in _tree.leaves(params)),
+            "leaves": len(paths), "masked_leaves": len(masked),
+            "masked_elements": sum(_leaf(params, p).numel()
+                                   for p in masked),
+            "density": [min(density), max(density)],
+            "masks_equal_host": True, "pruned_nonzero_after_step": 0,
+            "mask_ms": mask_ms, "loss": float(loss),
+            "optimizer": f"fused_adam(lr={BERT_LR}, flat=True) masked",
+            "dtype_buckets": buckets, "launches": launches}
+
+
+def host_mn_mask(w):
+    """The m4n2 mask by counting, on the host: a weight is kept when
+    fewer than 2 of its group of 4 beat it (larger, or equal and
+    earlier), the reference's double-argsort order written out."""
+    import torch
+
+    g = w.abs().reshape(-1, 4)
+    slot = torch.arange(4)
+    beaten_by = torch.zeros(g.shape, dtype=torch.int8)
+    for j in range(4):
+        gj = g[:, j:j + 1]
+        beaten_by += (gj > g) | ((gj == g) & (j < slot))
+    return (beaten_by < 2).reshape(w.shape)
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def rnnt_loss64(logits, targets, f_len: int, y_len: int):
+    """The transducer loss of one sequence in float64, cell by cell (the
+    textbook recursion, independent of the port's wavefront)."""
+    import torch
+
+    lp = torch.log_softmax(logits[:f_len, :y_len + 1].double(), dim=-1)
+    blank = lp[:, :, 0]
+    emit = torch.gather(lp[:, :-1], 2, targets[:y_len].reshape(1, -1, 1)
+                        .expand(f_len, y_len, 1))[..., 0]
+    alpha = {}
+    for t in range(f_len):
+        for u in range(y_len + 1):
+            terms = []
+            if t > 0:
+                terms.append(alpha[t - 1, u] + blank[t - 1, u])
+            if u > 0:
+                terms.append(alpha[t, u - 1] + emit[t, u - 1])
+            alpha[t, u] = (torch.logsumexp(torch.stack(terms), 0) if terms
+                           else lp.new_zeros(()))
+    return -(alpha[f_len - 1, y_len] + blank[f_len - 1, y_len])
+
+
+def contrib_transducer(gen) -> dict:
+    """The Emformer RNN-T joiner's widths: TransducerJoint (ReLU) of bf16
+    f [4, 375, 1024] and g [4, 101, 1024], a linear to 4097 symbols, the
+    loss and its backward: finite, device ms and peak; on the cut B 1, T
+    64, U 16 in fp32 the loss and dlogits against float64."""
+    import torch
+
+    from apex_tpu_torch.contrib.transducer import (
+        TransducerJoint,
+        transducer_loss,
+    )
+
+    B, T, U, H, V = RNNT_B, RNNT_T, RNNT_U, RNNT_DIM, RNNT_VOCAB
+    f = torch.randn(B, T, H, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(B, U + 1, H, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(H, V, generator=gen, device="cuda") * H ** -0.5) \
+        .bfloat16()
+    bias = torch.zeros(V, device="cuda", dtype=torch.bfloat16)
+    targets = torch.randint(1, V, (B, U), generator=gen, device="cuda")
+    f_len = torch.tensor(RNNT_F_LEN, device="cuda")
+    y_len = torch.tensor(RNNT_Y_LEN, device="cuda")
+    joint = TransducerJoint(relu=True)
+
+    def run(fs, gs, ws):
+        logits = joint(fs, gs) @ ws + bias
+        loss = transducer_loss(logits, targets, f_len, y_len)
+        loss.sum().backward()
+        return loss
+
+    before = read_counts()
+    leaves = [t.clone().requires_grad_() for t in (f, g, w)]
+    torch.cuda.reset_peak_memory_stats()
+    loss = run(*leaves)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts_delta(before)
+    finite = bool(torch.isfinite(loss).all()) and all(
+        bool(torch.isfinite(t.grad).all()) for t in leaves)
+    if not finite or any(launches.values()):
+        raise AssertionError(f"transducer: finite {finite}, launches "
+                             f"{launches}")
+    ms = events_ms(lambda: run(*(t.clone().requires_grad_()
+                                 for t in (f, g, w))))
+    # the cut, fp32 against float64
+    b, t_cut, u_cut = RNNT_CUT
+    with no_tf32():
+        logits = (joint(f[:b, :t_cut].float(), g[:b, :u_cut + 1].float())
+                  @ w.float()).detach()
+    x = logits.clone().requires_grad_()
+    cut_t = targets[:b, :u_cut]
+    got = transducer_loss(x, cut_t, torch.tensor([t_cut], device="cuda"),
+                          torch.tensor([u_cut], device="cuda"))
+    got.sum().backward()
+    x64 = logits.cpu().double().requires_grad_()
+    ref = rnnt_loss64(x64[0], cut_t[0].cpu(), t_cut, u_cut)
+    ref.backward()
+    got, ref = float(got.detach()), float(ref.detach())
+    loss_rel = abs(got - ref) / abs(ref)
+    grad = agree(x.grad.cpu().double(), x64.grad)
+    if not (loss_rel <= RNNT_LOSS_REL and grad["rel_l2"] <= RNNT_GRAD_REL):
+        raise AssertionError(f"transducer vs float64: loss {loss_rel}, "
+                             f"dlogits {grad}")
+    return {"shape": {"f": [B, T, H], "g": [B, U + 1, H], "vocab": V},
+            "f_len": list(RNNT_F_LEN), "y_len": list(RNNT_Y_LEN),
+            "dtype": "bfloat16 joint and linear, fp32 loss",
+            "loss": [float(v) for v in loss.detach()], "finite": finite,
+            "ms": ms, "peak_memory_bytes": peak,
+            "float64_cut": {"B_T_U": list(RNNT_CUT), "loss_rel": loss_rel,
+                            "dlogits": grad, "loss_rel_tol": RNNT_LOSS_REL,
+                            "grad_rel_l2_tol": RNNT_GRAD_REL}}
+
+
+def check_flash_fp32(dev, b: int, s: int, H: int, H_kv: int, d: int):
+    """The flash forward, dq and dk/dv on fp32 [b, s, H|H_kv, d] (the FMA
+    branch; causal) against the plain versions on the same inputs
+    (1e-4 of each output's largest value: fp32 sums in other orders),
+    timed beside the plain versions and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    scale = d ** -0.5
+    hm = fa._heads_major
+
+    def make():
+        q, k, v, do = (torch.randn(b, s, n, d, generator=g, device="cuda")
+                       for n in (H, H_kv, H_kv, H))
+        o, lse = fa._flash_fwd_cuda(q, k, v, True, scale)
+        return q, k, v, o, lse, do, fa._flash_delta(o, do)
+
+    def back(t, n):
+        return t.reshape(b, n, s, d).transpose(1, 2)
+
+    q, k, v, o, lse, do, delta = make()
+    o_ref, _ = fa._flash_fwd_plain(hm(q), hm(k), hm(v), True, scale)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, scale)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale)
+    ref = fa._flash_bwd_plain(hm(q), hm(k), hm(v), hm(o), lse, hm(do), True,
+                              scale)
+    errs = {"o": max_err(o, back(o_ref, H), 1e-4, "flash fp32 o")}
+    for name, got, r, n in (("dq", dq, ref[0], H), ("dk", dk, ref[1], H_kv),
+                            ("dv", dv, ref[2], H_kv)):
+        errs[name] = max_err(got, back(r, n), 1e-4, f"flash fp32 {name}")
+    pairs = H * causal_pairs(b, s)
+    fwd_bytes = 4 * (2 * b * s * H + 2 * b * s * H_kv) * d + 4 * b * H * s
+    bwd_io = 4 * (2 * b * s * H + 2 * b * s * H_kv) * d + 8 * b * H * s
+    sets = copies(make, bwd_io)
+
+    def fwd(q, k, v, *_):
+        return fa._flash_fwd_cuda(q, k, v, True, scale)
+
+    def fwd_plain(q, k, v, *_):
+        return fa._flash_fwd_plain(hm(q), hm(k), hm(v), True, scale)
+
+    def sdpa(q, k, v, *_):
+        return F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True,
+            scale=scale, enable_gqa=True)
+
+    def bwd_plain(q, k, v, o, lse, do, delta):
+        return fa._flash_bwd_plain(hm(q), hm(k), hm(v), hm(o), lse, hm(do),
+                                   True, scale)
+
+    graphs = []
+    for q, k, v, o, lse, do, delta in sets:
+        ts = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*ts, is_causal=True,
+                                             scale=scale, enable_gqa=True)
+        graphs.append((out, ts, do.transpose(1, 2)))
+
+    def library(out, inputs, grad):
+        return torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+    peak = dev["fp32_flops"]
+    f_ms = time_ms(fwd, sets)
+    f_b, f_by = bound(fwd_bytes, 4.0 * d * pairs, peak, dev)
+    res = {"shape": [b, s, H, H_kv, d], "dtype": "float32", "causal": True,
+           "max_abs_err": errs,
+           "fwd": {"ms": f_ms, "host_ms": host_ms(fwd, sets[0]),
+                   "plain_ms": time_ms(fwd_plain, sets),
+                   "library_ms": time_ms(sdpa, sets),
+                   "library": "F.scaled_dot_product_attention (fp32)",
+                   "bound_ms": f_b, "bound_by": f_by,
+                   **achieved(fwd_bytes, f_ms, f_b)},
+           "bwd_plain_ms": time_ms(bwd_plain, sets),
+           "bwd_library_ms": time_ms(library, graphs),
+           "bwd_covers": "dq+dk+dv"}
+    for name, call, flops, nbytes in (
+            ("dq", lambda q, k, v, o, lse, do, delta: fa._flash_bwd_dq_cuda(
+                q, k, v, do, lse, delta, True, scale), 6.0 * d * pairs,
+             bwd_io + 4 * b * s * H * d),
+            ("dkv", lambda q, k, v, o, lse, do, delta:
+             fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale),
+             8.0 * d * pairs, bwd_io + 8 * b * s * H_kv * d)):
+        ms = time_ms(call, sets)
+        b_ms, b_by = bound(nbytes, flops, peak, dev)
+        res[name] = {"ms": ms, "host_ms": host_ms(call, sets[0]),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     **achieved(nbytes, ms, b_ms)}
+    del sets, graphs
+    return res
+
+
+def check_norm_case(dev, rows: int, h: int, x_dtype, w_dtype,
+                    centred: bool):
+    """The RMSNorm (or, ``centred``, LayerNorm) forward and backward on
+    [rows, h] ``x_dtype`` rows with a ``w_dtype`` weight against their
+    plain versions (fp32 outputs 1e-5 of their scale, bf16 ones one
+    rounding: 8e-3), timed beside them and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    eps = 1e-5
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(w_dtype)
+    bias = (0.1 * torch.randn(h, generator=g, device="cuda")).to(w_dtype)
+    rel = 1e-5 if x_dtype == torch.float32 else 8e-3
+    xb, wb = torch.empty((), dtype=x_dtype).element_size(), \
+        w.element_size()
+
+    def make():
+        x, dy = (torch.randn(rows, h, generator=g, device="cuda").to(x_dtype)
+                 for _ in range(2))
+        return x, dy
+
+    if centred:
+        fwd_k = lambda x, dy: ln._ln_fwd_cuda(x, w, bias, eps)  # noqa
+        fwd_p = lambda x, dy: ln._ln_fwd_plain(x, w, bias, eps)  # noqa
+        lib_f = (lambda x, dy: F.layer_norm(x, (h,), w, bias, eps)) \
+            if w.dtype == x_dtype else None  # noqa
+
+        def bwd_k(x, dy, mu, rstd):
+            return ln._ln_bwd_cuda(x, w, mu, rstd, dy)
+
+        def bwd_p(x, dy, mu, rstd):
+            return ln._ln_bwd_plain(x, w, mu, rstd, dy)
+    else:
+        fwd_k = lambda x, dy: ln._rms_fwd_cuda(x, w, eps)  # noqa
+        fwd_p = lambda x, dy: ln._rms_fwd_plain(x, w, eps)  # noqa
+        lib_f = (lambda x, dy: F.rms_norm(x, (h,), w, eps)) \
+            if w.dtype == x_dtype else None  # noqa
+
+        def bwd_k(x, dy, rstd):
+            return ln._rms_bwd_cuda(x, w, rstd, dy)
+
+        def bwd_p(x, dy, rstd):
+            return ln._rms_bwd_plain(x, w, rstd, dy)
+
+    x, dy = make()
+    got, ref = fwd_k(x, dy), fwd_p(x, dy)
+    errs = {"y": max_err(got[0], ref[0], rel, "norm y")}
+    stats = got[1:]
+    got_b, ref_b = bwd_k(x, dy, *stats), bwd_p(x, dy, *stats)
+    for name, a, r in zip(("dx", "dw", "db"), got_b, ref_b):
+        errs[name] = max_err(a, r, rel if name == "dx" else 1e-4,
+                             f"norm {name}")
+    sets = copies(make, 2 * rows * h * xb)
+    stat_sets = [(x, dy, *fwd_k(x, dy)[1:]) for x, dy in sets]
+    f_bytes = 2 * rows * h * xb + 2 * h * wb + 8 * rows
+    b_bytes = 3 * rows * h * xb + 8 * rows + 4 * h * wb
+    f_ms, b_ms_k = time_ms(fwd_k, sets), time_ms(bwd_k, stat_sets)
+    f_b, f_by = bound(f_bytes, 6.0 * rows * h, dev["fp32_flops"], dev)
+    b_b, b_by = bound(b_bytes, 10.0 * rows * h, dev["fp32_flops"], dev)
+    return {"shape": [rows, h], "dtype": str(x_dtype).rsplit(".", 1)[-1],
+            "weight_dtype": str(w_dtype).rsplit(".", 1)[-1],
+            "max_abs_err": errs,
+            "fwd": {"ms": f_ms, "plain_ms": time_ms(fwd_p, sets),
+                    "library_ms": (time_ms(lib_f, sets) if lib_f
+                                   else None),
+                    "bound_ms": f_b, "bound_by": f_by,
+                    **achieved(f_bytes, f_ms, f_b)},
+            "bwd": {"ms": b_ms_k, "plain_ms": time_ms(bwd_p, stat_sets),
+                    "library_ms": None, "bound_ms": b_b, "bound_by": b_by,
+                    **achieved(b_bytes, b_ms_k, b_b)}}
+
+
+def check_contrib_kernels(dev, bert_numel: int) -> dict:
+    """The kernels at this slice's shapes, each against its plain version
+    (uncounted): the flash trio and RMSNorm in fp32 at hf_finetune_nccl's
+    (8 x 32 tokens, 32 / 8 heads of 128; 256 rows of 4096) and at an
+    hf_finetune rank's (4 x 32, 4 / 2 heads of 16; 128 rows of 64);
+    LayerNorm at FastLayerNorm's bf16 rows with fp32 affine (4096 x 768);
+    the flat Adam on ASP's BERT-base bf16 slab and on a
+    DistributedFusedAdam rank's fp32 shard of it (dp 2)."""
+    import torch
+
+    with uncounted():
+        return {
+            "flash_hf_nccl": check_flash_fp32(dev, HF_BATCH, HF_SEQ, 32, 8,
+                                              128),
+            "flash_hf_rank": check_flash_fp32(dev, 4, 32, 4, 2, 16),
+            "rms_hf_nccl": check_norm_case(dev, HF_BATCH * HF_SEQ, 4096,
+                                           torch.float32, torch.float32,
+                                           False),
+            "rms_hf_rank": check_norm_case(dev, 4 * 32, 64, torch.float32,
+                                           torch.float32, False),
+            "ln_fast_layer_norm": check_norm_case(
+                dev, FLN_SHAPE[0] * FLN_SHAPE[1], FLN_SHAPE[2],
+                torch.bfloat16, torch.float32, True),
+            "adam_asp_slab": check_adam(dev, bert_numel, lr=BERT_LR),
+            "adam_dist_shard": check_adam(
+                dev, (bert_numel + bert_numel % 2) // 2,
+                p_dtype="float32", lr=BERT_LR)}
+
+
+def phase_contrib(dev):
+    """The one-process contrib paths, each at a user's widths (above):
+    xentropy, focal loss, FastLayerNorm, conv-bias-relu /
+    FrozenBatchNorm2d / groupbn, ASP over BERT-base, the transducer; each
+    against fp32 (or float64 on a cut), timed; exact launches. Then
+    :func:`check_contrib_kernels`: each kernel of this slice's paths at
+    their shapes against its plain version."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    start = read_counts()
+    out = {"phase": "contrib"}
+    for name, run in (("xentropy", contrib_xentropy),
+                      ("focal_loss", contrib_focal),
+                      ("fast_layer_norm", contrib_fast_layer_norm),
+                      ("conv_bias_relu_groupbn", contrib_conv),
+                      ("asp", contrib_asp),
+                      ("transducer", contrib_transducer)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = dict(run(gen), seconds=time.perf_counter() - t0)
+    out["launches"] = counts_delta(start)
+    t0 = time.perf_counter()
+    out["kernels"] = check_contrib_kernels(dev, out["asp"]["params_numel"])
+    out["kernels"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ------------------------------------------------------------ hf_finetune
+
+def hf_llama3_8b(num_layers: int):
+    """Llama-3-8B's HF config (its ``config.json``: vocab 128,256, h
+    4096, 14,336, 32 / 8 heads, rms eps 1e-5, rope theta 5e5) at
+    ``num_layers``."""
+    from apex_tpu_torch.examples.hf_finetune import HFLlamaConfig
+
+    return HFLlamaConfig(vocab_size=128256, hidden_size=4096,
+                         intermediate_size=14336,
+                         num_hidden_layers=num_layers,
+                         num_attention_heads=32, num_key_value_heads=8,
+                         max_position_embeddings=8192, rms_norm_eps=1e-5,
+                         rope_theta=500000.0)
+
+
+def hf_step_want(L: int) -> dict:
+    """One hf_finetune step's launches (``llama.loss_fn``'s default remat
+    runs each layer's forward again in the backward): flash 2L / L / L,
+    RMSNorm forward 4L + 1 (the final norm once) and backward 2L + 1; the
+    tree ``fused_adam`` launches nothing."""
+    return dict(dict.fromkeys(read_counts(), 0), flash_attention_fwd=2 * L,
+                flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
+                rms_norm_fwd=4 * L + 1, rms_norm_bwd=2 * L + 1)
+
+
+def hf_generate_want(L: int, new: int) -> dict:
+    """greedy_generate's launches: the prefill's L flash forwards, 2L + 1
+    RMSNorm forwards in the prefill and in each of the new - 1 decode
+    steps (decode attention is plain)."""
+    return dict(dict.fromkeys(read_counts(), 0), flash_attention_fwd=L,
+                rms_norm_fwd=(2 * L + 1) * new)
+
+
+def hf_finetune_nccl_rank(rank, n, device, out_dir: Path) -> dict:
+    """The example's chain on one NCCL rank at Llama-3-8B's HF config cut
+    to HF_LAYERS: the HF-layout dict through ``llama_from_hf``, the
+    step-0 synced gradients against fp32 autograd of the plain functions,
+    HF_STEPS ``train_step``s, then HF_NEW greedy tokens."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples import hf_finetune as ex
+    from apex_tpu_torch.models import convert, generate, llama
+    from apex_tpu_torch.optimizers import fused_adam
+
+    del rank, n, out_dir
+    torch.cuda.reset_peak_memory_stats(device)
+    start = read_counts()
+    t0 = time.monotonic()
+    hf_cfg = hf_llama3_8b(HF_LAYERS)
+    sd = ex.hf_llama_state_dict(
+        hf_cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    keys = len(sd)
+    params, cfg = convert.llama_from_hf(
+        sd, convert.llama_config_from_hf(hf_cfg), dtype=torch.float32,
+        device=device)
+    del sd
+    if cfg != llama.llama3_8b(num_layers=HF_LAYERS, dtype=torch.float32):
+        raise AssertionError(f"hf_finetune_nccl: {cfg} is not llama3_8b")
+    torch.cuda.synchronize(device)
+    import_s = time.monotonic() - t0
+    tokens, targets = ex.make_batch(cfg, HF_BATCH, HF_SEQ, device)
+    before = read_counts()
+    loss0, grads = ex.grads(params, tokens, targets, cfg, HF_CHUNKS)
+    grad_launches = counts_delta(before)
+    with uncounted():
+        loss32, ref = local_grads(
+            lambda live, b: reference_loss(live, *b, cfg), params,
+            (tokens, targets))
+    paths = _tree.paths(params)
+    cmp = leaf_compare(paths, _tree.leaves(grads), _tree.leaves(ref))
+    del grads, ref
+    torch.cuda.empty_cache()
+    tx = fused_adam(lr=HF_LR)
+    opt = tx.init(params)
+    steps = []
+    for s in range(HF_STEPS):
+        before = read_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        loss, opt = ex.train_step(params, opt, tokens, targets, cfg, tx,
+                                  HF_CHUNKS)
+        steps.append({"step": s, "loss": float(loss),
+                      "step_ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": counts_delta(before)})
+    del opt
+    before = read_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = generate.greedy_generate(params, tokens[:1, :4], cfg, HF_NEW,
+                                   device=device)
+    torch.cuda.synchronize(device)
+    gen = {"ms": (time.perf_counter() - t0) * 1e3,
+           "tokens": out[0, 4:].tolist(), "launches": counts_delta(before)}
+    return {"import_s": import_s, "hf_keys": keys,
+            "params": sum(t.numel() for t in _tree.leaves(params)),
+            "loss0": float(loss0), "loss_fp32_reference": float(loss32),
+            "grad_check": {k: cmp[k] for k in ("worst_rel_l2",
+                                                "worst_cos")},
+            "grad_launches": grad_launches, "steps": steps,
+            "generate": gen, "launches": counts_delta(start),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def phase_hf_finetune_nccl(dev):
+    """hf_finetune_nccl's checks: exact launches (the step-0 pass and each
+    step, the generation), the gradients within HF_GRAD_REL / HF_GRAD_COS
+    of fp32 autograd, a falling loss, peak under 80 GB."""
+    ranks, seconds = suite_ranks("hf_finetune_nccl")
+    r = ranks[0]
+    L = HF_LAYERS
+    step_want = hf_step_want(L)
+    gen_want = hf_generate_want(L, HF_NEW)
+    if r["grad_launches"] != step_want or any(
+            s["launches"] != step_want for s in r["steps"]):
+        raise AssertionError(f"hf_finetune_nccl launches: "
+                             f"{r['grad_launches']}, "
+                             f"{[s['launches'] for s in r['steps']]} != "
+                             f"{step_want}")
+    if r["generate"]["launches"] != gen_want:
+        raise AssertionError(f"hf_finetune_nccl generate launches "
+                             f"{r['generate']['launches']} != {gen_want}")
+    g = r["grad_check"]
+    if not (g["worst_rel_l2"] <= HF_GRAD_REL
+            and g["worst_cos"] >= HF_GRAD_COS):
+        raise AssertionError(f"hf_finetune_nccl gradients: {g}")
+    losses = [s["loss"] for s in r["steps"]]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"hf_finetune_nccl loss: {losses}")
+    if r["peak_memory_bytes"] >= 80e9:
+        raise AssertionError(f"hf_finetune_nccl peak "
+                             f"{r['peak_memory_bytes']} >= 80 GB")
+    step_ms = [s["step_ms"] for s in r["steps"]]
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    return {"phase": "hf_finetune_nccl", "ranks": 1, "backend": r["backend"],
+            "model": f"llama3_8b HF layout, {L} layers, fp32",
+            "params": r["params"], "hf_keys": r["hf_keys"],
+            "import_s": r["import_s"], "batch": HF_BATCH, "seq": HF_SEQ,
+            "vocab_chunks": HF_CHUNKS, "optimizer": f"fused_adam(lr={HF_LR})",
+            "loss0": r["loss0"], "loss_fp32_reference":
+                r["loss_fp32_reference"],
+            "grad_check": dict(g, rel_l2_tol=HF_GRAD_REL,
+                               cos_tol=HF_GRAD_COS),
+            "losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+            "tokens_per_s": HF_BATCH * HF_SEQ / steady * 1e3,
+            "generate": r["generate"], "path_s": seconds,
+            "launches_per_step": step_want,
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "card_peak_used_bytes": r["card_peak_used_bytes"],
+            "launches": r["launches"]}
+
+
+def hf_finetune_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of hf_finetune: the example's step-0 synced gradients on
+    its rows (rank 0 saves them), then the example's run at its defaults
+    (HF_EXAMPLE_STEPS steps), its output captured, and the SHA-1 of the
+    params it ends with."""
+    import contextlib as ctx
+    import io
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples import hf_finetune as ex
+
+    args = ex.parse_args(["--steps", str(HF_EXAMPLE_STEPS), "--devices",
+                          str(n)])
+    params, cfg = ex.import_model(args, device)
+    tokens, targets = ex.make_batch(cfg, args.batch, args.seq, device)
+    _, grads = ex.grads(params, ex.rank_rows(tokens), ex.rank_rows(targets),
+                        cfg, args.vocab_chunks)
+    if rank == 0:
+        torch.save({".".join(p): g.cpu() for p, g in zip(
+            _tree.paths(grads), _tree.leaves(grads))}, out_dir / "grads0.pt")
+    del params, grads
+    buf, start = io.StringIO(), read_counts()
+    t0 = time.perf_counter()
+    with ctx.redirect_stdout(buf):
+        params, first, last = ex.finetune(args, rank, device)
+    return {"stdout": buf.getvalue(), "first": first, "last": last,
+            "seconds": time.perf_counter() - t0,
+            "sha1": digest(state_digests(params)),
+            "launches": counts_delta(start)}
+
+
+def phase_hf_finetune(dev):
+    """hf_finetune on HF_RANKS gloo ranks: the loss falls, the replicas
+    end with one SHA-1, exact launches (each step and the sample), and
+    the step-0 synced gradients within 0.05 / 0.998 of one device's fp32
+    gradients of the global batch through the plain functions."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.examples import hf_finetune as ex
+
+    ranks, seconds, out_dir = suite_ranks("hf_finetune", keep=True)
+    saved = torch.load(out_dir / "grads0.pt")
+    shutil.rmtree(out_dir)
+    args = ex.parse_args([])
+    params, cfg = ex.import_model(args, "cuda")
+    tokens, targets = ex.make_batch(cfg, args.batch, args.seq, "cuda")
+    with no_tf32():
+        loss32, ref = local_grads(
+            lambda live, b: reference_loss(live, *b, cfg), params,
+            (tokens, targets))
+    paths = _tree.paths(params)
+    cmp = leaf_compare(paths, [saved[".".join(p)].cuda() for p in paths],
+                       _tree.leaves(ref))
+    check_grads(cmp, "hf_finetune step 0")
+    out = ranks[0]["stdout"]
+    if "(decreased)" not in out or "imported llama" not in out:
+        raise AssertionError(f"hf_finetune: {out}")
+    if len({r["sha1"] for r in ranks}) != 1:
+        raise AssertionError(f"hf_finetune replicas differ: "
+                             f"{[r['sha1'] for r in ranks]}")
+    L = cfg.num_layers
+    step, gen = hf_step_want(L), hf_generate_want(L, args.sample_tokens)
+    want = {k: HF_EXAMPLE_STEPS * step[k] + gen[k] for k in step}
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"hf_finetune rank launches "
+                                 f"{r['launches']} != {want}")
+    return {"phase": "hf_finetune", "label": BASELINE_LABEL,
+            "ranks": HF_RANKS, "backend": ranks[0]["backend"],
+            "args": "--steps 12 (defaults: batch 8, seq 32, lr 1e-3, "
+                    "vocab chunks 4, 8 samples)",
+            "stdout": out.splitlines(), "launch_s": seconds,
+            "run_s": max(r["seconds"] for r in ranks),
+            "loss": [ranks[0]["first"], ranks[0]["last"]],
+            "sha1": ranks[0]["sha1"],
+            "grad_check": {k: cmp[k] for k in ("worst_rel_l2",
+                                                "worst_cos")},
+            "loss_fp32_reference": float(loss32),
+            "launches_per_rank": want,
+            "launches": total_launches(ranks, ("launches",))}
+
+
+# ------------------------------------------------------------ contrib_dist
+
+def cd_map(shape, seed: int, device):
+    """A seeded [N, H, W, C] fp32 map, the same on every rank."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def cd_halo(rank, n, device) -> dict:
+    """halo_exchange_1d and the four exchangers on this rank's slab of a
+    seeded map (28 rows and a margin each side): the boundary rules held
+    exactly, on every rank, against the map itself."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib import halo_exchangers as hx
+    from apex_tpu_torch.contrib.peer_memory import halo_exchange_1d
+
+    full = cd_map(CD_HALO_SHAPE, SEED + 1, device)
+    rows = full.shape[1] // n
+    slab = full[:, rank * rows:(rank + 1) * rows]
+    zero = torch.zeros_like(slab[:, :1])
+    prev_row = full[:, rank * rows - 1:rank * rows] if rank else zero
+    next_row = (full[:, (rank + 1) * rows:(rank + 1) * rows + 1]
+                if rank < n - 1 else zero)
+    t0 = time.perf_counter()
+    y = halo_exchange_1d(F.pad(slab, (0, 0, 0, 0, 1, 1)), 1, "spatial",
+                         h_dim=1)
+    torch.cuda.synchronize(device)
+    halo_ms = (time.perf_counter() - t0) * 1e3
+    ok = {"halo_exchange_1d": bool(
+        torch.equal(y[:, :1], prev_row) and torch.equal(y[:, -1:], next_row)
+        and torch.equal(y[:, 1:-1], slab))}
+    left, right = slab[:, :1], slab[:, -1:]
+    for name in ("NoComm", "AllGather", "SendRecv", "Peer"):
+        ex = getattr(hx, f"HaloExchanger{name}")(axis_name="spatial")
+        li, ri = ex.left_right_halo_exchange(left, right)
+        if name == "NoComm":
+            ok[name] = bool(torch.equal(li, right) and torch.equal(ri, left))
+        else:
+            ok[name] = bool(torch.equal(li, prev_row)
+                            and torch.equal(ri, next_row))
+    return {"ok": ok, "halo_ms": halo_ms,
+            "slab": [CD_HALO_SHAPE[0], rows + 2, *CD_HALO_SHAPE[2:]]}
+
+
+def cd_bottleneck_setup(device):
+    """SpatialBottleneck(CD_FEATURES)'s variables (its one-device block's
+    init), the seeded map and cotangent, the same on every rank."""
+    import torch
+
+    from apex_tpu_torch.contrib.bottleneck import SpatialBottleneck
+
+    block = SpatialBottleneck(CD_FEATURES, axis_name="spatial", sync_bn=True,
+                              bn_axis="spatial")
+    variables = block.init(torch.Generator(device=device).manual_seed(SEED),
+                           CD_MAP_SHAPE[-1], device)
+    return (block, variables, cd_map(CD_MAP_SHAPE, SEED + 2, device),
+            cd_map(CD_MAP_SHAPE, SEED + 3, device))
+
+
+def cd_block(block_apply, variables, x, dy):
+    """(y, dx, param grads by path, new stats) of one block call."""
+    import torch
+
+    from apex_tpu_torch import _tree
+
+    xs = x.clone().requires_grad_()
+    live = _tree.map_leaves(lambda t: t.detach().requires_grad_(),
+                            variables["params"])
+    y, stats = block_apply({"params": live,
+                            "batch_stats": variables["batch_stats"]}, xs)
+    grads = torch.autograd.grad((y * dy).sum(), [xs] + _tree.leaves(live))
+    return (y.detach(), grads[0], dict(zip(
+        (".".join(p) for p in _tree.paths(live)), grads[1:])), stats)
+
+
+def cd_optimizers(rank, n, device) -> dict:
+    """DistributedFusedAdam and DistributedFusedLAMB over BERT-base at dp
+    n, each rank's gradients of its rows; one step each against the
+    replicated ``fused_adam(flat=True)`` / ``fused_lamb`` step on the
+    mean of the ranks' gradients (fp32), run here too: params, and the
+    moments gathered from the shards."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.contrib.optimizers import (
+        DistributedFusedAdam,
+        DistributedFusedLAMB,
+    )
+    from apex_tpu_torch.distributed import backend as B
+    from apex_tpu_torch.examples import bert_train
+    from apex_tpu_torch.models import bert
+    from apex_tpu_torch.ops.flat import tree_meta
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+
+    cfg, params, batch, pad = bt_setup(device, n)
+    batch = tuple(bert_train.rank_rows(t) for t in batch)
+    pad = bert_train.rank_rows(pad)
+    before = read_counts()
+    _, grads = local_grads(
+        lambda live, b: bert.loss_fn(live, b, cfg, pad_mask=pad,
+                                     remat=True, tp_axis=None),
+        params, batch)
+    grad_launches = counts_delta(before)
+    with uncounted():
+        mean = _tree.map_leaves(
+            lambda g: B.all_reduce(g.float(), group="dp") / n, grads)
+    out = {"grad_launches": grad_launches,
+           "buckets": len(tree_meta(params)[2])}
+
+    def gathered(shard):
+        full = torch.empty((shard.numel() * n,), dtype=shard.dtype,
+                           device=shard.device)
+        B.all_gather_into(full, shard.contiguous(), "dp")
+        return full
+
+    for name, cls, rep_tx, kw in (
+            ("adam", DistributedFusedAdam, fused_adam(
+                lr=BERT_LR, weight_decay=0.01, flat=True),
+             dict(lr=BERT_LR, weight_decay=0.01)),
+            ("lamb", DistributedFusedLAMB, fused_lamb(
+                lr=BERT_LR, weight_decay=0.01, max_grad_norm=1.0),
+             dict(lr=BERT_LR, eps=1e-6, weight_decay=0.01,
+                  max_grad_norm=1.0))):
+        dist_p = _tree.map_leaves(torch.clone, params)
+        opt = cls(dist_p, **kw)
+        opt.init()
+        before = read_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        opt.step(grads)
+        torch.cuda.synchronize(device)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = counts_delta(before)
+        with uncounted(), torch.no_grad():
+            rep_p = _tree.map_leaves(torch.clone, params)
+            state = rep_tx.init(rep_p)
+            upd, state = rep_tx.update(mean, state, rep_p)
+            for p, u in zip(_tree.leaves(rep_p), _tree.leaves(upd)):
+                p.add_(u)
+        ulps = max(bf16_ulps(a, b, c) for a, b, c in zip(
+            _tree.leaves(dist_p), _tree.leaves(rep_p),
+            _tree.leaves(params)))
+        res = {"step_ms": step_ms, "launches": launches,
+               "params_max_bf16_ulps": ulps,
+               "state_shard_elements": sum(
+                   v.numel() for v in opt.state.mu_shard.values())}
+        if name == "adam":
+            eq = True
+            for k, slab in state.mu.items():
+                eq &= bool(torch.equal(gathered(opt.state.mu_shard[k])[
+                    :slab.numel()], slab))
+                eq &= bool(torch.equal(gathered(opt.state.nu_shard[k])[
+                    :slab.numel()], state.nu[k]))
+            res["moments_equal_replicated"] = eq
+        else:
+            # the replicated tree moments packed in the shards' layout
+            worst = 0.0
+            for field, tree in (("mu_shard", state.mu),
+                                ("nu_shard", state.nu)):
+                leaves = _tree.leaves(tree)
+                for k, (idxs, _) in tree_meta(params)[2].items():
+                    slab = torch.cat([leaves[i].reshape(-1) for i in idxs])
+                    got = gathered(getattr(opt.state, field)[k])[
+                        :slab.numel()]
+                    worst = max(worst, agree(got, slab)["rel_l2"])
+            res["moments_rel_l2"] = worst
+        out[name] = res
+        del opt, dist_p, rep_p, state, upd
+    return out
+
+
+def contrib_dist_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of contrib_dist: the halo exchanges, its slab of the
+    SpatialBottleneck and of BatchNorm2d_NHWC(bn_group=n) (saved for the
+    phase to hold against one device), the distributed optimizers."""
+    import torch
+
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.distributed import backend as B
+
+    B.bind("spatial", B.get_group("dp"))
+    start = read_counts()
+    out = {"halo": cd_halo(rank, n, device)}
+    block, variables, x, dy = cd_bottleneck_setup(device)
+    rows = x.shape[1] // n
+    mine = slice(rank * rows, (rank + 1) * rows)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    relus = []
+    with relu_decisions(record=relus):
+        y, dx, grads, stats = cd_block(block.apply, variables, x[:, mine],
+                                       dy[:, mine])
+    torch.cuda.synchronize(device)
+    out["bottleneck_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.save({"y": y.cpu(), "dx": dx.cpu(),
+                "grads": {k: v.cpu() for k, v in grads.items()},
+                "relus": [m.cpu() for m in relus]},
+               out_dir / f"bottleneck{rank}.pt")
+    del y, dx, grads, stats, x, dy
+    bn = BatchNorm2d_NHWC(CD_MAP_SHAPE[-1], bn_group=n, axis_name="dp")
+    xb = cd_map(CD_MAP_SHAPE, SEED + 4, device)
+    zb = cd_map(CD_MAP_SHAPE, SEED + 5, device)
+    dyb = cd_map(CD_MAP_SHAPE, SEED + 6, device)
+    per = xb.shape[0] // n
+    own = slice(rank * per, (rank + 1) * per)
+    xs = xb[own].clone().requires_grad_()
+    relus = []
+    with relu_decisions(record=relus):
+        yb, sb = bn.apply(bn.init(device), xs, zb[own])
+    yb.backward(dyb[own])
+    torch.save({"y": yb.detach().cpu(), "dx": xs.grad.cpu(),
+                "relu": relus[0].cpu(),
+                "stats": {k: v.cpu() for k, v in
+                          sb["SyncBatchNorm_0"].items()}},
+               out_dir / f"groupbn{rank}.pt")
+    del xb, zb, dyb, xs, yb
+    out["optimizers"] = cd_optimizers(rank, n, device)
+    out["launches"] = counts_delta(start)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def phase_contrib_dist(dev):
+    """contrib_dist on 2 gloo ranks: the halo rules on every rank; the
+    split bottleneck's output, input gradient and summed param gradients,
+    and BatchNorm2d_NHWC(bn_group=2)'s, within CD_REL_L2 of one device on
+    the whole map or batch (a param gradient within twice one device's
+    own distance from float64 where that is larger), the one device's
+    ReLU decisions pinned to the split run's (the flips pinned are
+    counted); the distributed optimizers against the
+    replicated ones (Adam: moments bit for bit, params within one bf16
+    ulp; LAMB: moments within CD_LAMB_STATE_REL, params one ulp); exact
+    launches: one flat Adam launch a dtype bucket a rank."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models._common import BatchNorm
+
+    ranks, seconds, out_dir = suite_ranks("contrib_dist", keep=True)
+    n = len(ranks)
+    for r in ranks:
+        if not all(r["halo"]["ok"].values()):
+            raise AssertionError(f"contrib_dist halo rank {r['rank']}: "
+                                 f"{r['halo']['ok']}")
+    parts = [torch.load(out_dir / f"bottleneck{r}.pt") for r in range(n)]
+    bns = [torch.load(out_dir / f"groupbn{r}.pt") for r in range(n)]
+    shutil.rmtree(out_dir)
+    block, variables, x, dy = cd_bottleneck_setup("cuda")
+    out = {}
+    with no_tf32():
+        one = block.block()
+        # each ReLU's decisions pinned to the split run's (its slabs
+        # joined along H, dim 2 of the NCHW-ordered activations)
+        pinned = [torch.cat([p["relus"][i] for p in parts], 2)
+                  for i in range(len(parts[0]["relus"]))]
+        flips = [0]
+        with relu_decisions(pinned=pinned, flips=flips):
+            y, dx, grads, stats = cd_block(
+                lambda v, xx: one.apply(v, xx), variables, x, dy)
+        # one device's own rounding: the same block in float64 (the
+        # BatchNorm's statistics stay fp32, as the port computes them)
+        with relu_decisions(pinned=pinned, flips=[0]):
+            _, _, grads64, _ = cd_block(
+                lambda v, xx: one.apply(v, xx),
+                _tree.map_leaves(lambda t: t.double(), variables),
+                x.double(), dy.double())
+        out["bottleneck"] = {"relu_flips_pinned": flips[0],
+            "y": agree(torch.cat([p["y"] for p in parts], 1).cuda(), y),
+            "dx": agree(torch.cat([p["dx"] for p in parts], 1).cuda(), dx),
+            "grads": block_compare(
+                (k, sum(p["grads"][k] for p in parts).cuda(), g)
+                for k, g in grads.items()),
+            "one_device_grads_vs_float64": {
+                k: agree(g, grads64[k])["rel_l2"] for k, g in grads.items()}}
+        del y, dx, grads, grads64, x, dy
+        xb = cd_map(CD_MAP_SHAPE, SEED + 4, "cuda")
+        zb = cd_map(CD_MAP_SHAPE, SEED + 5, "cuda")
+        dyb = cd_map(CD_MAP_SHAPE, SEED + 6, "cuda")
+        whole = BatchNorm(sync=True, axis_name=None, momentum=0.9)
+        p, s = whole.init(CD_MAP_SHAPE[-1], "cuda")
+        xs = xb.clone().requires_grad_()
+        yb, sb = whole(p, s, xs, True, ch=-1)
+        pre = yb + zb
+        mask = torch.cat([b["relu"] for b in bns]).cuda()
+        yb = pre * mask
+        yb.backward(dyb)
+        out["groupbn"] = {"relu_flips_pinned": int(((pre > 0) != mask)
+                                                   .sum()),
+            "y": agree(torch.cat([b["y"] for b in bns]).cuda(), yb.detach()),
+            "dx": agree(torch.cat([b["dx"] for b in bns]).cuda(), xs.grad),
+            "stats_equal_on_ranks": all(
+                torch.equal(bns[0]["stats"][k], b["stats"][k])
+                for b in bns for k in ("mean", "var")),
+            "stats": agree(torch.stack([bns[0]["stats"][k] for k in
+                                        ("mean", "var")]).cuda(),
+                           torch.stack([sb["SyncBatchNorm_0"][k] for k in
+                                        ("mean", "var")]))}
+    bad = [f"{k}.{part}" for k in ("bottleneck", "groupbn")
+           for part in ("y", "dx") if out[k][part]["rel_l2"] > CD_REL_L2]
+    # a param gradient within CD_REL_L2, or within twice one device's own
+    # distance from float64 where that is larger (cuDNN's fp32 weight
+    # gradient of the 3x3 rounds more than the sums of the split do)
+    floors = out["bottleneck"]["one_device_grads_vs_float64"]
+    bad += [f"bottleneck.grads.{k}" for k, v in
+            out["bottleneck"]["grads"]["leaves"].items()
+            if v["rel_l2"] > max(CD_REL_L2, 2 * floors[k])]
+    if out["groupbn"]["stats"]["rel_l2"] > CD_REL_L2 or \
+            not out["groupbn"]["stats_equal_on_ranks"]:
+        bad.append("groupbn.stats")
+    if bad:
+        raise AssertionError(f"contrib_dist off one device: {bad} {out}")
+    for r in ranks:
+        o = r["optimizers"]
+        adam_want = dict(dict.fromkeys(o["adam"]["launches"], 0),
+                         fused_adam=o["buckets"])
+        lamb_want = dict.fromkeys(o["lamb"]["launches"], 0)
+        if o["adam"]["launches"] != adam_want or \
+                o["lamb"]["launches"] != lamb_want:
+            raise AssertionError(f"contrib_dist optimizer launches: {o}")
+        if not (o["adam"]["moments_equal_replicated"]
+                and o["adam"]["params_max_bf16_ulps"] <= 1.0
+                and o["lamb"]["params_max_bf16_ulps"] <= 1.0
+                and o["lamb"]["moments_rel_l2"] <= CD_LAMB_STATE_REL):
+            raise AssertionError(f"contrib_dist optimizers: {o}")
+    check_card_peak(ranks, "contrib_dist")
+    r0 = ranks[0]
+    return {"phase": "contrib_dist", "label": BASELINE_LABEL, "ranks": n,
+            "backend": r0["backend"], "launch_s": seconds,
+            "halo": r0["halo"], "bottleneck_ms_per_rank": [
+                r["bottleneck_ms"] for r in ranks],
+            "one_device": out, "rel_l2_tol": CD_REL_L2,
+            "optimizers": {f"rank{r['rank']}": r["optimizers"]
+                           for r in ranks},
+            "lamb_state_rel_tol": CD_LAMB_STATE_REL,
+            "peak_memory_bytes": {f"rank{r['rank']}": r["peak_memory_bytes"]
+                                  for r in ranks},
+            "card_peak_used_bytes": r0["card_peak_used_bytes"],
+            "launches": total_launches(ranks, ("launches",))}
+
+
 # the bf16 flash backward's design, named in its two summary rows
 FLASH_BWD_DESIGN = {
     "design": "tensor cores",
@@ -9438,6 +10919,30 @@ def summary(kernels, counts, path_adam):
                     library_ms=r["bwd"]["library_ms"])
                 for c, r in mha_flash.items()}
 
+    con = kernels["contrib"]
+
+    def con_flash(part, errs):
+        """This slice's fp32 flash cases (hf_finetune's) of a row."""
+        out = {}
+        for case, key in (("hf_finetune_nccl_fp32", "flash_hf_nccl"),
+                          ("hf_finetune_rank_fp32", "flash_hf_rank")):
+            r = con[key]
+            body = dict(r[part]) if part == "fwd" else dict(
+                r[part], plain_ms=r["bwd_plain_ms"],
+                library_ms=r["bwd_library_ms"])
+            out[case] = dict(body, shape=r["shape"], max_abs_err=max(
+                r["max_abs_err"][e] for e in errs))
+        return out
+
+    def con_norm(part, errs, cases):
+        return {case: dict(con[key][part], shape=con[key]["shape"],
+                           max_abs_err=max(con[key]["max_abs_err"][e]
+                                           for e in errs))
+                for case, key in cases}
+
+    rms_cases = (("hf_finetune_nccl_fp32", "rms_hf_nccl"),
+                 ("hf_finetune_rank_fp32", "rms_hf_rank"))
+    fln_case = (("fast_layer_norm_fp32_affine", "ln_fast_layer_norm"),)
     # the plain and library times of the two flash backward rows are one
     # call each that computes dq, dk and dv together: count them once
     both = {k: bwd[k] for k in ("plain_ms", "library_ms")}
@@ -9454,7 +10959,8 @@ def summary(kernels, counts, path_adam):
                             | {"megatron_rank": meg["flash_fwd"],
                                "megatron_nccl": meg["flash_fwd_nccl"]}
                             | {c: ring[c] for c in ("ring_diagonal_block",
-                                                    "ring_full_block")},
+                                                    "ring_full_block")}
+                            | con_flash("fwd", ("o",)),
                             keys=CASE_KEYS + ("shape",)),
             **FLASH_FWD_DESIGN),
         row("rms_norm_fwd", csrc + "rms_norm.cu",
@@ -9466,7 +10972,8 @@ def summary(kernels, counts, path_adam):
                              "megatron_last_stage_norm_and_nccl":
                                  meg["rms_fwd_full_rows"],
                              "cp_rank": sl["rms_fwd_cp_rank"],
-                             "ep_rank": sl["rms_fwd_ep_rank"]},
+                             "ep_rank": sl["rms_fwd_ep_rank"]}
+                            | con_norm("fwd", ("y",), rms_cases),
                             keys=CASE_KEYS + ("shape",))),
         row("flash_attention_bwd_dq", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:261",
@@ -9476,7 +10983,9 @@ def summary(kernels, counts, path_adam):
                            library_ms=r["library_ms"])
                    for c, r in bwd["cases"].items()}
             | mha_bwd("dq", ("dq",)) | meg_bwd("dq", ("dq",))
-            | ring_bwd("dq", ("dq",))),
+            | ring_bwd("dq", ("dq",))
+            | case_rows(con_flash("dq", ("dq",)),
+                        keys=CASE_KEYS + ("shape",))),
         row("flash_attention_bwd_dkv", csrc + "flash_bwd.cu",
             "apex_tpu/ops/flash_attention.py:322",
             dict(bwd["dkv"], shape=bwd["shape"], **both),
@@ -9488,7 +10997,9 @@ def summary(kernels, counts, path_adam):
                    for c, r in bwd["cases"].items()}
             | mha_bwd("dkv", ("dk", "dv"))
             | meg_bwd("dkv", ("dk", "dv"))
-            | ring_bwd("dkv", ("dk", "dv"))),
+            | ring_bwd("dkv", ("dk", "dv"))
+            | case_rows(con_flash("dkv", ("dk", "dv")),
+                        keys=CASE_KEYS + ("shape",))),
         row("rms_norm_bwd", csrc + "rms_norm.cu",
             "apex_tpu/ops/layer_norm.py:189", rbwd,
             max(rbwd["max_abs_err"].values()),
@@ -9501,7 +11012,8 @@ def summary(kernels, counts, path_adam):
                     meg["rms_bwd_full_rows"], max_abs_err=max(
                         meg["rms_bwd_full_rows"]["max_abs_err"].values())),
                 "cp_rank": rms_bwd_row(sl["rms_bwd_cp_rank"]),
-                "ep_rank": rms_bwd_row(sl["rms_bwd_ep_rank"])},
+                "ep_rank": rms_bwd_row(sl["rms_bwd_ep_rank"])}
+                | con_norm("bwd", ("dx", "dw"), rms_cases),
                 keys=CASE_KEYS + ("shape",))),
         row("fused_adam", csrc + "fused_adam.cu",
             "apex_tpu/ops/fused_adam_kernel.py:35",
@@ -9517,7 +11029,12 @@ def summary(kernels, counts, path_adam):
                                    "fused_adam_mlstm_masters"))}
                 | {"megatron_rank_slab": dict(
                     meg["adam"], shape=[meg["adam"]["n"]],
-                    max_abs_err=meg["adam"]["max_abs_err"]["delta"])},
+                    max_abs_err=meg["adam"]["max_abs_err"]["delta"])}
+                | {case: dict(con[key], shape=[con[key]["n"]],
+                              max_abs_err=con[key]["max_abs_err"]["delta"])
+                   for case, key in (("asp_bert_slab", "adam_asp_slab"),
+                                     ("dist_adam_bert_shard",
+                                      "adam_dist_shard"))},
                 keys=CASE_KEYS + ("shape",))),
         # LayerNorm at GPT-2's shape (the BERT shape's numbers are in the
         # kernels phase), errors over both
@@ -9527,7 +11044,8 @@ def summary(kernels, counts, path_adam):
             cases=case_rows({"bert": lnf[1], "mha": mha["layer_norm_fwd"],
                              "gpt2_generate_prefill": lnf[2],
                              "gpt2_generate_decode": lnf[3],
-                             "ddp_rank": kernels["layer_norm_fwd_ddp_rank"]},
+                             "ddp_rank": kernels["layer_norm_fwd_ddp_rank"]}
+                            | con_norm("fwd", ("y",), fln_case),
                             keys=CASE_KEYS + ("shape",))),
         row("layer_norm_bwd", csrc + "layer_norm.cu",
             "apex_tpu/ops/layer_norm.py:163", lnb[0],
@@ -9535,7 +11053,8 @@ def summary(kernels, counts, path_adam):
             cases=case_rows({name: dict(r, max_abs_err=max(
                 r["max_abs_err"].values())) for name, r in (
                     ("bert", lnb[1]), ("mha", mha["layer_norm_bwd"]),
-                    ("ddp_rank", kernels["layer_norm_bwd_ddp_rank"]))},
+                    ("ddp_rank", kernels["layer_norm_bwd_ddp_rank"]))}
+                | con_norm("bwd", ("dx", "dw", "db"), fln_case),
                 keys=CASE_KEYS + ("shape",))),
         row("fused_softmax_causal", csrc + "fused_softmax.cu",
             "apex_tpu/transformer/functional/fused_softmax.py:104", smc,
@@ -9724,7 +11243,11 @@ def main() -> int:
                 ("mlp_fused_dense", phase_mlp_fused_dense),
                 ("dcgan", phase_dcgan),
                 ("rnn_mlstm", phase_rnn_mlstm),
-                ("bert_optimizers", phase_bert_optimizers)):
+                ("bert_optimizers", phase_bert_optimizers),
+                ("contrib", phase_contrib),
+                ("hf_finetune", phase_hf_finetune),
+                ("contrib_dist", phase_contrib_dist),
+                ("hf_finetune_nccl", phase_hf_finetune_nccl)):
             phase = path
             gc.collect()
             torch.cuda.empty_cache()
@@ -9757,6 +11280,7 @@ def main() -> int:
               "ddp_nccl": results["ddp_nccl"]["launches"],
               "megatron_training": results["megatron_training"]["launches"],
               "megatron_nccl": results["megatron_nccl"]["launches"]}
+    kernels["contrib"] = results["contrib"]["kernels"]
     emit({"kernel_counts": counts})
     emit(summary(kernels, counts, training["adam_path_check"]))
     print(dev["nvidia_smi"], flush=True)

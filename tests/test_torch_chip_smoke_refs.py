@@ -317,7 +317,7 @@ def test_suites_run_each_multi_rank_path(smoke):
     launches (the one-rank NCCL paths, the 2-rank and the 4-rank gloo
     paths), each path once, with a rank function."""
     paths = [p for _, _, ps in smoke.SUITES.values() for p in ps]
-    assert len(paths) == len(set(paths)) == 13
+    assert len(paths) == len(set(paths)) == 16
     assert "megatron_o4" not in paths
     own = {"megatron_o4", "megatron_o4_resume"}
     assert set(smoke.LAUNCH_TIMEOUT) == set(smoke.SUITES) | own
@@ -330,3 +330,79 @@ def test_suites_run_each_multi_rank_path(smoke):
                                      "gloo4_suite": (4, "gloo")}[name]
         for phase in ps + (name,):
             assert callable(smoke.rank_fn(phase, pathlib.Path(".")))
+
+
+# ------------------------------------------- the contrib slice's references
+
+def test_host_mask_counts_as_the_port_sorts(smoke):
+    """contrib's ASP check holds the card's masks against
+    ``host_mn_mask``, which counts; on the CPU it equals
+    ``contrib.sparsity.mn_1d_mask`` (a stable sort), ties included."""
+    from apex_tpu_torch.contrib.sparsity import mn_1d_mask
+
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(64, 48, generator=gen)
+    w[::3, :8] = 1.0  # whole groups tied
+    w[1, 4:8] = torch.tensor([2.0, -2.0, 2.0, 0.5])
+    assert torch.equal(smoke.host_mn_mask(w), mn_1d_mask(w))
+    assert torch.equal(smoke.host_mn_mask(w.bfloat16().float()),
+                       mn_1d_mask(w.bfloat16()))
+
+
+def test_float64_transducer_reference_is_the_loss(smoke):
+    """contrib's cut check: ``rnnt_loss64`` (cell by cell, float64)
+    against the port's wavefront on the same logits, loss and dlogits."""
+    from apex_tpu_torch.contrib.transducer import transducer_loss
+
+    gen = torch.Generator().manual_seed(1)
+    logits = torch.randn(1, 12, 6, 9, generator=gen)
+    targets = torch.randint(1, 9, (1, 5), generator=gen)
+    x = logits.clone().requires_grad_()
+    got = transducer_loss(x, targets, torch.tensor([10]), torch.tensor([4]))
+    got.sum().backward()
+    x64 = logits.double().requires_grad_()
+    ref = smoke.rnnt_loss64(x64[0], targets[0], 10, 4)
+    ref.backward()
+    torch.testing.assert_close(got[0].double(), ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(x.grad.double(), x64.grad, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_relu_decisions_pin_and_count(smoke):
+    """The split-vs-whole checks pin ReLU decisions: recorded in call
+    order, applied back, the differing decisions counted."""
+    import torch.nn.functional as F
+
+    x = torch.tensor([-1.0, 0.5, 2.0])
+    rec = []
+    with smoke.relu_decisions(record=rec):
+        F.relu(x)
+    assert F.relu is torch.nn.functional.relu
+    flips = [0]
+    with smoke.relu_decisions(pinned=[torch.tensor([True, False, True])],
+                              flips=flips):
+        y = F.relu(x)
+    assert torch.equal(rec[0], torch.tensor([False, True, True]))
+    assert torch.equal(y, torch.tensor([-1.0, 0.0, 2.0])) and flips == [2]
+
+
+def test_bf16_ulps_counts_one_rounding(smoke):
+    old = torch.tensor([1.0, 0.0012, 0.5]).bfloat16()
+    step = torch.tensor([1e-3, -1e-3, 0.25])
+    once = (old.float() + step).bfloat16()
+    twice = old + step.bfloat16()
+    assert smoke.bf16_ulps(once, twice, old) <= 1.0
+    assert smoke.bf16_ulps(once, once, old) == 0.0
+
+
+def test_hf_phase_config_is_llama3_8b(smoke):
+    """hf_finetune_nccl's HF config converts to the port's llama3_8b."""
+    from apex_tpu_torch.models import convert, llama
+
+    for layers in (2, 32):
+        cfg = convert.llama_config_from_hf(smoke.hf_llama3_8b(layers))
+        assert cfg == llama.llama3_8b(num_layers=layers)
+    want = smoke.hf_step_want(2)
+    assert (want["flash_attention_fwd"], want["rms_norm_fwd"],
+            want["rms_norm_bwd"]) == (4, 9, 5)
+    assert smoke.hf_generate_want(2, 8)["rms_norm_fwd"] == 40

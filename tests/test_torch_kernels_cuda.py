@@ -1964,3 +1964,75 @@ def test_resnet_o2_step_runs_on_the_card(gen):
     assert mlp.forward(p, torch.ones(2, 16, device="cuda"), cfg).is_cuda
     torch.cuda.synchronize()
     assert launch_counts.snapshot() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fast_layer_norm_launches_the_layer_norm_kernels(gen, dtype):
+    """``contrib.FastLayerNorm`` at BERT-base rows: one LayerNorm forward
+    and one backward launch a call, outputs and grads against the plain
+    versions on the same inputs (fp32 1e-5; bf16 one rounding)."""
+    from apex_tpu_torch.contrib.layer_norm import FastLayerNorm
+
+    ln_mod = FastLayerNorm(768)
+    with torch.no_grad():
+        ln_mod.weight.normal_(1.0, 0.1, generator=gen)
+        ln_mod.bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(4, 128, 768, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    xs = x.clone().requires_grad_()
+    before = (ln.ln_launches, ln.ln_bwd_launches)
+    y = ln_mod(xs)
+    y.backward(dy)
+    assert (ln.ln_launches, ln.ln_bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    rows, w, b = x.reshape(-1, 768), ln_mod.weight.detach(), \
+        ln_mod.bias.detach()
+    y_ref, mu, rstd = ln._ln_fwd_plain(rows, w, b, 1e-5)
+    dx_ref, dw_ref, db_ref = ln._ln_bwd_plain(rows, w, mu, rstd,
+                                              dy.reshape(-1, 768))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.reshape(-1, 768).float(), y_ref.float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(xs.grad.reshape(-1, 768).float(),
+                               dx_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(ln_mod.weight.grad, dw_ref.float(),
+                               rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(ln_mod.bias.grad, db_ref.float(), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("one_rank", ["gloo", "nccl"], indirect=True)
+def test_distributed_fused_adam_shard_step_launches_the_adam_kernel(
+        one_rank, gen):
+    """``DistributedFusedAdam``'s shard step is the flat Adam kernel, one
+    launch a dtype bucket (here fp32 and bf16), and at one rank equals
+    the plain version of the same arithmetic on the same shard bit for
+    bit."""
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.contrib.optimizers import distributed_fused_adam
+
+    p = {"w": torch.randn(37, 11, generator=gen, device="cuda"),
+         "b": torch.randn(13, generator=gen, device="cuda").bfloat16()}
+    g = {k: torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype)
+         for k, v in p.items()}
+    tx = distributed_fused_adam(lr=1e-2, weight_decay=0.01)
+    state = tx.init(p)
+    host = _tree.map_leaves(lambda t: t.cpu(), {
+        "master": dict(state.master_shard), "mu": dict(state.mu_shard),
+        "nu": dict(state.nu_shard)})
+    before = fak.launches
+    upd, state = tx.update(g, state, p)
+    assert fak.launches == before + 2
+    for k in ("float32", "bfloat16"):
+        grads = torch.cat([g[n].reshape(-1).float().cpu() for n in
+                           (("w",) if k == "float32" else ("b",))])
+        m, v = host["mu"][k].clone(), host["nu"][k].clone()
+        delta, m, v = fak._adam_flat_plain(
+            grads, host["master"][k], m, v, 1e-2, torch.tensor(1.0),
+            b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+            adam_w_mode=True, bias_correction=True)
+        assert torch.equal(state.mu_shard[k].cpu(), m)
+        assert torch.equal(state.nu_shard[k].cpu(), v)
+        assert torch.equal(state.master_shard[k].cpu(),
+                           host["master"][k] + delta)
+    assert all(u.is_cuda for u in _tree.leaves(upd))

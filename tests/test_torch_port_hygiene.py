@@ -120,8 +120,21 @@ OPTIMIZER_SLICE_MODULES = (
     "rnn/cells.py", "rnn/models.py", "reparameterization.py")
 
 
+# the rest of contrib and the hf_finetune example
+CONTRIB_SLICE_MODULES = (
+    "contrib/xentropy.py", "contrib/focal_loss.py", "contrib/layer_norm.py",
+    "contrib/conv_bias_relu.py", "contrib/groupbn.py",
+    "contrib/peer_memory.py", "contrib/halo_exchangers.py",
+    "contrib/bottleneck.py", "contrib/sparsity.py", "contrib/transducer.py",
+    "contrib/optimizers/distributed_fused_adam.py",
+    "contrib/optimizers/distributed_fused_adam_v2.py",
+    "contrib/optimizers/distributed_fused_adam_v3.py",
+    "contrib/optimizers/distributed_fused_lamb.py",
+    "examples/hf_finetune.py")
+
+
 @pytest.mark.parametrize("rel", BASELINE_MODULES + SLICE_MODULES
-                         + OPTIMIZER_SLICE_MODULES)
+                         + OPTIMIZER_SLICE_MODULES + CONTRIB_SLICE_MODULES)
 def test_baseline_modules_are_checked(rel):
     assert PORT / rel in _port_sources()
 
@@ -436,11 +449,10 @@ def test_every_name_of_the_optimizer_slice_is_ported():
     """Each name the JAX package's optimizers, parallel, fp16_utils,
     multi_tensor_apply, rnn, reparameterization and contrib export is
     importable from the port, and none raises NotImplementedError but
-    ``auto_shard`` and the distributed contrib optimizers."""
+    ``auto_shard``."""
     import importlib
 
-    waits = {"auto_shard", "DistributedFusedAdam", "distributed_fused_adam",
-             "DistributedFusedLAMB", "distributed_fused_lamb"}
+    waits = {"auto_shard"}
     names = {
         "optimizers": ("fused_adagrad", "FusedAdagrad", "FusedAdagradState",
                        "fused_novograd", "FusedNovoGrad",
@@ -471,7 +483,37 @@ def test_every_name_of_the_optimizer_slice_is_ported():
                                "FusedSGD", "DistributedFusedAdam",
                                "distributed_fused_adam",
                                "DistributedFusedLAMB",
-                               "distributed_fused_lamb"),
+                               "distributed_fused_lamb",
+                               "dist_adam_partition_specs"),
+        "contrib.optimizers.distributed_fused_adam_v2": (
+            "DistributedFusedAdamV2",),
+        "contrib.optimizers.distributed_fused_adam_v3": (
+            "DistributedFusedAdamV3",),
+        "contrib.xentropy": ("softmax_cross_entropy_loss",
+                             "SoftmaxCrossEntropyLoss"),
+        "contrib.focal_loss": ("focal_loss", "FocalLoss"),
+        "contrib.layer_norm": ("fast_layer_norm", "FastLayerNorm"),
+        "contrib.conv_bias_relu": ("ConvBias", "ConvBiasReLU",
+                                   "ConvBiasMaskReLU",
+                                   "ConvFrozenScaleBiasReLU"),
+        "contrib.groupbn": ("BatchNorm2d_NHWC",),
+        "contrib.peer_memory": ("PeerMemoryPool", "halo_exchange_1d",
+                                "PeerHaloExchanger1d"),
+        "contrib.halo_exchangers": ("HaloExchanger", "HaloExchangerNoComm",
+                                    "HaloExchangerAllGather",
+                                    "HaloExchangerSendRecv",
+                                    "HaloExchangerPeer",
+                                    "left_right_halo_exchange"),
+        "contrib.bottleneck": ("Bottleneck", "SpatialBottleneck",
+                               "FrozenBatchNorm2d"),
+        "contrib.sparsity": ("mn_1d_mask", "create_mask",
+                             "find_channel_permutation", "permuted_mn_mask",
+                             "retained_magnitude", "apply_masks",
+                             "masked_update", "ASP"),
+        "contrib.transducer": ("transducer_joint", "TransducerJoint",
+                               "transducer_loss", "TransducerLoss"),
+        "examples.hf_finetune": ("main", "hf_llama_state_dict",
+                                 "train_step"),
     }
     for mod, attrs in names.items():
         module = importlib.import_module(f"apex_tpu_torch.{mod}")
@@ -483,3 +525,44 @@ def test_every_name_of_the_optimizer_slice_is_ported():
             else:
                 assert getattr(obj, "__name__", "") != "raise_not_ported", \
                     f"{mod}.{attr}"
+
+
+def test_contrib_exports_every_reference_module():
+    """``apex_tpu_torch.contrib`` names the reference's 14 modules."""
+    import apex_tpu_torch.contrib as contrib
+
+    want = {"bottleneck", "clip_grad", "conv_bias_relu", "fmha",
+            "focal_loss", "groupbn", "halo_exchangers", "layer_norm",
+            "multihead_attn", "optimizers", "peer_memory", "sparsity",
+            "transducer", "xentropy"}
+    assert set(contrib.__all__) == want
+    for name in want:
+        assert getattr(contrib, name).__name__ == f"apex_tpu_torch.contrib." \
+            f"{name}"
+
+
+def test_contrib_entry_points_raise_without_a_gpu(monkeypatch):
+    """The contrib slice's constructors and the example's state dict land
+    on the card unless asked for the CPU."""
+    from apex_tpu_torch.contrib import bottleneck, groupbn, layer_norm
+    from apex_tpu_torch.contrib import peer_memory
+    from apex_tpu_torch.examples import hf_finetune
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    makers = (
+        lambda **kw: layer_norm.FastLayerNorm(8, **kw).weight,
+        lambda **kw: groupbn.BatchNorm2d_NHWC(8).init(**kw)["params"][
+            "BatchNorm_0"]["scale"],
+        lambda **kw: bottleneck.FrozenBatchNorm2d(3).init(**kw)["frozen"][
+            "weight"],
+        lambda **kw: bottleneck.SpatialBottleneck(2).init(gen, 8, **kw)[
+            "params"]["Conv_0"]["kernel"],
+        lambda **kw: peer_memory.PeerMemoryPool(**kw).allocate_peer_tensors(
+            (2,), torch.float32, False, False)[0],
+        lambda **kw: hf_finetune.hf_llama_state_dict(
+            hf_finetune.tiny_hf_config(), gen, **kw)["model.norm.weight"])
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu").device.type == "cpu"

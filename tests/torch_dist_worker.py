@@ -725,7 +725,9 @@ def main(argv) -> int:
         rank=None if launched else int(os.environ["RANK"]))
     with np.load(directory / "inputs.npz") as f:
         inputs = {k: f[k] for k in f.files}
-    if suite not in SUITES:  # the Megatron, cp/ep/tp and examples' suites
+    if suite not in SUITES:  # the Megatron, cp/ep/tp, examples' and
+        # contrib suites
+        from torch_contrib_suites import SUITES as contrib
         from torch_cp_suites import SUITES as cp_ep_tp
         from torch_example_suites import SUITES as examples
         from torch_megatron_suites import SUITES as megatron
@@ -733,6 +735,7 @@ def main(argv) -> int:
         SUITES.update(megatron)
         SUITES.update(cp_ep_tp)
         SUITES.update(examples)
+        SUITES.update(contrib)
     out = SUITES[suite](rank, n, inputs, directory)
     np.savez(directory / f"rank{rank}.npz", **out)
     B.barrier("dp")
