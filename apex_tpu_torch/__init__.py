@@ -19,7 +19,10 @@ and test harness; every fused optimizer (Adam, SGD, LAMB, Adagrad,
 NovoGrad, mixed-precision LAMB) with LARC and the multi-tensor ops; the
 pre-amp fp16 workflow (``fp16_utils.FP16_Optimizer``); the RNNs
 (``rnn``, the mLSTM among them) and weight norm
-(``reparameterization``). Every one of the JAX package's 13 Pallas kernels has a
+(``reparameterization``); the training telemetry (``observability``:
+the JSONL registry, spans and step phases, the flight recorder, step
+reports, numerics, the memory monitor and OOM forensics, goodput, the
+report CLI) and ``runtime.timing``. Every one of the JAX package's 13 Pallas kernels has a
 Hopper kernel. See ROADMAP.md for what follows.
 """
 

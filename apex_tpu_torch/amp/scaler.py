@@ -169,12 +169,47 @@ class LossScaler:
 
     def report(self, state: LossScaleState, registry=None, prefix="amp",
                grads=None, top_k: int = 3) -> dict:
-        """Publishing scaler health to a metrics registry
-        (``scaler.py:180``) waits for the port of the observability
-        slice's registry gauges and numerics stats."""
-        raise NotImplementedError(
-            "LossScaler.report waits for the port of the observability "
-            "slice (registry gauges and numerics tensor stats)")
+        """Publish scaler health to a metrics registry (``scaler.py:180``;
+        default: the process registry): gauges ``<prefix>/loss_scale``,
+        ``<prefix>/overflow_count``, ``<prefix>/unskipped_steps``,
+        ``<prefix>/last_overflow_step`` and ``<prefix>/skip_streak``, the
+        fields the numerics ``HealthMonitor``'s overflow-streak detector
+        consumes. Returns the values as a dict. One host read a call (the
+        state's counters are CPU tensors, read together).
+
+        ``grads``: pass the (scaled) grads tree when the last update
+        overflowed and the readout should say WHICH tensors blew up - one
+        stats pass names the top-``top_k`` tensors by amax (+ any
+        non-finite paths) in an ``amp_overflow`` event and a
+        ``top_offenders`` key. Skipped on clean steps."""
+        from apex_tpu_torch.observability import get_registry, numerics
+
+        host = torch.stack([state.loss_scale.double(),
+                            state.overflows.double(),
+                            state.unskipped.double(),
+                            state.last_overflow_step.double(),
+                            state.skip_streak.double()]).tolist()
+        values = {
+            "loss_scale": float(host[0]),
+            "overflow_count": int(host[1]),
+            "unskipped_steps": int(host[2]),
+            "last_overflow_step": int(host[3]),
+            "skip_streak": int(host[4]),
+        }
+        reg = registry if registry is not None else get_registry()
+        for name, v in values.items():
+            reg.gauge(f"{prefix}/{name}").set(v)
+        if grads is not None and values["skip_streak"] > 0:
+            per_tensor = numerics.host_tensor_stats(grads)
+            summary = numerics.summarize_stats(per_tensor, top_k=top_k)
+            values["top_offenders"] = summary["worst_amax"]
+            reg.event("amp_overflow", prefix=prefix,
+                      step=values["last_overflow_step"],
+                      skip_streak=values["skip_streak"],
+                      loss_scale=values["loss_scale"],
+                      top_offenders=summary["worst_amax"],
+                      nonfinite_paths=summary["nonfinite_paths"])
+        return values
 
     def state_dict(self, state: LossScaleState) -> dict:
         """Python numbers, the reference's format: a dict either package

@@ -51,13 +51,26 @@ every rank writes its own, as ``gpt2_train.py`` does); the batches are a
 pure function of the step, so a resumed run reaches the uninterrupted
 run's state.
 
-Not ported here (ROADMAP.md, Queue 1 items 5.3 and 5.4): ``--auto-shard``
-and the observability tiers.
+The observability tiers (``:292-317``, ``:385-405``, ``:428-441``,
+:class:`Tiers`): a ``StepReporter`` record a step (tokens a step M x mb x
+dp x s), ``StepPhases`` around each step with its clock started before
+the batch and the batch under ``span("data/batch")``, a
+``StatsCollector`` and a ``MemoryMonitor`` every 8 steps, a
+``HealthMonitor`` over the loss, and a ``FlightRecorder`` (10 x the
+median step, or ``$APEX_TPU_STALL_DEADLINE`` seconds) whose sensor feeds
+the ``PreemptionWatcher``. With ``APEX_TPU_METRICS=PATH`` the run ends by
+publishing its goodput and dumping the registry, one
+``PATH``-with-``.rank<r>`` file a rank (:func:`dump_metrics`); read them
+with ``python -m apex_tpu_torch.observability report|goodput``. The
+step's one host read stays the loss.
+
+Not ported here (ROADMAP.md, Queue 1 item 5.4): ``--auto-shard``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Callable, Dict, Optional
@@ -320,45 +333,134 @@ def checkpoint_dir(directory: str, rank: int) -> str:
     return os.path.join(directory, f"rank{rank}")
 
 
+class Tiers:
+    """The reference example's observability tiers (``:292-317``,
+    ``:385-392``) for one rank: ``reporter`` (a ``StepReporter`` with
+    ``tokens_per_step``), ``phases``, ``collector`` (every 8 steps over
+    the stage and io params), ``health``, ``memmon`` (every 8 steps, on
+    ``device``) and ``recorder`` (a ``FlightRecorder`` at 10 x the median
+    step, or ``$APEX_TPU_STALL_DEADLINE`` seconds, dumping to
+    ``directory``). :func:`run` installs the recorder for its steps; put
+    ``recorder.sensor()`` in the ``PreemptionWatcher``."""
+
+    def __init__(self, tokens_per_step: int, device=None,
+                 directory: Optional[str] = None):
+        from apex_tpu_torch import observability as obs
+
+        self.reporter = obs.StepReporter("llama_train",
+                                         tokens_per_step=tokens_per_step)
+        self.phases = obs.StepPhases(name="llama_train/step")
+        self.collector = obs.StatsCollector("llama_train", every=8)
+        self.health = obs.HealthMonitor("llama_train")
+        self.memmon = obs.MemoryMonitor("llama_train", every=8,
+                                        device=device)
+        deadline = os.environ.get("APEX_TPU_STALL_DEADLINE")
+        try:
+            deadline_s = float(deadline) if deadline else None
+        except ValueError:
+            raise SystemExit(
+                f"APEX_TPU_STALL_DEADLINE={deadline!r} is not a number "
+                f"(wall-deadline seconds, e.g. 120)")
+        # 10x the median, not the default 3x: a contended host can jitter
+        # a step 3x without anything being wedged, and a false stall
+        # escalates to exit 75 through the sensor
+        self.recorder = obs.FlightRecorder(directory=directory or None,
+                                           stall_factor=10.0,
+                                           deadline_s=deadline_s)
+
+    def record(self, it: int, st: Dict, loss: float, dt: float) -> dict:
+        """The tiers' work after step ``it`` (``:356-362``): the decimated
+        stats pass and snapshot, the health detectors, the step record."""
+        self.collector.observe({"stage": st["stage"], "io": st["io"]}, it)
+        self.health.observe(it, loss=loss)
+        self.memmon.observe(it)
+        return self.reporter.step(dt, loss=loss, numerics=self.collector.last,
+                                  memory=self.memmon.last,
+                                  **self.phases.last_fields())
+
+
 def run(step3d: Megatron3D, state: Dict, num_steps: int,
         batch_of: Callable[[int], tuple], *, directory: Optional[str] = None,
         save_every: int = 5, resume: bool = False, fault_plan=None,
-        watcher=None, exit_on_preempt: bool = False, log=None):
+        watcher=None, exit_on_preempt: bool = False, log=None,
+        tiers: Optional[Tiers] = None):
     """Steps up to ``num_steps`` under ``ResilientTrainLoop``
     (``:394-414``): ``batch_of(step)`` gives this rank's ``(tokens,
     targets)``; ``directory`` (this rank's) holds the checkpoints, saved
     every ``save_every`` steps and at the last (0: none but an emergency
-    save), restored from when ``resume``. Returns ``(state, losses,
-    loop)``, ``losses`` the steps this call ran, by step."""
+    save), restored from when ``resume``. ``tiers`` (:class:`Tiers`)
+    records every step (``:340-373``) and hands the loop its flight
+    recorder and memory monitor. Returns ``(state, losses, loop)``,
+    ``losses`` the steps this call ran, by step."""
+    from apex_tpu_torch.observability import span
     from apex_tpu_torch.resilience import ResilientTrainLoop
 
     losses: Dict[int, float] = {}
 
     def step_fn(st, it):
-        tokens, targets = batch_of(it)
-        if step3d.fp8 is not None:
-            step3d.fp8_state = st["fp8"]
-        t0 = time.perf_counter()
-        loss, opt_state = step3d.train_step(st["stage"], st["io"], st["opt"],
-                                            tokens, targets)
-        losses[it] = loss = float(loss)
+        with (tiers.phases.step() if tiers is not None
+              else contextlib.nullcontext()):
+            # t0 before the batch: step_time_ms covers the same window
+            # as the phase fractions (ref :330-335)
+            t0 = time.perf_counter()
+            with span("data/batch"):
+                tokens, targets = batch_of(it)
+            if step3d.fp8 is not None:
+                step3d.fp8_state = st["fp8"]
+            loss, opt_state = step3d.train_step(
+                st["stage"], st["io"], st["opt"], tokens, targets)
+            losses[it] = loss = float(loss)  # the step's one host read
+            dt = time.perf_counter() - t0
+        new_state = train_state(step3d, st["stage"], st["io"], opt_state)
+        if tiers is not None:
+            rec = tiers.record(it, new_state, loss, dt)
+            msg = (f"({rec['step_time_ms']:.0f} ms  "
+                   f"{rec['tokens_per_sec']:.0f} tok/s)")
+        else:
+            msg = f"({dt * 1e3:.0f} ms)"
         if log is not None:
-            log(f"step {it:3d}  loss {loss:.4f}  "
-                f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
-        return (train_state(step3d, st["stage"], st["io"], opt_state),
-                {"loss": loss})
+            log(f"step {it:3d}  loss {loss:.4f}  {msg}")
+        return new_state, {"loss": loss}
 
     loop = ResilientTrainLoop(
         step_fn, directory=directory or None, save_every=save_every,
         max_to_keep=2, fault_plan=fault_plan, watcher=watcher,
         auto_resume=resume, check_state_every=0,
         exit_on_preempt=exit_on_preempt,
+        flight_recorder=None if tiers is None else tiers.recorder,
+        memory_monitor=None if tiers is None else tiers.memmon,
         on_resume=None if log is None else
         (lambda it: log(f"=> resumed from step {it}")))
-    state = loop.run(state, num_steps)
+    if tiers is not None:
+        tiers.recorder.install()
+    try:
+        state = loop.run(state, num_steps)
+    finally:
+        if tiers is not None:
+            tiers.recorder.uninstall()
     if step3d.fp8 is not None:
         step3d.fp8_state = state["fp8"]
     return state, losses, loop
+
+
+def dump_metrics(path: str, wall_s: float, registry=None):
+    """The run's end under ``APEX_TPU_METRICS`` (``:428-441``): account
+    its goodput from the registry's records and publish the
+    ``goodput/*`` gauges, then dump the registry to this rank's
+    ``rank_path`` variant of ``path``. Returns ``(accounting or None,
+    the file written)``; a failed accounting is printed, never fatal."""
+    from apex_tpu_torch import observability as obs
+
+    reg = registry if registry is not None else obs.get_registry()
+    acc = None
+    try:
+        ledger = obs.ledger_from_records(reg.to_records())
+        acc = obs.account_goodput(ledger, wall_s=wall_s)
+        obs.goodput.publish(acc, reg)
+    except Exception as e:  # noqa: BLE001 - telemetry must not cost the run
+        print(f"goodput accounting failed: {e!r}", flush=True)
+    reg.dump(path)
+    return acc, reg.dump_path(path)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -370,6 +472,7 @@ def main(argv: Optional[list] = None) -> int:
         env_sensor,
     )
 
+    t_main0 = time.perf_counter()
     args = parse_args(argv)
     rank, world, device = initialize_distributed()
     if world != args.pp * args.dp * args.tp:
@@ -400,7 +503,10 @@ def main(argv: Optional[list] = None) -> int:
         return step3d.local_batch(tokens), step3d.local_batch(targets)
 
     spec = os.environ.get("APEX_TPU_FAULT_PLAN")
-    watcher = PreemptionWatcher(sensors=[env_sensor()]).install()
+    tiers = Tiers(M * mb * args.dp * s, device=device,
+                  directory=args.checkpoint_dir or None)
+    watcher = PreemptionWatcher(
+        sensors=[env_sensor(), tiers.recorder.sensor()]).install()
     try:
         _, losses, loop = run(
             step3d, train_state(step3d, stage, io,
@@ -410,7 +516,7 @@ def main(argv: Optional[list] = None) -> int:
                        if args.checkpoint_dir else None),
             save_every=args.save_every, resume=args.resume,
             fault_plan=FaultPlan.parse(spec) if spec else None,
-            watcher=watcher, exit_on_preempt=True, log=log)
+            watcher=watcher, exit_on_preempt=True, log=log, tiers=tiers)
     finally:
         watcher.uninstall()
     if not losses:
@@ -421,6 +527,14 @@ def main(argv: Optional[list] = None) -> int:
         log(f"mesh pp={args.pp} dp={args.dp} tp={args.tp} sp={step3d.sp}: "
             f"loss {first:.4f} -> {last:.4f} "
             f"({'decreased' if last < first else 'NOT decreased'})")
+    if os.environ.get("APEX_TPU_METRICS"):
+        acc, path = dump_metrics(os.environ["APEX_TPU_METRICS"],
+                                 time.perf_counter() - t_main0)
+        if acc is not None:
+            log(f"goodput {acc['goodput_ratio']:.4f} "
+                f"(productive {acc['productive_s']:.2f}s of "
+                f"{acc['wall_s']:.2f}s wall)")
+        log(f"metrics -> {path}")
     ps.destroy_model_parallel()
     return 0
 

@@ -29,6 +29,8 @@ from typing import Any, Callable, NamedTuple, Union
 import torch
 
 from apex_tpu_torch import _device, _tree
+from apex_tpu_torch.observability import get_registry
+from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.ops import flat as _flat
 from apex_tpu_torch.ops.fused_adam_kernel import adam_flat
 from apex_tpu_torch.optimizers import _math
@@ -91,37 +93,52 @@ def fused_adam(lr: ScalarOrSchedule = 1e-3, bias_correction: bool = True,
                   adam_w_mode=adam_w_mode, bias_correction=bias_correction)
         g_leaves = _tree.leaves(grads)
         p_leaves = _tree.leaves(params)
+        reg = get_registry()
         if flat:
-            # grouped by *param* dtype; grads of any dtype pack as fp32
-            meta = _flat.tree_meta(params)
-            deltas, mu, nu = {}, {}, {}
-            for k, (idxs, spec) in meta[2].items():
-                gbuf, _ = _flat.flatten_tensors(
-                    [g_leaves[i] for i in idxs], spec, dtype=torch.float32)
-                pbuf, _ = _flat.flatten_tensors(
-                    [p_leaves[i] for i in idxs], spec)
-                # delta comes back in the slab's (the params') dtype
-                deltas[k], mu[k], nu[k] = adam_flat(
-                    gbuf, pbuf, state.mu[k], state.nu[k], lr_t, step, **kw)
-                del gbuf, pbuf
-            updates = _flat.unflatten_tree(deltas, meta)
+            # the reference's dispatch record: the counter ticks once an
+            # update, and the span names the path ("cuda": the flat Adam
+            # kernel on the card; "plain": its PyTorch version on the
+            # CPU) in a profiler trace
+            path = "cuda" if p_leaves and p_leaves[0].is_cuda else "plain"
+            reg.counter("optimizer/fused_adam/dispatch",
+                        path=f"flat_{path}").inc()
+            with span(f"fused_adam/flat/{path}"):
+                # grouped by *param* dtype; grads of any dtype pack as fp32
+                meta = _flat.tree_meta(params)
+                deltas, mu, nu = {}, {}, {}
+                for k, (idxs, spec) in meta[2].items():
+                    gbuf, _ = _flat.flatten_tensors(
+                        [g_leaves[i] for i in idxs], spec,
+                        dtype=torch.float32)
+                    pbuf, _ = _flat.flatten_tensors(
+                        [p_leaves[i] for i in idxs], spec)
+                    # delta comes back in the slab's (the params') dtype
+                    deltas[k], mu[k], nu[k] = adam_flat(
+                        gbuf, pbuf, state.mu[k], state.nu[k], lr_t, step,
+                        **kw)
+                    del gbuf, pbuf
+                updates = _flat.unflatten_tree(deltas, meta)
         else:
-            m_leaves = _tree.leaves(state.mu)
-            v_leaves = _tree.leaves(state.nu)
-            # each leaf's fp32 delta is cast to the param's dtype as it is
-            # made, so no more than one leaf's fp32 delta is alive
-            deltas, mus, nus = [], [], []
-            for g, p, m, v in zip(g_leaves, p_leaves, m_leaves, v_leaves):
-                delta, m, v = _math.adam_step(g, p, m, v, lr=lr_t,
-                                              step=step, **kw)
-                deltas.append(delta.to(p.dtype))
-                mus.append(m)
-                nus.append(v)
-                del delta
-            paths = _tree.paths(params)
-            updates = _tree.unflatten(paths, deltas)
-            mu = _tree.unflatten(paths, mus)
-            nu = _tree.unflatten(paths, nus)
+            reg.counter("optimizer/fused_adam/dispatch", path="tree").inc()
+            with span("fused_adam/tree"):
+                m_leaves = _tree.leaves(state.mu)
+                v_leaves = _tree.leaves(state.nu)
+                # each leaf's fp32 delta is cast to the param's dtype as
+                # it is made, so no more than one leaf's fp32 delta is
+                # alive
+                deltas, mus, nus = [], [], []
+                for g, p, m, v in zip(g_leaves, p_leaves, m_leaves,
+                                      v_leaves):
+                    delta, m, v = _math.adam_step(g, p, m, v, lr=lr_t,
+                                                  step=step, **kw)
+                    deltas.append(delta.to(p.dtype))
+                    mus.append(m)
+                    nus.append(v)
+                    del delta
+                paths = _tree.paths(params)
+                updates = _tree.unflatten(paths, deltas)
+                mu = _tree.unflatten(paths, mus)
+                nu = _tree.unflatten(paths, nus)
         return updates, FusedAdamState(count=count, mu=mu, nu=nu)
 
     return GradientTransformation(init, update)

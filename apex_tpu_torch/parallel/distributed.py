@@ -33,6 +33,7 @@ import torch
 from apex_tpu_torch import _tree
 from apex_tpu_torch.distributed import backend
 from apex_tpu_torch.distributed.backend import divide
+from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.ops.flat import flatten_tree, unflatten_tree
 from apex_tpu_torch.parallel.overlap import (
     _finish,
@@ -55,9 +56,10 @@ def sync_gradients(grads, axis_name: str = "data",
                    gradient_predivide_factor: float = 1.0):
     """All-reduce every leaf over ``axis_name`` (ref ``:55``); with
     ``gradient_average`` the mean over the group."""
-    return _tree.map_leaves(
-        lambda g: _reduce(g, axis_name, gradient_average,
-                          gradient_predivide_factor), grads)
+    with span("ddp/allreduce"):
+        return _tree.map_leaves(
+            lambda g: _reduce(g, axis_name, gradient_average,
+                              gradient_predivide_factor), grads)
 
 
 def sync_gradients_flat(grads, axis_name: str = "data",
@@ -65,11 +67,14 @@ def sync_gradients_flat(grads, axis_name: str = "data",
                         gradient_predivide_factor: float = 1.0):
     """Pack the leaves into one buffer per dtype, reduce each once,
     unpack (ref ``:90``)."""
-    bufs, meta = flatten_tree(grads)
-    reduced = {k: _reduce(buf, axis_name, gradient_average,
-                          gradient_predivide_factor)
-               for k, buf in bufs.items()}
-    return unflatten_tree(reduced, meta)
+    with span("ddp/allreduce_flat"):
+        bufs, meta = flatten_tree(grads)
+        reduced = {}
+        for k, buf in bufs.items():
+            with span(f"ddp/bucket/{k}"):
+                reduced[k] = _reduce(buf, axis_name, gradient_average,
+                                     gradient_predivide_factor)
+        return unflatten_tree(reduced, meta)
 
 
 def sync_gradients_bucketed(grads, axis_name: str = "data",
@@ -83,7 +88,15 @@ def sync_gradients_bucketed(grads, axis_name: str = "data",
     :func:`~apex_tpu_torch.parallel.overlap.sync_gradients_overlapped`."""
     return sync_gradients_overlapped(
         grads, axis_name, gradient_average, gradient_predivide_factor,
-        bucket_cap_mb=bucket_cap_mb)
+        bucket_cap_mb=bucket_cap_mb, _site=_bucketed_site)
+
+
+def _bucketed_site(plan, k: int) -> str:
+    """The reference's span of bucket ``k``: ``ddp/bucket{b}/{dtype}``,
+    ``b`` its index among the buckets of its dtype."""
+    dt = plan.buckets[k].dtype
+    b = sum(1 for x in plan.buckets[:k] if x.dtype == dt)
+    return f"ddp/bucket{b}/{dt}"
 
 
 def average_reduced(grads, axis_name: str = "data"):

@@ -7,7 +7,10 @@
 spawns N workers on this host, each a fresh interpreter (``subprocess``:
 never a fork of a process that may have initialised CUDA), with
 ``MASTER_ADDR``/``MASTER_PORT`` (a free localhost port), ``RANK``,
-``WORLD_SIZE``, ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` set. Without
+``WORLD_SIZE``, ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` set, and the
+fleet identity (``APEX_TPU_PROCESS_INDEX``/``APEX_TPU_PROCESS_COUNT``,
+ref ``:150``), so every telemetry artifact a rank writes to a shared
+path lands at its ``.rank{i}`` variant. Without
 ``--nprocs`` this module is the worker: :func:`initialize_distributed`
 starts the process group (the backend from the launcher, ``nccl`` by
 default), then the script runs as ``__main__``. The launcher waits for
@@ -27,6 +30,12 @@ import subprocess
 import sys
 import time
 from typing import Optional, Sequence
+
+from apex_tpu_torch.observability.fleet.identity import (
+    ENV_COUNT,
+    ENV_INDEX,
+    stamp_environ,
+)
 
 # what the launcher tells its workers beside torch.distributed's own
 # variables
@@ -69,7 +78,14 @@ def initialize_distributed(backend: Optional[str] = None,
     if not dist_backend.is_initialized():
         dist_backend.init_process_group(backend, init_method=init_method,
                                         world_size=world_size, rank=rank)
-    return dist_backend.get_rank(), dist_backend.get_world_size(), device
+    rank, world = dist_backend.get_rank(), dist_backend.get_world_size()
+    # back-fill the fleet identity (ref :71) for ranks started some other
+    # way, so telemetry is rank-suffixed from here on; an identity the
+    # launcher exported wins, and a solo process keeps its plain names
+    if world > 1:
+        os.environ.setdefault(ENV_INDEX, str(rank))
+        os.environ.setdefault(ENV_COUNT, str(world))
+    return rank, world, device
 
 
 def _free_port() -> int:
@@ -102,7 +118,8 @@ def launch(script_args: Sequence[str], nprocs: int, backend: str = "nccl",
     procs = [subprocess.Popen(
         [sys.executable, "-m", "apex_tpu_torch.parallel.multiproc",
          *script_args],
-        env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
+        env=stamp_environ(dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                          r, nprocs))
         for r in range(nprocs)]
     deadline = None if timeout is None else time.monotonic() + timeout
     try:

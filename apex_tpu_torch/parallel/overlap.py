@@ -40,6 +40,7 @@ import torch
 from apex_tpu_torch import _tree
 from apex_tpu_torch.distributed import backend
 from apex_tpu_torch.distributed.backend import divide
+from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.ops.flat import dtype_name
 
 
@@ -165,10 +166,13 @@ def sync_gradients_overlapped(grads, axis_name: str = "data",
                               gradient_average: bool = True,
                               gradient_predivide_factor: float = 1.0,
                               bucket_cap_mb: float = 10.0,
-                              plan: Optional[OverlapPlan] = None):
+                              plan: Optional[OverlapPlan] = None,
+                              _site=None):
     """Bucket all-reduce of finished grads (ref ``:183``): every bucket
     packed and issued in plan order with ``async_op``, so the transfers
-    queue back to back, then each waited on and unpacked."""
+    queue back to back, then each waited on and unpacked. Each bucket's
+    pack and issue runs under the span ``ddp/overlap/bucket{k}/{dtype}``
+    (``_site(plan, k)`` names it for the bucketed sync)."""
     leaves = _tree.leaves(grads)
     if not leaves:
         return grads
@@ -179,12 +183,15 @@ def sync_gradients_overlapped(grads, axis_name: str = "data",
     group = backend.get_group(axis_name)
     n = backend.get_world_size(axis_name)
     pending = []
-    for bucket in plan.buckets:
-        flat = _pack(leaves, bucket)
-        if pre != 1.0:
-            flat = divide(flat, pre)
-        work = torch.distributed.all_reduce(flat, group=group,
-                                            async_op=True)
+    for k, bucket in enumerate(plan.buckets):
+        site = (f"ddp/overlap/bucket{k}/{bucket.dtype}" if _site is None
+                else _site(plan, k))
+        with span(site):
+            flat = _pack(leaves, bucket)
+            if pre != 1.0:
+                flat = divide(flat, pre)
+            work = torch.distributed.all_reduce(flat, group=group,
+                                                async_op=True)
         pending.append((bucket, flat, work))
     out: list = [None] * len(leaves)
     for bucket, red, work in pending:
@@ -257,11 +264,13 @@ def overlapped_value_and_grad(
         pending = []
 
         def issue(k: int, bucket: OverlapBucket, grads: list):
-            flat = _pack(grads, _rebase(bucket))
-            if pre != 1.0:
-                flat = divide(flat, pre)
-            work = torch.distributed.all_reduce(flat, group=group,
-                                                async_op=True)
+            # on a card this runs on the autograd engine's device thread
+            with span(f"ddp/overlap/bwd_bucket{k}/{bucket.dtype}"):
+                flat = _pack(grads, _rebase(bucket))
+                if pre != 1.0:
+                    flat = divide(flat, pre)
+                work = torch.distributed.all_reduce(flat, group=group,
+                                                    async_op=True)
             pending.append((bucket, flat, work))
             trace.issued.append((k, *trace.mark(flat.device)))
 

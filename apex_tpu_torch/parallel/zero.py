@@ -46,6 +46,7 @@ import torch
 from apex_tpu_torch import _device, _tree
 from apex_tpu_torch.distributed import backend
 from apex_tpu_torch.distributed.backend import divide
+from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.ops.fused_adam_kernel import adam_flat
 from apex_tpu_torch.parallel.overlap import (
     OverlapPlan,
@@ -172,29 +173,30 @@ class Zero1FusedAdam:
         step_f = count.to(torch.float32)
         pre = self.gradient_predivide_factor
         for k, bucket in enumerate(plan.buckets):
-            shard = bucket.padded // n
-            # grads travel fp32 (the flat Adam slab's type), params in
-            # their own dtype
-            gflat = _pack(g_leaves, bucket, cast=torch.float32)
-            if pre != 1.0:
-                gflat = divide(gflat, pre)
-            g_shard = torch.empty((shard,), dtype=torch.float32,
-                                  device=gflat.device)
-            backend.reduce_scatter_into(g_shard, gflat, self.axis_name)
-            del gflat
-            _finish(g_shard, n, self.gradient_average, pre)
-            pflat = _pack(p_leaves, bucket)
-            p_shard = pflat[rank * shard:(rank + 1) * shard]
-            delta, _, _ = adam_flat(g_shard, p_shard, state.mu[k],
-                                    state.nu[k], lr_t, step_f, **kw)
-            p_shard.add_(delta)
-            del delta, g_shard
-            backend.all_gather_into(pflat, p_shard.clone(), self.axis_name)
-            out: list = [None] * len(p_leaves)
-            _unpack_into(out, pflat, bucket)
-            for i in bucket.indices:
-                p_leaves[i].copy_(out[i])
-            del pflat
+            with span(f"ddp/zero1/bucket{k}/{bucket.dtype}"):
+                shard = bucket.padded // n
+                # grads travel fp32 (the flat Adam slab's type), params in
+                # their own dtype
+                gflat = _pack(g_leaves, bucket, cast=torch.float32)
+                if pre != 1.0:
+                    gflat = divide(gflat, pre)
+                g_shard = torch.empty((shard,), dtype=torch.float32,
+                                      device=gflat.device)
+                backend.reduce_scatter_into(g_shard, gflat, self.axis_name)
+                del gflat
+                _finish(g_shard, n, self.gradient_average, pre)
+                pflat = _pack(p_leaves, bucket)
+                p_shard = pflat[rank * shard:(rank + 1) * shard]
+                delta, _, _ = adam_flat(g_shard, p_shard, state.mu[k],
+                                        state.nu[k], lr_t, step_f, **kw)
+                p_shard.add_(delta)
+                del delta, g_shard
+                backend.all_gather_into(pflat, p_shard.clone(), self.axis_name)
+                out: list = [None] * len(p_leaves)
+                _unpack_into(out, pflat, bucket)
+                for i in bucket.indices:
+                    p_leaves[i].copy_(out[i])
+                del pflat
         return params, state._replace(count=count)
 
     # ------------------------------------------------------- utilities

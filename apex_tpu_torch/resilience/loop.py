@@ -30,9 +30,16 @@ checkpoint to fall back to (no ``directory``, or a cold start) keeps a
 host copy of its starting state, so "rollback to the run's starting
 state" restores the values the run started from.
 
-The reference's NaN probe and OOM forensics are not ported yet:
-:meth:`ResilientTrainLoop._probe_numerics` and ``_probe_memory`` return
-None, as the reference's do when those tiers are absent.
+**OOM forensics** (``memory_forensics``, on by default): a step that
+dies out of memory (``torch.OutOfMemoryError``, or a message with CUDA's
+"out of memory") gets a ``memrec_*.json`` post-mortem and a verdict
+(requested bytes, capacity, largest live tensor, the ``memory_monitor``'s
+watermark) on its ``rollback`` event and ``TrainAborted.report
+["memory"]`` (:func:`apex_tpu_torch.observability.memory.oom_forensics`).
+The reference's NaN probe replays a jaxpr through its analysis
+interpreter and is not ported yet (ROADMAP.md, Queue 1 item 8):
+:meth:`ResilientTrainLoop._probe_numerics` returns None, as the
+reference's does when that tier is absent.
 """
 
 from __future__ import annotations
@@ -136,7 +143,17 @@ class ResilientTrainLoop:
         PreemptionWatcher` polled after every step.
     stall_s: how long an injected ``stall`` sleeps inside the step.
     flight_recorder: any object with ``step_started(step)`` and
-        ``step_finished(record=True)``, bracketing every step attempt.
+        ``step_finished(record=True)``, bracketing every step attempt
+        (an :class:`apex_tpu_torch.observability.FlightRecorder`, whose
+        watchdog dumps a post-mortem when one stalls). The loop does not
+        install() it: callers own its lifecycle.
+    numerics_provenance: run the NaN probe on health failures; the port
+        has no probe yet (module docstring), so it records nothing.
+    memory_monitor: an
+        :class:`apex_tpu_torch.observability.MemoryMonitor` whose
+        watermark feeds the OOM verdict (default: the process's active
+        monitor); ``memory_forensics=False`` disables the OOM
+        post-mortem path. Costs nothing on healthy steps.
     desync_detector: any object with ``check(step, gathered)`` returning
         a verdict dict or None, fed ``metrics["fleet_fingerprint"]``; a
         verdict is a rollback.
@@ -158,7 +175,9 @@ class ResilientTrainLoop:
                  deep_validate_resume: bool = False,
                  exit_on_preempt: bool = False, on_resume=None,
                  registry=None, stall_s: float = 2.0,
-                 flight_recorder=None, desync_detector=None):
+                 flight_recorder=None, numerics_provenance: bool = True,
+                 desync_detector=None, memory_monitor=None,
+                 memory_forensics: bool = True):
         self.step_fn = step_fn
         self.directory = directory
         self.save_every = save_every
@@ -175,7 +194,10 @@ class ResilientTrainLoop:
         self._registry = registry
         self.stall_s = float(stall_s)
         self.flight_recorder = flight_recorder
+        self.numerics_provenance = numerics_provenance
         self.desync_detector = desync_detector
+        self.memory_monitor = memory_monitor
+        self.memory_forensics = memory_forensics
         self.manager = (ckpt.CheckpointManager(
             directory, max_to_keep=max_to_keep, async_save=async_save)
             if directory else None)
@@ -368,8 +390,9 @@ class ResilientTrainLoop:
                 # a hung step, not a failed one: only a watchdog sees it
                 reg.counter("resilience/faults_injected",
                             kind="stall").inc()
-                with torch.profiler.record_function(
-                        "resilience/stall_fault"):
+                from apex_tpu_torch.observability import span
+
+                with span("resilience/stall_fault"):
                     time.sleep(self.stall_s)
             result = self.step_fn(state, step)
         except BaseException:
@@ -511,16 +534,48 @@ class ResilientTrainLoop:
     # ------------------------------------------------------- provenance
 
     def _probe_numerics(self, prev_state, bad_state, step: int):
-        """The reference's NaN probe (``loop.py:575``). The port's
-        numerics tier has no probe yet: no verdict."""
+        """The reference's NaN probe (``loop.py:575``) replays the failing
+        step's jaxpr under its analysis interpreter; the port's waits for
+        ``numerics/nan_probe.py`` (ROADMAP.md, Queue 1 item 8). No
+        verdict until then, as the reference gives without that tier."""
         del prev_state, bad_state, step
         return None
 
     def _probe_memory(self, error, step: int):
-        """The reference's OOM forensics (``loop.py:596``). The port's
-        memory tier has no forensics yet: no verdict."""
-        del error, step
-        return None
+        """OOM forensics for an out-of-memory step death (``loop.py:596``):
+        dump a ``memrec_*.json`` post-mortem and return the compact
+        verdict (requested bytes, largest live tensor, watermark). None
+        for other failures; never raises - the forensics are diagnostics
+        and must not mask the step error."""
+        if not self.memory_forensics:
+            return None
+        # classification FIRST, outside the forensics guard: if the
+        # memory tier cannot classify, a non-OOM step death must stay a
+        # non-OOM step death
+        try:
+            from apex_tpu_torch.observability.memory import (
+                is_oom_error,
+                oom_forensics,
+            )
+        except Exception:  # noqa: BLE001 - no memory tier, no verdict
+            return None
+        try:
+            if not is_oom_error(error):
+                return None
+        except Exception:  # noqa: BLE001 - cannot classify: not OOM
+            return None
+        try:
+            verdict = oom_forensics(
+                error, monitor=self.memory_monitor,
+                registry=self._registry, directory=self.directory,
+                step=step)
+        except Exception as e:  # noqa: BLE001 - diagnostics only
+            verdict = {"error": f"memory forensics failed: {e!r:.200}"}
+        reg = self._reg()
+        reg.counter("memory/oom_probes").inc()
+        reg.event("memory_verdict", step=step, **{
+            k: v for k, v in verdict.items() if k != "error"})
+        return verdict
 
     # ---------------------------------------------------- fleet desync
 

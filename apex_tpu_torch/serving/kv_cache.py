@@ -65,7 +65,7 @@ class PageBudget:
     page_bytes: int          # modeled bytes per page
     ratio: float             # hbm_priors measured/modeled correction
     hbm_bytes: int           # device memory total used
-    watermark_bytes: int     # bytes already in use, subtracted
+    watermark_bytes: int     # monitor watermark, else bytes in use
     usable_bytes: int        # hbm * safety - watermark (floored at 0)
     safety: float
 
@@ -81,11 +81,15 @@ def derive_page_budget(cfg, page_size: int, *,
     ``pages = floor((hbm x safety - watermark) / ceil(page_bytes x
     ratio))`` where ``ratio`` is the port's ``serving_decode_step`` prior
     (the file's default ratio when it has none). Every input is
-    overridable; a missing ``hbm_bytes`` or ``watermark_bytes`` is read
-    from ``device`` (the card unless the caller asks for the CPU) by
-    :func:`apex_tpu_torch._device.memory`: the total, and the bytes in
-    use (total - free). The reference subtracts its memory monitor's
-    watermark instead; the port has no monitor yet.
+    overridable; a missing ``hbm_bytes`` is read from ``device`` (the
+    card unless the caller asks for the CPU) by
+    :func:`apex_tpu_torch._device.memory`. A missing ``watermark_bytes``
+    is the active :class:`~apex_tpu_torch.observability.MemoryMonitor`'s
+    watermark when one is attached to ``device``, as in the reference.
+    With none attached the reference subtracts 0; the port subtracts the
+    bytes in use on the card (total - free, the weights included), a
+    deliberate difference (ROADMAP.md, Queue 3): a budget that ignored
+    the resident weights would overcommit the card.
     """
     from apex_tpu_torch.analysis.memory_checks import (
         load_hbm_priors,
@@ -94,6 +98,13 @@ def derive_page_budget(cfg, page_size: int, *,
 
     if not 0.0 < safety <= 1.0:
         raise ValueError(f"safety must be in (0, 1], got {safety}")
+    if watermark_bytes is None:
+        from apex_tpu_torch.observability.memory.hbm import active_monitor
+
+        mon = active_monitor()
+        if mon is not None and _device._same(mon.device,
+                                             _device.resolve(device)):
+            watermark_bytes = mon.summary()["watermark_bytes"]
     if hbm_bytes is None or watermark_bytes is None:
         total, used = _device.memory(device)
         hbm_bytes = total if hbm_bytes is None else hbm_bytes

@@ -20,9 +20,9 @@ from typing import Optional
 
 from apex_tpu_torch.observability.registry import (
     MetricRegistry,
-    _sync,
     get_registry,
 )
+from apex_tpu_torch.runtime.timing import sync as _sync
 
 
 class _Timer:

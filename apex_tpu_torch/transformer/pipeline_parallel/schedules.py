@@ -45,6 +45,7 @@ import torch
 from apex_tpu_torch import _tree
 from apex_tpu_torch.amp.frontend import map_tree
 from apex_tpu_torch.distributed import backend as _backend
+from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.pipeline_parallel import p2p
 from apex_tpu_torch.transformer.tensor_parallel import mappings
@@ -106,13 +107,14 @@ def forward_backward_no_pipelining(
         return total / m_count, None
     paths = _tree.paths(params)
     loss_sum, grad_sum = 0.0, None
-    for k in range(m_count):
-        live = _live(params)
-        loss = loss_fn(live, kth(k))
-        grads = torch.autograd.grad(loss, _tree.leaves(live))
-        grad_sum = (list(grads) if grad_sum is None
-                    else [a + g for a, g in zip(grad_sum, grads)])
-        loss_sum = loss_sum + loss.detach()
+    with span("pp/grad_accum"):
+        for k in range(m_count):
+            live = _live(params)
+            loss = loss_fn(live, kth(k))
+            grads = torch.autograd.grad(loss, _tree.leaves(live))
+            grad_sum = (list(grads) if grad_sum is None
+                        else [a + g for a, g in zip(grad_sum, grads)])
+            loss_sum = loss_sum + loss.detach()
     scale = 1.0 / m_count if grad_scale is None else grad_scale / m_count
     grads = _tree.unflatten(paths, [g * scale for g in grad_sum])
     return loss_sum / m_count, grads
@@ -226,20 +228,23 @@ def pipelined_forward(
     # only stage 0 reads the inputs; elsewhere they are tied to the
     # outputs, so a shift that made them (a chained pass) runs backward
     dangling = [] if rank == 0 else [inputs]
-    for t in range(steps):
-        u = t - rank  # the microbatch this stage holds at tick t
-        if 0 <= u < m_count:
-            x = inputs[u] if rank == 0 else incoming
-            if rank == 0 and incoming is not None:
-                dangling.append(incoming)
-            y = body_fn(stage_params, x)
-        else:  # a bubble: nothing to compute, zeros go downstream
-            if incoming is not None:
-                dangling.append(incoming)
-            y = _bubble(inputs[0], stage_params)
-        if t >= n_stage - 1 and rank == n_stage - 1:
-            outputs[t - (n_stage - 1)] = y
-        incoming = p2p._shift(y, +1, axis, anchor=anchor)
+    with span("pp/forward"):
+        for t in range(steps):
+            u = t - rank  # the microbatch this stage holds at tick t
+            if 0 <= u < m_count:
+                x = inputs[u] if rank == 0 else incoming
+                if rank == 0 and incoming is not None:
+                    dangling.append(incoming)
+                with span("pp/stage_compute"):
+                    y = body_fn(stage_params, x)
+            else:  # a bubble: nothing to compute, zeros go downstream
+                if incoming is not None:
+                    dangling.append(incoming)
+                y = _bubble(inputs[0], stage_params)
+            if t >= n_stage - 1 and rank == n_stage - 1:
+                outputs[t - (n_stage - 1)] = y
+            with span("pp/send_recv"):
+                incoming = p2p._shift(y, +1, axis, anchor=anchor)
     dangling.append(incoming)
     outs = torch.stack([o if o is not None else torch.zeros_like(inputs[0])
                         for o in outputs])
@@ -283,11 +288,16 @@ def forward_backward_pipelining_without_interleaving(
         with torch.no_grad():
             outs = pipelined_forward(stage_fn, stage_params, inputs, axis,
                                      remat=False)
-            return _last_stage_mean_loss(loss_fn, outs, targets, axis), None
-    live = _live(stage_params)
-    outs = pipelined_forward(stage_fn, live, inputs, axis, remat)
-    loss = _last_stage_mean_loss(loss_fn, outs, targets, axis)
-    grads = torch.autograd.grad(loss, _tree.leaves(live), allow_unused=True)
+            with span("pp/loss"):
+                loss = _last_stage_mean_loss(loss_fn, outs, targets, axis)
+            return loss, None
+    with span("pp/forward_backward"):
+        live = _live(stage_params)
+        outs = pipelined_forward(stage_fn, live, inputs, axis, remat)
+        with span("pp/loss"):
+            loss = _last_stage_mean_loss(loss_fn, outs, targets, axis)
+        grads = torch.autograd.grad(loss, _tree.leaves(live),
+                                    allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(_tree.leaves(live), grads)]
     return loss.detach(), _tree.unflatten(_tree.paths(stage_params), grads)
@@ -377,23 +387,26 @@ def pipelined_forward_interleaved(
     # only stage 0 reads the inputs; elsewhere they are tied to the
     # outputs, so a shift that made them (a chained pass) runs backward
     dangling = [] if rank == 0 else [inputs]
-    for t in range(steps):
-        u = t - rank
-        if 0 <= u < units:
-            c = (u // p) % v
-            m = (u // (v * p)) * p + u % p
-            first = rank == 0 and c == 0  # virtual stage 0 reads inputs
-            x = inputs[m] if first else incoming
-            if first and incoming is not None:
-                dangling.append(incoming)
-            y = body_fn(_chunk(stage_params_chunks, c), x)
-            if rank == p - 1 and c == v - 1:
-                outputs[m] = y
-        else:
-            if incoming is not None:
-                dangling.append(incoming)
-            y = _bubble(inputs[0], stage_params_chunks)
-        incoming = p2p._shift_cyclic(y, +1, axis, anchor=anchor)
+    with span("pp/forward_interleaved"):
+        for t in range(steps):
+            u = t - rank
+            if 0 <= u < units:
+                c = (u // p) % v
+                m = (u // (v * p)) * p + u % p
+                first = rank == 0 and c == 0  # virtual stage 0 reads inputs
+                x = inputs[m] if first else incoming
+                if first and incoming is not None:
+                    dangling.append(incoming)
+                with span("pp/stage_compute"):
+                    y = body_fn(_chunk(stage_params_chunks, c), x)
+                if rank == p - 1 and c == v - 1:
+                    outputs[m] = y
+            else:
+                if incoming is not None:
+                    dangling.append(incoming)
+                y = _bubble(inputs[0], stage_params_chunks)
+            with span("pp/send_recv"):
+                incoming = p2p._shift_cyclic(y, +1, axis, anchor=anchor)
     dangling.append(incoming)
     outs = torch.stack([o if o is not None else torch.zeros_like(inputs[0])
                         for o in outputs])
@@ -420,12 +433,17 @@ def _forward_backward_pipelining_with_interleaving(
         with torch.no_grad():
             outs = pipelined_forward_interleaved(
                 stage_fn, stage_params_chunks, inputs, axis, False, strict)
-            return _last_stage_mean_loss(loss_fn, outs, targets, axis), None
-    live = _live(stage_params_chunks)
-    outs = pipelined_forward_interleaved(stage_fn, live, inputs, axis, remat,
-                                         strict=strict)
-    loss = _last_stage_mean_loss(loss_fn, outs, targets, axis)
-    grads = torch.autograd.grad(loss, _tree.leaves(live), allow_unused=True)
+            with span("pp/loss"):
+                loss = _last_stage_mean_loss(loss_fn, outs, targets, axis)
+            return loss, None
+    with span("pp/forward_backward"):
+        live = _live(stage_params_chunks)
+        outs = pipelined_forward_interleaved(stage_fn, live, inputs, axis,
+                                             remat, strict=strict)
+        with span("pp/loss"):
+            loss = _last_stage_mean_loss(loss_fn, outs, targets, axis)
+        grads = torch.autograd.grad(loss, _tree.leaves(live),
+                                    allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(_tree.leaves(live), grads)]
     return loss.detach(), _tree.unflatten(_tree.paths(stage_params_chunks),

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.distributed import backend as _backend
+from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.transformer import parallel_state
 
 
@@ -163,43 +164,48 @@ class _ReduceScatter(torch.autograd.Function):
         return _all_gather(g, ctx.group, ctx.dim), None, None
 
 
-def _region(fn, x, axis_name, *dim):
+def _region(name, fn, x, axis_name, *dim):
+    """``fn`` over the group bound to the axis, under the reference's
+    span ``name`` (the forward's collective: the backward runs later,
+    inside autograd)."""
     axis = _axis(axis_name)
     if not _axis_bound(axis):
         return x
-    return fn.apply(x, _backend.get_group(axis), *dim)
+    with span(name):
+        return fn.apply(x, _backend.get_group(axis), *dim)
 
 
 def copy_to_tensor_model_parallel_region(x, axis_name: Optional[str] = None):
     """Identity forward; gradients all-reduce over tp (ref mappings.py:108)."""
-    return _region(_Copy, x, axis_name)
+    return _region("tp/copy", _Copy, x, axis_name)
 
 
 def reduce_from_tensor_model_parallel_region(x,
                                              axis_name: Optional[str] = None):
     """All-reduce forward; identity gradient (ref mappings.py:118)."""
-    return _region(_Reduce, x, axis_name)
+    return _region("tp/allreduce", _Reduce, x, axis_name)
 
 
 def scatter_to_tensor_model_parallel_region(x,
                                             axis_name: Optional[str] = None):
     """Keep this rank's last-dim chunk; gradients all-gather (ref
     mappings.py:127)."""
-    return _region(_Scatter, x, axis_name, x.dim() - 1)
+    return _region("tp/scatter", _Scatter, x, axis_name, x.dim() - 1)
 
 
 def gather_from_tensor_model_parallel_region(x,
                                              axis_name: Optional[str] = None):
     """All-gather last-dim chunks into the full tensor; gradients
     reduce-scatter (ref mappings.py:140)."""
-    return _region(_Gather, x, axis_name, x.dim() - 1)
+    return _region("tp/all_gather", _Gather, x, axis_name, x.dim() - 1)
 
 
 def reduce_scatter_to_tensor_model_parallel_region(
         x, axis_name: Optional[str] = None):
     """Reduce-scatter over the last dim, the fused form of ``reduce_from``
     then ``scatter_to`` (ref mappings.py:150); gradients all-gather."""
-    return _region(_ReduceScatter, x, axis_name, x.dim() - 1)
+    return _region("tp/reduce_scatter", _ReduceScatter, x, axis_name,
+                   x.dim() - 1)
 
 
 # --------------------------------------------------- sequence-parallel duals
@@ -210,7 +216,8 @@ def scatter_to_sequence_parallel_region(x, axis_name: Optional[str] = None,
     """Split the sequence dim across tp ranks (Megatron's layout puts it
     first; the [b, s, h] models pass ``seq_dim=1``); gradients all-gather
     (ref mappings.py:172)."""
-    return _region(_Scatter, x, axis_name, seq_dim % x.dim())
+    return _region("sp/scatter", _Scatter, x, axis_name,
+                   seq_dim % x.dim())
 
 
 def gather_from_sequence_parallel_region(x, axis_name: Optional[str] = None,
@@ -223,11 +230,12 @@ def gather_from_sequence_parallel_region(x, axis_name: Optional[str] = None,
     the backward then keeps this rank's slice instead of summing the
     ranks' copies."""
     fn = _Gather if tensor_parallel_output_grad else _GatherSplitGrad
-    return _region(fn, x, axis_name, seq_dim % x.dim())
+    return _region("sp/all_gather", fn, x, axis_name, seq_dim % x.dim())
 
 
 def reduce_scatter_to_sequence_parallel_region(
         x, axis_name: Optional[str] = None, seq_dim: int = 0):
     """Reduce-scatter over the sequence dim (a row-parallel output under
     sequence parallelism); gradients all-gather (ref mappings.py:194)."""
-    return _region(_ReduceScatter, x, axis_name, seq_dim % x.dim())
+    return _region("sp/reduce_scatter", _ReduceScatter, x, axis_name,
+                   seq_dim % x.dim())

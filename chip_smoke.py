@@ -2745,6 +2745,345 @@ def phase_training(dev):
         "expected_per_step": want}
 
 
+# observability: the training telemetry tiers at the training geometry,
+# in turns with the same steps without them; their checks against the
+# card's own counters and clocks
+OBS_TURNS = 3
+OBS_MATMUL = 8192
+OBS_TIME_REL = 0.05       # time_fn against this phase's own CUDA events
+OBS_TIME_TURNS = 5        # interleaved readings of each, medians compared
+OBS_WARM_CALLS = 200      # products run before the readings
+OBS_STATS_L2_REL = 1e-5   # fp32 chunked sums against float64
+OBS_STATS_FRAC_ABS = 1e-7
+OBS_STALL_DEADLINE_S = 1.0
+OBS_STALL_SLEEP_S = 3.0
+OBS_DIR = ROOT / "build" / "observability"
+
+
+def float64_stats(tree) -> dict:
+    """Each floating leaf's amax, l2, underflow and zero fractions and
+    finite flag, reduced in float64 (a leaf at a time, on the card),
+    keyed as ``numerics.leaf_paths`` keys them: the plain reference of
+    the stats pass."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.observability import numerics
+
+    out = {}
+    # a params tree's leaves are all floating: the two orders agree
+    for path, leaf in zip(numerics.leaf_paths(tree), _tree.leaves(tree)):
+        x = leaf.detach().double()
+        ax = x.abs()
+        tiny = torch.finfo(leaf.dtype).tiny
+        n = x.numel()
+        out[path] = {"amax": float(ax.max()),
+                     "l2": float(x.square().sum().sqrt()),
+                     "underflow_frac": float(((ax > 0) & (ax < tiny)).sum())
+                     / n,
+                     "zero_frac": float((x == 0).sum()) / n,
+                     "finite": bool(torch.isfinite(x).all())}
+        del x, ax
+    return out
+
+
+def event_ms(fn, iters: int) -> float:
+    """Mean ms of ``iters`` back-to-back calls between two CUDA events
+    (after three warm-up calls): this phase's own clock."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def run_cli(args_list, cwd) -> list:
+    """``python -m apex_tpu_torch.observability <args>`` for each args, in
+    parallel; each command's exit code and the tail of its output."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "apex_tpu_torch.observability", *args],
+        cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for args in args_list]
+    out = []
+    try:
+        for args, p in zip(args_list, procs):
+            text = p.communicate(timeout=120)[0]
+            out.append({"args": args[0], "rc": p.returncode,
+                        "tail": text[-400:]})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def phase_observability(dev):
+    """The telemetry tiers on the training path (Llama-3-8B width at
+    TRAIN_LAYERS layers, 2 x 2048, flat Adam): OBS_TURNS steps with every
+    tier on (stats pass and snapshot every step, phases, health, the
+    step record) in turns with OBS_TURNS without; exact launches a step;
+    ``time_fn`` on a bf16 OBS_MATMUL^3 product within OBS_TIME_REL of
+    this phase's own events; the stats pass against float64; the
+    monitor's watermark and allocator stats against PyTorch's at the
+    same instant; a forced OOM in the resilient loop (TrainAborted, the
+    parsed request, a memrec); a stall dump; a profiler window holding
+    the ``fused_adam/flat/...`` span; the CLI on the phase's dumps."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.observability.memory import hbm
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.resilience import ResilientTrainLoop, TrainAborted
+    from apex_tpu_torch.runtime import timing
+
+    t_phase = time.monotonic()
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    cfg = llama.llama3_8b(num_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    params = llama.init_params(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    batch = (tokens, torch.roll(tokens, -1, dims=-1))
+    tx = fused_adam(lr=TRAIN_LR, flat=True)
+    opt = tx.init(params)
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    flops = step_flops(n_params, cfg.num_layers, cfg.hidden_size,
+                       TRAIN_SEQ, TRAIN_BATCH)
+
+    def train():
+        nonlocal params, opt
+        params, opt, loss = llama.train_step(params, opt, batch, cfg, tx,
+                                             remat=False)
+        return loss
+
+    float(train())  # warm-up: the slabs, the kernels' first launches
+    reg = obs.MetricRegistry()
+    prev_reg = obs.set_registry(reg)
+    prev_mon = hbm.active_monitor()
+    try:
+        reporter = obs.StepReporter("observability", registry=reg,
+                                    tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+                                    flops_per_step=flops)
+        phases = obs.StepPhases(name="observability/step")
+        collector = obs.StatsCollector("observability", every=1,
+                                       registry=reg)
+        health = obs.HealthMonitor("observability", registry=reg)
+        memmon = obs.MemoryMonitor("observability", every=1, registry=reg)
+        reset_counts()
+        on_ms, off_ms, losses, counts = [], [], [], []
+        mem_checks = []
+        it = 0
+        for turn in range(2 * OBS_TURNS):
+            tiers = turn % 2 == 1
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tiers:
+                with phases.step():
+                    with obs.span("data/batch"):
+                        pass  # the batch is made once, before the turns
+                    loss = float(train())
+                    dt = time.perf_counter() - t0
+                collector.observe(params, it)
+                health.observe(it, loss=loss)
+                snap = memmon.observe(it)
+                # at the same instant: the walk allocates nothing
+                peak = torch.cuda.max_memory_allocated()
+                stats = torch.cuda.memory_stats()
+                mem_checks.append({
+                    "watermark": memmon.watermark_bytes, "peak": peak,
+                    "bytes_in_use": snap["memory_stats"]["bytes_in_use"],
+                    "allocated": stats["allocated_bytes.all.current"],
+                    "reserved": snap["memory_stats"]["bytes_reserved"],
+                    "reserved_torch": stats["reserved_bytes.all.current"],
+                    "live_bytes": snap["live_bytes"]})
+                rec = reporter.step(dt, loss=loss, numerics=collector.last,
+                                    memory=memmon.last,
+                                    **phases.last_fields())
+                torch.cuda.synchronize()
+                on_ms.append((time.perf_counter() - t0) * 1e3)
+                del rec
+            else:
+                loss = float(train())
+                off_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            counts.append(counts_delta(before))
+            it += 1
+        total = read_counts()
+        L = cfg.num_layers
+        want = dict({k: 0 for k in total}, flash_attention_fwd=L,
+                    flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
+                    rms_norm_fwd=2 * L + 1, rms_norm_bwd=2 * L + 1,
+                    fused_adam=1)
+        if any(c != want for c in counts):
+            raise AssertionError(f"observability launches per step {counts}"
+                                 f" != {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"observability losses {losses}")
+        for m in mem_checks:
+            if m["watermark"] != m["peak"]:
+                raise AssertionError(f"the monitor's watermark {m} is not "
+                                     f"max_memory_allocated")
+            if (m["bytes_in_use"], m["reserved"]) != (m["allocated"],
+                                                      m["reserved_torch"]):
+                raise AssertionError(f"the monitor's allocator stats {m} "
+                                     f"differ from torch.cuda.memory_stats")
+        recs = reporter.records
+        stats_ms = [r["numerics"]["stats_pass_ms"] for r in recs]
+        snap_ms = [r["memory"]["snapshot_ms"] for r in recs]
+        for r in recs:
+            if not r["numerics"]["finite"] or r["mfu"] is None:
+                raise AssertionError(f"observability step record {r}")
+            if not all(0.0 <= v <= 1.0 for v in r["phases"].values()):
+                raise AssertionError(f"phase fractions {r['phases']}")
+
+        # the stats pass against float64, on the params as they are now
+        host = obs.numerics.host_tensor_stats(params)
+        ref = float64_stats(params)
+        worst = {"l2_rel": 0.0, "frac_abs": 0.0}
+        for path, want_s in ref.items():
+            got = host[path]
+            if got["amax"] != want_s["amax"] or \
+                    got["finite"] != want_s["finite"]:
+                raise AssertionError(f"stats {path}: {got} vs {want_s}")
+            worst["l2_rel"] = max(worst["l2_rel"], abs(
+                got["l2"] - want_s["l2"]) / want_s["l2"])
+            for f in ("underflow_frac", "zero_frac"):
+                worst["frac_abs"] = max(worst["frac_abs"],
+                                        abs(got[f] - want_s[f]))
+        if worst["l2_rel"] > OBS_STATS_L2_REL or \
+                worst["frac_abs"] > OBS_STATS_FRAC_ABS:
+            raise AssertionError(f"stats pass off float64: {worst}")
+        del ref
+
+        # a profiler window over one step names the optimizer's span
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            float(train())
+            torch.cuda.synchronize()
+        keys = {e.key for e in prof.key_averages()}
+        if "fused_adam/flat/cuda" not in keys:
+            raise AssertionError("the profiler window holds no "
+                                 "fused_adam/flat/cuda span")
+        del prof
+        reg.dump(str(OBS_DIR / "metrics.jsonl"))
+        obs.get_tracer().save(str(OBS_DIR / "spans.json"))
+        del params, opt, tx
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # time_fn against this phase's own events on a bf16 product, in
+        # turns after a warm-up: the card's clock drifts as it heats (9%
+        # between two back-to-back windows in one run), so the medians of
+        # interleaved readings are compared, not one reading of each
+        a = torch.randn(OBS_MATMUL, OBS_MATMUL, device="cuda",
+                        dtype=torch.bfloat16)
+        b2 = torch.randn_like(a)
+        event_ms(lambda: torch.mm(a, b2), OBS_WARM_CALLS)
+        t_fns, owns = [], []
+        for _ in range(OBS_TIME_TURNS):
+            t_fn = timing.time_fn(torch.mm, a, b2, iters=20, warmup=3)
+            if t_fn.clock != "cuda_event":
+                raise AssertionError(f"time_fn took the {t_fn.clock} clock")
+            t_fns.append(t_fn * 1e3)
+            owns.append(event_ms(lambda: torch.mm(a, b2), 20))
+        t_fn_ms, own_ms = sorted(t_fns)[len(t_fns) // 2], \
+            sorted(owns)[len(owns) // 2]
+        if abs(t_fn_ms - own_ms) > OBS_TIME_REL * own_ms:
+            raise AssertionError(f"time_fn {t_fns} ms vs events {owns} ms")
+        del a, b2
+
+        # a forced OOM inside the resilient loop
+        _free, total_bytes = torch.cuda.mem_get_info()
+        ask = (total_bytes // (1 << 30) + 2) * (1 << 30)  # whole GiB
+
+        def oom_step(state, step):
+            torch.empty(ask, dtype=torch.uint8, device="cuda")
+            return state, {"loss": 0.0}
+
+        oom_dir = OBS_DIR / "oom"
+        loop = ResilientTrainLoop(oom_step, directory=str(oom_dir),
+                                  max_rollbacks=0, registry=reg,
+                                  memory_monitor=memmon)
+        try:
+            loop.run({"w": torch.zeros(4, device="cuda")}, 1)
+            raise AssertionError("the oversized allocation did not fail")
+        except TrainAborted as exc:
+            verdict = exc.report.get("memory") or {}
+        memrecs = sorted(oom_dir.glob("memrec_*.json"))
+        if verdict.get("requested_bytes") != ask or not memrecs:
+            raise AssertionError(f"OOM verdict {verdict}, memrecs {memrecs}")
+
+        # a stall dump from a sleeping step under a short deadline
+        flight_dir = OBS_DIR / "flight"
+        rec = obs.FlightRecorder(directory=str(flight_dir), registry=reg,
+                                 deadline_s=OBS_STALL_DEADLINE_S,
+                                 poll_s=0.1, signals=())
+        with rec:
+            rec.wrap_step(lambda s, i: (time.sleep(OBS_STALL_SLEEP_S),
+                                        None))(None, 0)
+        if len(rec.dumps) != 1:
+            raise AssertionError(f"stall dumps {rec.dumps}")
+        flight = json.loads(Path(rec.dumps[0]).read_text())
+        if flight["trigger"] != "stall" or flight["memory"] is None:
+            raise AssertionError(f"stall dump {flight['trigger']}, memory "
+                                 f"{flight['memory']}")
+        reg.dump(str(OBS_DIR / "metrics.jsonl"))
+
+        cli = run_cli([["report", "metrics.jsonl"],
+                       ["trace", "spans.json", "--out", "trace.json"],
+                       ["memory", "--out", "memory.json"],
+                       ["goodput", "metrics.jsonl"]], OBS_DIR)
+        if any(c["rc"] != 0 for c in cli):
+            raise AssertionError(f"observability CLI: {cli}")
+    finally:
+        obs.set_registry(prev_reg)
+        hbm.set_active_monitor(prev_mon)
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return {
+        "phase": "observability", "model": "llama3_8b", "num_layers": L,
+        "dtype": "bfloat16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "turns": OBS_TURNS, "losses": losses,
+        "step_ms_tiers_on": on_ms, "step_ms_tiers_off": off_ms,
+        "overhead_ms": mean(on_ms) - mean(off_ms),
+        "overhead_rel": mean(on_ms) / mean(off_ms) - 1.0,
+        "stats_pass_ms": stats_ms, "snapshot_ms": snap_ms,
+        "live_bytes": [m["live_bytes"] for m in mem_checks],
+        "bytes_in_use": [m["allocated"] for m in mem_checks],
+        "watermark_bytes": memmon.watermark_bytes,
+        "step_records": [{k: r[k] for k in ("step_time_ms", "mfu",
+                                             "phases", "tokens_per_sec")}
+                         for r in recs],
+        "stats_vs_float64": worst, "time_fn_ms": t_fns,
+        "event_ms": owns, "oom_requested_bytes": ask,
+        "oom_verdict": {k: verdict.get(k) for k in (
+            "requested_bytes", "limit_bytes", "watermark_bytes",
+            "live_bytes", "largest_buffer")},
+        "stall_step_elapsed_s": flight["step_elapsed_s"],
+        "cli": [{k: c[k] for k in ("args", "rc")} for c in cli],
+        "launches_per_step": counts[0], "launches": total,
+        "phase_s": time.monotonic() - t_phase}
+
+
 # amp_training: the stateful amp protocol at the training geometry. O4
 # registers the one product outside the layers, the lm_head
 AMP_STEPS = 3
@@ -7925,6 +8264,7 @@ def phase_bert_train(dev):
 # launch resumed from the save to step 2
 MEGO4_LAYERS, MEGO4_STEPS, MEGO4_PREEMPT = 2, 3, 1
 MEGO4_DIR = ROOT / "build" / "megatron_o4_ckpt"
+MEGO4_METRICS = ROOT / "build" / "megatron_o4_metrics"
 # the rings after step 0 against one device's O4 step on the global
 # batch: a max of the same values summed in another order
 MEGO4_RING_REL = 1e-2
@@ -8064,14 +8404,21 @@ def megatron_o4_rank(rank, n, device, out_dir: Path) -> dict:
     rec = StepRecorder(step, rank, out_dir, grads_of=0)
     torch.cuda.reset_peak_memory_stats(device)
     rank_dir = Path(ex.checkpoint_dir(str(MEGO4_DIR), rank))
+    # the example's observability tiers, as its main installs them
+    tiers = ex.Tiers(MEG_M * MEG_MB * MEG_SEQ, device=device,
+                     directory=str(out_dir))
     try:
         ex.run(step, state, MEGO4_STEPS, rec.batch_of(batch),
                directory=str(rank_dir), save_every=0,
-               fault_plan=FaultPlan.parse(f"preempt@{MEGO4_PREEMPT}"))
+               fault_plan=FaultPlan.parse(f"preempt@{MEGO4_PREEMPT}"),
+               tiers=tiers)
         raise AssertionError("the fault plan's preemption did not trip")
     except Preempted as exc:
         preempted_at = exc.step
         save_s = time.perf_counter() - rec.steps[-1]["t_end"]
+    metrics = os.environ.get("APEX_TPU_METRICS")
+    if metrics:  # the run's end under APEX_TPU_METRICS, as main's
+        ex.dump_metrics(metrics, time.monotonic() - t0)
     ckpt_bytes = tree_bytes(rank_dir)
     # the uninterrupted run goes on from the state in memory
     last = ex.train_state(step, state["stage"], state["io"], rec.opt_state)
@@ -8153,6 +8500,50 @@ def mego4_single_step(cfg, params, tokens):
     return float(loss), state.fwd.ring.cpu(), state.grad.ring.cpu(), grads
 
 
+def mego4_metrics(ranks) -> dict:
+    """megatron_o4's first launch ran with ``APEX_TPU_METRICS``: one dump a
+    rank, whose step records carry the rank's own losses, with the
+    preemption after step MEGO4_PREEMPT, the goodput gauges published,
+    and a watermark within the card's used peak. Each rank's goodput
+    ratio and watermark."""
+    from apex_tpu_torch.observability import read_jsonl, summarize
+
+    files = sorted(p.name for p in MEGO4_METRICS.glob("metrics*.jsonl"))
+    if files != [f"metrics.rank{r}.jsonl" for r in range(len(ranks))]:
+        raise AssertionError(f"megatron_o4 metrics dumps: {files}")
+    out = {"goodput_ratio": [], "watermark_bytes": [], "stats_pass_ms": [],
+           "snapshot_ms": []}
+    for r in ranks:
+        summary = summarize(read_jsonl(
+            str(MEGO4_METRICS / f"metrics.rank{r['rank']}.jsonl")))
+        events = summary["events"]
+        steps = [e["fields"] for e in events if e["name"] == "step"]
+        # the loop ran steps 0..MEGO4_PREEMPT before the preemption; the
+        # rank's later steps ran outside it, after the dump
+        own = [s["loss"] for s in r["steps"][:MEGO4_PREEMPT + 1]]
+        if [s["loss"] for s in steps] != own:
+            raise AssertionError(f"rank {r['rank']}: step records' losses "
+                                 f"{[s['loss'] for s in steps]} != {own}")
+        preempt = [e["fields"].get("step") for e in events
+                   if e["name"] == "preempt_exit"]
+        if preempt != [MEGO4_PREEMPT] or not any(
+                e["name"] == "preemption" for e in events):
+            raise AssertionError(f"rank {r['rank']}: preempt events "
+                                 f"{preempt}")
+        gauges = summary["gauges"]
+        mark = gauges.get("memory/watermark_bytes{source=llama_train}")
+        if "goodput/ratio" not in gauges or mark is None or \
+                not 0 < mark <= r["card_peak_used_bytes"]:
+            raise AssertionError(f"rank {r['rank']}: goodput "
+                                 f"{gauges.get('goodput/ratio')}, "
+                                 f"watermark {mark}")
+        out["goodput_ratio"].append(gauges["goodput/ratio"])
+        out["watermark_bytes"].append(mark)
+        out["stats_pass_ms"].append(steps[0]["numerics"]["stats_pass_ms"])
+        out["snapshot_ms"].append(steps[0]["memory"]["snapshot_ms"])
+    return out
+
+
 def phase_megatron_o4(dev):
     """The 3-D example at O4 (megatron_o4_rank, then
     megatron_o4_resume_rank): finite losses, equal on every rank; the
@@ -8167,13 +8558,21 @@ def phase_megatron_o4(dev):
     import torch
 
     mego4_prepare()
+    shutil.rmtree(MEGO4_METRICS, ignore_errors=True)
+    MEGO4_METRICS.mkdir(parents=True)
     try:
-        ranks, seconds, out_dir = launch_ranks("megatron_o4", MEG_TP * MEG_PP,
-                                               "gloo", keep=True)
+        os.environ["APEX_TPU_METRICS"] = str(MEGO4_METRICS / "metrics.jsonl")
+        try:
+            ranks, seconds, out_dir = launch_ranks(
+                "megatron_o4", MEG_TP * MEG_PP, "gloo", keep=True)
+        finally:
+            del os.environ["APEX_TPU_METRICS"]
         resumed, resume_seconds = launch_ranks("megatron_o4_resume",
                                                MEG_TP * MEG_PP, "gloo")
+        telemetry = mego4_metrics(ranks)
     finally:
         shutil.rmtree(MEGO4_DIR, ignore_errors=True)
+        shutil.rmtree(MEGO4_METRICS, ignore_errors=True)
     check_card_peak(ranks, "megatron_o4")
     check_card_peak(resumed, "megatron_o4 resumed")
     losses = [s["loss"] for s in ranks[0]["steps"]]
@@ -8277,6 +8676,7 @@ def phase_megatron_o4(dev):
         "optimizer": "fused_adam(lr=1e-4, flat=True)",
         "launch_s": seconds, "resume_launch_s": resume_seconds,
         "init_s": max(r["init_s"] for r in ranks), "losses": losses,
+        "telemetry": telemetry,
         "grad_check_step0": {
             "against": "one device's O4 step on the global batch",
             "loss_single_device_o4": loss1, "leaves": leaves,
@@ -10174,6 +10574,18 @@ def check_norm_case(dev, rows: int, h: int, x_dtype, w_dtype,
     f_ms, b_ms_k = time_ms(fwd_k, sets), time_ms(bwd_k, stat_sets)
     f_b, f_by = bound(f_bytes, 6.0 * rows * h, dev["fp32_flops"], dev)
     b_b, b_by = bound(b_bytes, 10.0 * rows * h, dev["fp32_flops"], dev)
+    lib_b = None
+    if lib_f is not None:  # the library's backward: autograd through it
+        graphs = []
+        for x, dy in sets:
+            ins = tuple(t.detach().requires_grad_() for t in (
+                (x, w, bias) if centred else (x, w)))
+            y = (F.layer_norm(ins[0], (h,), ins[1], ins[2], eps) if centred
+                 else F.rms_norm(ins[0], (h,), ins[1], eps))
+            graphs.append((y, ins, dy))
+        lib_b = time_ms(lambda y, ins, g: torch.autograd.grad(
+            y, ins, g, retain_graph=True), graphs)
+        del graphs
     return {"shape": [rows, h], "dtype": str(x_dtype).rsplit(".", 1)[-1],
             "weight_dtype": str(w_dtype).rsplit(".", 1)[-1],
             "max_abs_err": errs,
@@ -10183,7 +10595,7 @@ def check_norm_case(dev, rows: int, h: int, x_dtype, w_dtype,
                     "bound_ms": f_b, "bound_by": f_by,
                     **achieved(f_bytes, f_ms, f_b)},
             "bwd": {"ms": b_ms_k, "plain_ms": time_ms(bwd_p, stat_sets),
-                    "library_ms": None, "bound_ms": b_b, "bound_by": b_by,
+                    "library_ms": lib_b, "bound_ms": b_b, "bound_by": b_by,
                     **achieved(b_bytes, b_ms_k, b_b)}}
 
 
@@ -11160,6 +11572,11 @@ def main() -> int:
             phase = "profile_training"
             emit(profile_step(phase, step))
         del step
+        phase = "observability"
+        gc.collect()
+        torch.cuda.empty_cache()
+        observability = phase_observability(dev)
+        emit(observability)
         phase = "amp_training"
         gc.collect()
         torch.cuda.empty_cache()
@@ -11268,6 +11685,7 @@ def main() -> int:
                       "causal", "padding", "causal_padding"))
                   for k in serving["launches"]},
               "training": training["launches"],
+              "observability": observability["launches"],
               "amp_training": amp_training["launches"],
               **{path: r["launches"] for path, r in results.items()},
               "gpt2_generate": results["gpt2_resilient"]["generate"][

@@ -115,7 +115,7 @@ SCALERS = {
 def test_loss_scaler_sequence_matches_jax(name):
     """40 updates over a seeded overflow pattern (runs of clean steps
     long enough to grow, bursts long enough to reach the floor): every
-    field after every update, exactly."""
+    field after every update, exactly, and the same `report`."""
     kw = SCALERS[name]
     jsc, psc = jamp.LossScaler(**kw), amp.LossScaler(**kw)
     js, ps = jsc.init(), psc.init()
@@ -130,8 +130,12 @@ def test_loss_scaler_sequence_matches_jax(name):
         assert ps.unskipped.dtype == torch.int32
     assert psc.overflow_count(ps) == jsc.overflow_count(js) == int(
         pattern.sum())
-    with pytest.raises(NotImplementedError, match="observability"):
-        psc.report(ps)
+    # the scaler's health readout, as the reference publishes it
+    from apex_tpu import observability as jobs
+    from apex_tpu_torch import observability as pobs
+
+    assert psc.report(ps, registry=pobs.MetricRegistry()) == jsc.report(
+        js, registry=jobs.MetricRegistry())
 
 
 @pytest.mark.parametrize("scale", [2.0 ** 16, 3.0, 2.0 ** -3])

@@ -133,8 +133,30 @@ CONTRIB_SLICE_MODULES = (
     "examples/hf_finetune.py")
 
 
+# the training telemetry slice: timing, the registry, spans and step
+# phases, the flight recorder, step reports, numerics, memory, goodput
+# and the report CLI
+OBSERVABILITY_SLICE_MODULES = (
+    "runtime/timing.py", "observability/__init__.py",
+    "observability/__main__.py", "observability/cli.py",
+    "observability/events.py", "observability/registry.py",
+    "observability/scope.py", "observability/step_report.py",
+    "observability/fleet/__init__.py", "observability/fleet/identity.py",
+    "observability/fleet/merge.py", "observability/profiling/__init__.py",
+    "observability/profiling/spans.py",
+    "observability/profiling/step_phases.py",
+    "observability/profiling/flight_recorder.py",
+    "observability/numerics/__init__.py",
+    "observability/numerics/stats.py", "observability/numerics/health.py",
+    "observability/memory/__init__.py", "observability/memory/hbm.py",
+    "observability/memory/oom.py", "observability/goodput/__init__.py",
+    "observability/goodput/ledger.py",
+    "observability/goodput/accounting.py")
+
+
 @pytest.mark.parametrize("rel", BASELINE_MODULES + SLICE_MODULES
-                         + OPTIMIZER_SLICE_MODULES + CONTRIB_SLICE_MODULES)
+                         + OPTIMIZER_SLICE_MODULES + CONTRIB_SLICE_MODULES
+                         + OBSERVABILITY_SLICE_MODULES)
 def test_baseline_modules_are_checked(rel):
     assert PORT / rel in _port_sources()
 

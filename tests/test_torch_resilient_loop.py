@@ -7,9 +7,9 @@ that computes the same arithmetic from the same numpy-seeded gradients
 updates its params IN PLACE, as the port's ``train_step`` does. Compared
 between the packages: the sequence of registry events (name and step),
 every ``resilience/*`` counter, ``Preempted.step``, the keys of the
-``TrainAborted`` report. The JAX loop runs without its NaN probe and OOM
-forensics (``numerics_provenance=False, memory_forensics=False``), the
-tiers the port does not have yet. The final state lies within 1e-6
+``TrainAborted`` report. Both loops run without their NaN probe and OOM
+forensics (``numerics_provenance=False, memory_forensics=False``), which
+``tests/test_torch_obs_memory.py`` holds. The final state lies within 1e-6
 relative of the JAX run's (fp32, the same operations) and is bit for bit
 the port's own uninterrupted run.
 """
@@ -103,7 +103,8 @@ class _Port:
         return port_obs.MetricRegistry()
 
     def loop(self, step_fn, **kw):
-        return port_res.ResilientTrainLoop(step_fn, **kw)
+        return port_res.ResilientTrainLoop(
+            step_fn, numerics_provenance=False, memory_forensics=False, **kw)
 
     def init_state(self):
         params = {"w": torch.ones((4, 4)), "b": torch.zeros((4,))}

@@ -1,6 +1,7 @@
 """The port's side of the multi-rank tests of the test harness
-(``apex_tpu_torch.transformer.testing``) and of the 3-D example's O4 and
-checkpoint paths (``apex_tpu_torch.examples.llama_train``): suites that
+(``apex_tpu_torch.transformer.testing``) and of the 3-D example's O4,
+checkpoint and observability paths
+(``apex_tpu_torch.examples.llama_train``): suites that
 run on every rank of a gloo group on the CPU (through
 ``torch_dist_worker.run_ranks``) and save what they computed. This file
 imports torch and the port, never JAX.
@@ -258,6 +259,66 @@ def suite_llama_o4(rank, n, inp, directory):
     return out
 
 
+TIERS_STEPS = 3
+
+
+def suite_llama_tiers(rank, n, inp, directory):
+    """The example at its tiny defaults on pp 2 (2 ranks): TIERS_STEPS
+    steps with the observability tiers off, then the same steps from the
+    same init with them on (a fresh registry), ended as ``main`` ends
+    under ``APEX_TPU_METRICS``: goodput published, the registry dumped
+    to ``directory/metrics.jsonl`` (this rank's ``.rank<r>`` variant).
+    Each run's losses; the dump's path."""
+    import time
+
+    import torch
+
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.examples import llama_train as ex
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    t0 = time.perf_counter()
+    args = ex.parse_args(["--pp", "2", "--dp", "1", "--tp", "1"])
+    M, mb, s = args.microbatches, args.microbatch_size, args.seq
+    ps.initialize_model_parallel(args.tp, args.pp)
+
+    def fresh():
+        cfg = ex.tiny_config(args.pp, args.tp, args.layers_per_stage, s)
+        params = llama.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu")
+        stage, io = ex.shard_params(params, cfg)
+        step = ex.Megatron3D(cfg, fused_adam(lr=args.lr), M, mb, s,
+                             sequence_parallel=True, device="cpu")
+        state = ex.train_state(step, stage, io,
+                               step.tx.init({"stage": stage, "io": io}))
+
+        def batch_of(it):
+            tokens, targets = ex.make_batch(it, cfg, M, mb * args.dp, s,
+                                            device="cpu")
+            return step.local_batch(tokens), step.local_batch(targets)
+        return step, state, batch_of
+
+    step, state, batch_of = fresh()
+    _, off, _ = ex.run(step, state, TIERS_STEPS, batch_of)
+    prev = obs.set_registry(obs.MetricRegistry())
+    try:
+        step, state, batch_of = fresh()
+        tiers = ex.Tiers(M * mb * args.dp * s, device="cpu",
+                         directory=str(directory))
+        _, on, _ = ex.run(step, state, TIERS_STEPS, batch_of, tiers=tiers)
+        acc, path = ex.dump_metrics(str(directory / "metrics.jsonl"),
+                                    time.perf_counter() - t0)
+    finally:
+        obs.set_registry(prev)
+    ps.destroy_model_parallel()
+    return {"off": np.array([off[i] for i in sorted(off)]),
+            "on": np.array([on[i] for i in sorted(on)]),
+            "path": np.array(path),
+            "goodput": np.array(acc["goodput_ratio"])}
+
+
 SUITES = {"harness_pipeline": suite_harness_pipeline,
-          "llama_o4": suite_llama_o4}
+          "llama_o4": suite_llama_o4, "llama_tiers": suite_llama_tiers}
 
