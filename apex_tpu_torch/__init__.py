@@ -22,8 +22,15 @@ pre-amp fp16 workflow (``fp16_utils.FP16_Optimizer``); the RNNs
 (``reparameterization``); the training telemetry (``observability``:
 the JSONL registry, spans and step phases, the flight recorder, step
 reports, numerics, the memory monitor and OOM forensics, goodput, the
-report CLI) and ``runtime.timing``. Every one of the JAX package's 13 Pallas kernels has a
+report CLI) and ``runtime.timing``; device attribution on
+``torch.profiler`` traces (``pyprof``, ``observability.profiling.
+xplane``), the fleet tier (the grad-sync probe, the straggler and desync
+detectors, the fleet merge) and the compile listener with the captured
+graphs' memory. Every one of the JAX package's 13 Pallas kernels has a
 Hopper kernel. See ROADMAP.md for what follows.
 """
 
+from apex_tpu_torch import pyprof
+
+__all__ = ["pyprof"]
 __version__ = "0.1.0"

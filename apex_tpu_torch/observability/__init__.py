@@ -15,20 +15,25 @@
 - :mod:`~apex_tpu_torch.observability.numerics` - tensor stats (one
   host fetch a pass, decimated), amax history rings, training-health
   detectors;
+- :mod:`~apex_tpu_torch.observability.recompile` - the compile
+  listener (CUDA-graph captures and ``torch._dynamo`` compiles) and
+  ``retrace_guard``;
 - :mod:`~apex_tpu_torch.observability.memory` - live-tensor snapshots,
-  the CUDA allocator's watermark, OOM forensics (``memrec_*.json``);
+  the CUDA allocator's watermark, the captured graphs' memory, OOM
+  forensics (``memrec_*.json``);
 - :mod:`~apex_tpu_torch.observability.fleet` - rank identity and the
-  automatic ``.rank{i}`` artifact suffix;
+  automatic ``.rank{i}`` artifact suffix, the grad-sync wait probe and
+  straggler detector, desync fingerprints, and the fleet merge readers;
 - :mod:`~apex_tpu_torch.observability.goodput` - the run ledger and
   goodput accounting, with the ``goodput/*`` gauge family; event names
   are pinned by the :mod:`~apex_tpu_torch.observability.events` catalog;
-- ``python -m apex_tpu_torch.observability report|trace|memory|goodput``
-  - the CLI.
+- ``python -m apex_tpu_torch.observability
+  report|trace|fleet|memory|goodput`` - the CLI.
 
-Not ported yet (ROADMAP.md, Queue 1 items 7 and 8): the recompile
-listener, the compiled-memory capture and calibration, the device
-trace attribution, the NaN probe, and the fleet's straggler and desync
-detectors and merge readers.
+The device trace attribution (``profiling.xplane``) reads
+``torch.profiler`` traces (:mod:`apex_tpu_torch.pyprof`). Not ported
+yet (ROADMAP.md, Queue 1 item 8): the memory calibration and the NaN
+probe.
 """
 
 from apex_tpu_torch.observability.registry import (
@@ -42,6 +47,17 @@ from apex_tpu_torch.observability.registry import (
     read_jsonl,
     set_registry,
     summarize,
+)
+from apex_tpu_torch.observability.recompile import (
+    RecompileListener,
+    RetraceBudgetExceeded,
+    retrace_guard,
+)
+from apex_tpu_torch.observability.recompile import (
+    install as install_recompile_listener,
+)
+from apex_tpu_torch.observability.recompile import (
+    uninstall as uninstall_recompile_listener,
 )
 from apex_tpu_torch.observability.profiling import (
     FlightRecorder,
@@ -58,9 +74,20 @@ from apex_tpu_torch.observability.numerics import (
     StatsCollector,
 )
 from apex_tpu_torch.observability import memory
-from apex_tpu_torch.observability.memory import MemoryMonitor
+from apex_tpu_torch.observability.memory import (
+    CompiledMemoryCapture,
+    MemoryMonitor,
+    install_compiled_capture,
+)
 from apex_tpu_torch.observability import fleet
-from apex_tpu_torch.observability.fleet import process_identity, rank_path
+from apex_tpu_torch.observability.fleet import (
+    DesyncDetector,
+    StragglerDetector,
+    merge_fleet,
+    merge_flight_records,
+    process_identity,
+    rank_path,
+)
 from apex_tpu_torch.observability import goodput
 from apex_tpu_torch.observability.goodput import (
     RunLedger,
@@ -83,14 +110,18 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "Timer", "MetricRegistry",
     "get_registry", "set_registry", "read_jsonl", "summarize",
     "append_event",
+    "RecompileListener", "RetraceBudgetExceeded", "retrace_guard",
+    "install_recompile_listener", "uninstall_recompile_listener",
     "scope", "annotate",
     "span", "SpanTracer", "get_tracer", "set_tracer",
     "StepPhases", "FlightRecorder",
     "StepReporter", "STEP_RECORD_FIELDS", "peak_flops",
     "transformer_step_flops",
     "numerics", "StatsCollector", "AmaxHistory", "HealthMonitor",
-    "memory", "MemoryMonitor",
-    "fleet", "process_identity", "rank_path",
+    "memory", "MemoryMonitor", "CompiledMemoryCapture",
+    "install_compiled_capture",
+    "fleet", "DesyncDetector", "StragglerDetector", "merge_fleet",
+    "merge_flight_records", "process_identity", "rank_path",
     "goodput", "RunLedger", "ledger_from_records", "account_goodput",
     "EVENT_CATALOG", "GOODPUT_CRITICAL",
 ]

@@ -1,4 +1,4 @@
-"""``python -m apex_tpu_torch.observability {report,trace,memory,goodput}``
+"""``python -m apex_tpu_torch.observability {report,trace,fleet,memory,goodput}``
 (port of ``apex_tpu/observability/cli.py``; the dumps are one format, so
 either package's CLI reads the other's).
 
@@ -9,11 +9,28 @@ print in order. ``--json`` emits the merged summary as JSON for
 scripting; ``--events`` limits how many event lines print (default 20,
 0 = all).
 
-``trace <dump> [--out trace.json]`` exports a Perfetto-loadable
-trace-event JSON (open at ``ui.perfetto.dev``) from a span dump
-(``SpanTracer.save``) or a flight record. The reference's xplane
-branch (a ``jax.profiler`` capture) has no port yet: the xplane /
-``pyprof`` slice brings the ``torch.profiler`` counterpart.
+``trace <run> [--out trace.json]`` exports a Perfetto-loadable
+trace-event JSON (open at ``ui.perfetto.dev``) from any of:
+
+- a span dump (``SpanTracer.save``) or a flight record;
+- a ``torch.profiler`` trace (a Chrome-trace ``.json`` or ``.json.gz``,
+  or a directory of ``*.pt.trace.json`` files, as
+  ``apex_tpu_torch.pyprof.stop`` writes them): its device records, one
+  track per phase (the reference's xplane branch).
+
+``fleet <base-or-shards...>`` joins ``.rank{i}``-suffixed per-rank
+metrics shards into one fleet view: per-rank step-time p50/p99,
+cross-rank skew, the merge-time straggler pass, and every
+``fleet/straggler`` / ``fleet/desync`` event. Options:
+
+- ``--json`` - the full fleet report as JSON;
+- ``--emit-metrics OUT.jsonl`` - write the fleet view as registry-shaped
+  records (``fleet/*`` family);
+- ``--trace OUT.json`` - merged Perfetto export of the ranks' span
+  dumps/flight records, one **pid per rank**;
+- ``--flight DIR`` - instead of metrics shards, merge the
+  ``flightrec_*`` shards in DIR into the fleet post-mortem naming the
+  stuck rank (written as ``fleetrec_*.json`` unless ``--no-write``).
 
 ``memory [--out SNAP.json] [--top-k K]`` takes one live memory
 snapshot on the card: its name, total memory (``_device.memory``),
@@ -37,11 +54,8 @@ without re-ingesting). Options:
 - ``--records DIR`` / ``--ckpt DIR`` - fold in a post-mortem
   directory / the checkpoint manifest's committed steps.
 
-``fleet`` (the reference's cross-rank merge) exits with a message: it
-comes with the rest of the fleet tier.
-
 Exit codes: 0 ok, 1 no records found (goodput: nothing
-ledger-relevant), 2 bad usage / unreadable file / not ported yet.
+ledger-relevant; fleet: no shard), 2 bad usage / unreadable file.
 """
 
 from __future__ import annotations
@@ -102,9 +116,8 @@ def _render(summary: dict, events_limit: int) -> str:
 
 
 def _trace_events_for(run: str):
-    """(events, source_kind) for a span dump / flight record. A device
-    capture (the reference's xplane branch) is refused with a
-    ValueError naming the slice that ports it."""
+    """(events, source_kind) for a run path: a span dump / flight
+    record (host spans) or a ``torch.profiler`` trace (device ops)."""
     from apex_tpu_torch.observability import profiling
 
     if os.path.isfile(run) and run.endswith(".json"):
@@ -122,11 +135,11 @@ def _trace_events_for(run: str):
             return profiling.to_trace_events(
                 spans, thread_names=names,
                 pid=head.get("pid", 0)), sources[kind]
-        raise ValueError(
-            f"{run}: JSON is neither a span dump nor a flight record")
-    raise ValueError(
-        f"{run}: not a span dump or flight record (.json); device "
-        f"captures are read by the xplane/pyprof slice, not ported yet")
+        if not (isinstance(head, dict) and "traceEvents" in head):
+            raise ValueError(f"{run}: JSON is neither a span dump, a "
+                             f"flight record nor a torch.profiler trace")
+    # anything else: a torch.profiler trace file or directory
+    return profiling.capture_trace_events(run), "torch-profiler"
 
 
 def trace_main(args) -> int:
@@ -153,13 +166,144 @@ def trace_main(args) -> int:
     return 0
 
 
+def _render_fleet(report: dict) -> str:
+    lines = [f"fleet: {report['rank_count']} rank shard(s)"
+             + (f" + {report['legacy_shards']} legacy un-suffixed"
+                if report.get("legacy_shards") else "")]
+    for rank, info in report["ranks"].items():
+        ident = info.get("identity") or {}
+        run = ident.get("run_id")
+        lines.append(f"  rank {rank}: {os.path.basename(info['path'])}"
+                     + (f"  run_id={run}" if run else ""))
+    for metric, row in sorted(report["step_time_skew"].items()):
+        lines.append(f"  {metric}: fleet median p50 "
+                     f"{row['fleet_median_p50']:.3f} ms  skew "
+                     f"{row['skew']:+.1%} (slowest rank "
+                     f"{row['max_rank']})")
+        for rank, p50 in sorted(row["p50_by_rank"].items()):
+            p99 = row["p99_by_rank"].get(rank)
+            p99_s = f"  p99 {p99:.3f}" if isinstance(
+                p99, (int, float)) else ""
+            lines.append(f"    rank {rank}: p50 {p50:.3f} ms{p99_s}")
+    for site, row in sorted(report.get("wait_skew", {}).items()):
+        lines.append(f"  grad-sync wait at {site}: fleet median p50 "
+                     f"{row['fleet_median_p50_s'] * 1e3:.3f} ms (least: "
+                     f"rank {row['min_rank']})")
+        for rank, p50 in sorted(row["p50_s_by_rank"].items()):
+            lines.append(f"    rank {rank}: p50 {p50 * 1e3:.3f} ms")
+    for verdict in report["stragglers"]:
+        lines.append(f"  STRAGGLER rank {verdict['rank']} on "
+                     f"{verdict['metric']} (skew {verdict['skew']:.2f})")
+    for ev in report["fleet_events"]:
+        fields = ev.get("fields") or {}
+        body = "  ".join(f"{k}={v}" for k, v in fields.items())
+        lines.append(f"  [{ev.get('name')}] rank {ev.get('rank')} "
+                     f"{body}")
+    if not (report["step_time_skew"] or report["fleet_events"]
+            or report.get("wait_skew")):
+        lines.append("  (no step-time metrics or fleet events in the "
+                     "shards)")
+    return "\n".join(lines)
+
+
 def fleet_main(args) -> int:
-    del args
-    print("fleet: the cross-rank merge (fleet/merge.py, collector.py) "
-          "comes with the rest of the fleet tier, not ported yet "
-          "(ROADMAP.md, Queue 1 item 7); read each rank's "
-          "<base>.rank<i>.jsonl with `report`", file=sys.stderr)
-    return 2
+    from apex_tpu_torch.observability import fleet
+
+    if args.flight:
+        try:
+            merged = fleet.merge_flight_records(args.flight,
+                                                run_id=args.run_id)
+        except (OSError, ValueError) as e:
+            print(f"cannot merge flight records: {e}", file=sys.stderr)
+            return 2 if not isinstance(e, FileNotFoundError) else 1
+        if not args.no_write:
+            merged["written"] = fleet.write_fleet_record(
+                merged, args.flight)
+        if args.json:
+            print(json.dumps(merged, indent=2))
+        else:
+            print(f"fleet flight record: {merged['rank_count']} rank(s)")
+            for rank, info in merged["ranks"].items():
+                where = info.get("last_collective")
+                print(f"  rank {rank}: step {info.get('step')} "
+                      f"trigger={info.get('trigger')}"
+                      + (f" last_collective={where}" if where else ""))
+            print(f"  verdict: {merged['verdict'] or 'no stuck rank'}")
+            if merged.get("written"):
+                print(f"  wrote {merged['written']}")
+        return 0
+    if not args.paths:
+        print("fleet needs shard path(s) or --flight DIR",
+              file=sys.stderr)
+        return 2
+    if args.trace:
+        # trace mode: the positional paths are SPAN-DUMP / flight-
+        # record shards (rank from the .rank{i} suffix, else the
+        # payload's process_index stamp)
+        rank_dumps = []
+        for path in args.paths:
+            rank = fleet.rank_of_path(path)
+            if rank is None:
+                try:
+                    with open(path) as f:
+                        rank = json.load(f).get("process_index")
+                except (OSError, ValueError) as e:
+                    print(f"cannot read {path}: {e}", file=sys.stderr)
+                    return 2
+            rank_dumps.append((rank, path))
+        # legacy shards with neither suffix nor stamp get distinct
+        # fallback pids — two of them merging into one Perfetto lane
+        # would misrepresent two processes as one
+        taken = {r for r, _ in rank_dumps if r is not None}
+        next_free = 0
+        for i, (rank, path) in enumerate(rank_dumps):
+            if rank is None:
+                while next_free in taken:
+                    next_free += 1
+                taken.add(next_free)
+                rank_dumps[i] = (next_free, path)
+        if len({r for r, _ in rank_dumps}) != len(rank_dumps):
+            dupes = sorted(r for r, _ in rank_dumps)
+            print(f"duplicate rank(s) across shards: {dupes} — pass "
+                  f"one shard per rank", file=sys.stderr)
+            return 2
+        try:
+            events = fleet.fleet_trace_events(rank_dumps)
+            with open(args.trace, "w") as f:
+                json.dump({"traceEvents": events,
+                           "displayTimeUnit": "ms"}, f)
+        except (OSError, ValueError) as e:
+            print(f"cannot write fleet trace: {e}", file=sys.stderr)
+            return 2
+        print(f"wrote {args.trace} ({len(rank_dumps)} rank(s), one pid "
+              f"per rank; open at ui.perfetto.dev)")
+        return 0
+    base = args.paths[0] if len(args.paths) == 1 else list(args.paths)
+    try:
+        report = fleet.merge_fleet(base, run_id=args.run_id)
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    except (OSError, ValueError) as e:
+        print(f"cannot merge fleet shards: {e}", file=sys.stderr)
+        return 2
+    if args.emit_metrics:
+        records = fleet.fleet_metric_records(report)
+        try:
+            with open(args.emit_metrics, "w") as f:
+                for rec in records:
+                    f.write(json.dumps(rec) + "\n")
+        except OSError as e:
+            print(f"cannot write {args.emit_metrics}: {e}",
+                  file=sys.stderr)
+            return 2
+        print(f"wrote {args.emit_metrics} ({len(records)} record(s))",
+              file=sys.stderr)
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        print(_render_fleet(report))
+    return 0
 
 
 def memory_main(args) -> int:
@@ -263,13 +407,33 @@ def main(argv=None) -> int:
                     help="max event lines to print (0 = all)")
     tp = sub.add_parser(
         "trace", help="export a Perfetto trace-event JSON from a span "
-                      "dump or flight record")
-    tp.add_argument("run", help="span dump .json or flight record .json")
+                      "dump, flight record, or torch.profiler trace")
+    tp.add_argument("run", help="span dump .json, flight record .json, "
+                                "or torch.profiler trace file/directory")
     tp.add_argument("--out", default="",
                     help="output path (default: <run>.perfetto.json)")
     fp = sub.add_parser(
-        "fleet", help="join per-rank telemetry shards (not ported yet)")
-    fp.add_argument("paths", nargs="*", help="metrics shard path(s)")
+        "fleet", help="join per-rank .rank{i} telemetry shards into "
+                      "one fleet view")
+    fp.add_argument("paths", nargs="*",
+                    help="metrics shard base/path(s); with --trace, "
+                         "span-dump/flight-record shards")
+    fp.add_argument("--json", action="store_true",
+                    help="emit the fleet report as JSON")
+    fp.add_argument("--run-id", default=None,
+                    help="only merge shards stamped with this run_id")
+    fp.add_argument("--emit-metrics", default="",
+                    help="also write the fleet view as registry-shaped "
+                         "JSONL (fleet/* family) to this path")
+    fp.add_argument("--trace", default="",
+                    help="merged Perfetto export of span-dump shards, "
+                         "one pid per rank, to this path")
+    fp.add_argument("--flight", default="",
+                    help="merge the flightrec_* shards in this "
+                         "directory instead of metrics shards")
+    fp.add_argument("--no-write", action="store_true",
+                    help="with --flight: don't persist the merged "
+                         "fleetrec_*.json")
     mp = sub.add_parser(
         "memory", help="live memory snapshot of the card")
     mp.add_argument("--out", default="",

@@ -287,12 +287,15 @@ class MemoryMonitor:
         """Write the monitor's state (a fresh snapshot + watermark) as
         one identity-stamped JSON artifact at the ``rank_path``-suffixed
         variant of ``path``; returns the resolved path. ``compiled`` is
-        None: the port has no per-executable capture (the reference
-        writes None when none is installed)."""
+        the compiled-memory capture's per-graph table when one is
+        installed, else None."""
         from apex_tpu_torch.observability.fleet.identity import (
             identity_fields,
             rank_path,
         )
+        from apex_tpu_torch.observability.memory import compiled
+
+        cap = compiled.current_capture()
 
         payload = {
             "kind": "apex_tpu.memory_record",
@@ -301,7 +304,7 @@ class MemoryMonitor:
             **self.summary(),
             "snapshot": memory_snapshot(top_k=self.top_k,
                                         device=self.device),
-            "compiled": None,
+            "compiled": cap.snapshot() if cap is not None else None,
         }
         resolved = rank_path(path)
         with open(resolved, "w") as f:

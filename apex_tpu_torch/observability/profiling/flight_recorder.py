@@ -24,10 +24,12 @@ function with ``recorder.wrap_step(step_fn)``; never both.
 ``recorder.sensor()`` plugs into a ``PreemptionWatcher`` so a stalled
 step can be escalated into the emergency-checkpoint + exit-75 path.
 
-The dump's fleet probe fields (``last_collective``,
-``last_collectives``) are None: the port has no collective probe yet
-(``fleet/probe.py``, ROADMAP.md Queue 1 item 7), as the reference
-writes them when that tier has seen no collective.
+The dump's fleet fields (``last_collective``, ``last_collectives``) are
+the grad-sync probe's (:mod:`~apex_tpu_torch.observability.fleet.probe`):
+the last collective this process's rank entered (None and ``{}`` while
+the probe is off or has seen none), which
+:func:`~apex_tpu_torch.observability.fleet.merge_flight_records` reads
+to say where a stuck rank is stuck.
 """
 
 from __future__ import annotations
@@ -308,6 +310,7 @@ class FlightRecorder:
         """Write the post-mortem artifact; returns its path (None when
         even the write failed — the recorder must never take down the
         run it observes)."""
+        from apex_tpu_torch.observability.fleet import probe as fleet_probe
         from apex_tpu_torch.observability.fleet.identity import (
             FleetIdentity,
             identity_fields,
@@ -331,9 +334,10 @@ class FlightRecorder:
             "kind": "apex_tpu.flight_record",
             "schema_version": 1,
             **identity_fields(ident),
-            # no collective probe in the port yet (module docstring)
-            "last_collective": None,
-            "last_collectives": None,
+            "last_collective": fleet_probe.last_collective(),
+            "last_collectives": {
+                str(r): site
+                for r, site in fleet_probe.last_collectives().items()},
             "reason": reason,
             "trigger": kind,
             "pid": os.getpid(),

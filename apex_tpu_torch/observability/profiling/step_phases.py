@@ -22,8 +22,9 @@ under whatever the step thread has open, or their comms would read as
 compute. :func:`compute_breakdown` with no ``own_tids`` is the
 reference's: the step's thread alone.
 
-The device-side fields (:func:`device_phase_fields`) take an attribution
-from a device trace, which the xplane/``pyprof`` slice ports.
+The device-side fields (:func:`device_phase_fields`) come from a
+:class:`~apex_tpu_torch.observability.profiling.xplane.DeviceAttribution`
+of a ``torch.profiler`` trace over the same steps.
 """
 
 from __future__ import annotations
@@ -185,10 +186,9 @@ def compute_breakdown(spans: List[Span], step: Span,
 
 
 def device_phase_fields(attribution) -> dict:
-    """Device-side fields from a device attribution (an object with
-    ``fractions()`` and ``overlap_efficiency()``, as the reference's
-    ``xplane.DeviceAttribution``) - merged next to the host breakdown in
-    a step record."""
+    """Device-side fields from an
+    :class:`~apex_tpu_torch.observability.profiling.xplane.DeviceAttribution`
+    - merged next to the host breakdown in a step record."""
     out = {"device_phases": attribution.fractions()}
     eff = attribution.overlap_efficiency()
     if eff is not None:

@@ -33,6 +33,7 @@ import torch
 from apex_tpu_torch import _tree
 from apex_tpu_torch.distributed import backend
 from apex_tpu_torch.distributed.backend import divide
+from apex_tpu_torch.observability.fleet import probe as fleet_probe
 from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.ops.flat import flatten_tree, unflatten_tree
 from apex_tpu_torch.parallel.overlap import (
@@ -42,11 +43,14 @@ from apex_tpu_torch.parallel.overlap import (
 
 
 def _reduce(g: torch.Tensor, axis_name: str, gradient_average: bool,
-            pre: float) -> torch.Tensor:
-    """``g / pre``, summed over the group, ``* pre / n``: a new tensor."""
+            pre: float, site: str) -> torch.Tensor:
+    """``g / pre``, summed over the group, ``* pre / n``: a new tensor.
+    The sum is the fleet probe's ``site``."""
     if pre != 1.0:
         g = divide(g, pre)
+    g = fleet_probe.collective_enter(g, site, axis_name)
     g = backend.all_reduce(g, backend.ReduceOp.SUM, axis_name)
+    g = fleet_probe.collective_exit(g, site, axis_name)
     _finish(g, backend.get_world_size(axis_name), gradient_average, pre)
     return g
 
@@ -55,11 +59,14 @@ def sync_gradients(grads, axis_name: str = "data",
                    gradient_average: bool = True,
                    gradient_predivide_factor: float = 1.0):
     """All-reduce every leaf over ``axis_name`` (ref ``:55``); with
-    ``gradient_average`` the mean over the group."""
+    ``gradient_average`` the mean over the group. Leaf ``i``'s sum is the
+    fleet probe's site ``ddp/allreduce/leaf{i}``."""
     with span("ddp/allreduce"):
-        return _tree.map_leaves(
-            lambda g: _reduce(g, axis_name, gradient_average,
-                              gradient_predivide_factor), grads)
+        leaves = _tree.leaves(grads)
+        return _tree.unflatten(_tree.paths(grads), [
+            _reduce(g, axis_name, gradient_average,
+                    gradient_predivide_factor, f"ddp/allreduce/leaf{i}")
+            for i, g in enumerate(leaves)])
 
 
 def sync_gradients_flat(grads, axis_name: str = "data",
@@ -73,7 +80,8 @@ def sync_gradients_flat(grads, axis_name: str = "data",
         for k, buf in bufs.items():
             with span(f"ddp/bucket/{k}"):
                 reduced[k] = _reduce(buf, axis_name, gradient_average,
-                                     gradient_predivide_factor)
+                                     gradient_predivide_factor,
+                                     f"ddp/bucket/{k}")
         return unflatten_tree(reduced, meta)
 
 

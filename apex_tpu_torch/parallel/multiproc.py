@@ -178,9 +178,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return launch(argv, nprocs, backend=backend or "nccl",
                       cpu=bool(cpu))
 
+    import torch.distributed as dist
+
     from apex_tpu_torch.distributed import backend as dist_backend
 
     initialize_distributed(backend=backend, cpu=cpu)
+    if dist.get_backend() == "gloo":
+        # gloo connects every pair of ranks inside init_process_group: a
+        # rank that returned from it first could run its script and exit
+        # while a peer still connects, failing the peer's init ("Connection
+        # closed by peer") in place of reporting the script's exit code
+        dist.barrier()
     script = argv[0]
     sys.argv = argv
     sys.path.insert(0, os.path.dirname(os.path.abspath(script)))

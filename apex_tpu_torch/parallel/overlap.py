@@ -40,6 +40,7 @@ import torch
 from apex_tpu_torch import _tree
 from apex_tpu_torch.distributed import backend
 from apex_tpu_torch.distributed.backend import divide
+from apex_tpu_torch.observability.fleet import probe as fleet_probe
 from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.ops.flat import dtype_name
 
@@ -182,20 +183,27 @@ def sync_gradients_overlapped(grads, axis_name: str = "data",
     pre = gradient_predivide_factor
     group = backend.get_group(axis_name)
     n = backend.get_world_size(axis_name)
+    # the fleet probe brackets the reference's sites, this function's own
+    # buckets; the bucketed sync's (``_site``) are not probed there
+    probed = _site is None
     pending = []
     for k, bucket in enumerate(plan.buckets):
-        site = (f"ddp/overlap/bucket{k}/{bucket.dtype}" if _site is None
+        site = (f"ddp/overlap/bucket{k}/{bucket.dtype}" if probed
                 else _site(plan, k))
         with span(site):
             flat = _pack(leaves, bucket)
             if pre != 1.0:
                 flat = divide(flat, pre)
+            if probed:
+                flat = fleet_probe.collective_enter(flat, site, axis_name)
             work = torch.distributed.all_reduce(flat, group=group,
                                                 async_op=True)
-        pending.append((bucket, flat, work))
+        pending.append((site, bucket, flat, work))
     out: list = [None] * len(leaves)
-    for bucket, red, work in pending:
+    for site, bucket, red, work in pending:
         work.wait()
+        if probed:
+            red = fleet_probe.collective_exit(red, site, axis_name)
         _finish(red, n, gradient_average, pre)
         _unpack_into(out, red, bucket)
     return _tree.unflatten(_tree.paths(grads), out)

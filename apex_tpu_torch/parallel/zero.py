@@ -46,6 +46,7 @@ import torch
 from apex_tpu_torch import _device, _tree
 from apex_tpu_torch.distributed import backend
 from apex_tpu_torch.distributed.backend import divide
+from apex_tpu_torch.observability.fleet import probe as fleet_probe
 from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.ops.fused_adam_kernel import adam_flat
 from apex_tpu_torch.parallel.overlap import (
@@ -173,13 +174,18 @@ class Zero1FusedAdam:
         step_f = count.to(torch.float32)
         pre = self.gradient_predivide_factor
         for k, bucket in enumerate(plan.buckets):
-            with span(f"ddp/zero1/bucket{k}/{bucket.dtype}"):
+            site = f"ddp/zero1/bucket{k}/{bucket.dtype}"
+            with span(site):
                 shard = bucket.padded // n
                 # grads travel fp32 (the flat Adam slab's type), params in
                 # their own dtype
                 gflat = _pack(g_leaves, bucket, cast=torch.float32)
                 if pre != 1.0:
                     gflat = divide(gflat, pre)
+                # the fleet probe brackets the scatter + gather pair, the
+                # ZeRO-1 sync region
+                gflat = fleet_probe.collective_enter(gflat, site,
+                                                     self.axis_name)
                 g_shard = torch.empty((shard,), dtype=torch.float32,
                                       device=gflat.device)
                 backend.reduce_scatter_into(g_shard, gflat, self.axis_name)
@@ -192,6 +198,8 @@ class Zero1FusedAdam:
                 p_shard.add_(delta)
                 del delta, g_shard
                 backend.all_gather_into(pflat, p_shard.clone(), self.axis_name)
+                pflat = fleet_probe.collective_exit(pflat, site,
+                                                    self.axis_name)
                 out: list = [None] * len(p_leaves)
                 _unpack_into(out, pflat, bucket)
                 for i in bucket.indices:

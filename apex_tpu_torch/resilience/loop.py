@@ -100,8 +100,12 @@ def _is_finite_number(v) -> bool:
 
     try:
         return math.isfinite(float(v))
-    except (TypeError, ValueError):
-        return True  # non-numeric metric values are not health signals
+    except (TypeError, ValueError, RuntimeError):
+        # non-numeric metric values are not health signals, nor is a
+        # tensor of several elements (a gathered fleet fingerprint:
+        # torch's float() raises RuntimeError where numpy's raises
+        # TypeError)
+        return True
 
 
 def _all_finite(state) -> bool:

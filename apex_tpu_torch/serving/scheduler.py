@@ -11,9 +11,12 @@
   write their k/v to the trash page and pass their token through. On the
   card the step is ONE CUDA graph (:class:`DecodeGraph`), captured at a
   scheduler's first decode step and replayed on every step after it: the
-  counterpart of the reference's single jitted ``_decode_step``, whose
-  zero-retrace contract :meth:`ContinuousBatchScheduler.decode_retraces`
-  reports (captures after the first, 0 in steady state).
+  counterpart of the reference's single jitted ``_decode_step``: the
+  capture reports itself to the recompile listener
+  (:mod:`apex_tpu_torch.observability.recompile`) under that name, and
+  the zero-retrace contract :meth:`ContinuousBatchScheduler.
+  decode_retraces` reads the listener (captures after the first, 0 in
+  steady state).
 
 Every decode op is per-slot independent (row-wise gemms, per-row
 attention over the row's own block table, per-row argmax).
@@ -51,11 +54,13 @@ import torch
 from apex_tpu_torch import _device
 from apex_tpu_torch.models import generate as _gen
 from apex_tpu_torch.models import llama as _llama
+from apex_tpu_torch.observability import recompile
 from apex_tpu_torch.ops import launch_counts
 from apex_tpu_torch.ops.precision import matmul_fp8
 from apex_tpu_torch.serving.kv_cache import PagedKVCache
 
 __all__ = [
+    "DECODE_STEP",
     "ContinuousBatchScheduler",
     "DecodeGraph",
     "Request",
@@ -218,6 +223,10 @@ def build_prefill(cfg, bucket_len: int, weight_mode: str = "native"):
     return prefill
 
 
+#: the name the decode graph's captures are reported under: the
+#: reference's jitted ``_decode_step``
+DECODE_STEP = "_decode_step"
+
 # one capture stream a device for every decode graph of the process, so
 # the fp8 cast's per-stream scratch buffer is made once for all of them
 _CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
@@ -255,11 +264,17 @@ class DecodeGraph:
     call raises when the pages moved. A failed capture or replay raises:
     there is no eager fallback on the card. The kernels' launch counters
     advance by the capture's launches on every replay (the capture
-    itself launches nothing)."""
+    itself launches nothing).
+
+    Each capture is reported to the recompile listener under ``name``
+    (:func:`~apex_tpu_torch.observability.recompile.note_capture`), and
+    :meth:`compiled_memory_stats` gives the compiled-memory capture the
+    graph's measured footprint."""
 
     def __init__(self, step, device: torch.device, max_batch: int,
-                 max_pages: int, pages):
+                 max_pages: int, pages, name: str = DECODE_STEP):
         self.step = step
+        self.name = name
         self.device = device
         self.max_batch = int(max_batch)
         self.max_pages = int(max_pages)
@@ -316,6 +331,17 @@ class DecodeGraph:
         self._held = self._addresses()
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
+        recompile.note_capture(self.name, self, self.capture_s)
+
+    def compiled_memory_stats(self) -> dict:
+        """The captured graph's memory (``memory.compiled``'s fields):
+        its static inputs and output, and the bytes its pool holds."""
+        from apex_tpu_torch.observability.memory.compiled import (
+            captured_graph_fields,
+        )
+
+        return captured_graph_fields(self.graph, (self._static,),
+                                     (self._out,))
 
     def replay(self) -> torch.Tensor:
         """Replay the captured step on its static inputs as they stand;
@@ -404,6 +430,9 @@ class ContinuousBatchScheduler:
         self._prefills: Dict[int, object] = {}
         self.decode_steps = 0
         self.prefill_count = 0
+        # the listener's count of this graph's captures right after the
+        # first decode step: the zero-retrace guard's baseline
+        self._decode_compiles0: Optional[int] = None
 
     # --------------------------------------------------------- queries
 
@@ -423,9 +452,15 @@ class ContinuousBatchScheduler:
         return self._graph.captures
 
     def decode_retraces(self) -> int:
-        """Captures of the decode graph after this scheduler's first
-        (``scheduler.py:310``): steady state must report 0."""
-        return max(0, self._graph.captures - 1)
+        """Captures of this scheduler's decode graph after its first
+        decode step, as the recompile listener counts them
+        (``scheduler.py:310``): steady state must report 0, and a CPU
+        device, which captures nothing, reports 0."""
+        if self._decode_compiles0 is None:
+            return 0
+        listener = recompile.install()
+        return max(0, listener.compiles(DECODE_STEP, source=self._graph)
+                   - self._decode_compiles0)
 
     # ------------------------------------------------------- admission
 
@@ -510,6 +545,9 @@ class ContinuousBatchScheduler:
         nxt = self._graph(self._tokens, self._tables, self._pos,
                           self._active)
         self.decode_steps += 1
+        if self._decode_compiles0 is None:
+            self._decode_compiles0 = recompile.install().compiles(
+                DECODE_STEP, source=self._graph)
         finished = []
         for slot, req in enumerate(self.slots):
             if req is None or not self._active[slot]:

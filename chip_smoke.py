@@ -35,9 +35,16 @@ result line) when it fails:
                replays add its launches), one replayed step profiled
                must run exactly 65 RMSNorm forwards and no flash kernel,
                and a teacher-forced pass of the full ``forward`` must
-               agree with the engine's tokens; the tokens' SHA-1.
+               agree with the engine's tokens; the tokens' SHA-1. The
+               compile listener (``observability.recompile``) counts one
+               capture of the decode graph, ``decode_retraces`` reads it,
+               the compiled-memory capture records the bytes the graph's
+               pool holds (positive, under the phase's peak; alias and
+               code bytes None), and a forced second capture inside
+               ``retrace_guard(budget=0)`` raises.
 5. profile  -- only with ``--profile``: host time per prefill and decode
-               step, the device's busy share and its time by kernel.
+               step, the device's busy share and its time by kernel
+               (``pyprof.Report`` over a ``torch.profiler`` trace).
 5a. serving_fp8 -- the same model and trace through ``ServingEngine(
                weight_mode="fp8")``: exact launches (448 fp8 casts a
                prefill or decode step: 224 row-major activations, 224
@@ -84,6 +91,23 @@ result line) when it fails:
                step 1's scales equal to the ring's formula, step 0
                within a stated tolerance of O2's; step time, tokens/s,
                MFU, peak memory, the fp8 products' device ms.
+6b. observability -- the training path's model and batch with the
+               telemetry tiers on at every step, in turns with the same
+               steps without them (exact launches), the stats pass
+               against float64, the memory monitor against torch.cuda's
+               counters, a forced OOM's verdict and memrec, a stall dump;
+               then 3 steps under ``pyprof.start/stop``, read by
+               ``pyprof.Report`` and ``attribute_report``: each
+               hand-written kernel counted in the trace exactly as its
+               launch counter moved, flash under attention-kernel, the
+               norms and Adam under custom-kernel, the GEMMs under
+               matmul, the phase shares summing to 1, the kernels' self
+               time within the ``ProfilerStep`` wall, that wall within 5%
+               of the steps' CUDA events, no flops and no kernel bytes
+               where the trace measured none; the step record's device
+               phases from that attribution; the CLIs (``report``,
+               ``trace`` of the span dump and of the trace, ``memory``,
+               ``goodput``, ``python -m apex_tpu_torch.pyprof``).
 7. profile  -- only with ``--profile``: one more training step under
                ``torch.profiler``, the device's busy share and its time
                by kernel (after phases 8 and 9 too).
@@ -193,14 +217,26 @@ result line) when it fails:
                ``grad_sync_comms_bytes``, optimizer-state bytes a rank,
                peak memory a rank, and SyncBatchNorm at a ResNet-50
                stage ([32, 256, 56, 56] bf16 over the 2 ranks) against one
-               BatchNorm2d of the global batch.
+               BatchNorm2d of the global batch. The fleet tier: (b)'s 3
+               steps again from the same params with the grad-sync probe
+               on (each bucket's reduce-scatter + all-gather) and rank 1
+               sleeping its slowest unprobed ZeRO-1 sync before each
+               backward: params and ZeRO-1 state bit for bit, equal
+               launches; at the first bucket rank 1 waits under half the
+               delay and rank 0 over it; ``merge_fleet`` over the ranks'
+               metric dumps names rank 1, alone, the straggler at that
+               bucket and the ``fleet`` CLI names it; each rank's flight
+               record carries the last bucket as its last collective and
+               ``merge_flight_records`` joins them.
 15. ddp_nccl -- the same model and batch on one rank over NCCL: 2
                steps each of the single-device ``gpt2.train_step`` with
-               ``fused_adam(flat=True)``, of DDP and of ZeRO-1; after
-               each, DDP and ZeRO-1 equal the single-device step bit for
-               bit, params and moments (every reduction is the
-               identity); exact launches; each step's ms (the first
-               cold, the second steady).
+               ``fused_adam(flat=True)``, of DDP, of ZeRO-1 and of ZeRO-1
+               with the grad-sync probe on; after each, DDP and ZeRO-1
+               equal the single-device step bit for bit, params and
+               moments (every reduction is the identity), the probed
+               ZeRO-1 its unprobed run, with a wait at every bucket;
+               exact launches; each step's ms (the first cold, the
+               second steady).
 16. megatron_training -- Llama-3-8B widths at 4 layers over tp 2 x pp 2
                (4 ranks through the launcher, ``--backend gloo``, sharing
                the one card: not NCCL over NVLink), sequence parallelism
@@ -408,12 +444,22 @@ result line) when it fails:
                RMSNorm 9 / 5 a step), a falling loss, 8 greedy tokens
                (flash 2, RMSNorm 40), peak under 80 GB.
 
+33. fleet_desync -- (after gpt2_tp_training, in its launch) ddp_training's
+               model on 4 gloo ranks, a slice of its batch a rank: DDP
+               steps (``sync_gradients_flat``, the flat Adam) under
+               ``ResilientTrainLoop`` with a ``DesyncDetector`` fed
+               ``fingerprint_gather`` each step; silent at step 0; at
+               step 1, after one element of rank 1's embedding moved,
+               every rank's verdict names that leaf, rank 1 alone and
+               step 1, and the loop aborts; exact launches.
+
 The multi-rank paths run in three launches (``SUITES``): the six
 one-rank NCCL paths (ddp_nccl, megatron_nccl, mp_nccl, megatron_o4_nccl,
 hf_finetune_nccl, resnet50_ddp_nccl: ``nccl_suite``), the 2-rank gloo
 paths (ddp_training, cp_training, ep_training, resnet50_ddp, bert_train,
-hf_finetune, contrib_dist, simple_distributed: ``gloo2_suite``) and the 4-rank ones (megatron_training,
-gpt2_tp_training: ``gloo4_suite``), each at the turn of its first phase;
+hf_finetune, contrib_dist, simple_distributed: ``gloo2_suite``) and the
+4-rank ones (megatron_training, gpt2_tp_training, fleet_desync:
+``gloo4_suite``), each at the turn of its first phase;
 each phase then checks its own path, with that path's seconds (cp and
 ep are checked before the 4-rank launch, to free the disk). megatron_o4
 keeps a launch of its own, and a second one that resumes from its
@@ -1425,27 +1471,121 @@ def assert_fp8_equal(y, ref, what: str) -> None:
                              f"plain version")
 
 
+def profiled_trace(fn, *args) -> str:
+    """Run ``fn(*args)`` once in a ``pyprof.start/stop`` window whose
+    trace goes to a fresh temporary directory; the trace's path (the
+    caller removes the directory with :func:`drop_trace`)."""
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch import pyprof
+
+    pyprof.init(trace_dir=tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    torch.cuda.synchronize()
+    pyprof.start()
+    try:
+        fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        path = pyprof.stop()
+    return path
+
+
+def drop_trace(path: str) -> None:
+    import shutil
+
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+
 def device_activities(fn, *args, tries: int = 3):
     """Names of the device activities (kernels, fills, copies) one call
-    of ``fn(*args)`` runs, by ``torch.profiler``, after a first call. A
-    call that launches a kernel shows at least one; the profiler has
-    returned none on an H100 now and then (its records lost), so an empty
-    list is taken again, up to ``tries`` times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    of ``fn(*args)`` runs, read by the port's trace parser
+    (``apex_tpu_torch.pyprof.parse``) from a ``torch.profiler`` window,
+    after a first call. A call that launches a kernel shows at least
+    one; the profiler has returned none on an H100 now and then (its
+    records lost), so an empty list is taken again, up to ``tries``
+    times."""
+    from apex_tpu_torch.pyprof import parse
 
     fn(*args)
     names = []
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*args)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        path = profiled_trace(fn, *args)
+        try:
+            recs = [r for r in parse.parse_trace([path])
+                    if r.plane.startswith("/device:")]
+        finally:
+            drop_trace(path)
+        names = [r.name for r in recs]
         if names:
             break
     return names
+
+
+# the launch counter each of the port's kernels moves (one kernel a
+# launch), by the kernel's identifier as ``pyprof.parse.port_kernel``
+# reads it from a trace name (``PORT_KERNELS`` alone decides which names
+# are the port's); a kernel that serves two counters is told apart by
+# its template argument at the index given (the norms' ``layer`` flag,
+# the row softmax's ``causal``); a norm backward's column sum is not
+# counted
+_NORM_FWD = (0, {"false": "rms_norm_fwd", "true": "layer_norm_fwd"})
+_NORM_BWD = (0, {"false": "rms_norm_bwd", "true": "layer_norm_bwd"})
+TRACE_COUNTER = {
+    "flash_fwd_tc_kernel": "flash_attention_fwd",
+    "flash_fwd_fp32_kernel": "flash_attention_fwd",
+    "flash_bwd_dq_tc_kernel": "flash_attention_bwd_dq",
+    "flash_bwd_dq_fp32_kernel": "flash_attention_bwd_dq",
+    "flash_bwd_dkv_tc_kernel": "flash_attention_bwd_dkv",
+    "flash_bwd_dkv_fp32_kernel": "flash_attention_bwd_dkv",
+    "fwd_rows_kernel": _NORM_FWD, "fwd_kernel": _NORM_FWD,
+    "bwd_rows_kernel": _NORM_BWD, "bwd_kernel": _NORM_BWD,
+    "column_sum_kernel": None,
+    "adam_kernel": "fused_adam",
+    "cast_scale_kernel": "fp8_cast",
+    "cast_scale_t_kernel": "fp8_cast_col",
+    "softmax_rows_kernel": (2, {"true": "fused_softmax_causal",
+                                "false": "fused_softmax_masked"}),
+    "softmax_stats_kernel": "fused_softmax_stats",
+    "softmax_apply_kernel": "fused_softmax_apply",
+}
+TRACE_KERNELS = tuple(dict.fromkeys(
+    c for rule in TRACE_COUNTER.values() if rule is not None
+    for c in ((rule,) if isinstance(rule, str) else rule[1].values())))
+FLASH_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+
+
+def trace_kernel(name: str):
+    """The launch counter of the port's kernel ``name`` (a trace name),
+    or None: for another kernel, and for a kernel of the port no counter
+    counts."""
+    from apex_tpu_torch.pyprof import parse
+
+    hit = parse.port_kernel(name)
+    if hit is None:
+        return None
+    ident, args = hit
+    if ident not in TRACE_COUNTER:
+        raise AssertionError(f"{name}: a kernel of the port with no "
+                             f"launch counter in TRACE_COUNTER")
+    rule = TRACE_COUNTER[ident]
+    if rule is None or isinstance(rule, str):
+        return rule
+    at, by = rule
+    return by[args[at]]
+
+
+def trace_kernel_counts(report) -> dict:
+    """{launch counter: the kernel's occurrences in ``report``} (a
+    ``pyprof.Report``)."""
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    for op in report.ops:
+        key = trace_kernel(op.name)
+        if key is not None:
+            counts[key] += op.occurrences
+    return counts
 
 
 def check_fp8_cast(dev):
@@ -1923,9 +2063,6 @@ def make_engine(params, cfg, weight_mode="native", **kw):
                          max_new_cap=MAX_NEW, weight_mode=weight_mode, **kw)
 
 
-RMS_FWD_KERNEL = re.compile(r"row_norm::fwd(_rows)?_kernel<false")
-
-
 def replayed_step(engine, cfg, weight_mode, iters: int = 20) -> dict:
     """One replay of the engine's captured decode graph under
     ``torch.profiler``: its device kernels by kind, held to exactly the
@@ -1937,12 +2074,17 @@ def replayed_step(engine, cfg, weight_mode, iters: int = 20) -> dict:
     import torch
 
     graph = engine.scheduler._graph.graph
+    # the replay's kernels, each one by name: CUPTI here traces the
+    # kernels inside a replayed graph, not the graph launch alone
     names = device_activities(graph.replay)
-    seen = {"rms_norm_fwd": sum(bool(RMS_FWD_KERNEL.search(n))
-                                for n in names),
-            "flash": sum("flash" in n for n in names),
-            "fp8_cast": sum("cast_scale_kernel<" in n for n in names),
-            "fp8_cast_col": sum("cast_scale_t_kernel<" in n for n in names),
+
+    def count(*keys):
+        return sum(trace_kernel(n) in keys for n in names)
+
+    seen = {"rms_norm_fwd": count("rms_norm_fwd"),
+            "flash": count(*FLASH_COUNTERS),
+            "fp8_cast": count("fp8_cast"),
+            "fp8_cast_col": count("fp8_cast_col"),
             "fill_int32": sum("FillFunctor<int>" in n for n in names),
             "fill_other": sum("FillFunctor" in n and "FillFunctor<int>"
                               not in n for n in names),
@@ -2095,8 +2237,15 @@ def serve(params, cfg, weight_mode):
     graph must be captured once, and the counts must be exact."""
     import torch
 
+    from apex_tpu_torch.observability import recompile
+    from apex_tpu_torch.observability.memory import install_compiled_capture
     from apex_tpu_torch.serving import make_trace, run_closed_loop
 
+    # the compile listener and the compiled-memory capture, on before the
+    # engine's first decode step captures its graph
+    listener = recompile.install()
+    capture = install_compiled_capture()
+    compiles0 = listener.compiles("_decode_step")
     engine = make_engine(params, cfg, weight_mode)
     trace = make_trace(**TRACE)
     fills = new_scratch(engine.device) if weight_mode == "fp8" else 0
@@ -2107,6 +2256,22 @@ def serve(params, cfg, weight_mode):
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    graph = engine.scheduler._graph
+    compiled = capture.snapshot().get("_decode_step", {})
+    listened = {"decode_step_compiles":
+                    listener.compiles("_decode_step") - compiles0,
+                "this_graph_captures": listener.compiles(
+                    "_decode_step", source=graph),
+                "compiled": compiled}
+    if listened["decode_step_compiles"] != 1 or \
+            listened["this_graph_captures"] != 1:
+        raise AssertionError(f"the listener counted {listened}: want one "
+                             f"capture of the decode graph")
+    if not 0 < compiled.get("total_bytes", 0) <= peak or \
+            compiled.get("pool_bytes", 0) <= 0 or \
+            compiled.get("alias_bytes", 0) is not None:
+        raise AssertionError(f"the decode graph's compiled entry "
+                             f"{compiled} against the peak {peak}")
     want = expected_launches(counts, cfg, engine, weight_mode, fills)
     missing = [t.rid for t in trace
                if len(engine.results.get(t.rid, {}).get("tokens", ()))
@@ -2122,7 +2287,28 @@ def serve(params, cfg, weight_mode):
             f"retraces {report['decode_retraces']}: want 1 and 0")
     out = serving_report(engine, report, counts, want, peak)
     out["replayed_step"] = replayed_step(engine, cfg, weight_mode)
+    out["recompile"] = listened
     return engine, trace, out
+
+
+def forced_recapture(engine) -> dict:
+    """A second capture of ``engine``'s decode graph inside
+    ``retrace_guard(budget=0)``: it must raise RetraceBudgetExceeded,
+    and the engine's ``decode_retraces`` then reads 1."""
+    from apex_tpu_torch.observability import recompile
+
+    sched = engine.scheduler
+    try:
+        with recompile.retrace_guard(budget=0, fns=["_decode_step"]):
+            sched._graph.capture()
+    except recompile.RetraceBudgetExceeded as exc:
+        out = {"raised": str(exc), "decode_retraces": sched.decode_retraces()}
+    else:
+        raise AssertionError("a second capture of the decode graph did not "
+                             "trip retrace_guard(budget=0)")
+    if out["decode_retraces"] != 1:
+        raise AssertionError(f"after a forced capture {out}")
+    return out
 
 
 def params_bytes(params) -> int:
@@ -2146,6 +2332,8 @@ def phase_serving():
     longest = sorted(trace, key=lambda t: (-len(t.prompt), t.rid))
     tf = teacher_forced(lambda seq: llama.forward(params, seq, cfg), engine,
                         [longest[0].rid, longest[-1].rid], DELTA)
+    # last: the forced capture's warm-up step moves the launch counters
+    report["recompile"]["forced_recapture"] = forced_recapture(engine)
     return params, cfg, engine.results, {
             "phase": "serving", "model": "llama3_8b", "dtype": "bfloat16",
             "num_layers": cfg.num_layers, "init_s": init_s,
@@ -2391,9 +2579,6 @@ def phase_profile(params, cfg):
     engine under ``torch.profiler``: the device's busy time, by kernel.
     The busy time over the first run's wall time is the device's share
     of the unprofiled run."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from apex_tpu_torch.serving import make_trace, run_closed_loop
 
     trace = make_trace(**dict(TRACE, seed=SEED + 1, num_requests=8))
@@ -2414,17 +2599,20 @@ def phase_profile(params, cfg):
     t0 = time.perf_counter()
     run_closed_loop(engine, trace, use_wall_clock=False, publish=False)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    timed_ms = []
+
+    def profiled_run():
         t0 = time.perf_counter()
         run_closed_loop(make_engine(params, cfg), trace,
                         use_wall_clock=False, publish=False)
-        torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
+        timed_ms.append((time.perf_counter() - t0) * 1e3)
+
+    path = profiled_trace(profiled_run)
+    try:
+        device = trace_summary(path, top=12)
+    finally:
+        drop_trace(path)
+    profiled_ms, busy_ms = timed_ms[0], device["device_busy_ms"]
     decode = spans["decode"]
     steady = sorted(decode[1:])
     return {"phase": "profile", "requests": len(trace), "wall_ms": wall_ms,
@@ -2438,13 +2626,10 @@ def phase_profile(params, cfg):
             "decode_step_ms_median": steady[len(steady) // 2],
             "decode_retraces": sched.decode_retraces(),
             "decode_share": sum(decode) / wall_ms,
-            "profiled_wall_ms": profiled_ms, "device_busy_ms": busy_ms,
+            "profiled_wall_ms": profiled_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_idle_share_profiled": 1.0 - busy_ms / profiled_ms,
-            "kernels_seen": len(device),
-            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                             "ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+            **device}
 
 
 def reference_loss(params, tokens, targets, cfg):
@@ -2805,20 +2990,24 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def run_cli(args_list, cwd) -> list:
-    """``python -m apex_tpu_torch.observability <args>`` for each args, in
-    parallel; each command's exit code and the tail of its output."""
+def run_cli(commands, cwd) -> list:
+    """``python -m <module> <args>`` for each ``[module, *args]`` of
+    ``commands`` (the observability CLI when the first item is not a
+    module of the port), in parallel; each command's exit code and the
+    tail of its output."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    commands = [c if c[0].startswith("apex_tpu_torch.") else
+                ["apex_tpu_torch.observability", *c] for c in commands]
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "apex_tpu_torch.observability", *args],
+        [sys.executable, "-m", *argv],
         cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for args in args_list]
+        text=True) for argv in commands]
     out = []
     try:
-        for args, p in zip(args_list, procs):
+        for argv, p in zip(commands, procs):
             text = p.communicate(timeout=120)[0]
-            out.append({"args": args[0], "rc": p.returncode,
+            out.append({"args": " ".join(argv[:2]), "rc": p.returncode,
                         "tail": text[-400:]})
     finally:
         for p in procs:
@@ -2826,6 +3015,146 @@ def run_cli(args_list, cwd) -> list:
                 p.kill()
                 p.wait()
     return out
+
+
+OBS_PROFILED = 3          # training steps in the pyprof window
+OBS_WALL_REL = 0.05       # ProfilerStep wall against the CUDA events
+PROFILED_COUNTERS = FLASH_COUNTERS + ("rms_norm_fwd", "rms_norm_bwd",
+                                      "fused_adam")
+GEMM_NAME = re.compile(r"(?i)gemm|gemv|nvjet|xmma|cutlass")
+
+
+def traced_steps(train, trace_dir: Path) -> tuple:
+    """OBS_PROFILED training steps under ``pyprof.start/stop`` (one
+    ``pyprof.step()`` between steps), each between two CUDA events:
+    (the trace's path, the launch counters' deltas, each step's event
+    ms)."""
+    import torch
+
+    from apex_tpu_torch import pyprof
+
+    pyprof.init(trace_dir=str(trace_dir))
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(OBS_PROFILED)]
+    torch.cuda.synchronize()
+    before = read_counts()
+    pyprof.start()
+    try:
+        for i, (start, end) in enumerate(events):
+            if i:
+                pyprof.step()
+            start.record()
+            float(train())
+            end.record()
+    finally:
+        path = pyprof.stop()
+    torch.cuda.synchronize()
+    return path, counts_delta(before), [a.elapsed_time(b)
+                                        for a, b in events]
+
+
+def kernels_by_step(path: str, key: str) -> list:
+    """How many of counter ``key``'s kernels the trace holds inside each
+    ``ProfilerStep`` (by start time): where a lost record was lost."""
+    from apex_tpu_torch.pyprof import parse
+
+    events = parse.load_trace(path)["traceEvents"]
+    steps = sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events
+                   if ev.get("cat") == "user_annotation"
+                   and str(ev.get("name", "")).startswith("ProfilerStep#"))
+    counts = [0] * len(steps)
+    for ev in events:
+        if ev.get("cat") == "kernel" and trace_kernel(ev["name"]) == key:
+            for i, (a, b) in enumerate(steps):
+                if a <= ev["ts"] <= b:
+                    counts[i] += 1
+    return counts
+
+
+def profiled_window(train, trace_dir: Path) -> tuple:
+    """:func:`traced_steps` read back by ``pyprof.Report`` and
+    ``attribute_report``: every port kernel counted in the trace exactly
+    as its launch counter moved over the window (the flash trio, the
+    RMSNorm forward and backward and the flat Adam at least once), flash
+    under ``attention-kernel``, the others under ``custom-kernel``, the
+    GEMMs under ``matmul``; phase shares summing to 1 within 1e-3; the
+    kernels' self time no larger than the steps' wall; the
+    ``ProfilerStep`` wall within OBS_WALL_REL of the events'; no flops
+    and no kernel bytes where the trace measured none; the span
+    ``fused_adam/flat/cuda`` in the window. A count that misses fails
+    the phase with the kernels the trace holds in each step. Returns
+    (the numbers, the attribution)."""
+    from apex_tpu_torch import pyprof
+    from apex_tpu_torch.observability.profiling import attribute_report
+    from apex_tpu_torch.pyprof import parse
+
+    path, launches, event_ms = traced_steps(train, trace_dir)
+    t0 = time.perf_counter()
+    report = pyprof.Report.from_capture(path)
+    read_s = time.perf_counter() - t0
+    seen = trace_kernel_counts(report)
+    want = {k: launches[k] for k in TRACE_KERNELS}
+    if seen != want:
+        raise AssertionError(
+            "kernels in the trace != the launch counters: " + str({
+                k: {"trace": seen[k], "launched": want[k],
+                    "by_step": kernels_by_step(path, k)}
+                for k in want if seen[k] != want[k]}))
+    if not all(want[k] for k in PROFILED_COUNTERS):
+        raise AssertionError(f"a kernel of the path was not launched in "
+                             f"the window: {want}")
+    attribution = attribute_report(report)
+    by_kernel = {}
+    for op in report.ops:
+        key = trace_kernel(op.name)
+        if key is not None:
+            row = by_kernel.setdefault(key, {"count": 0, "ms": 0.0})
+            row["count"] += op.occurrences
+            row["ms"] += op.self_us / 1e3
+        cat = (None if key is None else "attention-kernel"
+               if key in FLASH_COUNTERS else "custom-kernel")
+        if key is None and GEMM_NAME.search(op.name):
+            cat = "matmul"
+        if cat is not None and op.category != cat:
+            raise AssertionError(f"{op.name} in {op.category}, not {cat}")
+        copy = op.name.startswith(("Memcpy", "Memset"))
+        if op.flops is not None or (op.bytes_accessed is not None) != copy:
+            raise AssertionError(f"{op.name}: flops {op.flops}, bytes "
+                                 f"{op.bytes_accessed}")
+    cats = report.by_category()
+    if not cats.get("matmul", {}).get("occurrences"):
+        raise AssertionError(f"no GEMM in the window: {sorted(cats)}")
+    shares = attribution.fractions()
+    wall_us = attribution.step_wall_us
+    if abs(sum(shares.values()) - 1.0) > 1e-3:
+        raise AssertionError(f"phase shares {shares} do not sum to 1")
+    if len(report.steps_us) != OBS_PROFILED or \
+            attribution.total_self_us > wall_us:
+        raise AssertionError(f"self {attribution.total_self_us} us over "
+                             f"{report.steps_us} us of steps")
+    if abs(wall_us / 1e3 - sum(event_ms)) > OBS_WALL_REL * sum(event_ms):
+        raise AssertionError(f"ProfilerStep wall {report.steps_us} us vs "
+                             f"events {event_ms} ms")
+    if any(rec["flops"] is not None for rec in attribution.phases.values()):
+        raise AssertionError(f"flops in {attribution.phases}")
+    names = {ev.get("name") for ev in parse.load_trace(path)["traceEvents"]}
+    if "fused_adam/flat/cuda" not in names:
+        raise AssertionError("the window holds no fused_adam/flat/cuda span")
+    return {"trace": path, "trace_bytes": os.path.getsize(path),
+            "read_s": read_s, "steps": OBS_PROFILED, "event_ms": event_ms,
+            "step_wall_ms": [u / 1e3 for u in report.steps_us],
+            "total_self_ms": attribution.total_self_us / 1e3,
+            "device_busy_share": attribution.total_self_us / wall_us,
+            "device_phases": shares,
+            "phase_ms": {ph: rec["self_us"] / 1e3
+                         for ph, rec in attribution.phases.items()},
+            "category_ms": {c: v["self_us"] / 1e3 for c, v in cats.items()},
+            "device_records": sum(o.occurrences for o in report.ops),
+            "by_kernel": by_kernel, "launches": want,
+            "top_ops": [{"name": o.name[:80], "category": o.category,
+                         "count": o.occurrences, "ms": o.self_us / 1e3}
+                        for o in report.ops[:12]]}, attribution
 
 
 def phase_observability(dev):
@@ -2972,18 +3301,18 @@ def phase_observability(dev):
             raise AssertionError(f"stats pass off float64: {worst}")
         del ref
 
-        # a profiler window over one step names the optimizer's span
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            float(train())
-            torch.cuda.synchronize()
-        keys = {e.key for e in prof.key_averages()}
-        if "fused_adam/flat/cuda" not in keys:
-            raise AssertionError("the profiler window holds no "
-                                 "fused_adam/flat/cuda span")
-        del prof
+        # a pyprof window over OBS_PROFILED steps, read by the port's
+        # Report and attribution, which feed the step record's device
+        # fields; the window names the optimizer's span
+        profiled, attribution = profiled_window(train, OBS_DIR / "trace")
+        step_records = [{k: r[k] for k in ("step_time_ms", "mfu", "phases",
+                                           "tokens_per_sec")}
+                        for r in recs]
+        rec = reporter.step(sum(profiled["event_ms"]) / OBS_PROFILED / 1e3,
+                            **obs.profiling.device_phase_fields(attribution))
+        if rec.get("device_phases") != attribution.fractions():
+            raise AssertionError(f"the step record's device phases {rec}")
+        profiled["step_record_device_phases"] = rec["device_phases"]
         reg.dump(str(OBS_DIR / "metrics.jsonl"))
         obs.get_tracer().save(str(OBS_DIR / "spans.json"))
         del params, opt, tx
@@ -3050,10 +3379,20 @@ def phase_observability(dev):
 
         cli = run_cli([["report", "metrics.jsonl"],
                        ["trace", "spans.json", "--out", "trace.json"],
+                       ["trace", profiled["trace"], "--out",
+                        "device_trace.json"],
                        ["memory", "--out", "memory.json"],
-                       ["goodput", "metrics.jsonl"]], OBS_DIR)
+                       ["goodput", "metrics.jsonl"],
+                       ["apex_tpu_torch.pyprof", profiled["trace"],
+                        "--json", "report.json"]], OBS_DIR)
         if any(c["rc"] != 0 for c in cli):
             raise AssertionError(f"observability CLI: {cli}")
+        device_trace = json.loads((OBS_DIR / "device_trace.json")
+                                  .read_text())["traceEvents"]
+        if sum(ev["ph"] == "X" for ev in device_trace) != \
+                profiled["device_records"]:
+            raise AssertionError("the CLI's device trace holds "
+                                 f"{len(device_trace)} events")
     finally:
         obs.set_registry(prev_reg)
         hbm.set_active_monitor(prev_mon)
@@ -3070,9 +3409,7 @@ def phase_observability(dev):
         "live_bytes": [m["live_bytes"] for m in mem_checks],
         "bytes_in_use": [m["allocated"] for m in mem_checks],
         "watermark_bytes": memmon.watermark_bytes,
-        "step_records": [{k: r[k] for k in ("step_time_ms", "mfu",
-                                             "phases", "tokens_per_sec")}
-                         for r in recs],
+        "step_records": step_records, "profiled": profiled,
         "stats_vs_float64": worst, "time_fn_ms": t_fns,
         "event_ms": owns, "oom_requested_bytes": ask,
         "oom_verdict": {k: verdict.get(k) for k in (
@@ -3464,30 +3801,43 @@ def phase_amp_training(dev, training, profiling=False):
             "o2": o2, "o4": o4, "launches": read_counts()}
 
 
+def trace_summary(path: str, top: int) -> dict:
+    """The device's busy time, its ``top`` ops by self time and the
+    category shares of a ``torch.profiler`` trace, by the port's
+    ``pyprof.Report``."""
+    from apex_tpu_torch.pyprof import prof
+
+    report = prof.Report.from_capture(path)
+    return {"device_busy_ms": report.total_self_us / 1e3,
+            "kernels_seen": len(report.ops),
+            "top_kernels": [{"name": o.name[:80], "count": o.occurrences,
+                             "category": o.category,
+                             "ms": o.self_us / 1e3}
+                            for o in report.ops[:top]],
+            "category_shares": {c: v["share"] for c, v in
+                                report.by_category().items()}}
+
+
 def profile_step(phase: str, step):
     """One more training step, ``step() -> loss``, under ``torch.profiler``
     (``--profile``): the device's busy time by kernel over the step's host
     wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    wall = []
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    def timed():
         t0 = time.perf_counter()
         float(step())
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:15]
-    return {"phase": phase, "profiled_step_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "device_idle_share_profiled": 1.0 - busy_ms / wall_ms,
-            "kernels_seen": len(device),
-            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                             "ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    path = profiled_trace(timed)
+    try:
+        device = trace_summary(path, top=15)
+    finally:
+        drop_trace(path)
+    return {"phase": phase, "profiled_step_ms": wall[0],
+            "device_idle_share_profiled":
+                1.0 - device["device_busy_ms"] / wall[0],
+            **device}
 
 
 def plain_ln(eps):
@@ -5084,6 +5434,21 @@ DDP_LABEL = ("2 ranks time-sharing one H100 over gloo (collectives staged "
 SYNCBN_SHAPE = (32, 256, 56, 56)
 SYNCBN_OUT_ATOL = 2e-2
 SYNCBN_STAT_RTOL = 1e-4
+# the fleet tier rides these paths. After their steps, ddp_training and
+# ddp_nccl run the ZeRO-1 steps again from the same params with the
+# grad-sync probe on (the reference's probed ZeRO-1 site: a bucket's
+# reduce-scatter + all-gather); the params and moments must equal the
+# unprobed run's bit for bit, at equal launches. On gloo, rank 1 then
+# sleeps FLEET_DELAY_SYNCS times its slowest unprobed ZeRO-1 sync
+# before each backward, so that it is the straggler, whatever the sync
+# of this model on this set-up takes
+FLEET_DELAY_SYNCS = 1.0
+# fleet_desync (gloo4_suite): DDP on 4 ranks at ddp_training's model
+# under ResilientTrainLoop with the desync detector; rank 1's embedding
+# moves by one element after step FLEET_PERTURB_STEP (at 4 ranks the
+# median of the fingerprints is the healthy one, so the rank is named)
+FLEET_PERTURB_STEP = 1
+FLEET_LEAF = "['embed']"
 
 
 def adam_step_bound(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
@@ -5179,15 +5544,78 @@ def gpt2_rank_setup(device, num_layers=None):
     return cfg, params, (tokens, torch.roll(tokens, -1, dims=-1))
 
 
-def local_grads(loss_of, params, batch):
+def local_grads(loss_of, params, batch, delay: float = 0.0):
+    """(loss, grads) of ``loss_of`` at ``params``; with ``delay``, that
+    many seconds of host sleep between the forward and the backward (a
+    straggling rank)."""
     import torch
 
     from apex_tpu_torch import _tree
 
     live = _tree.map_leaves(lambda t: t.detach().requires_grad_(), params)
     loss = loss_of(live, batch)
+    if delay:
+        time.sleep(delay)
     grads = torch.autograd.grad(loss, _tree.leaves(live))
     return loss.detach(), _tree.unflatten(_tree.paths(params), list(grads))
+
+
+def probed_zero1(rank, device, loss_of, params, batch, delay: float,
+                 out_dir: Path) -> tuple:
+    """DDP_STEPS ZeRO-1 steps from ``params`` (a copy, changed in place)
+    with the grad-sync probe on and the metrics in a registry of their
+    own, rank 1 sleeping ``delay`` s before each backward: (params,
+    ZeRO-1 state, the probe's readings). The registry is dumped to
+    ``out_dir/metrics.jsonl`` (a shard a rank) beside a flight record."""
+    import torch
+
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.observability.fleet import probe
+    from apex_tpu_torch.parallel import Zero1FusedAdam
+
+    zopt = Zero1FusedAdam(lr=GPT2_LR, axis_name="dp")
+    zs = zopt.init(params)
+    sites = [f"ddp/zero1/bucket{k}/{b.dtype}"
+             for k, b in enumerate(zopt.plan_for(params).buckets)]
+    reg = obs.MetricRegistry()
+    prev = obs.set_registry(reg)
+    probe.reset()
+    probe.enable()
+    launches, step_ms = [], []
+    try:
+        for _ in range(DDP_STEPS):
+            torch.cuda.synchronize(device)
+            t0, c0 = time.perf_counter(), read_counts()
+            _, gl = local_grads(loss_of, params, batch,
+                                delay if rank == 1 else 0.0)
+            params, zs = zopt.step(gl, zs, params)
+            del gl
+            torch.cuda.synchronize(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(counts_delta(c0))
+        waits = probe.wait_times()
+        last = probe.last_collective()
+        reg.dump(str(out_dir / "metrics.jsonl"))
+        metrics = reg.dump_path(str(out_dir / "metrics.jsonl"))
+        flightrec = obs.FlightRecorder(directory=str(out_dir), registry=reg,
+                                       signals=()).dump("fleet probe")
+    finally:
+        probe.reset()
+        obs.set_registry(prev)
+    return params, zs, {
+        "sites": sites, "delay_s": delay if rank == 1 else 0.0,
+        "launches": launches, "step_ms": step_ms,
+        "waits": {f"{site}|{r}": w for (site, r), w in waits.items()},
+        "last_collective": last, "metrics": metrics, "flightrec": flightrec}
+
+
+def zero1_states_equal(a, b) -> bool:
+    """Two ZeRO-1 states' shards (moments and step count) bit for bit."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in
+               zip(a.mu + a.nu, b.mu + b.nu)) and \
+        torch.equal(torch.as_tensor(a.count), torch.as_tensor(b.count))
 
 
 def overlap_report(trace, plan) -> dict:
@@ -5238,7 +5666,7 @@ def syncbn_check(rank, n, device) -> dict:
             "stat_rel_err": stats, "stat_rtol": SYNCBN_STAT_RTOL}
 
 
-def ddp_training_rank(rank, n, device) -> dict:
+def ddp_training_rank(rank, n, device, out_dir: Path) -> dict:
     """One rank of ddp_training: (a) DDP, ``overlapped_value_and_grad``
     (bf16 buckets all-reduced inside the backward) and the replicated flat
     fused Adam; (b) ``Zero1FusedAdam`` (fp32 reduce-scatter, the flat
@@ -5247,7 +5675,9 @@ def ddp_training_rank(rank, n, device) -> dict:
     which (b) must equal bit for bit. Three steps each on the rank's
     slice of the global batch; before each DDP step, the fp32 all-reduce
     of the same step's local grads, which DDP's synced grads must equal
-    within DDP_SYNC_REL_L2."""
+    within DDP_SYNC_REL_L2. Then (b) again from the same params with the
+    grad-sync probe on (:func:`probed_zero1`), rank 1 straggling by
+    FLEET_DELAY_SYNCS of its slowest sync in (b)."""
     import torch
 
     from apex_tpu_torch import _tree
@@ -5284,6 +5714,7 @@ def ddp_training_rank(rank, n, device) -> dict:
     pa = params
     pb = _tree.map_leaves(torch.clone, params)
     pc = _tree.map_leaves(torch.clone, params)
+    pd = _tree.map_leaves(torch.clone, params)    # (b) probed, after
     txa = fused_adam(lr=GPT2_LR, flat=True)
     txc = fused_adam(lr=GPT2_LR, flat=True)
     zopt = Zero1FusedAdam(lr=GPT2_LR, axis_name="dp")
@@ -5356,11 +5787,19 @@ def ddp_training_rank(rank, n, device) -> dict:
     meta = flat_ops.tree_meta(pc)
     cmu = flat_ops.unflatten_tree(sc.mu, meta)
     cnu = flat_ops.unflatten_tree(sc.nu, meta)
-    del full
+    moments_equal = trees_equal(zmu, cmu) and trees_equal(znu, cnu)
+    del full, zmu, znu, cmu, cnu
+    delay = FLEET_DELAY_SYNCS * max(s["zero1_optimizer_ms"]
+                                    for s in steps) / 1e3
+    pd, zsd, fleet = probed_zero1(rank, device, loss_of, pd, local, delay,
+                                  out_dir)
+    fleet.update(params_equal=trees_equal(pd, pb),
+                 state_equal=zero1_states_equal(zsd, zs))
+    del pd, zsd
     n_params = sum(t.numel() for t in _tree.leaves(params))
     return {
-        "steps": steps, "grad_check": grad_checks,
-        "moments_equal": trees_equal(zmu, cmu) and trees_equal(znu, cnu),
+        "steps": steps, "grad_check": grad_checks, "fleet": fleet,
+        "moments_equal": moments_equal,
         "want_ddp": gpt2_want(cfg, 1),
         "want_zero1": gpt2_want(cfg, n_buckets),
         "want_fp32_reduce": dict(gpt2_want(cfg, 1), layer_norm_fwd=0,
@@ -5389,12 +5828,17 @@ def ddp_nccl_rank(rank, n, device) -> dict:
     params and batch; at one rank every reduction is the identity (``*
     pre / n`` is ``* 1.0``), so after each step DDP and ZeRO-1 must equal
     the single-device step bit for bit. The first step of each is cold
-    (cuBLAS plans, the allocator), the later ones steady."""
+    (cuBLAS plans, the allocator), the later ones steady. A fourth path,
+    ZeRO-1 again from its own copy with the grad-sync probe on (its
+    metrics in a registry of their own), must equal the unprobed ZeRO-1
+    bit for bit at equal launches."""
     import torch
 
     from apex_tpu_torch import _tree
+    from apex_tpu_torch import observability as obs
     from apex_tpu_torch.distributed import backend as B
     from apex_tpu_torch.models import gpt2
+    from apex_tpu_torch.observability.fleet import probe
     from apex_tpu_torch.ops import flat as flat_ops
     from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.parallel import (
@@ -5410,12 +5854,14 @@ def ddp_nccl_rank(rank, n, device) -> dict:
     B.barrier("dp")  # NCCL makes its communicator here, not in a step
     pa = _tree.map_leaves(torch.clone, params)
     pb = _tree.map_leaves(torch.clone, params)
+    pd = _tree.map_leaves(torch.clone, params)
     tx, txa = fused_adam(lr=GPT2_LR, flat=True), fused_adam(lr=GPT2_LR,
                                                             flat=True)
     s_ref, sa = tx.init(params), txa.init(pa)
     vg = overlapped_value_and_grad(loss_of, axis_name="dp")
     zopt = Zero1FusedAdam(lr=GPT2_LR, axis_name="dp")
-    zs = zopt.init(pb)
+    zoptd = Zero1FusedAdam(lr=GPT2_LR, axis_name="dp")
+    zs, zsd = zopt.init(pb), zoptd.init(pd)
     meta = flat_ops.tree_meta(params)
 
     def timed(fn):
@@ -5443,12 +5889,29 @@ def ddp_nccl_rank(rank, n, device) -> dict:
         _, gl = local_grads(loss_of, pb, batch)
         pb, zs = zopt.step(gl, zs, pb)
 
+    def zero1_probed():
+        nonlocal pd, zsd
+        _, gl = local_grads(loss_of, pd, batch)
+        pd, zsd = zoptd.step(gl, zsd, pd)
+
+    reg = obs.MetricRegistry()
+    probe.reset()
     steps = []
     for step in range(DDP_NCCL_STEPS):
         row = {"step": step}
         for name, fn in (("single_device", single), ("ddp", ddp),
                          ("zero1", zero1)):
             row[name + "_step_ms"], row["launches_" + name] = timed(fn)
+        prev = obs.set_registry(reg)
+        probe.enable()
+        try:
+            row["zero1_probed_step_ms"], row["launches_zero1_probed"] = \
+                timed(zero1_probed)
+        finally:
+            probe.disable()
+            obs.set_registry(prev)
+        row.update(zero1_probed_params_equal=trees_equal(pd, pb),
+                   zero1_probed_state_equal=zero1_states_equal(zsd, zs))
         ref_mu = flat_ops.unflatten_tree(s_ref.mu, meta)
         ref_nu = flat_ops.unflatten_tree(s_ref.nu, meta)
         zmu, znu = zopt.unpack_state(pb, zopt.gather_state(zs))
@@ -5465,13 +5928,81 @@ def ddp_nccl_rank(rank, n, device) -> dict:
             else trajectory_gap(pb, params, step + 1, GPT2_LR)})
         del ref_mu, ref_nu, zmu, znu
         steps.append(row)
+    waits = {f"{site}|{r}": w for (site, r), w in probe.wait_times().items()}
+    probe.reset()
     return {"steps": steps, "want_ddp": gpt2_want(cfg, 1),
             "want_zero1": gpt2_want(cfg, len(zopt.plan_for(pb).buckets)),
+            "probe_sites": [f"ddp/zero1/bucket{k}/{b.dtype}" for k, b in
+                            enumerate(zopt.plan_for(pb).buckets)],
+            "probe_waits": waits,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
 
 
 
-# megatron_training: Llama-3-8B widths at MEG_LAYERS layers over tp 2 x
+def fleet_desync_rank(rank, n, device, out_dir: Path) -> dict:
+    """A rank of fleet_desync: ddp_training's model and batch (a slice a
+    rank), DDP steps (local grads, ``sync_gradients_flat``, the flat
+    fused Adam) under ``ResilientTrainLoop`` with a ``DesyncDetector``
+    fed ``fingerprint_gather`` every step; at step FLEET_PERTURB_STEP
+    rank 1 moves one element of its embedding after the update. The
+    launches of the run and the detector's verdicts."""
+    import torch
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.models import gpt2
+    from apex_tpu_torch.observability import fleet
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.parallel import sync_gradients_flat
+    from apex_tpu_torch.resilience import ResilientTrainLoop, TrainAborted
+
+    del out_dir
+    cfg, params, batch = gpt2_rank_setup(device, DDP_LAYERS)
+    per = DDP_BATCH // n
+    local = tuple(t[rank * per:(rank + 1) * per] for t in batch)
+    tx = fused_adam(lr=GPT2_LR, flat=True)
+    opt = tx.init(params)
+    detector = fleet.DesyncDetector.for_tree(params,
+                                             registry=obs.MetricRegistry())
+    losses = []
+
+    def loss_of(p, b):
+        return gpt2.loss_fn(p, b, cfg, remat=True, vocab_chunks=GPT2_CHUNKS)
+
+    def step(state, i):
+        nonlocal opt
+        loss, gl = local_grads(loss_of, state, local)
+        synced = sync_gradients_flat(gl, "dp")
+        del gl
+        with torch.no_grad():
+            upd, opt = tx.update(synced, opt, state)
+            for p, u in zip(_tree.leaves(state), _tree.leaves(upd)):
+                p.add_(u)
+            if rank == 1 and i == FLEET_PERTURB_STEP:
+                state["embed"][3, 5] += 1.0
+        losses.append(float(loss))
+        return state, {"loss": losses[-1], "fleet_fingerprint":
+                       fleet.fingerprint_gather(state, "dp")}
+
+    loop = ResilientTrainLoop(step, max_rollbacks=0, desync_detector=detector,
+                              registry=obs.MetricRegistry())
+    torch.cuda.synchronize(device)
+    before = read_counts()
+    try:
+        loop.run(params, FLEET_PERTURB_STEP + 2)
+        verdict = None
+    except TrainAborted as exc:
+        verdict = exc.report.get("fleet")
+    torch.cuda.synchronize(device)
+    return {"launches": counts_delta(before), "steps_run": len(losses),
+            "want_step": gpt2_want(cfg, 1), "losses": losses,
+            "desync_verdict": verdict,
+            "desync_verdicts": len(detector.verdicts),
+            "leaves": len(detector.paths),
+            "params": sum(t.numel() for t in _tree.leaves(params))}
+
+
+
 # pp 2 (dp 1), 4 ranks time-sharing the one card over gloo, sequence
 # parallelism on, MEG_M microbatches of 1 x 2048, fused_adam(flat=True)
 MEG_TP, MEG_PP, MEG_LAYERS = 2, 2, 4
@@ -7086,7 +7617,8 @@ def ddp_worker(argv) -> int:
 def rank_fn(phase: str, out_dir: Path):
     """The function a rank of ``phase`` runs, ``(rank, n, device) ->
     result``."""
-    run = {"ddp_training": ddp_training_rank, "ddp_nccl": ddp_nccl_rank,
+    run = {"ddp_training": partial(ddp_training_rank, out_dir=out_dir),
+           "ddp_nccl": ddp_nccl_rank,
            "megatron_training": partial(megatron_training_rank,
                                         out_dir=out_dir),
            "megatron_nccl": partial(megatron_nccl_rank, out_dir=out_dir),
@@ -7109,6 +7641,7 @@ def rank_fn(phase: str, out_dir: Path):
                                        out_dir=out_dir),
            "hf_finetune": partial(hf_finetune_rank, out_dir=out_dir),
            "contrib_dist": partial(contrib_dist_rank, out_dir=out_dir),
+           "fleet_desync": partial(fleet_desync_rank, out_dir=out_dir),
            **{suite: partial(suite_rank, out_dir=out_dir, suite=suite)
               for suite in SUITES}}
     return run[phase]
@@ -7128,7 +7661,8 @@ SUITES = {
                                 "ep_training", "resnet50_ddp", "bert_train",
                                 "hf_finetune", "contrib_dist",
                                 "simple_distributed")),
-    "gloo4_suite": (4, "gloo", ("megatron_training", "gpt2_tp_training")),
+    "gloo4_suite": (4, "gloo", ("megatron_training", "gpt2_tp_training",
+                                "fleet_desync")),
 }
 SUITE_OF = {p: name for name, (_, _, paths) in SUITES.items()
             for p in paths}
@@ -7302,8 +7836,15 @@ def total_launches(ranks, keys) -> dict:
 
 def phase_ddp_training(dev):
     """GPT-2 345M on DDP_RANKS ranks over gloo on the one card: DDP and
-    ZeRO-1, the checks of :func:`ddp_training_rank` held here."""
-    ranks, seconds = suite_ranks("ddp_training")
+    ZeRO-1, the checks of :func:`ddp_training_rank` held here, and the
+    fleet checks on its probed ZeRO-1 steps (:func:`fleet_check`)."""
+    import shutil
+
+    ranks, seconds, out_dir = suite_ranks("ddp_training", keep=True)
+    try:
+        fleet = fleet_check(ranks, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
     for r in ranks:
         for s in r["steps"]:
             for key, want in (("launches_ddp", r["want_ddp"]),
@@ -7349,6 +7890,10 @@ def phase_ddp_training(dev):
     ddp_ms, zero_ms = sum(steady) / len(steady), sum(zsteady) / len(zsteady)
     tokens = DDP_BATCH * GPT2_SEQ
     r0 = ranks[0]
+    # the probed ZeRO-1 steps' launches, each step's a rank
+    probed = total_launches([{"steps": [{"probed": c} for c in
+                                        r["fleet"]["launches"]]}
+                             for r in ranks], ("probed",))
     return {
         "phase": "ddp_training", "label": DDP_LABEL, "model": "gpt2_345m",
         "ranks": DDP_RANKS, "backend": r0["backend"],
@@ -7385,8 +7930,64 @@ def phase_ddp_training(dev):
         "syncbn": {f"rank{r['rank']}": r["syncbn"] for r in ranks},
         "launches_per_step": {"ddp": r0["steps"][0]["launches_ddp"],
                               "zero1": r0["steps"][0]["launches_zero1"]},
-        "launches": total_launches(ranks, ("launches_ddp", "launches_zero1",
-                                           "launches_fp32_reduce"))}
+        "fleet": fleet,
+        "launches": {k: v + probed[k] for k, v in total_launches(
+            ranks, ("launches_ddp", "launches_zero1",
+                    "launches_fp32_reduce")).items()}}
+
+
+def fleet_check(ranks, out_dir: Path) -> dict:
+    """ddp_training's probed ZeRO-1 steps on 2 gloo ranks: each rank's
+    params and ZeRO-1 state equal its unprobed run's bit for bit, at its
+    launches; rank 1, which slept ``delay_s`` before each backward,
+    waits less than half of it at the first bucket's sync and rank 0
+    more; ``merge_fleet`` over the ranks' dumps names rank 1 alone the
+    straggler there, and the ``fleet`` CLI on them names rank 1; each
+    rank's flight record carries its last collective, the last
+    bucket's, and ``merge_flight_records`` joins them."""
+    from apex_tpu_torch.observability import fleet
+
+    fl = {r["rank"]: r["fleet"] for r in ranks}
+    for rank, f in fl.items():
+        want = ranks[rank]["want_zero1"]
+        if not (f["params_equal"] and f["state_equal"]) or \
+                any(c != want for c in f["launches"]):
+            raise AssertionError(f"fleet rank {rank}: the probed ZeRO-1 "
+                                 f"steps moved the result or launches "
+                                 f"({f['launches']} against {want})")
+        if f["last_collective"] != f["sites"][-1]:
+            raise AssertionError(f"rank {rank} last collective "
+                                 f"{f['last_collective']}")
+    first, last = fl[0]["sites"][0], fl[0]["sites"][-1]
+    delay = fl[1]["delay_s"]
+    wait = {r: f["waits"][f"{first}|{r}"] for r, f in fl.items()}
+    if not wait[1] < 0.5 * delay < wait[0]:
+        raise AssertionError(f"{first} waits {wait}, rank 1 delayed "
+                             f"{delay} s")
+    metrics = str(out_dir / "metrics.jsonl")
+    report = fleet.merge_fleet(metrics)
+    # at the delayed bucket's site rank 1 alone; the later buckets' waits
+    # are the collective's own on both ranks (5-800 ms, a 319 KB bucket's
+    # ~10 ms), where a verdict either way is noise: listed, not checked
+    named = [v["rank"] for v in report["stragglers"] if v.get("site") == first]
+    if named != [1]:
+        raise AssertionError(f"merge_fleet named {report['stragglers']}")
+    cli = run_cli([["fleet", metrics]], out_dir)
+    if cli[0]["rc"] != 0 or "STRAGGLER rank 1" not in cli[0]["tail"]:
+        raise AssertionError(f"fleet CLI: {cli}")
+    merged = fleet.merge_flight_records(str(out_dir))
+    lasts = {k: v["last_collective"] for k, v in merged["ranks"].items()}
+    if lasts != {"0": last, "1": last}:
+        raise AssertionError(f"merged flight records: {lasts}")
+    return {"label": DDP_LABEL, "probed_sites": fl[0]["sites"],
+            "delay_s": delay, "delay_syncs": FLEET_DELAY_SYNCS,
+            "first_site_wait_s": wait,
+            "wait_s": {r: f["waits"] for r, f in fl.items()},
+            "wait_skew": report.get("wait_skew"),
+            "stragglers": report["stragglers"],
+            "probed_step_ms": {r: f["step_ms"] for r, f in fl.items()},
+            "params_equal": True, "launches_equal": True,
+            "last_collective": last, "flight_verdict": merged["verdict"]}
 
 
 def phase_ddp_nccl(dev):
@@ -7403,14 +8004,22 @@ def phase_ddp_nccl(dev):
             if not s[key]:
                 raise AssertionError(f"ddp_nccl step {s['step']}: {key} "
                                      f"is false")
+        for key in ("zero1_probed_params_equal", "zero1_probed_state_equal"):
+            if not s[key]:
+                raise AssertionError(f"ddp_nccl step {s['step']}: the "
+                                     f"probed ZeRO-1 step moved the result "
+                                     f"({key})")
         for key, want in (("launches_ddp", r["want_ddp"]),
                           ("launches_single_device", r["want_ddp"]),
-                          ("launches_zero1", r["want_zero1"])):
+                          ("launches_zero1", r["want_zero1"]),
+                          ("launches_zero1_probed", r["want_zero1"])):
             if s[key] != want:
                 raise AssertionError(f"ddp_nccl step {s['step']} {key} "
                                      f"{s[key]} != {want}")
+    if set(r["probe_waits"]) != {f"{site}|0" for site in r["probe_sites"]}:
+        raise AssertionError(f"ddp_nccl probe waits {r['probe_waits']}")
     step_ms = {name: [s[name + "_step_ms"] for s in r["steps"]]
-               for name in ("single_device", "ddp", "zero1")}
+               for name in ("single_device", "ddp", "zero1", "zero1_probed")}
     return {"phase": "ddp_nccl", "model": "gpt2_345m", "ranks": 1,
             "backend": r["backend"], "device": r["device"],
             "batch": DDP_BATCH, "seq": GPT2_SEQ, "launch_s": seconds,
@@ -7420,12 +8029,47 @@ def phase_ddp_nccl(dev):
             "zero1_params_gap": [s["zero1_params_gap"] for s in r["steps"]],
             "step_ms": step_ms,
             "steady_step_ms": {k: v[-1] for k, v in step_ms.items()},
-            "step_ms_note": "each step of the three paths in turn, "
+            "step_ms_note": "each step of the four paths in turn, "
                             "synchronised; the first is cold",
             "peak_memory_bytes": r["peak_memory_bytes"],
+            "probe_waits": r["probe_waits"],
             "launches": total_launches([r],
                                        ("launches_single_device",
-                                        "launches_ddp", "launches_zero1"))}
+                                        "launches_ddp", "launches_zero1",
+                                        "launches_zero1_probed"))}
+
+
+def phase_fleet_desync(dev):
+    """fleet_desync on 4 gloo ranks: silent at step 0; at step
+    FLEET_PERTURB_STEP every rank's verdict names the leaf, rank 1 alone
+    and the step, and the loop aborts there; exact launches (a DDP step's
+    a step run)."""
+    ranks, seconds = suite_ranks("fleet_desync")
+    for r in ranks:
+        v = r["desync_verdict"] or {}
+        got = (v.get("tensor_path"), v.get("step"),
+               v.get("first_divergent_step"), v.get("rank"),
+               v.get("divergent_ranks"), r["desync_verdicts"],
+               r["steps_run"])
+        want = (FLEET_LEAF, FLEET_PERTURB_STEP, FLEET_PERTURB_STEP, 1, [1], 1,
+                FLEET_PERTURB_STEP + 1)
+        if got != want:
+            raise AssertionError(f"desync verdict on rank {r['rank']}: "
+                                 f"{got}, want {want}")
+        launches = {k: v * r["steps_run"] for k, v in r["want_step"].items()}
+        if r["launches"] != launches:
+            raise AssertionError(f"fleet_desync rank {r['rank']} launches "
+                                 f"{r['launches']} != {launches}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"fleet_desync losses {r['losses']}")
+    return {"phase": "fleet_desync", "ranks": len(ranks), "backend": "gloo",
+            "model": "gpt2_345m", "layers": DDP_LAYERS,
+            "params": ranks[0]["params"], "leaves": ranks[0]["leaves"],
+            "perturbed": FLEET_LEAF, "perturb_step": FLEET_PERTURB_STEP,
+            "desync_verdict": ranks[0]["desync_verdict"],
+            "losses": ranks[0]["losses"],
+            "launches": total_launches(ranks, ("launches",)),
+            "path_s": seconds}
 
 
 # ------------------------------------------------------ the BASELINE slice
@@ -11638,6 +12282,7 @@ def main() -> int:
                           ("megatron_training", phase_megatron_training),
                           ("megatron_nccl", phase_megatron_nccl),
                           ("gpt2_tp_training", phase_gpt2_tp_training),
+                          ("fleet_desync", phase_fleet_desync),
                           ("mp_nccl", phase_mp_nccl),
                           ("megatron_o4", phase_megatron_o4),
                           ("megatron_o4_nccl", phase_megatron_o4_nccl)):

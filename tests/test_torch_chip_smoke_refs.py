@@ -317,7 +317,7 @@ def test_suites_run_each_multi_rank_path(smoke):
     launches (the one-rank NCCL paths, the 2-rank and the 4-rank gloo
     paths), each path once, with a rank function."""
     paths = [p for _, _, ps in smoke.SUITES.values() for p in ps]
-    assert len(paths) == len(set(paths)) == 16
+    assert len(paths) == len(set(paths)) == 17
     assert "megatron_o4" not in paths
     own = {"megatron_o4", "megatron_o4_resume"}
     assert set(smoke.LAUNCH_TIMEOUT) == set(smoke.SUITES) | own
@@ -330,6 +330,53 @@ def test_suites_run_each_multi_rank_path(smoke):
                                      "gloo4_suite": (4, "gloo")}[name]
         for phase in ps + (name,):
             assert callable(smoke.rank_fn(phase, pathlib.Path(".")))
+
+
+def test_trace_counters_cover_the_port_kernels(smoke):
+    """Every kernel of ``ops/csrc`` that ``pyprof.parse.PORT_KERNELS``
+    names has a row in ``TRACE_COUNTER``, each counter is a launch
+    counter, and a kernel that serves two counters is told apart by its
+    template argument: the profiled window's counts come from the
+    parser's own naming rule."""
+    from apex_tpu_torch.pyprof import parse
+
+    kernels = {
+        "tc": ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+               "flash_bwd_dkv_tc_kernel"),
+        "(anonymous namespace)": (
+            "flash_fwd_fp32_kernel", "flash_bwd_dq_fp32_kernel",
+            "flash_bwd_dkv_fp32_kernel", "adam_kernel", "cast_scale_kernel",
+            "cast_scale_t_kernel", "softmax_rows_kernel",
+            "softmax_stats_kernel", "softmax_apply_kernel"),
+        "row_norm": ("fwd_rows_kernel", "bwd_rows_kernel", "fwd_kernel",
+                     "bwd_kernel", "column_sum_kernel")}
+    for ns, idents in kernels.items():
+        for ident in idents:
+            name = f"void {ns}::{ident}<false, float, true>(float*)"
+            assert parse.port_kernel(name) == (ident,
+                                               ("false", "float", "true"))
+            assert ident in smoke.TRACE_COUNTER
+    assert set(smoke.TRACE_COUNTER) == {i for v in kernels.values()
+                                        for i in v}
+    assert set(smoke.TRACE_KERNELS) <= set(smoke.read_counts())
+    cases = {
+        "void row_norm::fwd_rows_kernel<false, __nv_bfloat16, "
+        "__nv_bfloat16>(x)": "rms_norm_fwd",
+        "void row_norm::fwd_kernel<true, float, float>(x)": "layer_norm_fwd",
+        "void row_norm::bwd_rows_kernel<false, float, float>(x)":
+            "rms_norm_bwd",
+        "void row_norm::column_sum_kernel<float>(x)": None,
+        "void tc::flash_bwd_dkv_tc_kernel<128, false>(tc::Params)":
+            "flash_attention_bwd_dkv",
+        "void (anonymous namespace)::softmax_rows_kernel<__nv_bfloat16, "
+        "2048, false>(x)": "fused_softmax_masked",
+        "void (anonymous namespace)::adam_kernel<float, true>(x)":
+            "fused_adam",
+        "void at::native::(anonymous namespace)::adam_kernel<float>(x)":
+            None,
+    }
+    for name, counter in cases.items():
+        assert smoke.trace_kernel(name) == counter, name
 
 
 # ------------------------------------------- the contrib slice's references

@@ -2036,3 +2036,125 @@ def test_distributed_fused_adam_shard_step_launches_the_adam_kernel(
         assert torch.equal(state.master_shard[k].cpu(),
                            host["master"][k] + delta)
     assert all(u.is_cuda for u in _tree.leaves(upd))
+
+
+# ------------------------------------- traces, compiles and the fleet
+
+
+def _small_llama(gen):
+    from apex_tpu_torch.models import llama
+
+    cfg = llama.tiny(dtype=torch.bfloat16, vocab_size=1024, hidden_size=512,
+                     intermediate_size=1024, num_heads=4, num_kv_heads=2,
+                     max_seq_len=256)
+    params = llama.init_params(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                           device="cuda")
+    return cfg, params, (tokens, torch.roll(tokens, -1, dims=-1))
+
+
+def test_profiled_train_steps_count_the_kernels_as_the_counters(gen,
+                                                                tmp_path):
+    """Two train steps under ``pyprof.start/stop``: the port's Report
+    counts each hand-written kernel exactly as its launch counter moved,
+    flash in attention-kernel, the rest in custom-kernel, and the phase
+    shares sum to 1."""
+    import chip_smoke
+    from apex_tpu_torch import pyprof
+    from apex_tpu_torch.models import llama
+    from apex_tpu_torch.observability.profiling import attribute_report
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg, params, batch = _small_llama(gen)
+    tx = fused_adam(lr=1e-4, flat=True)
+    opt = tx.init(params)
+    llama.train_step(params, opt, batch, cfg, tx, remat=False)
+    pyprof.init(trace_dir=str(tmp_path))
+    before = chip_smoke.read_counts()
+    pyprof.start()
+    for i in range(2):
+        if i:
+            pyprof.step()
+        params, opt, loss = llama.train_step(params, opt, batch, cfg, tx,
+                                             remat=False)
+        float(loss)
+    report = pyprof.Report.from_capture(pyprof.stop())
+    launched = chip_smoke.counts_delta(before)
+    seen = chip_smoke.trace_kernel_counts(report)
+    assert seen == {k: launched[k] for k in seen}
+    assert seen["flash_attention_fwd"] == 2 * cfg.num_layers
+    assert seen["fused_adam"] == 2
+    for op in report.ops:
+        if "flash_" in op.name:
+            assert op.category == "attention-kernel"
+        elif "row_norm::" in op.name or "adam_kernel" in op.name:
+            assert op.category == "custom-kernel"
+        assert op.flops is None
+    att = attribute_report(report)
+    assert abs(sum(att.fractions().values()) - 1.0) <= 1e-3
+    assert len(report.steps_us) == 2
+    assert att.total_self_us <= att.step_wall_us
+
+
+def test_decode_graph_capture_reports_to_the_listener_and_memory(gen):
+    """The decode graph's capture is one compile of ``_decode_step``; the
+    compiled-memory capture records the bytes its pool holds (alias and
+    code bytes None); a forced second capture trips retrace_guard."""
+    from apex_tpu_torch.observability import recompile
+    from apex_tpu_torch.observability.memory import compiled
+
+    listener = recompile.install()
+    cap = compiled.install_compiled_capture()
+    try:
+        n0 = listener.compiles("_decode_step")
+        _, _, engine = _tiny_engine(gen)
+        _serve(engine, _serving_jobs(engine.scheduler.cfg)[:3])
+        sched = engine.scheduler
+        assert listener.compiles("_decode_step") == n0 + 1
+        assert sched.decode_retraces() == 0
+        row = cap.snapshot()["_decode_step"]
+        assert row["pool_bytes"] > 0 and row["total_bytes"] > 0
+        assert row["alias_bytes"] is None
+        assert row["generated_code_bytes"] is None
+        with pytest.raises(recompile.RetraceBudgetExceeded):
+            with recompile.retrace_guard(budget=0, fns=["_decode_step"]):
+                sched._graph.capture()
+        assert sched.decode_retraces() == 1
+    finally:
+        compiled.uninstall_compiled_capture()
+        recompile.uninstall()
+
+
+def test_compiled_capture_records_a_step_and_replays_it(gen):
+    from apex_tpu_torch.observability.memory import compiled
+
+    cap = compiled.CompiledMemoryCapture()
+    x = torch.randn(256, 256, generator=gen, device="cuda")
+    replay, fields = cap.capture(lambda t: (t @ t).relu(), x, name="mm")
+    assert fields["argument_bytes"] == x.numel() * 4
+    assert fields["output_bytes"] == x.numel() * 4
+    assert fields["pool_bytes"] >= fields["output_bytes"]
+    torch.testing.assert_close(replay(), (x @ x).relu())
+    assert cap.snapshot()["mm"]["compiles"] == 1
+
+
+@pytest.mark.parametrize("one_rank", ["gloo", "nccl"], indirect=True)
+def test_fleet_probe_on_the_card_is_bit_for_bit(one_rank, gen):
+    """The grad-sync probe, on, syncs the card at the bucket's enter and
+    exit and changes nothing else: the synced grads bit for bit, the
+    same launches, one wait recorded at the flat bucket's site."""
+    from apex_tpu_torch.observability.fleet import probe
+    from apex_tpu_torch.parallel import sync_gradients_flat
+
+    g = {"w": torch.randn(37, 11, generator=gen, device="cuda").bfloat16(),
+         "b": torch.randn(13, generator=gen, device="cuda").bfloat16()}
+    probe.reset()
+    try:
+        off = sync_gradients_flat(g, "dp")
+        probe.enable()
+        on = sync_gradients_flat(g, "dp")
+        assert all(torch.equal(off[k], on[k]) for k in off)
+        assert list(probe.wait_times()) == [("ddp/bucket/bfloat16", 0)]
+        assert probe.last_collective() == "ddp/bucket/bfloat16"
+    finally:
+        probe.reset()

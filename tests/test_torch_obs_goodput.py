@@ -186,10 +186,11 @@ def test_unported_commands_exit_with_a_message(tmp_path, capsys,
                                                monkeypatch):
     import torch
 
-    assert cli.main(["fleet", str(tmp_path)]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    # an empty directory: no shard (1, as the reference), no trace (2)
+    assert cli.main(["fleet", str(tmp_path)]) == 1
+    assert "no fleet shards found" in capsys.readouterr().err
     assert cli.main(["trace", str(tmp_path)]) == 2
-    assert "xplane" in capsys.readouterr().err
+    assert "no torch.profiler trace" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["memory"]) == 2
     assert "no CUDA device" in capsys.readouterr().err

@@ -227,28 +227,13 @@ def test_timer_stop_waits_through_timing_sync(monkeypatch):
     assert seen[0] is out and not t.running
 
 
-#: reference names that later slices port (ROADMAP.md, Queue 1 items 7
-#: and 8): absent from the port, never stubbed
+#: reference names that later slices port (ROADMAP.md, Queue 1 item 8):
+#: absent from the port, never stubbed
 LATER = {
-    "": {"RecompileListener", "RetraceBudgetExceeded", "retrace_guard",
-         "install_recompile_listener", "uninstall_recompile_listener",
-         "CompiledMemoryCapture", "install_compiled_capture",
-         "calibrate_targets", "DesyncDetector", "StragglerDetector",
-         "merge_fleet", "merge_flight_records"},
-    ".profiling": {"PHASES", "DeviceAttribution", "attribute_capture",
-                   "attribute_report", "capture_trace_events", "phase_of"},
+    "": {"calibrate_targets"},
     ".numerics": {"Provenance", "probe_fn", "probe_tree",
                   "step_provenance"},
-    ".memory": {"CompiledMemoryCapture", "install_compiled_capture",
-                "uninstall_compiled_capture", "current_capture",
-                "memory_analysis_fields", "DEFAULT_CALIBRATION_TARGETS",
-                "calibrate_targets"},
-    ".fleet": {"probe", "StragglerDetector", "DesyncDetector",
-               "fingerprint", "fingerprint_delta", "fingerprint_gather",
-               "leaf_paths", "fleet_shards", "merge_fleet",
-               "fleet_metric_records", "fleet_trace_events",
-               "find_flight_records", "merge_flight_records",
-               "write_fleet_record"},
+    ".memory": {"DEFAULT_CALIBRATION_TARGETS", "calibrate_targets"},
 }
 
 
@@ -257,7 +242,10 @@ LATER = {
     ".fleet", ".fleet.identity", ".profiling", ".profiling.spans",
     ".profiling.step_phases", ".profiling.flight_recorder", ".numerics",
     ".numerics.stats", ".numerics.health", ".memory", ".memory.hbm",
-    ".memory.oom", ".goodput", ".goodput.ledger", ".goodput.accounting"])
+    ".memory.oom", ".goodput", ".goodput.ledger", ".goodput.accounting",
+    ".recompile", ".memory.compiled", ".profiling.xplane", ".fleet.probe",
+    ".fleet.straggler", ".fleet.desync", ".fleet.collector",
+    ".fleet.merge"])
 def test_the_reference_public_names_are_ported(sub):
     import importlib
 

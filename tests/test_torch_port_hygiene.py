@@ -151,7 +151,13 @@ OBSERVABILITY_SLICE_MODULES = (
     "observability/memory/__init__.py", "observability/memory/hbm.py",
     "observability/memory/oom.py", "observability/goodput/__init__.py",
     "observability/goodput/ledger.py",
-    "observability/goodput/accounting.py")
+    "observability/goodput/accounting.py",
+    # the trace attribution, the fleet tier and the compile listener
+    "pyprof/__init__.py", "pyprof/__main__.py", "pyprof/parse.py",
+    "pyprof/prof.py", "observability/profiling/xplane.py",
+    "observability/fleet/probe.py", "observability/fleet/straggler.py",
+    "observability/fleet/desync.py", "observability/fleet/collector.py",
+    "observability/recompile.py", "observability/memory/compiled.py")
 
 
 @pytest.mark.parametrize("rel", BASELINE_MODULES + SLICE_MODULES

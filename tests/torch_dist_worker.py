@@ -12,6 +12,7 @@ inputs, dir)``. This file imports torch and the port, never JAX.
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -699,11 +700,98 @@ def suite_bert_train(rank, n, inp, directory):
     return out
 
 
+FLEET_DELAY_S = 0.2   # rank 1's host sleep before each probed sync
+FLEET_ROUNDS = 3
+
+
+def suite_fleet(rank, n, inp, directory):
+    """The fleet tier on 4 ranks: fingerprints, the grad-sync probe with
+    rank 1 delayed, the flight records, and the desync detector under
+    ResilientTrainLoop with one element of rank 1's params perturbed."""
+    import time
+
+    import torch
+
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.observability import fleet
+    from apex_tpu_torch.observability.fleet import probe
+    from apex_tpu_torch.parallel import sync_gradients_flat
+    from apex_tpu_torch.resilience import ResilientTrainLoop, TrainAborted
+
+    out = {}
+    tree = {"b": _t(inp["fp_b"][rank]), "a": {"w": _t(inp["fp_a"][rank])}}
+    out["gather"] = _np(fleet.fingerprint_gather(tree, "dp"))
+    same = {"w": _t(inp["fp_a"][0])}
+    out["delta_same"] = _np(fleet.fingerprint_delta(same, "dp"))
+    drift = {"w": _t(inp["fp_a"][0]).clone()}
+    if rank == 1:
+        drift["w"][0, 0] += 1e-3
+    out["delta_drift"] = _np(fleet.fingerprint_delta(drift, "dp"))
+
+    # the probe: off, then on around the same sync, results bit for bit
+    reg = obs.MetricRegistry()
+    prev = obs.set_registry(reg)
+    try:
+        grads = {"g1": _t(inp["g1"][rank]), "g2": _t(inp["g2"][rank])}
+        probe.reset()
+        probe.disable()
+        off = sync_gradients_flat(grads, "data")
+        probe.enable()
+        for _ in range(FLEET_ROUNDS):
+            if rank == 1:
+                time.sleep(FLEET_DELAY_S)
+            on = sync_gradients_flat(grads, "data")
+        out["probe_equal"] = np.array(all(
+            torch.equal(off[k], on[k]) for k in off))
+        waits = probe.wait_times()
+        out["wait_sites"] = np.array(sorted(s for s, _ in waits))
+        out["wait_s"] = np.array([waits[k] for k in sorted(waits)])
+        out["last_collective"] = np.array(probe.last_collective())
+        reg.dump(str(directory / "metrics.jsonl"))
+        rec = obs.FlightRecorder(directory=str(directory), registry=reg,
+                                 signals=())
+        out["flightrec"] = np.array(rec.dump("fleet probe", kind="manual"))
+    finally:
+        probe.reset()
+        obs.set_registry(prev)
+
+    # the desync detector under the loop: healthy, then perturbed
+    def run(perturb_at):
+        params = {"w": _t(inp["fp_a"][0]).clone(),
+                  "b": _t(inp["fp_b"][0]).clone()}
+        detector = fleet.DesyncDetector.for_tree(params,
+                                                 registry=obs.MetricRegistry())
+
+        def step(state, i):
+            state = {k: v * 0.5 + 0.25 for k, v in state.items()}
+            if rank == 1 and i == perturb_at:
+                state["w"][3, 5] += 1e-3
+            return state, {"loss": float(state["w"].sum()),
+                           "fleet_fingerprint":
+                               fleet.fingerprint_gather(state, "dp")}
+
+        loop = ResilientTrainLoop(step, max_rollbacks=0,
+                                  desync_detector=detector,
+                                  registry=obs.MetricRegistry())
+        try:
+            loop.run(params, 4)
+        except TrainAborted as exc:
+            return detector, exc.report.get("fleet")
+        return detector, None
+
+    healthy, verdict = run(perturb_at=None)
+    out["healthy_verdicts"] = np.array(len(healthy.verdicts))
+    out["healthy_aborted"] = np.array(verdict is not None)
+    _, verdict = run(perturb_at=2)
+    out["verdict"] = np.array(json.dumps(verdict, sort_keys=True))
+    return out
+
+
 SUITES = {"backend": suite_backend, "ddp": suite_ddp,
           "zero1": suite_zero1, "syncbn": suite_syncbn, "amp": suite_amp,
           "multiproc": suite_multiproc, "train": suite_train,
           "cuda": suite_cuda, "resnet": suite_resnet,
-          "bert_train": suite_bert_train}
+          "bert_train": suite_bert_train, "fleet": suite_fleet}
 
 
 def main(argv) -> int:
