@@ -8,14 +8,20 @@
   :class:`AmaxHistory` rings, the fp8 delayed-scaling primitive;
 - :mod:`~apex_tpu_torch.observability.numerics.health` -
   :class:`HealthMonitor`: grad-norm-spike, loss-plateau/spike and
-  scaler-overflow-streak detectors emitting the ``numerics/*`` family.
-
-The reference's NaN provenance probe (``nan_probe``, a jaxpr replay
-under its analysis interpreter) comes with the analysis slice
-(ROADMAP.md, Queue 1 item 8).
+  scaler-overflow-streak detectors emitting the ``numerics/*`` family;
+- :mod:`~apex_tpu_torch.observability.numerics.nan_probe` - NaN/Inf
+  provenance: the first op or hand-written kernel that made or consumed
+  a non-finite value, from an eager replay under a ``TorchDispatchMode``
+  (the reference replays a jaxpr under its analysis interpreter).
 """
 
 from apex_tpu_torch.observability.numerics.health import HealthMonitor
+from apex_tpu_torch.observability.numerics.nan_probe import (
+    Provenance,
+    probe_fn,
+    probe_tree,
+    step_provenance,
+)
 from apex_tpu_torch.observability.numerics.history import (
     F8_E4M3_MAX,
     F8_E5M2_MAX,
@@ -39,5 +45,6 @@ __all__ = [
     "host_tensor_stats", "leaf_paths", "tree_paths",
     "nonfinite_paths", "summarize_stats", "StatsCollector",
     "AmaxHistory", "AmaxHistoryState", "F8_E4M3_MAX", "F8_E5M2_MAX",
-    "HealthMonitor",
+    "HealthMonitor", "Provenance", "probe_fn", "probe_tree",
+    "step_provenance",
 ]

@@ -1,5 +1,4 @@
-"""Build and load the port's CUDA kernels (the dispatch role of
-``apex_tpu/ops/pallas_config.py``).
+"""Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under
@@ -7,8 +6,9 @@ own shared library with a plain C interface, under
 name carries a hash of the sources, so an edited kernel is rebuilt and a
 stale library is never loaded. Libraries are loaded with ``ctypes``.
 
-There is no switch: the device of the input tensor decides the path. A
-CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+Which path a call takes is :mod:`apex_tpu_torch.ops.kernel_config`'s
+(the counterpart of ``apex_tpu/ops/pallas_config.py``): by default a CUDA
+tensor launches the kernel (or raises) and a CPU tensor takes the plain
 PyTorch version. Every C entry point returns ``cudaGetLastError()``
 after its launch, and :func:`check` raises when that is not 0.
 """

@@ -23,7 +23,7 @@
 // the buffer's counter word that wraps back to 0 by itself, takes the max
 // of the slots and writes amax. The counter is 0 before and after every
 // launch, with nothing kept on the host, so a launch can be captured in a
-// CUDA graph; the wrapper keeps one buffer per device and stream (two
+// CUDA graph (and the count holds for any grid up to the slots); the wrapper keeps one buffer per device and stream (two
 // streams casting at once must not share a counter), zeroed once when it
 // is made. One atomic a block: atomics on one word serialise (one a warp
 // took the [512, 4096] activation's cast from 0.0071 to 0.0117 ms on an
@@ -39,7 +39,9 @@
 // stores each vector's 8 or 4 fp8 bytes at once; the grid gives a thread
 // kVecs vectors a pass (a [512, 4096] bf16 activation: 256 blocks, one
 // pass; a decode step's [8, 4096]: 4 blocks, whose launch is the cost) up
-// to kBlocksPerSm blocks an SM, which then loop. The tail of n mod V
+// to blocks_per_sm blocks an SM, which then loop. Threads a block and
+// blocks an SM are the launch plan (apex_tpu_torch.tuning.geometry;
+// untuned 256 and 8). The tail of n mod V
 // elements, or all of x when a pointer is misaligned, goes one element a
 // thread. Any n: the TPU's padding of x to a (rows, cols) slab has no
 // counterpart. The scale is read from device memory when the caller passes
@@ -69,8 +71,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kThreadsT = 256;  // the column-major kernel's block
+constexpr int kBlocksPerSmT = 8;  // its most blocks an SM
 constexpr int kVecs = 4;  // 16-byte loads of x a thread has in flight
 
 enum Fp8Code { kE4M3 = 0, kE5M2 = 1 };
@@ -85,6 +87,7 @@ enum Fp8Code { kE4M3 = 0, kE5M2 = 1 };
 // calls overlaps the count. A grid of one block writes *amax in count_in,
 // with no slot and no atomic. scratch holds 1 + gridDim.x words, its
 // counter 0 at the launch.
+template <int kThreads>
 __device__ __forceinline__ unsigned count_in(unsigned bits,
                                              unsigned* __restrict__ amax,
                                              unsigned* __restrict__ scratch) {
@@ -109,6 +112,7 @@ __device__ __forceinline__ unsigned count_in(unsigned bits,
   return ticket;
 }
 
+template <int kThreads>
 __device__ __forceinline__ void finish(unsigned ticket,
                                        unsigned* __restrict__ amax,
                                        unsigned* __restrict__ scratch) {
@@ -219,7 +223,7 @@ __device__ __forceinline__ void cast_vec(const uint4& raw, uint8_t* y,
 // flight before its first convert. On its last pass the block folds amax
 // from the raw vectors and counts in before it converts, so the count
 // (and the last block's wait for it) overlaps the converts and stores.
-template <typename T, __nv_fp8_interpretation_t kFmt>
+template <int kThreads, typename T, __nv_fp8_interpretation_t kFmt>
 __global__ void __launch_bounds__(kThreads)
     cast_scale_kernel(const T* __restrict__ x, uint8_t* __restrict__ y,
                       int64_t n, bool vec, const float* __restrict__ scale_ptr,
@@ -253,37 +257,38 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (start + step >= nvec)
-      ticket = count_in(max(bits, magnitude_bits<T>(m)), amax, scratch);
+      ticket = count_in<kThreads>(max(bits, magnitude_bits<T>(m)), amax,
+                                  scratch);
 #pragma unroll
     for (int k = 0; k < kVecs; ++k) {
       const int64_t i = start + k * kThreads + threadIdx.x;
       if (i < nvec) cast_vec<T, kFmt>(raw[k], y, i, s, fmax);
     }
   }
-  if (counts_late) ticket = count_in(bits, amax, scratch);
-  finish(ticket, amax, scratch);
+  if (counts_late) ticket = count_in<kThreads>(bits, amax, scratch);
+  finish<kThreads>(ticket, amax, scratch);
 }
 
-// at most kBlocksPerSm blocks an SM, and no more than the scratch's slots
-cudaError_t grid_cap(int slots, int* cap) {
+// at most blocks_per_sm blocks an SM, and no more than the scratch's slots
+cudaError_t grid_cap(int slots, int blocks_per_sm, int* cap) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  *cap = sms * kBlocksPerSm < slots ? sms * kBlocksPerSm : slots;
+  *cap = sms * blocks_per_sm < slots ? sms * blocks_per_sm : slots;
   return err;
 }
 
-template <typename T>
+template <int kThreads, typename T>
 cudaError_t launch(const void* x, void* y, int64_t n, int fp8,
                    const float* scale_ptr, float scale_value, float fmax,
                    unsigned* amax, unsigned* scratch, int slots,
-                   cudaStream_t stream) {
+                   int blocks_per_sm, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(y) % V == 0;
   int cap = 0;
-  const cudaError_t err = grid_cap(slots, &cap);
+  const cudaError_t err = grid_cap(slots, blocks_per_sm, &cap);
   if (err != cudaSuccess) return err;
   // kVecs vectors a thread, or as many elements when x goes one at a time
   const int64_t work = vec ? n / V + n % V : n;
@@ -292,10 +297,26 @@ cudaError_t launch(const void* x, void* y, int64_t n, int fp8,
   const T* xp = static_cast<const T*>(x);
   uint8_t* yp = static_cast<uint8_t*>(y);
   if (fp8 == kE4M3)
-    cast_scale_kernel<T, __NV_E4M3><<<blocks, kThreads, 0, stream>>>(xp, yp, n, vec, scale_ptr, scale_value, fmax, amax, scratch);
+    cast_scale_kernel<kThreads, T, __NV_E4M3><<<blocks, kThreads, 0, stream>>>(xp, yp, n, vec, scale_ptr, scale_value, fmax, amax, scratch);
   else
-    cast_scale_kernel<T, __NV_E5M2><<<blocks, kThreads, 0, stream>>>(xp, yp, n, vec, scale_ptr, scale_value, fmax, amax, scratch);
+    cast_scale_kernel<kThreads, T, __NV_E5M2><<<blocks, kThreads, 0, stream>>>(xp, yp, n, vec, scale_ptr, scale_value, fmax, amax, scratch);
   return cudaGetLastError();
+}
+
+// the row-major cast's launch plan: threads a block (128, 256, 512 or
+// 1024: the compiled instances) and the most blocks an SM
+template <typename T>
+cudaError_t launch_plan(const void* x, void* y, int64_t n, int fp8,
+                        const float* scale_ptr, float scale_value, float fmax,
+                        unsigned* amax, unsigned* scratch, int slots,
+                        int threads, int blocks_per_sm, cudaStream_t stream) {
+  switch (threads) {
+    case 128: return launch<128, T>(x, y, n, fp8, scale_ptr, scale_value, fmax, amax, scratch, slots, blocks_per_sm, stream);
+    case 256: return launch<256, T>(x, y, n, fp8, scale_ptr, scale_value, fmax, amax, scratch, slots, blocks_per_sm, stream);
+    case 512: return launch<512, T>(x, y, n, fp8, scale_ptr, scale_value, fmax, amax, scratch, slots, blocks_per_sm, stream);
+    case 1024: return launch<1024, T>(x, y, n, fp8, scale_ptr, scale_value, fmax, amax, scratch, slots, blocks_per_sm, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 constexpr int kTileR = 128;  // rows of x a tile: bytes of a y^T row
@@ -303,7 +324,7 @@ constexpr int kTileC = 64;   // columns of x a tile: rows of y^T
 constexpr int kTilePad = kTileR + 4;
 
 template <typename T, __nv_fp8_interpretation_t kFmt>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsT)
     cast_scale_t_kernel(const T* __restrict__ x, uint8_t* __restrict__ yt,
                         int64_t rows, int64_t cols, bool vec,
                         const float* __restrict__ scale_ptr, float scale_value,
@@ -314,7 +335,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t tiles_r = (rows + kTileR - 1) / kTileR;
   const int64_t tiles = tiles_r * ((cols + kTileC - 1) / kTileC);
   constexpr int V = 16 / sizeof(T);                      // elements a vector
-  constexpr int kVecs = kTileR * kTileC / V / kThreads;  // vectors a thread
+  constexpr int kVecs = kTileR * kTileC / V / kThreadsT;  // vectors a thread
   unsigned bits = 0;
   for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
     // consecutive tiles run down a column band: y^T's rows fill in order
@@ -325,7 +346,7 @@ __global__ void __launch_bounds__(kThreads)
       bool in[kVecs];
 #pragma unroll
       for (int i = 0; i < kVecs; ++i) {
-        const int v = i * kThreads + threadIdx.x;
+        const int v = i * kThreadsT + threadIdx.x;
         const int r = v / (kTileC / V), c = v % (kTileC / V) * V;
         in[i] = r0 + r < rows && c0 + c < cols;
         if (in[i])
@@ -334,7 +355,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int i = 0; i < kVecs; ++i) {
-        const int v = i * kThreads + threadIdx.x;
+        const int v = i * kThreadsT + threadIdx.x;
         const int r = v / (kTileC / V), c = v % (kTileC / V) * V;
         const T* e = reinterpret_cast<const T*>(&raw[i]);
         if (in[i]) {
@@ -346,8 +367,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     } else {
 #pragma unroll 8
-      for (int i = 0; i < kTileR * kTileC / kThreads; ++i) {
-        const int idx = i * kThreads + threadIdx.x;
+      for (int i = 0; i < kTileR * kTileC / kThreadsT; ++i) {
+        const int idx = i * kThreadsT + threadIdx.x;
         const int r = idx / kTileC, c = idx % kTileC;
         if (r0 + r < rows && c0 + c < cols)
           tile[c][r] = static_cast<uint8_t>(cast_one<kFmt>(
@@ -357,8 +378,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (rows % 4 == 0) {  // whole words: r0 + 4w < rows puts all 4 in range
 #pragma unroll
-      for (int i = 0; i < kTileR * kTileC / 4 / kThreads; ++i) {
-        const int idx = i * kThreads + threadIdx.x;
+      for (int i = 0; i < kTileR * kTileC / 4 / kThreadsT; ++i) {
+        const int idx = i * kThreadsT + threadIdx.x;
         const int c = idx / (kTileR / 4), w = idx % (kTileR / 4);
         if (c0 + c < cols && r0 + 4 * w < rows)
           *reinterpret_cast<uint32_t*>(yt + (c0 + c) * rows + r0 + 4 * w) =
@@ -366,8 +387,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     } else {
 #pragma unroll 8
-      for (int i = 0; i < kTileR * kTileC / kThreads; ++i) {
-        const int idx = i * kThreads + threadIdx.x;
+      for (int i = 0; i < kTileR * kTileC / kThreadsT; ++i) {
+        const int idx = i * kThreadsT + threadIdx.x;
         const int c = idx / kTileR, r = idx % kTileR;
         if (c0 + c < cols && r0 + r < rows)
           yt[(c0 + c) * rows + r0 + r] = tile[c][r];
@@ -375,7 +396,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // the next tile's loads overwrite the tile
   }
-  finish(count_in(bits, amax, scratch), amax, scratch);
+  finish<kThreadsT>(count_in<kThreadsT>(bits, amax, scratch), amax,
+                    scratch);
 }
 
 template <typename T>
@@ -384,7 +406,7 @@ cudaError_t launch_t(const void* x, void* yt, int64_t rows, int64_t cols,
                      float fmax, unsigned* amax, unsigned* scratch, int slots,
                      cudaStream_t stream) {
   int cap = 0;
-  const cudaError_t err = grid_cap(slots, &cap);
+  const cudaError_t err = grid_cap(slots, kBlocksPerSmT, &cap);
   if (err != cudaSuccess) return err;
   const int64_t tiles =
       ((rows + kTileR - 1) / kTileR) * ((cols + kTileC - 1) / kTileC);
@@ -395,9 +417,9 @@ cudaError_t launch_t(const void* x, void* yt, int64_t rows, int64_t cols,
   const T* xp = static_cast<const T*>(x);
   uint8_t* yp = static_cast<uint8_t*>(yt);
   if (fp8 == kE4M3)
-    cast_scale_t_kernel<T, __NV_E4M3><<<blocks, kThreads, 0, stream>>>(xp, yp, rows, cols, vec, scale_ptr, scale_value, fmax, amax, scratch);
+    cast_scale_t_kernel<T, __NV_E4M3><<<blocks, kThreadsT, 0, stream>>>(xp, yp, rows, cols, vec, scale_ptr, scale_value, fmax, amax, scratch);
   else
-    cast_scale_t_kernel<T, __NV_E5M2><<<blocks, kThreads, 0, stream>>>(xp, yp, rows, cols, vec, scale_ptr, scale_value, fmax, amax, scratch);
+    cast_scale_t_kernel<T, __NV_E5M2><<<blocks, kThreadsT, 0, stream>>>(xp, yp, rows, cols, vec, scale_ptr, scale_value, fmax, amax, scratch);
   return cudaGetLastError();
 }
 
@@ -408,22 +430,28 @@ cudaError_t launch_t(const void* x, void* yt, int64_t rows, int64_t cols,
 // the device) or, when scale_ptr is null, scale_value; amax: one fp32 word
 // on the device that receives max |x| (nothing need be in it); scratch:
 // 1 + slots words on the device, the first (the blocks' counter) 0, as
-// every launch leaves it; one launch on the stream at a time may use it.
+// every launch leaves it; one launch on the stream at a time may use it;
+// threads (128, 256, 512 or 1024) and blocks_per_sm (1 to 16): the launch
+// plan (untuned: 256 and 8), cudaErrorInvalidValue for any other.
 extern "C" int fp8_cast_scale(const void* x, void* y, long long n, int dtype,
                               int fp8, const void* scale_ptr,
                               float scale_value, float fmax, void* amax,
-                              void* scratch, int slots, void* stream) {
+                              void* scratch, int slots, int threads,
+                              int blocks_per_sm, void* stream) {
   if (n < 1 || x == nullptr || y == nullptr || amax == nullptr ||
-      scratch == nullptr || slots < 1 || (fp8 != kE4M3 && fp8 != kE5M2))
+      scratch == nullptr || slots < 1 || (fp8 != kE4M3 && fp8 != kE5M2) ||
+      blocks_per_sm < 1 || blocks_per_sm > 16 ||
+      (threads != 128 && threads != 256 && threads != 512 &&
+       threads != 1024))
     return cudaErrorInvalidValue;
   const float* sp = static_cast<const float*>(scale_ptr);
   unsigned* ap = static_cast<unsigned*>(amax);
   unsigned* sc = static_cast<unsigned*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return launch<float>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, s);
-    case kBFloat16: return launch<__nv_bfloat16>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, s);
-    case kFloat16: return launch<__half>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, s);
+    case kFloat32: return launch_plan<float>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, threads, blocks_per_sm, s);
+    case kBFloat16: return launch_plan<__nv_bfloat16>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, threads, blocks_per_sm, s);
+    case kFloat16: return launch_plan<__half>(x, y, n, fp8, sp, scale_value, fmax, ap, sc, slots, threads, blocks_per_sm, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,7 +25,9 @@
 // an element. Design: a grid-stride loop over groups of 4 elements with
 // 16-byte loads and stores of g, m and v (and 8- or 16-byte ones of p and
 // delta) when every pointer is aligned to its vector, a scalar loop for
-// the tail and for unaligned slabs. Every product, sum, quotient and the
+// the tail and for unaligned slabs. The launch plan (threads a block, the
+// most blocks) is an argument, chosen by apex_tpu_torch.tuning.geometry:
+// untuned, 256 threads and at most 4096 blocks. Every product, sum, quotient and the
 // square root are rounded on their own (__fmul_rn, __fadd_rn, __fdiv_rn,
 // __fsqrt_rn): nvcc would otherwise contract a * b + c into one FMA, so
 // the kernel differs from its plain version only where PyTorch's own
@@ -36,9 +38,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4096;
 
 struct AdamArgs {
   float lr, c1, c2, b1, omb1, b2, omb2, eps, wd;
@@ -65,7 +64,7 @@ __device__ __forceinline__ float adam_elem(float g, float p, float& m,
   return __fmul_rn(-a.lr, u);
 }
 
-template <typename TP, bool kVec>
+template <int kThreads, typename TP, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(const float* __restrict__ g, const TP* __restrict__ p,
             float* __restrict__ m, float* __restrict__ v,
@@ -99,10 +98,10 @@ adam_kernel(const float* __restrict__ g, const TP* __restrict__ p,
   }
 }
 
-template <typename TP>
-cudaError_t launch(const void* g, const void* p, void* m, void* v,
-                   void* delta, int64_t n, const AdamArgs& a,
-                   cudaStream_t stream) {
+template <int kThreads, typename TP>
+cudaError_t launch_t(const void* g, const void* p, void* m, void* v,
+                     void* delta, int64_t n, const AdamArgs& a, int max_blocks,
+                     cudaStream_t stream) {
   const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(m) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
@@ -110,37 +109,60 @@ cudaError_t launch(const void* g, const void* p, void* m, void* v,
                    reinterpret_cast<uintptr_t>(delta) % (4 * sizeof(TP)) == 0;
   const int64_t work = vec ? (n + 3) / 4 : n;
   const int64_t want = (work + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < kMaxBlocks ? (want > 0 ? want : 1) : kMaxBlocks);
+  const int blocks = static_cast<int>(want < max_blocks ? (want > 0 ? want : 1) : max_blocks);
   const float* gp = static_cast<const float*>(g);
   const TP* pp = static_cast<const TP*>(p);
   float* mp = static_cast<float*>(m);
   float* vp = static_cast<float*>(v);
   TP* dp = static_cast<TP*>(delta);
   if (vec)
-    adam_kernel<TP, true><<<blocks, kThreads, 0, stream>>>(gp, pp, mp, vp, dp, n, a);
+    adam_kernel<kThreads, TP, true><<<blocks, kThreads, 0, stream>>>(gp, pp, mp, vp, dp, n, a);
   else
-    adam_kernel<TP, false><<<blocks, kThreads, 0, stream>>>(gp, pp, mp, vp, dp, n, a);
+    adam_kernel<kThreads, TP, false><<<blocks, kThreads, 0, stream>>>(gp, pp, mp, vp, dp, n, a);
   return cudaGetLastError();
+}
+
+// the launch plan: threads a block (128, 256, 512 or 1024: the compiled
+// instances) and the most blocks; the grid is min(max_blocks, the blocks
+// that give every thread one group of 4 elements, or one element on the
+// scalar path)
+template <typename TP>
+cudaError_t launch(const void* g, const void* p, void* m, void* v,
+                   void* delta, int64_t n, const AdamArgs& a, int threads,
+                   int max_blocks, cudaStream_t stream) {
+  switch (threads) {
+    case 128: return launch_t<128, TP>(g, p, m, v, delta, n, a, max_blocks, stream);
+    case 256: return launch_t<256, TP>(g, p, m, v, delta, n, a, max_blocks, stream);
+    case 512: return launch_t<512, TP>(g, p, m, v, delta, n, a, max_blocks, stream);
+    case 1024: return launch_t<1024, TP>(g, p, m, v, delta, n, a, max_blocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // g, m, v: n fp32; p, delta: n in p_dtype (common.cuh codes); m and v are
 // overwritten with their new values. omb1 = 1 - b1 and omb2 = 1 - b2 as
-// fp32; adam_w: 1 decoupled weight decay (AdamW), 0 L2 into the gradient.
+// fp32; adam_w: 1 decoupled weight decay (AdamW), 0 L2 into the gradient;
+// threads (128, 256, 512 or 1024) and max_blocks (>= 1): the launch plan
+// (untuned: 256 and 4096), cudaErrorInvalidValue for any other.
 extern "C" int adam_flat(const void* g, const void* p, void* m, void* v,
                          void* delta, long long n, float lr, float c1,
                          float c2, float b1, float omb1, float b2,
                          float omb2, float eps, float wd, int adam_w,
-                         int bias_correction, int p_dtype, void* stream) {
+                         int bias_correction, int p_dtype, int threads,
+                         int max_blocks, void* stream) {
+  if (max_blocks < 1 || (threads != 128 && threads != 256 &&
+                         threads != 512 && threads != 1024))
+    return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const AdamArgs a{lr, c1, c2, b1, omb1, b2, omb2, eps, wd, adam_w,
                    bias_correction};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p_dtype) {
-    case kFloat32: return launch<float>(g, p, m, v, delta, n, a, s);
-    case kBFloat16: return launch<__nv_bfloat16>(g, p, m, v, delta, n, a, s);
-    case kFloat16: return launch<__half>(g, p, m, v, delta, n, a, s);
+    case kFloat32: return launch<float>(g, p, m, v, delta, n, a, threads, max_blocks, s);
+    case kBFloat16: return launch<__nv_bfloat16>(g, p, m, v, delta, n, a, threads, max_blocks, s);
+    case kFloat16: return launch<__half>(g, p, m, v, delta, n, a, threads, max_blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

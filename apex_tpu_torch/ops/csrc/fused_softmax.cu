@@ -57,7 +57,8 @@
 // 32768] bf16: 4.2 GB, 1.26 ms at 3.35 TB/s), the pair's is that plus a
 // second read of the unmasked x, so it can reach about 67% of the
 // function's bound. Design: one block per row for each pass, 16-byte
-// vectors strided over the threads. In the stats pass each thread keeps
+// vectors strided over the threads; the threads a block are the launch
+// plan (apex_tpu_torch.tuning.geometry; untuned 256). In the stats pass each thread keeps
 // its own online (m, l), taking the max of a whole vector before it
 // rescales, then the block merges the threads' pairs by shuffles and one
 // shared-memory step. Every merge keeps the reference's -inf rule: when
@@ -72,7 +73,6 @@
 
 namespace {
 
-constexpr int kBlockedThreads = 256;  // a block of the two long-row passes
 constexpr int kRowBlock = 256;        // a whole-row block of several rows
 constexpr int kMaxRowThreads = 512;   // most threads of one whole row
 constexpr int kMaxValues = 32;        // fp32 values a thread holds
@@ -239,8 +239,8 @@ __device__ __forceinline__ void merge_stats(float& m, float& l, float m2,
   m = mn;
 }
 
-template <typename T, int V, bool kCausal>
-__global__ void __launch_bounds__(kBlockedThreads)
+template <typename T, int V, bool kCausal, int kThreads>
+__global__ void __launch_bounds__(kThreads)
     softmax_stats_kernel(const T* __restrict__ x, MaskView mask, int sq,
                          int sk, float scale, float* __restrict__ m_out,
                          float* __restrict__ l_out) {
@@ -292,8 +292,8 @@ __global__ void __launch_bounds__(kBlockedThreads)
   }
 }
 
-template <typename T, int V, bool kCausal>
-__global__ void __launch_bounds__(kBlockedThreads)
+template <typename T, int V, bool kCausal, int kThreads>
+__global__ void __launch_bounds__(kThreads)
     softmax_apply_kernel(const T* __restrict__ x, MaskView mask, int sq,
                          int sk, float scale, const float* __restrict__ m_in,
                          const float* __restrict__ l_in, T* __restrict__ y) {
@@ -316,11 +316,12 @@ __global__ void __launch_bounds__(kBlockedThreads)
   }
 }
 
-// the stats pass (y null) or the apply pass over rows of x
-template <typename T, bool kCausal>
-cudaError_t launch_blocked(const void* x, MaskView mask, float* m, float* l,
-                           void* y, int64_t rows, int sq, int sk, float scale,
-                           cudaStream_t stream) {
+// the stats pass (y null) or the apply pass over rows of x, kThreads
+// threads a row's block
+template <typename T, bool kCausal, int kThreads>
+cudaError_t launch_blocked_t(const void* x, MaskView mask, float* m, float* l,
+                             void* y, int64_t rows, int sq, int sk,
+                             float scale, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = sk % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
@@ -328,30 +329,45 @@ cudaError_t launch_blocked(const void* x, MaskView mask, float* m, float* l,
   T* yp = static_cast<T*>(y);
   if (y == nullptr) {
     if (vec)
-      softmax_stats_kernel<T, V, kCausal><<<rows, kBlockedThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l);
+      softmax_stats_kernel<T, V, kCausal, kThreads><<<rows, kThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l);
     else
-      softmax_stats_kernel<T, 1, kCausal><<<rows, kBlockedThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l);
+      softmax_stats_kernel<T, 1, kCausal, kThreads><<<rows, kThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l);
   } else if (vec) {
-    softmax_apply_kernel<T, V, kCausal><<<rows, kBlockedThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l, yp);
+    softmax_apply_kernel<T, V, kCausal, kThreads><<<rows, kThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l, yp);
   } else {
-    softmax_apply_kernel<T, 1, kCausal><<<rows, kBlockedThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l, yp);
+    softmax_apply_kernel<T, 1, kCausal, kThreads><<<rows, kThreads, 0, stream>>>(xp, mask, sq, sk, scale, m, l, yp);
   }
   return cudaGetLastError();
+}
+
+// the launch plan: threads a row's block, 128, 256, 512 or 1024 (the
+// compiled instances; the reductions' shared arrays hold 32 warps)
+template <typename T, bool kCausal>
+cudaError_t launch_blocked(const void* x, MaskView mask, float* m, float* l,
+                           void* y, int64_t rows, int sq, int sk, float scale,
+                           int threads, cudaStream_t stream) {
+  switch (threads) {
+    case 128: return launch_blocked_t<T, kCausal, 128>(x, mask, m, l, y, rows, sq, sk, scale, stream);
+    case 256: return launch_blocked_t<T, kCausal, 256>(x, mask, m, l, y, rows, sq, sk, scale, stream);
+    case 512: return launch_blocked_t<T, kCausal, 512>(x, mask, m, l, y, rows, sq, sk, scale, stream);
+    case 1024: return launch_blocked_t<T, kCausal, 1024>(x, mask, m, l, y, rows, sq, sk, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <bool kCausal>
 int dispatch_blocked(const void* x, MaskView mask, float* m, float* l,
                      void* y, long long rows, int sq, int sk, float scale,
-                     int dtype, void* stream) {
+                     int dtype, int threads, void* stream) {
   if (rows == 0) return cudaSuccess;
   if (sq < 1 || sk < 1 || rows % sq != 0 || rows > 0x7fffffffLL ||
       m == nullptr || l == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return launch_blocked<float, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, s);
-    case kBFloat16: return launch_blocked<__nv_bfloat16, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, s);
-    case kFloat16: return launch_blocked<__half, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, s);
+    case kFloat32: return launch_blocked<float, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, threads, s);
+    case kBFloat16: return launch_blocked<__nv_bfloat16, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, threads, s);
+    case kFloat16: return launch_blocked<__half, kCausal>(x, mask, m, l, y, rows, sq, sk, scale, threads, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -359,14 +375,15 @@ int dispatch_blocked(const void* x, MaskView mask, float* m, float* l,
 int blocked(const void* x, const void* mask, float* m, float* l, void* y,
             long long rows, int sq, int sk, long long d1, long long s0,
             long long s1, long long s2, long long s3, float scale, int dtype,
-            void* stream) {
+            int threads, void* stream) {
   if (mask == nullptr)
     return dispatch_blocked<true>(x, MaskView{nullptr, 1, 0, 0, 0, 0}, m, l,
-                                  y, rows, sq, sk, scale, dtype, stream);
+                                  y, rows, sq, sk, scale, dtype, threads,
+                                  stream);
   if (d1 < 1) return cudaErrorInvalidValue;
   return dispatch_blocked<false>(
       x, MaskView{static_cast<const uint8_t*>(mask), d1, s0, s1, s2, s3}, m,
-      l, y, rows, sq, sk, scale, dtype, stream);
+      l, y, rows, sq, sk, scale, dtype, threads, stream);
 }
 
 // ------------------------------------------------------------ whole rows
@@ -464,14 +481,16 @@ extern "C" int fused_softmax_masked(const void* x, const void* mask, void* y,
 // The long-row passes, for any sk >= 1: a null mask is the causal variant,
 // else the mask is read as for fused_softmax_masked. The stats pass writes
 // one fp32 m and l per row; the apply pass reads them and writes y.
+// threads: a row's block (128, 256, 512 or 1024; untuned 256),
+// cudaErrorInvalidValue for any other.
 extern "C" int fused_softmax_stats(const void* x, const void* mask, void* m,
                                    void* l, long long rows, int sq, int sk,
                                    long long d1, long long s0, long long s1,
                                    long long s2, long long s3, float scale,
-                                   int dtype, void* stream) {
+                                   int dtype, int threads, void* stream) {
   return blocked(x, mask, static_cast<float*>(m), static_cast<float*>(l),
                  nullptr, rows, sq, sk, d1, s0, s1, s2, s3, scale, dtype,
-                 stream);
+                 threads, stream);
 }
 
 extern "C" int fused_softmax_apply(const void* x, const void* mask,
@@ -479,9 +498,9 @@ extern "C" int fused_softmax_apply(const void* x, const void* mask,
                                    long long rows, int sq, int sk,
                                    long long d1, long long s0, long long s1,
                                    long long s2, long long s3, float scale,
-                                   int dtype, void* stream) {
+                                   int dtype, int threads, void* stream) {
   if (y == nullptr) return cudaErrorInvalidValue;
   return blocked(x, mask, const_cast<float*>(static_cast<const float*>(m)),
                  const_cast<float*>(static_cast<const float*>(l)), y, rows,
-                 sq, sk, d1, s0, s1, s2, s3, scale, dtype, stream);
+                 sq, sk, d1, s0, s1, s2, s3, scale, dtype, threads, stream);
 }

@@ -26,11 +26,13 @@ as the JAX package leaves it to XLA outside its kernels
 
 :class:`_Flash` is the ``torch.autograd.Function`` counterpart of the
 ``custom_vjp`` ``_flash``, ``_flash_dropout`` and ``_flash_varlen``
-(``:487-603``). Dispatch follows the input tensors: CUDA tensors launch
-the kernels, CPU tensors take :func:`_flash_fwd_plain` and
-:func:`_flash_bwd_plain`, the plain PyTorch versions of the same
-arithmetic computed in one block. There is no fallback from a kernel to a
-plain version.
+(``:487-603``). Dispatch is :func:`apex_tpu_torch.ops.kernel_config.
+use_kernel` ("flash_attention"): CUDA tensors launch the kernels, CPU
+tensors (or any under ``force("off")``) take
+:func:`_flash_fwd_plain` and :func:`_flash_bwd_plain`, the plain PyTorch
+versions of the same arithmetic computed in one block. There is no
+fallback from a kernel to a plain version. The tiles are the ones
+compiled into the kernels: (64, 64) in bf16, (64, 32) in fp32.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, kernel_config
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -312,6 +314,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, kv_lens=None,
             _build.stream_handle(q.device))
         _build.check(lib, rc, "flash_fwd")
         launches += 1
+        kernel_config.note_launch("flash_fwd", (q, k, v), (o, lse))
     return o, lse
 
 
@@ -369,6 +372,8 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
             _build.stream_handle(q.device))
         _build.check(lib, rc, "flash_bwd_dq")
         dq_launches += 1
+        kernel_config.note_launch("flash_bwd_dq", (q, k, v, do, lse, delta),
+                                  (dq,))
     return dq
 
 
@@ -402,6 +407,8 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
             _build.stream_handle(q.device))
         _build.check(lib, rc, "flash_bwd_dkv")
         dkv_launches += 1
+        kernel_config.note_launch("flash_bwd_dkv",
+                                  (q, k, v, do, lse, delta), (dk, dv))
     return dk, dv
 
 
@@ -439,9 +446,9 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, kv_lens=None,
                p_drop: float = 0.0, seed: int = 0):
     """q [B, sq, H, d], k/v [B_kv, sk, H_kv, d] -> (o [B, sq, H, d],
     lse [B*H, sq] fp32): the counterpart of ``_flash_fwd_pallas``, with
-    ``kv_lens`` an int32 [B*H] tensor on q's device or None. CUDA tensors
-    launch the kernel, CPU tensors take the plain version."""
-    if q.is_cuda:
+    ``kv_lens`` an int32 [B*H] tensor on q's device or None. The kernel
+    or the plain version, as ``kernel_config.use_kernel`` decides."""
+    if kernel_config.use_kernel("flash_attention", q):
         return _flash_fwd_cuda(q, k, v, causal, scale, kv_lens, p_drop,
                                seed)
     o, lse = _flash_fwd_plain(_heads_major(q), _heads_major(k),
@@ -453,9 +460,9 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, kv_lens=None,
 def _flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
                kv_lens=None, p_drop: float = 0.0, seed: int = 0):
     """(dq, dk, dv) on the forward's [B, S, H, d] layout: the counterpart
-    of ``_flash_bwd_pallas``. CUDA tensors launch dq then dk/dv, CPU
-    tensors take the plain version."""
-    if q.is_cuda:
+    of ``_flash_bwd_pallas``. The kernels (dq then dk/dv) or the plain
+    version, as ``kernel_config.use_kernel`` decides."""
+    if kernel_config.use_kernel("flash_attention", q):
         return _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, kv_lens,
                                p_drop, seed)
     dq, dk, dv = _flash_bwd_plain(

@@ -21,11 +21,15 @@ slot a block that the wrapper keeps per device and stream
 (:func:`_scratch`): made and zeroed once, and left with its counter at 0
 by every launch, so no cast needs a fill kernel first.
 
-Dispatch follows the input tensor: a CUDA tensor launches a kernel (a
-0-dim one too; an empty one raises, as ``max`` of nothing does on every
-device), a CPU tensor takes :func:`_cast_and_scale_plain`, the
-reference's ``_cast_and_scale_jnp`` math (``:80``). There is no fallback
-from a kernel to the plain version.
+Dispatch is :func:`apex_tpu_torch.ops.kernel_config.use_kernel`
+("fp8_cast"): a CUDA tensor launches a kernel (a 0-dim one too; an empty
+one raises, as ``max`` of nothing does on every device), a CPU tensor
+(or any under ``force("off")``) takes
+:func:`_cast_and_scale_plain`, the reference's ``_cast_and_scale_jnp``
+math (``:80``). There is no fallback from a kernel to the plain version.
+The row-major kernel's launch plan (threads a block, blocks an SM) comes
+from :func:`apex_tpu_torch.tuning.geometry.fp8_cast_geometry`; the
+column-major kernel keeps 256 threads and 8 blocks an SM.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from typing import Dict, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.tuning import geometry
 
 # launches of the CUDA cast kernels, row-major y and column-major y; only
 # the CUDA wrapper below adds to them, once per launch
@@ -46,8 +51,8 @@ col_launches = 0
 # stream's buffer is made, one when a failed launch re-zeroes its counter
 fills = 0
 
-# amax slots of a scratch buffer, and so most blocks of a cast (the
-# kernels take at most 8 an SM: 1056 on an H100)
+# amax slots of a scratch buffer, and so most blocks of a cast (untuned,
+# the kernels take at most 8 an SM: 1056 on an H100)
 AMAX_SLOTS = 2048
 # (device index, stream handle) -> int32 [1 + AMAX_SLOTS]: the blocks'
 # counter, then a slot a block
@@ -63,6 +68,8 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p]
 _ARGTYPES_T = _ARGTYPES[:3] + [ctypes.c_longlong] + _ARGTYPES[3:]
+# the row-major entry takes its launch plan before the stream
+_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def as_scale(scale: ScaleLike, device) -> torch.Tensor:
@@ -148,19 +155,21 @@ def _cast_and_scale_cuda(x: torch.Tensor, scale: ScaleLike,
         scratch = _scratch(x.device)
         tail = (None if s is None else s.data_ptr(),
                 0.0 if s is not None else float(scale), float(fmax),
-                amax.data_ptr(), scratch.data_ptr(), AMAX_SLOTS,
-                _build.stream_handle(x.device))
+                amax.data_ptr(), scratch.data_ptr(), AMAX_SLOTS)
+        stream = _build.stream_handle(x.device)
         if col_major:
             rows, cols = x.shape
             y = torch.empty((cols, rows), dtype=dtype, device=x.device).t()
             what = "fp8_cast_scale_t"
             rc = lib.fp8_cast_scale_t(x.data_ptr(), y.data_ptr(), rows, cols,
-                                      code, fp8, *tail)
+                                      code, fp8, *tail, stream)
         else:
             y = torch.empty(x.shape, dtype=dtype, device=x.device)
             what = "fp8_cast_scale"
             rc = lib.fp8_cast_scale(x.data_ptr(), y.data_ptr(), x.numel(),
-                                    code, fp8, *tail)
+                                    code, fp8, *tail,
+                                    *geometry.fp8_cast_geometry(x.numel()),
+                                    stream)
         if rc != 0:
             # a launch that failed part-way may have counted blocks in
             scratch[0].zero_()
@@ -170,6 +179,7 @@ def _cast_and_scale_cuda(x: torch.Tensor, scale: ScaleLike,
             col_launches += 1
         else:
             launches += 1
+        kernel_config.note_launch(what, (x,), (y, amax))
     return y, amax
 
 
@@ -182,6 +192,6 @@ def cast_and_scale_stats(x: torch.Tensor, scale: ScaleLike,
     the target format's largest magnitude: an fp8 overflow clamps to it,
     never rounds to inf or NaN. ``col_major`` lays a 2-D y out
     column-major; its values are the same."""
-    if x.is_cuda:
+    if kernel_config.use_kernel("fp8_cast", x):
         return _cast_and_scale_cuda(x, scale, dtype, fmax, col_major)
     return _cast_and_scale_plain(x, scale, dtype, fmax, col_major)

@@ -8,10 +8,13 @@ the source file says what its design does about that. It updates m and v
 in place, where the Pallas kernel returns new buffers: at Llama-3-8B
 width a second m/v pair would cost as much memory as the first.
 
-Dispatch follows the input tensors: CUDA tensors launch the kernel, CPU
-tensors take :func:`_adam_flat_plain`, the plain PyTorch version of the
-same arithmetic, which updates m and v in place too. There is no
-fallback from the kernel to the plain version.
+Dispatch is :func:`apex_tpu_torch.ops.kernel_config.use_kernel`
+("flat_adam"): CUDA tensors launch the kernel, CPU tensors (or any under
+``force("off")``) take :func:`_adam_flat_plain`, the
+plain PyTorch version of the same arithmetic, which updates m and v in
+place too. There is no fallback from the kernel to the plain version.
+The launch plan (threads a block, the most blocks) comes from
+:func:`apex_tpu_torch.tuning.geometry.flat_adam_geometry`.
 """
 
 from __future__ import annotations
@@ -21,14 +24,15 @@ from typing import Tuple
 
 import torch
 
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.tuning import geometry
 
 # launches of the CUDA Adam kernel; only the CUDA wrapper below adds to
 # it, once per launch
 launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-             + [ctypes.c_float] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def adam_scalars(lr_t, step, b1: float, b2: float,
@@ -101,16 +105,23 @@ def _adam_flat_cuda(g, p, m, v, lr_t, step, *, b1, b2, eps, weight_decay,
     delta = torch.empty_like(p)
     if g.numel() == 0:
         return delta, m, v
+    threads, blocks = geometry.flat_adam_geometry(g.numel())
     lib = _lib()
     with torch.cuda.device(g.device):
         rc = lib.adam_flat(
             g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
             delta.data_ptr(), g.numel(), lr, c1, c2, b1, 1.0 - b1, b2,
             1.0 - b2, eps, weight_decay, int(bool(adam_w_mode)),
-            int(bool(bias_correction)), p_code,
+            int(bool(bias_correction)), p_code, threads, blocks,
             _build.stream_handle(g.device))
         _build.check(lib, rc, "adam_flat")
         launches += 1
+        # m and v are updated in place, out of autograd's sight: their
+        # version counters move as an ATen in-place op's would, and the
+        # probe sees g and p as the inputs
+        torch.autograd.graph.increment_version(m)
+        torch.autograd.graph.increment_version(v)
+        kernel_config.note_launch("adam_flat", (g, p), (delta, m, v))
     return delta, m, v
 
 
@@ -125,6 +136,6 @@ def adam_flat(g, p, m, v, lr_t, step, *, b1, b2, eps, weight_decay,
     updated in place."""
     kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
               adam_w_mode=adam_w_mode, bias_correction=bias_correction)
-    if g.is_cuda:
+    if kernel_config.use_kernel("flat_adam", g):
         return _adam_flat_cuda(g, p, m, v, lr_t, step, **kw)
     return _adam_flat_plain(g, p, m, v, lr_t, step, **kw)

@@ -20,13 +20,17 @@ how its design follows from that.
 ``torch.autograd.Function`` counterparts of the ``custom_vjp`` functions
 of ``layer_norm.py:350-435``: a LayerNorm forward saves (x2, w, mu,
 rstd), an RMSNorm forward (x2, w, rstd); a backward returns dx in x's
-dtype and the param grads in w's dtype, summed in fp32. Dispatch follows
-the input tensor: a CUDA tensor launches the kernels, a CPU tensor takes
-the plain PyTorch versions of the same math (:func:`_ln_fwd_plain`,
-:func:`_ln_bwd_plain`, :func:`_rms_fwd_plain`, :func:`_rms_bwd_plain`:
-``_ln_fwd_jnp``, ``_ln_bwd_jnp``, ``_rms_fwd_jnp`` and ``_rms_bwd_jnp``,
+dtype and the param grads in w's dtype, summed in fp32. Dispatch is
+:func:`apex_tpu_torch.ops.kernel_config.use_kernel` ("layer_norm",
+"rms_norm"): a CUDA tensor launches the kernels, a CPU tensor (or any
+tensor under ``force("off")``) takes the plain PyTorch
+versions of the same math (:func:`_ln_fwd_plain`, :func:`_ln_bwd_plain`,
+:func:`_rms_fwd_plain`, :func:`_rms_bwd_plain`: ``_ln_fwd_jnp``,
+``_ln_bwd_jnp``, ``_rms_fwd_jnp`` and ``_rms_bwd_jnp``,
 ``layer_norm.py:325``, ``:210``, ``:337`` and ``:226``). There is no
-fallback from a kernel to a plain version.
+fallback from a kernel to a plain version. The launch plans come from
+:mod:`apex_tpu_torch.tuning.geometry` (a tuned plan, else
+:func:`_fwd_plan` and :func:`_bwd_plan`).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.tuning import geometry
 
 # launches of the CUDA RMSNorm and LayerNorm forward and backward
 # kernels; only the CUDA wrappers below add to them, once per launch
@@ -95,8 +100,8 @@ class FwdPlan(NamedTuple):
 
 def _fwd_plan(rows: int, h: int, dtype: torch.dtype,
               aligned: bool = True) -> FwdPlan:
-    """The forward's launch plan for rows of h elements of ``dtype``, a
-    function of the shape alone (never of the card). ``aligned``: x, y,
+    """The forward's untuned launch plan for rows of h elements of
+    ``dtype``, a function of the shape alone (never of the card). ``aligned``: x, y,
     w and b start on 16 bytes. Rows of whole 16-byte vectors, at most
     ``MAX_ROW_THREADS * ROW_VECS`` of them, take the register
     path on the fewest threads (a power of two, at least a warp) that
@@ -138,8 +143,8 @@ class BwdPlan(NamedTuple):
 
 def _bwd_plan(rows: int, h: int, dtype: torch.dtype,
               aligned: bool = True) -> BwdPlan:
-    """The backward's launch plan for rows of h elements of ``dtype``, a
-    function of the shape alone (never of the card). ``aligned``: x, dy,
+    """The backward's untuned launch plan for rows of h elements of
+    ``dtype``, a function of the shape alone (never of the card). ``aligned``: x, dy,
     dx and w start on 16 bytes. Rows of whole 16-byte vectors, at most
     ``MAX_ROW_THREADS * ROW_VECS`` of them, take the register
     path on the fewest threads (a power of two, at least a warp) that
@@ -309,7 +314,7 @@ def _norm_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
     stats = (mu, rstd) if centred else (rstd,)
     aligned = all(t.data_ptr() % 16 == 0
                   for t in (x2, y, *params) if t is not None)
-    plan = _fwd_plan(rows, h, x2.dtype, aligned)
+    plan = geometry.norm_plan(what, rows, h, x2.dtype, aligned)
     lib, name, fwd, _ = _lib(centred)
     with torch.cuda.device(x2.device):
         rc = fwd(_ptr(x2), *map(_ptr, params), _ptr(y), *map(_ptr, stats),
@@ -318,6 +323,8 @@ def _norm_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
                  _build.stream_handle(x2.device))
         _build.check(lib, rc, f"{name}_fwd")
         _count(centred, bwd=False)
+        kernel_config.note_launch(f"{name}_fwd", (x2, *params),
+                                  (y, *stats))
     return y, mu, rstd
 
 
@@ -351,7 +358,8 @@ def _norm_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
         return dx if w is None else (dx, *(g.zero_() for g in grads))
     aligned = all(t.data_ptr() % 16 == 0
                   for t in (x2, dy, dx, w) if t is not None)
-    plan = _bwd_plan(rows, h, x2.dtype, aligned)
+    plan = geometry.norm_bwd_plan(what, rows, h, x2.dtype, aligned,
+                                  affine=w is not None)
     part = (torch.empty((plan.partial_rows, n_acc * h), dtype=torch.float32,
                         device=x2.device) if w is not None else None)
     out_grads = grads if w is not None else (None,) * n_acc
@@ -364,6 +372,8 @@ def _norm_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
                  _build.stream_handle(x2.device))
         _build.check(lib, rc, f"{name}_bwd")
         _count(centred, bwd=True)
+        kernel_config.note_launch(f"{name}_bwd", (x2, dy, *stats, w),
+                                  (dx, *grads))
     return dx if w is None else (dx, *grads)
 
 
@@ -386,13 +396,13 @@ def _ln_bwd_cuda(x2, w, mu, rstd, dy):
 
 
 def _ln_fwd(x2, w, b, eps):
-    if x2.is_cuda:
+    if kernel_config.use_kernel("layer_norm", x2):
         return _ln_fwd_cuda(x2, w, b, eps)
     return _ln_fwd_plain(x2, w, b, eps)
 
 
 def _ln_bwd(x2, w, mu, rstd, dy):
-    if x2.is_cuda:
+    if kernel_config.use_kernel("layer_norm", x2):
         return _ln_bwd_cuda(x2, w, mu, rstd, dy.contiguous())
     return _ln_bwd_plain(x2, w, mu, rstd, dy)
 
@@ -431,13 +441,13 @@ class _LayerNormPlain(torch.autograd.Function):
 
 
 def _rms_fwd(x2, w, eps):
-    if x2.is_cuda:
+    if kernel_config.use_kernel("rms_norm", x2):
         return _rms_fwd_cuda(x2, w, eps)
     return _rms_fwd_plain(x2, w, eps)
 
 
 def _rms_bwd(x2, w, rstd, dy):
-    if x2.is_cuda:
+    if kernel_config.use_kernel("rms_norm", x2):
         return _rms_bwd_cuda(x2, w, rstd, dy.contiguous())
     return _rms_bwd_plain(x2, w, rstd, dy)
 

@@ -6,8 +6,10 @@ transform of the JAX package over nested dicts of tensors. With
 ``flat=True`` every parameter of one dtype is packed into one slab and
 updated by one launch of the flat Adam kernel
 (``ops/fused_adam_kernel.py``) when the tensors are on the GPU, or by its
-plain version when they are on the CPU: the device decides, and there is
-no switch (the JAX ``use_kernel`` knob is not carried over). With
+plain version when they are on the CPU, as
+``kernel_config.use_kernel("flat_adam", ...)`` decides (``force("off")``
+takes the plain version on the card too; the JAX
+``use_kernel`` argument is not carried over). With
 ``flat=False`` (the default, as in the JAX package, which runs it outside
 any Pallas kernel too) :func:`_math.adam_step` runs leaf by leaf.
 
@@ -32,6 +34,7 @@ from apex_tpu_torch import _device, _tree
 from apex_tpu_torch.observability import get_registry
 from apex_tpu_torch.observability.profiling.spans import span
 from apex_tpu_torch.ops import flat as _flat
+from apex_tpu_torch.ops import kernel_config
 from apex_tpu_torch.ops.fused_adam_kernel import adam_flat
 from apex_tpu_torch.optimizers import _math
 from apex_tpu_torch.optimizers._base import FusedOptimizer
@@ -97,9 +100,11 @@ def fused_adam(lr: ScalarOrSchedule = 1e-3, bias_correction: bool = True,
         if flat:
             # the reference's dispatch record: the counter ticks once an
             # update, and the span names the path ("cuda": the flat Adam
-            # kernel on the card; "plain": its PyTorch version on the
-            # CPU) in a profiler trace
-            path = "cuda" if p_leaves and p_leaves[0].is_cuda else "plain"
+            # kernel on the card; "plain": its PyTorch version) in a
+            # profiler trace, as kernel_config decides for adam_flat
+            path = ("cuda" if p_leaves and kernel_config.dispatch(
+                "flat_adam", p_leaves[0], count=False) == "kernel"
+                else "plain")
             reg.counter("optimizer/fused_adam/dispatch",
                         path=f"flat_{path}").inc()
             with span(f"fused_adam/flat/{path}"):

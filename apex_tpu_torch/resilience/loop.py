@@ -36,10 +36,16 @@ dies out of memory (``torch.OutOfMemoryError``, or a message with CUDA's
 (requested bytes, capacity, largest live tensor, the ``memory_monitor``'s
 watermark) on its ``rollback`` event and ``TrainAborted.report
 ["memory"]`` (:func:`apex_tpu_torch.observability.memory.oom_forensics`).
-The reference's NaN probe replays a jaxpr through its analysis
-interpreter and is not ported yet (ROADMAP.md, Queue 1 item 8):
-:meth:`ResilientTrainLoop._probe_numerics` returns None, as the
-reference's does when that tier is absent.
+**NaN provenance** (``numerics_provenance``, on by default): a step
+that fails the finite check is replayed under
+:func:`apex_tpu_torch.observability.numerics.step_provenance`, which names
+the non-finite tensors, the first op (or hand-written kernel) that made
+or consumed a non-finite value, and its source, on the ``rollback`` event
+and ``TrainAborted.report["numerics"]``. The replay runs on copies: a
+step that updated its state in place leaves no pre-step values behind
+(unless the state is still the run's starting state, of which the loop
+keeps a host copy), and the report then replays the failed state only.
+The loop's own state never sees the replay.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch
 
 from apex_tpu_torch import _device, _tree
 from apex_tpu_torch import checkpoint as ckpt
+from apex_tpu_torch.observability.numerics import nan_probe
 from apex_tpu_torch.resilience import faults as faults_mod
 from apex_tpu_torch.resilience.preemption import EXIT_PREEMPTED
 
@@ -151,8 +158,9 @@ class ResilientTrainLoop:
         (an :class:`apex_tpu_torch.observability.FlightRecorder`, whose
         watchdog dumps a post-mortem when one stalls). The loop does not
         install() it: callers own its lifecycle.
-    numerics_provenance: run the NaN probe on health failures; the port
-        has no probe yet (module docstring), so it records nothing.
+    numerics_provenance: run the NaN probe on health failures (module
+        docstring); ticks ``numerics/probes`` and records a
+        ``numerics_provenance`` event.
     memory_monitor: an
         :class:`apex_tpu_torch.observability.MemoryMonitor` whose
         watermark feeds the OOM verdict (default: the process's active
@@ -207,8 +215,10 @@ class ResilientTrainLoop:
             if directory else None)
         #: step the last run() resumed from (None = cold start).
         self.resumed_from: Optional[int] = None
-        # host copy of the starting state's tensors (see module docstring)
+        # host copy of the starting state's tensors (see module docstring),
+        # and whether the live state still holds those values
         self._start_copy: Optional[list] = None
+        self._at_start = False
 
     # -------------------------------------------------------- plumbing
 
@@ -347,6 +357,7 @@ class ResilientTrainLoop:
                 leaf.detach().to("cpu", copy=True)
                 if isinstance(leaf, torch.Tensor) else None
                 for leaf in _tree.flatten(state)[0]]
+        self._at_start = self._start_copy is not None
 
     @torch.no_grad()
     def _restore_start(self, state) -> None:
@@ -355,6 +366,22 @@ class ResilientTrainLoop:
         for leaf, copy in zip(_tree.flatten(state)[0], self._start_copy):
             if copy is not None:
                 leaf.copy_(copy)
+        self._at_start = True
+
+    def _pre_step_state(self, state, in_place: bool):
+        """The state as it was before the step, for the NaN probe's
+        replay: ``state`` itself when the step made new tensors; a device
+        copy of the run's starting state when the step updated it
+        ``in_place`` but it was that state; else None (no pre-step
+        values)."""
+        if not in_place:
+            return state
+        if not self._at_start:
+            return None
+        leaves, treedef = _tree.flatten(state)
+        return treedef.unflatten([
+            copy.to(leaf.device) if copy is not None else leaf
+            for leaf, copy in zip(leaves, self._start_copy)])
 
     # -------------------------------------------------------------- run
 
@@ -432,6 +459,10 @@ class ResilientTrainLoop:
         while step < num_steps:
             step_timer = reg.timer("resilience/step_s")
             step_timer.start()
+            # the state's version counters: the step updated it in place
+            # if one moves (for the NaN probe's pre-step state)
+            before = (nan_probe.versions(state)
+                      if self.numerics_provenance else None)
             try:
                 new_state, metrics = self._call(self._attempt, step, state)
             except (Preempted, TrainAborted, KeyboardInterrupt,
@@ -448,6 +479,8 @@ class ResilientTrainLoop:
                 continue
             reg.event("step_done", step=step,
                       duration_s=round(step_timer.stop(), 6))
+            in_place = (before is not None
+                        and nan_probe.versions(state) != before)
 
             if plan is not None and plan.should_fire("nan_grads", step):
                 reg.counter("resilience/faults_injected",
@@ -463,7 +496,8 @@ class ResilientTrainLoop:
                 error = ValueError(
                     f"non-finite state/metrics at step {step}")
                 recovery_target = max(recovery_target, step)
-                prov = self._probe_numerics(state, new_state, step)
+                prov = self._probe_numerics(
+                    self._pre_step_state(state, in_place), new_state, step)
                 del new_state
                 state, step, rollbacks = self._rollback(
                     fallback_state, fallback_step, rollbacks, step,
@@ -484,6 +518,7 @@ class ResilientTrainLoop:
                 continue
 
             state = new_state
+            self._at_start = False
             if rollbacks and step > recovery_target:
                 rollbacks = 0  # made it past the failure point
 
@@ -538,12 +573,24 @@ class ResilientTrainLoop:
     # ------------------------------------------------------- provenance
 
     def _probe_numerics(self, prev_state, bad_state, step: int):
-        """The reference's NaN probe (``loop.py:575``) replays the failing
-        step's jaxpr under its analysis interpreter; the port's waits for
-        ``numerics/nan_probe.py`` (ROADMAP.md, Queue 1 item 8). No
-        verdict until then, as the reference gives without that tier."""
-        del prev_state, bad_state, step
-        return None
+        """NaN provenance for a failed health check (``loop.py:575``):
+        the offending tensor paths and the first non-finite op, from a
+        replay on copies (``prev_state`` None: no pre-step values, module
+        docstring). Never raises: a broken probe degrades to a message and
+        the ladder proceeds on the original error."""
+        if not self.numerics_provenance:
+            return None
+        try:
+            prov = nan_probe.step_provenance(self.step_fn, prev_state, bad_state,
+                                   step).as_dict()
+        except Exception as e:  # noqa: BLE001 - the probe is diagnostics;
+            # it must never mask the health failure
+            prov = {"ok": False,
+                    "message": f"numerics probe failed: {e!r:.200}"}
+        reg = self._reg()
+        reg.counter("numerics/probes").inc()
+        reg.event("numerics_provenance", step=step, **prov)
+        return prov
 
     def _probe_memory(self, error, step: int):
         """OOM forensics for an out-of-memory step death (``loop.py:596``):

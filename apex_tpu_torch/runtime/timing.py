@@ -181,16 +181,42 @@ def time_chained(step, grads, state, params, iters=100) -> Seconds:
     return Seconds(max(clock.stop(p), 1e-9) / iters, clock.name)
 
 
+# the clock a spin is sized at: at least the H100's highest SM clock
+# (1.98 GHz), so a spin lasts at least as long as asked
+_SPIN_HZ = 2.0e9
+_SPIN_MAX_S = 5.0
+
+
 def time_scanned(make_step, carry, chain, k=32, reps=3) -> Seconds:
     """Seconds an iteration of a short kernel: ``chain(carry, step) ->
     carry`` threads each output into the next call (``step =
     make_step()``); one warm-up pass of ``k`` iterations, then ``reps``
-    passes of ``k`` in a Python loop between two events."""
+    passes of ``k`` in a Python loop between two events.
+
+    On a CUDA device the timed calls are the device's alone, as the
+    reference's on-device scan is: a second untimed pass measures how
+    long the host takes to queue ``k`` calls, and a spin kernel
+    (``torch.cuda._sleep``) holds the stream for twice the time the
+    timed passes take to queue, so they run back to back behind it.
+    Without that a kernel shorter than its host call (a norm's tens of
+    microseconds) would time the host."""
+    import torch
+
     step = make_step()
     for _ in range(k):
         carry = chain(carry, step)
     sync(carry)
-    clock = _Clock(_cuda_device(carry))
+    device = _cuda_device(carry)
+    clock = _Clock(device)
+    if device is not None:
+        t0 = time.perf_counter()
+        for _ in range(k):
+            carry = chain(carry, step)
+        queue_s = time.perf_counter() - t0
+        sync(carry)
+        spin_s = min(2.0 * reps * queue_s + 1e-3, _SPIN_MAX_S)
+        with torch.cuda.device(device):
+            torch.cuda._sleep(int(spin_s * _SPIN_HZ))
     clock.start()
     for _ in range(reps * k):
         carry = chain(carry, step)

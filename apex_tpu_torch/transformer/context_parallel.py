@@ -21,9 +21,12 @@ axis (:mod:`apex_tpu_torch.transformer.parallel_state`): each rank holds
 - :func:`split_sequence`, :func:`gather_sequence` and
   :func:`context_parallel_positions`.
 
-The reference also has a jnp online-softmax ring for when Pallas is off;
-the port has no such switch, so its ring is always the flash ring (on
-CPU tensors the kernels' plain versions). K/V move with
+The reference also has a jnp online-softmax ring (``:85-156``) for when
+Pallas is off. The port's ring is the flash ring in every mode of
+``kernel_config``: under ``force("off")``, and on CPU tensors, its block
+calls take the flash kernels' plain versions, which give the same
+function; a second ring would add code and, without the flash ring's
+saved lse, memory, and no behaviour. K/V move with
 ``pipeline_parallel.p2p.shift_raw``, which stages CUDA tensors through
 pinned host memory over a gloo group and sends them as they are over
 NCCL.

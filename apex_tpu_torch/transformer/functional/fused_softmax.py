@@ -21,12 +21,21 @@ backward is the closed form ``scale * y * (g - sum(g * y))`` from the
 saved output alone, in plain PyTorch (``_softmax_bwd_math``, ``:298``),
 which the JAX package also leaves to XLA outside any Pallas kernel.
 
-Dispatch follows the input tensor: a CUDA tensor launches the kernels, a
-CPU tensor takes :func:`_causal_plain` or :func:`_masked_plain` and, for
-long rows, :func:`_blocked_plain`, which mirrors ``_pallas_blocked``'s
-two passes over k-blocks of ``_BLOCKED_BK`` keys. There is no fallback
-from a kernel to a plain version. :class:`FusedScaleMaskSoftmax` is the
-Megatron entry point over both.
+Dispatch is :func:`apex_tpu_torch.ops.kernel_config.dispatch`
+("fused_softmax"): a CUDA tensor launches the kernels; a CPU tensor takes
+the kernel path's structure in plain PyTorch, :func:`_causal_plain` or
+:func:`_masked_plain` and, for long rows, :func:`_blocked_plain`, which
+mirrors ``_pallas_blocked``'s two passes over k-blocks of
+``_BLOCKED_BK`` keys; ``force("off")`` takes the whole-row plain
+versions on any device, as the reference's jnp path.
+``FusedScaleMaskSoftmax``'s ``forward_fused_softmax`` and
+``forward_torch_softmax`` choose their path for their own call (the
+``mode`` of ``kernel_config.dispatch``), leaving the process-wide mode
+as it is.
+There is no fallback from a kernel to a plain version. The long-row
+passes' threads a block come from
+:func:`apex_tpu_torch.tuning.geometry.softmax_threads`.
+:class:`FusedScaleMaskSoftmax` is the Megatron entry point over both.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.tuning import geometry
 from apex_tpu_torch.transformer.enums import AttnMaskType
 
 _MASK_FILL = -10000.0
@@ -109,10 +119,12 @@ def _row_plan(x: torch.Tensor, y: torch.Tensor) -> RowPlan:
                          x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
 
 
-# x, mask, m, l (and y for apply), then as the masked kernel
+# x, mask, m, l (and y for apply), then as the masked kernel, then the
+# threads a block
 _BLOCKED_TAIL = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                  + [ctypes.c_longlong] * 5
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
 _STATS_ARGTYPES = [ctypes.c_void_p] * 4 + _BLOCKED_TAIL
 _APPLY_ARGTYPES = [ctypes.c_void_p] * 5 + _BLOCKED_TAIL
 
@@ -267,6 +279,7 @@ def _causal_cuda(x: torch.Tensor, scale: float) -> torch.Tensor:
                                       _build.stream_handle(x.device))
         _build.check(lib, rc, "fused_softmax_causal")
         causal_launches += 1
+        kernel_config.note_launch("fused_softmax_causal", (x,), (y,))
     return y
 
 
@@ -293,6 +306,7 @@ def _masked_cuda(x: torch.Tensor, mask: torch.Tensor,
             _build.stream_handle(x.device))
         _build.check(lib, rc, "fused_softmax_masked")
         masked_launches += 1
+        kernel_config.note_launch("fused_softmax_masked", (x,), (y,))
     return y
 
 
@@ -323,10 +337,11 @@ def _stats_cuda(x: torch.Tensor, mask: Optional[torch.Tensor],
     with torch.cuda.device(x.device):
         rc = lib.fused_softmax_stats(
             x.data_ptr(), mask_ptr, m.data_ptr(), l.data_ptr(), rows, sq,
-            sk, d1, *strides, float(scale), code,
+            sk, d1, *strides, float(scale), code, geometry.softmax_threads(sk),
             _build.stream_handle(x.device))
         _build.check(lib, rc, "fused_softmax_stats")
         stats_launches += 1
+        kernel_config.note_launch("fused_softmax_stats", (x,), (m, l))
     return m, l
 
 
@@ -349,9 +364,10 @@ def _apply_cuda(x: torch.Tensor, mask: Optional[torch.Tensor], scale: float,
         rc = lib.fused_softmax_apply(
             x.data_ptr(), mask_ptr, m.data_ptr(), l.data_ptr(), y.data_ptr(),
             rows, sq, sk, d1, *strides, float(scale), code,
-            _build.stream_handle(x.device))
+            geometry.softmax_threads(sk), _build.stream_handle(x.device))
         _build.check(lib, rc, "fused_softmax_apply")
         apply_launches += 1
+        kernel_config.note_launch("fused_softmax_apply", (x, m, l), (y,))
     return y
 
 
@@ -363,18 +379,20 @@ def _blocked_cuda(x: torch.Tensor, mask: Optional[torch.Tensor],
     return _apply_cuda(x, mask, scale, m, l)
 
 
-def _causal(x, scale):
-    if x.is_cuda:
+def _causal(x, scale, mode=None):
+    path = kernel_config.dispatch("fused_softmax", x, mode=mode)
+    if path == "kernel":
         return _causal_cuda(x.contiguous(), scale)
-    if x.shape[-1] > _WHOLE_ROW_MAX_SK:
+    if path == "interpret" and x.shape[-1] > _WHOLE_ROW_MAX_SK:
         return _blocked_plain(x, None, scale, causal=True)
     return _causal_plain(x, scale)
 
 
-def _masked(x, mask, scale):
-    if x.is_cuda:
+def _masked(x, mask, scale, mode=None):
+    path = kernel_config.dispatch("fused_softmax", x, mode=mode)
+    if path == "kernel":
         return _masked_cuda(x.contiguous(), mask, scale)
-    if x.shape[-1] > _WHOLE_ROW_MAX_SK:
+    if path == "interpret" and x.shape[-1] > _WHOLE_ROW_MAX_SK:
         return _blocked_plain(x, mask, scale, causal=False)
     return _masked_plain(x, mask, scale)
 
@@ -382,17 +400,13 @@ def _masked(x, mask, scale):
 class _FusedSoftmax(torch.autograd.Function):
     """Counterpart of the ``custom_vjp``s ``_causal_softmax`` and
     ``_masked_softmax``: ``mask`` None is causal, a boolean mask the
-    masked variant. ``plain`` takes the whole-row plain versions on any
-    device (``FusedScaleMaskSoftmax.forward_torch_softmax``). Saves only
-    the output."""
+    masked variant; ``mode`` is this call's dispatch mode (None: the
+    current one). Saves only the output."""
 
     @staticmethod
-    def forward(ctx, x, mask, scale: float, plain: bool = False):
-        if plain:
-            y = (_causal_plain(x, scale) if mask is None
-                 else _masked_plain(x, mask, scale))
-        else:
-            y = _causal(x, scale) if mask is None else _masked(x, mask, scale)
+    def forward(ctx, x, mask, scale: float, mode: Optional[str] = None):
+        y = (_causal(x, scale, mode) if mask is None
+             else _masked(x, mask, scale, mode))
         ctx.save_for_backward(y)
         ctx.scale = scale
         return y
@@ -447,15 +461,15 @@ class FusedScaleMaskSoftmax(torch.nn.Module):
             raise ValueError("softmax should be in fp32 when scaled")
 
     def forward(self, input, mask=None):
-        return self._route(input, mask, plain=False)
+        return self._route(input, mask)
 
-    def _route(self, input, mask, plain: bool):
+    def _route(self, input, mask, mode: Optional[str] = None):
         scale = float(self.scale if self.scale is not None else 1.0)
         if self.attn_mask_type == AttnMaskType.causal:
             b, np_, sq, sk = input.shape
             if mask is None:
                 out = _FusedSoftmax.apply(input.reshape(b * np_, sq, sk),
-                                          None, scale, plain)
+                                          None, scale, mode)
                 return out.reshape(b, np_, sq, sk)
             # causal + padding: the triangle always applies; the combined
             # mask keeps the padding mask's broadcast dims
@@ -465,7 +479,7 @@ class FusedScaleMaskSoftmax(torch.nn.Module):
             return _softmax_fp32(x, input.dtype)
         if mask is None:
             return scaled_masked_softmax(input, None, scale)
-        return _FusedSoftmax.apply(input, mask, scale, plain)
+        return _FusedSoftmax.apply(input, mask, scale, mode)
 
     def is_kernel_available(self, mask, b, np_, sq, sk) -> bool:
         """Whether the fused kernels run (``is_kernel_available``): on
@@ -482,14 +496,18 @@ class FusedScaleMaskSoftmax(torch.nn.Module):
         return 1
 
     def forward_fused_softmax(self, input, mask=None):
-        """Force the fused path (``fused_softmax.py:415``): the kernels,
-        so ``input`` must lie on the card."""
-        if not input.is_cuda:
+        """Force the fused path (``fused_softmax.py:415``): the kernels
+        (this call's dispatch mode "on"), so ``input`` must lie on the
+        card (under ``force("interpret")`` the kernel path's plain
+        versions, on any device)."""
+        mode = "interpret" if kernel_config.mode() == "interpret" else "on"
+        if mode == "on" and not input.is_cuda:
             raise RuntimeError("forward_fused_softmax runs the CUDA kernels: "
                                f"the input lies on {input.device}")
-        return self(input, mask)
+        return self._route(input, mask, mode)
 
     def forward_torch_softmax(self, input, mask=None):
         """The unfused path (``fused_softmax.py:425``): the plain
-        whole-row versions on any device."""
-        return self._route(input, mask, plain=True)
+        whole-row versions on any device (this call's dispatch mode
+        "off")."""
+        return self._route(input, mask, "off")

@@ -108,6 +108,27 @@ result line) when it fails:
                phases from that attribution; the CLIs (``report``,
                ``trace`` of the span dump and of the trace, ``memory``,
                ``goodput``, ``python -m apex_tpu_torch.pyprof``).
+6c. tuning -- the tuner (``apex_tpu_torch.tuning``) on the card: every
+               candidate launch plan of every kernel at its default
+               shape, pinned through the real dispatch path, against the
+               kernel path's plain version (the kernels phase's
+               tolerances; the fp8 cast bit for bit); ``tune_all`` racing
+               them live into its own cache file under the git-ignored
+               ``build/tuning`` (it parses, is keyed by the card's name,
+               every entry ``measured``), one line a
+               kernel (best plan and ms, the default plan's ms, the plain
+               version's ms, the candidate count); the Llama-3-8B-width
+               step (4 layers) and the GPT-2 345M step untuned, tuned and
+               untuned again (the norms' plans ``tuned`` by
+               ``geometry``, the same launches, the tuned step's loss
+               within TUNED_LOSS_REL of the untuned forward's at the same
+               params, each step's ms); the dispatch switch on CUDA
+               tensors (``force("off")`` launches nothing and ticks
+               ``kernels/plain_dispatch``, ``"on"`` and ``"auto"`` launch,
+               a cache entry whose race the plain version won changes
+               nothing, ``forward_torch_softmax`` takes the plain version
+               for its own call). Every other phase reads a tuning cache
+               that does not exist: the untuned plans.
 7. profile  -- only with ``--profile``: one more training step under
                ``torch.profiler``, the device's busy share and its time
                by kernel (after phases 8 and 9 too).
@@ -141,7 +162,15 @@ result line) when it fails:
                DELTA of the full-sequence forward), and the checkpoint's
                costs: each loop's start-up seconds, an async save's host
                seconds, the steps it overlaps (wall and device ms), save
-               to commit, GB/s.
+               to commit, GB/s. The ``nan_grads`` fault's NaN provenance:
+               ``inherited``, naming every poisoned path, from one replay
+               of the step (its launches counted with the steps'). Then
+               the probe with a hand-written kernel as the origin: a
+               loop's step runs the flash forward on finite q and k
+               whose scores overflow fp32 inside the kernel (``origin``
+               at ``flash_fwd``, the caller's state bit for bit, probe on
+               or off), and an origin in a backward on the autograd
+               engine's device thread.
 9. bert_training -- bench.py's BERT-base step (12 layers, h 768), batch
                8 x 512 with the 15% masking, plus a padding mask (each
                row's length drawn from the seed in [128, 512], row 0
@@ -542,6 +571,20 @@ RESILIENT_CKPTS = 4
 # each write
 COST_SAVES, COST_STEPS = 1, 3
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
+
+# the tuning cache: every phase but `tuning` reads a file that does not
+# exist under the checkout's git-ignored build/tuning (so no cache outside
+# the checkout changes what a phase runs, and every launch plan is the
+# untuned one); the tuning phase tunes into a file of its own there, runs
+# the Llama-3-8B-width and GPT-2 345M steps again under it (TUNED_STEPS
+# each, in turns with as many untuned steps) and removes it
+TUNING_DIR = ROOT / "build" / "tuning"
+UNTUNED_CACHE = TUNING_DIR / "untuned.json"
+TUNED_CACHE = TUNING_DIR / "tuned.json"
+TUNED_STEPS = 3
+# a tuned plan changes a norm's reduction order and nothing else: the
+# loss of a step under it within this of the same step's untuned loss
+TUNED_LOSS_REL = 1e-3
 
 # bench.py's BERT-base step (bench.py:631-640), plus padding: each row's
 # valid length is drawn in [BERT_MIN_LEN, BERT_SEQ], row 0 full
@@ -4049,6 +4092,388 @@ def phase_gpt2_training(dev):
             "launches": total, "expected_per_step": want}
 
 
+# ------------------------------------------------------------- tuning
+
+
+def use_tuning_cache(path: Path) -> None:
+    """Point dispatch (and every rank launched after) at the tuning
+    cache ``path`` and forget the one read before."""
+    from apex_tpu_torch.ops import kernel_config
+
+    os.environ["APEX_TPU_TUNING_CACHE"] = str(path)
+    kernel_config.refresh_tuning()
+
+
+def tuning_parity(kernel: str, got, ref, what: str) -> float:
+    """A candidate's outputs against the kernel path's plain version,
+    within the kernels phase's tolerance for that row; the largest
+    absolute error."""
+    import torch
+
+    if kernel == "fp8_cast":
+        assert_fp8_equal(got[0], ref[0], what)
+        if float(got[1]) != float(ref[1]):
+            raise AssertionError(f"{what}: amax {float(got[1])} != "
+                                 f"{float(ref[1])}")
+        return 0.0
+    if kernel == "flat_adam":
+        delta, m, v = got
+        torch.testing.assert_close(m, ref[1], rtol=2e-6, atol=0)
+        torch.testing.assert_close(v, ref[2], rtol=2e-6, atol=0)
+        torch.testing.assert_close(delta.float(), ref[0].float(), atol=0,
+                                   rtol=8e-3)
+        return float((delta.float() - ref[0].float()).abs().max())
+    if kernel == "fused_softmax":
+        torch.testing.assert_close(got[0].float(), ref[0].float(),
+                                   rtol=8e-3, atol=1e-6)
+        return float((got[0].float() - ref[0].float()).abs().max())
+    return max(max_err(g, r, 8e-3, f"{what} output {i}")
+               for i, (g, r) in enumerate(zip(got, ref)))
+
+
+def check_candidates(kernel: str, dims: dict) -> dict:
+    """Every candidate plan of ``kernel`` at ``dims``, pinned through the
+    real dispatch path under ``force("on")``, against the kernel path's
+    plain version (``force("interpret")``: the long-row softmax's two
+    passes, the others' one) on the same inputs."""
+    import torch
+
+    from apex_tpu_torch.ops import kernel_config
+    from apex_tpu_torch.tuning import geometry, measure, search_space
+
+    runner = measure.live_runner(kernel, dims)
+    with kernel_config.force("interpret"):
+        ref = runner.outputs()
+    before = read_counts()
+    errs = []
+    cands = search_space.candidates(kernel, **dims)
+    for params in cands:
+        with geometry.override(kernel, params), kernel_config.force("on"):
+            got = runner.outputs()
+        errs.append(tuning_parity(kernel, got, ref, f"{kernel} {params}"))
+        del got
+    moved = {k: v for k, v in counts_delta(before).items() if v}
+    del runner, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"candidates": len(cands), "max_abs_err": max(errs),
+            "launches": moved}
+
+
+def tuned_steps(model: str) -> dict:
+    """One model's train step in turns untuned and tuned: the untuned
+    steps first (the first allocates the optimizer state), then
+    TUNED_STEPS under TUNED_CACHE, then TUNED_STEPS untuned again. The
+    tuned step's loss at given params within TUNED_LOSS_REL of the
+    untuned forward's at the same params; the same launches a step;
+    ``geometry`` reporting ``tuned`` for the step's norms."""
+    import statistics
+
+    import torch
+
+    from apex_tpu_torch.models import gpt2, llama
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.tuning import geometry
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if model == "llama3_8b":
+        cfg = llama.llama3_8b(num_layers=TRAIN_LAYERS)
+        params = llama.init_params(gen, cfg, device="cuda")
+        shape, norm = (TRAIN_BATCH, TRAIN_SEQ), "rms_norm"
+        tx = fused_adam(lr=TRAIN_LR, flat=True)
+        L = cfg.num_layers
+        want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "rms_norm_fwd": 2 * L + 1,
+                "rms_norm_bwd": 2 * L + 1, "fused_adam": 1}
+
+        def loss_of(p, batch):
+            return llama.loss_fn(p, batch, cfg, remat=False)
+
+        def train(p, opt, batch):
+            return llama.train_step(p, opt, batch, cfg, tx, remat=False)
+    else:
+        cfg = gpt2.gpt2_345m()
+        params = gpt2.init_params(gen, cfg, device="cuda")
+        shape, norm = (GPT2_BATCH, GPT2_SEQ), "layer_norm"
+        tx = fused_adam(lr=GPT2_LR)
+        L = cfg.num_layers
+        want = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                "fused_softmax_causal": 2 * L}
+
+        def loss_of(p, batch):
+            return gpt2.loss_fn(p, batch, cfg, remat=True,
+                                vocab_chunks=GPT2_CHUNKS)
+
+        def train(p, opt, batch):
+            return gpt2.train_step(p, opt, batch, cfg, tx, remat=True,
+                                   vocab_chunks=GPT2_CHUNKS)
+    want = dict({k: 0 for k in read_counts()}, **want)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                           device="cuda")
+    batch = (tokens, torch.roll(tokens, -1, dims=-1))
+    state = {"params": params, "opt": tx.init(params)}
+
+    def step():
+        state["params"], state["opt"], loss = train(state["params"],
+                                                    state["opt"], batch)
+        return loss
+
+    rows, h = shape[0] * shape[1], cfg.hidden_size
+    out = {"model": model, "num_layers": L, "norm": norm,
+           "norm_rows": rows, "hidden": h}
+    runs = {}
+    for turn, path in (("untuned", UNTUNED_CACHE), ("tuned", TUNED_CACHE),
+                       ("untuned_again", UNTUNED_CACHE)):
+        # the untuned forward's loss at the params the turn starts from
+        use_tuning_cache(UNTUNED_CACHE)
+        with torch.no_grad():
+            forward = float(loss_of(state["params"], batch))
+        use_tuning_cache(path)
+        out[f"{turn}_plan_source"] = geometry.source(norm, rows=rows, h=h)
+        steps = TUNED_STEPS + (1 if turn == "untuned" else 0)
+        losses, step_ms, counts = run_steps(step, steps)
+        if any(c != want for c in counts):
+            raise AssertionError(f"{model} {turn} launches per step {counts} "
+                                 f"!= {want}")
+        rel = abs(losses[0] - forward) / abs(forward)
+        runs[turn] = {"forward_loss": forward, "losses": losses,
+                      "step_ms": step_ms, "first_loss_rel": rel}
+    use_tuning_cache(UNTUNED_CACHE)
+    if out["tuned_plan_source"] != "tuned" or out[
+            "untuned_plan_source"] != "default":
+        raise AssertionError(f"{model}: the {norm} plan's source untuned "
+                             f"{out['untuned_plan_source']}, tuned "
+                             f"{out['tuned_plan_source']}")
+    if not runs["tuned"]["first_loss_rel"] <= TUNED_LOSS_REL:
+        raise AssertionError(f"{model}: the tuned step's loss is "
+                             f"{runs['tuned']['first_loss_rel']} of the "
+                             f"untuned forward's, over {TUNED_LOSS_REL}")
+    if not all(math.isfinite(x) for r in runs.values()
+               for x in r["losses"]):
+        raise AssertionError(f"{model}: non-finite loss {runs}")
+    untuned_ms = runs["untuned"]["step_ms"][1:] + runs["untuned_again"][
+        "step_ms"]
+    out.update(runs=runs, launches_per_step=want,
+               untuned_step_ms_median=statistics.median(untuned_ms),
+               tuned_step_ms_median=statistics.median(
+                   runs["tuned"]["step_ms"]))
+    del state, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_switch() -> dict:
+    """The dispatch switch on CUDA tensors, under the tuned cache:
+    ``force("off")`` moves no launch counter and ticks
+    ``kernels/plain_dispatch``; ``force("on")`` and ``"auto"`` launch; a
+    cache verdict (a use_kernel False entry for this very shape) changes
+    nothing; ``forward_torch_softmax`` takes the plain version for its
+    own call, ticking the counter, and leaves the mode as it was."""
+    import torch
+
+    from apex_tpu_torch.observability import MetricRegistry, set_registry
+    from apex_tpu_torch.ops import kernel_config
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.transformer.functional import fused_softmax as fs
+    from apex_tpu_torch.tuning import cache
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    x = torch.randn(64, 1024, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.ones(1024, device="cuda", dtype=torch.bfloat16)
+    reg = MetricRegistry()
+    prev = set_registry(reg)
+    launched = {}
+    try:
+        data = cache.load(str(TUNED_CACHE))
+        cache.put(data, cache.current_device_kind(), "rms_norm",
+                  "rows~64,h=1024", {"params": {"row_threads": 128,
+                                                "rows_per_block": 1,
+                                                "blocks": 64},
+                                     "use_kernel": False,
+                                     "source": "measured"})
+        cache.save(data, str(TUNED_CACHE))
+        use_tuning_cache(TUNED_CACHE)
+        for name, mode in (("off", "off"), ("on", "on"), ("auto", "auto")):
+            before = ln.launches
+            with kernel_config.force(mode):
+                y = ln.rms_norm(x, w, 1024)
+            launched[name] = ln.launches - before
+            if name == "off":
+                y_off = y
+        max_err(y, y_off, 8e-3, "rms_norm on against off")
+        before = ln.launches
+        ln.rms_norm(x, w, 1024)
+        launched["cache_verdict_false"] = ln.launches - before
+        s = torch.randn(1, 2, 64, 64, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        before = fs.causal_launches
+        fs.FusedScaleMaskSoftmax(scale=0.5).forward_torch_softmax(s)
+        launched["torch_softmax"] = fs.causal_launches - before
+        if kernel_config.mode() != "auto":
+            raise AssertionError(f"forward_torch_softmax left the mode "
+                                 f"{kernel_config.mode()}")
+        ticks = {m.labels.get("kernel"): m.value for m in reg.metrics()
+                 if m.name == "kernels/plain_dispatch"}
+    finally:
+        set_registry(prev)
+        use_tuning_cache(UNTUNED_CACHE)
+    want = {"off": 0, "on": 1, "auto": 1, "cache_verdict_false": 1,
+            "torch_softmax": 0}
+    if launched != want or ticks != {"rms_norm": 1, "fused_softmax": 1}:
+        raise AssertionError(f"switch launches {launched} != {want}, "
+                             f"plain_dispatch ticks {ticks}")
+    return {"launches": launched, "plain_dispatch": ticks}
+
+
+def phase_tuning(dev):
+    """The tuner on the card: every candidate plan of every kernel at its
+    default shape against the plain version; ``tune_all`` racing them
+    live into TUNED_CACHE (the file parses, keyed by the card's name,
+    every entry measured); one line a kernel; the
+    Llama-3-8B-width and GPT-2 345M steps untuned, tuned, untuned; the
+    switch's modes on CUDA tensors."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.tuning import cache, search_space, tuner
+
+    t0 = time.monotonic()
+    parity = {k: check_candidates(k, tuner.DEFAULT_SHAPES[k])
+              for k in search_space.KERNELS}
+    parity_s = time.monotonic() - t0
+    TUNED_CACHE.unlink(missing_ok=True)
+    use_tuning_cache(TUNED_CACHE)
+    reg = MetricRegistry()
+    t1 = time.monotonic()
+    try:
+        results = tuner.tune_all(registry=reg, log=lambda msg: None)
+    finally:
+        use_tuning_cache(UNTUNED_CACHE)
+    tune_s = time.monotonic() - t1
+    failed = [r for r in results if "error" in r]
+    if failed:
+        raise AssertionError(f"tune_all failed: {failed}")
+    data = cache.load(str(TUNED_CACHE))
+    kind = torch.cuda.get_device_name()
+    entries = data["entries"]
+    flat = [(k, b, e) for k, buckets in entries.get(kind, {}).items()
+            for b, e in buckets.items()]
+    if (set(entries) != {kind} or len(flat) != len(search_space.KERNELS)
+            or any(e["source"] != "measured" for _, _, e in flat)):
+        raise AssertionError(f"tuned cache {TUNED_CACHE}: {entries}")
+    lines = []
+    for r in results:
+        e = r["entry"]
+        line = {"tuning_kernel": r["kernel"], "bucket": r["bucket"],
+                "best_plan": e["params"], "best_ms": e["kernel_ms"],
+                "default_plan": r["default_params"],
+                "default_ms": r["default_ms"], "plain_ms": e["plain_ms"],
+                "candidates": len(r["ranking"]),
+                "use_kernel": e["use_kernel"]}
+        emit(line)
+        lines.append(line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = {}
+    for model in ("llama3_8b", "gpt2_345m"):
+        steps[model] = tuned_steps(model)
+    switch = check_switch()
+    events = [e["name"] for e in reg.events()]
+    counters = {m.name + "".join(f"{{{k}={v}}}" for k, v in
+                                 sorted(m.labels.items())): m.value
+                for m in reg.metrics() if m.kind == "counter"}
+    shutil.rmtree(TUNING_DIR, ignore_errors=True)
+    return {"phase": "tuning", "device_kind": kind,
+            "candidates": parity, "candidates_s": parity_s,
+            "tune_all_s": tune_s, "kernels": lines,
+            "cache_entries": len(flat), "events": events,
+            "counters": counters, "steps": steps, "switch": switch,
+            "phase_s": time.monotonic() - t0}
+
+
+def check_kernel_provenance() -> dict:
+    """The NaN probe with a hand-written kernel as the origin, in the
+    resilient loop: a step runs the flash forward on state q and k
+    scaled by a gain that grows 1e19-fold a step, so at step 1 the
+    entries (1e19) are finite but their scores overflow fp32 inside the
+    kernel. The loop (no checkpoint, no rollback left) aborts at step 1
+    with the provenance ``origin`` at ``flash_fwd``, from a replay of the
+    step on the pre-step state; the caller's state is bit for bit what
+    it was, probe on or off. Then a backward on the autograd engine's
+    device thread: the op that divides by zero there is the origin."""
+    import torch
+
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.observability.numerics import nan_probe
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.resilience import ResilientTrainLoop, TrainAborted
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    start = {t: torch.randn(1, 256, 4, 128, generator=g, device="cuda")
+             for t in ("q", "k", "v")}
+    start["gain"] = torch.ones((), device="cuda")
+    digest0 = state_digests(start)
+
+    def step_fn(state, step):
+        o = fa.flash_attention(state["q"] * state["gain"],
+                               state["k"] * state["gain"], state["v"],
+                               causal=True)
+        return dict(state, gain=state["gain"] * 1e19, o=o), {}
+
+    out = {}
+    for probe_on in (True, False):
+        reg = MetricRegistry()
+        loop = ResilientTrainLoop(step_fn, registry=reg, max_rollbacks=0,
+                                  numerics_provenance=probe_on,
+                                  memory_forensics=False)
+        before = fa.launches
+        try:
+            loop.run(start, 2)
+            raise AssertionError("the overflowing step was not refused")
+        except TrainAborted as e:
+            report = e.report
+        launched = fa.launches - before
+        if state_digests(start) != digest0:
+            raise AssertionError("the loop moved its caller's state")
+        out["probe_on" if probe_on else "probe_off"] = {
+            "flash_fwd_launches": launched,
+            "numerics": report.get("numerics")}
+    prov = out["probe_on"]["numerics"]
+    if (prov["kind"], prov["primitive"]) != ("origin", "flash_fwd") or \
+            out["probe_on"]["flash_fwd_launches"] != 3 or \
+            out["probe_off"]["numerics"] is not None:
+        raise AssertionError(f"kernel provenance {out}")
+
+    class DivideByZero(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 1.0
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad / torch.zeros_like(grad)
+
+    def backward_step(x, w):
+        x = x.clone().requires_grad_()
+        ln.rms_norm(DivideByZero.apply(x), w, 1024).float().sum().backward()
+        return x.grad
+
+    x = torch.randn(16, 1024, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.ones(1024, device="cuda", dtype=torch.bfloat16)
+    before = ln.bwd_launches
+    back = nan_probe.probe_fn(backward_step, x, w).as_dict()
+    if (back["kind"], back["primitive"]) != ("origin", "div") or \
+            "backward" not in (back["source"] or "") or \
+            ln.bwd_launches != before + 1:
+        raise AssertionError(f"backward provenance {back}")
+    out["engine_thread_backward"] = back
+    return out
+
+
 def state_digests(state) -> list:
     """(path, SHA-1 of the bytes) of every leaf of a state tree, in leaf
     order, each copied to the host in turn."""
@@ -4089,6 +4514,7 @@ def phase_gpt2_resilient(dev):
     from apex_tpu_torch import checkpoint as ckpt
     from apex_tpu_torch.models import gpt2
     from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.observability.numerics import stats
     from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.resilience import (
         FaultInjected,
@@ -4197,10 +4623,25 @@ def phase_gpt2_resilient(dev):
                              f"{bad[:5]}")
     events = resilient_events(reg)
     executed = sum(1 for name, _ in events if name == "step_done")
+    # the NaN probe replays the poisoned step once (on a copy of the
+    # failed state: the step updates its params in place, so no pre-step
+    # values are left), and that replay launches a step's kernels too
+    calls = len(device_ms)
+    provenance = [e["fields"] for e in reg.events()
+                  if e["name"] == "numerics_provenance"]
+    # corrupt_tree poisons every floating leaf
+    poisoned = list(stats.leaf_paths(init_state(SEED)))
+    if (calls != executed + 1 or len(provenance) != 1
+            or provenance[0]["step"] != 1
+            or provenance[0]["kind"] != "inherited"
+            or provenance[0]["output_paths"] != poisoned):
+        raise AssertionError(f"gpt2_resilient: {calls} step calls for "
+                             f"{executed} steps, provenance {provenance}, "
+                             f"want the poisoned paths {poisoned}")
     want = dict({k: 0 for k in counts},
-                layer_norm_fwd=(4 * L + 1) * executed,
-                layer_norm_bwd=(2 * L + 1) * executed,
-                fused_softmax_causal=2 * L * executed)
+                layer_norm_fwd=(4 * L + 1) * calls,
+                layer_norm_bwd=(2 * L + 1) * calls,
+                fused_softmax_causal=2 * L * calls)
     if counts != want:
         raise AssertionError(f"gpt2_resilient launches {counts} != {want}")
     counters = {m.name + "".join(f"{{{k}={v}}}" for k, v in
@@ -4247,7 +4688,8 @@ def phase_gpt2_resilient(dev):
                if e["name"] == "attempt_start"]
     chaos = {"plan": RESILIENT_PLAN, "preempted": preempted,
              "resumed_from": second.resumed_from, "events": events,
-             "steps_executed": executed, "counters": counters,
+             "steps_executed": executed, "step_calls": calls,
+             "numerics_provenance": provenance[0], "counters": counters,
              "valid_steps": valid, "sha1": digest(got),
              "launches": counts, "expected": want,
              "peak_memory_bytes": peak,
@@ -4264,6 +4706,7 @@ def phase_gpt2_resilient(dev):
     # below step them further)
     params = final["params"]
     generated = gpt2_generate_check(params, cfg)
+    kernel_provenance = check_kernel_provenance()
 
     # ---- the checkpoint's costs: an async save's host seconds (the
     # first allocates the pinned buffers), the steps it overlaps, and the
@@ -4304,7 +4747,8 @@ def phase_gpt2_resilient(dev):
             "chaos": chaos, "costs": costs,
             "emergency_write_gb_per_s": ckpt_bytes / chaos[
                 "emergency_save_s"] / 1e9,
-            "generate": generated, "launches": counts}
+            "generate": generated, "kernel_provenance": kernel_provenance,
+            "launches": counts}
 
 
 def gpt2_generate_check(params, cfg):
@@ -12168,7 +12612,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     if "--ddp-worker" in sys.argv[1:]:
+        use_tuning_cache(UNTUNED_CACHE)
         return ddp_worker(sys.argv[sys.argv.index("--ddp-worker") + 1:])
+    # every phase but `tuning` runs the untuned plans: its cache file does
+    # not exist
+    import shutil
+
+    shutil.rmtree(TUNING_DIR, ignore_errors=True)
+    use_tuning_cache(UNTUNED_CACHE)
     profiling = "--profile" in sys.argv[1:]
     phase = "device"
     try:
@@ -12227,6 +12678,11 @@ def main() -> int:
         reset_counts()
         amp_training = phase_amp_training(dev, training, profiling)
         emit(amp_training)
+        phase = "tuning"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        emit(phase_tuning(dev))
         results = {}
         for path, run in (
                 ("gpt2_training", phase_gpt2_training),

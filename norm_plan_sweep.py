@@ -5,13 +5,15 @@
 For each shape the paths run (LayerNorm at GPT-2's 8192 x 1024 and BERT's
 4096 x 768; RMSNorm at Llama's 4096 x 4096, serving's 512-token prefill
 512 x 4096 and its decode step 8 x 4096; bf16 x with bf16 params) every
-register-path plan of ``norm.cuh``'s limits is run once against the plain
-version and timed by ``chip_smoke.time_ms`` (device ms, inputs rotated
-past the L2): a power of two of threads a row from the fewest that hold
+candidate plan of ``apex_tpu_torch.tuning.search_space`` (the tuner's own
+enumeration: a power of two of threads a row from the fewest that hold
 the row at 4 vectors a thread to a vector a thread, rows a block up to 512
 threads, and block counts from all the row groups down to a quarter of
-1056. One JSON line a shape lists the plans fastest first beside
-``_fwd_plan``'s choice; the first line is the card's ``nvidia-smi`` line.
+1056) is run once against the plain version through the real dispatch
+path (``tuning.geometry.override``) and timed by ``chip_smoke.time_ms``
+(device ms, inputs rotated past the L2). One JSON line a shape lists the
+plans fastest first beside ``_fwd_plan``'s choice; the first line is the
+card's ``nvidia-smi`` line.
 """
 
 from __future__ import annotations
@@ -26,24 +28,12 @@ SHAPES = ((8192, 1024, True), (4096, 768, True), (4096, 4096, False),
           (512, 4096, False), (8, 4096, False))
 
 
-def candidates(ln, rows: int, h: int):
-    """Every register-path plan for bf16 rows of h the kernel takes."""
-    nvec = h // 8
-    fewest = 32
-    while fewest * ln.ROW_VECS < nvec:
-        fewest *= 2
-    threads = fewest
-    while threads <= min(ln.MAX_ROW_THREADS, max(fewest, nvec)):
-        per_block = 1
-        while per_block * threads <= ln.MAX_ROW_THREADS:
-            groups = -(-rows // per_block)
-            for blocks in sorted({groups, *(min(groups, b)
-                                            for b in (1056, 528, 264))}):
-                yield ln.FwdPlan(threads, per_block, blocks, True)
-            if per_block >= rows:
-                break
-            per_block *= 2
-        threads *= 2
+def plans(rows: int, h: int, centred: bool) -> list:
+    """The tuner's candidate plans (params dicts) for bf16 rows of h."""
+    from apex_tpu_torch.tuning import search_space
+
+    kernel = "layer_norm" if centred else "rms_norm"
+    return search_space.candidates(kernel, rows=rows, h=h)
 
 
 def main() -> int:
@@ -55,12 +45,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.tuning import geometry
 
     if not torch.cuda.is_available():
         print("norm_plan_sweep: no CUDA device", file=sys.stderr)
         return 1
     print(cs.nvidia_smi_line(), flush=True)
-    chosen = ln._fwd_plan
     g = torch.Generator(device="cuda").manual_seed(cs.SEED)
     for rows, h, centred in SHAPES:
         w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
@@ -76,18 +66,18 @@ def main() -> int:
 
         ref = (ln._ln_fwd_plain(sets[0][0], w, b, 1e-5)[0] if centred
                else ln._rms_fwd_plain(sets[0][0], w, 1e-5)[0])
+        kernel = "layer_norm" if centred else "rms_norm"
         timed = []
-        for plan in candidates(ln, rows, h):
-            ln._fwd_plan = lambda *a, plan=plan, **k: plan
-            cs.max_err(call(sets[0][0])[0], ref, 8e-3, f"plan {plan}")
-            timed.append((cs.time_ms(call, sets, args.iters), plan))
-        ln._fwd_plan = chosen
+        for plan in plans(rows, h, centred):
+            with geometry.override(kernel, plan):
+                cs.max_err(call(sets[0][0])[0], ref, 8e-3, f"plan {plan}")
+                timed.append((cs.time_ms(call, sets, args.iters), plan))
         timed.sort(key=lambda t: t[0])
         print(json.dumps({
             "shape": [rows, h], "norm": "layer" if centred else "rms",
-            "chosen": chosen(rows, h, torch.bfloat16)._asdict(),
+            "chosen": ln._fwd_plan(rows, h, torch.bfloat16)._asdict(),
             "chosen_ms": cs.time_ms(call, sets, args.iters),
-            "plans": [dict(p._asdict(), ms=ms) for ms, p in timed]}),
+            "plans": [dict(p, ms=ms) for ms, p in timed]}),
             flush=True)
         del sets
     return 0

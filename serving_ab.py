@@ -8,10 +8,14 @@ turn (parent, change, change, parent; with more roots, each root in
 order and then in reverse) a fresh Python process imports
 ``chip_smoke.py`` from that root, builds its kernels there, makes the
 default stream's fp8 cast scratch (as ``chip_smoke.py``'s kernels phase
-does), and runs its ``phase_serving``, ``phase_profile`` and
-``phase_serving_fp8``. Each turn prints one JSON line (tokens/s, TTFT,
-latency, the tokens' SHA-1, the profile's decode step and idle share);
-a one-line summary a turn follows. Compare two versions only inside one
+does), times the host's cost of a wrapper call (the median of 5 passes of
+4000 back-to-back calls of the fp8 cast on 4096 bf16 elements and of
+RMSNorm on 8 x 4096, whose kernels take less than their calls, so the
+wall time a call is the host's), and runs its ``phase_serving``,
+``phase_profile`` and ``phase_serving_fp8``. Each turn prints one JSON
+line (tokens/s, TTFT, latency, the tokens' SHA-1, the profile's decode
+step and idle share, the calls' host µs); a one-line summary a turn
+follows. Compare two versions only inside one
 such run: two runs may land on different cards.
 """
 
@@ -22,7 +26,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import gc, importlib.util, json, sys
+import gc, importlib.util, json, statistics, sys, time
 root = sys.argv[1]
 sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("chip_smoke", root + "/chip_smoke.py")
@@ -31,10 +35,35 @@ spec.loader.exec_module(cs)
 import torch
 dev = cs.phase_device()
 cs.phase_build()
+if hasattr(cs, "use_tuning_cache"):
+    # the untuned plans, as chip_smoke.py's main() reads them
+    cs.use_tuning_cache(cs.UNTUNED_CACHE)
 from apex_tpu_torch.ops import fp8_cast_kernel as fc
 fc._cast_and_scale_cuda(torch.ones(64, device="cuda", dtype=torch.bfloat16),
                         1.0, torch.float8_e4m3fn, 448.0)
 torch.cuda.synchronize()
+from apex_tpu_torch.ops import layer_norm as ln
+
+
+def host_us(call, n=4000):
+    for _ in range(200):
+        call()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+xc = torch.randn(4096, device="cuda").to(torch.bfloat16)
+xn = torch.randn(8, 4096, device="cuda").to(torch.bfloat16)
+wn = torch.ones(4096, device="cuda", dtype=torch.bfloat16)
+calls = {"fp8_cast": lambda: fc.cast_and_scale_stats(
+             xc, 1.0, torch.float8_e4m3fn, 448.0),
+         "rms_norm": lambda: ln.rms_norm(xn, wn, 4096)}
+host = {k: statistics.median(host_us(c) for _ in range(5))
+        for k, c in calls.items()}
 cs.reset_counts()
 params, cfg, native, serving = cs.phase_serving()
 prof = cs.phase_profile(params, cfg)
@@ -46,6 +75,7 @@ keys = ("tokens_sha1", "tokens_per_s", "wall_s", "ttft_p50_ms",
         "peak_memory_bytes", "decode_steps", "replayed_step", "capture_s")
 pick = lambda r: {k: r[k] for k in keys if k in r}
 print(json.dumps({"root": root, "device": dev["nvidia_smi"],
+                  "host_us_per_call": host,
                   "serving": pick(serving), "serving_fp8": pick(fp8),
                   "profile": {k: v for k, v in prof.items()
                               if k != "top_kernels"}}), flush=True)
@@ -62,7 +92,8 @@ def summary(turn: dict) -> str:
             f"{f['tokens_sha1'][:8]} | decode step mean "
             f"{p['decode_step_ms_mean']:.3f} ms, median "
             f"{p.get('decode_step_ms_median')}, idle "
-            f"{p['device_idle_share']:.4f}")
+            f"{p['device_idle_share']:.4f} | host us a call "
+            f"{json.dumps(turn.get('host_us_per_call'))}")
 
 
 def main() -> int:

@@ -2158,3 +2158,194 @@ def test_fleet_probe_on_the_card_is_bit_for_bit(one_rank, gen):
         assert probe.last_collective() == "ddp/bucket/bfloat16"
     finally:
         probe.reset()
+
+
+# ------------------------------------- the tuner's plans and the switch
+
+# small shapes of each tuned kernel, as the tuner's dims
+TUNING_SMALL = {
+    "rms_norm": {"rows": 96, "h": 4096},
+    "layer_norm": {"rows": 300, "h": 1024},
+    "flat_adam": {"n": 100003},
+    "fp8_cast": {"n": 1 << 20},
+    "fused_softmax": {"rows": 2 * 64, "sq": 64, "sk": 20000},
+}
+TUNING_TOL = {"rms_norm": 8e-3, "layer_norm": 8e-3,
+              "fp8_cast": 0.0, "fused_softmax": 8e-3}
+
+
+def _as_float(t):
+    return t.view(torch.uint8).float() if t.element_size() == 1 else t.float()
+
+
+@pytest.mark.parametrize("kernel", sorted(TUNING_SMALL))
+def test_every_tuning_candidate_matches_plain(gen, kernel):
+    """Every candidate plan of the search space, pinned through the real
+    dispatch path, against the plain version on the same inputs (the fp8
+    cast bit for bit)."""
+    from apex_tpu_torch.ops import kernel_config
+    from apex_tpu_torch.tuning import geometry, measure, search_space
+
+    dims = TUNING_SMALL[kernel]
+    runner = measure.live_runner(kernel, dims)
+    with kernel_config.force("off"):
+        ref = [_as_float(t) for t in runner.outputs()]
+    cands = search_space.candidates(kernel, **dims)
+    assert cands
+    for params in cands:
+        with geometry.override(kernel, params), kernel_config.force("on"):
+            got = [_as_float(t) for t in runner.outputs()]
+        for g, r in zip(got, ref):
+            if kernel == "flat_adam":
+                # every operation rounded on its own, as the plain
+                # version's: within one bf16 ulp of each delta
+                torch.testing.assert_close(g, r, rtol=8e-3, atol=0)
+                continue
+            scale = float(r.abs().max()) or 1.0
+            err = float((g - r).abs().max())
+            assert err <= TUNING_TOL[kernel] * scale, (params, err, scale)
+
+
+def test_a_plan_the_kernel_cannot_run_is_refused(gen):
+    """The C entry points return cudaErrorInvalidValue (1) for threads
+    they are not compiled for or a grid they cannot take, and launch
+    nothing: the output stays as it was."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import fp8_cast_kernel as fc
+
+    n = 4096
+    g = torch.randn(n, generator=gen, device="cuda")
+    p = torch.randn(n, generator=gen, device="cuda").bfloat16()
+    m, v = torch.zeros(n, device="cuda"), torch.ones(n, device="cuda")
+    delta = torch.full((n,), 7.0, device="cuda").bfloat16()
+    lib = fak._lib()
+    stream = _build.stream_handle(g.device)
+    for threads, blocks in ((96, 8), (2048, 8), (256, 0)):
+        rc = lib.adam_flat(g.data_ptr(), p.data_ptr(), m.data_ptr(),
+                           v.data_ptr(), delta.data_ptr(), n, 1e-3, 1.0,
+                           1.0, 0.9, 0.1, 0.999, 0.001, 1e-8, 0.0, 1, 1, 1,
+                           threads, blocks, stream)
+        assert rc == 1
+    torch.cuda.synchronize()
+    assert bool((delta == 7.0).all()) and bool((m == 0).all())
+    x = torch.randn(n, generator=gen, device="cuda").bfloat16()
+    y = torch.zeros(n, dtype=torch.uint8, device="cuda")
+    amax = torch.zeros((), device="cuda")
+    scratch = fc._scratch(x.device)
+    cl = fc._lib()
+    for threads, bps in ((96, 8), (256, 0), (256, 17)):
+        rc = cl.fp8_cast_scale(x.data_ptr(), y.data_ptr(), n, 1, 0, None,
+                               1.0, 448.0, amax.data_ptr(),
+                               scratch.data_ptr(), fc.AMAX_SLOTS, threads,
+                               bps, stream)
+        assert rc == 1
+    x3 = torch.randn(4, 20000, generator=gen, device="cuda").bfloat16()
+    mm = torch.full((4,), 3.0, device="cuda")
+    ll = torch.full((4,), 3.0, device="cuda")
+    sl = sm._lib()
+    rc = sl.fused_softmax_stats(x3.data_ptr(), None, mm.data_ptr(),
+                                ll.data_ptr(), 4, 4, 20000, 1, 0, 0, 0, 0,
+                                1.0, 1, 384, stream)
+    assert rc == 1
+    torch.cuda.synchronize()
+    assert bool((y == 0).all()) and bool((mm == 3.0).all())
+    assert _counter() == 0
+
+
+def test_dispatch_switch_on_cuda_tensors(gen, tmp_path, monkeypatch):
+    """``"off"`` moves no launch counter and ticks kernels/plain_dispatch;
+    ``"on"`` and ``"auto"`` launch; a cache entry whose race the plain
+    version won changes nothing; ``forward_torch_softmax`` takes the
+    plain version for its own call and ticks the counter."""
+    from apex_tpu_torch.observability import MetricRegistry, set_registry
+    from apex_tpu_torch.ops import kernel_config
+    from apex_tpu_torch.tuning import cache
+
+    x = torch.randn(64, 1024, generator=gen, device="cuda").bfloat16()
+    w = torch.ones(1024, device="cuda", dtype=torch.bfloat16)
+    reg = MetricRegistry()
+    prev = set_registry(reg)
+    try:
+        before = ln.launches
+        with kernel_config.force("off"):
+            off = ln.rms_norm(x, w, 1024)
+        assert ln.launches == before
+        ticks = {m.labels.get("kernel"): m.value for m in reg.metrics()
+                 if m.name == "kernels/plain_dispatch"}
+        assert ticks == {"rms_norm": 1}
+        for mode in ("on", "auto"):
+            with kernel_config.force(mode):
+                on = ln.rms_norm(x, w, 1024)
+        assert ln.launches == before + 2
+        torch.testing.assert_close(on.float(), off.float(), rtol=8e-3,
+                                   atol=8e-3)
+        path = tmp_path / "t.json"
+        monkeypatch.setenv("APEX_TPU_TUNING_CACHE", str(path))
+        cache.save(cache.put(cache.empty(), cache.current_device_kind(),
+                             "rms_norm", "rows~64,h=1024",
+                             {"params": {"row_threads": 64,
+                                         "rows_per_block": 1, "blocks": 8},
+                              "use_kernel": False}))
+        ln.rms_norm(x, w, 1024)
+        assert ln.launches == before + 3
+        s = torch.randn(1, 2, 64, 64, generator=gen,
+                        device="cuda").bfloat16()
+        mod = sm.FusedScaleMaskSoftmax(scale=0.5)
+        launched = sm.causal_launches
+        mod.forward_torch_softmax(s)
+        assert sm.causal_launches == launched
+        assert kernel_config.mode() == "auto"
+        mod.forward_fused_softmax(s)
+        assert sm.causal_launches == launched + 1
+        ticks = {m.labels.get("kernel"): m.value for m in reg.metrics()
+                 if m.name == "kernels/plain_dispatch"}
+        assert ticks == {"rms_norm": 1, "fused_softmax": 1}
+    finally:
+        set_registry(prev)
+        cache.clear_memo()
+
+
+def test_probe_names_the_flash_kernel_as_origin(gen):
+    """q and k finite (entries of 1e19 at d = 128) whose scores overflow
+    fp32 inside the flash forward: the kernel's report makes it the
+    origin, by name."""
+    from apex_tpu_torch.observability.numerics import nan_probe
+
+    q = torch.full((1, 64, 2, 128), 1e19, device="cuda")
+    k = torch.full((1, 64, 2, 128), 1e19, device="cuda")
+    v = torch.randn(1, 64, 2, 128, generator=gen, device="cuda")
+    before = fa.launches
+    prov = nan_probe.probe_fn(
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=True), q, k, v)
+    assert fa.launches == before + 1
+    assert (prov.kind, prov.primitive) == ("origin", "flash_fwd")
+    assert "flash_attention.py" in prov.source
+
+
+def test_probe_sees_the_backward_on_the_engine_thread(gen):
+    """A CUDA backward runs on the autograd engine's device thread: the
+    dispatch mode reaches it, and the kernels' reports too."""
+    from apex_tpu_torch.observability.numerics import nan_probe
+
+    class BadBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 1.0
+
+        @staticmethod
+        def backward(ctx, g):
+            return g / torch.zeros_like(g)
+
+    def step(x, w):
+        x = x.clone().requires_grad_()
+        y = ln.rms_norm(BadBackward.apply(x), w, 1024)
+        y.float().sum().backward()
+        return x.grad
+
+    x = torch.randn(16, 1024, generator=gen, device="cuda").bfloat16()
+    w = torch.ones(1024, device="cuda", dtype=torch.bfloat16)
+    before = ln.bwd_launches
+    prov = nan_probe.probe_fn(step, x, w)
+    assert ln.bwd_launches == before + 1
+    assert (prov.kind, prov.primitive) == ("origin", "div")
+    assert "backward" in prov.source

@@ -231,8 +231,6 @@ def test_timer_stop_waits_through_timing_sync(monkeypatch):
 #: absent from the port, never stubbed
 LATER = {
     "": {"calibrate_targets"},
-    ".numerics": {"Provenance", "probe_fn", "probe_tree",
-                  "step_provenance"},
     ".memory": {"DEFAULT_CALIBRATION_TARGETS", "calibrate_targets"},
 }
 
@@ -241,7 +239,7 @@ LATER = {
     "", ".registry", ".events", ".scope", ".step_report", ".cli",
     ".fleet", ".fleet.identity", ".profiling", ".profiling.spans",
     ".profiling.step_phases", ".profiling.flight_recorder", ".numerics",
-    ".numerics.stats", ".numerics.health", ".memory", ".memory.hbm",
+    ".numerics.stats", ".numerics.health", ".numerics.nan_probe", ".memory", ".memory.hbm",
     ".memory.oom", ".goodput", ".goodput.ledger", ".goodput.accounting",
     ".recompile", ".memory.compiled", ".profiling.xplane", ".fleet.probe",
     ".fleet.straggler", ".fleet.desync", ".fleet.collector",

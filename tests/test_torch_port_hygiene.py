@@ -160,9 +160,18 @@ OBSERVABILITY_SLICE_MODULES = (
     "observability/recompile.py", "observability/memory/compiled.py")
 
 
+# the dispatch switch, the tuner and the NaN provenance probe
+TUNING_SLICE_MODULES = (
+    "ops/kernel_config.py", "tuning/__init__.py", "tuning/__main__.py",
+    "tuning/cache.py", "tuning/geometry.py", "tuning/search_space.py",
+    "tuning/measure.py", "tuning/tuner.py",
+    "observability/numerics/nan_probe.py")
+
+
 @pytest.mark.parametrize("rel", BASELINE_MODULES + SLICE_MODULES
                          + OPTIMIZER_SLICE_MODULES + CONTRIB_SLICE_MODULES
-                         + OBSERVABILITY_SLICE_MODULES)
+                         + OBSERVABILITY_SLICE_MODULES
+                         + TUNING_SLICE_MODULES)
 def test_baseline_modules_are_checked(rel):
     assert PORT / rel in _port_sources()
 
@@ -209,7 +218,15 @@ def _called_names(node):
 
 
 def _is_cuda_test(test) -> bool:
-    return isinstance(test, ast.Attribute) and test.attr == "is_cuda"
+    """``x.is_cuda``, the dispatch switch's ``use_kernel(...)``, or a
+    comparison of its ``dispatch(...)`` path with ``"kernel"``."""
+    if isinstance(test, ast.Attribute):
+        return test.attr == "is_cuda"
+    if isinstance(test, ast.Call):
+        return getattr(test.func, "attr", None) == "use_kernel"
+    return (isinstance(test, ast.Compare) and any(
+        isinstance(c, ast.Constant) and c.value == "kernel"
+        for c in test.comparators))
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),

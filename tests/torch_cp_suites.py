@@ -284,6 +284,58 @@ def suite_cp_cuda(rank, n, inp, directory):
     return out
 
 
+def suite_cp_ring_off(rank, n, inp, directory):
+    """``ring_attention`` under ``kernel_config.force("off")``, with and
+    without ``remat``, in every RING_CASES case (outputs and this rank's
+    dq, dk, dv for the cotangent ``do``); and the flash ring's block
+    calls made under "off" and under "auto" on one case: the ring is the
+    flash ring in both."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import kernel_config
+    from apex_tpu_torch.transformer import context_parallel as cp
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.initialize_model_parallel(context_parallel_size_=n)
+    out = {}
+    calls = []
+    flash_fwd = fa._flash_fwd
+
+    def counted(*args, **kw):
+        calls.append(kernel_config.mode())
+        return flash_fwd(*args, **kw)
+
+    def causal_block_calls(mode):
+        del calls[:]
+        q, k, v = (_t(_seq_block(inp[f"causal_mha_{t}"], rank, n))
+                   for t in ("q", "k", "v"))
+        with kernel_config.force(mode):
+            cp.ring_attention(q, k, v, causal=True)
+        return np.array(len(calls))
+
+    fa._flash_fwd = counted
+    try:
+        for remat in (True, False):
+            for name, (causal, _) in RING_CASES.items():
+                q, k, v, do = (_t(_seq_block(inp[f"{name}_{t}"], rank, n))
+                               for t in ("q", "k", "v", "do"))
+                q, k, v = (t.requires_grad_() for t in (q, k, v))
+                with kernel_config.force("off"):
+                    o = cp.ring_attention(q, k, v, causal=causal,
+                                          remat=remat)
+                    o.backward(do)
+                tag = f"{name}_{int(remat)}"
+                out[f"{tag}_o"] = _np(o)
+                for t, g in (("dq", q.grad), ("dk", k.grad),
+                             ("dv", v.grad)):
+                    out[f"{tag}_{t}"] = _np(g)
+        out["off_flash_calls"] = causal_block_calls("off")
+        out["auto_flash_calls"] = causal_block_calls("auto")
+    finally:
+        fa._flash_fwd = flash_fwd
+    ps.destroy_model_parallel()
+    return out
+
+
 SUITES = {"cp_ring": suite_cp_ring, "cp_llama": suite_cp_llama,
           "ep_moe": suite_ep_moe, "tp_models": suite_tp_models,
-          "cp_cuda": suite_cp_cuda}
+          "cp_cuda": suite_cp_cuda, "cp_ring_off": suite_cp_ring_off}
