@@ -26,7 +26,10 @@ report CLI) and ``runtime.timing``; device attribution on
 ``torch.profiler`` traces (``pyprof``, ``observability.profiling.
 xplane``), the fleet tier (the grad-sync probe, the straggler and desync
 detectors, the fleet merge) and the compile listener with the captured
-graphs' memory. Every one of the JAX package's 13 Pallas kernels has a
+graphs' memory; the dispatch switch (``ops.kernel_config``), the tuner
+(``tuning``) and the NaN provenance probe; the static lint
+(``analysis``: the AST and host-concurrency engines, their CLI and the
+port's gate). Every one of the JAX package's 13 Pallas kernels has a
 Hopper kernel. See ROADMAP.md for what follows.
 """
 

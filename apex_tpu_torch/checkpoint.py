@@ -686,13 +686,19 @@ class AsyncCheckpointWriter:
         final, tmp = _paths(path, step)
         _check_overwrite(final, overwrite)
         with self._lock:
+            # fence + finalize the previous write before issuing a new
+            # one: holding the lock across the stale-tmp sweep and the
+            # mkdir IS the point, as the lock serialises whole save/wait
+            # transactions and guards no hot path
             self.wait()
             if os.path.isdir(tmp):
+                # apex-lint: disable=blocking-call-under-lock
                 shutil.rmtree(tmp, ignore_errors=True)
             _fault_point("pre_write", step, tmp)
             schema = _schema_or_none(state, specs)
             # made here, not by the writer thread: once save returns, the
             # write in flight's dir exists (``in_flight_tmp``)
+            # apex-lint: disable=blocking-call-under-lock
             os.makedirs(tmp)
             pairs, treedef = _tree.flatten_with_path(state)
             snap = _Snapshot([leaf for _, leaf in pairs], self._buffers,

@@ -169,6 +169,7 @@ class Timer(Histogram):
         from apex_tpu_torch.observability.scope import scope
         # manual enter is the Timer's own CM protocol: stop()/cancel()
         # guarantee the paired __exit__ on every path
+        # apex-lint: disable=unclosed-span
         self._scope_cm = scope(f"timer/{self.name}")
         self._scope_cm.__enter__()
         self._start = time.perf_counter()
@@ -187,7 +188,9 @@ class Timer(Histogram):
         try:
             if block_on is not None:
                 from apex_tpu_torch.runtime import timing
-                timing.sync(block_on)
+                # the interval covers the device work it waits for, the
+                # sync's measured cost subtracted: the Timer's contract
+                timing.sync(block_on)  # apex-lint: disable=sync-timing
                 now = time.perf_counter()
                 overhead = timing.cached_fetch_cost(block_on)
             else:

@@ -107,13 +107,21 @@ def _build_locked(names: Iterable[str]) -> Dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed.
+
+    The build runs outside ``_LOCK`` (:func:`build`'s file lock makes
+    concurrent builders take turns), so a thread launching a kernel that
+    is loaded already never waits behind a compile."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    path = library_path(name)
+    if not path.exists():
+        build([name])
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                build([name])
             lib = ctypes.CDLL(str(path))
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p

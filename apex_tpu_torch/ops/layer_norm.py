@@ -63,10 +63,12 @@ _LN_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
 
 # The launch plans' constants, copies of csrc/norm.cuh's, shared by the
 # forward and the backward.
-# threads of a block that holds several rows (kRowBlock)
-ROW_BLOCK = 256
-# most threads of one row on the register paths (kMaxRowThreads)
-MAX_ROW_THREADS = 512
+# threads of a block that holds several rows
+# (mirrors kRowBlock of csrc/norm.cuh)
+ROW_BLOCK = 256  # apex-lint: disable=hardcoded-tile-size
+# most threads of one row on the register paths
+# (mirrors kMaxRowThreads of csrc/norm.cuh)
+MAX_ROW_THREADS = 512  # apex-lint: disable=hardcoded-tile-size
 # 16-byte vectors of x (and of dy in the backward) a thread holds in
 # registers (kRowVecs): at most 32 values of a 16-bit dtype, 16 of fp32
 ROW_VECS = 4

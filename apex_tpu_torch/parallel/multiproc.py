@@ -121,6 +121,8 @@ def launch(script_args: Sequence[str], nprocs: int, backend: str = "nccl",
         env=stamp_environ(dict(base, RANK=str(r), LOCAL_RANK=str(r)),
                           r, nprocs))
         for r in range(nprocs)]
+    # the launcher's deadline: host scheduling, no device work timed
+    # apex-lint: disable=raw-clock
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
         while True:
@@ -128,6 +130,8 @@ def launch(script_args: Sequence[str], nprocs: int, backend: str = "nccl",
             failed = next((rc for rc in rcs if rc), 0)
             if failed or all(rc is not None for rc in rcs):
                 return failed
+            # the same deadline
+            # apex-lint: disable=raw-clock
             if deadline is not None and time.monotonic() > deadline:
                 raise TimeoutError(f"{nprocs} workers still running after "
                                    f"{timeout} s")

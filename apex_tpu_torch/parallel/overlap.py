@@ -226,7 +226,9 @@ class OverlapTrace:
         if device.type == "cuda":
             event = torch.cuda.Event(enable_timing=True)
             event.record(torch.cuda.current_stream(device))
-        return time.perf_counter(), event
+        # the host's issue time, beside the event's device time: host
+        # scheduling is what it records
+        return time.perf_counter(), event  # apex-lint: disable=raw-clock
 
 
 def _rebase(bucket: OverlapBucket) -> OverlapBucket:

@@ -130,7 +130,7 @@ class nvtx:
 
         # the push/pop pair IS the reference nvtx API — the stack
         # guarantees the close that a `with` would
-        ctx = span(name)
+        ctx = span(name)  # apex-lint: disable=unclosed-span
         ctx.__enter__()
         nvtx._stack.append(ctx)
 

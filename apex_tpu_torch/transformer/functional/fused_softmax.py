@@ -46,16 +46,16 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from apex_tpu_torch.ops import _build, kernel_config
-from apex_tpu_torch.tuning import geometry
+from apex_tpu_torch.tuning import geometry, search_space
 from apex_tpu_torch.transformer.enums import AttnMaskType
 
 _MASK_FILL = -10000.0
 # rows up to this many keys take the whole-row kernels (the reference's
 # threshold of its blocked kernels)
 _WHOLE_ROW_MAX_SK = 16384
-# keys a block of the plain long-row version covers: the port's copy of
-# the reference's default (apex_tpu/tuning/search_space.py:266)
-_BLOCKED_BK = 2048
+# keys a block of the plain long-row version covers, from the tuner's
+# tables, as the reference routes its default
+_BLOCKED_BK = search_space.default_softmax_block_k()
 
 # launches of the CUDA kernels; only the CUDA wrappers below add to them,
 # once per launch
@@ -76,10 +76,11 @@ _MASKED_ARGTYPES = ([ctypes.c_void_p] * 3
                     + [ctypes.c_float] + _PLAN_TAIL)
 
 # The whole-row kernels' launch plan (csrc/fused_softmax.cu): the copies
-# of its constants. threads of a block that holds several rows (kRowBlock)
-_ROW_BLOCK = 256
-# most threads of one row (kMaxRowThreads)
-_MAX_ROW_THREADS = 512
+# of its constants. threads of a block that holds several rows
+# (mirrors kRowBlock of csrc/fused_softmax.cu)
+_ROW_BLOCK = 256  # apex-lint: disable=hardcoded-tile-size
+# most threads of one row (mirrors kMaxRowThreads of csrc/fused_softmax.cu)
+_MAX_ROW_THREADS = 512  # apex-lint: disable=hardcoded-tile-size
 # fp32 values of a row a thread holds in registers (kMaxValues)
 _MAX_VALUES = 32
 

@@ -261,17 +261,20 @@ def print_rank_last(message):
 
 def report_memory(name: str) -> str:
     """Device memory of this rank (ref utils.py report_memory): allocated,
-    its peak, and reserved, from ``torch.cuda.memory_stats``; on a CPU
-    rank a line that says so."""
+    its peak, and reserved, read through the memory observability tier
+    (``device_memory_stats``); on a CPU rank a line that says so."""
+    from apex_tpu_torch.observability.memory import device_memory_stats
+
     giga = 1024.0 ** 3
     if not torch.cuda.is_available():
         line = f"[{name}] memory on cpu: not tracked"
     else:
         dev = torch.cuda.current_device()
+        stats = device_memory_stats(torch.device("cuda", dev))
         line = (f"[{name}] memory on cuda:{dev} | allocated "
-                f"{torch.cuda.memory_allocated(dev) / giga:.3f} GiB | peak "
-                f"{torch.cuda.max_memory_allocated(dev) / giga:.3f} GiB | "
-                f"reserved {torch.cuda.memory_reserved(dev) / giga:.3f} GiB")
+                f"{stats['bytes_in_use'] / giga:.3f} GiB | peak "
+                f"{stats['peak_bytes_in_use'] / giga:.3f} GiB | "
+                f"reserved {stats['bytes_reserved'] / giga:.3f} GiB")
     print(line, flush=True)
     return line
 

@@ -49,6 +49,9 @@ FP8_DEFAULT = {"threads": 256, "blocks_per_sm": 8}
 FP8_AMAX_SLOTS = 2048  # ops/fp8_cast_kernel.AMAX_SLOTS
 # the long-row softmax passes' threads a block (a block a row), untuned
 SOFTMAX_DEFAULT = {"threads": 256}
+# keys a block of the plain long-row softmax covers (the reference's
+# default_softmax_block_k)
+SOFTMAX_BLOCK_K = 2048
 # the row norms' blocks, from all row groups down to these caps: 8, 4
 # and 2 blocks an SM
 NORM_BLOCK_CAPS = (8 * SMS, 4 * SMS, 2 * SMS)
@@ -198,6 +201,11 @@ def softmax_candidates(sk: int, device_kind=None) -> list:
 def default_softmax_params(sk: int = 0) -> dict:
     del sk
     return dict(SOFTMAX_DEFAULT)
+
+
+def default_softmax_block_k() -> int:
+    """Keys a block of the plain long-row two-pass softmax covers."""
+    return SOFTMAX_BLOCK_K
 
 
 def candidates(kernel: str, device_kind=None, **dims) -> list:

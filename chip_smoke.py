@@ -11,6 +11,14 @@ result line) when it fails:
 2. build    -- every CUDA kernel of the serving and training paths,
                compiled from ``apex_tpu_torch/ops/csrc`` by nvcc for
                sm_90a, one process per source, all started together.
+2a. analysis -- the port's lint gate, ``python -m apex_tpu_torch.analysis
+               --json --baseline apex_tpu_torch/analysis/baseline.json``
+               from the checkout's root: exit 0 and no new finding; the
+               files linted, the findings by check (all 18 ids), the
+               inline suppressions and each engine's seconds. Then a
+               copy of four port modules with one planted violation of
+               each check id in its PyTorch form (``ANALYSIS_PLANTS``):
+               exit 1, each id named exactly once, at its planted line.
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at its path's shapes, with the tolerance stated, and timed
                (kernel, host call, plain version, library call, bound):
@@ -687,7 +695,9 @@ def time_ms(fn, arg_sets, iters: int = 20) -> float:
 
     for args in arg_sets[:3]:
         fn(*args)
-    torch.cuda.synchronize()
+    # the two syncs are fences: the device time is the events', and the
+    # host clock times only the queueing, held against the spin
+    torch.cuda.synchronize()  # apex-lint: disable=sync-timing
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(SPIN_CYCLES)
@@ -697,11 +707,25 @@ def time_ms(fn, arg_sets, iters: int = 20) -> float:
         fn(*arg_sets[i % len(arg_sets)])
     queued_s = time.perf_counter() - t0
     end.record()
-    end.synchronize()
+    end.synchronize()  # apex-lint: disable=sync-timing
     if queued_s * 1e3 > SPIN_MS:
         raise RuntimeError("the host took longer to queue the calls than "
                            "the spin kernel held the stream")
     return start.elapsed_time(end) / iters
+
+
+def synced_clock(device=None, monotonic: bool = False) -> float:
+    """The host clock (``time.perf_counter``, or ``time.monotonic``) read
+    once the card has run the work queued before the call: the clock of
+    the script's wall-time metrics (a step's ms, an init's or a save's
+    seconds), which cover the host's work and the card's together, as a
+    user waits for them. Device time is never read this way:
+    ``time_ms`` and ``event_ms`` take CUDA events."""
+    import torch
+
+    # a wall-time metric waits for the card on purpose (docstring above)
+    torch.cuda.synchronize(device)  # apex-lint: disable=sync-timing
+    return time.monotonic() if monotonic else time.perf_counter()
 
 
 def host_ms(fn, args, iters: int = 20) -> float:
@@ -710,12 +734,10 @@ def host_ms(fn, args, iters: int = 20) -> float:
     import torch
 
     fn(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = synced_clock()
     for _ in range(iters):
         fn(*args)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
+    return (synced_clock() - t0) * 1e3 / iters
 
 
 def copies(make, nbytes: int):
@@ -804,6 +826,215 @@ def phase_build():
             for name in _build.KERNELS}
     return {"phase": "build", "seconds": seconds, "built": sorted(logs),
             "libraries": libs, "ptxas": ptxas}
+
+
+# the analysis phase's planted faults: one violation of each of the 18
+# check ids of apex_tpu_torch.analysis, in its PyTorch form, appended to a
+# copy of a port module kept at its path (so each check's scoping
+# applies); the offending line of each ends in "# planted: <id>"
+ANALYSIS_PLANTS = {
+    "apex_tpu_torch/examples/llama_train.py": '''
+
+import torch as _planted_torch
+
+
+def _planted_sync_timing(step, x):
+    import time
+
+    t0 = time.perf_counter()
+    step(x)
+    _planted_torch.cuda.synchronize()  # planted: sync-timing
+    return time.perf_counter() - t0
+
+
+@_planted_torch.compile
+def _planted_host_pull(x):
+    return x.sum().item()  # planted: host-in-jit
+
+
+def _planted_rng(x, graph):
+    import random
+
+    with _planted_torch.cuda.graph(graph):
+        y = x * random.random()  # planted: rng-in-jit
+    return y
+''',
+    "apex_tpu_torch/checkpoint.py": '''
+
+def _planted_clock():
+    import time
+
+    return time.perf_counter()  # planted: raw-clock
+
+
+def _planted_default(seen=[]):  # planted: mutable-default
+    return seen
+
+
+def _planted_swallow(steps):
+    for step in steps:
+        try:
+            step()
+        except Exception:  # planted: swallowed-exception-in-step-loop
+            pass
+
+
+def _planted_artifact(d):
+    with open(d + "/m.jsonl", "w") as f:  # planted: rank-unsafe-artifact-path
+        f.write("")
+
+
+def _planted_open_span():
+    from apex_tpu_torch.observability import span
+
+    span("planted")  # planted: unclosed-span
+
+
+def _planted_isnan(losses):
+    for loss in losses:
+        if torch.isnan(loss).any():  # planted: host-isnan-in-step-loop
+            return loss
+    return None
+
+
+def _planted_fp8(x):
+    return x.to(torch.float8_e4m3fn)  # planted: raw-fp8-cast
+
+
+def _planted_memory():
+    return torch.cuda.memory_allocated()  # planted: raw-memory-introspection
+
+
+class _PlantedRace:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.count = 0
+
+    def locked(self):
+        with self._lock:
+            self.count = 1
+
+    def unlocked(self):
+        self.count = 2  # planted: unlocked-shared-mutation
+
+
+class _PlantedSignal:
+    def __init__(self):
+        import signal
+
+        self._lock = threading.Lock()
+        signal.signal(signal.SIGUSR1, self._on_signal)
+
+    def _on_signal(self, signum, frame):
+        with self._lock:  # planted: lock-in-signal-handler
+            pass
+
+
+class _PlantedBlocking:
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def wait(self):
+        with self._lock:
+            torch.cuda.synchronize()  # planted: blocking-call-under-lock
+
+
+class _PlantedCallbacks:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._observers = []
+
+    def notify(self):
+        with self._lock:
+            for callback in self._observers:
+                callback()  # planted: callback-reentry
+
+
+_PLANTED_THREAD = threading.Thread(target=print)  # planted: fork-unsafe-state
+''',
+    "apex_tpu_torch/ops/fused_adam_kernel.py": '''
+
+def _planted_launch(x):
+    lib = _build.library("fused_adam")
+    return lib.fused_adam(x.data_ptr(), 256)  # planted: hardcoded-tile-size
+''',
+    "apex_tpu_torch/parallel/distributed.py": '''
+
+def _planted_order(grads):
+    for name in set(grads):  # planted: nondeterministic-collective-order
+        backend.all_reduce(grads[name])
+''',
+}
+
+
+def run_analysis_cli(args, cwd) -> tuple:
+    """``python -m apex_tpu_torch.analysis --json`` with ``args``, from
+    ``cwd`` with the checkout on the path: (exit code, payload)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "apex_tpu_torch.analysis", "--json", *args],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+    try:
+        payload = json.loads(proc.stdout)
+    except ValueError:
+        raise RuntimeError(f"analysis CLI (exit {proc.returncode}) printed "
+                           f"no JSON: {proc.stderr[-2000:]}")
+    return proc.returncode, payload
+
+
+def planted_analysis(work: Path) -> dict:
+    """Copies the ANALYSIS_PLANTS modules under ``work`` with their
+    violations appended and runs the CLI over the copies: it must exit 1
+    and name each of the 18 check ids exactly once, at its planted line
+    and nowhere else."""
+    want = {}
+    for rel, plant in ANALYSIS_PLANTS.items():
+        text = (ROOT / rel).read_text() + plant
+        dst = work / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_text(text)
+        for no, line in enumerate(text.splitlines(), 1):
+            mark = re.search(r"# planted: ([a-z0-9-]+)$", line)
+            if mark:
+                want[mark.group(1)] = (rel, no)
+    rc, payload = run_analysis_cli(["--root", str(work), "apex_tpu_torch"],
+                                   cwd=work)
+    got = {}
+    for f in payload["findings"]:
+        got.setdefault(f["check"], []).append((f["path"], f["line"]))
+    checks = set(payload["by_check"])
+    if rc != 1 or len(want) != 18 or set(want) != checks or any(
+            got.get(c) != [want[c]] for c in checks) or set(got) != checks:
+        raise AssertionError(
+            f"planted faults: exit {rc} (want 1); want "
+            f"{sorted(want.items())}, got {sorted(got.items())}")
+    return {"exit": rc, "named": sorted(got),
+            "findings": len(payload["findings"]),
+            "engine_seconds": payload["engine_seconds"]}
+
+
+def phase_analysis():
+    """The port's lint gate (the AST and concurrency engines of
+    ``apex_tpu_torch.analysis`` over the default paths against the
+    committed baseline: exit 0, no new finding), then the planted faults
+    (exit 1, each of the 18 ids named once at its line)."""
+    import tempfile
+
+    rc, gate = run_analysis_cli(
+        ["--baseline", "apex_tpu_torch/analysis/baseline.json"], cwd=ROOT)
+    if rc != 0 or gate["findings"]:
+        new = [(f["check"], f["path"], f["line"]) for f in gate["findings"]]
+        raise AssertionError(f"analysis gate: exit {rc}, new findings {new}")
+    with tempfile.TemporaryDirectory() as work:
+        planted = planted_analysis(Path(work))
+    return {"phase": "analysis", "files": gate["files"],
+            "new_findings": len(gate["findings"]),
+            "grandfathered": gate["grandfathered"],
+            "by_check": gate["by_check"],
+            "suppressed": gate["suppressed"],
+            "engine_seconds": gate["engine_seconds"],
+            "planted": planted}
 
 
 def fwd_plan(ln, rows: int, h: int):
@@ -2369,8 +2600,7 @@ def phase_serving():
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = llama.init_params(gen, cfg, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     engine, trace, report = serve(params, cfg, "native")
     longest = sorted(trace, key=lambda t: (-len(t.prompt), t.rid))
     tf = teacher_forced(lambda seq: llama.forward(params, seq, cfg), engine,
@@ -2392,8 +2622,7 @@ def phase_serving_fp8(params, cfg, native_results):
 
     t0 = time.monotonic()
     scales = fp8_weight_scales(params)
-    torch.cuda.synchronize()
-    scales_s = time.monotonic() - t0
+    scales_s = synced_clock(monotonic=True) - t0
     # the program's scales against ones computed here, layer by layer
     for name, got in scales.items():
         ref = torch.stack([fp8_weight_scale(w) for w in params["layers"][name]])
@@ -2452,7 +2681,8 @@ def phase_serving_preempt(params, cfg, serving):
     from apex_tpu_torch.serving.engine import _PAGES_FILE, _STATE_FILE
 
     shutil.rmtree(PREEMPT_DUMP, ignore_errors=True)
-    torch.cuda.synchronize()
+    # a fence before the peak's reset: it times nothing
+    torch.cuda.synchronize()  # apex-lint: disable=sync-timing
     torch.cuda.reset_peak_memory_stats()
     engine = make_engine(params, cfg, num_pages=None,
                          fault_plan=FaultPlan.parse(
@@ -2494,12 +2724,12 @@ def phase_serving_preempt(params, cfg, serving):
     gc.collect()
     t0 = time.monotonic()
     resumed = ServingEngine.resume(str(PREEMPT_DUMP), params, cfg)
-    torch.cuda.synchronize()
-    resume_s = time.monotonic() - t0
+    resume_s = synced_clock(monotonic=True) - t0
     t0 = time.monotonic()
     resumed.run()
     run_s = time.monotonic() - t0
-    torch.cuda.synchronize()
+    # a fence before the peak's read: it times nothing
+    torch.cuda.synchronize()  # apex-lint: disable=sync-timing
     peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
     sched = resumed.scheduler
@@ -2886,8 +3116,7 @@ def phase_training(dev):
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
                            generator=gen, device="cuda")
     batch = (tokens, torch.roll(tokens, -1, dims=-1))
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     n_params = sum(t.numel() for t in _tree.leaves(params))
 
     grads = grad_check(params,
@@ -2910,8 +3139,7 @@ def phase_training(dev):
                                                fak._adam_flat_plain,
                                                adam_check)
         before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         params, opt_state, loss = llama.train_step(params, opt_state, batch,
                                                    cfg, tx, remat=False)
         losses.append(float(loss))  # waits for the step
@@ -3264,8 +3492,7 @@ def phase_observability(dev):
         for turn in range(2 * OBS_TURNS):
             tiers = turn % 2 == 1
             before = read_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0 = synced_clock()
             if tiers:
                 with phases.step():
                     with obs.span("data/batch"):
@@ -3288,8 +3515,7 @@ def phase_observability(dev):
                 rec = reporter.step(dt, loss=loss, numerics=collector.last,
                                     memory=memmon.last,
                                     **phases.last_fields())
-                torch.cuda.synchronize()
-                on_ms.append((time.perf_counter() - t0) * 1e3)
+                on_ms.append((synced_clock() - t0) * 1e3)
                 del rec
             else:
                 loss = float(train())
@@ -3588,8 +3814,7 @@ def amp_o2(dev, cfg, profiling=False):
             loss_plain, plain = scaled_grads(opt, handle, batch, cfg,
                                              scaled=False)
         before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         loss, grads = scaled_grads(opt, handle, batch, cfg)
         if i == 0:
             unscaled, _ = handle.scaler.unscale(grads, handle.scaler_state)
@@ -3713,8 +3938,7 @@ def amp_o4(dev, cfg, o2_loss0, o2_lm_head, profiling=False):
         for i in range(AMP_STEPS):
             seen.clear()
             before = read_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0 = synced_clock()
             with fp8.step(handle.fp8_state) as ctx:
                 loss, grads = ctx.value_and_grad(scaled_loss)(opt.params)
             handle.fp8_state = fp8.update(handle.fp8_state, ctx)
@@ -4009,8 +4233,7 @@ def run_steps(step, steps: int):
     losses, step_ms, counts = [], [], []
     for _ in range(steps):
         before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         losses.append(float(step()))  # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
         after = read_counts()
@@ -4043,8 +4266,7 @@ def phase_gpt2_training(dev):
     tokens = torch.randint(0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ),
                            generator=gen, device="cuda")
     batch = (tokens, torch.roll(tokens, -1, dims=-1))
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     n_params = sum(t.numel() for t in _tree.leaves(params))
 
     def kernel_loss(t):
@@ -4570,8 +4792,7 @@ def phase_gpt2_resilient(dev):
                            f"{free}")
     losses, step_ms = [], []
     for step in range(RESILIENT_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         state, metrics = step_fn(state, step)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"])
@@ -4714,8 +4935,7 @@ def phase_gpt2_resilient(dev):
     writer = ckpt.AsyncCheckpointWriter()
     costs = []
     for n in range(COST_SAVES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         writer.save(str(RESILIENT_DIR), final, step=100 + n)
         host_s = time.perf_counter() - t0
         overlapped = []
@@ -4769,13 +4989,11 @@ def gpt2_generate_check(params, cfg):
     for _ in range(2):  # the first call of these shapes allocates
         t0 = time.perf_counter()
         generate.gpt2_generate(params, prompts, cfg, 1)
-        torch.cuda.synchronize()
-        prefill.append((time.perf_counter() - t0) * 1e3)
+        prefill.append((synced_clock() - t0) * 1e3)
     reset_counts()
     t0 = time.perf_counter()
     out = generate.gpt2_generate(params, prompts, cfg, GEN_NEW)
-    torch.cuda.synchronize()
-    total_ms = (time.perf_counter() - t0) * 1e3
+    total_ms = (synced_clock() - t0) * 1e3
     counts = read_counts()
     want = dict({k: 0 for k in counts}, flash_attention_fwd=L,
                 layer_norm_fwd=(2 * L + 1) * GEN_NEW)
@@ -4819,8 +5037,7 @@ def phase_bert_training(dev, padded: bool = True):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = bert.init_params(gen, cfg, device="cuda")
     batch, pad = bert_batch(gen, cfg, padded)
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     n_params = sum(t.numel() for t in _tree.leaves(params))
 
     grads = grad_check(
@@ -5346,8 +5563,7 @@ def phase_moe_training(dev):
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
                            generator=gen, device="cuda")
     batch = (tokens, torch.roll(tokens, -1, dims=-1))
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     n_params = sum(t.numel() for t in _tree.leaves(params))
     expert_params = 3 * cfg.hidden_size * cfg.intermediate_size
     n_active = n_params - L * (E - k) * expert_params
@@ -5571,8 +5787,7 @@ def phase_moe_generate(dev):
     prompts = torch.randint(0, cfg.vocab_size,
                             (MOE_GEN_BATCH, MOE_GEN_PROMPT), generator=gen,
                             device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     torch.cuda.reset_peak_memory_stats()
     # the prefill alone (one token), timed warm: the first call of these
     # shapes allocates and is not counted
@@ -5580,14 +5795,12 @@ def phase_moe_generate(dev):
     for _ in range(2):
         t0 = time.perf_counter()
         generate.greedy_generate(params, prompts, cfg, 1)
-        torch.cuda.synchronize()
-        prefill.append((time.perf_counter() - t0) * 1e3)
+        prefill.append((synced_clock() - t0) * 1e3)
     prefill_ms = prefill[1]
     reset_counts()
     t0 = time.perf_counter()
     out = generate.greedy_generate(params, prompts, cfg, MOE_GEN_NEW)
-    torch.cuda.synchronize()
-    total_ms = (time.perf_counter() - t0) * 1e3
+    total_ms = (synced_clock() - t0) * 1e3
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     # prefill: a flash forward a layer; prefill and each of the
@@ -6028,14 +6241,12 @@ def probed_zero1(rank, device, loss_of, params, batch, delay: float,
     launches, step_ms = [], []
     try:
         for _ in range(DDP_STEPS):
-            torch.cuda.synchronize(device)
-            t0, c0 = time.perf_counter(), read_counts()
+            t0, c0 = synced_clock(device), read_counts()
             _, gl = local_grads(loss_of, params, batch,
                                 delay if rank == 1 else 0.0)
             params, zs = zopt.step(gl, zs, params)
             del gl
-            torch.cuda.synchronize(device)
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_ms.append((synced_clock(device) - t0) * 1e3)
             launches.append(counts_delta(c0))
         waits = probe.wait_times()
         last = probe.last_collective()
@@ -6175,8 +6386,7 @@ def ddp_training_rank(rank, n, device, out_dir: Path) -> dict:
         want = sync_gradients_flat(_tree.map_leaves(lambda g: g.float(),
                                                     gl), "dp")
         del gl
-        torch.cuda.synchronize(device)
-        t0, c0 = time.perf_counter(), read_counts()
+        t0, c0 = synced_clock(device), read_counts()
         loss_a, ga = vg(pa, local)
         with torch.no_grad():
             upd, sa = txa.update(ga, sa, pa)
@@ -6192,8 +6402,7 @@ def ddp_training_rank(rank, n, device, out_dir: Path) -> dict:
                 paths, _tree.leaves(ga), ref)
         sync_gap = worst_rel_l2(paths, _tree.leaves(ga), _tree.leaves(want))
         del ga, want
-        torch.cuda.synchronize(device)
-        t0, c0 = time.perf_counter(), read_counts()
+        t0, c0 = synced_clock(device), read_counts()
         loss_b, gl = local_grads(loss_of, pb, local)
         t1 = time.perf_counter()
         pb, zs = zopt.step(gl, zs, pb)
@@ -6309,11 +6518,9 @@ def ddp_nccl_rank(rank, n, device) -> dict:
     meta = flat_ops.tree_meta(params)
 
     def timed(fn):
-        torch.cuda.synchronize(device)
-        t0, c0 = time.perf_counter(), read_counts()
+        t0, c0 = synced_clock(device), read_counts()
         fn()
-        torch.cuda.synchronize(device)
-        return (time.perf_counter() - t0) * 1e3, counts_delta(c0)
+        return (synced_clock(device) - t0) * 1e3, counts_delta(c0)
 
     def single():
         nonlocal s_ref
@@ -6520,11 +6727,9 @@ class CollectiveTimer:
         def timed(*args, **kwargs):
             if not self.on:
                 return fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0 = synced_clock()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = (synced_clock() - t0) * 1e3
             self.ms += ms
             self.calls += 1
             acc = self.by_name.setdefault(name, [0.0, 0])
@@ -6575,8 +6780,7 @@ def megatron_training_rank(rank, n, device, out_dir: Path) -> dict:
                          MEG_MB, MEG_SEQ, sequence_parallel=True)
     opt_state = step.tx.init({"stage": stage, "io": io})
     coords = step.coords
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     timer = CollectiveTimer()
     torch.cuda.reset_peak_memory_stats(device)
     steps = []
@@ -6589,14 +6793,12 @@ def megatron_training_rank(rank, n, device, out_dir: Path) -> dict:
                             "params_last_in", out_dir, rank)
         before = read_counts()
         torch.distributed.barrier()  # the ranks start each step together
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         loss, g_stage, g_io = step.grads(stage, io, tokens, targets)
         if i == 0 or last:
             # the first and last steps' gradients for the parent's fp32
             # checks (not timed)
-            torch.cuda.synchronize()
-            t_save = time.perf_counter()
+            t_save = synced_clock()
             megatron_blocks({"stage": g_stage, "io": g_io}, coords,
                             "grads" if i == 0 else "grads_last", out_dir,
                             rank)
@@ -6604,9 +6806,9 @@ def megatron_training_rank(rank, n, device, out_dir: Path) -> dict:
         opt_state = step.apply(stage, io, opt_state, g_stage, g_io)
         del g_stage, g_io
         loss = float(loss)  # waits for the step
-        torch.cuda.synchronize()
+        t1 = synced_clock()
         steps.append({"step": i, "loss": loss,
-                      "step_ms": (time.perf_counter() - t0) * 1e3,
+                      "step_ms": (t1 - t0) * 1e3,
                       "launches": counts_delta(before),
                       "collective_ms": timer.ms if timer.on else None,
                       "collective_calls": timer.calls if timer.on else None})
@@ -6658,8 +6860,7 @@ def megatron_nccl_rank(rank, n, device, out_dir: Path) -> dict:
     steps = []
     for i in range(MEG_NCCL_STEPS):
         before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         loss3d, s3d = step.train_step(stage, io, s3d, tokens, targets)
         loss3d = float(loss3d)
         ms3d = (time.perf_counter() - t0) * 1e3
@@ -7237,12 +7438,10 @@ def slice_step(step_fn, steps: int, timer, save0=None, in_turns=False,
         timer.ms = 0.0
         before = read_counts()
         torch.distributed.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         loss, grads, apply = step_fn()
         if i == 0 and save0 is not None:
-            torch.cuda.synchronize()
-            t_save = time.perf_counter()
+            t_save = synced_clock()
             save0(grads)
             t0 += time.perf_counter() - t_save
         if in_turns:
@@ -7257,9 +7456,9 @@ def slice_step(step_fn, steps: int, timer, save0=None, in_turns=False,
             apply(grads)
         del grads
         loss = float(loss)
-        torch.cuda.synchronize()
+        t1 = synced_clock()
         out.append({"step": i, "loss": loss,
-                    "step_ms": (time.perf_counter() - t0) * 1e3,
+                    "step_ms": (t1 - t0) * 1e3,
                     "launches": counts_delta(before),
                     "collective_ms": dict(timer.by_name) if last else None})
         if after is not None:
@@ -7401,8 +7600,7 @@ def cp_training_rank(rank, n, device, out_dir: Path) -> dict:
                                   vocab_chunks=CP_CHUNKS)
     local = (step.local_batch(tokens), step.local_batch(targets))
     state = {"opt": step.tx.init(params)}
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     timer = CollectiveTimer()
     torch.cuda.reset_peak_memory_stats(device)
 
@@ -7538,8 +7736,7 @@ def phase_cp_training(dev):
     cfg, params, batch = cp_setup("cuda")
     live = _tree.map_leaves(lambda t: t.detach().requires_grad_(), params)
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = synced_clock()
     loss = llama.loss_fn(live, batch, cfg, remat=True,
                          vocab_chunks=CP_CHUNKS, tp_axis=None)
     grads = torch.autograd.grad(loss, _tree.leaves(live))
@@ -7634,8 +7831,7 @@ def ep_training_rank(rank, n, device, out_dir: Path) -> dict:
     batch = (tokens[rank:rank + 1], targets[rank:rank + 1])
     tx = fused_adam(lr=TRAIN_LR)
     state = {"opt": tx.init(params), "seen": []}
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     timer = CollectiveTimer()
     torch.cuda.reset_peak_memory_stats(device)
     L = cfg.num_layers
@@ -7787,8 +7983,7 @@ def gpt2_tp_rank(rank, n, device, out_dir: Path) -> dict:
     local = (step.local_batch(tokens), step.local_batch(targets))
     state = {"opt": step.tx.init(params)}
     manager = ex.checkpoint_manager(str(GTP_CKPT_DIR), rank)
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     timer = CollectiveTimer()
     torch.cuda.reset_peak_memory_stats(device)
     save_s = []
@@ -7806,8 +8001,7 @@ def gpt2_tp_rank(rank, n, device, out_dir: Path) -> dict:
 
     def after(i):
         if i == 1:  # the checkpoint the resume starts from
-            torch.cuda.synchronize()
-            t = time.monotonic()
+            t = synced_clock(monotonic=True)
             manager.save(1, ex.train_state(params, state["opt"], 1))
             save_s.append(time.monotonic() - t)
 
@@ -7929,8 +8123,7 @@ def mp_nccl_rank(rank, n, device, out_dir: Path) -> dict:
         tx = fused_adam(lr=TRAIN_LR)
         opt = tx.init(params)
         before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         losses = []
         for _ in range(MP_STEPS):
             params, opt, loss = train(params, opt, batch, tx)
@@ -8882,8 +9075,7 @@ def phase_resnet50_training(dev):
     reset_counts()
     t0 = time.monotonic()
     model, variables, x, y = rn_setup("cuda", sync_bn=False)
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     master, stats0 = variables["params"], variables["batch_stats"]
     paths = _tree.paths(master)
     step = rn_step(model, None)
@@ -9028,8 +9220,7 @@ def resnet50_ddp_rank(rank, n, device, out_dir: Path) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     steps, start = [], read_counts()
     for s in range(RN_STEPS):
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+        t0 = synced_clock(device)
         opt, sstate, stats, loss, ovf = step.step(master, opt, sstate,
                                                   stats, x, y)
         steps.append({"step": s, "loss": float(loss),
@@ -9041,11 +9232,9 @@ def resnet50_ddp_rank(rank, n, device, out_dir: Path) -> dict:
                "batch_stats": digest(state_digests(stats))}
     timer = CollectiveTimer()
     timer.on = True
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
+    t0 = synced_clock(device)
     step.step(master, opt, sstate, stats, x, y)
-    torch.cuda.synchronize(device)
-    timed_ms = (time.perf_counter() - t0) * 1e3
+    timed_ms = (synced_clock(device) - t0) * 1e3
     timer.restore()
     return {"steps": steps, "launches": launches, "digests": digests,
             "instrumented_step_ms": timed_ms,
@@ -9149,15 +9338,14 @@ def resnet50_ddp_nccl_rank(rank, n, device, out_dir: Path) -> dict:
         master = _tree.map_leaves(torch.clone, variables["params"])
         stats = _tree.map_leaves(torch.clone, variables["batch_stats"])
         start = read_counts()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+        t0 = synced_clock(device)
         opt, sstate, stats, loss, _ = step.step(
             master, step.tx.init(master), step.handle.scaler_state, stats,
             x, y)
-        torch.cuda.synchronize(device)
+        t1 = synced_clock(device)
         sides[name] = {"master": master, "momentum": opt.momentum_buffer,
                        "stats": stats, "loss": float(loss),
-                       "step_ms": (time.perf_counter() - t0) * 1e3,
+                       "step_ms": (t1 - t0) * 1e3,
                        "launches": {k: v - start[k]
                                     for k, v in read_counts().items()}}
     a, b = sides["single_device"], sides["ddp"]
@@ -9277,8 +9465,7 @@ def bert_train_rank(rank, n, device, out_dir: Path) -> dict:
     steps = []
     for s in range(BT_STEPS):
         start = read_counts()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+        t0 = synced_clock(device)
         loss, opt = bert_train.train_step(params, opt, batch, cfg, tx,
                                           pad_mask=pad)
         steps.append({"step": s, "loss": float(loss),
@@ -9423,8 +9610,7 @@ class StepRecorder:
 
             out = real_grads(stage, io, tokens, targets)
             if grads_of is not None and self.it == grads_of:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
+                t = synced_clock()
                 megatron_blocks({"stage": out[1], "io": out[2]},
                                 step.coords, "grads", out_dir, rank)
                 save_s[0] = time.perf_counter() - t
@@ -9436,13 +9622,11 @@ class StepRecorder:
             self.casts = []
             before = read_counts()
             torch.distributed.barrier()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0 = synced_clock()
             loss, opt_state = real_train(stage, io, opt_state, tokens,
                                          targets)
             loss = float(loss)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
+            t1 = synced_clock()
             self.steps.append({
                 "step": self.it, "loss": loss,
                 "step_ms": (t1 - t0 - save_s[0]) * 1e3,
@@ -9487,8 +9671,7 @@ def megatron_o4_rank(rank, n, device, out_dir: Path) -> dict:
 
     t0 = time.monotonic()
     cfg, step, state, batch = mego4_setup(device)
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     rec = StepRecorder(step, rank, out_dir, grads_of=0)
     torch.cuda.reset_peak_memory_stats(device)
     rank_dir = Path(ex.checkpoint_dir(str(MEGO4_DIR), rank))
@@ -9548,8 +9731,7 @@ def megatron_o4_resume_rank(rank, n, device, out_dir: Path) -> dict:
     rec = StepRecorder(step, rank, out_dir)
     logs = []
     rank_dir = ex.checkpoint_dir(str(MEGO4_DIR), rank)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = synced_clock()
     state, _, loop = ex.run(step, state, MEGO4_STEPS, rec.batch_of(batch),
                             directory=rank_dir, save_every=0, resume=True,
                             log=logs.append)
@@ -9846,8 +10028,7 @@ def megatron_o4_nccl_rank(rank, n, device, out_dir: Path) -> dict:
     steps = []
     for i in range(MEG_NCCL_STEPS):
         before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         loss3d, s3d = step.train_step(stage, io, s3d, tokens, targets)
         loss3d = float(loss3d)
         ms3d = (time.perf_counter() - t0) * 1e3
@@ -10255,8 +10436,7 @@ def phase_dcgan(dev):
         z = torch.randn((args.batch, args.latent), generator=gen,
                         device=device)
         real = dcgan.real_batch(gen, args.batch, device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         optG, optD, sstates, errD, errG = trainer.step(
             varG, varD, optG, optD, sstates, z, real)
         errs.append((float(errD), float(errG)))
@@ -10400,8 +10580,7 @@ def phase_rnn_mlstm(dev):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     tokens = torch.randint(0, MLSTM_VOCAB, (MLSTM_BATCH, MLSTM_SEQ + 1),
                            generator=gen, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    init_s = synced_clock(monotonic=True) - t0
     paths = _tree.paths(params)
     n_params = sum(t.numel() for t in _tree.leaves(params))
 
@@ -10459,13 +10638,11 @@ def phase_rnn_mlstm(dev):
     for s in range(MLSTM_STEPS):
         scale = opt.loss_scale
         before = read_counts()
-        torch.cuda.synchronize()
-        t_a = time.perf_counter()
+        t_a = synced_clock()
         loss, grads = local_grads(lambda t, b: opt.scale_loss(loss_of(t, b)),
                                   opt.model_params, tokens)
         loss = float(loss) / scale
-        torch.cuda.synchronize()
-        t_b = time.perf_counter()
+        t_b = synced_clock()
         if s == MLSTM_INF_STEP:
             grads["dec_b"][0] = float("inf")
         # the clip norm's reference: the unscaled fp32 gradients' L2 norm
@@ -10475,12 +10652,10 @@ def phase_rnn_mlstm(dev):
             kept = [t.clone() for t in _tree.leaves(
                 (opt.optimizer.params, opt.optimizer.state.mu,
                  opt.optimizer.state.nu, opt.model_params))]
-        torch.cuda.synchronize()
-        t_c = time.perf_counter()
+        t_c = synced_clock()
         grads, norm = opt.clip_master_grads(grads, MLSTM_CLIP)
         model16 = opt.step(grads)
-        torch.cuda.synchronize()
-        t_d = time.perf_counter()
+        t_d = synced_clock()
         del grads
         launches = counts_delta(before)
         norm = float(norm)
@@ -10695,8 +10870,7 @@ def phase_bert_optimizers(dev):
         losses, step_ms, update_ms, counts = [], [], [], []
         for s in range(BERT_OPT_STEPS):
             before = read_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0 = synced_clock()
             loss, grads = local_grads(loss_of, opt.params, batch)
             losses.append(float(loss))
             t1 = time.perf_counter()
@@ -10704,14 +10878,12 @@ def phase_bert_optimizers(dev):
                 host = (host_copy(grads), host_copy(opt.params),
                         host_copy(opt.state))
                 p_old = _tree.map_leaves(torch.clone, opt.params)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
+            t2 = synced_clock()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             opt.step(grads)
             ev[1].record()
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
+            t3 = synced_clock()
             del grads
             counts.append(counts_delta(before))
             step_ms.append((t1 - t0 + t3 - t2) * 1e3)
@@ -10837,15 +11009,13 @@ def resnet_larc_steps(step, master, state, x, y) -> dict:
     losses, step_ms, worst = [], [], 0.0
     start = read_counts()
     for s in range(RN_LARC_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = synced_clock()
         grads, loss, stats = step.grads(master, stats, x, y, sstate)
         g = rn_unscaled(grads, sstate)
         del grads
         finite = bool(torch.stack([torch.isfinite(t).all()
                                    for t in g]).all())
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        t1 = synced_clock()
         if not finite:
             raise AssertionError(f"resnet50 LARC step {s} overflowed")
         losses.append(float(loss))
@@ -10867,11 +11037,9 @@ def resnet_larc_steps(step, master, state, x, y) -> dict:
             for p, u in zip(_tree.leaves(p_ref), _tree.leaves(upd)):
                 p.add_(u)
         del scaled, upd
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        t2 = synced_clock()
         opt.step(_tree.unflatten(paths, g))
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
+        t3 = synced_clock()
         del g
         step_ms.append((t1 - t0 + t3 - t2) * 1e3)
         if not (trees_equal(master, p_ref) and trees_equal(
@@ -11341,8 +11509,7 @@ def contrib_asp(gen) -> dict:
     params = bert.init_params(gen, cfg, device="cuda")
     t0 = time.perf_counter()
     masks = ASP.compute_sparse_masks(params)
-    torch.cuda.synchronize()
-    mask_ms = (time.perf_counter() - t0) * 1e3
+    mask_ms = (synced_clock() - t0) * 1e3
     paths = _tree.paths(params)
     masked = [p for p in paths if _leaf(masks, p) is not None]
     for path in masked:
@@ -11363,7 +11530,8 @@ def contrib_asp(gen) -> dict:
         updates, state = tx.update(grads, state, params)
         for p, u in zip(_tree.leaves(params), _tree.leaves(updates)):
             p.add_(u)
-    torch.cuda.synchronize()
+    # a fence after the step: it times nothing
+    torch.cuda.synchronize()  # apex-lint: disable=sync-timing
     launches = counts_delta(before)
     L = cfg.num_layers
     buckets = len(tree_meta(params)[2])
@@ -11805,8 +11973,7 @@ def hf_finetune_nccl_rank(rank, n, device, out_dir: Path) -> dict:
     del sd
     if cfg != llama.llama3_8b(num_layers=HF_LAYERS, dtype=torch.float32):
         raise AssertionError(f"hf_finetune_nccl: {cfg} is not llama3_8b")
-    torch.cuda.synchronize(device)
-    import_s = time.monotonic() - t0
+    import_s = synced_clock(device, monotonic=True) - t0
     tokens, targets = ex.make_batch(cfg, HF_BATCH, HF_SEQ, device)
     before = read_counts()
     loss0, grads = ex.grads(params, tokens, targets, cfg, HF_CHUNKS)
@@ -11824,8 +11991,7 @@ def hf_finetune_nccl_rank(rank, n, device, out_dir: Path) -> dict:
     steps = []
     for s in range(HF_STEPS):
         before = read_counts()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+        t0 = synced_clock(device)
         loss, opt = ex.train_step(params, opt, tokens, targets, cfg, tx,
                                   HF_CHUNKS)
         steps.append({"step": s, "loss": float(loss),
@@ -11833,12 +11999,10 @@ def hf_finetune_nccl_rank(rank, n, device, out_dir: Path) -> dict:
                       "launches": counts_delta(before)})
     del opt
     before = read_counts()
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
+    t0 = synced_clock(device)
     out = generate.greedy_generate(params, tokens[:1, :4], cfg, HF_NEW,
                                    device=device)
-    torch.cuda.synchronize(device)
-    gen = {"ms": (time.perf_counter() - t0) * 1e3,
+    gen = {"ms": (synced_clock(device) - t0) * 1e3,
            "tokens": out[0, 4:].tolist(), "launches": counts_delta(before)}
     return {"import_s": import_s, "hf_keys": keys,
             "params": sum(t.numel() for t in _tree.leaves(params)),
@@ -12015,8 +12179,7 @@ def cd_halo(rank, n, device) -> dict:
     t0 = time.perf_counter()
     y = halo_exchange_1d(F.pad(slab, (0, 0, 0, 0, 1, 1)), 1, "spatial",
                          h_dim=1)
-    torch.cuda.synchronize(device)
-    halo_ms = (time.perf_counter() - t0) * 1e3
+    halo_ms = (synced_clock(device) - t0) * 1e3
     ok = {"halo_exchange_1d": bool(
         torch.equal(y[:, :1], prev_row) and torch.equal(y[:, -1:], next_row)
         and torch.equal(y[:, 1:-1], slab))}
@@ -12116,11 +12279,9 @@ def cd_optimizers(rank, n, device) -> dict:
         opt = cls(dist_p, **kw)
         opt.init()
         before = read_counts()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+        t0 = synced_clock(device)
         opt.step(grads)
-        torch.cuda.synchronize(device)
-        step_ms = (time.perf_counter() - t0) * 1e3
+        step_ms = (synced_clock(device) - t0) * 1e3
         launches = counts_delta(before)
         with uncounted(), torch.no_grad():
             rep_p = _tree.map_leaves(torch.clone, params)
@@ -12175,14 +12336,12 @@ def contrib_dist_rank(rank, n, device, out_dir: Path) -> dict:
     block, variables, x, dy = cd_bottleneck_setup(device)
     rows = x.shape[1] // n
     mine = slice(rank * rows, (rank + 1) * rows)
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
+    t0 = synced_clock(device)
     relus = []
     with relu_decisions(record=relus):
         y, dx, grads, stats = cd_block(block.apply, variables, x[:, mine],
                                        dy[:, mine])
-    torch.cuda.synchronize(device)
-    out["bottleneck_ms"] = (time.perf_counter() - t0) * 1e3
+    out["bottleneck_ms"] = (synced_clock(device) - t0) * 1e3
     torch.save({"y": y.cpu(), "dx": dx.cpu(),
                 "grads": {k: v.cpu() for k, v in grads.items()},
                 "relus": [m.cpu() for m in relus]},
@@ -12627,6 +12786,8 @@ def main() -> int:
         emit(dev)
         phase = "build"
         emit(phase_build())
+        phase = "analysis"
+        emit(phase_analysis())
         phase = "kernels"
         kernels = phase_kernels(dev)
         emit(kernels)

@@ -168,10 +168,17 @@ TUNING_SLICE_MODULES = (
     "observability/numerics/nan_probe.py")
 
 
+# the lint engines and their CLI
+ANALYSIS_SLICE_MODULES = (
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/findings.py",
+    "analysis/ast_checks.py", "analysis/concurrency_checks.py",
+    "analysis/cli.py")
+
+
 @pytest.mark.parametrize("rel", BASELINE_MODULES + SLICE_MODULES
                          + OPTIMIZER_SLICE_MODULES + CONTRIB_SLICE_MODULES
                          + OBSERVABILITY_SLICE_MODULES
-                         + TUNING_SLICE_MODULES)
+                         + TUNING_SLICE_MODULES + ANALYSIS_SLICE_MODULES)
 def test_baseline_modules_are_checked(rel):
     assert PORT / rel in _port_sources()
 
