@@ -1,8 +1,11 @@
 """``python -m apex_tpu_torch.analysis`` — run the AST and concurrency
-engines over the port.
+engines over the port, and the graph engines over its registered targets.
 
     python -m apex_tpu_torch.analysis                  # default paths
     python -m apex_tpu_torch.analysis apex_tpu_torch/ops chip_smoke.py
+    python -m apex_tpu_torch.analysis --no-jaxpr       # path engines only
+    python -m apex_tpu_torch.analysis --allow my_target:master-weights
+    python -m apex_tpu_torch.analysis --list-targets   # targets + engine
     python -m apex_tpu_torch.analysis --baseline B     # B: the gate's file,
     python -m apex_tpu_torch.analysis --write-baseline B  # baseline.json here
     python -m apex_tpu_torch.analysis --json > base.json  # on the base rev
@@ -12,8 +15,13 @@ engines over the port.
     python -m apex_tpu_torch.analysis --sarif out.sarif
 
 Exit codes: 0 clean (or all findings grandfathered), 1 new findings,
-2 a usage error (unknown check id or engine, missing path, a bad
-``--diff`` base) or an exceeded wall-time budget.
+2 a usage error (unknown check id, engine or target, missing path, a bad
+``--diff`` base), a registered target that failed to trace, or an
+exceeded wall-time budget. The tracing engines (``jaxpr``: the graph
+checks, ``dataflow``: precision, ``state``, ``serving``) run the
+targets of :mod:`.targets` (fake tensors, no device work); the
+reference's sharding, spmd and memory engines and its ``plan``
+subcommand are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +33,11 @@ import os
 import sys
 import time
 
-from apex_tpu_torch.analysis import ast_checks, concurrency_checks
+from apex_tpu_torch.analysis import ast_checks, concurrency_checks, targets
 from apex_tpu_torch.analysis import findings as findings_mod
+from apex_tpu_torch.analysis.graph_checks import GRAPH_CHECKS
+from apex_tpu_torch.analysis.precision_checks import PRECISION_CHECKS
+from apex_tpu_torch.analysis.state_checks import STATE_CHECKS
 
 # The port, its driver scripts and chip_smoke.py (which the reference's
 # tools/ and bench.py correspond to: driver code).
@@ -37,7 +48,11 @@ DEFAULT_PATHS = ("apex_tpu_torch", "chip_smoke.py", "flash_ab.py",
 BASELINE_PATH = os.path.join(os.path.dirname(__file__), "baseline.json")
 
 # The engines --engines selects from, and the per-engine wall-time line.
-ENGINE_NAMES = ("ast", "concurrency")
+ENGINE_NAMES = ("ast", "concurrency", "jaxpr", "dataflow", "state",
+                "serving")
+
+# the engines that run the registered targets
+_TRACING_ENGINES = frozenset(ENGINE_NAMES) - {"ast", "concurrency"}
 
 # Total-wall-time budget for one gate run: a silently-slowing gate rots
 # the suite's latency. Override with LINT_TIME_BUDGET_S, or set it <= 0
@@ -59,8 +74,18 @@ def _default_paths(root):
 
 
 def known_checks():
-    return set(ast_checks.AST_CHECKS) | set(
-        concurrency_checks.CONCURRENCY_CHECKS)
+    return (set(ast_checks.AST_CHECKS)
+            | set(concurrency_checks.CONCURRENCY_CHECKS)
+            | set(GRAPH_CHECKS) | set(PRECISION_CHECKS) | set(STATE_CHECKS)
+            | set(targets.TARGET_CHECKS))
+
+
+def target_engine(target_name) -> str:
+    """The engine a registered target's wall time and findings fall
+    under."""
+    return ("serving" if target_name in targets.SERVING_TARGETS else
+            "dataflow" if target_name in targets.PRECISION_TARGETS else
+            "state" if target_name in targets.STATE_TARGETS else "jaxpr")
 
 
 def parse_engines(spec):
@@ -112,8 +137,31 @@ def load_diff_report(path):
     return keys, fps
 
 
+def parse_allow(entries):
+    """['target:check', ...] -> {target: {check, ...}}; loud on a typo (an
+    allow matching nothing would silently stop allowing) and on a check
+    no target can emit."""
+    target_checks = set(targets.TRACING_CHECKS) | set(targets.TARGET_CHECKS)
+    allow: dict = {}
+    for entry in entries or ():
+        target_name, sep, check = entry.partition(":")
+        if not sep or not target_name or not check:
+            raise ValueError(f"--allow expects target:check, got {entry!r}")
+        if target_name not in targets.TARGETS:
+            raise ValueError(
+                f"--allow names unknown target {target_name!r}; valid: "
+                f"{sorted(targets.TARGETS)}")
+        if check not in target_checks:
+            raise ValueError(
+                f"--allow names check id {check!r} that no target can "
+                f"emit; valid: {sorted(target_checks)}")
+        allow.setdefault(target_name, set()).add(check)
+    return allow
+
+
 def run(paths=None, root=None, ast=True, concurrency=True, checks=None,
-        engine_seconds=None, engines=None, stats=None):
+        engine_seconds=None, engines=None, stats=None, jaxpr=True,
+        allow=None, errors=None):
     """Programmatic entry: returns the findings.
 
     ``engine_seconds``: an optional dict that receives per-engine wall
@@ -122,8 +170,12 @@ def run(paths=None, root=None, ast=True, concurrency=True, checks=None,
     :data:`ENGINE_NAMES` to restrict the run to (validated loudly);
     composes with the ``--no-*`` flags (both must select an engine) and
     with ``checks`` (intersection). ``stats``: an optional dict that
-    receives ``files`` (the .py files linted) and ``suppressed`` (a
-    Counter of the findings inline comments silenced, by check).
+    receives ``files`` (the .py files linted), ``suppressed`` (a
+    Counter of the findings inline comments silenced, by check) and
+    ``targets`` (the registered targets run). ``jaxpr``: run the
+    registered targets (the tracing engines); ``allow``: {target: check
+    ids} dropped from that target; ``errors``: a dict that receives each
+    target that failed to trace, with its error.
     """
     engines = parse_engines(engines)
     if engines is not None:
@@ -164,10 +216,45 @@ def run(paths=None, root=None, ast=True, concurrency=True, checks=None,
             engine_seconds[name] = (
                 engine_seconds.get(name, 0.0)
                 + time.perf_counter() - t0)  # apex-lint: disable=raw-clock
+    ran = _run_targets(jaxpr, checks, engines, allow, engine_seconds,
+                       all_findings, errors)
     if stats is not None:
         stats["files"] = sum(1 for _ in ast_checks.iter_python_files(use))
         stats["suppressed"] = collections.Counter(f.check for f in silenced)
+        stats["targets"] = ran
     return all_findings
+
+
+def _run_targets(jaxpr, checks, engines, allow, engine_seconds, out,
+                 errors) -> int:
+    """Run the registered targets the selection asks for, adding their
+    findings to ``out``; returns how many ran."""
+    if not jaxpr:
+        return 0
+    if checks is None or set(checks) & set(targets.TRACING_CHECKS):
+        names = set(targets.TARGETS)
+    else:
+        # only the non-tracing targets whose checks were asked for
+        names = set(targets.TARGETS) & set(checks)
+    if engines is not None:
+        tracing = engines & _TRACING_ENGINES
+        names = {n for n in names if target_engine(n) in tracing}
+    if not names:
+        return 0
+    per_target: dict = {}
+    found, failed = targets.run_targets(names, extra_allow=allow,
+                                        timings=per_target)
+    if engine_seconds is not None:
+        for name, seconds in per_target.items():
+            engine = target_engine(name)
+            engine_seconds[engine] = engine_seconds.get(engine, 0.0) \
+                + seconds
+    if checks:
+        found = [f for f in found if f.check in checks]
+    out += found
+    if errors is not None:
+        errors.update(failed)
+    return len(names)
 
 
 def sarif_report(findings, root=None) -> dict:
@@ -188,14 +275,23 @@ def sarif_report(findings, root=None) -> dict:
             "level": f.severity if f.severity in ("error", "warning")
             else "warning",
             "message": {"text": f.message},
-            "locations": [{
+        }
+        if f.line > 0:
+            result["locations"] = [{
                 "physicalLocation": {
                     "artifactLocation": {
                         "uri": f.path.replace(os.sep, "/")},
-                    "region": {"startLine": max(f.line, 1)},
+                    "region": {"startLine": f.line},
                 },
-            }],
-        }
+            }]
+        else:
+            # a graph finding (``<graph:target>``) has no file region
+            result["locations"] = [{
+                "logicalLocations": [{
+                    "name": f.symbol,
+                    "fullyQualifiedName": f"{f.path}:{f.symbol}",
+                }],
+            }]
         fp = findings_mod.finding_fingerprint(f, root=root,
                                               lines_cache=lines_cache)
         if fp:
@@ -224,8 +320,8 @@ def write_sarif(path, findings, root=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m apex_tpu_torch.analysis",
-        description="apex_tpu_torch static lint (AST + host-concurrency "
-                    "engines)")
+        description="apex_tpu_torch static lint (AST, host-concurrency "
+                    "and graph engines)")
     ap.add_argument("paths", nargs="*",
                     help=f"files/dirs to lint "
                          f"(default: {' '.join(DEFAULT_PATHS)})")
@@ -233,6 +329,9 @@ def main(argv=None):
                     help="repo root findings are reported relative to "
                          "(default: cwd)")
     ap.add_argument("--no-ast", dest="ast", action="store_false")
+    ap.add_argument("--no-jaxpr", dest="jaxpr", action="store_false",
+                    help="skip the registered targets (the graph, "
+                         "precision, state and serving engines)")
     ap.add_argument("--no-concurrency", dest="concurrency",
                     action="store_false",
                     help="skip the host-concurrency engine (it shares "
@@ -243,6 +342,11 @@ def main(argv=None):
                     help=f"comma-separated engine subset to run "
                          f"(valid: {','.join(ENGINE_NAMES)}); composes "
                          f"with --checks")
+    ap.add_argument("--allow", action="append", default=[],
+                    metavar="TARGET:CHECK",
+                    help="drop findings of CHECK from TARGET (repeatable): "
+                         "a per-target grandfather for a deliberate "
+                         "violation")
     ap.add_argument("--baseline", default=None,
                     help="JSON baseline of grandfathered findings; only "
                          "NEW findings fail the run")
@@ -260,6 +364,9 @@ def main(argv=None):
                          "snippet fingerprints as partialFingerprints; "
                          "byte-stable across identical runs")
     ap.add_argument("--list-checks", action="store_true")
+    ap.add_argument("--list-targets", action="store_true",
+                    help="print the registered targets and the engine "
+                         "each falls under, then exit")
     args = ap.parse_args(argv)
 
     if args.list_checks:
@@ -267,6 +374,19 @@ def main(argv=None):
             print(f"{cid:32s} [ast]")
         for cid in concurrency_checks.CONCURRENCY_CHECKS:
             print(f"{cid:32s} [concurrency]")
+        for cid in GRAPH_CHECKS:
+            print(f"{cid:32s} [jaxpr]")
+        for cid in PRECISION_CHECKS:
+            print(f"{cid:32s} [jaxpr/dataflow]")
+        for cid in STATE_CHECKS:
+            print(f"{cid:32s} [jaxpr/state]")
+        for cid in targets.TARGET_CHECKS:
+            print(f"{cid:32s} [jaxpr]")
+        return 0
+
+    if args.list_targets:
+        for name in targets.TARGETS:
+            print(f"{name:36s} [{target_engine(name)}]")
         return 0
 
     checks = None
@@ -275,26 +395,32 @@ def main(argv=None):
 
     engine_seconds: dict = {}
     stats: dict = {}
+    errors: dict = {}
     try:
+        allow = parse_allow(args.allow)
         # validate the diff base BEFORE the run: a bad base should fail
-        # in milliseconds
+        # in milliseconds, not after tracing every target
         diff_keys = diff_fps = None
         if args.diff:
             diff_keys, diff_fps = load_diff_report(args.diff)
         found = run(paths=args.paths or None, root=args.root,
                     ast=args.ast, concurrency=args.concurrency,
                     checks=checks, engine_seconds=engine_seconds,
-                    engines=args.engines, stats=stats)
+                    engines=args.engines, stats=stats, jaxpr=args.jaxpr,
+                    allow=allow, errors=errors)
     except (OSError, ValueError) as e:
         print(str(e), file=sys.stderr)
         return 2
     found.sort(key=lambda f: (f.path, f.line, f.check))
 
+    for name, err in sorted(errors.items()):
+        print(f"TARGET ERROR {name}: {err}", file=sys.stderr)
+
     if args.write_baseline:
         findings_mod.save_baseline(args.write_baseline, found)
         print(f"wrote {len(found)} grandfathered finding(s) to "
               f"{args.write_baseline}")
-        return 0
+        return 2 if errors else 0
 
     fresh = found
     grandfathered = 0
@@ -344,6 +470,8 @@ def main(argv=None):
                          for cid in sorted(known_checks())},
             "suppressed": dict(sorted(
                 stats.get("suppressed", {}).items())),
+            "targets": stats.get("targets", 0),
+            "target_errors": errors,
             "engine_seconds": {k: round(v, 3) for k, v in
                                sorted(engine_seconds.items())},
         }, indent=2))
@@ -358,7 +486,7 @@ def main(argv=None):
         print(f"engine wall time: {timing}  (total {total:.1f}s)",
               file=sys.stderr)
 
-    if over_budget:
+    if errors or over_budget:
         return 2
     return 1 if fresh else 0
 

@@ -68,9 +68,14 @@ class AmaxHistory:
     def update(self, state: AmaxHistoryState, amax) -> AmaxHistoryState:
         """Write one step's stacked amax vector (fp32 ``[n]``) into the
         rings: one column write, into a new ring."""
-        ring = state.ring.clone()
-        ring[:, int(state.cursor)] = torch.as_tensor(
-            amax, dtype=torch.float32, device=ring.device)
+        # the cursor and the fill count stay 0-dim CPU tensors, read by the
+        # ops as scalars (no host read: a traced step keeps them in its
+        # graph)
+        col = torch.arange(self.length, device=state.ring.device) \
+            == state.cursor
+        ring = torch.where(col[None, :], torch.as_tensor(
+            amax, dtype=torch.float32, device=state.ring.device)[:, None],
+            state.ring)
         return AmaxHistoryState(
             ring=ring, cursor=(state.cursor + 1) % self.length,
             filled=torch.clamp(state.filled + 1, max=self.length))
@@ -79,8 +84,8 @@ class AmaxHistory:
         """Rolling per-tensor amax over the filled slots (fp32 ``[n]``).
         Unfilled slots never vote (amax >= 0, so masking them to 0 is
         exact); an empty history reports 0."""
-        mask = torch.arange(self.length, device=state.ring.device) < int(
-            state.filled)
+        mask = torch.arange(self.length, device=state.ring.device) \
+            < state.filled
         return torch.amax(torch.where(mask[None, :], state.ring,
                                       torch.zeros_like(state.ring)), dim=1)
 

@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.ops import _build, kernel_config, kernel_nodes
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -70,6 +70,57 @@ _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_longlong] * 18 + _TAIL
 
 _U32 = 0xFFFFFFFF
+
+# (threads a block, query rows or keys a block) of the kernels by dtype,
+# as csrc/flash_fwd.cu, flash_bwd.cu and flash_tc.cuh compile them: bf16
+# runs one warpgroup on 64-row tiles, fp32 256 threads on 64-row tiles
+_FLASH_GEOMETRY = {torch.bfloat16: (128, 64), torch.float32: (256, 64)}
+
+
+def _padded_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim a kernel instance is compiled for: 64 or 128 in bf16
+    (a swizzled tile is 64 columns), 32, 64 or 128 in fp32."""
+    for pad in ((64, 128) if dtype == torch.bfloat16 else (32, 64, 128)):
+        if d <= pad:
+            return pad
+    raise ValueError(f"flash kernel needs a head dim <= {MAX_HEAD_DIM}")
+
+
+def _smem_bytes(entry: str, d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a block of ``entry`` (``flash_fwd``,
+    ``flash_bwd_dq``, ``flash_bwd_dkv``): ``fwd_smem_bytes``,
+    ``dq_smem_bytes`` and ``dkv_smem_bytes`` of the bf16 kernels,
+    ``smem_floats``, ``dq_smem_floats`` and ``dkv_smem_floats`` of the
+    fp32 ones."""
+    D = _padded_dim(d, dtype)
+    if dtype == torch.bfloat16:
+        tile = 64 * D * 2
+        return {"flash_fwd": 5 * tile + 1024,
+                "flash_bwd_dq": 6 * tile + 1024,
+                "flash_bwd_dkv": 6 * tile + 4 * 64 * 4 + 1024}[entry]
+    floats = {"flash_fwd": 64 * (D + 4) + D * 36 + 32 * (D + 4) + 64 * 36,
+              "flash_bwd_dq": (2 * 64 * (D + 4) + 2 * D * 36
+                               + 32 * (D + 4) + 64 * 36),
+              "flash_bwd_dkv": (2 * 64 * (D + 4) + 2 * D * 36
+                                + 2 * 32 * (D + 4) + 2 * 64 * 36 + 2 * 32)}
+    return floats[entry] * 4
+
+
+def flash_plan(entry: str, q: torch.Tensor,
+               k: torch.Tensor) -> kernel_nodes.KernelPlan:
+    """The launch plan of ``entry`` on [B, sq, H, d] q and [B_kv, sk,
+    H_kv, d] k: a block a (flat row, 64-row tile) pair of the queries
+    (forward, dq) or of the keys (dk/dv)."""
+    B, sq, H, d = q.shape
+    B_kv, sk, H_kv, _ = k.shape
+    threads, tile = _FLASH_GEOMETRY[q.dtype]
+    if entry == "flash_bwd_dkv":
+        blocks = B_kv * H_kv * -(-sk // tile)
+    else:
+        blocks = B * H * -(-sq // tile)
+    return kernel_nodes.KernelPlan(threads, 0, tile, blocks,
+                                   _smem_bytes(entry, d, q.dtype), d,
+                                   16 // q.dtype.itemsize)
 
 
 def _keep_mask(seed, bh, q_pos, k_pos, p_drop: float):
@@ -280,7 +331,8 @@ def _extras(kv_lens, p_drop: float, seed: int, bh: int, device):
                          f"{p_drop}")
     if not 0 <= seed < 2 ** 32:
         raise ValueError(f"dropout seed must be in [0, 2**32), got {seed}")
-    ptr = kv_lens.data_ptr() if kv_lens is not None else None
+    ptr = (kv_lens.data_ptr() if kv_lens is not None
+           and not kernel_nodes.traced(kv_lens) else None)
     return ptr, int(seed), float(p_drop)
 
 
@@ -302,6 +354,11 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, kv_lens=None,
     o = torch.empty((B, sq, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, sq), dtype=torch.float32, device=q.device)
     if B * H == 0 or sq == 0:
+        return o, lse
+    if kernel_nodes.traced(q):
+        o, lse = kernel_nodes.node(
+            "flash_fwd", (q, k, v, kv_lens), flash_plan("flash_fwd", q, k),
+            (o, lse), (scale, float(bool(causal)), p_drop, seed))
         return o, lse
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -361,6 +418,12 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
         return dq
     if sk == 0:
         return dq.zero_()
+    if kernel_nodes.traced(q):
+        (dq,) = kernel_nodes.node(
+            "flash_bwd_dq", (q, k, v, do, lse, delta, kv_lens),
+            flash_plan("flash_bwd_dq", q, k), (dq,),
+            (scale, float(bool(causal)), p_drop, seed))
+        return dq
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dq(
@@ -395,6 +458,12 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
         return dk, dv
     if sq == 0:
         return dk.zero_(), dv.zero_()
+    if kernel_nodes.traced(q):
+        dk, dv = kernel_nodes.node(
+            "flash_bwd_dkv", (q, k, v, do, lse, delta, kv_lens),
+            flash_plan("flash_bwd_dkv", q, k), (dk, dv),
+            (scale, float(bool(causal)), p_drop, seed))
+        return dk, dv
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dkv(

@@ -40,7 +40,7 @@ from typing import Dict, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.ops import _build, kernel_config, kernel_nodes
 from apex_tpu_torch.tuning import geometry
 
 # launches of the CUDA cast kernels, row-major y and column-major y; only
@@ -68,6 +68,12 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p]
 _ARGTYPES_T = _ARGTYPES[:3] + [ctypes.c_longlong] + _ARGTYPES[3:]
+
+# the column-major kernel's (threads a block, most blocks an SM, rows and
+# columns of x a tile), and the row-major one's 16-byte loads a thread
+# (kThreadsT, kBlocksPerSmT, kTileR, kTileC and kVecs of csrc/fp8_cast.cu)
+_COL_GEOMETRY = (256, 8, 128, 64)
+_ROW_VECS = 4
 # the row-major entry takes its launch plan before the stream
 _ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -128,6 +134,28 @@ def _scratch(device: torch.device) -> torch.Tensor:
     return buf
 
 
+def cast_plan(x: torch.Tensor, col_major: bool) -> kernel_nodes.KernelPlan:
+    """The launch plan of a cast of contiguous ``x`` (``csrc/fp8_cast.cu``
+    ``launch`` and ``launch_t``): blocks up to the work's, at most the
+    amax slots and the blocks an SM times the card's SMs."""
+    sms = kernel_nodes.sm_count(x.device)
+    vec = 16 // x.element_size()
+    if col_major:
+        threads, per_sm, tile_r, tile_c = _COL_GEOMETRY
+        rows, cols = x.shape
+        want = -(-rows // tile_r) * -(-cols // tile_c)
+        return kernel_nodes.KernelPlan(
+            threads, 0, 0, min(want, AMAX_SLOTS, per_sm * sms), 0, cols,
+            vec)
+    n = x.numel()
+    threads, per_sm = geometry.fp8_cast_geometry(n)
+    work = n // vec + n % vec if kernel_nodes.aligned16(x) else n
+    want = -(-work // (threads * _ROW_VECS))
+    return kernel_nodes.KernelPlan(
+        threads, 0, 0, max(1, min(want, AMAX_SLOTS, per_sm * sms)), 0, n,
+        vec)
+
+
 def _cast_and_scale_cuda(x: torch.Tensor, scale: ScaleLike,
                          dtype: torch.dtype, fmax: float,
                          col_major: bool = False
@@ -150,6 +178,15 @@ def _cast_and_scale_cuda(x: torch.Tensor, scale: ScaleLike,
     amax = torch.empty((), dtype=torch.float32, device=x.device)
     s = (as_scale(scale, x.device) if isinstance(scale, torch.Tensor)
          else None)
+    if kernel_nodes.traced(x):
+        y = (torch.empty((x.shape[1], x.shape[0]), dtype=dtype,
+                         device=x.device).t() if col_major
+             else torch.empty(x.shape, dtype=dtype, device=x.device))
+        y, amax = kernel_nodes.node(
+            "fp8_cast_scale_t" if col_major else "fp8_cast_scale", (x, s),
+            cast_plan(x, col_major), (y, amax),
+            (0.0 if s is not None else float(scale), fmax, fp8))
+        return y, amax
     lib = _lib()
     with torch.cuda.device(x.device):
         scratch = _scratch(x.device)

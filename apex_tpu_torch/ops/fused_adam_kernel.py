@@ -24,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.ops import _build, kernel_config, kernel_nodes
 from apex_tpu_torch.tuning import geometry
 
 # launches of the CUDA Adam kernel; only the CUDA wrapper below adds to
@@ -101,6 +101,11 @@ def _adam_flat_cuda(g, p, m, v, lr_t, step, *, b1, b2, eps, weight_decay,
     global launches
     _check(g, p, m, v)
     p_code = _build.dtype_code(p.dtype, "adam_flat params")
+    if kernel_nodes.traced(g):
+        return _adam_flat_node(g, p, m, v, lr_t, step, b1=b1, b2=b2,
+                               eps=eps, weight_decay=weight_decay,
+                               adam_w_mode=adam_w_mode,
+                               bias_correction=bias_correction)
     lr, c1, c2 = adam_scalars(lr_t, step, b1, b2, bias_correction)
     delta = torch.empty_like(p)
     if g.numel() == 0:
@@ -122,6 +127,37 @@ def _adam_flat_cuda(g, p, m, v, lr_t, step, *, b1, b2, eps, weight_decay,
         torch.autograd.graph.increment_version(m)
         torch.autograd.graph.increment_version(v)
         kernel_config.note_launch("adam_flat", (g, p), (delta, m, v))
+    return delta, m, v
+
+
+def _adam_flat_node(g, p, m, v, lr_t, step, *, b1, b2, eps, weight_decay,
+                    adam_w_mode, bias_correction):
+    """The kernel as one node of a traced graph (``kernel_nodes``): the
+    launch's plan, the step (and a tensor learning rate) as inputs, since
+    a traced value has no number to read, and m and v written back with
+    ``copy_`` as the kernel writes them in place."""
+    delta = torch.empty_like(p)
+    if g.numel() == 0:
+        return delta, m, v
+    n = g.numel()
+    threads, max_blocks = geometry.flat_adam_geometry(n)
+    # csrc/fused_adam.cu launch_t: a thread a 4-vector where every slab
+    # starts on 4 of its elements (a new allocation does)
+    vec = all(t.storage_offset() % 4 == 0 for t in (g, p, m, v))
+    work = -(-n // 4) if vec else n
+    blocks = max(1, min(-(-work // threads), max_blocks))
+    lr_in = lr_t if isinstance(lr_t, torch.Tensor) else None
+    lr = 0.0 if lr_in is not None else float(lr_t)
+    step_in = step if isinstance(step, torch.Tensor) else None
+    delta, m_new, v_new = kernel_nodes.node(
+        "adam_flat", (g, p, m, v, step_in, lr_in),
+        kernel_nodes.KernelPlan(threads, 0, 0, blocks, 0, n, 4),
+        (delta, m, v),
+        (lr, 0.0 if step_in is not None else float(step), b1, b2, eps,
+         weight_decay, float(bool(adam_w_mode)),
+         float(bool(bias_correction))))
+    m.copy_(m_new)
+    v.copy_(v_new)
     return delta, m, v
 
 

@@ -54,6 +54,12 @@ _MODES = ("auto", "off", "on", "interpret")
 # nan_probe): called by every kernel wrapper next to its launch counter
 _LAUNCH_HOOK: Optional[Callable] = None
 
+# the analysis tracer's stand-in for the card (analysis.interp.trace): a
+# build without CUDA cannot run autograd on fake CUDA tensors, so there
+# the tracer traces fake CPU tensors and marks them, while it runs, as the
+# card's
+_TRACE_AS_CARD = False
+
 
 def refresh_tuning() -> None:
     """Forget the parsed tuning cache (after an in-process tune wrote new
@@ -62,6 +68,32 @@ def refresh_tuning() -> None:
     from apex_tpu_torch.tuning import cache as tuning_cache
 
     tuning_cache.clear_memo()
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Does ``x`` lie on the card: a CUDA tensor, or a fake tensor of the
+    analysis tracer's stand-in (:func:`tracing_as_card`)?"""
+    if x.is_cuda:
+        return True
+    if not _TRACE_AS_CARD:
+        return False
+    from apex_tpu_torch.ops import kernel_nodes
+
+    return kernel_nodes.traced(x)
+
+
+@contextlib.contextmanager
+def tracing_as_card():
+    """Within the context, fake tensors off the card dispatch as CUDA
+    tensors do (the analysis tracer's stand-in on a build without CUDA);
+    real tensors are unaffected."""
+    global _TRACE_AS_CARD
+    prev = _TRACE_AS_CARD
+    _TRACE_AS_CARD = True
+    try:
+        yield
+    finally:
+        _TRACE_AS_CARD = prev
 
 
 def dispatch(kernel: str, x: torch.Tensor, count: bool = True,
@@ -82,13 +114,13 @@ def dispatch(kernel: str, x: torch.Tensor, count: bool = True,
     elif mode == "interpret":
         path = "interpret"
     elif mode == "on":
-        if not x.is_cuda:
+        if not on_card(x):
             raise RuntimeError(
                 f"kernel dispatch mode 'on' launches the CUDA kernel of "
                 f"{kernel}: the input lies on {x.device}")
         path = "kernel"
     else:
-        path = "kernel" if x.is_cuda else "interpret"
+        path = "kernel" if on_card(x) else "interpret"
     if count and path != "kernel" and x.is_cuda:
         from apex_tpu_torch.observability import get_registry
 

@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.ops import _build, kernel_config, kernel_nodes
 from apex_tpu_torch.tuning import geometry
 
 # launches of the CUDA RMSNorm and LayerNorm forward and backward
@@ -272,6 +272,30 @@ def _param_code(w: torch.Tensor, x2: torch.Tensor, what: str) -> int:
     return _build.dtype_code(w.dtype, what)
 
 
+def kernel_plan(plan, h: int, dtype: torch.dtype,
+                smem_bytes: int = 0) -> kernel_nodes.KernelPlan:
+    """A forward or backward plan (:class:`FwdPlan`, :class:`BwdPlan`) as
+    its launch's :class:`~apex_tpu_torch.ops.kernel_nodes.KernelPlan`:
+    ``rows_per_block`` rows of ``row_threads`` threads a block on the
+    register path, a block of ``row_threads`` threads a row on the loop
+    path (``norm.cuh``)."""
+    threads = (plan.row_threads * plan.rows_per_block if plan.registers
+               else plan.row_threads)
+    return kernel_nodes.KernelPlan(threads, plan.row_threads,
+                                   plan.rows_per_block, plan.blocks,
+                                   smem_bytes, h, 16 // dtype.itemsize)
+
+
+def _bwd_smem_bytes(plan: BwdPlan, h: int, n_acc: int,
+                    affine: bool) -> int:
+    """Dynamic shared memory of a backward block (``norm.cuh``): its fp32
+    column sums where it joins several row slots' (register path) or
+    keeps them (loop path)."""
+    if not affine or (plan.registers and plan.rows_per_block == 1):
+        return 0
+    return n_acc * h * 4
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -314,9 +338,14 @@ def _norm_fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
         return y, mu, rstd
     params = (w, b) if centred else (w,)
     stats = (mu, rstd) if centred else (rstd,)
-    aligned = all(t.data_ptr() % 16 == 0
+    aligned = all(kernel_nodes.aligned16(t)
                   for t in (x2, y, *params) if t is not None)
     plan = geometry.norm_plan(what, rows, h, x2.dtype, aligned)
+    if kernel_nodes.traced(x2):
+        y, *stats = kernel_nodes.node(
+            f"{what}_fwd", (x2, *params), kernel_plan(plan, h, x2.dtype),
+            (y, *stats), (eps,))
+        return (y, *stats) if centred else (y, None, *stats)
     lib, name, fwd, _ = _lib(centred)
     with torch.cuda.device(x2.device):
         rc = fwd(_ptr(x2), *map(_ptr, params), _ptr(y), *map(_ptr, stats),
@@ -358,10 +387,16 @@ def _norm_bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
                    for _ in range(n_acc)) if w is not None else ())
     if rows == 0:
         return dx if w is None else (dx, *(g.zero_() for g in grads))
-    aligned = all(t.data_ptr() % 16 == 0
+    aligned = all(kernel_nodes.aligned16(t)
                   for t in (x2, dy, dx, w) if t is not None)
     plan = geometry.norm_bwd_plan(what, rows, h, x2.dtype, aligned,
                                   affine=w is not None)
+    if kernel_nodes.traced(x2):
+        smem = _bwd_smem_bytes(plan, h, n_acc, w is not None)
+        dx, *grads = kernel_nodes.node(
+            f"{what}_bwd", (x2, dy, *stats, w),
+            kernel_plan(plan, h, x2.dtype, smem), (dx, *grads))
+        return dx if w is None else (dx, *grads)
     part = (torch.empty((plan.partial_rows, n_acc * h), dtype=torch.float32,
                         device=x2.device) if w is not None else None)
     out_grads = grads if w is not None else (None,) * n_acc

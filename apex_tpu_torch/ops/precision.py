@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from apex_tpu_torch.ops import fp8_cast_kernel
+from apex_tpu_torch.ops import fp8_cast_kernel, kernel_config
 from apex_tpu_torch.ops.fp8_cast_kernel import ScaleLike, as_scale
 
 #: E4M3 for forward operands, E5M2 for backward cotangents
@@ -105,7 +105,7 @@ def _fp8_product(a8, b8):
     an exact upcast elsewhere and for other K or N (an MLP's one-unit
     output layer)."""
     k, n = b8.shape
-    if not a8.is_cuda or k % 16 or n % 16:
+    if not kernel_config.on_card(a8) or k % 16 or n % 16:
         return _product_upcast(a8, b8)
     one = torch.ones((), dtype=torch.float32, device=a8.device)
     acc = torch._scaled_mm(a8.reshape(-1, k), b8, scale_a=one, scale_b=one,

@@ -45,7 +45,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from apex_tpu_torch.ops import _build, kernel_config
+from apex_tpu_torch.ops import _build, kernel_config, kernel_nodes
 from apex_tpu_torch.tuning import geometry, search_space
 from apex_tpu_torch.transformer.enums import AttnMaskType
 
@@ -117,7 +117,26 @@ def _softmax_plan(sk: int, dtype: torch.dtype,
 
 def _row_plan(x: torch.Tensor, y: torch.Tensor) -> RowPlan:
     return _softmax_plan(x.shape[-1], x.dtype,
-                         x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+                         kernel_nodes.aligned16(x)
+                         and kernel_nodes.aligned16(y))
+
+
+def _rows_kernel_plan(plan: RowPlan, rows: int,
+                      sk: int) -> kernel_nodes.KernelPlan:
+    """A whole-row kernel's launch (``launch_rows``): ``rows_per_block``
+    rows of ``row_threads`` threads a block."""
+    return kernel_nodes.KernelPlan(
+        plan.row_threads * plan.rows_per_block, plan.row_threads,
+        plan.rows_per_block, -(-rows // plan.rows_per_block), 0, sk,
+        plan.vec)
+
+
+def _blocked_kernel_plan(x: torch.Tensor, rows: int,
+                         sk: int) -> kernel_nodes.KernelPlan:
+    """A long-row pass's launch: a block a row."""
+    threads = geometry.softmax_threads(sk)
+    return kernel_nodes.KernelPlan(threads, threads, 1, rows, 0, sk,
+                                   16 // x.element_size())
 
 
 # x, mask, m, l (and y for apply), then as the masked kernel, then the
@@ -272,6 +291,11 @@ def _causal_cuda(x: torch.Tensor, scale: float) -> torch.Tensor:
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    if kernel_nodes.traced(x):
+        (y,) = kernel_nodes.node(
+            "fused_softmax_causal", (x,),
+            _rows_kernel_plan(_row_plan(x, y), rows, sk), (y,), (scale,))
+        return y
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.fused_softmax_causal(x.data_ptr(), y.data_ptr(), rows, sq,
@@ -299,6 +323,11 @@ def _masked_cuda(x: torch.Tensor, mask: torch.Tensor,
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    if kernel_nodes.traced(x):
+        (y,) = kernel_nodes.node(
+            "fused_softmax_masked", (x, m4),
+            _rows_kernel_plan(_row_plan(x, y), rows, sk), (y,), (scale,))
+        return y
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.fused_softmax_masked(
@@ -321,7 +350,8 @@ def _blocked_args(x: torch.Tensor, mask: Optional[torch.Tensor]):
     if mask is None:
         return sq, sk, rows, None, None, 1, (0, 0, 0, 0), code
     m4, d1 = _mask_view(x, mask)
-    return sq, sk, rows, m4, m4.data_ptr(), d1, m4.stride(), code
+    ptr = None if kernel_nodes.traced(m4) else m4.data_ptr()
+    return sq, sk, rows, m4, ptr, d1, m4.stride(), code
 
 
 def _stats_cuda(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -333,6 +363,11 @@ def _stats_cuda(x: torch.Tensor, mask: Optional[torch.Tensor],
     m = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     l = torch.empty_like(m)
     if rows == 0:
+        return m, l
+    if kernel_nodes.traced(x):
+        m, l = kernel_nodes.node(
+            "fused_softmax_stats", (x, m4),
+            _blocked_kernel_plan(x, rows, sk), (m, l), (scale,))
         return m, l
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -359,6 +394,11 @@ def _apply_cuda(x: torch.Tensor, mask: Optional[torch.Tensor], scale: float,
                          "leading shape")
     y = torch.empty_like(x)
     if rows == 0:
+        return y
+    if kernel_nodes.traced(x):
+        (y,) = kernel_nodes.node(
+            "fused_softmax_apply", (x, m4, m, l),
+            _blocked_kernel_plan(x, rows, sk), (y,), (scale,))
         return y
     lib = _lib()
     with torch.cuda.device(x.device):

@@ -13,12 +13,22 @@ result line) when it fails:
                sm_90a, one process per source, all started together.
 2a. analysis -- the port's lint gate, ``python -m apex_tpu_torch.analysis
                --json --baseline apex_tpu_torch/analysis/baseline.json``
-               from the checkout's root: exit 0 and no new finding; the
-               files linted, the findings by check (all 18 ids), the
-               inline suppressions and each engine's seconds. Then a
-               copy of four port modules with one planted violation of
-               each check id in its PyTorch form (``ANALYSIS_PLANTS``):
-               exit 1, each id named exactly once, at its planted line.
+               from the checkout's root, its graph engines' targets
+               traced on fake CUDA tensors against the card's own shared
+               memory: exit 0, no new finding, no target error; the
+               files linted, the targets run, the findings by check (all
+               34 ids), the inline suppressions and each engine's
+               seconds. Then a copy of four port modules with one planted
+               violation of each path engine's check id in its PyTorch
+               form (``ANALYSIS_PLANTS``, ``--no-jaxpr``): exit 1, each
+               id named exactly once, at its planted line; and one
+               planted torch program for each graph engine's id
+               (``GRAPH_PLANTS``), each naming its id once. Last, the
+               training path's step (phase 6's ``llama.train_step`` at
+               its width, depth and batch) traced on fake CUDA: its
+               kernel nodes by C entry, held after phase 6 against the
+               launch counters of that phase's first real step
+               (``analysis_kernel_nodes``).
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at its path's shapes, with the tolerance stated, and timed
                (kernel, host call, plain version, library call, bound):
@@ -829,7 +839,8 @@ def phase_build():
 
 
 # the analysis phase's planted faults: one violation of each of the 18
-# check ids of apex_tpu_torch.analysis, in its PyTorch form, appended to a
+# path-engine (AST and concurrency) check ids of apex_tpu_torch.analysis,
+# in its PyTorch form, appended to a
 # copy of a port module kept at its path (so each check's scoping
 # applies); the offending line of each ends in "# planted: <id>"
 ANALYSIS_PLANTS = {
@@ -985,9 +996,9 @@ def run_analysis_cli(args, cwd) -> tuple:
 
 def planted_analysis(work: Path) -> dict:
     """Copies the ANALYSIS_PLANTS modules under ``work`` with their
-    violations appended and runs the CLI over the copies: it must exit 1
-    and name each of the 18 check ids exactly once, at its planted line
-    and nowhere else."""
+    violations appended and runs the path engines over the copies
+    (``--no-jaxpr``): they must exit 1 and name each of their 18 check
+    ids exactly once, at its planted line and nowhere else."""
     want = {}
     for rel, plant in ANALYSIS_PLANTS.items():
         text = (ROOT / rel).read_text() + plant
@@ -998,12 +1009,15 @@ def planted_analysis(work: Path) -> dict:
             mark = re.search(r"# planted: ([a-z0-9-]+)$", line)
             if mark:
                 want[mark.group(1)] = (rel, no)
-    rc, payload = run_analysis_cli(["--root", str(work), "apex_tpu_torch"],
-                                   cwd=work)
+    rc, payload = run_analysis_cli(
+        ["--root", str(work), "--no-jaxpr", "apex_tpu_torch"], cwd=work)
     got = {}
     for f in payload["findings"]:
         got.setdefault(f["check"], []).append((f["path"], f["line"]))
-    checks = set(payload["by_check"])
+    from apex_tpu_torch.analysis import ast_checks, concurrency_checks
+
+    checks = set(ast_checks.AST_CHECKS) | set(
+        concurrency_checks.CONCURRENCY_CHECKS)
     if rc != 1 or len(want) != 18 or set(want) != checks or any(
             got.get(c) != [want[c]] for c in checks) or set(got) != checks:
         raise AssertionError(
@@ -1014,27 +1028,312 @@ def planted_analysis(work: Path) -> dict:
             "engine_seconds": payload["engine_seconds"]}
 
 
+def _plant_fake(make):
+    from apex_tpu_torch.analysis import interp
+
+    return interp.on_trace_device(make)
+
+
+def _plant_donation():
+    """The flat Adam's m, donated, read after the kernel wrote it."""
+    import torch
+
+    from apex_tpu_torch.analysis import graph_checks
+    from apex_tpu_torch.ops import fused_adam_kernel
+
+    def step(g, p, m, v):
+        with torch.no_grad():
+            delta, m2, v = fused_adam_kernel.adam_flat(
+                g, p, m, v, 1e-3, 1.0, b1=0.9, b2=0.999, eps=1e-8,
+                weight_decay=0.0, adam_w_mode=True, bias_correction=True)
+            return delta, m2, v, torch.linalg.vector_norm(m)
+
+    args = _plant_fake(lambda dev: tuple(
+        torch.zeros(4096, device=dev) for _ in range(4)))
+    return graph_checks.analyze_fn(step, *args, donate_argnums=(2,))
+
+
+def _plant_recompile():
+    """A Python learning rate baked into the graph."""
+    import torch
+
+    from apex_tpu_torch.analysis import graph_checks
+
+    x = _plant_fake(lambda dev: torch.ones(4, device=dev))
+    return graph_checks.analyze_fn(lambda x, lr: x * lr, x, 1e-3)
+
+
+def _plant_pallas_block():
+    """LayerNorm rows of 1001 bf16 values: not whole 16-byte vectors."""
+    import torch
+
+    from apex_tpu_torch.analysis import graph_checks
+    from apex_tpu_torch.ops import layer_norm
+
+    x, w, b = _plant_fake(lambda dev: (
+        torch.zeros((64, 1001), dtype=torch.bfloat16, device=dev),
+        torch.ones(1001, device=dev), torch.zeros(1001, device=dev)))
+    return graph_checks.analyze_fn(
+        lambda x, w, b: layer_norm.layer_norm(x, w, b, (1001,)), x, w, b)
+
+
+def _plant_precision(fn, shapes, **kw):
+    import torch
+
+    from apex_tpu_torch.analysis import precision_checks
+
+    args = _plant_fake(lambda dev: tuple(
+        torch.zeros(s, dtype=d, device=dev) for s, d in shapes))
+    return precision_checks.analyze_precision(fn, *args, **kw)
+
+
+def _plant_lowprec_accum():
+    """Half atomics: a bf16 buffer accumulated by index_add."""
+    import torch
+
+    def fn(x, idx):
+        acc = torch.zeros((4, 8), dtype=torch.bfloat16, device=x.device)
+        return acc.index_add_(0, idx.long(), x)
+    return _plant_precision(fn, (((64, 8), torch.bfloat16),
+                                 ((64,), torch.int32)))
+
+
+def _plant_master_weights():
+    """An fp32 master touched in bf16."""
+    import torch
+
+    return _plant_precision(lambda m: m.to(torch.bfloat16) * 0.9,
+                            (((8,), torch.float32),), roles={0: "master"})
+
+
+def _plant_unsafe_exp():
+    import torch
+
+    return _plant_precision(torch.exp, (((4, 8), torch.bfloat16),))
+
+
+def _plant_cast_churn():
+    import torch
+
+    return _plant_precision(lambda x: x.float().to(torch.bfloat16),
+                            (((8,), torch.bfloat16),))
+
+
+def _plant_loss_scale_bypass():
+    import torch
+
+    f32 = torch.float32
+    return _plant_precision(lambda m, g, s: m - 0.1 * g,
+                            (((8,), f32), ((8,), f32), ((), f32)),
+                            roles={0: "master", 1: "grad", 2: "scale"})
+
+
+def _plant_fp8_unscaled():
+    """A raw .to(float8) into a GEMM (one operand)."""
+    import torch
+
+    f8 = torch.float8_e4m3fn
+    return _plant_precision(
+        lambda a, b: torch.mm(a.to(f8).float(), b.float()),
+        (((8, 16), torch.bfloat16), ((16, 4), torch.bfloat16)))
+
+
+def _plant_fp8_stale_amax():
+    """The fp8 cast kernel under a scale with no amax history."""
+    import torch
+
+    from apex_tpu_torch.ops import fp8_cast_kernel
+
+    return _plant_precision(
+        lambda a, s: fp8_cast_kernel.cast_and_scale_stats(
+            a, s, torch.float8_e4m3fn, 448.0)[0],
+        (((8, 16), torch.bfloat16), ((), torch.float32)),
+        roles={1: "fp8_scale"})
+
+
+def _plant_state(manifest_of=None, **kw):
+    """A moment-and-weight step through ``analyze_state``;
+    ``manifest_of(state)``: the manifest to hold it against."""
+    import torch
+
+    from apex_tpu_torch.analysis import state_checks
+
+    state, g = _plant_fake(lambda dev: (
+        {"w": torch.ones((4, 4), device=dev),
+         "m": torch.zeros((4, 4), device=dev)},
+        torch.ones((4, 4), device=dev)))
+
+    def step(state, g):
+        m = 0.9 * state["m"] + 0.1 * g
+        return {"w": state["w"] - 0.1 * m, "m": m}
+
+    if manifest_of is not None:
+        kw["manifest"] = manifest_of(state)
+    return state_checks.analyze_state(step, state, g, **kw)
+
+
+def _plant_unsaved():
+    return _plant_state(save_tree_of=lambda s: {"w": s["w"]})
+
+
+def _plant_schema_drift():
+    """A manifest whose moment was saved in fp16."""
+    from apex_tpu_torch import checkpoint
+
+    def drifted(state):
+        manifest = checkpoint.state_schema_of(state)
+        manifest["leaves"][0]["dtype"] = "float16"
+        return manifest
+    return _plant_state(manifest_of=drifted)
+
+
+def _plant_narrowing():
+    import torch
+
+    template = _plant_fake(lambda dev: {
+        "m": torch.zeros((4, 4), device=dev),
+        "w": torch.ones((4, 4), dtype=torch.bfloat16, device=dev)})
+    return _plant_state(restore_template=template)
+
+
+def _plant_reshard():
+    layout = {"axis": "dp", "num_shards": 4,
+              "buckets": [{"dtype": "float32", "total": 30, "padded": 32}]}
+    return _plant_state(reshard_layout=layout, reshard_candidates=(3,))
+
+
+def _plant_restore_donation():
+    """An in-place first step after a restore, the restored reference
+    held beside its new state."""
+    import torch
+
+    from apex_tpu_torch.analysis import state_checks
+    from apex_tpu_torch.resilience.loop import resume_path
+
+    state, step = _plant_fake(lambda dev: (
+        {"w": torch.ones((4, 4), device=dev)}, torch.zeros((), device=dev)))
+
+    def step_fn(state, step):
+        w = state["w"].mul_(0.9).add_(step)
+        return {"w": w}, {"loss": torch.mean(w)}
+
+    return state_checks.check_restore_donation(resume_path(step_fn), state,
+                                               step)
+
+
+def _plant_step_record():
+    """A documented step-record field the record lacks."""
+    from apex_tpu_torch.analysis import targets
+    from apex_tpu_torch.observability import step_report
+
+    fields = step_report.STEP_RECORD_FIELDS
+    step_report.STEP_RECORD_FIELDS = fields + ("planted_field",)
+    try:
+        return targets.run_targets({"step-record-schema"})[0]
+    finally:
+        step_report.STEP_RECORD_FIELDS = fields
+
+
+# the analysis phase's planted torch programs: one hazard of each of the
+# graph engines' 16 check ids, each through the port's own entry points
+# (fake tensors on the card, kernels as nodes)
+GRAPH_PLANTS = {
+    "donation": _plant_donation,
+    "recompile": _plant_recompile,
+    "pallas-block": _plant_pallas_block,
+    "lowprec-accum": _plant_lowprec_accum,
+    "master-weights": _plant_master_weights,
+    "unsafe-exp": _plant_unsafe_exp,
+    "cast-churn": _plant_cast_churn,
+    "loss-scale-bypass": _plant_loss_scale_bypass,
+    "fp8-unscaled": _plant_fp8_unscaled,
+    "fp8-stale-amax": _plant_fp8_stale_amax,
+    "unsaved-train-state": _plant_unsaved,
+    "ckpt-schema-drift": _plant_schema_drift,
+    "dtype-narrowing-restore": _plant_narrowing,
+    "reshard-illegal": _plant_reshard,
+    "restore-donation-hazard": _plant_restore_donation,
+    "step-record-schema": _plant_step_record,
+}
+
+
+def planted_graph_analysis() -> dict:
+    """Runs each of ``GRAPH_PLANTS``: each must name its id, exactly once,
+    and nothing else."""
+    got = {}
+    for cid, plant in GRAPH_PLANTS.items():
+        got[cid] = sorted(f.check for f in plant())
+    bad = {cid: ids for cid, ids in got.items() if ids != [cid]}
+    if bad or len(got) != 16:
+        raise AssertionError(f"planted graph faults: want each id once, "
+                             f"got {bad}")
+    return {"named": sorted(got), "findings": sum(map(len, got.values()))}
+
+
+# the launch counters (read_counts) by the C entry of their kernel node
+COUNTER_ENTRIES = {
+    "flash_attention_fwd": "flash_fwd",
+    "flash_attention_bwd_dq": "flash_bwd_dq",
+    "flash_attention_bwd_dkv": "flash_bwd_dkv",
+    "rms_norm_fwd": "rms_norm_fwd", "rms_norm_bwd": "rms_norm_bwd",
+    "fused_adam": "adam_flat", "layer_norm_fwd": "layer_norm_fwd",
+    "layer_norm_bwd": "layer_norm_bwd",
+    "fused_softmax_causal": "fused_softmax_causal",
+    "fused_softmax_masked": "fused_softmax_masked",
+    "fused_softmax_stats": "fused_softmax_stats",
+    "fused_softmax_apply": "fused_softmax_apply",
+    "fp8_cast": "fp8_cast_scale", "fp8_cast_col": "fp8_cast_scale_t"}
+
+
+def kernel_nodes_check(traced: dict, launched: dict) -> dict:
+    """The traced step's kernel nodes against one real step's launch
+    counters (phase 6's first step), entry by entry."""
+    want = {COUNTER_ENTRIES[k]: n for k, n in launched.items()
+            if k in COUNTER_ENTRIES and n}
+    if traced != want:
+        raise AssertionError(f"kernel nodes of the traced step {traced} != "
+                             f"the launches of its real step {want}")
+    return {"phase": "analysis_kernel_nodes", "traced": traced,
+            "launched": want, "equal": True}
+
+
 def phase_analysis():
     """The port's lint gate (the AST and concurrency engines of
-    ``apex_tpu_torch.analysis`` over the default paths against the
-    committed baseline: exit 0, no new finding), then the planted faults
-    (exit 1, each of the 18 ids named once at its line)."""
+    ``apex_tpu_torch.analysis`` over the default paths and its graph
+    engines over the registered targets, against the committed baseline:
+    exit 0, no new finding, no target error), the planted faults (the 18
+    path ids, each named once at its line; the 16 graph ids, each once),
+    and the kernel nodes of the training step traced on fake CUDA."""
     import tempfile
+
+    from apex_tpu_torch.analysis import graph_checks, targets
 
     rc, gate = run_analysis_cli(
         ["--baseline", "apex_tpu_torch/analysis/baseline.json"], cwd=ROOT)
-    if rc != 0 or gate["findings"]:
+    if rc != 0 or gate["findings"] or gate["target_errors"]:
         new = [(f["check"], f["path"], f["line"]) for f in gate["findings"]]
-        raise AssertionError(f"analysis gate: exit {rc}, new findings {new}")
+        raise AssertionError(f"analysis gate: exit {rc}, new findings {new}, "
+                             f"target errors {gate['target_errors']}")
     with tempfile.TemporaryDirectory() as work:
         planted = planted_analysis(Path(work))
+    t0 = time.monotonic()
+    graph_planted = planted_graph_analysis()
+    graph_planted["seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    nodes = targets.llama_step_kernel_nodes(
+        num_layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        lr=TRAIN_LR)
+    trace_s = time.monotonic() - t0
     return {"phase": "analysis", "files": gate["files"],
+            "targets": gate["targets"],
             "new_findings": len(gate["findings"]),
             "grandfathered": gate["grandfathered"],
             "by_check": gate["by_check"],
             "suppressed": gate["suppressed"],
             "engine_seconds": gate["engine_seconds"],
-            "planted": planted}
+            "smem_budget_bytes": graph_checks.smem_budget(),
+            "planted": planted, "planted_graph": graph_planted,
+            "kernel_nodes": nodes, "kernel_nodes_trace_s": trace_s}
 
 
 def fwd_plan(ln, rows: int, h: int):
@@ -12787,7 +13086,8 @@ def main() -> int:
         phase = "build"
         emit(phase_build())
         phase = "analysis"
-        emit(phase_analysis())
+        analysis = phase_analysis()
+        emit(analysis)
         phase = "kernels"
         kernels = phase_kernels(dev)
         emit(kernels)
@@ -12824,6 +13124,9 @@ def main() -> int:
         reset_counts()
         step, training = phase_training(dev)
         emit(training)
+        phase = "analysis_kernel_nodes"
+        emit(kernel_nodes_check(analysis["kernel_nodes"],
+                                training["launches_per_step"]))
         if profiling:
             phase = "profile_training"
             emit(profile_step(phase, step))

@@ -3,8 +3,10 @@ suppressions, baselines and fingerprints read the same in both packages,
 each package's ``--diff`` refuses the other's dump, and the CLI end to
 end in a temporary tree (exit codes 0, 1 and 2, ``--checks`` and
 ``--engines``, ``--write-baseline`` then ``--baseline``, the JSON and
-SARIF payloads, the wall-time budget, and the later engines' flags
-refused)."""
+SARIF payloads, the wall-time budget, the graph engines' ``--no-jaxpr``,
+``--allow`` and ``--list-targets``, and the planner's ``plan`` still
+refused). In the temporary tree the registered targets are cut to one
+cheap target of each tracing engine."""
 
 import collections
 import json
@@ -117,10 +119,20 @@ def test_each_diff_refuses_the_other_packages_dump(tmp_path):
                      str(tmp_path)]) == 2
 
 
+# one cheap registered target of each tracing engine
+TREE_TARGETS = ("step-record-schema", "tp_fused_softmax",
+                "state_resilient_resume_path", "state_serving_decode_step")
+N_CHECKS = 18 + 3 + 7 + 5 + 1
+
+
 @pytest.fixture
 def tree(tmp_path, monkeypatch):
     """A checkout-shaped tree: one library module with a raw clock, one
-    clean example."""
+    clean example; the registered targets cut to :data:`TREE_TARGETS`."""
+    from apex_tpu_torch.analysis import targets
+
+    monkeypatch.setattr(targets, "TARGETS", {
+        k: v for k, v in targets.TARGETS.items() if k in TREE_TARGETS})
     lib = tmp_path / "apex_tpu_torch" / "runtime"
     lib.mkdir(parents=True)
     (lib / "clock.py").write_text(VIOLATION)
@@ -155,7 +167,7 @@ def test_checks_and_engines_narrow_the_run(tree, capsys):
     assert cli.main(["--no-ast", "--engines", "ast"]) == 0
     capsys.readouterr()
     for argv, needle in ((["--checks", "raw-clok"], "unknown check"),
-                         (["--engines", "jaxpr"], "unknown engine"),
+                         (["--engines", "sharding"], "unknown engine"),
                          (["--engines", ","], "no engine"),
                          (["no/such/dir"], "do not exist")):
         assert cli.main(argv) == 2
@@ -183,7 +195,9 @@ def test_json_payload(tree, capsys):
     assert data["schema_version"] == 1
     assert data["files"] == 2 and data["grandfathered"] == 0
     assert set(data["by_check"]) == cli.known_checks()
-    assert len(data["by_check"]) == 18
+    assert len(data["by_check"]) == N_CHECKS
+    assert data["targets"] == len(TREE_TARGETS)
+    assert data["target_errors"] == {}
     assert data["by_check"]["raw-clock"] == 1
     assert sum(data["by_check"].values()) == 1
     assert set(data["engine_seconds"]) == set(cli.ENGINE_NAMES)
@@ -224,7 +238,7 @@ def test_sarif_payload(tree, capsys):
     assert doc["version"] == "2.1.0"
     (run,) = doc["runs"]
     rules = [r["id"] for r in run["tool"]["driver"]["rules"]]
-    assert rules == sorted(cli.known_checks()) and len(rules) == 18
+    assert rules == sorted(cli.known_checks()) and len(rules) == N_CHECKS
     assert run["tool"]["driver"]["name"] == "apex_tpu_torch.analysis"
     (res,) = run["results"]
     assert res["ruleId"] == "raw-clock"
@@ -246,19 +260,53 @@ def test_exceeded_budget_exits_2(tree, capsys, monkeypatch):
     assert cli.main(["--checks", "mutable-default"]) == 0
 
 
-@pytest.mark.parametrize("argv", [["--no-jaxpr"], ["--allow", "t:donation"],
-                                  ["--list-targets"], ["plan"],
-                                  ["plan", "--target", "llama"]])
+@pytest.mark.parametrize("argv", [["plan"], ["plan", "--target", "llama"]])
 def test_later_engines_flags_are_refused(tree, capsys, argv):
-    if argv[0] == "plan":
-        # a positional `plan` is a path: it does not exist here
-        assert cli.main(argv[:1]) == 2
-        if len(argv) == 1:
-            return
+    """The planner (``plan``) is not ported yet."""
+    # a positional `plan` is a path: it does not exist here
+    assert cli.main(argv[:1]) == 2
+    if len(argv) == 1:
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
     assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--no-jaxpr", "--allow", "--list-targets"])
+def test_graph_engine_flags(tree, capsys, monkeypatch, flag):
+    if flag == "--no-jaxpr":
+        rc, data = _json(capsys, ["--no-jaxpr"])
+        assert rc == 1 and data["targets"] == 0
+        assert set(data["engine_seconds"]) == {"ast", "concurrency"}
+        rc, data = _json(capsys, [])
+        assert data["targets"] == len(TREE_TARGETS)
+        assert set(data["engine_seconds"]) == set(cli.ENGINE_NAMES)
+    elif flag == "--allow":
+        from apex_tpu_torch.observability import step_report
+
+        monkeypatch.setattr(step_report, "STEP_RECORD_FIELDS",
+                            step_report.STEP_RECORD_FIELDS + ("gone",))
+        rc, data = _json(capsys, ["--checks", "step-record-schema"])
+        assert rc == 1 and [f["check"] for f in data["findings"]] == [
+            "step-record-schema"]
+        rc, data = _json(capsys, ["--checks", "step-record-schema",
+                                  "--allow",
+                                  "step-record-schema:step-record-schema"])
+        assert rc == 0 and data["findings"] == []
+        for bad, needle in (("nope:donation", "unknown target"),
+                            ("tp_fused_softmax:raw-clock", "no target"),
+                            ("tp_fused_softmax", "target:check")):
+            assert cli.main(["--allow", bad]) == 2
+            assert needle in capsys.readouterr().err
+    else:
+        assert cli.main(["--list-targets"]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        assert [ln.split() for ln in lines] == [
+            ["step-record-schema", "[jaxpr]"],
+            ["tp_fused_softmax", "[dataflow]"],
+            ["state_resilient_resume_path", "[state]"],
+            ["state_serving_decode_step", "[serving]"]]
 
 
 def test_list_checks_and_module_entry(tree):
@@ -266,8 +314,10 @@ def test_list_checks_and_module_entry(tree):
         [sys.executable, "-m", "apex_tpu_torch.analysis", "--list-checks"],
         capture_output=True, text=True, check=True,
         env=dict(os.environ, PYTHONPATH=ROOT)).stdout.splitlines()
-    assert len(out) == 18
+    assert len(out) == N_CHECKS
     assert [ln.split()[0] for ln in out] == [
         *cli.ast_checks.AST_CHECKS,
-        *cli.concurrency_checks.CONCURRENCY_CHECKS]
-    assert cli.ENGINE_NAMES == ("ast", "concurrency")
+        *cli.concurrency_checks.CONCURRENCY_CHECKS, *cli.GRAPH_CHECKS,
+        *cli.PRECISION_CHECKS, *cli.STATE_CHECKS, "step-record-schema"]
+    assert cli.ENGINE_NAMES == ("ast", "concurrency", "jaxpr", "dataflow",
+                                "state", "serving")

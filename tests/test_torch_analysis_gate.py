@@ -1,11 +1,14 @@
 """The port's lint gate on the CPU: ``apex_tpu_torch.analysis`` over its
 default paths (``apex_tpu_torch``, ``chip_smoke.py`` and the driver
-scripts) leaves no new finding against the committed baseline, which
-holds at most 10 entries, each with its reason; every launch-geometry
+scripts) and its registered graph-engine targets leaves no new finding
+against the committed baseline, which holds at most 10 entries, each
+with its reason, and no target fails to trace; every launch-geometry
 constant kept as a suppressed mirror equals the CUDA constant it names,
 read from ``ops/csrc``; ``chip_smoke.py``'s planted faults (one of each
-of the 18 check ids) each fire once, at their lines; and the engines
-need only the standard library."""
+of the 18 path-engine check ids) each fire once, at their lines, and its
+planted graph programs (one of each of the 16 graph-engine ids) each
+once; its kernel-node check holds the traced Llama step against a step's
+launch counters; and the path engines need only the standard library."""
 
 import ast
 import importlib.util
@@ -26,12 +29,14 @@ ENGINE_MODULES = ("__init__.py", "__main__.py", "ast_checks.py", "cli.py",
 
 
 def test_gate_leaves_no_new_finding():
-    stats = {}
-    found = cli.run(root=str(ROOT), stats=stats)
+    stats, errors = {}, {}
+    found = cli.run(root=str(ROOT), stats=stats, errors=errors)
     base = cli.findings_mod.load_baseline(cli.BASELINE_PATH)
     fresh = cli.findings_mod.new_findings(found, base)
     assert fresh == [], "\n".join(f.render() for f in fresh)
+    assert errors == {}
     assert stats["files"] >= 200
+    assert stats["targets"] == 19
     # the gate reads every default path: none is missing
     assert cli._default_paths(str(ROOT)) == list(cli.DEFAULT_PATHS)
 
@@ -88,15 +93,42 @@ def smoke():
 def test_planted_faults_each_fire_once(smoke, tmp_path):
     planted = smoke.planted_analysis(tmp_path)
     assert planted["exit"] == 1
-    assert planted["named"] == sorted(cli.known_checks())
+    assert planted["named"] == sorted(
+        set(cli.ast_checks.AST_CHECKS)
+        | set(cli.concurrency_checks.CONCURRENCY_CHECKS))
     assert planted["findings"] == 18
+
+
+def test_planted_graph_faults_each_fire_once(smoke):
+    planted = smoke.planted_graph_analysis()
+    path_ids = set(cli.ast_checks.AST_CHECKS) | set(
+        cli.concurrency_checks.CONCURRENCY_CHECKS)
+    assert planted["named"] == sorted(cli.known_checks() - path_ids)
+    assert planted["findings"] == 16
+
+
+def test_kernel_nodes_check_holds_nodes_against_launches(smoke):
+    from apex_tpu_torch.analysis import targets
+
+    nodes = targets.llama_step_kernel_nodes(num_layers=2, seq=256)
+    # a real step's counters (phase 6's form: every counter, most at 0)
+    launched = dict.fromkeys(smoke.COUNTER_ENTRIES, 0)
+    launched.update(flash_attention_fwd=2, flash_attention_bwd_dq=2,
+                    flash_attention_bwd_dkv=2, rms_norm_fwd=5,
+                    rms_norm_bwd=5, fused_adam=1, fp8_cast_fill=0)
+    got = smoke.kernel_nodes_check(nodes, launched)
+    assert got["equal"] and got["traced"] == got["launched"]
+    launched["rms_norm_fwd"] = 6
+    with pytest.raises(AssertionError, match="kernel nodes"):
+        smoke.kernel_nodes_check(nodes, launched)
 
 
 def test_gate_through_the_module_entry(smoke):
     rc, payload = smoke.run_analysis_cli(
         ["--baseline", "apex_tpu_torch/analysis/baseline.json"], cwd=ROOT)
     assert rc == 0 and payload["findings"] == []
-    assert len(payload["by_check"]) == 18
+    assert len(payload["by_check"]) == len(cli.known_checks()) == 34
+    assert payload["targets"] == 19 and payload["target_errors"] == {}
 
 
 @pytest.mark.parametrize("name", ENGINE_MODULES)

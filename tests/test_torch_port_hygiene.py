@@ -175,10 +175,19 @@ ANALYSIS_SLICE_MODULES = (
     "analysis/cli.py")
 
 
+# the graph engines' single-device half and the kernels as graph nodes
+GRAPH_SLICE_MODULES = (
+    "analysis/interp.py", "analysis/graph_checks.py",
+    "analysis/dataflow.py", "analysis/precision_checks.py",
+    "analysis/state_checks.py", "analysis/targets.py",
+    "ops/kernel_nodes.py")
+
+
 @pytest.mark.parametrize("rel", BASELINE_MODULES + SLICE_MODULES
                          + OPTIMIZER_SLICE_MODULES + CONTRIB_SLICE_MODULES
                          + OBSERVABILITY_SLICE_MODULES
-                         + TUNING_SLICE_MODULES + ANALYSIS_SLICE_MODULES)
+                         + TUNING_SLICE_MODULES + ANALYSIS_SLICE_MODULES
+                         + GRAPH_SLICE_MODULES)
 def test_baseline_modules_are_checked(rel):
     assert PORT / rel in _port_sources()
 
